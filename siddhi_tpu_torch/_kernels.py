@@ -1,0 +1,172 @@
+"""Build, load and count the hand-written CUDA kernels of the port.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into
+its own shared library with a plain C interface, and called through
+ctypes: the sources include no PyTorch header, so a build takes seconds
+and not the minutes a PyTorch extension build takes. All sources
+compile at once, one ``nvcc`` process each, into
+``siddhi_tpu_torch/_build/`` (git-ignored) at first use; a library is
+rebuilt when its source or the shared header changes.
+
+Kernel arguments travel as one C struct each (``csrc/siddhi_kernels.h``),
+mirrored here with ctypes. A launcher returns ``cudaGetLastError()``;
+the wrappers raise when it is not ``cudaSuccess`` (0).
+
+``LAUNCHES`` counts launches per kernel: each wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that the main
+path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "_build"
+SOURCES = {"unpack_packed": "unpack_packed.cu", "expr_eval": "expr_eval.cu"}
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+
+LAUNCHES = {name: 0 for name in SOURCES}
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# -- argument structs (csrc/siddhi_kernels.h) -------------------------------
+
+MAX_LANES = 64
+MAX_COLS = 32
+MAX_OUTS = 32
+MAX_CODE = 384
+MAX_CONSTS = 48
+MAX_STACK = 16
+
+
+class LaneDesc(ctypes.Structure):
+    _fields_ = [("offset", ctypes.c_int64), ("out", ctypes.c_void_p),
+                ("code", ctypes.c_int32), ("out_type", ctypes.c_int32)]
+
+
+class UnpackParams(ctypes.Structure):
+    _fields_ = [("buf", ctypes.c_void_p), ("nulls", ctypes.c_void_p),
+                ("kind", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+                ("capacity", ctypes.c_int32), ("n_lanes", ctypes.c_int32),
+                ("lanes", LaneDesc * MAX_LANES)]
+
+
+class ExprParams(ctypes.Structure):
+    _fields_ = [("in_cols", ctypes.c_void_p * MAX_COLS),
+                ("in_nulls", ctypes.c_void_p * MAX_COLS),
+                ("out_cols", ctypes.c_void_p * MAX_OUTS),
+                ("out_nulls", ctypes.c_void_p * MAX_OUTS),
+                ("kind", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+                ("out_valid", ctypes.c_void_p), ("emitted", ctypes.c_void_p),
+                ("consts", ctypes.c_int64 * MAX_CONSTS),
+                ("code", ctypes.c_int32 * MAX_CODE),
+                ("n_code", ctypes.c_int32), ("rows", ctypes.c_int32),
+                ("timer_pass", ctypes.c_int32),
+                ("gate_bits", ctypes.c_int32)]
+
+
+# -- build -------------------------------------------------------------------
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and Path(cand, "bin", "nvcc").exists():
+            return str(Path(cand, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "siddhi_tpu_torch need the CUDA toolkit")
+    return found
+
+
+def _digest(src: Path) -> str:
+    h = hashlib.sha256()
+    for p in (CSRC / "siddhi_kernels.h", src):
+        h.update(p.read_bytes())
+    h.update(ARCH.encode())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> dict:
+    """Compile every kernel source that is not built yet, all ``nvcc``
+    processes at once. -> {kernel: path of its shared library}."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    libs, procs = {}, []
+    for name, src in SOURCES.items():
+        path = CSRC / src
+        lib = BUILD / f"lib{name}_{_digest(path)}.so"
+        libs[name] = lib
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-I", str(CSRC), "-o", str(tmp),
+               str(path)]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs.append((name, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors = []
+    for name, lib, tmp, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
+            continue
+        if verbose and out:
+            print(out.rstrip())
+        os.replace(tmp, lib)
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+    return libs
+
+
+class _Kernels:
+    def __init__(self, libs: dict):
+        self.unpack_lib = ctypes.CDLL(str(libs["unpack_packed"]))
+        self.unpack_lib.siddhi_unpack_packed.argtypes = [
+            ctypes.POINTER(UnpackParams), ctypes.c_void_p]
+        self.unpack_lib.siddhi_unpack_packed.restype = ctypes.c_int
+        self.expr_lib = ctypes.CDLL(str(libs["expr_eval"]))
+        self.expr_lib.siddhi_expr_eval.argtypes = [
+            ctypes.POINTER(ExprParams), ctypes.c_void_p]
+        self.expr_lib.siddhi_expr_eval.restype = ctypes.c_int
+
+    @staticmethod
+    def _check(name: str, err: int) -> None:
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+
+    def unpack_packed(self, params: UnpackParams, stream: int) -> None:
+        self._check("unpack_packed", self.unpack_lib.siddhi_unpack_packed(
+            ctypes.byref(params), stream))
+
+    def expr_eval(self, params: ExprParams, stream: int) -> None:
+        self._check("expr_eval", self.expr_lib.siddhi_expr_eval(
+            ctypes.byref(params), stream))
+
+
+_LOADED = None
+_LOCK = threading.Lock()
+
+
+def load(verbose: bool = False) -> _Kernels:
+    """The built kernels (built on first call)."""
+    global _LOADED
+    with _LOCK:
+        if _LOADED is None:
+            _LOADED = _Kernels(build(verbose=verbose))
+        return _LOADED

@@ -1,0 +1,693 @@
+"""Expression compiler (PyTorch port of siddhi_tpu/ops/expr.py).
+
+The reference compiles each expression to a jnp closure over whole
+columns, and a query's closures trace into one XLA program. Here each
+expression compiles to a flat, typed postfix program, and the programs
+of one filter+project query step are assembled into ONE ``ExprProgram``
+that kernel K2 (``expr_eval``, csrc/expr_eval.cu) runs for every row in
+one launch: it writes the keep mask and every projected column and its
+null mask. ``expr_eval_ref`` evaluates the same program with plain
+tensor ops; the wrapper runs it for tensors on the CPU, and the tests
+and chip_smoke.py hold the kernel against it.
+
+Java/Siddhi semantics preserved exactly (the reference's, kept by both
+the kernel and the plain version):
+- binary numeric promotion (int<long<float<double), fixed at plan time
+  by promote() and lowered to explicit OP_CAST widenings
+- wrapping int arithmetic; math on null -> null; divide/modulo by zero
+  -> null (all numeric types); integer division/remainder truncate
+  toward zero (Java `/` `%`), MIN / -1 == MIN and MIN % -1 == 0
+- compare with null operand -> FALSE, never null
+- and/or treat null as false; not(null) -> TRUE
+- float results bit-equal to the reference's compiled code on the CPU,
+  which is not plain IEEE: subnormals flushed to zero (operands and
+  results of + - * /, compare operands, the FLOAT -> DOUBLE widening;
+  fmod keeps them), NaN bits as x86 makes them, and the reference
+  compiler's rewrites of literal operands (x / c as x * (1/c); x * 1,
+  x + 0, x - 0 as x; x * -1 as a sign flip; % by +-2^k) and trace-time
+  constant folding applied here at plan time
+
+Ported nodes: Constant (null literal included), Variable, MathOp,
+Compare, And, Or, Not and IsNull(expr). Function calls and tenant
+template parameters raise NotImplementedError ("not ported yet").
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from ..core.types import (AttrType, GLOBAL_STRINGS, NUMERIC_TYPES,
+                          comparable, flush_subnormal, np_dtype, promote,
+                          torch_dtype)
+from ..lang import ast as A
+
+
+class CompileError(Exception):
+    pass
+
+
+# value types and opcodes, numbered as csrc/siddhi_kernels.h numbers them
+VT = {AttrType.INT: 0, AttrType.LONG: 1, AttrType.FLOAT: 2,
+      AttrType.DOUBLE: 3, AttrType.BOOL: 4, AttrType.STRING: 5}
+VT_TYPE = {v: k for k, v in VT.items()}
+(OP_LOAD, OP_CONST, OP_NULLC, OP_CAST, OP_ADD, OP_SUB, OP_MUL, OP_DIV,
+ OP_MOD, OP_EQ, OP_NE, OP_GT, OP_GE, OP_LT, OP_LE, OP_AND, OP_OR, OP_NOT,
+ OP_ISNULL, OP_KEEP, OP_OUT, OP_ZNULL, OP_NEG) = range(23)
+MATH_OPS = {"+": OP_ADD, "-": OP_SUB, "*": OP_MUL, "/": OP_DIV, "%": OP_MOD}
+CMP_OPS = {"==": OP_EQ, "!=": OP_NE, ">": OP_GT, ">=": OP_GE, "<": OP_LT,
+           "<=": OP_LE}
+TIMER_KIND = 2
+ALL_KINDS = 0b1111
+
+
+def const_bits(value, t: AttrType) -> int:
+    """A non-null constant as the kernel's raw 64-bit slot: INT/STRING
+    sign-extended int32, LONG, BOOL 0/1, FLOAT float32 bits, DOUBLE
+    float64 bits."""
+    v = np.asarray(value, dtype=np_dtype(t))
+    if t is AttrType.FLOAT:
+        return int(v.view(np.uint32))
+    if t is AttrType.DOUBLE:
+        return int(v.view(np.int64))
+    return int(v)
+
+
+def bits_value(bits: int, t: AttrType):
+    """Inverse of const_bits: the constant as a numpy scalar."""
+    if t is AttrType.FLOAT:
+        return np.uint32(bits & 0xFFFFFFFF).view(np.float32)
+    if t is AttrType.DOUBLE:
+        return np.int64(bits).view(np.float64)
+    return np.asarray(bits, dtype=np_dtype(t))[()]
+
+
+@dataclasses.dataclass
+class CompiledExpr:
+    """One compiled expression: its result type and its postfix code,
+    a tuple of (opcode, value type, arg). OP_CONST carries the constant's
+    raw bits as its arg until the program is assembled. A constant
+    expression also keeps its value (a numpy scalar, None when null);
+    ``folded`` marks one computed from other constants at compile time."""
+    type: AttrType
+    code: tuple
+    const_value: Any = None
+    is_const: bool = False
+    folded: bool = False
+
+
+def _const(t: AttrType, value, folded: bool = False) -> CompiledExpr:
+    if value is None:
+        return CompiledExpr(t, ((OP_NULLC, VT[t], 0),), None, True, folded)
+    value = np.asarray(value, dtype=np_dtype(t))[()]
+    return CompiledExpr(t, ((OP_CONST, VT[t], const_bits(value, t)),),
+                        value, True, folded)
+
+
+class Scope:
+    """Variable resolution at compile time: maps a Variable to an env key
+    and type. This slice resolves single-stream keys ('attr', index)."""
+
+    def resolve(self, var: A.Variable) -> tuple[Any, AttrType]:
+        raise NotImplementedError
+
+    def resolve_stream_isnull(self, is_null: A.IsNull):
+        raise CompileError("stream is null not supported in this context")
+
+
+class SingleStreamScope(Scope):
+    """One input stream: variables resolve to ('attr', index)."""
+
+    def __init__(self, schema, aliases=()):
+        self.schema = schema
+        self.aliases = {a for a in aliases if a}
+
+    def resolve(self, var: A.Variable):
+        ref = var.stream_ref
+        if ref is not None and ref != self.schema.stream_id and ref not in self.aliases:
+            raise CompileError(
+                f"unknown stream reference '{ref}' (expected "
+                f"'{self.schema.stream_id}')")
+        idx = self.schema.index_of(var.attribute)
+        return ("attr", idx), self.schema.types[idx]
+
+
+def _num(e: CompiledExpr, what: str) -> None:
+    if e.type not in NUMERIC_TYPES:
+        raise CompileError(f"{what} requires a numeric operand, got {e.type}")
+
+
+# ---------------------------------------------------------------------------
+# the reference's float semantics, shared by constant folding and
+# expr_eval_ref (csrc/expr_eval.cu implements the same rules)
+# ---------------------------------------------------------------------------
+
+# per float dtype: (same-width int dtype, quiet bit, x86 "indefinite"
+# NaN, sign bit), the ints as signed values of that width
+_FLOAT_BITS = {torch.float32: (torch.int32, 0x00400000, -0x00400000,
+                               -(2 ** 31)),
+               torch.float64: (torch.int64, 0x0008000000000000,
+                               -0x0008000000000000, -(2 ** 63))}
+
+
+def nan_rule(r, x, y):
+    """NaN results as the reference's x86 CPU makes them: a NaN operand
+    propagates (the first one first, made quiet); an invalid operation
+    on numbers gives the negative 'indefinite' NaN."""
+    ib, quiet, indefinite, _sign = _FLOAT_BITS[r.dtype]
+
+    def quieted(v):
+        return (v.view(ib) | quiet).view(r.dtype)
+    default = torch.tensor(indefinite, dtype=ib, device=r.device).view(
+        r.dtype)
+    return torch.where(torch.isnan(x), quieted(x), torch.where(
+        torch.isnan(y), quieted(y), torch.where(torch.isnan(r), default, r)))
+
+
+def float_math(op: int, x, y, flush: bool = True, pow2: bool = False):
+    """+ - * / % on one float dtype, divisor already non-zero. With
+    ``flush`` (the reference's compiled XLA code), subnormal operands and
+    results of + - * / read as zero; fmod never flushes. ``pow2``: %
+    by a literal +-2^k (k >= 0), which the reference's compiled code
+    does not run through fmod: a subnormal dividend gives a zero of its
+    sign, an infinite one a quiet NaN of its sign."""
+    if op == OP_MOD:
+        r = torch.where(torch.isinf(x), torch.full_like(x, float("nan")),
+                        torch.fmod(x, y))
+        r = nan_rule(r, x, y)
+        if pow2:
+            sign = torch.where(torch.isinf(x),
+                               torch.full_like(x, float("nan")),
+                               torch.zeros_like(x)).copysign(x)
+            r = torch.where(torch.isinf(x) | (flush_subnormal(x) == 0),
+                            sign, r)
+        return r
+    if flush:
+        x, y = flush_subnormal(x), flush_subnormal(y)
+    r = {OP_ADD: torch.add, OP_SUB: torch.sub, OP_MUL: torch.mul,
+         OP_DIV: torch.div}[op](x, y)
+    r = nan_rule(r, x, y)
+    return flush_subnormal(r) if flush else r
+
+
+def int_math(op: int, x, y):
+    """Java + - * / % on one int dtype, divisor already non-zero:
+    wrapping, truncating, MIN / -1 == MIN and MIN % -1 == 0 (the
+    hardware division would trap)."""
+    if op in (OP_ADD, OP_SUB, OP_MUL):
+        return {OP_ADD: torch.add, OP_SUB: torch.sub, OP_MUL: torch.mul}[op](
+            x, y)
+    neg1 = y == -1
+    safe = torch.where(neg1, torch.ones_like(y), y)
+    if op == OP_DIV:
+        return torch.where(neg1, torch.neg(x),
+                           torch.div(x, safe, rounding_mode="trunc"))
+    return torch.where(neg1, torch.zeros_like(x), torch.fmod(x, safe))
+
+
+def widen(v, t: AttrType, flush: bool = True):
+    """Numeric widening to ``t`` (astype). FLOAT -> DOUBLE reads a
+    subnormal as zero (with ``flush``) and keeps a NaN's sign and
+    payload, as x86 does."""
+    dt = torch_dtype(t)
+    if v.dtype == torch.float32 and dt == torch.float64:
+        u = v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        nan = (((u >> 31) << 63) | 0x7FF8000000000000
+               | ((u & 0x7FFFFF) << 29)).view(torch.float64)
+        w = (flush_subnormal(v) if flush else v).to(dt)
+        return torch.where(torch.isnan(v), nan, w)
+    return v.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# main compile dispatch
+# ---------------------------------------------------------------------------
+
+
+def compile_expression(expr: A.Expression, scope: Scope,
+                       functions: Optional[dict] = None) -> CompiledExpr:
+
+    def comp(e: A.Expression) -> CompiledExpr:
+        if isinstance(e, A.Constant):
+            t = e.type
+            if e.value is None:
+                # NULL literal: typed when the AST says so, DOUBLE otherwise
+                nt = t if isinstance(t, AttrType) else AttrType.DOUBLE
+                np_dtype(nt)  # an OBJECT-typed null raises, as in the reference
+                return _const(nt, None)
+            if t is AttrType.OBJECT:
+                raise NotImplementedError(
+                    "expression not ported yet: OBJECT literal")
+            value = GLOBAL_STRINGS.encode(e.value) \
+                if t is AttrType.STRING else e.value
+            return _const(t, value)
+
+        if isinstance(e, A.Variable):
+            if e.attribute is None:
+                raise CompileError(f"bare stream reference '{e.stream_ref}' "
+                                   "only valid in IS NULL")
+            key, t = scope.resolve(e)
+            if not (isinstance(key, tuple) and key[0] == "attr"):
+                raise NotImplementedError(
+                    f"expression not ported yet: variable key {key!r}")
+            if t not in VT:
+                raise NotImplementedError(
+                    f"expression not ported yet: {t} attribute "
+                    f"'{e.attribute}'")
+            return CompiledExpr(t, ((OP_LOAD, VT[t], key[1]),))
+
+        if isinstance(e, A.TemplateParam):
+            raise NotImplementedError(
+                f"expression not ported yet: template parameter "
+                f"'${{{e.name}}}'")
+
+        if isinstance(e, A.MathOp):
+            return _compile_math(e, comp)
+
+        if isinstance(e, A.Compare):
+            return _compile_compare(e, comp)
+
+        if isinstance(e, (A.And, A.Or)):
+            l, r = comp(e.left), comp(e.right)
+            word = "AND" if isinstance(e, A.And) else "OR"
+            _require_bool(l, word), _require_bool(r, word)
+            op = OP_AND if isinstance(e, A.And) else OP_OR
+            if l.is_const and r.is_const:
+                a, b = _truth(l), _truth(r)
+                return _const(AttrType.BOOL, (a and b) if op == OP_AND
+                              else (a or b), folded=True)
+            return CompiledExpr(AttrType.BOOL,
+                                l.code + r.code + ((op, VT[AttrType.BOOL], 0),))
+
+        if isinstance(e, A.Not):
+            x = comp(e.expr)
+            _require_bool(x, "NOT")
+            if x.is_const:
+                return _const(AttrType.BOOL, not _truth(x), folded=True)
+            return CompiledExpr(AttrType.BOOL,
+                                x.code + ((OP_NOT, VT[AttrType.BOOL], 0),))
+
+        if isinstance(e, A.IsNull):
+            if e.expr is None:
+                return scope.resolve_stream_isnull(e)
+            x = comp(e.expr)
+            if x.is_const:
+                return _const(AttrType.BOOL, x.const_value is None,
+                              folded=True)
+            return CompiledExpr(AttrType.BOOL,
+                                x.code + ((OP_ISNULL, VT[AttrType.BOOL], 0),))
+
+        if isinstance(e, A.InTable):
+            raise CompileError("IN <table> must be planned by the query "
+                               "planner (table containment)")
+
+        if isinstance(e, A.AttributeFunction):
+            name = f"{e.namespace}:{e.name}" if e.namespace else e.name
+            raise NotImplementedError(
+                f"expression not ported yet: function '{name}()'")
+
+        raise CompileError(f"cannot compile expression {e!r}")
+
+    return comp(expr)
+
+
+def _require_bool(e: CompiledExpr, what: str):
+    if e.type is not AttrType.BOOL:
+        raise CompileError(
+            f"{what} requires BOOL operands, got {e.type} "
+            "(reference: AndConditionExpressionExecutor type check)")
+
+
+def _truth(e: CompiledExpr) -> bool:
+    """A BOOL constant as AND/OR/NOT read it (null is FALSE)."""
+    return e.const_value is not None and bool(e.const_value)
+
+
+def _scalar(e: CompiledExpr):
+    return torch.tensor(e.const_value, dtype=torch_dtype(e.type))
+
+
+def _widen(e: CompiledExpr, t: AttrType) -> CompiledExpr:
+    """e widened to t (the reference's astype): constants fold (a literal
+    in numpy, unflushed; a folded constant as compiled code flushes)."""
+    if e.type is t:
+        return e
+    if e.is_const:
+        if e.const_value is None:
+            return _const(t, None, e.folded)
+        return _const(t, widen(_scalar(e), t, flush=e.folded).item(),
+                      e.folded)
+    return CompiledExpr(t, e.code + ((OP_CAST, VT[t], VT[e.type]),))
+
+
+def _fold_math(op: int, t: AttrType, l: CompiledExpr, r: CompiledExpr):
+    """Constant math, as the reference evaluates it while tracing: two
+    literals in numpy (IEEE, no flush) except / which runs as compiled
+    code; anything involving a folded constant as compiled code."""
+    if l.const_value is None or r.const_value is None:
+        return _const(t, None, folded=True)
+    x, y = _scalar(l), _scalar(r)
+    flush = l.folded or r.folded or op == OP_DIV
+    if op in (OP_DIV, OP_MOD):
+        if (flush_subnormal(y) if flush else y).item() == 0:
+            return _const(t, None, folded=True)
+    if t in (AttrType.FLOAT, AttrType.DOUBLE):
+        v = float_math(op, x, y, flush=flush)
+    else:
+        v = int_math(op, x, y)
+    return _const(t, v.item(), folded=True)
+
+
+def _same(code: tuple, op: int, t: AttrType) -> CompiledExpr:
+    return CompiledExpr(t, code + ((op, VT[t], 0),))
+
+
+def _compile_math(e: A.MathOp, comp) -> CompiledExpr:
+    l, r = comp(e.left), comp(e.right)
+    _num(l, f"'{e.op}'"), _num(r, f"'{e.op}'")
+    t = promote(l.type, r.type)
+    if e.op not in MATH_OPS:
+        raise AssertionError(e.op)
+    op = MATH_OPS[e.op]
+    l, r = _widen(l, t), _widen(r, t)
+    if l.is_const and r.is_const:
+        return _fold_math(op, t, l, r)
+    if (l.is_const and l.const_value is None) or \
+            (r.is_const and r.const_value is None):
+        return _const(t, None)   # a null operand: null for every row
+    if op in (OP_DIV, OP_MOD) and r.is_const:
+        rv = r.const_value
+        if (flush_subnormal(_scalar(r)).item() if r.folded else rv) == 0:
+            return _const(t, None)   # by zero: null for every row
+    if t in (AttrType.FLOAT, AttrType.DOUBLE):
+        # the reference compiler's algebraic rewrites: A / c -> A * (1/c),
+        # A * 1 -> A, A * -1 -> -A, A + 0 -> A, A - 0 -> A (unflushed)
+        if op == OP_DIV and r.is_const:
+            one = torch.ones((), dtype=torch_dtype(t))
+            r = _const(t, torch.div(one, _scalar(r)).item(), r.folded)
+            op = OP_MUL
+        if op == OP_MOD and r.is_const:
+            mant, exp = math.frexp(abs(float(r.const_value)))
+            if mant == 0.5 and exp >= 1:   # |c| = 2^k, k >= 0
+                return CompiledExpr(t, l.code + r.code + ((op, VT[t], 1),))
+        for a, c in ((l, r), (r, l)):
+            if not c.is_const or (c is l and op == OP_SUB):
+                continue
+            cv = c.const_value
+            if op == OP_MUL and cv in (1, -1):
+                return _same(a.code, OP_ZNULL if cv == 1 else OP_NEG, t)
+            if op in (OP_ADD, OP_SUB) and cv == 0:
+                return _same(a.code, OP_ZNULL, t)
+    return _same(l.code + r.code, op, t)
+
+
+def _compile_compare(e: A.Compare, comp) -> CompiledExpr:
+    l, r = comp(e.left), comp(e.right)
+    op = e.op
+    if not comparable(l.type, r.type):
+        # STRING columns are int32 dictionary codes on device, so a
+        # STRING vs numeric comparison would relate codes, not text
+        if (l.type is AttrType.STRING) != (r.type is AttrType.STRING):
+            other = r.type if l.type is AttrType.STRING else l.type
+            raise CompileError(
+                f"cannot compare STRING with {other}: device strings "
+                "are int32 dictionary codes — the comparison would "
+                "relate codes, not text")
+        raise CompileError(f"cannot compare {l.type} with {r.type}")
+    if op not in CMP_OPS:
+        raise AssertionError(op)
+    if l.type in NUMERIC_TYPES and r.type in NUMERIC_TYPES:
+        t = promote(l.type, r.type)
+        l, r = _widen(l, t), _widen(r, t)
+    elif op not in ("==", "!=") and l.type is AttrType.STRING:
+        # comparable() guarantees same-type STRING/BOOL here
+        raise CompileError(
+            "ordering comparison on STRING is not supported on device")
+    if l.is_const and r.is_const:
+        if l.const_value is None or r.const_value is None:
+            return _const(AttrType.BOOL, False, folded=True)
+        x, y = _scalar(l), _scalar(r)
+        if l.folded or r.folded:
+            x, y = flush_subnormal(x), flush_subnormal(y)
+        return _const(AttrType.BOOL, bool(_CMP_FN[CMP_OPS[op]](x, y)),
+                      folded=True)
+    return CompiledExpr(AttrType.BOOL, l.code + r.code
+                        + ((CMP_OPS[op], VT[l.type], 0),))
+
+
+_CMP_FN = {OP_EQ: torch.eq, OP_NE: torch.ne, OP_GT: torch.gt,
+           OP_GE: torch.ge, OP_LT: torch.lt, OP_LE: torch.le}
+
+
+# ---------------------------------------------------------------------------
+# program assembly: the filters and projections of one step -> one program
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ExprProgram:
+    """The K2 program of one query step.
+
+    ``code`` holds one int32 word per instruction (op | type << 8 |
+    arg << 16), ``consts`` the constant pool (raw 64-bit slots),
+    ``inputs`` the batch columns the program reads (LOAD arg i reads
+    batch column inputs[i]), ``out_types`` the projected columns.
+    ``timer_pass``: TIMER rows pass the filters; ``gate_bits``: bit k
+    set means rows of kind k pass the selector's current/expired gate."""
+    code: tuple
+    consts: tuple
+    const_types: tuple
+    inputs: tuple
+    out_types: tuple
+    timer_pass: bool
+    gate_bits: int
+    depth: int
+
+    def __post_init__(self):
+        lim = _kernels
+        for what, n, cap in (("instructions", len(self.code), lim.MAX_CODE),
+                             ("constants", len(self.consts), lim.MAX_CONSTS),
+                             ("input columns", len(self.inputs), lim.MAX_COLS),
+                             ("output columns", len(self.out_types),
+                              lim.MAX_OUTS),
+                             ("stack depth", self.depth, lim.MAX_STACK)):
+            if n > cap:
+                raise NotImplementedError(
+                    f"not ported yet: a query step with more than {cap} "
+                    f"{what} ({n}) in one device program")
+        params = _kernels.ExprParams()
+        params.n_code = len(self.code)
+        params.code[:len(self.code)] = self.code
+        params.consts[:len(self.consts)] = self.consts
+        params.timer_pass = int(self.timer_pass)
+        params.gate_bits = self.gate_bits
+        # kernel arguments with the program filled in; a launch sets only
+        # the pointers and the row count (the owning query step holds its
+        # lock while it launches)
+        object.__setattr__(self, "params", params)
+
+
+class ProgramBuilder:
+    """Assembles compiled expressions into one ExprProgram: filter
+    conditions end in OP_KEEP, projections in OP_OUT."""
+
+    def __init__(self):
+        self.code: list = []
+        self.consts: list = []
+        self.const_types: list = []
+        self.inputs: list = []
+        self.out_types: list = []
+        self.timer_pass = False
+        self.gate_bits = ALL_KINDS
+        self.depth = 0
+
+    def _emit(self, op: int, vt: int, arg: int) -> None:
+        self.code.append(op | (vt << 8) | (arg << 16))
+
+    def _add(self, ce: CompiledExpr) -> None:
+        sp = 0
+        for op, vt, arg in ce.code:
+            if op == OP_LOAD:
+                if arg not in self.inputs:
+                    self.inputs.append(arg)
+                arg = self.inputs.index(arg)
+            elif op == OP_CONST:
+                key = (arg, vt)
+                pool = list(zip(self.consts, self.const_types))
+                if key not in pool:
+                    self.consts.append(arg)
+                    self.const_types.append(vt)
+                    pool.append(key)
+                arg = pool.index(key)
+            if op in (OP_LOAD, OP_CONST, OP_NULLC):
+                sp += 1
+            elif op not in (OP_CAST, OP_NOT, OP_ISNULL, OP_ZNULL, OP_NEG):
+                sp -= 1
+            self.depth = max(self.depth, sp)
+            self._emit(op, vt, arg)
+
+    def keep(self, ce: CompiledExpr) -> None:
+        self._add(ce)
+        self._emit(OP_KEEP, VT[AttrType.BOOL], 0)
+
+    def out(self, ce: CompiledExpr) -> None:
+        self._add(ce)
+        self._emit(OP_OUT, VT[ce.type], len(self.out_types))
+        self.out_types.append(ce.type)
+
+    def build(self) -> ExprProgram:
+        return ExprProgram(tuple(self.code), tuple(self.consts),
+                           tuple(self.const_types), tuple(self.inputs),
+                           tuple(self.out_types), self.timer_pass,
+                           self.gate_bits, self.depth)
+
+
+# ---------------------------------------------------------------------------
+# kernel K2 and its plain version
+# ---------------------------------------------------------------------------
+
+
+def _decode(word: int):
+    return word & 0xFF, (word >> 8) & 0xFF, word >> 16
+
+
+def expr_eval_ref(prog: ExprProgram, batch, emitted=None):
+    """Plain PyTorch version of kernel K2: (out cols, out nulls, valid).
+
+    Evaluates the program over whole columns with tensor ops; every
+    operand is cast to the program's promote() dtype explicitly, so
+    torch's own scalar promotion never applies. ``emitted`` (an int64
+    0-d tensor) is increased by the number of rows kept."""
+    dev = batch.ts.device
+    B = batch.capacity
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+    stack: list = []
+    keep = torch.ones((B,), dtype=torch.bool, device=dev)
+    outs: dict = {}
+    for word in prog.code:
+        op, vt, arg = _decode(word)
+        t = VT_TYPE.get(vt)
+        if op == OP_LOAD:
+            i = prog.inputs[arg]
+            stack.append((batch.cols[i], batch.nulls[i]))
+        elif op == OP_CONST:
+            v = bits_value(prog.consts[arg], VT_TYPE[prog.const_types[arg]])
+            stack.append((torch.tensor(v, dtype=torch_dtype(t), device=dev),
+                          false))
+        elif op == OP_NULLC:
+            stack.append((torch.zeros((), dtype=torch_dtype(t), device=dev),
+                          ~false))
+        elif op == OP_CAST:
+            v, n = stack.pop()
+            stack.append((widen(v, t), n))
+        elif op in (OP_ZNULL, OP_NEG):
+            v, n = stack.pop()
+            if op == OP_NEG:   # a sign-bit flip, NaNs included
+                ib, _q, _nan, sign = _FLOAT_BITS[v.dtype]
+                v = (v.view(ib) ^ sign).view(v.dtype)
+            stack.append((torch.where(n, torch.zeros_like(v), v), n))
+        elif op in (OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MOD):
+            (rv, rn), (lv, ln) = stack.pop(), stack.pop()
+            nulls = ln | rn
+            if op in (OP_DIV, OP_MOD):
+                zero = flush_subnormal(rv) == 0
+                nulls = nulls | zero
+                rv = torch.where(zero, torch.ones_like(rv), rv)
+            if t in (AttrType.FLOAT, AttrType.DOUBLE):
+                v = float_math(op, lv, rv, pow2=arg == 1)
+            else:
+                v = int_math(op, lv, rv)
+            stack.append((torch.where(nulls, torch.zeros_like(v), v), nulls))
+        elif op in (OP_EQ, OP_NE, OP_GT, OP_GE, OP_LT, OP_LE):
+            (rv, rn), (lv, ln) = stack.pop(), stack.pop()
+            c = _CMP_FN[op](flush_subnormal(lv), flush_subnormal(rv))
+            stack.append((c & ~(ln | rn), false))
+        elif op in (OP_AND, OP_OR):
+            (rv, rn), (lv, ln) = stack.pop(), stack.pop()
+            a, b = lv & ~ln, rv & ~rn
+            stack.append(((a & b) if op == OP_AND else (a | b), false))
+        elif op == OP_NOT:
+            v, n = stack.pop()
+            stack.append((~(v & ~n), false))
+        elif op == OP_ISNULL:
+            _v, n = stack.pop()
+            stack.append((n.clone(), false))
+        elif op == OP_KEEP:
+            v, n = stack.pop()
+            keep = keep & v & ~n
+        else:  # OP_OUT
+            v, n = stack.pop()
+            outs[arg] = (v.to(torch_dtype(t)).expand(B).contiguous(),
+                         n.expand(B).contiguous())
+    kind = batch.kind
+    if prog.timer_pass:
+        keep = keep | (kind == TIMER_KIND)
+    gate = ((prog.gate_bits >> kind.to(torch.int64)) & 1).to(torch.bool)
+    valid = batch.valid & keep & gate
+    if emitted is not None:
+        emitted += valid.sum(dtype=torch.int64)
+    cols = tuple(outs[i][0] for i in range(len(prog.out_types)))
+    nulls = tuple(outs[i][1] for i in range(len(prog.out_types)))
+    return cols, nulls, valid
+
+
+def expr_params(prog: ExprProgram, batch, cols, nulls, valid, emitted):
+    """K2's kernel arguments: ``prog.params`` (program already filled
+    in) pointed at this batch and these output tensors."""
+    p = prog.params
+    for k, i in enumerate(prog.inputs):
+        p.in_cols[k] = batch.cols[i].data_ptr()
+        p.in_nulls[k] = batch.nulls[i].data_ptr()
+    for k, (c, n) in enumerate(zip(cols, nulls)):
+        p.out_cols[k] = c.data_ptr()
+        p.out_nulls[k] = n.data_ptr()
+    p.kind, p.valid = batch.kind.data_ptr(), batch.valid.data_ptr()
+    p.out_valid = valid.data_ptr()
+    p.emitted = emitted.data_ptr() if emitted is not None else None
+    p.rows = batch.capacity
+    return p
+
+
+def expr_eval(prog: ExprProgram, batch, emitted=None):
+    """Kernel K2: run one step's program over a batch, in one launch.
+
+    -> (out cols, out nulls, out valid). A batch on the CPU takes the
+    plain version; a CUDA batch launches the kernel. ``emitted``: an
+    int64 0-d tensor on the batch's device, increased by the rows kept
+    (one atomic add per thread block), or None."""
+    dev = batch.ts.device
+    if dev.type == "cpu":
+        return expr_eval_ref(prog, batch, emitted)
+    if dev.type != "cuda":
+        raise ValueError(f"expr_eval: unsupported device {dev}")
+    B = batch.capacity
+    tensors = [batch.kind, batch.valid] + [batch.cols[i] for i in prog.inputs] \
+        + [batch.nulls[i] for i in prog.inputs]
+    for x in tensors:
+        if x.device != dev or x.shape != (B,) or not x.is_contiguous():
+            raise ValueError(
+                "expr_eval: every input must be a contiguous [capacity] "
+                f"tensor on {dev}, got {x.dtype}{list(x.shape)} on {x.device}")
+    if batch.kind.dtype != torch.int32 or batch.valid.dtype != torch.bool:
+        raise ValueError("expr_eval: kind must be int32 and valid bool")
+    for i in prog.inputs:
+        if batch.nulls[i].dtype != torch.bool:
+            raise ValueError("expr_eval: null masks must be bool")
+    if emitted is not None and (emitted.device != dev
+                                or emitted.dtype != torch.int64
+                                or emitted.numel() != 1):
+        raise ValueError("expr_eval: emitted must be an int64 scalar "
+                         f"tensor on {dev}")
+    cols = tuple(torch.empty((B,), dtype=torch_dtype(t), device=dev)
+                 for t in prog.out_types)
+    nulls = tuple(torch.empty((B,), dtype=torch.bool, device=dev)
+                  for _ in prog.out_types)
+    valid = torch.empty((B,), dtype=torch.bool, device=dev)
+    p = expr_params(prog, batch, cols, nulls, valid, emitted)
+    _kernels.load().expr_eval(p, torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.count_launch("expr_eval")
+    return cols, nulls, valid

@@ -1,0 +1,80 @@
+"""The port stands alone: siddhi_tpu_torch imports and runs the filter
+app with jax and siddhi_tpu blocked, neither the package nor
+chip_smoke.py imports them, and the manager never falls back to the CPU
+on its own."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "siddhi_tpu")
+
+BLOCKED_RUN = r"""
+import importlib.abc, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "siddhi_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+from siddhi_tpu_torch import SiddhiManager, StreamCallback
+from siddhi_tpu_torch.checks import FILTER_APP, filter_feed
+from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+
+rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(FILTER_APP)
+rows = []
+rt.add_callback("OutputStream", StreamCallback(rows.extend))
+rt.start()
+ts, cols = filter_feed(4096, GLOBAL_STRINGS.encode)
+rt.get_input_handler("StockStream").send_arrays(ts, cols)
+assert len(rows) == int((cols[1] > np.float32(100.0)).sum()) > 0
+loaded = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "siddhi_tpu")]
+assert not loaded, loaded
+print("OK", len(rows))
+"""
+
+
+def test_port_runs_with_jax_and_reference_blocked():
+    r = subprocess.run([sys.executable, "-c", BLOCKED_RUN], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.startswith("OK ")
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in
+    list((ROOT / "siddhi_tpu_torch").rglob("*.py"))
+    + [ROOT / "chip_smoke.py"]))
+def test_no_jax_or_reference_import(path):
+    bad = [m for m in _imports(ROOT / path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_manager_without_cuda_raises(monkeypatch):
+    from siddhi_tpu_torch import SiddhiManager
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SiddhiManager()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SiddhiManager(device="cuda:0")
+    assert SiddhiManager(device="cpu").device.type == "cpu"
