@@ -28,7 +28,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
-SOURCES = {"unpack_packed": "unpack_packed.cu", "expr_eval": "expr_eval.cu"}
+SOURCES = {"unpack_packed": "unpack_packed.cu", "expr_eval": "expr_eval.cu",
+           "nfa_parallel": "nfa_parallel.cu"}
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 LAUNCHES = {name: 0 for name in SOURCES}
@@ -65,6 +66,15 @@ class UnpackParams(ctypes.Structure):
                 ("lanes", LaneDesc * MAX_LANES)]
 
 
+NFA_MAX_SLOTS = 8
+NFA_MAX_SLOT_COLS = 32
+NFA_MAX_EV_COLS = 16
+NFA_MAX_STATES = 8
+NFA_MAX_PERSONAS = 2
+NFA_MAX_MATCH_COLS = 64
+NFA_MAX_ROWS = 16384
+
+
 class ExprParams(ctypes.Structure):
     _fields_ = [("in_cols", ctypes.c_void_p * MAX_COLS),
                 ("in_nulls", ctypes.c_void_p * MAX_COLS),
@@ -77,6 +87,56 @@ class ExprParams(ctypes.Structure):
                 ("n_code", ctypes.c_int32), ("rows", ctypes.c_int32),
                 ("timer_pass", ctypes.c_int32),
                 ("gate_bits", ctypes.c_int32)]
+
+
+_P = ctypes.c_void_p
+_I32 = ctypes.c_int32
+
+
+class NfaStateDesc(ctypes.Structure):
+    _fields_ = [(f, _I32) for f in (
+        "idx", "slot", "next_idx", "is_counting", "min_count", "max_count",
+        "cap_limit", "prog_start", "prog_len", "n_personas")] + [
+        ("persona_idx", _I32 * NFA_MAX_PERSONAS),
+        ("persona_slot", _I32 * NFA_MAX_PERSONAS),
+        ("persona_min", _I32 * NFA_MAX_PERSONAS)]
+
+
+class NfaParams(ctypes.Structure):
+    _fields_ = [(f, _P) for f in (
+        "state", "valid", "ts0", "has_ts0", "born", "min_at", "deadline",
+        "seq", "next_seq", "counter", "overflow")] + [
+        ("tab_cols", _P * NFA_MAX_SLOT_COLS),
+        ("tab_nulls", _P * NFA_MAX_SLOT_COLS),
+        ("tab_ts", _P * NFA_MAX_SLOTS), ("tab_n", _P * NFA_MAX_SLOTS),
+        ("p2_cols", _P * NFA_MAX_SLOT_COLS),
+        ("p2_nulls", _P * NFA_MAX_SLOT_COLS),
+        ("p2_ts", _P * NFA_MAX_SLOTS), ("p2_n", _P * NFA_MAX_SLOTS)] + [
+        (f, _P) for f in (
+            "p2_state", "p2_valid", "p2_last", "p2_born_rel", "p2_ts0",
+            "p2_has_ts0", "p2_minrel", "p2_seq", "emit_at", "emit_n",
+            "span", "ev_ts", "ev_kind", "ev_valid")] + [
+        ("ev_cols", _P * NFA_MAX_EV_COLS),
+        ("ev_nulls", _P * NFA_MAX_EV_COLS),
+        ("out_cols", _P * NFA_MAX_MATCH_COLS),
+        ("out_nulls", _P * NFA_MAX_MATCH_COLS),
+        ("out_ts", _P), ("out_n", _P), ("out_valid", _P), ("out_kind", _P),
+        ("code", _P), ("consts", _P), ("loads", _P),
+        ("within_ms", ctypes.c_int64),
+        ("states", NfaStateDesc * NFA_MAX_STATES),
+        ("start", NfaStateDesc),
+        ("slot_cap", _I32 * NFA_MAX_SLOTS),
+        ("slot_col0", _I32 * NFA_MAX_SLOTS),
+        ("slot_ncols", _I32 * NFA_MAX_SLOTS),
+        ("slot_final_counting", _I32 * NFA_MAX_SLOTS),
+        ("col_type", _I32 * NFA_MAX_SLOT_COLS),
+        ("ev_type", _I32 * NFA_MAX_EV_COLS),
+        ("out_type", _I32 * NFA_MAX_MATCH_COLS)] + [
+        (f, _I32) for f in (
+            "n_slots", "n_consuming", "has_start", "advance_pop2", "seqmode",
+            "n_states", "M", "B", "OUT", "sub_off", "n_match_cols",
+            "first_sub", "last_sub")] + [
+        ("min0_mask", ctypes.c_uint32)]
 
 
 # -- build -------------------------------------------------------------------
@@ -94,7 +154,7 @@ def _nvcc() -> str:
 
 def _digest(src: Path) -> str:
     h = hashlib.sha256()
-    for p in (CSRC / "siddhi_kernels.h", src):
+    for p in sorted(CSRC.glob("*.h")) + sorted(CSRC.glob("*.cuh")) + [src]:
         h.update(p.read_bytes())
     h.update(ARCH.encode())
     return h.hexdigest()[:16]
@@ -144,6 +204,10 @@ class _Kernels:
         self.expr_lib.siddhi_expr_eval.argtypes = [
             ctypes.POINTER(ExprParams), ctypes.c_void_p]
         self.expr_lib.siddhi_expr_eval.restype = ctypes.c_int
+        self.nfa_lib = ctypes.CDLL(str(libs["nfa_parallel"]))
+        self.nfa_lib.siddhi_nfa_parallel_step.argtypes = [
+            ctypes.POINTER(NfaParams), ctypes.c_void_p]
+        self.nfa_lib.siddhi_nfa_parallel_step.restype = ctypes.c_int
 
     @staticmethod
     def _check(name: str, err: int) -> None:
@@ -156,6 +220,10 @@ class _Kernels:
 
     def expr_eval(self, params: ExprParams, stream: int) -> None:
         self._check("expr_eval", self.expr_lib.siddhi_expr_eval(
+            ctypes.byref(params), stream))
+
+    def nfa_parallel_step(self, params: NfaParams, stream: int) -> None:
+        self._check("nfa_parallel", self.nfa_lib.siddhi_nfa_parallel_step(
             ctypes.byref(params), stream))
 
 

@@ -1,8 +1,9 @@
 """Carry a reference (JAX package) process's state into the port.
 
 ``state_from_jax`` turns the numpy pytree of a reference
-``QueryRuntime.snapshot_state()`` (``{"states": ..., "emitted": ...}``)
-into the port's state for ``QueryRuntime.restore_state``.
+``QueryRuntime.snapshot_state()`` (``{"states": ..., "emitted": ...}``,
+plus ``"nfa"`` for a pattern query) into the port's state for
+``QueryRuntime.restore_state``.
 ``strings_from_jax`` seeds the port's string dictionary so that its
 codes match the reference process's: both packages give strings codes
 in order of first sight, so dictionary-coded columns and string
@@ -29,10 +30,15 @@ def _tree(tree, device):
 
 
 def state_from_jax(snapshot: dict, device) -> dict:
-    """A reference QueryRuntime snapshot -> the port's query state."""
-    return {"states": _tree(snapshot["states"], device),
-            "emitted": torch.tensor(int(np.asarray(snapshot["emitted"])),
-                                    dtype=torch.int64, device=device)}
+    """A reference QueryRuntime snapshot -> the port's query state. A
+    PatternQueryRuntime's snapshot also carries its NFA pending table
+    (``"nfa"``: the same pytree, tuples of slot buffers included)."""
+    state = {"states": _tree(snapshot["states"], device),
+             "emitted": torch.tensor(int(np.asarray(snapshot["emitted"])),
+                                     dtype=torch.int64, device=device)}
+    if "nfa" in snapshot:
+        state["nfa"] = _tree(snapshot["nfa"], device)
+    return state
 
 
 def strings_from_jax(codes_to_str: Sequence) -> None:

@@ -131,7 +131,11 @@ def rewrite_cases() -> list:
             "2 + 3", "2.5f * 2", "(1.0 + 2.0) * d", "d / (1.0 + 2.0)",
             "7 / 2", "-7 % 2", "1.0 / 0.0", "d / (2.0 - 2.0)",
             "2147483647 + 1", "3.0f % 0.0f", "f % 2.0f", "d % 4",
-            "f % -2.0f", "d % 1.0", "d % 0.5"]
+            "f % -2.0f", "d % 1.0", "d % 0.5",
+            # a subnormal constant divisor: NaN, not null; nested constant
+            # subexpressions fold unflushed (ROADMAP Queue 3, repaired)
+            "f % 1e-40f", "d % (1e-310 + 0.0)", "(1e-39f + 0.0f) * 1.0f",
+            "(1e-39f + 1e-39f) * 2.0f", "f * (1e-39f + 0.0f)"]
 
 
 def compare_cases() -> list:
@@ -200,3 +204,150 @@ def expr_columns(rows: int, seed: int):
     kind = rng.choice(np.array([0, 0, 0, 1, 2], np.int32), rows)
     valid = rng.random(rows) < 0.9
     return cols, nulls, kind, valid
+
+
+# -- kernel K3: pattern apps and feeds ---------------------------------------
+
+# the reference bench's north-star app (bench.py SEQ5_APP)
+SEQ5_APP = """
+    @app:playback
+    define stream T (sym string, stage int, v int);
+    @info(name = 'q')
+    from every e1=T[stage == 1] -> e2=T[stage == 2 and sym == e1.sym]
+      -> e3=T[stage == 3 and sym == e1.sym]
+      -> e4=T[stage == 4 and sym == e1.sym]
+      -> e5=T[stage == 5 and sym == e1.sym]
+    within 60 sec
+    select e1.sym as sym, e1.v as v1, e5.v as v5
+    insert into Out;
+"""
+
+# one stage-2 event completes every pending row: a feed can emit more
+# matches in one step than the match batch holds
+PAIR_APP = """
+    @app:playback
+    define stream T (sym string, stage int, v int);
+    @info(name = 'q')
+    from every e1=T[stage == 1] -> e2=T[stage == 2]
+    select e1.v as v1, e2.v as v2
+    insert into Out;
+"""
+
+_TWO_STREAMS = """
+    @app:playback
+    define stream S1 (symbol string, price float, volume int);
+    define stream S2 (symbol string, price float, volume int);
+"""
+
+# armed once, two streams, a counting state whose rows answer the next
+# state (the shape of the reference corpus's CountPattern testQuery6)
+COUNT_APP = _TWO_STREAMS + """
+    @info(name = 'q')
+    from e1=S1[price > 20] <2:5> -> e2=S2[price > e1[1].price]
+    select e1[0].price as p0, e1[1].price as p1, e1[4].price as p4,
+           e2.price as p2
+    insert into Out;
+"""
+
+# sequence mode (the first eligible event decides), a counting start,
+# two streams
+SEQ_APP = _TWO_STREAMS + """
+    @info(name = 'q')
+    from every e1=S1[price > 20]<1:4>, e2=S2[price > e1[0].price],
+         e3=S1[price > 5]
+    select e1[0].price as p0, e1[1].price as p1, e2.price as p2,
+           e3.volume as v3
+    insert into Out;
+"""
+
+
+class Seq5Feed:
+    """bench.py bench_seq5's feed: symbols uniform over SYMS, stage in
+    U[1, 6), v in U[0, 1000), one rng for the whole run (seed 12) and a
+    clock that only moves forward from TS0, 1 ms a row. ``encode`` maps a
+    symbol to its dictionary code."""
+
+    def __init__(self, encode, seed: int = 12, ts0: int = TS0):
+        self.rng = np.random.default_rng(seed)
+        self.syms = np.array([encode(s) for s in SYMS], np.int32)
+        self.clock = ts0
+
+    def next(self, m: int, stages=None):
+        """-> (ts, [sym codes, stage, v]) of the next m rows; ``stages``
+        replaces the random stages (the v and sym draws stay)."""
+        ts = self.clock + np.arange(m, dtype=np.int64)
+        self.clock += m
+        sym = self.syms[self.rng.integers(0, len(self.syms), m)]
+        stage = self.rng.integers(1, 6, m).astype(np.int32)
+        v = self.rng.integers(0, 1000, m).astype(np.int32)
+        if stages is not None:
+            stage = np.asarray(stages, np.int32)
+        return ts, [sym, stage, v]
+
+
+def out_overflow_stages(pb: int = 4096) -> np.ndarray:
+    """Stages for PAIR_APP that emit more than 16,384 matches in one
+    step of five sub-batches: fill the table, fire it with the
+    sub-batch's own spawns, fill, fire, fire."""
+    fill = [1] * pb
+    fire = [1] * (pb - 1) + [2]
+    return np.array(fill + fire + fill + fire + fire, np.int32)
+
+
+def two_stream_feed(n: int, encode, seed: int):
+    """Random (stream, row) events for COUNT_APP and SEQ_APP: price in
+    U(0, 60) float32 (about a third at or under 20), volume U[0, 100).
+    -> (stream per event, ts, [symbol codes, price, volume])."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([encode(s) for s in SYMS], np.int32)
+    stream = np.where(rng.random(n) < 0.5, "S1", "S2")
+    ts = TS0 + np.arange(n, dtype=np.int64)
+    cols = [syms[rng.integers(0, len(syms), n)],
+            rng.uniform(0, 60, n).astype(np.float32),
+            rng.integers(0, 100, n).astype(np.int32)]
+    return stream, ts, cols
+
+# the counting chain with an always-armed start: one spawned row per
+# matching S1 event, each absorbing up to five (chip_smoke.py's scale
+# version of COUNT_APP)
+COUNT_EVERY_APP = _TWO_STREAMS + """
+    @info(name = 'q')
+    from every e1=S1[price > 20] <1:5> -> e2=S2[price > e1[1].price]
+    select e1[0].price as p0, e1[1].price as p1, e2.price as p2
+    insert into Out;
+"""
+
+# a start state with no condition and a final counting state (a match
+# is emitted at the minimum, its copies past the count null)
+FINAL_COUNT_APP = _TWO_STREAMS + """
+    @info(name = 'q')
+    from every e1=S2 -> e2=S1[price > 20] <2:3>
+    select e1.price as p1, e2[0].price as q0, e2[1].price as q1,
+           e2[2].price as q2
+    insert into Out;
+"""
+
+# a counting state whose minimum is 0: its rows answer the next state
+# from birth
+COUNT0_APP = _TWO_STREAMS + """
+    @info(name = 'q')
+    from e1=S1[price > 20] <0:5> -> e2=S2[price > 10]
+    select e1[0].price as p0, e1[1].price as p1, e2.price as p2
+    insert into Out;
+"""
+
+# single-state patterns: every hit emits at once (a plain start), or at
+# its minimum with its copies past the count null (a counting start)
+SINGLE_APP = _TWO_STREAMS + """
+    @info(name = 'q')
+    from every e1=S1[price > 30]
+    select e1.symbol as s, e1.price as p
+    insert into Out;
+"""
+
+SINGLE_COUNT_APP = _TWO_STREAMS + """
+    @info(name = 'q')
+    from every e1=S1[price > 20] <1:3>
+    select e1[0].price as p0, e1[1].price as p1, e1[2].price as p2
+    insert into Out;
+"""

@@ -10,20 +10,25 @@ Reference mapping:
 
 Execution model: a query step is ``(states, emitted, batch, now) ->
 (states', emitted', out)``. The reference jits each step into one XLA
-program; here a packed chunk's step is exactly two kernel launches on
-the app's device: K1 decodes the chunk (core/ingest.py unpack_packed),
-K2 runs the query's filters and projection and counts the emitted rows
-(ops/expr.py expr_eval). On the CPU both take their plain PyTorch
-versions.
+program; here a packed chunk's step is a fixed sequence of kernel
+launches on the app's device, with no host sync between them: K1
+decodes the chunk (core/ingest.py unpack_packed), K2 runs the query's
+filters and projection and counts the emitted rows (ops/expr.py
+expr_eval). A pattern query runs K1, then K3 once per sub-batch of
+4,096 events (ops/nfa_parallel.py parallel_step), then K2 over the
+match batch. On the CPU every kernel takes its plain PyTorch version.
 
-This slice plans single-stream filter/project queries and insert-into
-chains between them. Joins, patterns, windows, tables, partitions,
-aggregations, triggers, rate limiters, stream functions, sources and
-sinks raise NotImplementedError ("not ported yet") on every device.
+This slice plans single-stream filter/project queries, insert-into
+chains between them, and the pattern and sequence queries the
+round-parallel engine runs (ops/nfa_parallel.py parallel_supported).
+Scan-engine patterns, joins, windows, tables, partitions, aggregations,
+triggers, rate limiters, stream functions, sources and sinks raise
+NotImplementedError ("not ported yet") on every device.
 """
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import threading
 import time
 from typing import Callable, Optional
@@ -33,6 +38,9 @@ import torch
 from ..lang import ast as A
 from ..ops.expr import CompileError, ProgramBuilder, SingleStreamScope, \
     compile_expression
+from ..ops.nfa import (MatchScope, NfaCompiler, rewrite_last_refs,
+                       rewrite_oob_refs)
+from ..ops.nfa_parallel import ParallelNfaEngine, parallel_supported
 from ..ops.operators import FilterOp, Operator
 from ..ops.selector import (ProjectOp, project, selector_needs_aggregation)
 from ..ops.table import expr_mentions_table
@@ -236,9 +244,11 @@ class QueryRuntime(Receiver):
 
     # -- runtime ---------------------------------------------------------
     @staticmethod
-    def encode_chunks(schema: StreamSchema, events: list[Event], device):
-        """Yield (EventBatch, last_timestamp) bucketed device batches."""
-        max_cap = BATCH_BUCKETS[-1]
+    def encode_chunks(schema: StreamSchema, events: list[Event], device,
+                      max_cap: Optional[int] = None):
+        """Yield (EventBatch, last_timestamp) bucketed device batches of
+        at most ``max_cap`` rows."""
+        max_cap = max_cap or BATCH_BUCKETS[-1]
         for start in range(0, len(events), max_cap):
             chunk = events[start:start + max_cap]
             rows = [e.data for e in chunk]
@@ -306,6 +316,118 @@ class StreamCallbackReceiver(Receiver):
 
     def receive(self, events):
         self.callback.receive(events)
+
+
+class PatternStreamReceiver(Receiver):
+    """Junction subscriber feeding one stream of a pattern query
+    (= PatternMultiProcessStreamReceiver, .../state/receiver/*.java:29)."""
+
+    supports_packed = True
+
+    def __init__(self, runtime: "PatternQueryRuntime", stream_id: str):
+        self.runtime = runtime
+        self.stream_id = stream_id
+
+    @property
+    def max_step_capacity(self):
+        return self.runtime.max_step_capacity
+
+    def receive(self, events):
+        self.runtime.process_stream_events(self.stream_id, events)
+
+    def process_batch(self, batch, last_ts):
+        self.runtime.process_pattern_batch(self.stream_id, batch, last_ts)
+
+    def process_packed(self, chunk):
+        self.runtime.process_pattern_packed(self.stream_id, chunk)
+
+
+class PatternQueryRuntime(QueryRuntime):
+    """Pattern/sequence query: the NFA engine feeds the selector chain.
+    One receiver per distinct input stream; all share the pending-match
+    table (reference: StateStreamRuntime + per-state processors).
+
+    The base-class ``states`` tuple holds the selector operator states;
+    the NFA pending table lives in ``nfa_state``. A step is the engine's
+    stream step (kernel K3) and then the selector's K2 program over the
+    match batch."""
+
+    supports_packed = False  # consumes via PatternStreamReceivers only
+
+    def __init__(self, name: str, engine: ParallelNfaEngine,
+                 sel_ops: list[Operator], app: "SiddhiAppRuntime"):
+        super().__init__(name, sel_ops, engine.match_schema, app)
+        self.engine = engine
+        self.nfa_state = engine.init_state(app.device)
+        self._stream_steps: dict = {}
+        # the largest batch one step takes (None: any bucket); a smaller
+        # cap trades throughput for latency, and the junctions chunk
+        # every stream of the pattern to it
+        self.max_step_capacity: Optional[int] = None
+
+    def receive(self, events: list[Event]) -> None:
+        raise RuntimeError(
+            "pattern runtimes consume via per-stream PatternStreamReceivers")
+
+    def overflow_total(self) -> int:
+        """Include the NFA pending-table overflow counter."""
+        total = super().overflow_total()
+        with self._lock:
+            return total + int(self.nfa_state["overflow"].item())
+
+    def snapshot_state(self) -> dict:
+        with self._lock:
+            return {"states": _tree_to(self.states, "cpu"),
+                    "emitted": self._emitted_dev.cpu(),
+                    "nfa": _tree_to(self.nfa_state, "cpu")}
+
+    def restore_state(self, snap: dict) -> None:
+        super().restore_state(snap)
+        with self._lock:
+            self.nfa_state = _tree_to(snap["nfa"], self.app.device)
+
+    def _step(self, stream_id: str, batch: EventBatch, now) -> EventBatch:
+        """One step (the caller holds the lock): K3, then K2."""
+        step = self._stream_steps.get(stream_id)
+        if step is None:
+            step = self._stream_steps[stream_id] = \
+                self.engine.make_stream_step(stream_id)
+        self.nfa_state, match = step(self.nfa_state, batch)
+        self.states, out = self._chain(self.states, self._emitted_dev,
+                                       match, now)
+        return out
+
+    def process_pattern_packed(self, stream_id: str,
+                               chunk: PackedChunk) -> None:
+        types = self.app.schemas[stream_id].types
+        with self._lock:
+            batch, now = unpack_packed(types, chunk.enc, chunk.capacity,
+                                       chunk.buf)
+            out = self._step(stream_id, batch, now)
+        self._dispatch_output(out, chunk.last_ts)
+
+    def process_stream_events(self, stream_id: str, events) -> None:
+        schema = self.app.schemas[stream_id]
+        for batch, last_ts in self.encode_chunks(
+                schema, events, self.app.device, self.max_step_capacity):
+            self.process_pattern_batch(stream_id, batch, last_ts)
+
+    def process_pattern_batch(self, stream_id: str, batch: EventBatch,
+                              timestamp: int) -> None:
+        cap = self.max_step_capacity
+        if cap is not None and batch.capacity > cap:
+            # a device batch chained in from another query
+            for off in range(0, batch.capacity, cap):
+                sl = slice(off, off + cap)
+                self.process_pattern_batch(stream_id, EventBatch(
+                    batch.ts[sl], tuple(c[sl] for c in batch.cols),
+                    tuple(n[sl] for n in batch.nulls), batch.kind[sl],
+                    batch.valid[sl]), timestamp)
+            return
+        now = self.app.current_time()
+        with self._lock:
+            out = self._step(stream_id, batch, now)
+        self._dispatch_output(out, timestamp)
 
 
 class SiddhiAppRuntime:
@@ -458,8 +580,13 @@ class Planner:
     def plan_query(self, q: A.Query, default_name: str) -> None:
         app = self.app
         name = q.name or default_name
+        for ann in q.annotations:
+            if ann.name.lower() != "info":
+                raise not_ported(f"@{ann.name} on query '{name}'")
         if isinstance(q.input, A.StateInputStream):
-            raise not_ported("pattern and sequence queries")
+            if q.output_rate is not None:
+                raise not_ported("output rate limiting")
+            return self.plan_pattern_query(q, name)
         if isinstance(q.input, A.JoinInputStream):
             raise not_ported("join queries")
         if not isinstance(q.input, A.SingleInputStream):
@@ -469,9 +596,6 @@ class Planner:
         sin = q.input
         if sin.is_fault or sin.is_inner:
             raise not_ported("fault and inner streams")
-        for ann in q.annotations:
-            if ann.name.lower() != "info":
-                raise not_ported(f"@{ann.name} on query '{name}'")
         schema = app.schemas.get(sin.stream_id)
         if schema is None:
             raise CompileError(f"query '{name}': undefined stream "
@@ -526,6 +650,54 @@ class Planner:
             q.selector, schema, target, scope,
             current_on=current_on, expired_on=expired_on))
         return operators
+
+    # -- pattern / sequence queries --------------------------------------
+    def plan_pattern_query(self, q: A.Query, name: str) -> None:
+        app = self.app
+        sin: A.StateInputStream = q.input
+        out = q.output
+        if isinstance(out, (A.InsertIntoStream, A.ReturnStream)):
+            out_type = out.output_event_type
+        else:
+            raise CompileError(f"query '{name}': table output not yet "
+                               "supported")
+        target = out.target if isinstance(out, A.InsertIntoStream) else name
+        current_on = out_type in ("current", "all")
+        expired_on = out_type in ("expired", "all")
+
+        compiler = NfaCompiler(app.schemas, sin.state_type)
+        slots, states = compiler.compile(sin.state)
+        # e[last] / e[last - k] select refs -> ifThenElse chains over the
+        # slot's copy columns (nfa.rewrite_last_refs)
+        sel = q.selector
+        if sel.attributes:
+            sel.attributes = [
+                dataclasses.replace(
+                    oa, expression=rewrite_oob_refs(
+                        rewrite_last_refs(oa.expression, slots), slots))
+                for oa in sel.attributes]
+        if sel.having is not None:
+            sel.having = rewrite_oob_refs(
+                rewrite_last_refs(sel.having, slots), slots)
+        if not parallel_supported(slots, states, sin.state_type):
+            raise not_ported("scan-engine patterns (K4)")
+        engine = ParallelNfaEngine(slots, states, sin.state_type,
+                                   sin.within_ms, capacity=4096,
+                                   out_capacity=16384)
+        scope = MatchScope(slots, engine.col_index)
+        if selector_needs_aggregation(q.selector):
+            raise not_ported("aggregating selectors")
+        sel_ops: list[Operator] = [ProjectOp(
+            q.selector, engine.match_schema, target, scope,
+            current_on=current_on, expired_on=expired_on)]
+
+        if name in app.queries:
+            raise CompileError(f"duplicate query name '{name}'")
+        qr = PatternQueryRuntime(name, engine, sel_ops, app)
+        for sid in sorted({s.stream_id for s in slots}):
+            app.junctions[sid].subscribe(PatternStreamReceiver(qr, sid))
+        app.queries[name] = qr
+        self.wire_stream_output(qr, out, out_type)
 
     def wire_stream_output(self, qr, out, out_type: str) -> None:
         app = self.app

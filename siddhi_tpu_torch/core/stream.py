@@ -166,6 +166,13 @@ class InputHandler:
         packed_ok = all(getattr(r, "supports_packed", False)
                         for r in self.junction.receivers)
         max_cap = BATCH_BUCKETS[-1]
+        # a receiver that caps its step capacity gets chunks it can take
+        # whole (a pattern query feeds one receiver per stream: each one
+        # is a receiver of its stream's junction)
+        for r in self.junction.receivers:
+            rc = getattr(r, "max_step_capacity", None)
+            if rc is not None:
+                max_cap = min(max_cap, rc)
         if packed_ok and self._encoder is None:
             self._encoder = PackedEncoder(self.junction.schema)
         for start in range(0, n, max_cap):

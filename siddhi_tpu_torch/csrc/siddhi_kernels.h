@@ -97,6 +97,104 @@ typedef struct {
 
 cudaError_t siddhi_expr_eval(const ExprParams* p, cudaStream_t stream);
 
+// ---- K3: round-parallel NFA step (nfa_parallel.cu) -----------------------
+
+#define SIDDHI_NFA_MAX_SLOTS 8
+#define SIDDHI_NFA_MAX_SLOT_COLS 32   // attributes summed over the slots
+#define SIDDHI_NFA_MAX_EV_COLS 16     // attributes of the consumed stream
+#define SIDDHI_NFA_MAX_STATES 8       // states consuming the stream
+#define SIDDHI_NFA_MAX_PERSONAS 2
+#define SIDDHI_NFA_MAX_MATCH_COLS 64
+#define SIDDHI_NFA_MAX_ROWS 16384     // table rows + sub-batch events
+
+// a condition load (ops/nfa_parallel.py load_descriptor):
+// kind | slot << 1 | attr << 8 | copy-or-k << 16, kind 0 = ("slot", j, a,
+// c), kind 1 = ("slot_last", j, a, k)
+
+typedef struct {
+  int32_t idx, slot, next_idx, is_counting;
+  int32_t min_count, max_count, cap_limit;
+  int32_t prog_start, prog_len;  // condition program in `code`; 0 = none
+  int32_t n_personas;            // counting states whose rows answer this one
+  int32_t persona_idx[SIDDHI_NFA_MAX_PERSONAS];
+  int32_t persona_slot[SIDDHI_NFA_MAX_PERSONAS];
+  int32_t persona_min[SIDDHI_NFA_MAX_PERSONAS];
+} NfaStateDesc;
+
+typedef struct {
+  // the pending table (population 1): M rows, updated in place
+  int32_t* state;
+  bool* valid;
+  int64_t* ts0;
+  bool* has_ts0;
+  int64_t* born;
+  int64_t* min_at;
+  int64_t* deadline;
+  int64_t* seq;
+  int64_t* next_seq;   // 0-d
+  int64_t* counter;    // 0-d
+  int64_t* overflow;   // 0-d
+  // slot storage of the table and of the spawns (population 2): slot j
+  // has ts [rows, cap] and n [rows]; its attribute a is slot column
+  // slot_col0[j] + a, values and nulls [rows, cap]
+  void* tab_cols[SIDDHI_NFA_MAX_SLOT_COLS];
+  bool* tab_nulls[SIDDHI_NFA_MAX_SLOT_COLS];
+  int64_t* tab_ts[SIDDHI_NFA_MAX_SLOTS];
+  int32_t* tab_n[SIDDHI_NFA_MAX_SLOTS];
+  void* p2_cols[SIDDHI_NFA_MAX_SLOT_COLS];
+  bool* p2_nulls[SIDDHI_NFA_MAX_SLOT_COLS];
+  int64_t* p2_ts[SIDDHI_NFA_MAX_SLOTS];
+  int32_t* p2_n[SIDDHI_NFA_MAX_SLOTS];
+  // population 2's other fields [B]
+  int32_t* p2_state;
+  bool* p2_valid;
+  int32_t* p2_last;
+  int32_t* p2_born_rel;
+  int64_t* p2_ts0;
+  bool* p2_has_ts0;
+  int32_t* p2_minrel;
+  int64_t* p2_seq;
+  int32_t* emit_at;  // [M + B]: both populations
+  int32_t* emit_n;   // [M + B]
+  int64_t* span;     // [4]: min and max ts of the valid events, any valid
+                     // event, rows spawned
+  // the sub-batch of events
+  const int64_t* ev_ts;
+  const int32_t* ev_kind;
+  const bool* ev_valid;
+  const void* ev_cols[SIDDHI_NFA_MAX_EV_COLS];
+  const bool* ev_nulls[SIDDHI_NFA_MAX_EV_COLS];
+  // the match batch [OUT]: the first sub-batch of a step clears it
+  // (values 0, nulls set, out_n 0), the last one writes its valid mask
+  // (row < out_n) and kinds (CURRENT)
+  void* out_cols[SIDDHI_NFA_MAX_MATCH_COLS];
+  bool* out_nulls[SIDDHI_NFA_MAX_MATCH_COLS];
+  int64_t* out_ts;
+  int64_t* out_n;    // 0-d
+  bool* out_valid;
+  int32_t* out_kind;
+  // the condition programs (ops/expr.py ProgramBuilder), device memory
+  const int32_t* code;
+  const int64_t* consts;
+  const int32_t* loads;
+  int64_t within_ms;  // -1: no `within`
+  NfaStateDesc states[SIDDHI_NFA_MAX_STATES];  // consuming, chain order
+  NfaStateDesc start;                          // the always-armed start
+  int32_t slot_cap[SIDDHI_NFA_MAX_SLOTS];
+  int32_t slot_col0[SIDDHI_NFA_MAX_SLOTS];
+  int32_t slot_ncols[SIDDHI_NFA_MAX_SLOTS];
+  int32_t slot_final_counting[SIDDHI_NFA_MAX_SLOTS];
+  int32_t col_type[SIDDHI_NFA_MAX_SLOT_COLS];
+  int32_t ev_type[SIDDHI_NFA_MAX_EV_COLS];
+  int32_t out_type[SIDDHI_NFA_MAX_MATCH_COLS];
+  int32_t n_slots, n_consuming, has_start, advance_pop2, seqmode, n_states;
+  int32_t M, B, OUT, sub_off, n_match_cols;
+  int32_t first_sub, last_sub;  // this sub-batch opens / closes the step
+  uint32_t min0_mask;  // bit s: state s is counting with min_count 0
+} NfaParams;
+
+cudaError_t siddhi_nfa_parallel_step(const NfaParams* p, cudaStream_t stream);
+
 #ifdef __cplusplus
 }
 #endif

@@ -24,8 +24,13 @@ the kernel and the plain version):
   results of + - * /, compare operands, the FLOAT -> DOUBLE widening;
   fmod keeps them), NaN bits as x86 makes them, and the reference
   compiler's rewrites of literal operands (x / c as x * (1/c); x * 1,
-  x + 0, x - 0 as x; x * -1 as a sign flip; % by +-2^k) and trace-time
-  constant folding applied here at plan time
+  x + 0, x - 0 as x; x * -1 as a sign flip; % by +-2^k) applied here
+  at plan time
+- constant subexpressions fold at plan time in plain IEEE, at any depth
+  (the reference folds them in numpy or in XLA's constant folder, both
+  unflushed), and the zero test of a constant divisor runs there too;
+  only code that runs per row flushes (a subnormal constant divisor of
+  % therefore gives NaN, not null)
 
 Ported nodes: Constant (null literal included), Variable, MathOp,
 Compare, And, Or, Not and IsNull(expr). Function calls and tenant
@@ -61,6 +66,9 @@ VT_TYPE = {v: k for k, v in VT.items()}
 MATH_OPS = {"+": OP_ADD, "-": OP_SUB, "*": OP_MUL, "/": OP_DIV, "%": OP_MOD}
 CMP_OPS = {"==": OP_EQ, "!=": OP_NE, ">": OP_GT, ">=": OP_GE, "<": OP_LT,
            "<=": OP_LE}
+# OP_MOD's arg: the divisor is a literal +-2^k (k >= 0), or another
+# non-zero constant
+MOD_POW2, MOD_CONST = 1, 2
 TIMER_KIND = 2
 ALL_KINDS = 0b1111
 
@@ -91,26 +99,31 @@ class CompiledExpr:
     """One compiled expression: its result type and its postfix code,
     a tuple of (opcode, value type, arg). OP_CONST carries the constant's
     raw bits as its arg until the program is assembled. A constant
-    expression also keeps its value (a numpy scalar, None when null);
-    ``folded`` marks one computed from other constants at compile time."""
+    expression also keeps its value (a numpy scalar, None when null)."""
     type: AttrType
     code: tuple
     const_value: Any = None
     is_const: bool = False
-    folded: bool = False
 
 
-def _const(t: AttrType, value, folded: bool = False) -> CompiledExpr:
+def _const(t: AttrType, value) -> CompiledExpr:
     if value is None:
-        return CompiledExpr(t, ((OP_NULLC, VT[t], 0),), None, True, folded)
+        return CompiledExpr(t, ((OP_NULLC, VT[t], 0),), None, True)
     value = np.asarray(value, dtype=np_dtype(t))[()]
     return CompiledExpr(t, ((OP_CONST, VT[t], const_bits(value, t)),),
-                        value, True, folded)
+                        value, True)
+
+
+# the env keys a load resolves: ('attr', i) is column i of the batch a
+# step runs over; ('slot', j, a, c) and ('slot_last', j, a, k) read a
+# pattern row's capture (ops/nfa.py PatternScope), resolved per (row,
+# event) by kernel K3 (ops/nfa_parallel.py)
+LOAD_KEYS = ("attr", "slot", "slot_last")
 
 
 class Scope:
     """Variable resolution at compile time: maps a Variable to an env key
-    and type. This slice resolves single-stream keys ('attr', index)."""
+    and type (one of LOAD_KEYS)."""
 
     def resolve(self, var: A.Variable) -> tuple[Any, AttrType]:
         raise NotImplementedError
@@ -251,14 +264,15 @@ def compile_expression(expr: A.Expression, scope: Scope,
                 raise CompileError(f"bare stream reference '{e.stream_ref}' "
                                    "only valid in IS NULL")
             key, t = scope.resolve(e)
-            if not (isinstance(key, tuple) and key[0] == "attr"):
+            if not (isinstance(key, tuple) and key[0] in LOAD_KEYS):
                 raise NotImplementedError(
                     f"expression not ported yet: variable key {key!r}")
             if t not in VT:
                 raise NotImplementedError(
                     f"expression not ported yet: {t} attribute "
                     f"'{e.attribute}'")
-            return CompiledExpr(t, ((OP_LOAD, VT[t], key[1]),))
+            return CompiledExpr(t, ((OP_LOAD, VT[t],
+                                     key[1] if key[0] == "attr" else key),))
 
         if isinstance(e, A.TemplateParam):
             raise NotImplementedError(
@@ -279,7 +293,7 @@ def compile_expression(expr: A.Expression, scope: Scope,
             if l.is_const and r.is_const:
                 a, b = _truth(l), _truth(r)
                 return _const(AttrType.BOOL, (a and b) if op == OP_AND
-                              else (a or b), folded=True)
+                              else (a or b))
             return CompiledExpr(AttrType.BOOL,
                                 l.code + r.code + ((op, VT[AttrType.BOOL], 0),))
 
@@ -287,7 +301,7 @@ def compile_expression(expr: A.Expression, scope: Scope,
             x = comp(e.expr)
             _require_bool(x, "NOT")
             if x.is_const:
-                return _const(AttrType.BOOL, not _truth(x), folded=True)
+                return _const(AttrType.BOOL, not _truth(x))
             return CompiledExpr(AttrType.BOOL,
                                 x.code + ((OP_NOT, VT[AttrType.BOOL], 0),))
 
@@ -296,8 +310,7 @@ def compile_expression(expr: A.Expression, scope: Scope,
                 return scope.resolve_stream_isnull(e)
             x = comp(e.expr)
             if x.is_const:
-                return _const(AttrType.BOOL, x.const_value is None,
-                              folded=True)
+                return _const(AttrType.BOOL, x.const_value is None)
             return CompiledExpr(AttrType.BOOL,
                                 x.code + ((OP_ISNULL, VT[AttrType.BOOL], 0),))
 
@@ -332,38 +345,37 @@ def _scalar(e: CompiledExpr):
 
 
 def _widen(e: CompiledExpr, t: AttrType) -> CompiledExpr:
-    """e widened to t (the reference's astype): constants fold (a literal
-    in numpy, unflushed; a folded constant as compiled code flushes)."""
+    """e widened to t (the reference's astype): a constant folds,
+    unflushed (see _fold_math)."""
     if e.type is t:
         return e
     if e.is_const:
         if e.const_value is None:
-            return _const(t, None, e.folded)
-        return _const(t, widen(_scalar(e), t, flush=e.folded).item(),
-                      e.folded)
+            return _const(t, None)
+        return _const(t, widen(_scalar(e), t, flush=False).item())
     return CompiledExpr(t, e.code + ((OP_CAST, VT[t], VT[e.type]),))
 
 
 def _fold_math(op: int, t: AttrType, l: CompiledExpr, r: CompiledExpr):
-    """Constant math, as the reference evaluates it while tracing: two
-    literals in numpy (IEEE, no flush) except / which runs as compiled
-    code; anything involving a folded constant as compiled code."""
+    """Constant math, as the reference computes it: in plain IEEE, with
+    no flush, at any depth. Two literals meet in numpy; a constant that
+    went through a jnp op is a constant of the XLA program, and XLA folds
+    constant subtrees at compile time on the host, unflushed (the flush
+    only applies to code that runs)."""
     if l.const_value is None or r.const_value is None:
-        return _const(t, None, folded=True)
+        return _const(t, None)
     x, y = _scalar(l), _scalar(r)
-    flush = l.folded or r.folded or op == OP_DIV
-    if op in (OP_DIV, OP_MOD):
-        if (flush_subnormal(y) if flush else y).item() == 0:
-            return _const(t, None, folded=True)
+    if op in (OP_DIV, OP_MOD) and y.item() == 0:
+        return _const(t, None)
     if t in (AttrType.FLOAT, AttrType.DOUBLE):
-        v = float_math(op, x, y, flush=flush)
+        v = float_math(op, x, y, flush=False)
     else:
         v = int_math(op, x, y)
-    return _const(t, v.item(), folded=True)
+    return _const(t, v.item())
 
 
-def _same(code: tuple, op: int, t: AttrType) -> CompiledExpr:
-    return CompiledExpr(t, code + ((op, VT[t], 0),))
+def _same(code: tuple, op: int, t: AttrType, arg: int = 0) -> CompiledExpr:
+    return CompiledExpr(t, code + ((op, VT[t], arg),))
 
 
 def _compile_math(e: A.MathOp, comp) -> CompiledExpr:
@@ -379,21 +391,25 @@ def _compile_math(e: A.MathOp, comp) -> CompiledExpr:
     if (l.is_const and l.const_value is None) or \
             (r.is_const and r.const_value is None):
         return _const(t, None)   # a null operand: null for every row
-    if op in (OP_DIV, OP_MOD) and r.is_const:
-        rv = r.const_value
-        if (flush_subnormal(_scalar(r)).item() if r.folded else rv) == 0:
-            return _const(t, None)   # by zero: null for every row
+    if op in (OP_DIV, OP_MOD) and r.is_const and r.const_value == 0:
+        # the zero test of a constant divisor runs at compile time,
+        # unflushed: by zero, null for every row
+        return _const(t, None)
     if t in (AttrType.FLOAT, AttrType.DOUBLE):
         # the reference compiler's algebraic rewrites: A / c -> A * (1/c),
         # A * 1 -> A, A * -1 -> -A, A + 0 -> A, A - 0 -> A (unflushed)
         if op == OP_DIV and r.is_const:
             one = torch.ones((), dtype=torch_dtype(t))
-            r = _const(t, torch.div(one, _scalar(r)).item(), r.folded)
+            r = _const(t, torch.div(one, _scalar(r)).item())
             op = OP_MUL
         if op == OP_MOD and r.is_const:
             mant, exp = math.frexp(abs(float(r.const_value)))
             if mant == 0.5 and exp >= 1:   # |c| = 2^k, k >= 0
-                return CompiledExpr(t, l.code + r.code + ((op, VT[t], 1),))
+                return _same(l.code + r.code, OP_MOD, t, MOD_POW2)
+            # a non-zero constant divisor: no null at run time, and a
+            # subnormal one reads as zero there (fmod's own zero test
+            # runs flushed), which gives NaN for every row
+            return _same(l.code + r.code, OP_MOD, t, MOD_CONST)
         for a, c in ((l, r), (r, l)):
             if not c.is_const or (c is l and op == OP_SUB):
                 continue
@@ -429,12 +445,9 @@ def _compile_compare(e: A.Compare, comp) -> CompiledExpr:
             "ordering comparison on STRING is not supported on device")
     if l.is_const and r.is_const:
         if l.const_value is None or r.const_value is None:
-            return _const(AttrType.BOOL, False, folded=True)
+            return _const(AttrType.BOOL, False)
         x, y = _scalar(l), _scalar(r)
-        if l.folded or r.folded:
-            x, y = flush_subnormal(x), flush_subnormal(y)
-        return _const(AttrType.BOOL, bool(_CMP_FN[CMP_OPS[op]](x, y)),
-                      folded=True)
+        return _const(AttrType.BOOL, bool(_CMP_FN[CMP_OPS[op]](x, y)))
     return CompiledExpr(AttrType.BOOL, l.code + r.code
                         + ((CMP_OPS[op], VT[l.type], 0),))
 
@@ -454,8 +467,10 @@ class ExprProgram:
 
     ``code`` holds one int32 word per instruction (op | type << 8 |
     arg << 16), ``consts`` the constant pool (raw 64-bit slots),
-    ``inputs`` the batch columns the program reads (LOAD arg i reads
-    batch column inputs[i]), ``out_types`` the projected columns.
+    ``inputs`` what the program loads (LOAD arg i reads inputs[i]: an
+    int is a batch column, a tuple a pattern slot key), ``out_types``
+    the projected columns. ``spans`` marks where each condition built
+    with ``ProgramBuilder.condition`` starts and ends in ``code``.
     ``timer_pass``: TIMER rows pass the filters; ``gate_bits``: bit k
     set means rows of kind k pass the selector's current/expired gate."""
     code: tuple
@@ -466,6 +481,7 @@ class ExprProgram:
     timer_pass: bool
     gate_bits: int
     depth: int
+    spans: tuple = ()
 
     def __post_init__(self):
         lim = _kernels
@@ -504,6 +520,7 @@ class ProgramBuilder:
         self.timer_pass = False
         self.gate_bits = ALL_KINDS
         self.depth = 0
+        self.spans: list = []
 
     def _emit(self, op: int, vt: int, arg: int) -> None:
         self.code.append(op | (vt << 8) | (arg << 16))
@@ -539,11 +556,19 @@ class ProgramBuilder:
         self._emit(OP_OUT, VT[ce.type], len(self.out_types))
         self.out_types.append(ce.type)
 
+    def condition(self, ce: CompiledExpr) -> int:
+        """A condition program of its own (it ends in OP_KEEP), sharing
+        this builder's constants and loads. -> its index in ``spans``."""
+        start = len(self.code)
+        self.keep(ce)
+        self.spans.append((start, len(self.code)))
+        return len(self.spans) - 1
+
     def build(self) -> ExprProgram:
         return ExprProgram(tuple(self.code), tuple(self.consts),
                            tuple(self.const_types), tuple(self.inputs),
                            tuple(self.out_types), self.timer_pass,
-                           self.gate_bits, self.depth)
+                           self.gate_bits, self.depth, tuple(self.spans))
 
 
 # ---------------------------------------------------------------------------
@@ -555,25 +580,24 @@ def _decode(word: int):
     return word & 0xFF, (word >> 8) & 0xFF, word >> 16
 
 
-def expr_eval_ref(prog: ExprProgram, batch, emitted=None):
-    """Plain PyTorch version of kernel K2: (out cols, out nulls, valid).
-
-    Evaluates the program over whole columns with tensor ops; every
-    operand is cast to the program's promote() dtype explicitly, so
-    torch's own scalar promotion never applies. ``emitted`` (an int64
-    0-d tensor) is increased by the number of rows kept."""
-    dev = batch.ts.device
-    B = batch.capacity
+def run_program(prog: ExprProgram, load, shape: tuple, dev, span=None):
+    """Evaluate ``prog`` (or its condition ``span``, a (start, end) pair
+    of ``prog.spans``) with plain tensor ops, the way kernels K2 and K3
+    run it. ``load(key)`` -> (values, nulls) of ``prog.inputs[arg]``,
+    any shape that broadcasts to ``shape``. Every operand is cast to the
+    program's promote() dtype explicitly, so torch's own scalar
+    promotion never applies. -> (keep mask [shape], {output index:
+    (values, nulls) [shape]})."""
     false = torch.zeros((), dtype=torch.bool, device=dev)
     stack: list = []
-    keep = torch.ones((B,), dtype=torch.bool, device=dev)
+    keep = torch.ones(shape, dtype=torch.bool, device=dev)
     outs: dict = {}
-    for word in prog.code:
+    code = prog.code if span is None else prog.code[span[0]:span[1]]
+    for word in code:
         op, vt, arg = _decode(word)
         t = VT_TYPE.get(vt)
         if op == OP_LOAD:
-            i = prog.inputs[arg]
-            stack.append((batch.cols[i], batch.nulls[i]))
+            stack.append(load(prog.inputs[arg]))
         elif op == OP_CONST:
             v = bits_value(prog.consts[arg], VT_TYPE[prog.const_types[arg]])
             stack.append((torch.tensor(v, dtype=torch_dtype(t), device=dev),
@@ -593,12 +617,18 @@ def expr_eval_ref(prog: ExprProgram, batch, emitted=None):
         elif op in (OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MOD):
             (rv, rn), (lv, ln) = stack.pop(), stack.pop()
             nulls = ln | rn
+            zero = None
             if op in (OP_DIV, OP_MOD):
                 zero = flush_subnormal(rv) == 0
-                nulls = nulls | zero
+                if arg != MOD_CONST:
+                    nulls = nulls | zero
                 rv = torch.where(zero, torch.ones_like(rv), rv)
             if t in (AttrType.FLOAT, AttrType.DOUBLE):
-                v = float_math(op, lv, rv, pow2=arg == 1)
+                v = float_math(op, lv, rv, pow2=arg == MOD_POW2)
+                if arg == MOD_CONST:   # fmod by a (flushed) zero: NaN
+                    nan = nan_rule(torch.full_like(lv, float("nan")), lv,
+                                   torch.zeros_like(lv))
+                    v = torch.where(zero, nan, v)
             else:
                 v = int_math(op, lv, rv)
             stack.append((torch.where(nulls, torch.zeros_like(v), v), nulls))
@@ -621,8 +651,18 @@ def expr_eval_ref(prog: ExprProgram, batch, emitted=None):
             keep = keep & v & ~n
         else:  # OP_OUT
             v, n = stack.pop()
-            outs[arg] = (v.to(torch_dtype(t)).expand(B).contiguous(),
-                         n.expand(B).contiguous())
+            outs[arg] = (v.to(torch_dtype(t)).expand(shape).contiguous(),
+                         n.expand(shape).contiguous())
+    return keep, outs
+
+
+def expr_eval_ref(prog: ExprProgram, batch, emitted=None):
+    """Plain PyTorch version of kernel K2: (out cols, out nulls, valid),
+    evaluated over whole columns (run_program). ``emitted`` (an int64
+    0-d tensor) is increased by the number of rows kept."""
+    keep, outs = run_program(
+        prog, lambda i: (batch.cols[i], batch.nulls[i]),
+        (batch.capacity,), batch.ts.device)
     kind = batch.kind
     if prog.timer_pass:
         keep = keep | (kind == TIMER_KIND)

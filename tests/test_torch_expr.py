@@ -273,3 +273,74 @@ def test_subnormals_flush_like_the_reference(text):
     cols, nulls, _v = texpr.expr_eval_ref(pb.build(), tb)
     assert_bit_equal(jv, cols[0], text)
     assert_bit_equal(jn, nulls[0], text)
+
+
+# constant subexpressions at any depth fold in plain IEEE (no flush),
+# as the reference's numpy and XLA constant folding compute them
+NESTED_CONST_CASES = [
+    "(1e-39f + 0.0f) * 1.0f", "(1e-39f + 0.0f) + 1e-39f",
+    "(1e-39f * 1.0f) * 1.0f", "(1e-39f + 1e-39f) * 2.0f",
+    "((1e-39f + 0.0f) + 0.0f) * 1.0f", "(1e-39f + 0.0f) - 1e-40f",
+    "(1e-39f + 0.0f) / 2.0f", "(1e-39f + 0.0f) * -1.0f",
+    "(2.0f * 1e-39f) % 1e-40f", "(1e-39f + 0.0f) > 0.0f",
+    "(1e-39f + 0.0f) == 0.0f", "(1e-39f + 0.0f) + 0.0",
+    "1e-39f / 1.0f", "1.0f / 3e38f", "1e-39f / 1e-39f",
+    "(5.0f + 0.0f) % (1e-40f + 0.0f)", "(1.0f / 1e-40f) is null",
+    "d + (1e-39f + 0.0f)", "d * ((1e-39f + 0.0f) + 0.0)",
+    "i / (1e-40f + 0.0f)", "f / (1e-40f + 0.0f)", "5.0 / (3.0 + 0.0)",
+]
+
+
+@pytest.mark.parametrize("text", NESTED_CONST_CASES)
+def test_nested_constants_fold_like_the_reference(text):
+    jv, jn = jax_eval(jparser.parse_expression(text))
+    tv, tn = port_eval(tparser.parse_expression(text))
+    assert_bit_equal(jv, tv, f"{text}: values")
+    assert_bit_equal(jn, tn, f"{text}: nulls")
+
+
+# a subnormal constant divisor passes the reference's zero test (run on
+# the constant, unflushed) and then reads as zero in the % that runs:
+# NaN for every row, never null
+SUBNORMAL_DIVISOR_CASES = ["f % 1e-40f", "f % -1e-40f", "d % 1e-310",
+                           "l % 1e-40f", "i % 1e-40f", "f % (1e-40f + 0.0f)",
+                           "d % (1e-310 + 0.0)", "f % (1e-40f * 1.0f)"]
+
+
+@pytest.mark.parametrize("text", SUBNORMAL_DIVISOR_CASES)
+def test_subnormal_constant_divisor_gives_nan(text):
+    jv, jn = jax_eval(jparser.parse_expression(text))
+    tv, tn = port_eval(tparser.parse_expression(text))
+    assert_bit_equal(jv, tv, f"{text}: values")
+    assert_bit_equal(jn, tn, f"{text}: nulls")
+    assert torch.isnan(tv[~tn]).all() and not tn.all()   # nulls: x's own
+
+
+QUEUE3_APP = """
+@app:playback
+define stream S (x float);
+@info(name = 'q')
+from S select x % 1e-40f as r, (1e-39f + 0.0f) * 1.0f as q
+insert into O;
+"""
+
+
+def test_queue3_example_app_matches_the_reference():
+    """The two repaired faults through both packages' SiddhiManager:
+    r is NaN (not null) and q keeps the subnormal 1e-39f."""
+    import siddhi_tpu as J
+    import siddhi_tpu_torch as T
+    got = {}
+    for pkg in (J, T):
+        kw = {"device": "cpu"} if pkg is T else {}
+        rt = pkg.SiddhiManager(**kw).create_siddhi_app_runtime(QUEUE3_APP)
+        rows = []
+        rt.add_callback("O", pkg.StreamCallback(rows.extend))
+        rt.start()
+        rt.get_input_handler("S").send([pkg.Event(1, (3.5,)),
+                                        pkg.Event(2, (1e-39,))])
+        got[pkg] = [e.data for e in rows]
+    for (jr, jq), (tr, tq) in zip(got[J], got[T]):
+        assert np.isnan(jr) and np.isnan(tr)
+        assert tq == jq == 1.0000002153053333e-39
+    assert len(got[T]) == len(got[J]) == 2

@@ -1,5 +1,5 @@
 """The port stands alone: siddhi_tpu_torch imports and runs the filter
-app with jax and siddhi_tpu blocked, neither the package nor
+app and a pattern app with jax and siddhi_tpu blocked, neither the package nor
 chip_smoke.py imports them, and the manager never falls back to the CPU
 on its own."""
 import ast
@@ -36,6 +36,16 @@ rt.start()
 ts, cols = filter_feed(4096, GLOBAL_STRINGS.encode)
 rt.get_input_handler("StockStream").send_arrays(ts, cols)
 assert len(rows) == int((cols[1] > np.float32(100.0)).sum()) > 0
+
+# a pattern app: seq5 over one send of 2,048 bench rows
+from siddhi_tpu_torch.checks import SEQ5_APP, Seq5Feed
+rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(SEQ5_APP)
+matches = []
+rt.add_callback("Out", StreamCallback(matches.extend))
+rt.start()
+rt.get_input_handler("T").send_arrays(*Seq5Feed(GLOBAL_STRINGS.encode)
+                                      .next(2048))
+assert len(matches) == 368, len(matches)   # the reference's count
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "siddhi_tpu")]
 assert not loaded, loaded
