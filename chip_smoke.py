@@ -7,7 +7,7 @@ Phases, each of which stops the run with a non-zero exit on failure:
 
 1. device: CUDA must be there; prints the device, the build and
    ``nvidia-smi``'s name and power limit;
-2. build the port's three CUDA kernels from csrc/ (one nvcc each, all at
+2. build the port's four CUDA kernels from csrc/ (one nvcc each, all at
    once) and hold kernel K1 (packed-ingest decode) against its plain
    PyTorch version on the card, bit for bit, for every lane code at
    capacities 16, 1024, 65536;
@@ -33,7 +33,24 @@ Phases, each of which stops the run with a non-zero exit on failure:
    every sub-batch, and K2 on that path; then events/s, per-chunk
    latency at 65,536 and 1,024 rows, and K3's time against its plain
    version and its byte bound;
-7. print the kernel table as one JSON line, the card's name and power
+7. hold kernel K4 (the scan NFA engine's stream and timer steps)
+   against its plain version on the card, bit for bit (the whole table,
+   the match batch, overflow and next_due after a stream step and after
+   a timer step at a due), each from a live table: absent_timeout at
+   2,048 events, the scan shapes of checks.SCAN_APPS (an every-scoped
+   absent, AND and OR groups, an OR of two absent lanes, a sequence
+   with stabilize kills, a self-referring counting state, a `within`
+   re-arm), a feed that overflows the 128-row table and one that
+   overflows the 256-row match batch;
+8. run absent_timeout (a request unanswered within 100 ms alerts)
+   through SiddhiManager, send_arrays and batch_callbacks: 1,048,576
+   events in 1,024 sends of 1,024 rows, checked against an independent
+   numpy oracle in count, order and values, with overflow 0 and no
+   step above 256 matches; the launch counters must show K1 on every
+   send, K4 on every send and every timer step the scheduler fired, K2
+   on every step; then events/s, per-send latency, K4's time against
+   its plain version and its byte bound, and a torch.profiler split;
+9. print the kernel table as one JSON line, the card's name and power
    limit, and the result line.
 
 Imports neither JAX nor the reference package.
@@ -248,14 +265,14 @@ def seq5_oracle(ts, sym, stage, within_ms=60_000):
     return e1[order], e5[order]
 
 
-def profile_sends(h, feed, rows: int, sends: int):
-    """Device time per kernel over `sends` sends of `rows` rows, under
-    torch.profiler. -> ({kernel: ms per send}, busy share of the wall
-    time), or ("not measured", nan) when the profiler sees no device
-    time."""
+def profile_sends(h, data):
+    """Device time per kernel over the sends of `data` (a list of (ts,
+    cols)), under torch.profiler. -> ({kernel: ms per send}, busy share
+    of the wall time), or ("not measured", nan) when the profiler sees no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    data = [feed.next(rows) for _ in range(sends)]
+    sends = len(data)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -369,7 +386,7 @@ def seq5_phase(dev, card: str, k3_err: float) -> dict:
     print(f"seq5 latency per chunk: {SEND} rows p50 {p50:.3f} ms, p99 "
           f"{p99:.3f} ms; 1,024 rows p50 {p50k:.3f} ms, p99 {p99k:.3f} ms "
           f"({card})", flush=True)
-    breakdown, busy = profile_sends(h, feed, SEND, 4)
+    breakdown, busy = profile_sends(h, [feed.next(SEND) for _ in range(4)])
     print(f"seq5, where a {SEND}-row send's device time goes (torch."
           f"profiler, 4 sends, ms per send): {breakdown}; the card is busy "
           f"{busy:.3f} of the profiled wall time ({card})", flush=True)
@@ -454,6 +471,302 @@ def seq5_phase(dev, card: str, k3_err: float) -> dict:
             "replaces": "siddhi_tpu/ops/nfa_parallel.py:626",
             "launches": launches["nfa_parallel"], "max_abs_err": k3_err,
             "ms": k3_chunk, "plain_ms": plain_chunk, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None}
+
+def k4_against_plain(dev) -> float:
+    """Phase 7: kernel K4 against its plain version on the card, from the
+    same live table: one stream step, then a timer step at the table's
+    next due; the whole table (overflow included), the match batch and
+    next_due must be bit-equal. -> max abs error (0)."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch.checks import (SCAN_APPS, TABLE_OVERFLOW_APP,
+                                         TIMEOUT_APP, three_stream_feed,
+                                         timeout_burst_feed, timeout_feed)
+    from siddhi_tpu_torch.core.event import batch_from_columns
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    from siddhi_tpu_torch.ops.nfa import POS_INF, scan_step, timer_step
+    mgr = SiddhiManager()
+    err = 0.0
+
+    def match_leaves(m):
+        return [m.ts, *m.cols, *m.nulls, m.kind, m.valid]
+
+    def step(what, q, stream, ts, cols):
+        """One step of q's engine over these events, then a timer step at
+        the next due: kernel and plain version from clones of q's table;
+        q keeps the kernel's table."""
+        nonlocal err
+        eng = q.engine
+        cap = 1 << max(4, int(len(ts) - 1).bit_length())
+        batch = batch_from_columns(q.app.schemas[stream], ts, cols,
+                                   capacity=cap, device=dev)
+        saved = dict(_kernels.LAUNCHES)
+        due_k = torch.zeros((), dtype=torch.int64, device=dev)
+        tk, mk = scan_step(eng, stream, tree_clone(q.nfa_state), batch, due_k)
+        _kernels.LAUNCHES.update(saved)   # not a launch of a main path
+        tr, mr = eng.stream_step_ref(stream, tree_clone(q.nfa_state), batch)
+        err = max(err, compare(f"K4 {what}: table", tree_leaves(tk),
+                               tree_leaves(tr)))
+        err = max(err, compare(f"K4 {what}: match batch", match_leaves(mk),
+                               match_leaves(mr)))
+        err = max(err, compare(f"K4 {what}: next_due", [due_k],
+                               [eng.next_due(tr)]))
+        due = int(due_k)
+        fired = "no deadline armed"
+        if due < int(POS_INF):
+            t_due = torch.zeros((), dtype=torch.int64, device=dev)
+            saved = dict(_kernels.LAUNCHES)
+            tk, tm = timer_step(eng, tk, due, t_due)
+            _kernels.LAUNCHES.update(saved)
+            tr, rm = eng.timer_step_ref(tr, due)
+            err = max(err, compare(f"K4 {what}: timer table",
+                                   tree_leaves(tk), tree_leaves(tr)))
+            err = max(err, compare(f"K4 {what}: timer match batch",
+                                   match_leaves(tm), match_leaves(rm)))
+            err = max(err, compare(f"K4 {what}: timer next_due", [t_due],
+                                   [eng.next_due(tr)]))
+            fired = f"timer at the due fired {int(tm.valid.sum())}"
+        q.nfa_state = tk
+        print(f"K4 {what}: bit-equal to its plain version ({len(ts)} events, "
+              f"{int(mk.valid.sum())} matches; {fired}; "
+              f"{int(tk['valid'].sum())} rows live, overflow "
+              f"{int(tk['overflow'])})", flush=True)
+        return tk, mk
+
+    def app(text):
+        rt = mgr.create_siddhi_app_runtime(text)
+        rt.start()
+        return rt, rt.queries["q"]
+
+    # absent_timeout at 2,048 events, from the table two sends left
+    rt, q = app(TIMEOUT_APP)
+    ts, cols = timeout_feed(4096, seed=5)
+    h = rt.get_input_handler("Ev")
+    for s in range(0, 2048, 1024):
+        h.send_arrays(ts[s:s + 1024], [c[s:s + 1024] for c in cols])
+    if int(q.nfa_state["valid"].sum()) == 0:
+        fail("K4 absent_timeout: no live rows before the compared step")
+    step("absent_timeout, 2,048 events from a live table", q, "Ev",
+         ts[2048:], [c[2048:] for c in cols])
+    rt.shutdown()
+
+    # the scan shapes, over three streams: 240 events through the app,
+    # then steps of one stream each from its live table
+    for name in sorted(SCAN_APPS):
+        rt, q = app(SCAN_APPS[name])
+        stream, ts, cols = three_stream_feed(480, GLOBAL_STRINGS.encode,
+                                             seed=9, gap_ms=4)
+        k = 0
+        while k < 240:
+            e = k
+            while e < 240 and stream[e] == stream[k]:
+                e += 1
+            rt.get_input_handler(stream[k]).send_arrays(
+                ts[k:e], [c[k:e] for c in cols])
+            k = e
+        for part, blk in enumerate(np.array_split(np.arange(240, 480), 6)):
+            sid = ("S1", "S2", "S3")[part % 3]
+            sel = blk[stream[blk] == sid]
+            if len(sel):
+                step(f"{name}, {sid}", q, sid, ts[sel],
+                     [c[sel] for c in cols])
+        rt.shutdown()
+
+    # more live requests than the 128-row table holds
+    rt, q = app(TABLE_OVERFLOW_APP)
+    tk, _ = step("table overflow", q, "Ev",
+                 *timeout_feed(1024, seed=6, p_answer=0.5))
+    if int(tk["overflow"]) == 0:
+        fail("K4 table-overflow feed did not overflow the table")
+    rt.shutdown()
+
+    # more deadlines fired in one step than the 256-row match batch holds
+    rt, q = app(TIMEOUT_APP)
+    tk, mk = step("match-batch overflow", q, "Ev", *timeout_burst_feed())
+    if int(tk["overflow"]) == 0 or int(mk.valid.sum()) != q.engine.OUT:
+        fail("K4 match-batch overflow feed lost no match")
+    rt.shutdown()
+    return err
+
+
+def timeout_phase(dev, card: str, k4_err: float) -> dict:
+    """Phase 8: absent_timeout end to end on the card, checked against the
+    numpy oracle, with the launch counters; then its timings. -> K4's
+    entry of the kernel table."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch.checks import (TIMEOUT_APP, timeout_feed,
+                                         timeout_oracle)
+    from siddhi_tpu_torch.core.event import batch_from_columns
+    from siddhi_tpu_torch.ops.nfa import kernel_out, scan_args
+    N, SEND = 1 << 20, 1024
+    mgr = SiddhiManager(device="cuda")
+    # warm the allocator and the kernels on another instance of the app
+    warm = mgr.create_siddhi_app_runtime(TIMEOUT_APP.replace("'q'", "'w'"))
+    warm.start()
+    wts, wcols = timeout_feed(4 * SEND, seed=3)
+    for s in range(0, 4 * SEND, SEND):
+        warm.get_input_handler("Ev").send_arrays(
+            wts[s:s + SEND], [c[s:s + SEND] for c in wcols])
+    torch.cuda.synchronize()
+    warm.shutdown()
+
+    rt = mgr.create_siddhi_app_runtime(TIMEOUT_APP)
+    q = rt.queries["q"]
+    if rt.device.type != "cuda":
+        fail(f"the absent_timeout runtime is on {rt.device}, not the card")
+    outs = []
+    q.batch_callbacks.append(outs.append)
+    rt.start()
+    h = rt.get_input_handler("Ev")
+    # the run's feed, then 80 more sends for latency, profile and timing
+    ts_all, cols_all = timeout_feed(N + 80 * SEND, seed=5)
+
+    def chunk(k):
+        s = k * SEND
+        return ts_all[s:s + SEND], [c[s:s + SEND] for c in cols_all]
+
+    sends = [chunk(k) for k in range(N // SEND)]
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    for ts, cols in sends:
+        h.send_arrays(ts, cols)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    steps = len(outs)
+    timers = steps - N // SEND
+    want = {"unpack_packed": N // SEND, "nfa_scan": steps,
+            "expr_eval": steps}
+    for k, n in want.items():
+        if launches[k] != n:
+            fail(f"absent_timeout path: kernel {k} launched {launches[k]} "
+                 f"times, expected {n} (K1 one per send; K4 and K2 one "
+                 "per stream or timer step)")
+    if timers <= 0:
+        fail("absent_timeout path: the scheduler fired no timer step")
+
+    rid, svc, due, live = timeout_oracle(ts_all[:N],
+                                         *(c[:N] for c in cols_all))
+    got = [torch.cat([o.cols[i][o.valid] for o in outs]).cpu().numpy()
+           for i in range(2)]
+    got_ts = torch.cat([o.ts[o.valid] for o in outs]).cpu().numpy()
+    per_step = max(int(o.valid.sum()) for o in outs)
+    stats = q.stats()
+    if stats["overflow"] != 0 or per_step > q.engine.OUT:
+        fail(f"absent_timeout: overflow {stats['overflow']}, largest step "
+             f"{per_step} matches; the oracle assumes no loss")
+    if len(got[0]) != len(rid) or stats["emitted"] != len(rid):
+        fail(f"absent_timeout: {len(got[0])} alerts ({stats['emitted']} "
+             f"counted), the oracle {len(rid)}")
+    if not (np.array_equal(got[0], rid) and np.array_equal(got[1], svc)
+            and np.array_equal(got_ts, due)):
+        fail("absent_timeout: alerts differ from the numpy oracle")
+    n_live = int(q.nfa_state["valid"].sum())
+    if n_live != live:
+        fail(f"absent_timeout: {n_live} rows live, the oracle {live}")
+    eps = N / wall
+    print(f"absent_timeout: {N} events in {N // SEND} sends of {SEND}; "
+          f"{len(rid)} alerts equal the numpy oracle in count, order and "
+          f"values; {live} requests still waiting, as the table's live "
+          f"rows; overflow 0, at most {per_step} matches a step; {timers} "
+          f"timer steps; {eps:.0f} events/s, device batches only ({card})",
+          flush=True)
+    print(f"launches on the absent_timeout path: {launches}", flush=True)
+
+    # per-send latency, send -> alerts visible
+    k_next = N // SEND
+    h.send_arrays(*chunk(k_next))
+    torch.cuda.synchronize()
+    lat = []
+    for k in range(k_next + 1, k_next + 65):
+        c0 = time.perf_counter()
+        h.send_arrays(*chunk(k))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - c0) * 1e3)
+    p50, p99 = np.percentile(lat, 50), np.percentile(lat, 99)
+    print(f"absent_timeout latency per {SEND}-row send: p50 {p50:.3f} ms, "
+          f"p99 {p99:.3f} ms ({card})", flush=True)
+    k_next += 65
+    breakdown, busy = profile_sends(h, [chunk(k) for k in
+                                        range(k_next, k_next + 4)])
+    k_next += 4
+    print(f"absent_timeout, where a {SEND}-row send's device time goes "
+          f"(torch.profiler, 4 sends, ms per send): {breakdown}; the card is "
+          f"busy {busy:.3f} of the profiled wall time ({card})", flush=True)
+
+    # K4's device time over one chunk, the launch alone, each repetition
+    # from the same live table
+    eng = q.engine
+    ts_c, cols_c = chunk(k_next)
+    batch = batch_from_columns(rt.schemas["Ev"], ts_c, cols_c,
+                               capacity=SEND, device=dev)
+    table = q.nfa_state
+    saved = tree_clone(table)
+    live_before = int(table["valid"].sum())
+    out = kernel_out(eng, dev)
+    due_t = torch.zeros((), dtype=torch.int64, device=dev)
+    args = scan_args(eng, "Ev", table, batch, 0, out, due_t, dev)
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total, reps = 0.0, 20
+    for r in range(reps + 2):
+        for dst, src in zip(tree_leaves(table), tree_leaves(saved)):
+            dst.copy_(src)
+        torch.cuda.synchronize()
+        start.record()
+        lib.nfa_scan(args, stream)
+        end.record()
+        torch.cuda.synchronize()
+        if r >= 2:
+            total += start.elapsed_time(end)
+    k4_chunk = total / reps
+    n_match = int(out["n"])
+    live_after = int(table["valid"].sum())
+    t_plain = []
+    for _ in range(2):
+        src = tree_clone(saved)
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        eng.stream_step_ref("Ev", src, batch)
+        torch.cuda.synchronize()
+        t_plain.append((time.perf_counter() - c0) * 1e3)
+    plain_chunk = min(t_plain)
+    for dst, src in zip(tree_leaves(table), tree_leaves(saved)):
+        dst.copy_(src)
+
+    # the byte bound: the chunk's events read once, the live rows read
+    # and written once, the matches written once
+    ev_bytes = sum(x.element_size() for x in
+                   (batch.ts, batch.kind, batch.valid, *batch.cols,
+                    *batch.nulls)) * SEND
+    row_bytes = sum(x[0].numel() * x.element_size()
+                    for x in tree_leaves(table) if x.dim() >= 1)
+    match_bytes = sum(c.element_size() + 1 for c in out["cols"]) + 8
+    nbytes = ev_bytes + (live_before + live_after) * row_bytes + \
+        n_match * match_bytes
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"nfa_scan (K4): {k4_chunk:.5f} ms per {SEND}-row chunk, "
+          f"{k4_chunk / SEND * 1e3:.4f} us per event; plain version "
+          f"{plain_chunk:.1f} ms per chunk; bound {bound:.6f} ms ({nbytes} "
+          f"bytes at 3.35 TB/s: {ev_bytes} event bytes, {live_before}+"
+          f"{live_after} live rows of {row_bytes} B, {n_match} matches of "
+          f"{match_bytes} B); {card}", flush=True)
+    rt.shutdown()
+    print(json.dumps({"absent_timeout": {
+        "events_per_s_device_batches": eps, "p50_ms_1024": p50,
+        "p99_ms_1024": p99, "k4_ms_per_chunk": k4_chunk,
+        "k4_us_per_event": k4_chunk / SEND * 1e3,
+        "k4_plain_ms_per_chunk": plain_chunk, "k4_bound_ms": bound,
+        "alerts": len(rid), "timer_steps": timers, "launches": launches,
+        "device_ms_per_send": breakdown, "busy_share": busy,
+        "card": card}}), flush=True)
+    return {"name": "nfa_scan", "route": "cuda",
+            "source": "siddhi_tpu_torch/csrc/nfa_scan.cu",
+            "replaces": "siddhi_tpu/ops/nfa.py:638",
+            "launches": launches["nfa_scan"], "max_abs_err": k4_err,
+            "ms": k4_chunk, "plain_ms": plain_chunk, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": None}
 
 
@@ -732,7 +1045,11 @@ def main() -> None:
     k3_err = k3_against_plain(dev)
     table.append(seq5_phase(dev, card, k3_err))
 
-    # -- 7. result ---------------------------------------------------------------
+    # -- 7. and 8. kernel K4 and absent_timeout -----------------------------------
+    k4_err = k4_against_plain(dev)
+    table.append(timeout_phase(dev, card, k4_err))
+
+    # -- 9. result ---------------------------------------------------------------
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 SOURCES = {"unpack_packed": "unpack_packed.cu", "expr_eval": "expr_eval.cu",
-           "nfa_parallel": "nfa_parallel.cu"}
+           "nfa_parallel": "nfa_parallel.cu", "nfa_scan": "nfa_scan.cu"}
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 LAUNCHES = {name: 0 for name in SOURCES}
@@ -139,6 +139,97 @@ class NfaParams(ctypes.Structure):
         ("min0_mask", ctypes.c_uint32)]
 
 
+SCAN_MAX_ROWS = 256
+SCAN_MAX_STATES = 16
+SCAN_MAX_CONSUMING = 8
+SCAN_MAX_ABSENT = 8
+SCAN_MAX_PERSONAS = 4
+SCAN_MAX_STARTS = 2
+SCAN_MAX_GROUPS = 4
+
+_I64 = ctypes.c_int64
+_PERSONAS = [("n_personas", _I32),
+             ("persona_idx", _I32 * SCAN_MAX_PERSONAS),
+             ("persona_slot", _I32 * SCAN_MAX_PERSONAS),
+             ("persona_min", _I32 * SCAN_MAX_PERSONAS)]
+
+
+class ScanStateDesc(ctypes.Structure):
+    _fields_ = [("waiting_ms", _I64), ("nxt_waiting_ms", _I64)] + [
+        (f, _I32) for f in (
+            "idx", "slot", "cap", "anchor", "anchor_next", "next_idx",
+            "prog_start", "prog_len", "logical", "has_partner", "grp_final",
+            "is_absent", "dl_field", "viol_latch", "viol_push",
+            "is_counting", "min_count", "max_count", "nxt_dl_field",
+            "p_slot", "p_is_absent", "p_waits", "p_dl_field",
+            "p_viol_latch", "arm", "clear")] + _PERSONAS
+
+
+class ScanAbsentDesc(ctypes.Structure):
+    _fields_ = [("w_next", _I64), ("w2_next", _I64)] + [
+        (f, _I32) for f in (
+            "anchor", "anchor_next", "next_anchor", "dl_field",
+            "has_partner", "logical", "p_is_absent", "p_slot", "arm",
+            "clear")] + _PERSONAS
+
+
+class ScanGroupDesc(ctypes.Structure):
+    _fields_ = [(f, _I32) for f in ("anchor", "slot_l", "slot_r", "lane")]
+
+
+class ScanStartDesc(ctypes.Structure):
+    _fields_ = [(f, _I32) for f in (
+        "idx", "slot", "next_idx", "nxt_anchor", "prog_start", "prog_len",
+        "suppress", "is_counting", "min_count")]
+
+
+class ScanPlan(ctypes.Structure):
+    _fields_ = [
+        ("within_ms", _I64),
+        ("wait_of", _I64 * (SCAN_MAX_STATES + 1)),
+        ("wait2_of", _I64 * (SCAN_MAX_STATES + 1)),
+        ("arm_of", _I32 * (SCAN_MAX_STATES + 1)),
+        ("clear_of", _I32 * (SCAN_MAX_STATES + 1)),
+        ("cons", ScanStateDesc * SCAN_MAX_CONSUMING),
+        ("absent", ScanAbsentDesc * SCAN_MAX_ABSENT),
+        ("groups", ScanGroupDesc * SCAN_MAX_GROUPS),
+        ("starts", ScanStartDesc * SCAN_MAX_STARTS),
+        ("rearm_anchor", _I32 * SCAN_MAX_STATES),
+        ("slot_cap", _I32 * NFA_MAX_SLOTS),
+        ("slot_col0", _I32 * NFA_MAX_SLOTS),
+        ("slot_ncols", _I32 * NFA_MAX_SLOTS),
+        ("slot_ci0", _I32 * NFA_MAX_SLOTS),
+        ("col_type", _I32 * NFA_MAX_SLOT_COLS)] + [
+        (f, _I32) for f in (
+            "n_slots", "n_states", "n_cons", "n_absent", "n_groups",
+            "n_starts", "n_rearm", "M", "OUT", "n_match_cols", "seqmode",
+            "has_absent", "any_every", "absent_rearms", "has_dl2",
+            "or_double_absent")] + [("counting_mask", ctypes.c_uint32)]
+
+
+class ScanArgs(ctypes.Structure):
+    _fields_ = [(f, _P) for f in (
+        "plan", "state", "valid", "ts0", "has_ts0", "born", "min_at",
+        "deadline", "deadline2", "seq", "next_seq", "counter",
+        "overflow")] + [
+        ("tab_cols", _P * NFA_MAX_SLOT_COLS),
+        ("tab_nulls", _P * NFA_MAX_SLOT_COLS),
+        ("tab_ts", _P * NFA_MAX_SLOTS), ("tab_n", _P * NFA_MAX_SLOTS),
+        ("stg_cols", _P * NFA_MAX_SLOT_COLS),
+        ("stg_nulls", _P * NFA_MAX_SLOT_COLS),
+        ("stg_ts", _P * NFA_MAX_SLOTS),
+        ("ev_ts", _P), ("ev_kind", _P), ("ev_valid", _P),
+        ("ev_cols", _P * NFA_MAX_EV_COLS),
+        ("ev_nulls", _P * NFA_MAX_EV_COLS),
+        ("now", _I64), ("n_events", _I32), ("rows", _I32),
+        ("out_cols", _P * NFA_MAX_MATCH_COLS),
+        ("out_nulls", _P * NFA_MAX_MATCH_COLS),
+        ("out_type", _I32 * NFA_MAX_MATCH_COLS)] + [
+        (f, _P) for f in ("out_ts", "out_n", "out_valid", "out_kind", "due",
+                          "code", "consts", "loads")] + [
+        (f, _I32) for f in ("n_code", "n_consts", "n_loads")]
+
+
 # -- build -------------------------------------------------------------------
 
 def _nvcc() -> str:
@@ -208,6 +299,10 @@ class _Kernels:
         self.nfa_lib.siddhi_nfa_parallel_step.argtypes = [
             ctypes.POINTER(NfaParams), ctypes.c_void_p]
         self.nfa_lib.siddhi_nfa_parallel_step.restype = ctypes.c_int
+        self.scan_lib = ctypes.CDLL(str(libs["nfa_scan"]))
+        self.scan_lib.siddhi_nfa_scan.argtypes = [
+            ctypes.POINTER(ScanArgs), ctypes.c_void_p]
+        self.scan_lib.siddhi_nfa_scan.restype = ctypes.c_int
 
     @staticmethod
     def _check(name: str, err: int) -> None:
@@ -225,6 +320,10 @@ class _Kernels:
     def nfa_parallel_step(self, params: NfaParams, stream: int) -> None:
         self._check("nfa_parallel", self.nfa_lib.siddhi_nfa_parallel_step(
             ctypes.byref(params), stream))
+
+    def nfa_scan(self, args: ScanArgs, stream: int) -> None:
+        self._check("nfa_scan", self.scan_lib.siddhi_nfa_scan(
+            ctypes.byref(args), stream))
 
 
 _LOADED = None

@@ -32,7 +32,10 @@ def _tree(tree, device):
 def state_from_jax(snapshot: dict, device) -> dict:
     """A reference QueryRuntime snapshot -> the port's query state. A
     PatternQueryRuntime's snapshot also carries its NFA pending table
-    (``"nfa"``: the same pytree, tuples of slot buffers included)."""
+    (``"nfa"``: the same pytree, tuples of slot buffers included), for
+    either engine: every field the scan engine writes (both deadline
+    lanes, born, min_at, seq, the counters, the slots' ts and fill
+    counts) comes across as it is."""
     state = {"states": _tree(snapshot["states"], device),
              "emitted": torch.tensor(int(np.asarray(snapshot["emitted"])),
                                      dtype=torch.int64, device=device)}

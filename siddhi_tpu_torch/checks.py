@@ -351,3 +351,172 @@ SINGLE_COUNT_APP = _TWO_STREAMS + """
     select e1[0].price as p0, e1[1].price as p1, e1[2].price as p2
     insert into Out;
 """
+
+
+# -- kernel K4: the scan engine's apps and feeds ------------------------------
+
+# a request/response timeout alert, the canonical absent pattern: a
+# request not answered within 100 ms raises an alert at its deadline
+TIMEOUT_APP = """
+    @app:playback
+    define stream Ev (rid long, kind int, svc int);
+    @info(name = 'q')
+    from every e1=Ev[kind == 0] -> not Ev[kind == 1 and rid == e1.rid]
+         for 100 milliseconds
+    select e1.rid as rid, e1.svc as svc
+    insert into Timeouts;
+"""
+
+TIMEOUT_MS = 100
+
+
+def timeout_feed(n: int, seed: int = 5, p_answer: float = 0.95):
+    """TIMEOUT_APP's feed: request i (kind 0, rid i, svc ~ U[0, 16)) sits
+    at slot 2i; with probability ``p_answer`` its response (kind 1, same
+    rid) sits at slot 2i + U[1, 130] + 0.5. The events are merged by slot and
+    the first n kept; event k has ts TS0 + k (1 ms apart).
+    -> (ts, [rid int64, kind int32, svc int32])."""
+    rng = np.random.default_rng(seed)
+    svc = rng.integers(0, 16, n).astype(np.int32)
+    answered = rng.random(n) < p_answer
+    delay = rng.integers(1, 131, n)
+    rid = np.arange(n, dtype=np.int64)
+    slot = np.concatenate([2.0 * rid, 2.0 * rid[answered]
+                           + delay[answered] + 0.5])
+    order = np.argsort(slot, kind="stable")[:n]
+    rids = np.concatenate([rid, rid[answered]])[order]
+    kind = np.concatenate([np.zeros(n, np.int32),
+                           np.ones(int(answered.sum()), np.int32)])[order]
+    ts = TS0 + np.arange(n, dtype=np.int64)
+    return ts, [rids, kind, svc[rids]]
+
+
+def timeout_oracle(ts, rid, kind, svc, wait_ms: int = TIMEOUT_MS):
+    """TIMEOUT_APP's alerts, independently of the engine, for a feed sent
+    through send_arrays: request e alerts at t + wait iff no response
+    with its rid arrives at or before t + wait, and that deadline lies
+    before the last event's ts (a deadline at or after it has not fired
+    yet). Alerts come in request order. -> (alert rids, svcs, ts, number
+    of requests still waiting at the end)."""
+    req = kind == 0
+    resp_ts = np.full(int(rid.max()) + 1 if len(rid) else 0,
+                      np.iinfo(np.int64).max, np.int64)
+    r = ~req
+    np.minimum.at(resp_ts, rid[r], ts[r])
+    t_req, r_req = ts[req], rid[req]
+    due = t_req + wait_ms
+    unanswered = resp_ts[r_req] > due
+    last = ts[-1]
+    fired = unanswered & (due < last)
+    live = (due >= last) & (resp_ts[r_req] > last)
+    return r_req[fired], svc[req][fired], due[fired], int(live.sum())
+
+
+def timeout_burst_feed(bursts: int = 3, size: int = 128, gap_ms: int = 150):
+    """TIMEOUT_APP events that fire more deadlines in one step than the
+    256-row match batch holds: ``bursts`` runs of ``size`` unanswered
+    requests, 1 ms apart, each followed ``gap_ms`` later by a response
+    to no request (rid -1), which fires the run's deadlines at once.
+    -> (ts, [rid, kind, svc])."""
+    ts, rid, kind = [], [], []
+    t = TS0
+    for b in range(bursts):
+        for i in range(size):
+            ts.append(t)
+            rid.append(b * size + i)
+            kind.append(0)
+            t += 1
+        t += gap_ms
+        ts.append(t)
+        rid.append(-1)
+        kind.append(1)
+        t += 1
+    n = len(ts)
+    return (np.array(ts, np.int64), [np.array(rid, np.int64),
+                                     np.array(kind, np.int32),
+                                     (np.arange(n) % 16).astype(np.int32)])
+
+
+_THREE_STREAMS = _TWO_STREAMS + """
+    define stream S3 (symbol string, price float, volume int);
+"""
+
+# the scan engine's shapes beside TIMEOUT_APP, on three streams: an
+# every-scoped absent start that re-arms on its deadline; an AND group
+# with an absent partner; an OR group; an OR of two absent lanes in mid
+# chain (both deadline lanes, forwarded clones); a sequence whose
+# every-scoped start re-arms each round, with an AND group (stabilize
+# kills); a counting state whose condition reads its own slot; and a
+# `within` expiry that re-arms its every scope
+SCAN_APPS = {
+    "every absent": _THREE_STREAMS + """
+    @info(name = 'q')
+    from every not S1[price > 50] for 30 milliseconds -> e2=S2[price > 40]
+    select e2.symbol as s, e2.price as p
+    insert into Out;
+""",
+    "and, absent partner": _THREE_STREAMS + """
+    @info(name = 'q')
+    from every e1=S1[price > 30] -> not S2[price > e1.price]
+         for 20 milliseconds and e3=S3[price > 30]
+    select e1.symbol as s, e1.price as p1, e3.price as p3
+    insert into Out;
+""",
+    "or": _THREE_STREAMS + """
+    @info(name = 'q')
+    from every e1=S1[price > 30] -> e2=S2[price > e1.price]
+         or e3=S3[volume > 80]
+    select e1.price as p1, e2.price as p2, e3.volume as v3
+    insert into Out;
+""",
+    "or of two absents": _THREE_STREAMS + """
+    @info(name = 'q')
+    from every e1=S1[price > 50] -> (not S2[price > e1.price]
+         for 20 milliseconds or not S3[price > e1.price] for 30 milliseconds)
+         -> e4=S1[price > 55]
+    select e1.price as p1, e4.price as p4
+    insert into Out;
+""",
+    "sequence": _THREE_STREAMS + """
+    @info(name = 'q')
+    from every e1=S1[price > 20], e2=S2[price > e1.price]
+         and e3=S3[price > 10]
+    select e1.price as p1, e2.price as p2, e3.price as p3
+    insert into Out;
+""",
+    "self-referring count": _THREE_STREAMS + """
+    @info(name = 'q')
+    from every e1=S1[price > 40] -> e2=S2[price >= e2[0].price]<2:4>
+         -> e3=S1[price > e2[1].price]
+    select e1.price as p1, e2[0].price as q0, e2[1].price as q1,
+           e2[3].price as q3, e3.price as p3
+    insert into Out;
+""",
+    "within re-arm": _THREE_STREAMS + """
+    @info(name = 'q')
+    from every (e1=S1[price > 20] -> e2=S2[price > e1.price])
+         within 10 milliseconds
+    select e1.price as p1, e2.price as p2
+    insert into Out;
+""",
+}
+
+# a 5-second wait: with half the requests unanswered
+# (timeout_feed(p_answer=0.5)), live requests outgrow the 128-row table
+TABLE_OVERFLOW_APP = TIMEOUT_APP.replace("100 milliseconds",
+                                         "5000 milliseconds")
+
+
+def three_stream_feed(n: int, encode, seed: int, gap_ms: int = 1):
+    """Random (stream, row) events over S1, S2, S3 for SCAN_APPS: price
+    in U(0, 60) float32, volume U[0, 100); the clock moves 1 to
+    ``gap_ms`` ms an event. -> (stream per event, ts, [symbol codes,
+    price, volume])."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([encode(s) for s in SYMS], np.int32)
+    stream = np.array(["S1", "S2", "S3"])[rng.integers(0, 3, n)]
+    ts = TS0 + np.cumsum(rng.integers(1, gap_ms + 1, n)).astype(np.int64)
+    cols = [syms[rng.integers(0, len(syms), n)],
+            rng.uniform(0, 60, n).astype(np.float32),
+            rng.integers(0, 100, n).astype(np.int32)]
+    return stream, ts, cols

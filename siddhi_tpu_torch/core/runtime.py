@@ -14,16 +14,19 @@ program; here a packed chunk's step is a fixed sequence of kernel
 launches on the app's device, with no host sync between them: K1
 decodes the chunk (core/ingest.py unpack_packed), K2 runs the query's
 filters and projection and counts the emitted rows (ops/expr.py
-expr_eval). A pattern query runs K1, then K3 once per sub-batch of
-4,096 events (ops/nfa_parallel.py parallel_step), then K2 over the
-match batch. On the CPU every kernel takes its plain PyTorch version.
+expr_eval). A pattern query runs K1, then its NFA step, then K2 over
+the match batch: K3 once per sub-batch of 4,096 events where the
+reference's parallel_supported holds (ops/nfa_parallel.py
+parallel_step), else K4 once per chunk, the per-event scan over a
+128-row table (ops/nfa.py scan_step). An absent pattern's deadlines
+are read back after each step and fire K4's timer step from the
+scheduler. On the CPU every kernel takes its plain PyTorch version.
 
 This slice plans single-stream filter/project queries, insert-into
-chains between them, and the pattern and sequence queries the
-round-parallel engine runs (ops/nfa_parallel.py parallel_supported).
-Scan-engine patterns, joins, windows, tables, partitions, aggregations,
-triggers, rate limiters, stream functions, sources and sinks raise
-NotImplementedError ("not ported yet") on every device.
+chains between them, and pattern and sequence queries. Joins, windows,
+tables, partitions, aggregations, triggers, rate limiters, stream
+functions, sources and sinks raise NotImplementedError ("not ported
+yet") on every device.
 """
 from __future__ import annotations
 
@@ -38,11 +41,12 @@ import torch
 from ..lang import ast as A
 from ..ops.expr import CompileError, ProgramBuilder, SingleStreamScope, \
     compile_expression
-from ..ops.nfa import (MatchScope, NfaCompiler, rewrite_last_refs,
-                       rewrite_oob_refs)
+from ..ops.nfa import (MatchScope, NfaCompiler, NfaEngine, rewrite_last_refs,
+                       rewrite_oob_refs, timer_step)
 from ..ops.nfa_parallel import ParallelNfaEngine, parallel_supported
 from ..ops.operators import FilterOp, Operator
 from ..ops.selector import (ProjectOp, project, selector_needs_aggregation)
+from ..ops.sentinels import POS_INF
 from ..ops.table import expr_mentions_table
 from .event import (CURRENT, EXPIRED, Attribute, EventBatch, StreamSchema,
                     batch_from_rows, rows_from_batch)
@@ -349,17 +353,27 @@ class PatternQueryRuntime(QueryRuntime):
 
     The base-class ``states`` tuple holds the selector operator states;
     the NFA pending table lives in ``nfa_state``. A step is the engine's
-    stream step (kernel K3) and then the selector's K2 program over the
-    match batch."""
+    stream step (kernel K3 or K4) and then the selector's K2 program over
+    the match batch. An engine with absent states also writes its next
+    deadline into ``_due`` (8 bytes, read back after the step, as the
+    reference reads next_due), and the scheduler fires K4's timer step
+    there (AbsentStreamPreStateProcessor's scheduler role)."""
 
     supports_packed = False  # consumes via PatternStreamReceivers only
 
-    def __init__(self, name: str, engine: ParallelNfaEngine,
+    def __init__(self, name: str, engine: NfaEngine,
                  sel_ops: list[Operator], app: "SiddhiAppRuntime"):
         super().__init__(name, sel_ops, engine.match_schema, app)
         self.engine = engine
         self.nfa_state = engine.init_state(app.device)
         self._stream_steps: dict = {}
+        self._due = torch.full((), int(POS_INF), dtype=torch.int64,
+                               device=app.device) \
+            if engine.has_absent else None
+        # the armed timer's due (None: none armed), and the clock of the
+        # latest event step: dues at or before it were covered in-step
+        self._sched_due: Optional[int] = None
+        self._last_now = -(2 ** 62)
         # the largest batch one step takes (None: any bucket); a smaller
         # cap trades throughput for latency, and the junctions chunk
         # every stream of the pattern to it
@@ -385,26 +399,74 @@ class PatternQueryRuntime(QueryRuntime):
         super().restore_state(snap)
         with self._lock:
             self.nfa_state = _tree_to(snap["nfa"], self.app.device)
+            self._sched_due = None
 
     def _step(self, stream_id: str, batch: EventBatch, now) -> EventBatch:
-        """One step (the caller holds the lock): K3, then K2."""
+        """One step (the caller holds the lock): K3 or K4, then K2."""
         step = self._stream_steps.get(stream_id)
         if step is None:
             step = self._stream_steps[stream_id] = \
                 self.engine.make_stream_step(stream_id)
-        self.nfa_state, match = step(self.nfa_state, batch)
+        if self._due is not None:
+            self.nfa_state, match = step(self.nfa_state, batch, self._due)
+        else:
+            self.nfa_state, match = step(self.nfa_state, batch)
         self.states, out = self._chain(self.states, self._emitted_dev,
                                        match, now)
         return out
 
+    # -- absent-pattern timers -------------------------------------------
+    def arm_start_deadlines(self, ts: int) -> None:
+        """Base start-state absent deadlines at app start time
+        (AbsentStreamPreStateProcessor.partitionCreated:291-308)."""
+        with self._lock:
+            self.nfa_state = self.engine.arm_start(self.nfa_state, ts)
+            self._due.copy_(self.engine.next_due(self.nfa_state))
+        self._schedule_absent()
+
+    def _schedule_absent(self) -> None:
+        """After a step: schedule a wakeup at the earliest live absent
+        deadline, which the step left in ``_due`` (one 8-byte read)."""
+        if self._due is None:
+            return
+        self._schedule(int(self._due.item()))
+
+    def _schedule(self, due: int) -> None:
+        if due >= int(POS_INF):
+            return
+        if due <= self._last_now and self.app._columnar:
+            # the event step that produced this due already covered its
+            # own clock: a timer for an instant the step covered is a
+            # no-op dispatch (the reference skips it the same way)
+            return
+        if self._sched_due is not None and self._sched_due <= due:
+            return
+        self._sched_due = due
+        self.app.scheduler.notify_at(due, self._on_timer)
+
+    def _on_timer(self, due: int) -> None:
+        """The scheduler's fire: K4's timer step at ``due``, then K2."""
+        self._sched_due = None
+        if not self.app.running:
+            return
+        with self._lock:
+            self.nfa_state, match = timer_step(self.engine, self.nfa_state,
+                                               due, self._due)
+            self.states, out = self._chain(self.states, self._emitted_dev,
+                                           match, due)
+        self._dispatch_output(out, due)
+        self._schedule_absent()
+
     def process_pattern_packed(self, stream_id: str,
                                chunk: PackedChunk) -> None:
         types = self.app.schemas[stream_id].types
+        self._last_now = max(self._last_now, chunk.last_ts)
         with self._lock:
             batch, now = unpack_packed(types, chunk.enc, chunk.capacity,
                                        chunk.buf)
             out = self._step(stream_id, batch, now)
         self._dispatch_output(out, chunk.last_ts)
+        self._schedule_absent()
 
     def process_stream_events(self, stream_id: str, events) -> None:
         schema = self.app.schemas[stream_id]
@@ -425,9 +487,11 @@ class PatternQueryRuntime(QueryRuntime):
                     batch.valid[sl]), timestamp)
             return
         now = self.app.current_time()
+        self._last_now = max(self._last_now, int(now))
         with self._lock:
             out = self._step(stream_id, batch, now)
         self._dispatch_output(out, timestamp)
+        self._schedule_absent()
 
 
 class SiddhiAppRuntime:
@@ -446,12 +510,21 @@ class SiddhiAppRuntime:
         self.running = False
         self._playback = False
         self._playback_time: Optional[int] = None
+        # set by the first columnar send (InputHandler.send_arrays)
+        self._columnar = False
         # app-wide quiesce barrier: ingest holds it; snapshot/restore of
         # the whole app would take it exclusively
         self.barrier = threading.RLock()
         self.scheduler = Scheduler(playback=False, barrier=self.barrier)
         Planner(self).plan()
         self.scheduler.playback = self._playback
+        # start-state absent deadlines are based at app start, not the
+        # first event (AbsentStreamPreStateProcessor.partitionCreated);
+        # under playback the base is the first observed virtual tick
+        self._unarmed_patterns = [
+            q for q in self.queries.values()
+            if getattr(getattr(q, "engine", None), "needs_start_arm",
+                       False)]
 
     # -- time ------------------------------------------------------------
     def current_time(self) -> int:
@@ -461,12 +534,22 @@ class SiddhiAppRuntime:
 
     def on_ingest(self, stream_id: str, events: list[Event]) -> None:
         if events:
-            self.on_ingest_ts(events[-1].timestamp)
+            self.on_ingest_ts(events[-1].timestamp, events[0].timestamp)
 
-    def on_ingest_ts(self, last_ts: int) -> None:
+    def _arm_patterns(self, base: int) -> None:
+        """Arm the start-state absent deadlines once, at ``base``."""
+        if self._unarmed_patterns:
+            pats, self._unarmed_patterns = self._unarmed_patterns, []
+            for q in pats:
+                q.arm_start_deadlines(base)
+
+    def on_ingest_ts(self, last_ts: int,
+                     first_ts: Optional[int] = None) -> None:
         """Advance the playback clock (and due timers) to an ingested
         timestamp — shared by the row and columnar ingest paths."""
         if self._playback:
+            self._arm_patterns(first_ts if first_ts is not None
+                               else last_ts)
             self._playback_time = last_ts
             self.scheduler.advance_to(last_ts)
 
@@ -475,6 +558,7 @@ class SiddhiAppRuntime:
         the chunk's span, then advance the clock to its end (the caller
         catches up with advance_to(last_ts) after publishing)."""
         if self._playback:
+            self._arm_patterns(first_ts)
             self.scheduler.advance_to(first_ts - 1)
             self._playback_time = last_ts
 
@@ -524,6 +608,8 @@ class SiddhiAppRuntime:
     def start(self) -> None:
         self.running = True
         self.scheduler.start()
+        if not self._playback:
+            self._arm_patterns(self.current_time())
 
     def shutdown(self) -> None:
         self.running = False
@@ -679,11 +765,14 @@ class Planner:
         if sel.having is not None:
             sel.having = rewrite_oob_refs(
                 rewrite_last_refs(sel.having, slots), slots)
-        if not parallel_supported(slots, states, sin.state_type):
-            raise not_ported("scan-engine patterns (K4)")
-        engine = ParallelNfaEngine(slots, states, sin.state_type,
-                                   sin.within_ms, capacity=4096,
-                                   out_capacity=16384)
+        if parallel_supported(slots, states, sin.state_type):
+            # the round-parallel engine (kernel K3) with its larger table
+            engine = ParallelNfaEngine(slots, states, sin.state_type,
+                                       sin.within_ms, capacity=4096,
+                                       out_capacity=16384)
+        else:
+            # the per-event scan (kernel K4): 128 rows, 256 matches a step
+            engine = NfaEngine(slots, states, sin.state_type, sin.within_ms)
         scope = MatchScope(slots, engine.col_index)
         if selector_needs_aggregation(q.selector):
             raise not_ported("aggregating selectors")

@@ -154,6 +154,7 @@ class InputHandler:
         n = len(ts)
         if n == 0:
             return
+        self.app._columnar = True
         with self._ingest_lock:
             self._dispatch_arrays(ts, cols)
 

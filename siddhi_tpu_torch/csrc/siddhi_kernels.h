@@ -195,6 +195,144 @@ typedef struct {
 
 cudaError_t siddhi_nfa_parallel_step(const NfaParams* p, cudaStream_t stream);
 
+// ---- K4: the scan NFA engine (nfa_scan.cu) --------------------------------
+//
+// One launch is one step: a block of M threads, one per table row, walks
+// the events of a chunk in order (or runs the timer step). The engine's
+// static description (ScanPlan) lives in device memory, uploaded once per
+// engine and stream; the pointers of one launch travel by value
+// (ScanArgs). Slot storage, condition loads and value types are K3's.
+
+#define SIDDHI_SCAN_MAX_ROWS 256      // table rows = threads of the block
+#define SIDDHI_SCAN_MAX_STATES 16     // states of the pattern
+#define SIDDHI_SCAN_MAX_CONSUMING 8   // states consuming one stream
+#define SIDDHI_SCAN_MAX_ABSENT 8      // absent states with a waiting time
+#define SIDDHI_SCAN_MAX_PERSONAS 4    // counting states answering a state
+#define SIDDHI_SCAN_MAX_STARTS 2      // always-armed starts of one stream
+#define SIDDHI_SCAN_MAX_GROUPS 4      // logical AND groups (stabilize)
+
+enum ScanLogical { SCAN_PLAIN = 0, SCAN_AND = 1, SCAN_OR = 2 };
+
+// a state that consumes the stream, with what its step reads of its
+// group, partner, anchor and enclosing `every` scope (ops/nfa.py
+// NfaEngine._event_body)
+typedef struct {
+  int64_t waiting_ms;      // absent: the wait
+  int64_t nxt_waiting_ms;  // counting: the next anchor's absent wait (0: none)
+  int32_t idx, slot, cap, anchor, anchor_next, next_idx;
+  int32_t prog_start, prog_len;  // condition program in `code`; 0 = none
+  int32_t logical, has_partner, grp_final;
+  int32_t is_absent, dl_field, viol_latch, viol_push;
+  int32_t is_counting, min_count, max_count, nxt_dl_field;
+  int32_t p_slot, p_is_absent, p_waits, p_dl_field, p_viol_latch;
+  int32_t arm, clear;      // `every` re-arm target (-1: none), clear-from slot
+  int32_t n_personas;
+  int32_t persona_idx[SIDDHI_SCAN_MAX_PERSONAS];
+  int32_t persona_slot[SIDDHI_SCAN_MAX_PERSONAS];
+  int32_t persona_min[SIDDHI_SCAN_MAX_PERSONAS];
+} ScanStateDesc;
+
+// an absent state with a waiting time, as the deadline advance reads it
+// (NfaEngine._advance_time)
+typedef struct {
+  int64_t w_next, w2_next;  // waits of the re-armed entry, lanes 0 and 1
+  int32_t anchor, anchor_next, next_anchor, dl_field;
+  int32_t has_partner, logical, p_is_absent, p_slot;
+  int32_t arm, clear;
+  int32_t n_personas;       // counting rows that wait at this anchor
+  int32_t persona_idx[SIDDHI_SCAN_MAX_PERSONAS];
+  int32_t persona_slot[SIDDHI_SCAN_MAX_PERSONAS];
+  int32_t persona_min[SIDDHI_SCAN_MAX_PERSONAS];
+} ScanAbsentDesc;
+
+// a logical AND group anchor, for the sequence stabilize exemption;
+// lane 0: no absent side, 1: deadline, 2: deadline2
+typedef struct {
+  int32_t anchor, slot_l, slot_r, lane;
+} ScanGroupDesc;
+
+// an always-armed start of the stream (NfaEngine._virtual_start)
+typedef struct {
+  int32_t idx, slot, next_idx, nxt_anchor;
+  int32_t prog_start, prog_len;
+  int32_t suppress, is_counting, min_count;
+} ScanStartDesc;
+
+typedef struct {
+  int64_t within_ms;  // -1: no `within`
+  int64_t wait_of[SIDDHI_SCAN_MAX_STATES + 1];
+  int64_t wait2_of[SIDDHI_SCAN_MAX_STATES + 1];
+  int32_t arm_of[SIDDHI_SCAN_MAX_STATES + 1];
+  int32_t clear_of[SIDDHI_SCAN_MAX_STATES + 1];
+  ScanStateDesc cons[SIDDHI_SCAN_MAX_CONSUMING];  // in state order
+  ScanAbsentDesc absent[SIDDHI_SCAN_MAX_ABSENT];  // in state order
+  ScanGroupDesc groups[SIDDHI_SCAN_MAX_GROUPS];
+  ScanStartDesc starts[SIDDHI_SCAN_MAX_STARTS];
+  int32_t rearm_anchor[SIDDHI_SCAN_MAX_STATES];  // every-scoped seq starts
+  int32_t slot_cap[SIDDHI_NFA_MAX_SLOTS];
+  int32_t slot_col0[SIDDHI_NFA_MAX_SLOTS];   // first slot column
+  int32_t slot_ncols[SIDDHI_NFA_MAX_SLOTS];
+  int32_t slot_ci0[SIDDHI_NFA_MAX_SLOTS];    // first match column
+  int32_t col_type[SIDDHI_NFA_MAX_SLOT_COLS];
+  int32_t n_slots, n_states, n_cons, n_absent, n_groups, n_starts, n_rearm;
+  int32_t M, OUT, n_match_cols;
+  int32_t seqmode, has_absent, any_every, absent_rearms, has_dl2;
+  int32_t or_double_absent;
+  uint32_t counting_mask;  // bit s: state s is a counting state
+} ScanPlan;
+
+typedef struct {
+  const ScanPlan* plan;  // device memory
+  // the pending table: M rows, updated in place
+  int32_t* state;
+  bool* valid;
+  int64_t* ts0;
+  bool* has_ts0;
+  int64_t* born;
+  int64_t* min_at;
+  int64_t* deadline;
+  int64_t* deadline2;
+  int64_t* seq;
+  int64_t* next_seq;   // 0-d
+  int64_t* counter;    // 0-d
+  int64_t* overflow;   // 0-d
+  void* tab_cols[SIDDHI_NFA_MAX_SLOT_COLS];   // [M, cap] per slot column
+  bool* tab_nulls[SIDDHI_NFA_MAX_SLOT_COLS];
+  int64_t* tab_ts[SIDDHI_NFA_MAX_SLOTS];
+  int32_t* tab_n[SIDDHI_NFA_MAX_SLOTS];
+  // staging rows for appends, the table's layout
+  void* stg_cols[SIDDHI_NFA_MAX_SLOT_COLS];
+  bool* stg_nulls[SIDDHI_NFA_MAX_SLOT_COLS];
+  int64_t* stg_ts[SIDDHI_NFA_MAX_SLOTS];
+  // the chunk's events (n_events = 0: the timer step at `now`)
+  const int64_t* ev_ts;
+  const int32_t* ev_kind;
+  const bool* ev_valid;
+  const void* ev_cols[SIDDHI_NFA_MAX_EV_COLS];
+  const bool* ev_nulls[SIDDHI_NFA_MAX_EV_COLS];
+  int64_t now;
+  int32_t n_events;
+  int32_t rows;        // M: the threads of the block (the plan's M)
+  // the match batch [OUT]: cleared, filled, closed by the launch
+  void* out_cols[SIDDHI_NFA_MAX_MATCH_COLS];
+  bool* out_nulls[SIDDHI_NFA_MAX_MATCH_COLS];
+  int32_t out_type[SIDDHI_NFA_MAX_MATCH_COLS];
+  int64_t* out_ts;
+  int64_t* out_n;      // 0-d
+  bool* out_valid;
+  int32_t* out_kind;
+  int64_t* due;        // 0-d: next_due of the table after the step, or NULL
+  // the condition programs (ops/expr.py ProgramBuilder), device memory:
+  // n_code words (<= SIDDHI_MAX_CODE), n_consts constants (<=
+  // SIDDHI_MAX_CONSTS), n_loads load descriptors (<= SIDDHI_MAX_COLS)
+  const int32_t* code;
+  const int64_t* consts;
+  const int32_t* loads;
+  int32_t n_code, n_consts, n_loads;
+} ScanArgs;
+
+cudaError_t siddhi_nfa_scan(const ScanArgs* a, cudaStream_t stream);
+
 #ifdef __cplusplus
 }
 #endif

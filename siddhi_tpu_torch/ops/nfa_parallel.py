@@ -27,8 +27,8 @@ no host sync between sub-batches, and the table is updated in place.
 Supported shapes (``parallel_supported``, the reference's, copied):
 linear chains of stream/count states, pattern and sequence, 'every'
 only where it collapses to an always-armed start, `within`,
-cross-state predicates. Everything else runs on the scan engine (K4),
-which is not ported yet.
+cross-state predicates. Everything else runs on the scan engine
+(ops/nfa.py, kernel K4).
 """
 from __future__ import annotations
 
@@ -38,8 +38,9 @@ from .. import _kernels
 from ..core.event import CURRENT, EventBatch
 from ..core.types import torch_dtype
 from ..lang import ast as A
-from .expr import VT, ProgramBuilder, run_program
-from .nfa import NfaEngine, NfaStateSpec, POS_INF, SlotSpec
+from .expr import VT
+from .nfa import (NfaEngine, NfaStateSpec, POS_INF, SlotSpec, check_table,
+                  kernel_out, match_batch, new_out, not_ported)
 
 BIG = 2 ** 30
 _NO_EMIT_KEY = 2 ** 62
@@ -119,29 +120,23 @@ def parallel_supported(slots: list[SlotSpec],
     return True
 
 
-def load_descriptor(key) -> int:
-    """A condition load as kernel K3 reads it (csrc/siddhi_kernels.h):
-    kind | slot << 1 | attr << 8 | copy-or-k << 16."""
-    kind, j, a, ck = key
-    return ({"slot": 0, "slot_last": 1}[kind] | (j << 1) | (a << 8)
-            | (ck << 16))
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"not ported yet: {what}")
-
-
 class ParallelNfaEngine(NfaEngine):
     """Same table, match schema and outputs as NfaEngine; only the
     per-stream step is rebuilt round-parallel, in sub-batches of at most
-    PB events. Every state's condition is lowered into one shared
-    program (ops/expr.py ProgramBuilder) that both the kernel and the
-    plain version run."""
+    PB events. The states' conditions run from the base engine's shared
+    program (NfaEngine.program), as in kernel K4."""
 
     PB = 4096
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
+        # final counting slots: copies at and past emit_n emit as null
+        self.final_counting = [
+            any(st.next_idx == -1 and st.slot == j and st.is_counting
+                for st in self.states) for j in range(len(self.slots))]
+
+    def _check_limits(self) -> None:
+        """Plan-time limits of kernel K3."""
         lim = _kernels
         slot_cols = sum(len(s.schema.types) for s in self.slots)
         for what, n, cap in (
@@ -153,8 +148,8 @@ class ParallelNfaEngine(NfaEngine):
                 ("table rows and events", self.M + self.PB,
                  lim.NFA_MAX_ROWS)):
             if n > cap:
-                raise _not_ported(f"a parallel pattern with more than {cap} "
-                                  f"{what} ({n})")
+                raise not_ported(f"a parallel pattern with more than {cap} "
+                                 f"{what} ({n})")
         for st in self.states:
             consuming = [s for s in self.states
                          if s.stream_id == st.stream_id]
@@ -162,24 +157,9 @@ class ParallelNfaEngine(NfaEngine):
                     len(self.slots[st.slot].schema.types) > \
                     lim.NFA_MAX_EV_COLS or \
                     len(self._personas(st)) > lim.NFA_MAX_PERSONAS:
-                raise _not_ported(
+                raise not_ported(
                     f"a parallel pattern stream '{st.stream_id}' beyond the "
                     "kernel's state, attribute or persona limits")
-        b = ProgramBuilder()
-        self.cond_span = {st.idx: b.condition(st.cond)
-                          for st in self.states if st.cond is not None}
-        self.program = b.build()
-        for key in self.program.inputs:
-            if not (isinstance(key, tuple) and key[0] in ("slot",
-                                                          "slot_last")
-                    and key[3] < 2 ** 15):
-                raise _not_ported(f"pattern condition load {key!r}")
-        # final counting slots: copies at and past emit_n emit as null
-        self.final_counting = [
-            any(st.next_idx == -1 and st.slot == j and st.is_counting
-                for st in self.states) for j in range(len(self.slots))]
-        self._device_program: dict = {}
-        self._scratch: dict = {}
 
     def _personas(self, st: NfaStateSpec) -> list:
         """Counting states whose rows also answer state st."""
@@ -259,16 +239,6 @@ def _empty_pop(eng, P: int, dev):
         "emit_n": full((P,), 0, torch.int32),
         "slots": tuple(slots),
     }
-
-
-def _cond_ok(eng, st, load, shape, dev):
-    """The state's condition over ``shape`` (True where it holds)."""
-    span = eng.cond_span.get(st.idx)
-    if span is None:
-        return torch.ones(shape, dtype=torch.bool, device=dev)
-    keep, _ = run_program(eng.program, load, shape, dev,
-                          eng.program.spans[span])
-    return keep
 
 
 def _grid_loader(eng, pop, ev, own_slot: int):
@@ -364,8 +334,8 @@ def _state_round(eng, pop, st, ev, is_cur, idx_b, B, seqmode):
     normal, persona = _at_rows(eng, pop, st)
     at_rows = normal | persona
     P = at_rows.shape[0]
-    cond_ok = _cond_ok(eng, st, _grid_loader(eng, pop, ev, st.slot), (P, B),
-                       dev)
+    cond_ok = eng._cond(st, _grid_loader(eng, pop, ev, st.slot), (P, B),
+                        dev)
     elig = _eligible(eng, pop, is_cur, idx_b, ev_ts)
 
     if st.is_counting:
@@ -507,7 +477,7 @@ def _spawn_pop(eng, start, ev, B: int, next_seq):
     (_spawn_pop :433-521). -> (pop, n_spawned)."""
     ev_ts, ev_kind, ev_valid, ev_cols, ev_nulls = ev
     dev = ev_ts.device
-    ok = _cond_ok(eng, start, _virtual_loader(eng, start, ev), (B,), dev)
+    ok = eng._cond(start, _virtual_loader(eng, start, ev), (B,), dev)
     hit = ok & ev_valid & (ev_kind == CURRENT)
 
     pop = _empty_pop(eng, B, dev)
@@ -749,27 +719,6 @@ def _sub_step_ref(eng, consuming, start, table, out, ev, sub_off: int):
     return {**table, "counter": counter + B}
 
 
-def _new_out(eng, dev):
-    OUT = eng.OUT
-    return {
-        "cols": tuple(torch.zeros((OUT,), dtype=torch_dtype(t), device=dev)
-                      for t in eng.match_schema.types),
-        "nulls": tuple(torch.ones((OUT,), dtype=torch.bool, device=dev)
-                       for _ in eng.match_schema.types),
-        "ts": torch.zeros((OUT,), dtype=torch.int64, device=dev),
-        "n": torch.zeros((), dtype=torch.int64, device=dev),
-        "lost": torch.zeros((), dtype=torch.int64, device=dev),
-    }
-
-
-def _match_batch(eng, out) -> EventBatch:
-    dev = out["ts"].device
-    return EventBatch(
-        ts=out["ts"], cols=out["cols"], nulls=out["nulls"],
-        kind=torch.zeros((eng.OUT,), dtype=torch.int32, device=dev),
-        valid=torch.arange(eng.OUT, device=dev) < out["n"])
-
-
 def _sub_batches(eng, B: int):
     PB = min(eng.PB, B)
     if B % PB:
@@ -784,7 +733,7 @@ def parallel_step_ref(eng: ParallelNfaEngine, stream_id: str, table: dict,
     :717-759). -> (new table, match batch); ``table`` is not changed."""
     consuming, start = eng.stream_plan(stream_id)
     B = batch.capacity
-    out = _new_out(eng, batch.ts.device)
+    out = new_out(eng, batch.ts.device)
     PB, n_sub = _sub_batches(eng, B)
     for k in range(n_sub):
         o = k * PB
@@ -794,28 +743,12 @@ def parallel_step_ref(eng: ParallelNfaEngine, stream_id: str, table: dict,
               tuple(n[o:o + PB] for n in batch.nulls))
         table = _sub_step_ref(eng, consuming, start, table, out, ev, o)
     table = {**table, "overflow": table["overflow"] + out["lost"]}
-    return table, _match_batch(eng, out)
+    return table, match_batch(eng, out)
 
 
 # ---------------------------------------------------------------------------
 # kernel K3
 # ---------------------------------------------------------------------------
-
-
-def _device_program(eng, dev):
-    """The engine's condition programs as device tensors (built once)."""
-    key = str(dev)
-    prog = eng._device_program.get(key)
-    if prog is None:
-        p = eng.program
-        prog = (torch.tensor(list(p.code) or [0], dtype=torch.int32,
-                             device=dev),
-                torch.tensor(list(p.consts) or [0], dtype=torch.int64,
-                             device=dev),
-                torch.tensor([load_descriptor(k) for k in p.inputs] or [0],
-                             dtype=torch.int32, device=dev))
-        eng._device_program[key] = prog
-    return prog
 
 
 def _scratch(eng, dev, PB: int):
@@ -866,52 +799,13 @@ def _state_desc(eng, d, st) -> None:
         d.persona_min[q] = cs.min_count
 
 
-def _check_table(eng, table, dev) -> None:
-    M = eng.M
-    want = {"state": torch.int32, "valid": torch.bool, "ts0": torch.int64,
-            "has_ts0": torch.bool, "born": torch.int64,
-            "min_at": torch.int64, "deadline": torch.int64,
-            "seq": torch.int64}
-    for k, dt in want.items():
-        x = table[k]
-        if x.device != dev or x.dtype != dt or x.shape != (M,) or \
-                not x.is_contiguous():
-            raise ValueError(f"nfa_parallel: table['{k}'] must be a "
-                             f"contiguous {dt}[{M}] on {dev}")
-    for k in ("next_seq", "counter", "overflow"):
-        x = table[k]
-        if x.device != dev or x.dtype != torch.int64 or x.numel() != 1:
-            raise ValueError(f"nfa_parallel: table['{k}'] must be an int64 "
-                             f"scalar on {dev}")
-    for spec, buf in zip(eng.slots, table["slots"]):
-        for x in list(buf["cols"]) + list(buf["nulls"]) + [buf["ts"]]:
-            if x.device != dev or x.shape != (M, spec.cap) or \
-                    not x.is_contiguous():
-                raise ValueError("nfa_parallel: slot columns must be "
-                                 f"contiguous [{M}, {spec.cap}] on {dev}")
-
-
-def kernel_out(eng, dev) -> dict:
-    """The match batch's buffers for one step of the kernel, which
-    clears and closes them itself (no fill launches)."""
-    OUT = eng.OUT
-
-    def e(dtype):
-        return torch.empty((OUT,), dtype=dtype, device=dev)
-    return {"cols": tuple(e(torch_dtype(t)) for t in eng.match_schema.types),
-            "nulls": tuple(e(torch.bool) for _ in eng.match_schema.types),
-            "ts": e(torch.int64), "valid": e(torch.bool),
-            "kind": e(torch.int32),
-            "n": torch.empty((), dtype=torch.int64, device=dev)}
-
-
 def nfa_params(eng, stream_id: str, table, batch, out, PB: int):
     """K3's kernel arguments for every sub-batch of one step; a launch
     then sets only the event pointers and ``sub_off``."""
     dev = batch.ts.device
     consuming, start = eng.stream_plan(stream_id)
     s = _scratch(eng, dev, PB)
-    code, consts, loads = _device_program(eng, dev)
+    code, consts, loads = eng.device_program(dev)
     p = _kernels.NfaParams()
     for k in ("state", "valid", "ts0", "has_ts0", "born", "min_at",
               "deadline", "seq", "next_seq", "counter", "overflow"):
@@ -995,7 +889,7 @@ def parallel_step(eng: ParallelNfaEngine, stream_id: str, table: dict,
         return parallel_step_ref(eng, stream_id, table, batch)
     if dev.type != "cuda":
         raise ValueError(f"nfa_parallel: unsupported device {dev}")
-    _check_table(eng, table, dev)
+    check_table(eng, table, dev, "nfa_parallel")
     B = batch.capacity
     for x in (batch.ts, batch.kind, batch.valid) + tuple(batch.cols) + \
             tuple(batch.nulls):

@@ -1,0 +1,25 @@
+"""The scan engine's other shapes (checks.SCAN_APPS: an OR group, a
+sequence with stabilize kills, a self-referring counting state, a
+`within` expiry that re-arms) through kernel K4's plain version against
+the reference, on the CPU, as test_torch_scan_shapes.py does for the
+absent shapes."""
+import pytest
+
+from siddhi_tpu_torch.checks import SCAN_APPS
+from test_torch_scan_shapes import SHAPES, build_shape, check_runs, \
+    check_steps
+
+OTHERS = sorted(set(SCAN_APPS) - set(SHAPES))
+
+
+@pytest.fixture(scope="module", params=OTHERS)
+def shape(request):
+    return build_shape(request.param)
+
+
+def test_shape_runs_like_the_reference(shape):
+    check_runs(shape)
+
+
+def test_shape_steps_from_a_live_table(shape):
+    check_steps(shape)
