@@ -7,7 +7,7 @@ Phases, each of which stops the run with a non-zero exit on failure:
 
 1. device: CUDA must be there; prints the device, the build and
    ``nvidia-smi``'s name and power limit;
-2. build the port's four CUDA kernels from csrc/ (one nvcc each, all at
+2. build the port's six CUDA kernels from csrc/ (one nvcc each, all at
    once) and hold kernel K1 (packed-ingest decode) against its plain
    PyTorch version on the card, bit for bit, for every lane code at
    capacities 16, 1024, 65536;
@@ -50,7 +50,24 @@ Phases, each of which stops the run with a non-zero exit on failure:
    send, K4 on every send and every timer step the scheduler fired, K2
    on every step; then events/s, per-send latency, K4's time against
    its plain version and its byte bound, and a torch.profiler split;
-9. print the kernel table as one JSON line, the card's name and power
+9. hold kernels K5 (the window step) and K6 (the aggregate step and
+   emission) against their plain versions on the card, bit for bit, at
+   every step of each comparison app of checks.WINDOW_APPS (every
+   window kind and aggregator kind, having, offset and limit), a
+   RESET-heavy feed, a time window over its capacity, more keys than
+   the 1,024-slot group table, and both main configurations at 65,536-
+   row sends;
+10. and 11. run window_agg (bench.py's lengthBatch(1000) app, verbatim)
+   and window_time_grouped (a one-minute sliding window grouped by 512
+   symbols) through SiddhiManager, send_arrays and batch_callbacks:
+   1,048,576 events in 16 sends of 65,536 rows each, checked against
+   independent numpy oracles (exact columns exact, averages within
+   1e-12 relative); the launch counters must show K1 on every send and
+   K5 and K6 on every step; then events/s, per-send latency at 65,536
+   and 1,024 rows, a torch.profiler split, and K5's and K6's time per
+   step against their plain versions, their byte bounds and (K5)
+   torch.sort of the same emission keys;
+12. print the kernel table as one JSON line, the card's name and power
    limit, and the result line.
 
 Imports neither JAX nor the reference package.
@@ -770,6 +787,357 @@ def timeout_phase(dev, card: str, k4_err: float) -> dict:
             "bound_by": "bytes", "library_ms": None}
 
 
+
+# -- kernels K5 and K6: windows and aggregation ----------------------------
+
+class KernelCheck:
+    """While installed, every window step (K5) and aggregate step and
+    emission (K6) the runtime makes on the card also runs the plain
+    version on the same inputs; kernel and plain results must be
+    bit-equal (tolerance 0). The runtime goes on with the kernel's."""
+
+    def __init__(self):
+        from siddhi_tpu_torch.ops import aggregators as G
+        from siddhi_tpu_torch.ops import windows as W
+        self.G, self.W = G, W
+        self.err = 0.0
+        self.steps = {"window_step": 0, "aggregate_step": 0,
+                      "aggregate_emit": 0}
+        self.shapes = set()
+
+    def __enter__(self):
+        G, W = self.G, self.W
+        self.saved = (W.window_step, G.aggregate_step, G.aggregate_emit)
+        k_win, k_agg, k_emit = self.saved
+
+        def window_step(op, state, batch, now):
+            ks, ko = k_win(op, state, batch, now)
+            rs, ro = W.window_step_ref(op, state, batch, now)
+            what = f"K5 {type(op).__name__} B={batch.capacity}"
+            self.err = max(self.err, compare(
+                what + " state", tree_leaves(ks), tree_leaves(rs)))
+            self.err = max(self.err, compare(
+                what + " output", [ko.ts, *ko.cols, *ko.nulls, ko.kind,
+                                   ko.valid],
+                [ro.ts, *ro.cols, *ro.nulls, ro.kind, ro.valid]))
+            self.steps["window_step"] += 1
+            self.shapes.add(("K5", type(op).__name__, batch.capacity))
+            return ks, ko
+
+        def aggregate_step(op, state, key_cols, arg_cols, kind, valid):
+            k = k_agg(op, state, key_cols, arg_cols, kind, valid)
+            r = G.aggregate_step_ref(op, state, key_cols, arg_cols, kind,
+                                     valid)
+            self.err = max(self.err, compare(
+                f"K6 step B={kind.shape[0]}", tree_leaves(k),
+                tree_leaves(r)))
+            self.steps["aggregate_step"] += 1
+            self.shapes.add(("K6", len(op.agg_specs), kind.shape[0]))
+            return k
+
+        def aggregate_emit(op, slots, qual, batch, oc, on, emitted=None):
+            e_ref = emitted.clone() if emitted is not None else None
+            ko = k_emit(op, slots, qual, batch, oc, on, emitted)
+            ro = G.aggregate_emit_ref(op, slots, qual, batch, oc, on, e_ref)
+            self.err = max(self.err, compare(
+                f"K6 emission B={batch.capacity}",
+                [ko.ts, *ko.cols, *ko.nulls, ko.kind, ko.valid]
+                + ([emitted] if emitted is not None else []),
+                [ro.ts, *ro.cols, *ro.nulls, ro.kind, ro.valid]
+                + ([e_ref] if e_ref is not None else [])))
+            self.steps["aggregate_emit"] += 1
+            return ko
+
+        W.window_step, G.aggregate_step, G.aggregate_emit = \
+            window_step, aggregate_step, aggregate_emit
+        return self
+
+    def __exit__(self, *exc):
+        W, G = self.W, self.G
+        W.window_step, G.aggregate_step, G.aggregate_emit = self.saved
+        return False
+
+
+def k56_against_plain(dev) -> float:
+    """Phase 9: kernels K5 and K6 against their plain versions on the
+    card, bit for bit, at every step of: each comparison app of
+    checks.WINDOW_APPS (the four window kinds, length(0), stream-current
+    and start-time modes, having, offset and limit, the aggregator kinds),
+    a RESET-heavy feed (lengthBatch(2)), a time window over its capacity
+    (overflow), more distinct keys than the 1,024-slot table (overflow),
+    and both main configurations at the main path's shapes (three
+    65,536-row sends of window_agg, two of window_time_grouped, whose
+    window holds about 60,000 rows). -> max abs error (0)."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch.checks import (KEYS_OVERFLOW_APP, WINDOW_AGG_APP,
+                                         WINDOW_APPS, WINDOW_OVERFLOW_APP,
+                                         WINDOW_TIME_APP, window_agg_feed,
+                                         window_feed, window_time_feed)
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    mgr = SiddhiManager()
+    saved = dict(_kernels.LAUNCHES)
+    apps = [(name, text, dict(seed=3)) for name, text in WINDOW_APPS.items()]
+    apps += [("window over its capacity", WINDOW_OVERFLOW_APP,
+              dict(seed=4, gap_ms=1)),
+             ("more keys than the table", KEYS_OVERFLOW_APP,
+              dict(seed=5, n_syms=1500))]
+    with KernelCheck() as chk:
+        for name, text, kw in apps:
+            rt = mgr.create_siddhi_app_runtime(text)
+            rt.start()
+            h = rt.get_input_handler("S")
+            n = 4096 if "keys" in name else 600
+            ts, cols = window_feed(n, GLOBAL_STRINGS.encode, **kw)
+            cuts = (0, 1024, 2048, 3072, 4096) if n == 4096 else \
+                (0, 100, 356, 600)
+            for a, b in zip(cuts[:-1], cuts[1:]):
+                h.send_arrays(ts[a:b], [c[a:b] for c in cols])
+            q = rt.queries["q"]
+            st = q.stats()
+            if "over" in name or "more keys" in name:
+                if st["overflow"] == 0:
+                    fail(f"K5/K6 feed '{name}' did not overflow")
+            rt.shutdown()
+            print(f"K5/K6 {name}: bit-equal to their plain versions "
+                  f"({n} events; emitted {st['emitted']}, overflow "
+                  f"{st['overflow']}; steps so far {chk.steps})", flush=True)
+        for name, text, feed, stream, sends in (
+                ("window_agg", WINDOW_AGG_APP, window_agg_feed,
+                 "StockStream", 3),
+                ("window_time_grouped", WINDOW_TIME_APP, window_time_feed,
+                 "StockStream", 2)):
+            rt = mgr.create_siddhi_app_runtime(text)
+            rt.start()
+            h = rt.get_input_handler(stream)
+            ts, cols = feed(sends * 65536, GLOBAL_STRINGS.encode)
+            for k in range(sends):
+                s = slice(k * 65536, (k + 1) * 65536)
+                h.send_arrays(ts[s], [c[s] for c in cols])
+            st = rt.queries["q"].stats()
+            rt.shutdown()
+            print(f"K5/K6 {name}, {sends} sends of 65,536 rows: bit-equal to "
+                  f"their plain versions (emitted {st['emitted']}, overflow "
+                  f"{st['overflow']})", flush=True)
+    _kernels.LAUNCHES.update(saved)   # not launches of a main path
+    print(f"K5/K6 shapes held against the plain versions: "
+          f"{sorted(chk.shapes, key=str)}", flush=True)
+    return chk.err
+
+
+def window_phase(dev, card: str, which: str) -> dict:
+    """Phases 10 and 11: window_agg or window_time_grouped end to end on
+    the card through SiddhiManager, send_arrays and batch_callbacks:
+    1,048,576 events in 16 sends of 65,536 rows, checked against the
+    numpy oracle of checks.py, with the launch counters; then events/s,
+    per-send latency at 65,536 and 1,024 rows, the profiler's split, and
+    K5's and K6's device time per step against their plain versions and
+    their byte bounds. -> the path's numbers."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    from siddhi_tpu_torch.ops import aggregators as G
+    from siddhi_tpu_torch.ops import windows as W
+    N, SEND = 1 << 20, 65536
+    if which == "window_agg":
+        text, feed = C.WINDOW_AGG_APP, C.window_agg_feed
+    else:
+        text, feed = C.WINDOW_TIME_APP, C.window_time_feed
+    mgr = SiddhiManager(device="cuda")
+    warm = mgr.create_siddhi_app_runtime(text.replace("'q'", "'w'"))
+    warm.start()
+    wts, wcols = feed(2 * SEND, GLOBAL_STRINGS.encode, seed=3)
+    for k in range(2):
+        s = slice(k * SEND, (k + 1) * SEND)
+        warm.get_input_handler("StockStream").send_arrays(
+            wts[s], [c[s] for c in wcols])
+    torch.cuda.synchronize()
+    warm.shutdown()
+
+    rt = mgr.create_siddhi_app_runtime(text)
+    q = rt.queries["q"]
+    if rt.device.type != "cuda":
+        fail(f"the {which} runtime is on {rt.device}, not the card")
+    outs = []
+    q.batch_callbacks.append(outs.append)
+    rt.start()
+    h = rt.get_input_handler("StockStream")
+    # the run's feed, then more sends for latency, profile and timing
+    extra = 9 * SEND + 70 * 1024
+    ts_all, cols_all = feed(N + extra, GLOBAL_STRINGS.encode)
+    sends = [(ts_all[s:s + SEND], [c[s:s + SEND] for c in cols_all])
+             for s in range(0, N, SEND)]
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    for ts, cols in sends:
+        h.send_arrays(ts, cols)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    steps = len(outs)
+    want = {"unpack_packed": N // SEND, "window_step": steps,
+            "aggregate_step": steps, "aggregate_emit": steps}
+    for k, n in want.items():
+        if launches[k] != n or n == 0:
+            fail(f"{which} path: kernel {k} launched {launches[k]} times, "
+                 f"expected {n} (K1 one per send; K5 and K6 one per step)")
+    if launches["expr_eval"] == 0:
+        fail(f"{which} path: K2 never launched")
+
+    ts_run = ts_all[:N]
+    sym, price, vol = (c[:N] for c in cols_all)
+    got = [torch.cat([o.cols[i][o.valid] for o in outs]).cpu().numpy()
+           for i in range(len(q.out_schema.types))]
+    stats = q.stats()
+    if stats["overflow"] != 0:
+        fail(f"{which}: overflow {stats['overflow']}; the oracle assumes none")
+    if which == "window_agg":
+        ap, sv = C.window_agg_oracle(price, vol)
+        g_ap, g_sv = got
+        ok = len(g_ap) == len(ap) and np.array_equal(g_sv, sv)
+        rel = float(np.max(np.abs(g_ap - ap) / np.abs(ap))) if ok else None
+        rows = len(ap)
+    else:
+        o_sym, ap, sv, n = C.window_time_oracle(ts_run, sym, price, vol)
+        g_sym, g_ap, g_sv, g_n = got
+        ok = len(g_ap) == len(ap) and np.array_equal(g_sym, o_sym) and \
+            np.array_equal(g_sv, sv) and np.array_equal(g_n, n)
+        rel = float(np.max(np.abs(g_ap - ap) / np.abs(ap))) if ok else None
+        rows = len(ap)
+    if not ok or rel > 1e-12 or stats["emitted"] != rows:
+        fail(f"{which}: {len(got[0])} rows ({stats['emitted']} counted), "
+             f"the oracle {rows}; exact columns equal: {ok}; ap relative "
+             f"error {rel}")
+    eps = N / wall
+    print(f"{which}: {N} events in {N // SEND} sends of {SEND}; {rows} rows "
+          f"equal the numpy oracle (exact columns exact, ap within "
+          f"{rel:.3g} relative, limit 1e-12); overflow 0; {eps:.0f} "
+          f"events/s, device batches only ({card})", flush=True)
+    print(f"launches on the {which} path: {launches}", flush=True)
+
+    k_next = N
+
+    def chunk(m):
+        nonlocal k_next
+        s = slice(k_next, k_next + m)
+        k_next += m
+        return ts_all[s], [c[s] for c in cols_all]
+
+    def latency(m, reps):
+        h.send_arrays(*chunk(m))   # warm this bucket
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(reps):
+            c0 = time.perf_counter()
+            h.send_arrays(*chunk(m))
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - c0) * 1e3)
+        return float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+    p50, p99 = latency(SEND, 8)
+    p50k, p99k = latency(1024, 64)
+    print(f"{which} latency per send: {SEND} rows p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms; 1,024 rows p50 {p50k:.3f} ms, p99 {p99k:.3f} ms "
+          f"({card})", flush=True)
+    breakdown, busy = profile_sends(h, [chunk(1024) for _ in range(4)])
+    print(f"{which}, where a 1,024-row send's device time goes (torch."
+          f"profiler, 4 sends, ms per send): {breakdown}; the card is busy "
+          f"{busy:.3f} of the profiled wall time ({card})", flush=True)
+
+    # K5 and K6 at this path's shapes: one 65,536-row step from the live
+    # state, the launches alone (arguments built once: the step reads its
+    # inputs and writes fresh state, so a repeat is the same work)
+    from siddhi_tpu_torch.core.event import batch_from_columns
+    ts_c, cols_c = sends[-1]
+    batch = batch_from_columns(rt.schemas["StockStream"], ts_c, cols_c,
+                               capacity=SEND, device=dev)
+    wop, aop = q.operators[0], q.operators[-1]
+    wst, ast = q.states[0], q.states[-1]
+    now = torch.tensor(int(ts_c[-1]), dtype=torch.int64, device=dev)
+    _ws, wout, wargs = W.window_args(wop, wst, batch, now)
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    lib.window_step(wargs, stream)
+    pre, computed, proj, hav = aop._programs()
+    if pre is not None:
+        fail(f"{which}: keys and arguments are bare columns, no K2 before K6")
+
+    def col(ce):
+        i = G._bare_column(ce)
+        return wout.cols[i], wout.nulls[i]
+    key_cols = [col(ke) for ke in aop.key_exprs]
+    arg_cols = [col(a) if a is not None else None for a in aop.agg_args]
+    slots, aggs, _as, aargs = G.agg_args(aop, ast, key_cols, arg_cols,
+                                         wout.kind, wout.valid)
+    lib.aggregate_step(aargs, stream)
+    from siddhi_tpu_torch.core.event import EventBatch
+    from siddhi_tpu_torch.ops.expr import expr_eval
+    ext = EventBatch(wout.ts, tuple(wout.cols) + tuple(v for v, _ in aggs),
+                     tuple(wout.nulls) + tuple(n for _, n in aggs),
+                     wout.kind, wout.valid)
+    oc, on, qual = expr_eval(proj, ext)
+    eout, eargs = G.emit_args(aop, slots, qual, wout, oc, on, None)
+    k5_ms = cuda_ms(lambda: lib.window_step(wargs, stream), reps=20)
+    k6_step_ms = cuda_ms(lambda: lib.aggregate_step(aargs, stream), reps=20)
+    k6_emit_ms = cuda_ms(lambda: lib.aggregate_emit(eargs, stream), reps=20)
+    k6_ms = k6_step_ms + k6_emit_ms
+    k5_plain = cuda_ms(lambda: W.window_step_ref(wop, wst, batch, now),
+                       reps=2, warmup=1)
+    k6_plain = cuda_ms(lambda: (
+        G.aggregate_step_ref(aop, ast, key_cols, arg_cols, wout.kind,
+                             wout.valid),
+        G.aggregate_emit_ref(aop, slots, qual, wout, oc, on)), reps=2,
+        warmup=1)
+    keys = wargs._keep[3]["keys"].clone()   # K5's own emission keys
+    lib_ms = cuda_ms(lambda: torch.sort(keys, stable=True), reps=20)
+    _kernels.LAUNCHES.update(launches)   # timing launches: not the path's
+
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+    W_ = wst["buf" if "buf" in wst else "cur"]
+    state_in = [t for k in ("buf", "cur", "exp") if k in wst
+                for t in (wst[k]["ts"], wst[k]["seq"], *wst[k]["cols"],
+                          *wst[k]["nulls"], wst[k]["valid"])]
+    k5_bytes = nbytes([batch.ts, batch.kind, batch.valid, *batch.cols,
+                       *batch.nulls]) + 2 * nbytes(state_in) + \
+        nbytes([wout.ts, wout.kind, wout.valid, *wout.cols, *wout.nulls])
+    carries = [c for spec in ast["carry"] for c in spec]
+    inputs = [c for kc in key_cols for c in kc] + \
+        [c for ac in arg_cols if ac is not None for c in ac]
+    k6_bytes = nbytes([wout.kind, wout.valid, *inputs]) \
+        + 2 * nbytes([ast["keys"], ast["used"], *carries]) \
+        + nbytes([slots, *[t for a in aggs for t in a]]) \
+        + nbytes([slots, qual, wout.ts, wout.kind, wout.valid, *oc, *on]) \
+        + nbytes([eout.ts, eout.kind, eout.valid, *eout.cols, *eout.nulls])
+    k5_bound = k5_bytes / HBM_BYTES_PER_S * 1e3
+    k6_bound = k6_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"window_step (K5), {which}: {k5_ms:.5f} ms a 65,536-row step "
+          f"(output {wout.capacity} rows, window {W_['seq'].shape[0]} rows); "
+          f"plain version {k5_plain:.3f} ms; torch.sort(stable=True) of the "
+          f"emission keys {lib_ms:.5f} ms; bound {k5_bound:.5f} ms "
+          f"({k5_bytes} bytes at 3.35 TB/s); {card}", flush=True)
+    print(f"aggregate_step (K6), {which}: {k6_ms:.5f} ms a step "
+          f"({k6_step_ms:.5f} step + {k6_emit_ms:.5f} emission, "
+          f"{wout.capacity} rows, "
+          f"K {aop.K}); plain version {k6_plain:.3f} ms; bound "
+          f"{k6_bound:.5f} ms ({k6_bytes} bytes at 3.35 TB/s); {card}",
+          flush=True)
+    rt.shutdown()
+    del outs
+    gc.collect()
+    res = {"events_per_s_device_batches": eps, "p50_ms_65536": p50,
+           "p99_ms_65536": p99, "p50_ms_1024": p50k, "p99_ms_1024": p99k,
+           "rows": rows,
+           "ap_max_rel_err": rel, "launches": launches,
+           "k5_ms": k5_ms, "k5_plain_ms": k5_plain, "k5_bound_ms": k5_bound,
+           "k5_library_ms": lib_ms, "k6_ms": k6_ms,
+           "k6_step_ms": k6_step_ms, "k6_emit_ms": k6_emit_ms,
+           "k6_plain_ms": k6_plain, "k6_bound_ms": k6_bound,
+           "device_ms_per_send": breakdown, "busy_share": busy,
+           "card": card}
+    print(json.dumps({which: res}), flush=True)
+    return res
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1049,7 +1417,26 @@ def main() -> None:
     k4_err = k4_against_plain(dev)
     table.append(timeout_phase(dev, card, k4_err))
 
-    # -- 9. result ---------------------------------------------------------------
+    # -- 9. to 11. kernels K5 and K6, window_agg, window_time_grouped --------
+    k56_err = k56_against_plain(dev)
+    runs = {w: window_phase(dev, card, w)
+            for w in ("window_agg", "window_time_grouped")}
+    for kname, src, repl, key in (
+            ("window_step", "siddhi_tpu_torch/csrc/window_step.cu",
+             "siddhi_tpu/ops/windows.py:113", "k5"),
+            ("aggregate_step", "siddhi_tpu_torch/csrc/aggregate_step.cu",
+             "siddhi_tpu/ops/aggregators.py:825", "k6")):
+        # launches: both new paths; times: window_time_grouped's step
+        r = runs["window_time_grouped"]
+        table.append({
+            "name": kname, "route": "cuda", "source": src, "replaces": repl,
+            "launches": sum(x["launches"][kname] for x in runs.values()),
+            "max_abs_err": k56_err, "ms": r[f"{key}_ms"],
+            "plain_ms": r[f"{key}_plain_ms"], "bound_ms": r[f"{key}_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": r["k5_library_ms"] if key == "k5" else None})
+
+    # -- 12. result -----------------------------------------------------------
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,10 +29,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 SOURCES = {"unpack_packed": "unpack_packed.cu", "expr_eval": "expr_eval.cu",
-           "nfa_parallel": "nfa_parallel.cu", "nfa_scan": "nfa_scan.cu"}
+           "nfa_parallel": "nfa_parallel.cu", "nfa_scan": "nfa_scan.cu",
+           "window_step": "window_step.cu",
+           "aggregate_step": "aggregate_step.cu"}
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
-LAUNCHES = {name: 0 for name in SOURCES}
+# the aggregate step's library has a second entry point, the emission
+LAUNCHES = {name: 0 for name in (*SOURCES, "aggregate_emit")}
 
 
 def count_launch(name: str) -> None:
@@ -230,6 +233,80 @@ class ScanArgs(ctypes.Structure):
         (f, _I32) for f in ("n_code", "n_consts", "n_loads")]
 
 
+WIN_MAX_COLS = 16
+
+
+class WinBuf(ctypes.Structure):
+    _fields_ = [("ts", _P), ("seq", _P), ("cols", _P * WIN_MAX_COLS),
+                ("nulls", _P * WIN_MAX_COLS), ("valid", _P)]
+
+
+class WindowArgs(ctypes.Structure):
+    _fields_ = [("batch", WinBuf), ("batch_kind", _P), ("a", WinBuf),
+                ("e", WinBuf), ("na", WinBuf), ("ne", WinBuf)] + [
+        (f, _P) for f in (
+            "next_seq", "overflow", "next_emit", "now", "o_next_seq",
+            "o_overflow", "o_next_emit")] + [
+        ("out", WinBuf), ("out_kind", _P)] + [
+        (f, _P) for f in (
+            "b_seq", "rt", "cur_rows", "scal", "keys", "k1", "k2", "i1",
+            "i2", "order", "counts", "cand_src", "cand_ts", "cand_kind",
+            "keep", "rank_pos")] + [
+        ("col_size", _I32 * WIN_MAX_COLS)] + [
+        (f, _I32) for f in (
+            "n_cols", "kind", "B", "W", "EB", "N", "P", "expired_enabled",
+            "stream_current", "has_start")] + [
+        (f, _I64) for f in ("length", "span_ms", "start_time")]
+
+
+AGG_MAX_KEYS = 8
+AGG_MAX_SPECS = 16
+AGG_MAX_LANES = 48
+AGG_MAX_LEVELS = 40
+AGG_MAX_OUTS = 32
+
+
+class AggArgs(ctypes.Structure):
+    _fields_ = [(f, _I32) for f in (
+        "B", "K", "grouped", "n_keys", "n_specs", "n_lanes")] + [
+        ("kind", _P), ("valid", _P),
+        ("key_cols", _P * AGG_MAX_KEYS), ("key_nulls", _P * AGG_MAX_KEYS),
+        ("key_type", _I32 * AGG_MAX_KEYS),
+        ("spec_kind", _I32 * AGG_MAX_SPECS),
+        ("spec_flag", _I32 * AGG_MAX_SPECS),
+        ("spec_lane0", _I32 * AGG_MAX_SPECS),
+        ("arg_type", _I32 * AGG_MAX_SPECS),
+        ("arg_cols", _P * AGG_MAX_SPECS), ("arg_nulls", _P * AGG_MAX_SPECS),
+        ("out_type", _I32 * AGG_MAX_SPECS),
+        ("out_vals", _P * AGG_MAX_SPECS), ("out_nulls", _P * AGG_MAX_SPECS),
+        ("lane_op", _I32 * AGG_MAX_LANES),
+        ("lane_type", _I32 * AGG_MAX_LANES),
+        ("lane_spec", _I32 * AGG_MAX_LANES),
+        ("carry", _P * AGG_MAX_LANES), ("new_carry", _P * AGG_MAX_LANES),
+        ("run", _P * AGG_MAX_LANES)] + [
+        (f, _P) for f in (
+            "keys", "used", "overflow", "new_keys", "new_used",
+            "new_overflow", "slots", "hk", "probe", "flags", "claim",
+            "reset_seg", "scal", "skeys", "k1", "k2", "i1", "i2", "counts",
+            "perm", "inv_perm", "seg_sorted", "seg_start", "slot_first",
+            "slot_last", "tree", "tree_seg", "res")] + [
+        ("level_off", _I64 * AGG_MAX_LEVELS),
+        ("level_n", _I64 * AGG_MAX_LEVELS), ("n_levels", _I32)]
+
+
+class EmitArgs(ctypes.Structure):
+    _fields_ = [(f, _I32) for f in ("B", "K", "batch_mode", "n_cols")] + [
+        ("offset", _I64), ("limit", _I64)] + [
+        (f, _P) for f in ("slots", "qual", "ts", "kind", "valid")] + [
+        ("cols", _P * AGG_MAX_OUTS), ("nulls", _P * AGG_MAX_OUTS),
+        ("col_size", _I32 * AGG_MAX_OUTS),
+        ("out_ts", _P), ("out_kind", _P), ("out_valid", _P),
+        ("out_cols", _P * AGG_MAX_OUTS), ("out_nulls", _P * AGG_MAX_OUTS)] + [
+        (f, _P) for f in (
+            "emitted", "ovalid", "emit_order", "pos", "flag", "qkeys", "k1",
+            "k2", "i1", "i2", "perm2", "counts", "chunk", "gstart", "scal")]
+
+
 # -- build -------------------------------------------------------------------
 
 def _nvcc() -> str:
@@ -303,6 +380,16 @@ class _Kernels:
         self.scan_lib.siddhi_nfa_scan.argtypes = [
             ctypes.POINTER(ScanArgs), ctypes.c_void_p]
         self.scan_lib.siddhi_nfa_scan.restype = ctypes.c_int
+        self.win_lib = ctypes.CDLL(str(libs["window_step"]))
+        self.win_lib.siddhi_window_step.argtypes = [
+            ctypes.POINTER(WindowArgs), ctypes.c_void_p]
+        self.win_lib.siddhi_window_step.restype = ctypes.c_int
+        self.agg_lib = ctypes.CDLL(str(libs["aggregate_step"]))
+        for fn, st in (("siddhi_aggregate_step", AggArgs),
+                       ("siddhi_aggregate_emit", EmitArgs)):
+            getattr(self.agg_lib, fn).argtypes = [ctypes.POINTER(st),
+                                                  ctypes.c_void_p]
+            getattr(self.agg_lib, fn).restype = ctypes.c_int
 
     @staticmethod
     def _check(name: str, err: int) -> None:
@@ -323,6 +410,18 @@ class _Kernels:
 
     def nfa_scan(self, args: ScanArgs, stream: int) -> None:
         self._check("nfa_scan", self.scan_lib.siddhi_nfa_scan(
+            ctypes.byref(args), stream))
+
+    def window_step(self, args: WindowArgs, stream: int) -> None:
+        self._check("window_step", self.win_lib.siddhi_window_step(
+            ctypes.byref(args), stream))
+
+    def aggregate_step(self, args: AggArgs, stream: int) -> None:
+        self._check("aggregate_step", self.agg_lib.siddhi_aggregate_step(
+            ctypes.byref(args), stream))
+
+    def aggregate_emit(self, args: EmitArgs, stream: int) -> None:
+        self._check("aggregate_emit", self.agg_lib.siddhi_aggregate_emit(
             ctypes.byref(args), stream))
 
 

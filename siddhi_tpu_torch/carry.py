@@ -3,7 +3,11 @@
 ``state_from_jax`` turns the numpy pytree of a reference
 ``QueryRuntime.snapshot_state()`` (``{"states": ..., "emitted": ...}``,
 plus ``"nfa"`` for a pattern query) into the port's state for
-``QueryRuntime.restore_state``.
+``QueryRuntime.restore_state``: window buffers (``ts``, ``seq``, the
+columns and null masks, ``valid``), the aggregators' group tables
+(``keys``, ``used``, ``carry``, ``overflow``) and the counters come
+across as they are, with a window's STRING columns optionally mapped to
+the port's dictionary codes.
 ``strings_from_jax`` seeds the port's string dictionary so that its
 codes match the reference process's: both packages give strings codes
 in order of first sight, so dictionary-coded columns and string
@@ -29,14 +33,46 @@ def _tree(tree, device):
     return torch.from_numpy(np.array(tree, copy=True)).to(device)
 
 
-def state_from_jax(snapshot: dict, device) -> dict:
+_BUFFER_KEYS = {"ts", "seq", "cols", "nulls", "valid"}
+
+
+def _remap_buffers(tree, string_cols, remap):
+    """Window buffers in ``tree`` with their STRING columns (flags in
+    ``string_cols``, the stream's attribute order) passed through
+    ``remap``."""
+    if isinstance(tree, dict):
+        if set(tree) == _BUFFER_KEYS:
+            cols = tuple(np.asarray(remap(np.asarray(c)), np.int32)
+                         if is_str else c
+                         for c, is_str in zip(tree["cols"], string_cols))
+            return {**tree, "cols": cols}
+        return {k: _remap_buffers(v, string_cols, remap)
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_remap_buffers(v, string_cols, remap)
+                          for v in tree)
+    return tree
+
+
+def state_from_jax(snapshot: dict, device, string_cols: Sequence = (),
+                   remap=None) -> dict:
     """A reference QueryRuntime snapshot -> the port's query state. A
     PatternQueryRuntime's snapshot also carries its NFA pending table
     (``"nfa"``: the same pytree, tuples of slot buffers included), for
     either engine: every field the scan engine writes (both deadline
     lanes, born, min_at, seq, the counters, the slots' ts and fill
-    counts) comes across as it is."""
-    state = {"states": _tree(snapshot["states"], device),
+    counts) comes across as it is.
+
+    ``remap`` (reference codes array -> port codes array) is applied to
+    the STRING columns of every window buffer, flagged by
+    ``string_cols`` in the query input's attribute order. A group
+    table's slots are hashes of dictionary codes and cannot be mapped:
+    it carries over only where both packages gave the feed's strings the
+    same codes."""
+    states = snapshot["states"]
+    if remap is not None:
+        states = _remap_buffers(states, tuple(string_cols), remap)
+    state = {"states": _tree(states, device),
              "emitted": torch.tensor(int(np.asarray(snapshot["emitted"])),
                                      dtype=torch.int64, device=device)}
     if "nfa" in snapshot:

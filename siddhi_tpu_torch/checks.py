@@ -520,3 +520,211 @@ def three_stream_feed(n: int, encode, seed: int, gap_ms: int = 1):
             rng.uniform(0, 60, n).astype(np.float32),
             rng.integers(0, 100, n).astype(np.int32)]
     return stream, ts, cols
+
+
+# -- kernels K5 and K6: windows and aggregation -----------------------------
+
+# bench.py bench_window_agg's app, verbatim: a tumbling count window and a
+# global aggregate, one output row per flush (the last of the chunk)
+WINDOW_AGG_APP = """
+        @app:playback
+        define stream StockStream (symbol string, price float, volume long);
+        @info(name = 'q')
+        from StockStream#window.lengthBatch(1000)
+        select avg(price) as ap, sum(volume) as sv
+        insert into OutputStream;
+    """
+
+
+def window_time_app(span: str = "1 min", cap: int = 65536) -> str:
+    """The sliding, grouped aggregation of Siddhi's documentation
+    (TimeWindowTestCase): one output row per event. The tests cut its
+    span and window capacity; the shapes stay."""
+    return f"""
+    @app:playback
+    define stream StockStream (symbol string, price float, volume long);
+    @info(name='q') @cap(window.size='{cap}')
+    from StockStream#window.time({span})
+    select symbol, avg(price) as ap, sum(volume) as sv, count() as n
+    group by symbol
+    insert into OutputStream;
+"""
+
+
+WINDOW_TIME_APP = window_time_app()
+WINDOW_TIME_MS = 60_000
+WINDOW_TIME_SYMS = 512
+
+
+def window_agg_feed(n: int, encode, seed: int = 8):
+    """bench_window_agg's feed: as filter_feed, seed 8."""
+    return filter_feed(n, encode, seed=seed)
+
+
+def window_agg_oracle(price, volume, length: int = 1000):
+    """WINDOW_AGG_APP's rows, independently of the engine: one per
+    complete batch of ``length`` events, (mean price as float64, volume
+    sum). -> (ap, sv)."""
+    k = len(price) // length
+    p = price[:k * length].astype(np.float64).reshape(k, length)
+    v = volume[:k * length].reshape(k, length)
+    return p.mean(axis=1), v.sum(axis=1)
+
+
+def time_symbols(n_syms: int, prefix: str = "K") -> list:
+    return [f"{prefix}{i:04d}" for i in range(n_syms)]
+
+
+def window_time_feed(n: int, encode, seed: int = 10,
+                     n_syms: int = WINDOW_TIME_SYMS, prefix: str = "K"):
+    """WINDOW_TIME_APP's feed: symbols drawn uniformly from ``n_syms``,
+    timestamps TS0 + k (1 ms apart), price ~ U(0, 200) float32, volume ~
+    U[1, 1000) int64. -> (ts, [symbol codes, price, volume])."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([encode(s) for s in time_symbols(n_syms, prefix)],
+                    np.int32)
+    ts = TS0 + np.arange(n, dtype=np.int64)
+    sym = syms[rng.integers(0, n_syms, n)]
+    price = rng.uniform(0, 200, n).astype(np.float32)
+    vol = rng.integers(1, 1000, n, dtype=np.int64)
+    return ts, [sym, price, vol]
+
+
+def window_time_oracle(ts, sym, price, volume, span_ms: int = WINDOW_TIME_MS):
+    """WINDOW_TIME_APP's rows, independently of the engine: one per
+    event, over the events of its symbol still in the window. An event at
+    t leaves at the first event whose ts reaches t + span (its EXPIRED row
+    precedes that event's CURRENT row), so event i's window is the
+    same-symbol events j <= i with ts[j] + span > ts[i].
+    -> (symbol codes, ap, sv, n), in event order."""
+    n = len(ts)
+    first = np.searchsorted(ts, ts - span_ms, side="right")
+    ap = np.empty(n, np.float64)
+    sv = np.empty(n, np.int64)
+    cnt = np.empty(n, np.int64)
+    for s in np.unique(sym):
+        idx = np.flatnonzero(sym == s)
+        cp = np.concatenate([[0.0], np.cumsum(price[idx].astype(np.float64))])
+        cv = np.concatenate([[0], np.cumsum(volume[idx])])
+        lo = np.searchsorted(idx, first[idx], side="left")
+        hi = np.arange(1, len(idx) + 1)
+        cnt[idx] = hi - lo
+        sv[idx] = cv[hi] - cv[lo]
+        ap[idx] = (cp[hi] - cp[lo]) / (hi - lo)
+    return sym, ap, sv, cnt
+
+
+# comparison apps for K5 and K6: every window kind, the aggregator kinds
+# and the selector's options, over one stream
+_CMP_STREAM = """
+    @app:playback
+    define stream S (sym string, price float, volume long, flag bool);
+"""
+WINDOW_APPS = {
+    "time, grouped, all events": _CMP_STREAM + """
+        @info(name = 'q') @cap(window.size='256')
+        from S#window.time(40 milliseconds)
+        select sym, avg(price) as ap, sum(volume) as sv, count() as n,
+               stdDev(price) as sd
+        group by sym
+        insert all events into Out;
+    """,
+    "length, having": _CMP_STREAM + """
+        @info(name = 'q')
+        from S#window.length(50)
+        select sym, sum(price) as sp, count() as n,
+               minForever(price) as mn, maxForever(volume) as mx
+        group by sym
+        having n > 1
+        insert all events into Out;
+    """,
+    "length(0), expired": _CMP_STREAM + """
+        @info(name = 'q')
+        from S[volume > 100]#window.length(0)
+        select sym, sum(volume) as sv
+        insert expired events into Out;
+    """,
+    "lengthBatch, grouped": _CMP_STREAM + """
+        @info(name = 'q')
+        from S#window.lengthBatch(64)
+        select sym, avg(price) as ap, max(price) as mx, min(volume) as mn,
+               count() as n, and(flag) as a, or(flag) as o
+        group by sym
+        insert into Out;
+    """,
+    "lengthBatch, stream current": _CMP_STREAM + """
+        @info(name = 'q')
+        from S#window.lengthBatch(8, true)[price > 20.0]
+        select sym, sum(volume) as sv, count() as n
+        group by sym
+        insert all events into Out;
+    """,
+    "lengthBatch, reset heavy": _CMP_STREAM + """
+        @info(name = 'q')
+        from S#window.lengthBatch(2)
+        select avg(price) as ap, sum(volume) as sv, count() as n,
+               stdDev(price) as sd
+        insert all events into Out;
+    """,
+    "timeBatch, start time": _CMP_STREAM + """
+        @info(name = 'q') @cap(window.size='256')
+        from S#window.timeBatch(30 milliseconds, 5)
+        select sym, sum(volume) as sv, avg(price) as ap, count() as n
+        group by sym
+        insert all events into Out;
+    """,
+    "timeBatch, stream current": _CMP_STREAM + """
+        @info(name = 'q') @cap(window.size='256')
+        from S#window.timeBatch(25 milliseconds, true)
+        select sym, price, volume
+        insert all events into Out;
+    """,
+    "time, offset and limit": _CMP_STREAM + """
+        @info(name = 'q') @cap(window.size='256')
+        from S#window.time(20 milliseconds)
+        select sym, sum(price) as sp, count() as n
+        group by sym
+        having sp > 100.0
+        limit 3 offset 1
+        insert into Out;
+    """,
+}
+
+# more events inside the time span than @cap(window.size) rows: the
+# window drops the oldest and counts them
+WINDOW_OVERFLOW_APP = _CMP_STREAM + """
+    @info(name = 'q') @cap(window.size='64')
+    from S#window.time(500 milliseconds)
+    select sym, sum(volume) as sv, count() as n
+    group by sym
+    insert into Out;
+"""
+
+# more distinct keys than the 1,024-slot group table: overflowed rows are
+# counted and left out
+KEYS_OVERFLOW_APP = _CMP_STREAM + """
+    @info(name = 'q')
+    from S#window.length(4096)
+    select sym, sum(volume) as sv, count() as n
+    group by sym
+    insert into Out;
+"""
+
+
+def window_feed(n: int, encode, seed: int, n_syms: int = 16,
+                gap_ms: int = 3, prefix: str = "K"):
+    """Events for the comparison apps: symbols uniform over ``n_syms``,
+    timestamps rising by U[0, gap_ms] ms (equal timestamps included),
+    price ~ U(0, 200) float32 with a few exact repeats, volume ~
+    U[1, 1000) int64, flag ~ Bernoulli(0.5). -> (ts, [sym codes, price,
+    volume, flag])."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([encode(s) for s in time_symbols(n_syms, prefix)],
+                    np.int32)
+    ts = TS0 + np.cumsum(rng.integers(0, gap_ms + 1, n)).astype(np.int64)
+    sym = syms[rng.integers(0, n_syms, n)]
+    price = rng.uniform(0, 200, n).astype(np.float32)
+    price[rng.random(n) < 0.1] = np.float32(50.0)
+    vol = rng.integers(1, 1000, n, dtype=np.int64)
+    flag = rng.random(n) < 0.5
+    return ts, [sym, price, vol, flag]

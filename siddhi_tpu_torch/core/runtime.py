@@ -14,19 +14,27 @@ program; here a packed chunk's step is a fixed sequence of kernel
 launches on the app's device, with no host sync between them: K1
 decodes the chunk (core/ingest.py unpack_packed), K2 runs the query's
 filters and projection and counts the emitted rows (ops/expr.py
-expr_eval). A pattern query runs K1, then its NFA step, then K2 over
-the match batch: K3 once per sub-batch of 4,096 events where the
+expr_eval). A query with a window and/or aggregators runs K1, the
+filters before the window (K2), the window step (K5, ops/windows.py
+window_step), then its selector: K2 for the filters after the window
+and the group-by keys and arguments, K6's step (ops/aggregators.py
+aggregate_step), K2 for the projection and having, and K6's emission.
+A pattern query runs K1, then its NFA step, then K2 (or the aggregating
+selector) over the match batch: K3 once per sub-batch of 4,096 events where the
 reference's parallel_supported holds (ops/nfa_parallel.py
 parallel_step), else K4 once per chunk, the per-event scan over a
 128-row table (ops/nfa.py scan_step). An absent pattern's deadlines
 are read back after each step and fire K4's timer step from the
 scheduler. On the CPU every kernel takes its plain PyTorch version.
 
-This slice plans single-stream filter/project queries, insert-into
-chains between them, and pattern and sequence queries. Joins, windows,
-tables, partitions, aggregations, triggers, rate limiters, stream
-functions, sources and sinks raise NotImplementedError ("not ported
-yet") on every device.
+This slice plans single-stream queries with filters, one window of
+kind time, length, lengthBatch or timeBatch, and a plain or
+aggregating selector; insert-into chains between them; and pattern and
+sequence queries. Joins, the other window kinds, tables, partitions,
+incremental aggregations, triggers, rate limiters, stream functions,
+sources and sinks raise NotImplementedError ("not ported yet") on
+every device. Window timers fire from the scheduler as in the
+reference (QueryRuntime._schedule / _on_timer).
 """
 from __future__ import annotations
 
@@ -39,8 +47,9 @@ from typing import Callable, Optional
 import torch
 
 from ..lang import ast as A
+from ..ops.aggregators import AggregateOp
 from ..ops.expr import CompileError, ProgramBuilder, SingleStreamScope, \
-    compile_expression
+    compile_expression, expr_eval
 from ..ops.nfa import (MatchScope, NfaCompiler, NfaEngine, rewrite_last_refs,
                        rewrite_oob_refs, timer_step)
 from ..ops.nfa_parallel import ParallelNfaEngine, parallel_supported
@@ -48,8 +57,10 @@ from ..ops.operators import FilterOp, Operator
 from ..ops.selector import (ProjectOp, project, selector_needs_aggregation)
 from ..ops.sentinels import POS_INF
 from ..ops.table import expr_mentions_table
-from .event import (CURRENT, EXPIRED, Attribute, EventBatch, StreamSchema,
-                    batch_from_rows, rows_from_batch)
+from ..ops.windows import (LengthBatchWindowOp, LengthWindowOp,
+                           TimeBatchWindowOp, TimeWindowOp, WindowOp)
+from .event import (CURRENT, EXPIRED, TIMER, Attribute, EventBatch,
+                    StreamSchema, batch_from_rows, rows_from_batch)
 from .ingest import PackedChunk, unpack_packed
 from .scheduler import Scheduler
 from .stream import (Event, InputHandler, QueryCallback, Receiver,
@@ -57,6 +68,22 @@ from .stream import (Event, InputHandler, QueryCallback, Receiver,
 from .types import AttrType
 
 BATCH_BUCKETS = (16, 128, 1024, 8192, 65536, 262144, 1048576)
+
+# step capacity of a query with a window, aggregators or order-by (the
+# reference's cap, kept: the send path chunks to it, and a larger device
+# batch chained in from another query is split to it)
+SORT_HEAVY_CAP = 65536
+
+WINDOW_CLASSES = {
+    "time": TimeWindowOp,
+    "length": LengthWindowOp,
+    "lengthbatch": LengthBatchWindowOp,
+    "timebatch": TimeBatchWindowOp,
+}
+# the reference's other window kinds (siddhi_tpu/ops/windows2.py)
+UNPORTED_WINDOWS = ("externaltime", "timelength", "delay", "batch", "sort",
+                    "frequent", "lossyfrequent", "externaltimebatch",
+                    "session", "cron", "hopping", "hoping")
 
 
 def bucket_capacity(n: int) -> int:
@@ -82,21 +109,81 @@ def _as_current(batch: EventBatch) -> EventBatch:
 
 def _chain_body(ops):
     """One query's operator chain as a step:
-    (states, emitted, batch, now) -> (states', out). The filters and the
-    projection lower into ONE kernel K2 program, so the step is one
-    launch; it also adds the emitted rows to ``emitted`` in place."""
-    builder = ProgramBuilder()
-    for op in ops:
-        op.lower(builder)
-    prog = builder.build()
-    last = ops[-1]
-    assert isinstance(last, ProjectOp), "a query chain ends in its selector"
+    (states, emitted, batch, now) -> (states', out). Consecutive filters
+    lower into ONE kernel K2 program with the projection after them, or
+    into the K2 program of the aggregating selector after them, or, before
+    a window, into a K2 filter program of their own; windows run K5 and
+    aggregating selectors K6. The step adds the emitted rows to
+    ``emitted`` in place."""
+    stages, filters = [], []
+    for i, op in enumerate(ops):
+        if isinstance(op, FilterOp):
+            filters.append(op)
+            continue
+        if isinstance(op, WindowOp):
+            if filters:
+                b = ProgramBuilder()
+                for f in filters:
+                    f.lower(b)
+                stages.append(("filter", i, b.build()))
+            stages.append(("window", i, None))
+        elif isinstance(op, AggregateOp):
+            op.pre_filters = list(filters)
+            stages.append(("aggregate", i, None))
+        else:
+            assert isinstance(op, ProjectOp), type(op).__name__
+            b = ProgramBuilder()
+            for f in filters:
+                f.lower(b)
+            op.lower(b)
+            stages.append(("project", i, b.build()))
+        filters = []
+    assert not filters and stages[-1][0] in ("project", "aggregate"), \
+        "a query chain ends in its selector"
 
     def chain(states, emitted, batch, now):
-        return states, project(last, prog, batch, emitted)
+        states = list(states)
+        for kind, i, prog in stages:
+            if kind == "filter":
+                _c, _n, valid = expr_eval(prog, batch)
+                batch = EventBatch(batch.ts, batch.cols, batch.nulls,
+                                   batch.kind, valid)
+            elif kind == "window":
+                states[i], batch = ops[i].step(states[i], batch, now)
+            elif kind == "aggregate":
+                states[i], batch = ops[i].step(states[i], batch, now,
+                                               emitted)
+            else:
+                batch = project(ops[i], prog, batch, emitted)
+        return tuple(states), batch
 
-    chain.program = prog
+    chain.program = stages[-1][2]
     return chain
+
+
+def _timer_windows(operators) -> list:
+    """Window ops that schedule timers."""
+    return [op for op in operators if isinstance(op, WindowOp)
+            and op.next_due(op.init_state()) is not None]
+
+
+def _all_host_due(timer_ops) -> bool:
+    return bool(timer_ops) and all(
+        getattr(op, "host_due_bound", None) is not None for op in timer_ops)
+
+
+def _timer_batch(schema: StreamSchema, due: int, device) -> EventBatch:
+    """A 16-row batch whose one valid row is a TIMER at ``due``."""
+    cap = BATCH_BUCKETS[0]
+    batch = batch_from_rows(schema, [], [], cap, device=device)
+    ts = torch.zeros((cap,), dtype=torch.int64)
+    ts[0] = due
+    kind = torch.zeros((cap,), dtype=torch.int32)
+    kind[0] = TIMER
+    valid = torch.zeros((cap,), dtype=torch.bool)
+    valid[0] = True
+    return EventBatch(ts=ts.to(device), cols=batch.cols, nulls=batch.nulls,
+                      kind=kind.to(device), valid=valid.to(device))
 
 
 def _build_packed_step(chain, schema: StreamSchema) -> Callable:
@@ -183,7 +270,21 @@ class QueryRuntime(Receiver):
         self.callback_handler = QueryCallbackHandler()
         # raw device-batch observers (no host row decode)
         self.batch_callbacks: list[Callable] = []
-        self.states = tuple(op.init_state() for op in operators)
+        self.states = _tree_to(tuple(op.init_state() for op in operators),
+                               app.device)
+        self.max_step_capacity = SORT_HEAVY_CAP if any(
+            getattr(op, "sort_heavy", False) for op in operators) else None
+        # timers: when every timer window offers a host due bound, steps
+        # schedule them with no device read; else the due is read back
+        self._timer_ops = _timer_windows(operators)
+        self._has_timers = bool(self._timer_ops)
+        self._host_due_all = _all_host_due(self._timer_ops)
+        self._sched_due: Optional[int] = None
+        # clock of the latest event step: timers due at or before it were
+        # covered by the step's own per-row expiry (see _schedule)
+        self._last_now = -(2 ** 62)
+        self._skip_past_dues = not any(
+            getattr(op, "needs_catchup", False) for op in operators)
         self._chain = _chain_body(operators)
         self._packed_step = _build_packed_step(self._chain, in_schema)
         # device-resident emitted-row counter: kernel K2 adds to it in
@@ -198,10 +299,30 @@ class QueryRuntime(Receiver):
         return self._chain.program
 
     def process_packed(self, chunk: PackedChunk) -> None:
+        self._last_now = max(self._last_now, chunk.last_ts)
         with self._lock:
             self.states, out = self._packed_step(
                 self.states, self._emitted_dev, chunk)
-        self._dispatch_output(out, chunk.last_ts)
+        if self._host_due_all and chunk.ts_min is not None:
+            self._dispatch_output(out, chunk.last_ts)
+            self._schedule(min(op.host_due_bound(chunk.ts_min)
+                               for op in self._timer_ops))
+            return
+        self._dispatch_output(out, chunk.last_ts, due=self._due())
+
+    def _due(self):
+        """The earliest window due after a step, as an int64 0-d tensor
+        on the device (read back by _dispatch_output or later), or None
+        when no window has timers."""
+        if not self._has_timers:
+            return None
+        with self._lock:
+            dues = [op.next_due(st) for op, st in
+                    zip(self.operators, self.states) if op in self._timer_ops]
+        due = dues[0]
+        for d in dues[1:]:
+            due = torch.minimum(due, d)
+        return due
 
     def stats(self) -> dict:
         """Runtime counters (device-synced on read)."""
@@ -220,14 +341,14 @@ class QueryRuntime(Receiver):
         snapshot carried over by carry.state_from_jax)."""
         with self._lock:
             self.states = _tree_to(snap["states"], self.app.device)
+            self._sched_due = None
             self._emitted_dev = torch.as_tensor(
                 snap["emitted"], dtype=torch.int64).to(
                     self.app.device).clone()
 
     def overflow_total(self) -> int:
-        """Sum of overflow counters across operator states (the 'counted,
-        never silent' contract). The operators of this slice carry no
-        state, so this is 0 until stateful operators are ported."""
+        """Sum of overflow counters across operator states (windows and
+        group tables: the 'counted, never silent' contract)."""
         total = 0
 
         def walk(st):
@@ -265,23 +386,38 @@ class QueryRuntime(Receiver):
 
     def receive(self, events: list[Event]) -> None:
         for batch, last_ts in self.encode_chunks(self.in_schema, events,
-                                                 self.app.device):
+                                                 self.app.device,
+                                                 self.max_step_capacity):
             self.process_batch(batch, last_ts)
 
     def process_batch(self, batch: EventBatch, timestamp: int,
-                      now: Optional[int] = None) -> None:
+                      now: Optional[int] = None,
+                      skip_due: bool = False) -> None:
+        cap = self.max_step_capacity
+        if cap is not None and batch.capacity > cap:
+            # a device batch chained in from another query
+            for off in range(0, batch.capacity, cap):
+                sl = slice(off, off + cap)
+                self.process_batch(EventBatch(
+                    batch.ts[sl], tuple(c[sl] for c in batch.cols),
+                    tuple(n[sl] for n in batch.nulls), batch.kind[sl],
+                    batch.valid[sl]), timestamp, now=now, skip_due=skip_due)
+            return
         if now is None:
             now = self.app.current_time()
+        self._last_now = max(self._last_now, int(now))
         with self._lock:
             self.states, out = self._chain(self.states, self._emitted_dev,
                                            batch, now)
-        self._dispatch_output(out, timestamp)
+        self._dispatch_output(out, timestamp,
+                              due=None if skip_due else self._due())
 
-    def _dispatch_output(self, out, timestamp: int) -> None:
-        """Raw-batch observers, device-to-device chaining, and (only when
-        someone still needs rows) one host decode shared by every
-        handler and callback. The reference's rate-limiter and debugger
-        branches are not ported yet (the planner rejects both)."""
+    def _dispatch_output(self, out, timestamp: int, due=None) -> None:
+        """Raw-batch observers, timer scheduling, device-to-device
+        chaining, and (only when someone still needs rows) one host
+        decode shared by every handler and callback. The reference's
+        rate-limiter and debugger branches are not ported yet (the
+        planner rejects both)."""
         for cb in self.batch_callbacks:
             cb(out)
         _current: list = []
@@ -295,13 +431,51 @@ class QueryRuntime(Receiver):
                         if not h.handle_device_batch(
                             out, timestamp, current=current_once)]
         if not (row_handlers or self.callback_handler.callbacks):
+            if due is not None:
+                # no host rows this step: the due is read at the next
+                # clock advance, as the reference resolves it
+                self.app.defer_due(self, due)
             return
+        if due is not None:
+            self._schedule(int(due.item()))
         out_rows = rows_from_batch(self.out_schema.types, out)
         if not out_rows:
             return
         for h in row_handlers:
             h.handle(timestamp, out_rows)
         self.callback_handler.handle(timestamp, out_rows)
+
+    # -- window timers ---------------------------------------------------
+    def _schedule(self, due: int) -> None:
+        if due >= int(POS_INF):
+            return
+        if due <= self._last_now and self._skip_past_dues \
+                and self.app._columnar:
+            # the event step that produced this due already expired every
+            # row up to its own clock: a timer there is a no-op dispatch
+            # (windows that flush one boundary a step opt out:
+            # needs_catchup)
+            return
+        if self._sched_due is not None and self._sched_due <= due:
+            return
+        self._sched_due = due
+        self.app.scheduler.notify_at(due, self._on_timer)
+
+    def _on_timer(self, due: int) -> None:
+        self._sched_due = None
+        if not self.app.running:
+            return
+        # the TIMER row carries the advanced clock, not the scheduled due:
+        # one fire drains every pending expiry
+        now = max(due, self.app.current_time())
+        batch = _timer_batch(self.in_schema, now, self.app.device)
+        if self._host_due_all and self.app._playback:
+            # host-bounded timers: no due read; re-arm at now + 1, at most
+            # one timer step per clock advance
+            self.process_batch(batch, due, now=now, skip_due=True)
+            self._schedule(now + 1)
+        else:
+            self.process_batch(batch, due, now=now)
 
 
 def _tree_to(tree, device):
@@ -374,10 +548,10 @@ class PatternQueryRuntime(QueryRuntime):
         # latest event step: dues at or before it were covered in-step
         self._sched_due: Optional[int] = None
         self._last_now = -(2 ** 62)
-        # the largest batch one step takes (None: any bucket); a smaller
-        # cap trades throughput for latency, and the junctions chunk
-        # every stream of the pattern to it
-        self.max_step_capacity: Optional[int] = None
+        # max_step_capacity (QueryRuntime's: SORT_HEAVY_CAP with an
+        # aggregating selector, else None, any bucket) is the largest batch
+        # one step takes; a smaller cap trades throughput for latency, and
+        # the junctions chunk every stream of the pattern to it
 
     def receive(self, events: list[Event]) -> None:
         raise RuntimeError(
@@ -512,6 +686,9 @@ class SiddhiAppRuntime:
         self._playback_time: Optional[int] = None
         # set by the first columnar send (InputHandler.send_arrays)
         self._columnar = False
+        # window dues of steps whose output no host consumer read: read
+        # back and scheduled before the next clock advance
+        self._due_pending: list = []
         # app-wide quiesce barrier: ingest holds it; snapshot/restore of
         # the whole app would take it exclusively
         self.barrier = threading.RLock()
@@ -532,6 +709,16 @@ class SiddhiAppRuntime:
             return self._playback_time
         return int(time.time() * 1000)
 
+    def defer_due(self, q, due) -> None:
+        self._due_pending.append((q, due))
+
+    def _resolve_dues(self) -> None:
+        if not self._due_pending:
+            return
+        pending, self._due_pending = self._due_pending, []
+        for q, due in pending:
+            q._schedule(int(due.item()))
+
     def on_ingest(self, stream_id: str, events: list[Event]) -> None:
         if events:
             self.on_ingest_ts(events[-1].timestamp, events[0].timestamp)
@@ -547,6 +734,7 @@ class SiddhiAppRuntime:
                      first_ts: Optional[int] = None) -> None:
         """Advance the playback clock (and due timers) to an ingested
         timestamp — shared by the row and columnar ingest paths."""
+        self._resolve_dues()
         if self._playback:
             self._arm_patterns(first_ts if first_ts is not None
                                else last_ts)
@@ -557,6 +745,7 @@ class SiddhiAppRuntime:
         """Columnar-chunk variant: fire only timers due STRICTLY BEFORE
         the chunk's span, then advance the clock to its end (the caller
         catches up with advance_to(last_ts) after publishing)."""
+        self._resolve_dues()
         if self._playback:
             self._arm_patterns(first_ts)
             self.scheduler.advance_to(first_ts - 1)
@@ -614,6 +803,7 @@ class SiddhiAppRuntime:
     def shutdown(self) -> None:
         self.running = False
         self.scheduler.shutdown()
+        self._resolve_dues()
 
 
 class Planner:
@@ -667,7 +857,7 @@ class Planner:
         app = self.app
         name = q.name or default_name
         for ann in q.annotations:
-            if ann.name.lower() != "info":
+            if ann.name.lower() not in ("info", "cap"):
                 raise not_ported(f"@{ann.name} on query '{name}'")
         if isinstance(q.input, A.StateInputStream):
             if q.output_rate is not None:
@@ -715,11 +905,16 @@ class Planner:
                            schema: StreamSchema, sin: A.SingleInputStream,
                            scope, target: str, current_on: bool,
                            expired_on: bool) -> list:
-        """Filter chain + selector for a single-stream query
+        """Handler chain + selector for a single-stream query
         (= SingleInputStreamParser.parseInputStream + SelectorParser)."""
+        needs_agg = selector_needs_aggregation(q.selector)
+        cap_window = self._cap_annotation(q)
         operators: list[Operator] = []
+        window_op: Optional[WindowOp] = None
         for h in sin.handlers:
             if isinstance(h, A.Filter):
+                # filters may stand before and after the window, in
+                # declaration order (SingleInputStreamParser.java:202-243)
                 if expr_mentions_table(h.expression):
                     raise not_ported("table references in filters")
                 cond = compile_expression(h.expression, scope)
@@ -727,15 +922,137 @@ class Planner:
                     raise CompileError(f"query '{name}': filter must be BOOL")
                 operators.append(FilterOp(cond, schema))
             elif isinstance(h, A.WindowHandler):
-                raise not_ported("windows")
+                if window_op is not None:
+                    raise CompileError(
+                        f"query '{name}': multiple windows on one stream")
+                cls = self.window_class(h)
+                # sliding windows feed EXPIRED events to an aggregating
+                # selector (subtract on expiry); batch windows emit expired
+                # rows only when the output asks for them
+                expired_enabled = expired_on if cls.is_batch \
+                    else (expired_on or needs_agg)
+                window_op = self.make_window(h, schema, expired_enabled,
+                                             cap_override=cap_window)
+                operators.append(window_op)
             else:
                 raise not_ported("stream functions")
-        if selector_needs_aggregation(q.selector):
-            raise not_ported("aggregating selectors")
-        operators.append(ProjectOp(
-            q.selector, schema, target, scope,
-            current_on=current_on, expired_on=expired_on))
+        batch_mode = window_op is not None and window_op.is_batch
+        expired_possible = window_op is not None and window_op.expired_enabled
+        if needs_agg:
+            operators.append(AggregateOp(
+                q.selector, schema, target, scope, batch_mode=batch_mode,
+                expired_possible=expired_possible, current_on=current_on,
+                expired_on=expired_on,
+                fifo_expiry=(window_op.fifo_expiry if window_op is not None
+                             else True)))
+        else:
+            operators.append(ProjectOp(
+                q.selector, schema, target, scope,
+                current_on=current_on, expired_on=expired_on))
         return operators
+
+    # -- windows ---------------------------------------------------------
+    DEFAULT_TIME_CAP = 4096
+
+    def window_class(self, h: A.WindowHandler):
+        name = h.name if h.namespace is None else f"{h.namespace}:{h.name}"
+        cls = WINDOW_CLASSES.get(name.lower())
+        if cls is None:
+            if name.lower() in UNPORTED_WINDOWS:
+                raise not_ported(f"window '{name}'")
+            raise CompileError(f"window '{name}' not yet supported")
+        return cls
+
+    def make_window(self, h: A.WindowHandler, schema: StreamSchema,
+                    expired_enabled: bool,
+                    cap_override: Optional[int] = None) -> WindowOp:
+        name = h.name if h.namespace is None else f"{h.namespace}:{h.name}"
+        params = []
+        for p in h.parameters:
+            if isinstance(p, (A.Constant, A.Variable)):
+                params.append(p.value if isinstance(p, A.Constant) else p)
+            else:
+                raise CompileError(
+                    f"window '{name}' parameters must be constants or "
+                    "attributes")
+        key = name.lower()
+        time_cap = cap_override or self.DEFAULT_TIME_CAP
+
+        def const_of(p, role):
+            if isinstance(p, A.Variable):
+                raise CompileError(
+                    f"window '{name}' {role} must be a constant")
+            return p
+        if key == "time":
+            _expect(params, 1, name)
+            return TimeWindowOp(schema, _ms(params[0], name), cap=time_cap,
+                                expired_enabled=expired_enabled)
+        if key == "length":
+            _expect(params, 1, name)
+            return LengthWindowOp(schema, int(const_of(params[0], "length")),
+                                  expired_enabled=expired_enabled)
+        if key == "lengthbatch":
+            if len(params) not in (1, 2):
+                raise CompileError(f"{name} takes 1-2 parameters")
+            stream_cur = bool(const_of(params[1], "mode")) \
+                if len(params) == 2 else False
+            return LengthBatchWindowOp(schema,
+                                       int(const_of(params[0], "length")),
+                                       expired_enabled=expired_enabled,
+                                       stream_current=stream_cur)
+        assert key == "timebatch", key
+        if len(params) not in (1, 2, 3):
+            raise CompileError(f"{name} takes 1-3 parameters")
+        start = None
+        stream_cur = False
+        if len(params) >= 2:
+            p1 = const_of(params[1], "start time / mode")
+            if isinstance(p1, bool):
+                stream_cur = p1
+                if len(params) == 3:
+                    raise CompileError(
+                        f"{name}: bool mode must be the last parameter")
+            elif isinstance(p1, int):
+                start = int(p1)
+            else:
+                raise CompileError(
+                    f"window '{name}' start time must be int/long")
+        if len(params) == 3:
+            mode = const_of(params[2], "mode")
+            if not isinstance(mode, bool):
+                raise CompileError(
+                    f"window '{name}' stream.current.event mode must be a "
+                    "bool constant")
+            stream_cur = mode
+        return TimeBatchWindowOp(schema, _ms(params[0], name),
+                                 start_time=start, cap=time_cap,
+                                 expired_enabled=expired_enabled,
+                                 stream_current=stream_cur)
+
+    @staticmethod
+    def _cap_annotation(q: A.Query) -> Optional[int]:
+        """`@cap(window.size='N')`: the rows a time-based window keeps
+        (the reference's queues are unbounded; these buffers are fixed,
+        so capacity is a per-query dial). The reference's join.pairs and
+        join.candidates keys belong to joins, not ported yet."""
+        ca = A.find_annotation(q.annotations, "cap")
+        if ca is None:
+            return None
+        for k in ("join.pairs", "join.candidates"):
+            if ca.element(k) is not None:
+                raise not_ported(f"@cap({k}): join queries")
+        v = ca.element("window.size")
+        if v is None:
+            return None
+        try:
+            n = int(v)
+        except ValueError:
+            raise CompileError(
+                f"@cap(window.size='{v}'): expected a positive integer")
+        if n <= 0:
+            raise CompileError(
+                f"@cap(window.size='{v}'): expected a positive integer")
+        return n
 
     # -- pattern / sequence queries --------------------------------------
     def plan_pattern_query(self, q: A.Query, name: str) -> None:
@@ -775,10 +1092,14 @@ class Planner:
             engine = NfaEngine(slots, states, sin.state_type, sin.within_ms)
         scope = MatchScope(slots, engine.col_index)
         if selector_needs_aggregation(q.selector):
-            raise not_ported("aggregating selectors")
-        sel_ops: list[Operator] = [ProjectOp(
-            q.selector, engine.match_schema, target, scope,
-            current_on=current_on, expired_on=expired_on)]
+            sel_ops: list[Operator] = [AggregateOp(
+                q.selector, engine.match_schema, target, scope,
+                batch_mode=False, expired_possible=False,
+                current_on=current_on, expired_on=expired_on)]
+        else:
+            sel_ops = [ProjectOp(
+                q.selector, engine.match_schema, target, scope,
+                current_on=current_on, expired_on=expired_on)]
 
         if name in app.queries:
             raise CompileError(f"duplicate query name '{name}'")
@@ -797,3 +1118,16 @@ class Planner:
                                                               app)
             qr.output_handlers.append(
                 InsertIntoStreamHandler(tj, out_type))
+
+
+def _expect(params, n, name):
+    if len(params) != n:
+        raise CompileError(f"window '{name}' takes {n} parameter(s), got "
+                           f"{len(params)}")
+
+
+def _ms(v, name) -> int:
+    if not isinstance(v, int):
+        raise CompileError(f"window '{name}' duration must be int/time, got "
+                           f"{v!r}")
+    return int(v)

@@ -333,6 +333,173 @@ typedef struct {
 
 cudaError_t siddhi_nfa_scan(const ScanArgs* a, cudaStream_t stream);
 
+// ---- K5: window step (window_step.cu) -------------------------------------
+
+#define SIDDHI_WIN_MAX_COLS 16
+
+// window kinds (ops/windows.py WindowOp.KIND)
+enum WinKind { WIN_TIME = 0, WIN_LENGTH = 1, WIN_LENGTH_BATCH = 2,
+               WIN_TIME_BATCH = 3 };
+
+// A struct-of-arrays batch or window buffer; `seq` is unused for batches.
+typedef struct {
+  int64_t* ts;
+  int64_t* seq;
+  void* cols[SIDDHI_WIN_MAX_COLS];
+  bool* nulls[SIDDHI_WIN_MAX_COLS];
+  bool* valid;
+} WinBuf;
+
+typedef struct {
+  WinBuf batch;               // the input, B rows
+  const int32_t* batch_kind;
+  WinBuf a, e;                // state: a = buf / cur (W rows), e = exp (EB)
+  WinBuf na, ne;              // the new state buffers (fresh memory)
+  // 0-d device scalars: the state's counters and the step's clock
+  const int64_t* next_seq;
+  const int64_t* overflow;    // NULL for a window without one
+  const int64_t* next_emit;   // timeBatch
+  const int64_t* now;
+  int64_t* o_next_seq;
+  int64_t* o_overflow;
+  int64_t* o_next_emit;
+  WinBuf out;                 // the output batch, N rows
+  int32_t* out_kind;
+  // scratch (device memory, sizes in ops/windows.py window_scratch)
+  int64_t* b_seq;             // [B]
+  int64_t* rt;                // [B] running time
+  int32_t* cur_rows;          // [B]
+  int64_t* scal;              // [16]
+  uint32_t* keys;             // [N]
+  uint32_t* k1;               // [N]
+  uint32_t* k2;               // [N]
+  int32_t* i1;                // [N]
+  int32_t* i2;                // [N]
+  int32_t* order;             // [N]
+  int32_t* counts;            // [256 * ceil(N / 1024)]
+  int32_t* cand_src;          // [N] source row: E, then A, then the batch
+  int64_t* cand_ts;           // [N]
+  int32_t* cand_kind;         // [N]
+  uint8_t* keep;              // [2 * P] keep masks over the pool
+  int32_t* rank_pos;          // [2 * P] pool row of each kept rank
+  int32_t col_size[SIDDHI_WIN_MAX_COLS];   // bytes per element: 1, 4 or 8
+  int32_t n_cols, kind, B, W, EB, N, P;
+  int32_t expired_enabled, stream_current, has_start;
+  int64_t length, span_ms, start_time;
+} WindowArgs;
+
+// Kernel K5: one window step (ops/windows.py window_step).
+cudaError_t siddhi_window_step(const WindowArgs* a, cudaStream_t stream);
+
+// ---- K6: aggregate step and emission (aggregate_step.cu) ------------------
+
+#define SIDDHI_AGG_MAX_KEYS 8
+#define SIDDHI_AGG_MAX_SPECS 16
+#define SIDDHI_AGG_MAX_LANES 48
+#define SIDDHI_AGG_MAX_LEVELS 40
+#define SIDDHI_AGG_MAX_OUTS 32
+
+// aggregator kinds (ops/aggregators.py AggSpec.KIND) and lane ops
+enum AggKind { AGG_SUM = 0, AGG_AVG = 1, AGG_COUNT = 2, AGG_STDDEV = 3,
+               AGG_MINMAX = 4, AGG_FOREVER = 5, AGG_BOOL = 6 };
+enum LaneOp { LANE_SUM = 0, LANE_MIN = 1, LANE_MAX = 2 };
+
+typedef struct {
+  int32_t B, K, grouped, n_keys, n_specs, n_lanes;
+  const int32_t* kind;              // [B] the rows' kinds
+  const bool* valid;                // [B]
+  const void* key_cols[SIDDHI_AGG_MAX_KEYS];
+  const bool* key_nulls[SIDDHI_AGG_MAX_KEYS];
+  int32_t key_type[SIDDHI_AGG_MAX_KEYS];   // ValType
+  // per aggregator: its kind, flag (max, and), argument, first lane and
+  // value column
+  int32_t spec_kind[SIDDHI_AGG_MAX_SPECS];
+  int32_t spec_flag[SIDDHI_AGG_MAX_SPECS];
+  int32_t spec_lane0[SIDDHI_AGG_MAX_SPECS];
+  int32_t arg_type[SIDDHI_AGG_MAX_SPECS];  // ValType, -1: no argument
+  const void* arg_cols[SIDDHI_AGG_MAX_SPECS];
+  const bool* arg_nulls[SIDDHI_AGG_MAX_SPECS];
+  int32_t out_type[SIDDHI_AGG_MAX_SPECS];  // ValType of the value
+  void* out_vals[SIDDHI_AGG_MAX_SPECS];    // [B]
+  bool* out_nulls[SIDDHI_AGG_MAX_SPECS];   // [B]
+  // per lane: op, accumulator type (ValType), spec, carry in and out
+  int32_t lane_op[SIDDHI_AGG_MAX_LANES];
+  int32_t lane_type[SIDDHI_AGG_MAX_LANES];
+  int32_t lane_spec[SIDDHI_AGG_MAX_LANES];
+  const void* carry[SIDDHI_AGG_MAX_LANES];   // [K]
+  void* new_carry[SIDDHI_AGG_MAX_LANES];     // [K]
+  void* run[SIDDHI_AGG_MAX_LANES];           // [B] running values
+  // the group table, and the new one (fresh memory)
+  const int64_t* keys;
+  const bool* used;
+  const int64_t* overflow;
+  int64_t* new_keys;
+  bool* new_used;
+  int64_t* new_overflow;
+  int32_t* slots;                   // [B] out: the row's slot, K if none
+  // scratch (ops/aggregators.py agg_scratch)
+  int64_t* hk;                      // [B] key hashes
+  int32_t* probe;                   // [B] probed slot
+  uint8_t* flags;                   // [B] bit 0 placed, bit 1 wants
+  int32_t* claim;                   // [K]
+  int64_t* reset_seg;               // [B]
+  int64_t* scal;                    // [8]
+  uint32_t* skeys;                  // [B]
+  uint32_t *k1, *k2;                // [B]
+  int32_t *i1, *i2;                 // [B]
+  int32_t* counts;                  // [256 * ceil(B / 1024)]
+  int32_t* perm;                    // [B] rows by slot, stable
+  int32_t* inv_perm;                // [B]
+  int64_t* seg_sorted;              // [B]
+  int64_t* seg_start;               // [B]
+  int32_t* slot_first;              // [K + 1]
+  int32_t* slot_last;               // [K + 1]
+  void* tree;                       // [2 * B] 8-byte values, level by level
+  int64_t* tree_seg;                // [2 * B]
+  void* res;                        // [B] 8-byte: scan result, sorted order
+  int64_t level_off[SIDDHI_AGG_MAX_LEVELS];
+  int64_t level_n[SIDDHI_AGG_MAX_LEVELS];
+  int32_t n_levels;
+} AggArgs;
+
+// Kernel K6, the step (ops/aggregators.py aggregate_step).
+cudaError_t siddhi_aggregate_step(const AggArgs* a, cudaStream_t stream);
+
+typedef struct {
+  int32_t B, K, batch_mode, n_cols;
+  int64_t offset, limit;            // -1: none
+  const int32_t* slots;             // [B]
+  const bool* qual;                 // [B] K2's gate and having
+  const int64_t* ts;                // [B] the input rows
+  const int32_t* kind;
+  const bool* valid;
+  const void* cols[SIDDHI_AGG_MAX_OUTS];    // [B] projected columns
+  const bool* nulls[SIDDHI_AGG_MAX_OUTS];
+  int32_t col_size[SIDDHI_AGG_MAX_OUTS];
+  // the output batch
+  int64_t* out_ts;
+  int32_t* out_kind;
+  bool* out_valid;
+  void* out_cols[SIDDHI_AGG_MAX_OUTS];
+  bool* out_nulls[SIDDHI_AGG_MAX_OUTS];
+  int64_t* emitted;                 // 0-d, added to; or NULL
+  // scratch
+  uint8_t* ovalid;                  // [B]
+  int32_t* emit_order;              // [B]
+  int32_t* pos;                     // [B] output position of each row
+  int32_t* flag;                    // [B]
+  uint32_t* qkeys;                  // [B]
+  uint32_t *k1, *k2;
+  int32_t *i1, *i2, *perm2;         // [B]
+  int32_t* counts;
+  int64_t* chunk;                   // [B]
+  int64_t* gstart;                  // [B]
+  int64_t* scal;                    // [4]
+} EmitArgs;
+
+// Kernel K6, the emission (ops/aggregators.py aggregate_emit).
+cudaError_t siddhi_aggregate_emit(const EmitArgs* a, cudaStream_t stream);
+
 #ifdef __cplusplus
 }
 #endif

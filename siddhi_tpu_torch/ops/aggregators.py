@@ -1,0 +1,934 @@
+"""Attribute aggregators and the aggregating selector (PyTorch port of
+siddhi_tpu/ops/aggregators.py): kernel K6 of PERF.md.
+
+Reference mapping:
+- query/selector/attribute/aggregator/*.java (sum, avg, count, min, max,
+  minForever, maxForever, stdDev, and, or): per-event state machines
+  with processAdd / processRemove / reset by event type;
+- query/selector/QuerySelector.java:44: processGroupBy and, for batch
+  windows, processInBatchGroupBy (only the last event, or the last per
+  group, of a flush chunk is emitted);
+- RESET clears every group's state (PartitionStateHolder.java:95).
+
+An aggregator is a set of LANES, each an accumulator with an
+associative combine (sum / min / max). A step over a batch:
+
+  1. per-row signed lane contributions (CURRENT adds, EXPIRED removes);
+  2. each row's group slot (hash of the group-by columns, open
+     addressing in a [K] table) and reset segment (RESET rows so far);
+  3. rows ordered by slot (stable), a segmented prefix scan per lane in
+     the reference's own addition order, the slot's carry added in, the
+     order undone: each row's running aggregate;
+  4. the new [K] carries: each slot's contributions in its last reset
+     segment, folded in row order;
+  5. projection and having (kernel K2 over the input and aggregate
+     columns), then the rows that qualify, ordered and cut by offset and
+     limit; in batch mode the last qualifying row per (slot, flush chunk).
+
+``aggregate_step`` (2-4 and the value functions) and ``aggregate_emit``
+(5, after K2) are K6. For tensors on the CPU they run
+``aggregate_step_ref`` and ``aggregate_emit_ref``, the plain PyTorch
+versions, which follow the reference's ``AggregateOp.step`` line by line;
+for CUDA tensors they launch csrc/aggregate_step.cu. Group-by keys and
+aggregate arguments that are not bare columns, and the filters before
+the selector, run in one K2 program first.
+
+Not ported yet: min()/max() over expiring content (SlidingMinMaxAgg),
+distinctCount() and unionSet(), whose state is not a [K] accumulator;
+order-by. Each raises NotImplementedError ("not ported yet").
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from ..analysis.schema import aggregator_result_type
+from ..core.event import (CURRENT, EXPIRED, RESET, Attribute, EventBatch,
+                          StreamSchema)
+from ..core.types import NUMERIC_TYPES, AttrType, flush_subnormal, \
+    torch_dtype
+from ..lang import ast as A
+from .expr import (OP_LOAD, VT, CompiledExpr, CompileError, ProgramBuilder,
+                   Scope, compile_expression, expr_eval)
+from .keyed import (add, fma, hash_columns, lookup_or_insert, maximum,
+                    minimum, segmented_cumsum, segmented_cummax,
+                    segmented_cummin)
+from .operators import Operator
+from .selector import (AGGREGATOR_NAMES, compile_order_by, const_int,
+                       output_attribute_name, shape_output)
+
+I64 = torch.int64
+F64 = torch.float64
+
+
+def not_ported(what: str):
+    return NotImplementedError(f"not ported yet: {what}")
+
+
+# ---------------------------------------------------------------------------
+# lanes and aggregator specs
+# ---------------------------------------------------------------------------
+
+# lane ops and accumulator types, numbered as csrc/siddhi_kernels.h
+LANE_SUM, LANE_MIN, LANE_MAX = 0, 1, 2
+LANE_OPS = {"sum": LANE_SUM, "min": LANE_MIN, "max": LANE_MAX}
+
+
+@dataclasses.dataclass
+class Lane:
+    op: str            # 'sum' | 'min' | 'max'
+    dtype: torch.dtype
+
+    def identity(self, dev="cpu"):
+        if self.op == "sum":
+            return torch.zeros((), dtype=self.dtype, device=dev)
+        if self.dtype.is_floating_point:
+            v = float("inf") if self.op == "min" else float("-inf")
+        else:
+            info = torch.iinfo(self.dtype)
+            v = info.max if self.op == "min" else info.min
+        return torch.tensor(v, dtype=self.dtype, device=dev)
+
+    def combine(self, a, b):
+        if self.op == "sum":
+            return add(a, b)
+        return minimum(a, b) if self.op == "min" else maximum(a, b)
+
+    def segmented_scan(self, vals, seg_ids):
+        if self.op == "sum":
+            return segmented_cumsum(vals, seg_ids)
+        if self.op == "min":
+            return segmented_cummin(vals, seg_ids)
+        return segmented_cummax(vals, seg_ids)
+
+
+def _widen(values, dtype):
+    """astype as the reference's compiled code does it: FLOAT -> DOUBLE
+    reads a subnormal as zero."""
+    if values.dtype == torch.float32 and dtype == F64:
+        return flush_subnormal(values).to(F64)
+    return values.to(dtype)
+
+
+def _signed(x, is_add, is_remove):
+    return torch.where(is_add, x, torch.where(is_remove, -x,
+                                              torch.zeros_like(x)))
+
+
+def _mul(x, y):
+    if x.is_floating_point():
+        return flush_subnormal(flush_subnormal(x) * flush_subnormal(y))
+    return x * y
+
+
+def _div(x, y):
+    return flush_subnormal(flush_subnormal(x) / flush_subnormal(y))
+
+
+def _sqrt(x):
+    """IEEE square root, correctly rounded: torch's vectorised CPU sqrt
+    can be one unit in the last place off, numpy's (the hardware's) and
+    the card's are not."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
+class AggSpec:
+    """One aggregator call in a select clause. ``KIND`` numbers it as
+    csrc/aggregate_step.cu does."""
+
+    name: str
+    out_type: AttrType
+    lanes: tuple
+    KIND = -1
+
+    def contribs(self, arg, is_add, is_remove):
+        """Per-lane [B] contributions (identity where no effect); ``arg``
+        is (values, nulls) or None."""
+        raise NotImplementedError
+
+    def value(self, lane_vals):
+        """-> (values, nulls) from the running lane values."""
+        raise NotImplementedError
+
+
+class SumAgg(AggSpec):
+    """sum(): (sum, count); null when the count is 0."""
+    KIND = 0
+
+    def __init__(self, arg_type: AttrType):
+        if arg_type not in NUMERIC_TYPES:
+            raise CompileError(f"sum() requires numeric input, got {arg_type}")
+        self.name = "sum"
+        self.out_type = aggregator_result_type("sum", arg_type)
+        self.acc_dtype = torch_dtype(self.out_type)
+        self.lanes = (Lane("sum", self.acc_dtype), Lane("sum", I64))
+
+    def contribs(self, arg, is_add, is_remove):
+        values, nulls = arg
+        eff = (is_add | is_remove) & ~nulls
+        x = torch.where(eff, _widen(values, self.acc_dtype),
+                        torch.zeros((), dtype=self.acc_dtype,
+                                    device=values.device))
+        one = eff.to(I64)
+        return (_mul(_signed(x, is_add, is_remove), eff.to(self.acc_dtype)),
+                _signed(one, is_add, is_remove))
+
+    def value(self, lane_vals):
+        s, cnt = lane_vals
+        return torch.where(cnt == 0, torch.zeros_like(s), s), cnt == 0
+
+
+class AvgAgg(AggSpec):
+    """avg(): sum / count as DOUBLE; null when the count is 0."""
+    KIND = 1
+
+    def __init__(self, arg_type: AttrType):
+        if arg_type not in NUMERIC_TYPES:
+            raise CompileError(f"avg() requires numeric input, got {arg_type}")
+        self.name = "avg"
+        self.out_type = aggregator_result_type("avg", arg_type)
+        self.lanes = (Lane("sum", F64), Lane("sum", I64))
+
+    def contribs(self, arg, is_add, is_remove):
+        values, nulls = arg
+        eff = (is_add | is_remove) & ~nulls
+        x = torch.where(eff, _widen(values, F64),
+                        torch.zeros((), dtype=F64, device=values.device))
+        return (_signed(x, is_add, is_remove),
+                _signed(eff.to(I64), is_add, is_remove))
+
+    def value(self, lane_vals):
+        s, cnt = lane_vals
+        safe = torch.clamp(cnt, min=1).to(F64)
+        return (torch.where(cnt == 0, torch.zeros_like(s), _div(s, safe)),
+                cnt == 0)
+
+
+class CountAgg(AggSpec):
+    """count(): the event count, LONG, never null."""
+    KIND = 2
+
+    def __init__(self):
+        self.name = "count"
+        self.out_type = aggregator_result_type("count", None)
+        self.lanes = (Lane("sum", I64),)
+
+    def contribs(self, arg, is_add, is_remove):
+        return (_signed((is_add | is_remove).to(I64), is_add, is_remove),)
+
+    def value(self, lane_vals):
+        (cnt,) = lane_vals
+        return cnt, torch.zeros_like(cnt, dtype=torch.bool)
+
+
+class StdDevAgg(AggSpec):
+    """stdDev(): the population standard deviation from (sum, sum of
+    squares, count), sqrt(max(E[x^2] - mean^2, 0)); null when the count
+    is 0."""
+    KIND = 3
+
+    def __init__(self, arg_type: AttrType):
+        if arg_type not in NUMERIC_TYPES:
+            raise CompileError(
+                f"stdDev() requires numeric input, got {arg_type}")
+        self.name = "stdDev"
+        self.out_type = aggregator_result_type("stddev", arg_type)
+        self.lanes = (Lane("sum", F64), Lane("sum", F64), Lane("sum", I64))
+
+    def contribs(self, arg, is_add, is_remove):
+        values, nulls = arg
+        eff = (is_add | is_remove) & ~nulls
+        x = torch.where(eff, _widen(values, F64),
+                        torch.zeros((), dtype=F64, device=values.device))
+        return (_signed(x, is_add, is_remove),
+                _signed(_mul(x, x), is_add, is_remove),
+                _signed(eff.to(I64), is_add, is_remove))
+
+    def value(self, lane_vals):
+        s, ss, cnt = lane_vals
+        n = torch.clamp(cnt, min=1).to(F64)
+        mean = _div(s, n)
+        # ss / n - mean * mean, contracted into one fused multiply-add
+        # by the reference's compiler
+        m = flush_subnormal(mean)
+        var = maximum(flush_subnormal(fma(-m, m, _div(ss, n))),
+                      torch.zeros_like(s))
+        return (torch.where(cnt == 0, torch.zeros_like(s),
+                            flush_subnormal(_sqrt(var))), cnt == 0)
+
+
+class MinMaxAgg(AggSpec):
+    """min()/max() over content that never expires (a running extreme
+    with RESET segmentation)."""
+    KIND = 4
+
+    def __init__(self, arg_type: AttrType, is_max: bool):
+        if arg_type not in NUMERIC_TYPES:
+            raise CompileError("min()/max() requires numeric input")
+        self.name = "max" if is_max else "min"
+        self.out_type = aggregator_result_type(self.name, arg_type)
+        self.dtype = torch_dtype(arg_type)
+        self.lanes = (Lane("max" if is_max else "min", self.dtype),
+                      Lane("sum", I64))
+
+    def _eff(self, is_add, is_remove):
+        return is_add
+
+    def contribs(self, arg, is_add, is_remove):
+        values, nulls = arg
+        eff = self._eff(is_add, is_remove) & ~nulls
+        x = torch.where(eff, values.to(self.dtype),
+                        self.lanes[0].identity(values.device))
+        return x, eff.to(I64)
+
+    def value(self, lane_vals):
+        m, cnt = lane_vals
+        return torch.where(cnt == 0, torch.zeros_like(m), m), cnt == 0
+
+
+class ForeverMinMaxAgg(MinMaxAgg):
+    """minForever()/maxForever(): EXPIRED events tighten the extreme too."""
+    KIND = 5
+
+    def __init__(self, arg_type: AttrType, is_max: bool):
+        super().__init__(arg_type, is_max)
+        self.name = "maxForever" if is_max else "minForever"
+
+    def _eff(self, is_add, is_remove):
+        return is_add | is_remove
+
+
+class BoolAgg(AggSpec):
+    """and()/or() over BOOL: counts of true and false values."""
+    KIND = 6
+
+    def __init__(self, arg_type: AttrType, is_and: bool):
+        if arg_type is not AttrType.BOOL:
+            raise CompileError("and()/or() requires BOOL input")
+        self.name = "and" if is_and else "or"
+        self.is_and = is_and
+        self.out_type = aggregator_result_type(self.name, arg_type)
+        self.lanes = (Lane("sum", I64), Lane("sum", I64))
+
+    def contribs(self, arg, is_add, is_remove):
+        values, nulls = arg
+        eff = (is_add | is_remove) & ~nulls
+        t = (eff & values).to(I64)
+        f = (eff & ~values).to(I64)
+        return (_signed(t, is_add, is_remove), _signed(f, is_add, is_remove))
+
+    def value(self, lane_vals):
+        t, f = lane_vals
+        v = (f == 0) if self.is_and else (t > 0)
+        return v, torch.zeros_like(v)
+
+
+def make_agg_spec(name: str, arg_type: Optional[AttrType],
+                  expired_possible: bool, grouped: bool = False,
+                  fifo_expiry: bool = True) -> AggSpec:
+    key = name.lower()
+    if key == "sum":
+        return SumAgg(arg_type)
+    if key == "avg":
+        return AvgAgg(arg_type)
+    if key == "count":
+        return CountAgg()
+    if key == "stddev":
+        return StdDevAgg(arg_type)
+    if key in ("min", "max"):
+        if expired_possible and not fifo_expiry:
+            raise CompileError(
+                f"{key}() over a window with non-FIFO expiry (sort/"
+                "frequent/lossyFrequent) is not supported — the sliding "
+                "extreme relies on arrival-order expiry")
+        if expired_possible:
+            raise not_ported(f"stateful aggregator {key}() over expiring "
+                             "content (SlidingMinMaxAgg)")
+        return MinMaxAgg(arg_type, key == "max")
+    if key in ("minforever", "maxforever"):
+        return ForeverMinMaxAgg(arg_type, key == "maxforever")
+    if key in ("and", "or"):
+        return BoolAgg(arg_type, key == "and")
+    if key == "distinctcount":
+        if arg_type is None:
+            raise CompileError("distinctCount() needs an argument")
+        raise not_ported("stateful aggregator distinctCount() "
+                         "(DistinctCountAgg)")
+    if key == "unionset":
+        if arg_type is not AttrType.OBJECT:
+            raise CompileError(
+                "Parameter passed to unionSet aggregator should be a set "
+                "object (createSet() result)")
+        raise not_ported("stateful aggregator unionSet() (UnionSetAgg)")
+    raise CompileError(f"unknown aggregator '{name}'")
+
+
+# ---------------------------------------------------------------------------
+# AST rewrite: aggregator calls -> placeholder variables
+# ---------------------------------------------------------------------------
+
+
+def extract_aggregators(expr: A.Expression, found: list) -> A.Expression:
+    """Replace aggregator calls with __agg_<i>__ variables, collecting the
+    (name, arg asts, star) list."""
+    if isinstance(expr, A.AttributeFunction):
+        if expr.namespace is None and expr.name.lower() in AGGREGATOR_NAMES:
+            idx = len(found)
+            found.append((expr.name, list(expr.parameters), expr.star))
+            return A.Variable(attribute=f"__agg_{idx}__")
+        return A.AttributeFunction(
+            expr.namespace, expr.name,
+            [extract_aggregators(p, found) for p in expr.parameters],
+            expr.star)
+    if isinstance(expr, A.MathOp):
+        return A.MathOp(expr.op, extract_aggregators(expr.left, found),
+                        extract_aggregators(expr.right, found))
+    if isinstance(expr, A.Compare):
+        return A.Compare(expr.op, extract_aggregators(expr.left, found),
+                         extract_aggregators(expr.right, found))
+    if isinstance(expr, A.And):
+        return A.And(extract_aggregators(expr.left, found),
+                     extract_aggregators(expr.right, found))
+    if isinstance(expr, A.Or):
+        return A.Or(extract_aggregators(expr.left, found),
+                    extract_aggregators(expr.right, found))
+    if isinstance(expr, A.Not):
+        return A.Not(extract_aggregators(expr.expr, found))
+    if isinstance(expr, A.IsNull) and expr.expr is not None:
+        return A.IsNull(expr=extract_aggregators(expr.expr, found))
+    return expr
+
+
+def _agg_index(var: A.Variable) -> Optional[int]:
+    a = var.attribute
+    if a and a.startswith("__agg_") and a.endswith("__") \
+            and var.stream_ref is None:
+        return int(a[6:-2])
+    return None
+
+
+class AggScope(Scope):
+    """The input scope, shifted by ``offset`` columns, plus the
+    __agg_<i>__ placeholders as the columns after the ``n_in`` input
+    columns: the layout of the batch K2 projects from."""
+
+    def __init__(self, base: Scope, n_in: int, agg_types: list,
+                 offset: int = 0):
+        self.base = base
+        self.n_in = n_in
+        self.agg_types = agg_types
+        self.offset = offset
+
+    def resolve(self, var: A.Variable):
+        i = _agg_index(var)
+        if i is not None:
+            return ("attr", self.offset + self.n_in + i), self.agg_types[i]
+        key, t = self.base.resolve(var)
+        if not (isinstance(key, tuple) and key[0] == "attr"):
+            raise not_ported(f"selector reference {key!r} with aggregators")
+        return ("attr", self.offset + key[1]), t
+
+    def resolve_stream_isnull(self, is_null):
+        return self.base.resolve_stream_isnull(is_null)
+
+
+class HavingScope(Scope):
+    """HAVING resolves output attribute names first, then the input scope
+    and the aggregates (reference: having runs on the projected output
+    but may reference input attributes). Layout: output columns, then
+    the input columns, then the aggregates."""
+
+    def __init__(self, out_schema: StreamSchema, base: AggScope):
+        self.out_schema = out_schema
+        self.base = base
+
+    def resolve(self, var: A.Variable):
+        if _agg_index(var) is None and var.stream_ref is None:
+            try:
+                idx = self.out_schema.index_of(var.attribute)
+                return ("attr", idx), self.out_schema.types[idx]
+            except KeyError:
+                pass
+        return self.base.resolve(var)
+
+    def resolve_stream_isnull(self, is_null):
+        return self.base.resolve_stream_isnull(is_null)
+
+
+def _bare_column(ce: CompiledExpr) -> Optional[int]:
+    """The input column an expression is, if it is one as it stands."""
+    if len(ce.code) == 1 and ce.code[0][0] == OP_LOAD \
+            and isinstance(ce.code[0][2], int):
+        return ce.code[0][2]
+    return None
+
+
+# ---------------------------------------------------------------------------
+# the aggregating selector
+# ---------------------------------------------------------------------------
+
+
+class AggregateOp(Operator):
+    """Select clause with aggregators and/or group-by.
+
+    batch_mode mirrors the reference's batchingEnabled (batch windows):
+    only the last qualifying row (or the last per group, in first-seen
+    group order) of a flush chunk is emitted. ``pre_filters`` (set by
+    the query chain) are the filters between the window and the
+    selector: they run in the K2 program that evaluates the keys and
+    arguments."""
+
+    sort_heavy = True
+
+    def __init__(self, selector: A.Selector, in_schema: StreamSchema,
+                 out_stream_id: str, scope: Scope, functions=None,
+                 batch_mode: bool = False, expired_possible: bool = True,
+                 current_on: bool = True, expired_on: bool = False,
+                 key_capacity: int = 1024, fifo_expiry: bool = True):
+        self.in_schema = in_schema
+        self.batch_mode = batch_mode
+        self.current_on = current_on
+        self.expired_on = expired_on
+        self.group_by = selector.group_by
+        self.K = key_capacity if selector.group_by else 1
+        self.pre_filters: list = []
+        functions = functions or {}
+        if selector.select_all:
+            raise CompileError("select * cannot be combined with aggregation")
+        self.key_exprs = [compile_expression(v, scope, functions)
+                          for v in selector.group_by]
+        found: list = []
+        rewritten = [extract_aggregators(oa.expression, found)
+                     for oa in selector.attributes]
+        rewritten_having = (extract_aggregators(selector.having, found)
+                            if selector.having is not None else None)
+        self.agg_specs: list[AggSpec] = []
+        self.agg_args: list[Optional[CompiledExpr]] = []
+        grouped = bool(selector.group_by)
+        for name, params, _star in found:
+            if len(params) > 1:
+                raise CompileError(f"{name}() takes at most one argument here")
+            ce = compile_expression(params[0], scope, functions) \
+                if params else None
+            self.agg_specs.append(make_agg_spec(
+                name, ce.type if ce is not None else None, expired_possible,
+                grouped, fifo_expiry))
+            self.agg_args.append(ce)
+        n_in = len(in_schema.types)
+        agg_types = [s.out_type for s in self.agg_specs]
+        agg_scope = AggScope(scope, n_in, agg_types)
+        self.compiled = [compile_expression(e, agg_scope, functions)
+                         for e in rewritten]
+        attrs = tuple(Attribute(output_attribute_name(oa, i), ce.type)
+                      for i, (oa, ce) in enumerate(zip(selector.attributes,
+                                                       self.compiled)))
+        self._schema = StreamSchema(out_stream_id, attrs)
+        self.having = None
+        if rewritten_having is not None:
+            hscope = HavingScope(self._schema, AggScope(
+                scope, n_in, agg_types, offset=len(attrs)))
+            self.having = compile_expression(rewritten_having, hscope,
+                                             functions)
+            if self.having.type is not AttrType.BOOL:
+                raise CompileError("HAVING must be BOOL")
+        compile_order_by(selector, self._schema)
+        self.limit = const_int(selector.limit, "limit")
+        self.offset = const_int(selector.offset, "offset")
+        self.host_shape = None
+        self._progs = None
+
+    @property
+    def out_schema(self):
+        return self._schema
+
+    def init_state(self, device="cpu"):
+        return {
+            "keys": torch.zeros((self.K,), dtype=I64, device=device),
+            "used": torch.zeros((self.K,), dtype=torch.bool, device=device),
+            "carry": tuple(tuple(lane.identity(device).expand(self.K).clone()
+                                 for lane in spec.lanes)
+                           for spec in self.agg_specs),
+            "tables": tuple(() for _ in self.agg_specs),
+            "overflow": torch.zeros((), dtype=I64, device=device),
+        }
+
+    # -- the K2 programs of a step ------------------------------------------
+    def _programs(self):
+        """(pre program or None, the K2 outputs it gives each key and
+        argument, projection program, having program or None)."""
+        if self._progs is not None:
+            return self._progs
+        from .expr import ALL_KINDS
+        exprs = list(self.key_exprs) + [a for a in self.agg_args
+                                        if a is not None]
+        computed = [e for e in exprs if _bare_column(e) is None]
+        pre = None
+        if computed or self.pre_filters:
+            b = ProgramBuilder()
+            for f in self.pre_filters:
+                b.keep(f.cond)
+            b.timer_pass = bool(self.pre_filters)
+            for e in computed:
+                b.out(e)
+            pre = b.build()
+        b = ProgramBuilder()
+        for ce in self.compiled:
+            b.out(ce)
+        b.gate_bits = (int(self.current_on) << CURRENT) | \
+            (int(self.expired_on) << EXPIRED)
+        proj = b.build()
+        hav = None
+        if self.having is not None:
+            b = ProgramBuilder()
+            b.keep(self.having)
+            b.gate_bits = ALL_KINDS
+            hav = b.build()
+        self._progs = (pre, computed, proj, hav)
+        return self._progs
+
+    def step(self, state, batch: EventBatch, now, emitted=None):
+        pre, computed, proj, hav = self._programs()
+        cols, nulls = batch.cols, batch.nulls
+        if pre is not None:
+            pc, pn, valid = expr_eval(pre, batch)
+            batch = EventBatch(batch.ts, batch.cols, batch.nulls, batch.kind,
+                               valid)
+            pre_out = {id(e): (c, n) for e, c, n in zip(computed, pc, pn)}
+
+        def col_of(ce):
+            i = _bare_column(ce)
+            return (cols[i], nulls[i]) if i is not None else pre_out[id(ce)]
+
+        key_cols = [col_of(e) for e in self.key_exprs]
+        arg_cols = [col_of(a) if a is not None else None
+                    for a in self.agg_args]
+        slots, aggs, new_state = aggregate_step(
+            self, state, key_cols, arg_cols, batch.kind, batch.valid)
+        ext = EventBatch(batch.ts, tuple(cols) + tuple(v for v, _ in aggs),
+                         tuple(nulls) + tuple(n for _, n in aggs),
+                         batch.kind, batch.valid)
+        out_cols, out_nulls, qual = expr_eval(proj, ext)
+        if hav is not None:
+            hb = EventBatch(batch.ts, tuple(out_cols) + ext.cols,
+                            tuple(out_nulls) + ext.nulls, batch.kind, qual)
+            _, _, qual = expr_eval(hav, hb)
+        out = aggregate_emit(self, slots, qual, batch, out_cols, out_nulls,
+                             emitted)
+        return new_state, out
+
+
+# ---------------------------------------------------------------------------
+# kernel K6 and its plain version
+# ---------------------------------------------------------------------------
+
+
+def aggregate_step_ref(op: AggregateOp, state, key_cols, arg_cols, kind,
+                       valid):
+    """Plain PyTorch version of K6's step: the reference's
+    ``AggregateOp.step`` up to the projection. -> (slots [B] int32,
+    [(values, nulls)] one per aggregator, state')."""
+    B = kind.shape[0]
+    K = op.K
+    dev = kind.device
+    is_add = valid & (kind == CURRENT)
+    is_remove = valid & (kind == EXPIRED)
+    is_reset = valid & (kind == RESET)
+    agg_row = is_add | is_remove
+    overflow = state["overflow"]
+    kfull = torch.full((B,), K, dtype=torch.int32, device=dev)
+    if op.group_by:
+        hkeys = hash_columns([c for c, _ in key_cols],
+                             [n for _, n in key_cols])
+        slots, new_keys, new_used, ov = lookup_or_insert(
+            state["keys"], state["used"], hkeys, agg_row)
+        agg_row = agg_row & ~(agg_row & (slots < 0))
+        slots = torch.where(agg_row, slots, kfull)
+        overflow = overflow + ov
+    else:
+        new_keys, new_used = state["keys"], state["used"]
+        slots = torch.where(agg_row, torch.zeros_like(kfull), kfull)
+
+    reset_seg = torch.cumsum(is_reset.to(I64), 0)
+    n_resets = reset_seg[B - 1]
+    perm = torch.argsort(slots, stable=True)
+    inv_perm = torch.argsort(perm, stable=True)
+    seg_sorted = (slots.to(I64) * (B + 1) + reset_seg)[perm]
+    slot_safe = torch.clamp(slots[perm], 0, K - 1).to(I64)
+    segzero_sorted = (reset_seg == 0)[perm]
+    last_mask = (reset_seg == n_resets) & agg_row
+
+    aggs, new_carries = [], []
+    for spec, arg, carry in zip(op.agg_specs, arg_cols, state["carry"]):
+        contribs = spec.contribs(arg, is_add, is_remove)
+        runnings, lane_carries = [], []
+        for lane, contrib, cvec in zip(spec.lanes, contribs, carry):
+            ident = lane.identity(dev)
+            pref = lane.segmented_scan(contrib[perm], seg_sorted)
+            cin = torch.where(segzero_sorted, cvec[slot_safe], ident)
+            runnings.append(lane.combine(cin, pref)[inv_perm])
+            base = torch.where(n_resets == 0, cvec, ident.expand(K))
+            lane_carries.append(_fold_carry(lane, base, contrib, slots,
+                                            last_mask))
+        aggs.append(spec.value(tuple(runnings)))
+        new_carries.append(tuple(lane_carries))
+    new_state = {"keys": new_keys, "used": new_used,
+                 "carry": tuple(new_carries), "tables": state["tables"],
+                 "overflow": overflow}
+    return slots, aggs, new_state
+
+
+def _fold_carry(lane: Lane, base, contrib, slots, mask):
+    """base.at[slots[mask]].<op>(contrib[mask]): each slot's updates
+    folded one after the other in row order, as the reference's scatter
+    applies them (a float sum is not reassociated)."""
+    K = base.shape[0]
+    idx = slots[mask].to(I64)
+    upd = contrib[mask]
+    if lane.op == "sum" and not upd.is_floating_point():
+        return base.index_add(0, idx, upd)
+    order = torch.argsort(idx, stable=True)
+    idx, upd = idx[order], upd[order]
+    counts = torch.bincount(idx, minlength=K)
+    start = torch.cumsum(counts, 0) - counts
+    out = base.clone()
+    n = int(counts.max()) if idx.numel() else 0
+    for r in range(n):
+        live = (counts > r).nonzero().squeeze(1)
+        out[live] = lane.combine(out[live], upd[start[live] + r])
+    return out
+
+
+def aggregate_emit_ref(op: AggregateOp, slots, qualifying,
+                       batch: EventBatch, out_cols, out_nulls, emitted=None):
+    """Plain PyTorch version of K6's emission: the rows that qualify (slot
+    in the table, and what K2 left valid: the current/expired gate and
+    having), in batch mode the last per (slot, flush chunk), in emission
+    order, cut by offset and limit. ``emitted`` (an int64 0-d tensor) is
+    increased by the rows emitted."""
+    B = batch.capacity
+    dev = batch.ts.device
+    qualifying = qualifying & (slots < op.K)
+    rows = torch.arange(B, dtype=I64, device=dev)
+    out_valid, emit_order = qualifying, rows
+    if op.batch_mode:
+        kind, valid = batch.kind, batch.valid
+        last_valid = torch.cummax(torch.where(valid, rows, -1), 0).values
+        prev_valid = torch.cat([torch.full((1,), -1, dtype=I64, device=dev),
+                                last_valid[:-1]])
+        prev_kind = torch.where(prev_valid >= 0,
+                                kind[torch.clamp(prev_valid, min=0)],
+                                torch.full_like(kind, -1))
+        boundary = valid & ((prev_valid < 0) | (
+            ((kind == EXPIRED) | (kind == RESET)) & (prev_kind == CURRENT)))
+        chunk_id = torch.cumsum(boundary.to(I64), 0)
+        assert (op.K + 1) * (B + 2) < 2 ** 31, (op.K, B)
+        qkey = torch.where(qualifying, slots.to(I64) * (B + 1) + chunk_id,
+                           torch.full_like(chunk_id, 2 ** 31 - 1)).to(
+                               torch.int32)
+        perm2 = torch.argsort(qkey, stable=True)
+        qk_s = qkey[perm2]
+        is_last_s = torch.ones((B,), dtype=torch.bool, device=dev)
+        is_last_s[:-1] = qk_s[:-1] != qk_s[1:]
+        first_s = segmented_cummin(rows[perm2].to(torch.int32), qk_s)
+        out_valid = torch.zeros((B,), dtype=torch.bool, device=dev)
+        out_valid[perm2] = is_last_s & (qk_s < 2 ** 31 - 1)
+        emit_order = torch.zeros((B,), dtype=I64, device=dev)
+        emit_order[perm2] = first_s.to(I64)
+    out = EventBatch(ts=batch.ts, cols=tuple(out_cols),
+                     nulls=tuple(out_nulls), kind=batch.kind,
+                     valid=out_valid)
+    out = shape_output(out, op.offset, op.limit, emit_order)
+    if emitted is not None:
+        emitted += out.valid.sum(dtype=I64)
+    return out
+
+
+def aggregate_step(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
+    """Kernel K6, the step: group slots, reset segments, running
+    aggregates and the new state. A batch on the CPU takes the plain
+    version; a CUDA batch launches csrc/aggregate_step.cu."""
+    dev = kind.device
+    if dev.type == "cpu":
+        return aggregate_step_ref(op, state, key_cols, arg_cols, kind, valid)
+    if dev.type != "cuda":
+        raise ValueError(f"aggregate_step: unsupported device {dev}")
+    slots, aggs, new_state, args = agg_args(op, state, key_cols, arg_cols,
+                                            kind, valid)
+    _kernels.load().aggregate_step(
+        args, torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.count_launch("aggregate_step")
+    return slots, aggs, new_state
+
+
+def aggregate_emit(op: AggregateOp, slots, qualifying, batch: EventBatch,
+                   out_cols, out_nulls, emitted=None):
+    """Kernel K6, the emission (after K2's projection and having)."""
+    dev = batch.ts.device
+    if dev.type == "cpu":
+        return aggregate_emit_ref(op, slots, qualifying, batch, out_cols,
+                                  out_nulls, emitted)
+    if dev.type != "cuda":
+        raise ValueError(f"aggregate_emit: unsupported device {dev}")
+    out, args = emit_args(op, slots, qualifying, batch, out_cols, out_nulls,
+                          emitted)
+    _kernels.load().aggregate_emit(
+        args, torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.count_launch("aggregate_emit")
+    return out
+
+
+_VT_OF = {torch.int32: VT[AttrType.INT], torch.int64: VT[AttrType.LONG],
+          torch.float32: VT[AttrType.FLOAT],
+          torch.float64: VT[AttrType.DOUBLE], torch.bool: VT[AttrType.BOOL]}
+
+
+def tree_levels(n: int):
+    """The levels of the associative-scan tree over n elements: level 0
+    is the elements, level l + 1 the pair sums of level l (floor(n_l / 2)
+    of them), up to the first level with fewer than two.
+    -> (offsets, sizes)."""
+    offs, sizes, o = [], [], 0
+    while True:
+        offs.append(o)
+        sizes.append(n)
+        o += n
+        if n < 2:
+            return offs, sizes
+        n //= 2
+
+
+def agg_args(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
+    """K6's step arguments: fresh tensors for the slots, the aggregate
+    columns and the new state, the scratch, and ``_kernels.AggArgs``.
+    -> (slots, [(values, nulls)], state', args)."""
+    dev = kind.device
+    B, K = kind.shape[0], op.K
+    lim = _kernels
+    specs = op.agg_specs
+    n_lanes = sum(len(sp.lanes) for sp in specs)
+    if len(key_cols) > lim.AGG_MAX_KEYS or len(specs) > lim.AGG_MAX_SPECS \
+            or n_lanes > lim.AGG_MAX_LANES:
+        raise NotImplementedError(
+            "not ported yet: a selector with more than "
+            f"{lim.AGG_MAX_KEYS} group-by keys, {lim.AGG_MAX_SPECS} "
+            f"aggregators or {lim.AGG_MAX_LANES} accumulator lanes")
+    offs, sizes = tree_levels(B)
+    if len(offs) > lim.AGG_MAX_LEVELS:
+        raise NotImplementedError(f"not ported yet: {B} rows in one step")
+
+    def t(n, dtype):
+        return torch.empty((max(int(n), 1),), dtype=dtype, device=dev)
+    slots = t(B, torch.int32)
+    aggs = [(t(B, torch_dtype(sp.out_type)), t(B, torch.bool))
+            for sp in specs]
+    new_state = {"keys": t(K, I64), "used": t(K, torch.bool),
+                 "carry": tuple(tuple(torch.empty_like(c) for c in carry)
+                                for carry in state["carry"]),
+                 "tables": state["tables"],
+                 "overflow": torch.empty((), dtype=I64, device=dev)}
+    total = offs[-1] + sizes[-1]
+    sc = {"hk": t(B, I64), "probe": t(B, torch.int32),
+          "flags": t(B, torch.uint8), "claim": t(K, torch.int32),
+          "reset_seg": t(B, I64), "scal": t(8, I64),
+          "skeys": t(B, torch.int32), "k1": t(B, torch.int32),
+          "k2": t(B, torch.int32), "i1": t(B, torch.int32),
+          "i2": t(B, torch.int32),
+          "counts": t(256 * ((B + 1023) // 1024), torch.int32),
+          "perm": t(B, torch.int32), "inv_perm": t(B, torch.int32),
+          "seg_sorted": t(B, I64), "seg_start": t(B, I64),
+          "slot_first": t(K + 1, torch.int32),
+          "slot_last": t(K + 1, torch.int32), "tree": t(total, I64),
+          "tree_seg": t(total, I64), "res": t(B, I64)}
+    runs = []
+    a = _kernels.AggArgs()
+    a.B, a.K, a.grouped = B, K, int(bool(op.group_by))
+    a.n_keys, a.n_specs, a.n_lanes = len(key_cols), len(specs), n_lanes
+    a.kind, a.valid = kind.data_ptr(), valid.data_ptr()
+    for k, (c, n) in enumerate(key_cols):
+        a.key_cols[k], a.key_nulls[k] = c.data_ptr(), n.data_ptr()
+        a.key_type[k] = _VT_OF[c.dtype]
+    lane = 0
+    for s, (sp, arg, carry, ncarry, (ov, on)) in enumerate(zip(
+            specs, arg_cols, state["carry"], new_state["carry"], aggs)):
+        a.spec_kind[s] = sp.KIND
+        a.spec_flag[s] = int(getattr(sp, "is_and", False))
+        a.spec_lane0[s] = lane
+        a.arg_type[s] = -1 if arg is None else _VT_OF[arg[0].dtype]
+        if arg is not None:
+            a.arg_cols[s], a.arg_nulls[s] = arg[0].data_ptr(), \
+                arg[1].data_ptr()
+        a.out_type[s] = _VT_OF[ov.dtype]
+        a.out_vals[s], a.out_nulls[s] = ov.data_ptr(), on.data_ptr()
+        for ln, c, nc in zip(sp.lanes, carry, ncarry):
+            r = t(B, ln.dtype)
+            runs.append(r)
+            a.lane_op[lane] = LANE_OPS[ln.op]
+            a.lane_type[lane] = _VT_OF[ln.dtype]
+            a.lane_spec[lane] = s
+            a.carry[lane], a.new_carry[lane] = c.data_ptr(), nc.data_ptr()
+            a.run[lane] = r.data_ptr()
+            lane += 1
+    a.keys, a.used = state["keys"].data_ptr(), state["used"].data_ptr()
+    a.overflow = state["overflow"].data_ptr()
+    a.new_keys = new_state["keys"].data_ptr()
+    a.new_used = new_state["used"].data_ptr()
+    a.new_overflow = new_state["overflow"].data_ptr()
+    a.slots = slots.data_ptr()
+    for k, v in sc.items():
+        setattr(a, k, v.data_ptr())
+    for k, (o, n) in enumerate(zip(offs, sizes)):
+        a.level_off[k], a.level_n[k] = o, n
+    a.n_levels = len(offs)
+    a._keep = (state, runs, sc)
+    return slots[:B], [(v[:B], n[:B]) for v, n in aggs], new_state, a
+
+
+def emit_args(op: AggregateOp, slots, qualifying, batch: EventBatch,
+              out_cols, out_nulls, emitted):
+    """K6's emission arguments and its output batch (fresh tensors).
+    -> (output batch, args)."""
+    dev = batch.ts.device
+    B = batch.capacity
+    n = len(out_cols)
+    if n > _kernels.AGG_MAX_OUTS:
+        raise NotImplementedError(
+            f"not ported yet: a selector with more than "
+            f"{_kernels.AGG_MAX_OUTS} output attributes ({n})")
+
+    def t(m, dtype):
+        return torch.empty((max(int(m), 1),), dtype=dtype, device=dev)
+    out = EventBatch(ts=t(B, I64), cols=tuple(t(B, c.dtype) for c in out_cols),
+                     nulls=tuple(t(B, torch.bool) for _ in out_cols),
+                     kind=t(B, torch.int32), valid=t(B, torch.bool))
+    sc = {"ovalid": t(B, torch.uint8), "emit_order": t(B, torch.int32),
+          "pos": t(B, torch.int32), "flag": t(B, torch.int32),
+          "qkeys": t(B, torch.int32), "k1": t(B, torch.int32),
+          "k2": t(B, torch.int32), "i1": t(B, torch.int32),
+          "i2": t(B, torch.int32), "perm2": t(B, torch.int32),
+          "counts": t(256 * ((B + 1023) // 1024), torch.int32),
+          "chunk": t(B, I64), "gstart": t(B, I64), "scal": t(4, I64)}
+    a = _kernels.EmitArgs()
+    a.B, a.K, a.batch_mode, a.n_cols = B, op.K, int(op.batch_mode), n
+    a.offset = -1 if op.offset is None else op.offset
+    a.limit = -1 if op.limit is None else op.limit
+    a.slots, a.qual = slots.data_ptr(), qualifying.data_ptr()
+    a.ts, a.kind = batch.ts.data_ptr(), batch.kind.data_ptr()
+    a.valid = batch.valid.data_ptr()
+    for k, (c, nl, oc, on) in enumerate(zip(out_cols, out_nulls, out.cols,
+                                            out.nulls)):
+        a.cols[k], a.nulls[k] = c.data_ptr(), nl.data_ptr()
+        a.col_size[k] = c.element_size()
+        a.out_cols[k], a.out_nulls[k] = oc.data_ptr(), on.data_ptr()
+    a.out_ts, a.out_kind = out.ts.data_ptr(), out.kind.data_ptr()
+    a.out_valid = out.valid.data_ptr()
+    a.emitted = emitted.data_ptr() if emitted is not None else None
+    for k, v in sc.items():
+        setattr(a, k, v.data_ptr())
+    a._keep = (sc,)
+    return out, a

@@ -1,18 +1,25 @@
-"""Query selector: projection and the current/expired output gate
-(PyTorch port of the non-aggregating part of siddhi_tpu/ops/selector.py).
+"""Query selector: projection, the current/expired output gate, and
+the chunk shaping of offset and limit (PyTorch port of
+siddhi_tpu/ops/selector.py; the aggregating selector is
+ops/aggregators.py).
 
 Reference: query/selector/QuerySelector.java:44 (processNoGroupBy —
-per-event AttributeProcessor evaluation and type gating). Group-by,
-aggregators, having, order-by, limit and offset are not ported yet and
-raise NotImplementedError.
+per-event AttributeProcessor evaluation and type gating; offset and
+limit over a chunk). Order-by, and having, order-by, limit and offset
+on a selector without aggregators, are not ported yet and raise
+NotImplementedError.
 """
 from __future__ import annotations
+
+from typing import Optional
+
+import torch
 
 from ..analysis.schema import AGGREGATOR_NAMES
 from ..core.event import CURRENT, EXPIRED, Attribute, EventBatch, StreamSchema
 from ..lang import ast as A
-from .expr import (CompiledExpr, ProgramBuilder, Scope, compile_expression,
-                   expr_eval)
+from .expr import (CompiledExpr, CompileError, ProgramBuilder, Scope,
+                   compile_expression, expr_eval)
 from .operators import Operator
 
 
@@ -48,6 +55,55 @@ def output_attribute_name(oa: A.OutputAttribute, i: int) -> str:
     if isinstance(oa.expression, A.Variable):
         return oa.expression.attribute
     return f"_{i}"
+
+
+def const_int(expr, what: str) -> Optional[int]:
+    if expr is None:
+        return None
+    if not isinstance(expr, A.Constant) or not isinstance(expr.value, int):
+        raise CompileError(f"{what} must be an integer constant")
+    return int(expr.value)
+
+
+def compile_order_by(selector: A.Selector, schema: StreamSchema):
+    """-> (device_order, host_order) as the reference splits them (any
+    STRING key moves the whole ordering, offset and limit to the host).
+    Checked as the reference checks it; ordering itself is not ported
+    yet, so a non-empty order-by raises NotImplementedError."""
+    order_by = []
+    for ob in selector.order_by:
+        schema.index_of(ob.variable.attribute)
+        if ob.order.lower() not in ("asc", "desc"):
+            raise CompileError(f"unknown order '{ob.order}'")
+        order_by.append(ob)
+    if order_by:
+        raise NotImplementedError("selector not ported yet: order by")
+    return [], []
+
+
+def shape_output(out: EventBatch, offset: Optional[int],
+                 limit: Optional[int], emit_order=None) -> EventBatch:
+    """Offset and limit over a chunk's valid rows, after the rows are put
+    in ``emit_order`` (row indices; one stable argsort, invalid rows
+    last) (QuerySelector.offsetEventChunk / limitEventChunk)."""
+    if emit_order is not None:
+        primary = torch.where(out.valid, emit_order.to(torch.int32),
+                              torch.full_like(emit_order, 2 ** 31 - 1,
+                                              dtype=torch.int32))
+        perm = torch.argsort(primary, stable=True)
+        out = EventBatch(ts=out.ts[perm],
+                         cols=tuple(c[perm] for c in out.cols),
+                         nulls=tuple(n[perm] for n in out.nulls),
+                         kind=out.kind[perm], valid=out.valid[perm])
+    if offset is not None or limit is not None:
+        rank = torch.cumsum(out.valid.to(torch.int64), 0) - 1
+        keep = out.valid
+        if offset is not None:
+            keep = keep & (rank >= offset)
+        if limit is not None:
+            keep = keep & (rank < (offset or 0) + limit)
+        out = out.mask(keep)
+    return out
 
 
 class ProjectOp(Operator):

@@ -264,8 +264,10 @@ def test_strings_carried_over_from_reference():
 
 
 @pytest.mark.parametrize("text", [
-    "define stream S (a int); from S#window.length(2) select a insert into O;",
-    "define stream S (a int); from S select sum(a) as s insert into O;",
+    "define stream S (a int); from S#window.sort(2, a) select a "
+    "insert into O;",
+    "define stream S (a int); from S select distinctCount(a) as s "
+    "insert into O;",
     "define stream S (a int); define table T (a int);"
     " from S insert into T;",
     "define stream S (a int); from S select a order by a insert into O;",
@@ -286,9 +288,10 @@ def test_validate_and_shutdown():
     mgr = T.SiddhiManager(device="cpu")
     mgr.validate_siddhi_app(FILTER_APP)
     assert not mgr.app_runtimes
-    with pytest.raises(NotImplementedError, match="not ported yet: windows"):
+    with pytest.raises(NotImplementedError,
+                       match="not ported yet: window 'session'"):
         mgr.validate_siddhi_app(
-            "define stream S (a int); from S#window.time(1 sec) select a "
+            "define stream S (a int); from S#window.session(1 sec) select a "
             "insert into O;")
     rt = mgr.create_siddhi_app_runtime(FILTER_APP)
     rt.start()

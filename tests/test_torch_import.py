@@ -1,5 +1,6 @@
 """The port stands alone: siddhi_tpu_torch imports and runs the filter
-app and a pattern app with jax and siddhi_tpu blocked, neither the package nor
+app, a pattern app and a windowed aggregation with jax and siddhi_tpu
+blocked, neither the package nor
 chip_smoke.py imports them, and the manager never falls back to the CPU
 on its own."""
 import ast
@@ -46,6 +47,16 @@ rt.start()
 rt.get_input_handler("T").send_arrays(*Seq5Feed(GLOBAL_STRINGS.encode)
                                       .next(2048))
 assert len(matches) == 368, len(matches)   # the reference's count
+
+# a window and aggregators: window_agg over 2,048 bench rows
+from siddhi_tpu_torch.checks import WINDOW_AGG_APP, window_agg_feed
+rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(WINDOW_AGG_APP)
+flushes = []
+rt.add_callback("OutputStream", StreamCallback(flushes.extend))
+rt.start()
+rt.get_input_handler("StockStream").send_arrays(
+    *window_agg_feed(2048, GLOBAL_STRINGS.encode))
+assert len(flushes) == 2, len(flushes)
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "siddhi_tpu")]
 assert not loaded, loaded
