@@ -7,7 +7,7 @@ Phases, each of which stops the run with a non-zero exit on failure:
 
 1. device: CUDA must be there; prints the device, the build and
    ``nvidia-smi``'s name and power limit;
-2. build the port's six CUDA kernels from csrc/ (one nvcc each, all at
+2. build the port's eight CUDA kernels from csrc/ (one nvcc each, all at
    once) and hold kernel K1 (packed-ingest decode) against its plain
    PyTorch version on the card, bit for bit, for every lane code at
    capacities 16, 1024, 65536;
@@ -55,8 +55,9 @@ Phases, each of which stops the run with a non-zero exit on failure:
    every step of each comparison app of checks.WINDOW_APPS (every
    window kind and aggregator kind, having, offset and limit), a
    RESET-heavy feed, a time window over its capacity, more keys than
-   the 1,024-slot group table, and both main configurations at 65,536-
-   row sends;
+   the 1,024-slot group table, both main configurations at 65,536-row
+   sends, and (K6) the two special-value feeds of its repaired NaN and
+   zero lanes;
 10. and 11. run window_agg (bench.py's lengthBatch(1000) app, verbatim)
    and window_time_grouped (a one-minute sliding window grouped by 512
    symbols) through SiddhiManager, send_arrays and batch_callbacks:
@@ -67,7 +68,34 @@ Phases, each of which stops the run with a non-zero exit on failure:
    and 1,024 rows, a torch.profiler split, and K5's and K6's time per
    step against their plain versions, their byte bounds and (K5)
    torch.sort of the same emission keys;
-12. print the kernel table as one JSON line, the card's name and power
+12. hold kernels K7 (join_probe, join_grid) and K8 (table_write,
+   table_match, table_probe, table_buffer) against their plain versions
+   on the card, bit for bit, at every launch: each app of
+   checks.JOIN_APPS under both K7 entry points (every join type,
+   unidirectional, windowless sides, residual and non-equi ON, the
+   float-key traps, null keys, JOIN_CAP and candidate overflow), each app
+   of checks.TABLE_APPS (inserts, deletes through the condition pass and
+   an index, updates with and without SET, update or insert, primary-key
+   duplicates, IN-table filters, a table past its capacity), and the main
+   configurations at 8,192-row sends from live states;
+13. to 15. run bench.py's join app (`join`, 1,024 symbols; `join_eq`,
+   8,192) through SiddhiManager, send_arrays and batch_callbacks:
+   1,048,576 events in 64 sends of 8,192 rows a side, checked against
+   the numpy oracle with 0 pairs lost; the launch counters must show K1
+   on every send and K5, K7 and K2 on every side step; then events/s,
+   per-send latency at 8,192 and 1,024 rows, a torch.profiler split and
+   K7's time against its plain version, its byte bound and torch.sort +
+   torch.searchsorted; and `join` pinned to the grid over its first 16
+   sends a side, whose rows must equal the probe run's;
+16. run stock_table (a primary-keyed table kept by an update-or-insert
+   query and read by a stream-table join): a load of 8,000 symbols and
+   64 rounds of 8,192-row upsert and lookup sends, checked against its
+   numpy oracle with 0 pairs lost and 0 table overflow; the launch
+   counters must show K1, K8's condition pass and write, K8's view, K5,
+   K7 and K2 on every step of theirs; then events/s, latency, a profiler
+   split and K8's time against its plain version, its byte bound and
+   torch.argsort of the seq keys;
+17. print the kernel table as one JSON line, the card's name and power
    limit, and the result line.
 
 Imports neither JAX nor the reference package.
@@ -82,6 +110,23 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published HBM3 rate
+# 32-bit operations a second outside the tensor cores (the H100 SXM's
+# published float32 rate; the interpreter's compares and masks are of
+# that width)
+OPS_PER_S = 67e12
+
+
+def bound_of(n_bytes: int, n_ops: int):
+    """The least time for a function: its bytes over the memory rate or
+    its operations over the peak rate, the larger. -> (ms, "bytes" or
+    "operations")."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else \
+        (by_ops, "operations")
+# the join and table paths: rows a send, sends a side (join, join_eq),
+# the grid pass's sends, stock_table's rounds
+SEND_ROWS, JOIN_SENDS, GRID_SENDS, STOCK_ROUNDS = 8192, 64, 16, 64
 
 
 def fail(msg: str) -> None:
@@ -918,6 +963,17 @@ def k56_against_plain(dev) -> float:
             print(f"K5/K6 {name}, {sends} sends of 65,536 rows: bit-equal to "
                   f"their plain versions (emitted {st['emitted']}, overflow "
                   f"{st['overflow']})", flush=True)
+        # the repaired lanes: NaN of either sign and both infinities in a
+        # sum lane, -0.0 and subnormals at a group's first row of min/max
+        from siddhi_tpu_torch.checks import SPECIAL_AGG_APP, special_agg_feed
+        for seed in (0, 3):
+            rt = mgr.create_siddhi_app_runtime(SPECIAL_AGG_APP)
+            rt.start()
+            ts, cols = special_agg_feed(seed, GLOBAL_STRINGS.encode)
+            rt.get_input_handler("S").send_arrays(ts, cols)
+            rt.shutdown()
+        print("K6 on special values (the feeds of seeds 0 and 3): bit-equal "
+              "to its repaired plain version", flush=True)
     _kernels.LAUNCHES.update(saved)   # not launches of a main path
     print(f"K5/K6 shapes held against the plain versions: "
           f"{sorted(chk.shapes, key=str)}", flush=True)
@@ -1135,6 +1191,603 @@ def window_phase(dev, card: str, which: str) -> dict:
            "device_ms_per_send": breakdown, "busy_share": busy,
            "card": card}
     print(json.dumps({which: res}), flush=True)
+    return res
+
+
+# -- kernels K7 and K8: joins and tables --------------------------------------
+
+class JoinTableCheck:
+    """While installed, every K7 launch (join_probe, join_grid) and every
+    K8 launch (table_write, table_match, table_probe, table_buffer) the
+    runtime makes on the card also runs the plain version on the same
+    inputs; outputs, valid masks, lost-pair counts and whole table states
+    (next_seq and overflow included) must be bit-equal (tolerance 0). The
+    runtime goes on with the kernel's results."""
+
+    def __init__(self):
+        from siddhi_tpu_torch.ops import join as JN
+        from siddhi_tpu_torch.ops import table as TB
+        self.JN, self.TB = JN, TB
+        self.err = 0.0
+        self.steps = {k: 0 for k in ("join_probe", "join_grid",
+                                     "table_write", "table_match",
+                                     "table_probe", "table_buffer")}
+
+    def _eq(self, what, got, want):
+        self.err = max(self.err, compare(what, tree_leaves(got),
+                                         tree_leaves(want)))
+
+    def __enter__(self):
+        JN, TB = self.JN, self.TB
+        self.saved = (JN.join_probe, JN.join_grid, TB.table_write,
+                      TB.table_match, TB.probe_touched, TB.table_buffer)
+        k_probe, k_grid, k_write, k_match, k_tprobe, k_buf = self.saved
+
+        def batch(o):
+            return [o.ts, list(o.cols), list(o.nulls), o.kind, o.valid]
+
+        def join_probe(cross, trig, opp, gate=False):
+            ko, kl = k_probe(cross, trig, opp, gate)
+            ro, rl = JN.cross_probe_ref(cross, trig, opp, gate)
+            self._eq(f"K7 join_probe B={trig.capacity}", [batch(ko), kl],
+                     [batch(ro), rl])
+            self.steps["join_probe"] += 1
+            return ko, kl
+
+        def join_grid(cross, trig, opp, gate=False):
+            ko, kl = k_grid(cross, trig, opp, gate)
+            ro, rl = JN.cross_grid_ref(cross, trig, opp, gate)
+            self._eq(f"K7 join_grid B={trig.capacity}", [batch(ko), kl],
+                     [batch(ro), rl])
+            self.steps["join_grid"] += 1
+            return ko, kl
+
+        def table_write(table, state, b, mask):
+            k = k_write(table, state, b, mask)
+            self._eq("K8 table_write", k,
+                     TB.table_write_ref(table, state, b, mask))
+            self.steps["table_write"] += 1
+            return k
+
+        def table_match(table, state, b, acting, cond, sets=None,
+                        set_cols=(), delete=False):
+            k = k_match(table, state, b, acting, cond, sets, set_cols,
+                        delete)
+            r = TB.table_match_ref(table, state, b, acting, cond, sets,
+                                   set_cols, delete)
+            if sets is None and not delete:
+                self._eq("K8 table_match (hits)", k[1], r[1])
+            else:
+                self._eq("K8 table_match", list(k), list(r))
+            self.steps["table_match"] += 1
+            return k
+
+        def probe_touched(table, state, probe, b, acting):
+            k = k_tprobe(table, state, probe, b, acting)
+            self._eq("K8 table_probe", list(k), list(
+                TB.probe_touched_ref(table, state, probe, b, acting)))
+            self.steps["table_probe"] += 1
+            return k
+
+        def table_buffer(state):
+            k = k_buf(state)
+            self._eq("K8 table_buffer", k, TB.table_buffer_ref(state))
+            self.steps["table_buffer"] += 1
+            return k
+
+        (JN.join_probe, JN.join_grid, TB.table_write, TB.table_match,
+         TB.probe_touched, TB.table_buffer) = (
+            join_probe, join_grid, table_write, table_match,
+            probe_touched, table_buffer)
+        return self
+
+    def __exit__(self, *exc):
+        JN, TB = self.JN, self.TB
+        (JN.join_probe, JN.join_grid, TB.table_write, TB.table_match,
+         TB.probe_touched, TB.table_buffer) = self.saved
+        return False
+
+
+class Router:
+    """send_arrays over several streams of one app, in turn (the join
+    paths alternate StockStream and TwitterStream)."""
+
+    def __init__(self, rt, streams):
+        self.hs = [rt.get_input_handler(s) for s in streams]
+        self.i = 0
+
+    def send_arrays(self, ts, cols):
+        h = self.hs[self.i % len(self.hs)]
+        self.i += 1
+        h.send_arrays(ts, cols)
+
+
+def k78_against_plain(dev) -> float:
+    """Phase 12: kernels K7 and K8 against their plain versions on the
+    card, bit for bit, at every launch of: each app of checks.JOIN_APPS
+    under both K7 entry points (inner, left, right and full outer joins,
+    unidirectional, a windowless side, a residual conjunct, a non-equi
+    ON, no ON, an expression key, JOIN_CAP and candidate overflow, an
+    aggregating selector, the float-key traps: +-0.0, NaN of both signs,
+    +-inf, subnormals, LONG against DOUBLE), each app of checks.TABLE_APPS
+    (insert, deletes through the condition pass and through @Index,
+    updates with and without SET, update or insert, primary-key
+    duplicates in one batch, IN-table filters, a table past its
+    capacity), and the three main configurations at 8,192-row sends from
+    live states (join, join_eq, the grid pass, stock_table).
+    -> max abs error (0)."""
+    import os
+    from siddhi_tpu_torch import Event, SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    saved = dict(_kernels.LAUNCHES)
+    mgr = SiddhiManager(device="cuda")
+    env = "SIDDHI_TPU_JOIN_KERNEL"
+    with JoinTableCheck() as chk:
+        for name in sorted(C.JOIN_APPS):
+            for kernel in ("probe", "grid"):
+                os.environ[env] = kernel
+                rt = mgr.create_siddhi_app_runtime(C.JOIN_APPS[name])
+                rt.start()
+                for stream, rows in C.join_shape_feed(name, 90, seed=3):
+                    rt.get_input_handler(stream).send(
+                        [Event(ts, tuple(r)) for ts, r in rows])
+                q = rt.queries["q"]
+                if name == "join_cap" and q.overflow == 0:
+                    fail("K7 feed 'join_cap' lost no pair")
+                rt.shutdown()
+        print(f"K7 against its plain version: {len(C.JOIN_APPS)} apps under "
+              f"both entry points bit-equal (steps {chk.steps})", flush=True)
+        os.environ.pop(env, None)
+        for name in sorted(C.TABLE_APPS):
+            rt = mgr.create_siddhi_app_runtime(C.TABLE_APPS[name])
+            rt.start()
+            for stream, rows in C.table_shape_feed(80, seed=3):
+                rt.get_input_handler(stream).send(
+                    [Event(ts, tuple(r)) for ts, r in rows])
+            if name == "over_capacity" and \
+                    int(rt.tables["T"].state["overflow"]) == 0:
+                fail("K8 feed 'over_capacity' did not overflow")
+            rt.shutdown()
+        print(f"K8 against its plain version: {len(C.TABLE_APPS)} apps "
+              f"bit-equal (steps {chk.steps})", flush=True)
+        # the main configurations at their shapes, from live states
+        for label, n_syms, kernel, sends in (
+                ("join", C.JOIN_SYMS, None, 3),
+                ("join_eq", C.JOIN_EQ_SYMS, None, 3),
+                ("join on the grid", C.JOIN_SYMS, "grid", 2)):
+            if kernel:
+                os.environ[env] = kernel
+            rt = mgr.create_siddhi_app_runtime(C.JOIN_APP)
+            rt.start()
+            r = Router(rt, ("StockStream", "TwitterStream"))
+            for ts, sym, price, tweets in C.join_feed(
+                    n_syms, sends, SEND_ROWS, GLOBAL_STRINGS.encode, seed=5):
+                r.send_arrays(ts, [sym, price])
+                r.send_arrays(ts, [sym, tweets])
+            st = rt.queries["q"].stats()
+            rt.shutdown()
+            os.environ.pop(env, None)
+            print(f"K7 {label}, {sends} sends of 8,192 rows a side: "
+                  f"bit-equal (emitted {st['emitted']}, overflow "
+                  f"{st['overflow']}; steps {chk.steps})", flush=True)
+        rt = mgr.create_siddhi_app_runtime(C.STOCK_TABLE_APP)
+        rt.start()
+        for stream, ts, cols in C.stock_table_feed(
+                C.STOCK_SYMS, 2, SEND_ROWS, GLOBAL_STRINGS.encode, seed=5):
+            rt.get_input_handler(stream).send_arrays(ts, cols)
+        # on-demand queries over the card's table (K8's view, K2)
+        st = rt.tables["StockTable"].state
+        want = int((st["valid"] & (st["cols"][2] > 500000)).sum())
+        got = len(rt.query("from StockTable on volume > 500000L "
+                           "select symbol, volume"))
+        n_all = len(rt.query("from StockTable select *"))
+        if got != want or n_all != C.STOCK_SYMS:
+            fail(f"on-demand queries on the card: {got} rows (want {want}), "
+                 f"{n_all} in all (want {C.STOCK_SYMS})")
+        rt.shutdown()
+        print(f"K7/K8 stock_table, a load and 2 rounds of 8,192-row sends: "
+              f"bit-equal (steps {chk.steps}); on-demand queries over the "
+              f"table equal its state", flush=True)
+    if not all(chk.steps.values()):
+        fail(f"an entry point of K7 or K8 was never compared: {chk.steps}")
+    _kernels.LAUNCHES.update(saved)   # not launches of a main path
+    return chk.err
+
+
+def _join_kernel_times(rt, q, dev, ts_c, sym_c, price_c, kernel: str):
+    """K7 at the path's shape: the StockStream side's window output for
+    one more 8,192-row send against the live TwitterStream window. ->
+    (ms, plain ms, library ms, bytes)."""
+    from siddhi_tpu_torch import _kernels
+    from siddhi_tpu_torch.core.event import batch_from_columns
+    from siddhi_tpu_torch.ops import join as JN
+    from siddhi_tpu_torch.ops import table as TB
+    from siddhi_tpu_torch.ops import windows as W
+    saved = dict(_kernels.LAUNCHES)
+    batch = batch_from_columns(rt.schemas["StockStream"], ts_c,
+                               [sym_c, price_c], capacity=SEND_ROWS,
+                               device=dev)
+    now = torch.tensor(int(ts_c[-1]), dtype=torch.int64, device=dev)
+    _st, trig = W.window_step(q.side_ops["L"][-1], q.side_states["L"][-1],
+                              batch, now)
+    opp = q.side_ops["R"][-1].findable_buffer(q.side_states["R"][-1])
+    cross = q.crosses["L"]
+    probe = kernel == "probe"
+    out, lost, args = JN.join_args(cross, trig, opp, True, probe)
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    launch = lib.join_probe if probe else lib.join_grid
+    ms = cuda_ms(lambda: launch(args, stream), reps=20)
+    ref = JN.cross_probe_ref if probe else JN.cross_grid_ref
+    plain = cuda_ms(lambda: ref(cross, trig, opp, True), reps=2, warmup=1)
+    okeys = TB.encode_keys(opp["cols"][0], cross.equi.key_type)
+    tkeys = TB.encode_keys(trig.cols[0], cross.equi.key_type)
+
+    def library():
+        sk, _o = torch.sort(okeys, stable=True)
+        torch.searchsorted(sk, tkeys, right=False)
+        torch.searchsorted(sk, tkeys, right=True)
+    lib_ms = cuda_ms(library, reps=20)
+    _kernels.LAUNCHES.update(saved)
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    n_bytes = nbytes([trig.ts, trig.kind, trig.valid, *trig.cols,
+                      *trig.nulls, opp["ts"], opp["valid"], *opp["cols"],
+                      *opp["nulls"], out.ts, out.kind, out.valid, *out.cols,
+                      *out.nulls, lost])
+    # the operations this run's inputs need: the probe sorts the window
+    # (a pass a key byte and the dead-row pass), bisects twice a trigger
+    # row, evaluates every candidate slot and places every output slot;
+    # the grid compares and masks every (joinable row, window row) pair
+    B, W = trig.capacity, opp["ts"].shape[0]
+    if probe:
+        passes = 8 if cross.equi.key_type.value in ("long", "double") else 4
+        n_ops = W * (passes + 1) + 2 * B * TB.search_levels(W) + \
+            (cross.cand_cap if cross.need_residual(True) else 0) + cross.cap
+    else:
+        joinable = int((trig.valid & ((trig.kind == 0) | (trig.kind == 1)))
+                       .sum())
+        n_ops = 2 * joinable * W + cross.cap
+    return ms, plain, lib_ms, n_bytes, n_ops, B, W
+
+
+def join_phase(dev, card: str, which: str, sends: int = JOIN_SENDS,
+               kernel: str = "probe", probe_rows=None) -> dict:
+    """Phases 13 to 15: bench.py's join app end to end on the card through
+    SiddhiManager, send_arrays and batch_callbacks, ``sends`` sends of
+    8,192 rows a side (StockStream then TwitterStream), the bench's feed
+    with 1,024 symbols (join) or 8,192 (join_eq), checked against the
+    numpy oracle of checks.py with no pair lost; the launch counters must
+    show K1 on every send and K5, K7 and K2 on every side step; then
+    events/s, per-send latency at 8,192 and 1,024 rows, a torch.profiler
+    split, and K7's time per step against its plain version, its byte
+    bound and torch.sort + torch.searchsorted. With kernel="grid" (the
+    grid pass) the rows must equal ``probe_rows``. -> the path's numbers."""
+    import os
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    env = "SIDDHI_TPU_JOIN_KERNEL"
+    if kernel == "grid":
+        os.environ[env] = "grid"
+    else:
+        os.environ.pop(env, None)
+    n_syms = C.JOIN_SYMS if which != "join_eq" else C.JOIN_EQ_SYMS
+    SEND = SEND_ROWS
+    mgr = SiddhiManager(device="cuda")
+    warm = mgr.create_siddhi_app_runtime(C.JOIN_APP.replace("'q'", "'w'"))
+    warm.start()
+    wr = Router(warm, ("StockStream", "TwitterStream"))
+    for ts, sym, price, tweets in C.join_feed(n_syms, 2, SEND,
+                                              GLOBAL_STRINGS.encode, seed=3):
+        wr.send_arrays(ts, [sym, price])
+        wr.send_arrays(ts, [sym, tweets])
+    torch.cuda.synchronize()
+    warm.shutdown()
+
+    rt = mgr.create_siddhi_app_runtime(C.JOIN_APP)
+    q = rt.queries["q"]
+    picked = {v["kernel"] for v in rt.join_kernels.values()}
+    if picked != {kernel}:
+        fail(f"{which}: the planner picked {picked}, expected {kernel}")
+    outs = []
+    q.batch_callbacks.append(outs.append)
+    rt.start()
+    r = Router(rt, ("StockStream", "TwitterStream"))
+    # the latency sends (5), the 1,024-row sends cut from more, the K7
+    # timing's send
+    extra = 5 + -(-37 * 1024 // SEND) + 1
+    feed = C.join_feed(n_syms, sends + extra, SEND, GLOBAL_STRINGS.encode)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    for ts, sym, price, tweets in feed[:sends]:
+        r.send_arrays(ts, [sym, price])
+        r.send_arrays(ts, [sym, tweets])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    k7 = "join_probe" if kernel == "probe" else "join_grid"
+    steps = len(outs)
+    want = {"unpack_packed": 2 * sends, "window_step": steps, k7: steps,
+            "expr_eval": steps}
+    for k, n in want.items():
+        if launches[k] != n or n == 0:
+            fail(f"{which} path: kernel {k} launched {launches[k]} times, "
+                 f"expected {n} (K1 one per send; K5, K7 and K2 one per "
+                 f"side step, {steps} steps)")
+    rows = [torch.cat([o.cols[i][o.valid] for o in outs]).cpu().numpy()
+            for i in range(3)]
+    o_sym, o_price, o_tw = C.join_oracle(feed[:sends])
+    ok = (len(rows[0]) == len(o_sym) and np.array_equal(rows[0], o_sym)
+          and np.array_equal(rows[1].view(np.int32), o_price.view(np.int32))
+          and np.array_equal(rows[2], o_tw))
+    lost = q.overflow
+    stats = q.stats()
+    if not ok or lost != 0 or stats["emitted"] != len(o_sym):
+        fail(f"{which}: {len(rows[0])} rows ({stats['emitted']} counted), "
+             f"the oracle {len(o_sym)}; equal: {ok}; pairs lost {lost}")
+    if probe_rows is not None:
+        n = len(rows[0])
+        if not all(np.array_equal(a, b[:n]) for a, b in zip(rows, probe_rows)):
+            fail(f"{which}: the grid's rows differ from the probe run's")
+    events = 2 * sends * SEND
+    eps = events / wall
+    print(f"{which}: {events} events in {sends} sends of {SEND} rows a side; "
+          f"{len(o_sym)} rows equal the numpy oracle; 0 pairs lost; "
+          f"{eps:.0f} events/s, device batches only ({card})", flush=True)
+    print(f"launches on the {which} path: {launches}", flush=True)
+    res = {"events_per_s_device_batches": eps, "rows": len(o_sym),
+           "launches": launches, "card": card, "kernel": kernel}
+    if kernel == "grid":
+        rt.shutdown()
+        os.environ.pop(env, None)
+        res.update(_k7_times(rt, q, dev, feed[sends], kernel))
+        print(json.dumps({which: res}), flush=True)
+        return res
+    k_next = sends
+
+    def chunk(m):
+        nonlocal k_next
+        ts, sym, price, tweets = feed[k_next]
+        k_next += 1
+        return [(ts[:m], [sym[:m], price[:m]]), (ts[:m], [sym[:m], tweets[:m]])]
+
+    def latency(m, reps):
+        for d in chunk(m):
+            r.send_arrays(*d)
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(reps):
+            for d in chunk(m):
+                c0 = time.perf_counter()
+                r.send_arrays(*d)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - c0) * 1e3)
+        return float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+    p50, p99 = latency(SEND, 4)
+    res.update(p50_ms_8192=p50, p99_ms_8192=p99)
+    # 1,024-row sends: the rest of the feed's sends, cut
+    lat = []
+    rows_left = [(ts[a:a + 1024], sym[a:a + 1024], price[a:a + 1024],
+                  tweets[a:a + 1024])
+                 for ts, sym, price, tweets in feed[k_next:]
+                 for a in range(0, SEND, 1024)]
+    for ts, sym, price, tweets in rows_left[:33]:
+        for d in ((ts, [sym, price]), (ts, [sym, tweets])):
+            c0 = time.perf_counter()
+            r.send_arrays(*d)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - c0) * 1e3)
+    lat = lat[2:]
+    p50k, p99k = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+    res.update(p50_ms_1024=p50k, p99_ms_1024=p99k)
+    print(f"{which} latency per send: 8,192 rows p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms; 1,024 rows p50 {p50k:.3f} ms, p99 {p99k:.3f} ms "
+          f"({card})", flush=True)
+    prof = [(ts, c) for ts, sym, price, tweets in rows_left[33:37]
+            for ts, c in ((ts, [sym, price]), (ts, [sym, tweets]))]
+    breakdown, busy = profile_sends(r, prof)
+    print(f"{which}, where a 1,024-row send's device time goes (torch."
+          f"profiler, {len(prof)} sends, ms per send): {breakdown}; the "
+          f"card is busy {busy:.3f} of the profiled wall time ({card})",
+          flush=True)
+    res.update(device_ms_per_send=breakdown, busy_share=busy)
+    res.update(_k7_times(rt, q, dev, feed[-1], kernel))
+    rt.shutdown()
+    print(json.dumps({which: res}), flush=True)
+    res["k7_rows"] = rows     # for the grid pass's comparison
+    return res
+
+
+def _k7_times(rt, q, dev, send, kernel) -> dict:
+    ts, sym, price, _tw = send
+    ms, plain, lib_ms, n_bytes, n_ops, B, W = _join_kernel_times(
+        rt, q, dev, ts, sym, price, kernel)
+    bound, bound_by = bound_of(n_bytes, n_ops)
+    print(f"{'join_probe' if kernel == 'probe' else 'join_grid'} (K7): "
+          f"{ms:.5f} ms a step (trigger {B} rows, opposite {W} rows); plain "
+          f"version {plain:.3f} ms; torch.sort(stable=True) + 2 "
+          f"torch.searchsorted {lib_ms:.5f} ms; bound {bound:.5f} ms by "
+          f"{bound_by} ({n_bytes} bytes at 3.35 TB/s, {n_ops} operations "
+          f"at 67 T/s)", flush=True)
+    return {"k7_ms": ms, "k7_plain_ms": plain, "k7_library_ms": lib_ms,
+            "k7_bound_ms": bound, "k7_bound_by": bound_by}
+
+
+def stock_table_phase(dev, card: str) -> dict:
+    """Phase 16: stock_table end to end on the card: a load send of its
+    8,000 symbols, then 64 rounds of a 8,192-row StockStream send (the
+    primary-keyed upsert) and a 8,192-row CheckStockStream send (the
+    stream-table join), checked against the numpy oracle (last writer
+    wins per symbol), 0 pairs lost and 0 table overflow, the table at
+    8,000 rows; the launch counters must show K1 on every send, K8's
+    condition pass and write on every upsert, K8's view, K5 (the empty
+    window), K7 and K2 on every lookup; then events/s, per-send latency,
+    a torch.profiler split and K8's time per upsert step against its
+    plain version, its byte bound and torch.argsort of the seq keys."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.event import EventBatch, batch_from_columns
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    from siddhi_tpu_torch.ops import table as TB
+    ROUNDS, SEND = STOCK_ROUNDS, SEND_ROWS
+    mgr = SiddhiManager(device="cuda")
+    warm = mgr.create_siddhi_app_runtime(C.STOCK_TABLE_APP)
+    warm.start()
+    for stream, ts, cols in C.stock_table_feed(C.STOCK_SYMS, 2, SEND,
+                                               GLOBAL_STRINGS.encode, seed=3):
+        warm.get_input_handler(stream).send_arrays(ts, cols)
+    torch.cuda.synchronize()
+    warm.shutdown()
+    rt = mgr.create_siddhi_app_runtime(C.STOCK_TABLE_APP)
+    q = rt.queries["lookup"]
+    outs = []
+    q.batch_callbacks.append(outs.append)
+    rt.start()
+    feed = C.stock_table_feed(C.STOCK_SYMS, ROUNDS + 12, SEND,
+                              GLOBAL_STRINGS.encode)
+    run = feed[:1 + 2 * ROUNDS]
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    for stream, ts, cols in run:
+        rt.get_input_handler(stream).send_arrays(ts, cols)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    want = {"unpack_packed": 1 + 2 * ROUNDS, "table_match": 1 + ROUNDS,
+            "table_write": 1 + ROUNDS, "table_buffer": ROUNDS,
+            "join_probe": ROUNDS, "window_step": ROUNDS,
+            "expr_eval": 1 + 2 * ROUNDS}
+    for k, n in want.items():
+        if launches[k] != n:
+            fail(f"stock_table path: kernel {k} launched {launches[k]} times, "
+                 f"expected {n}")
+    rows = [torch.cat([o.cols[i][o.valid] for o in outs]).cpu().numpy()
+            for i in range(4)]
+    o = C.stock_table_oracle(run)
+    ok = len(rows[0]) == len(o[0]) and all(
+        np.array_equal(g.view(np.int32) if g.dtype == np.float32 else g,
+                       w.view(np.int32) if w.dtype == np.float32 else w)
+        for g, w in zip(rows, o))
+    tstate = rt.tables["StockTable"].state
+    n_rows, t_over = int(tstate["valid"].sum()), int(tstate["overflow"])
+    lost = q.overflow
+    if not ok or lost or t_over or n_rows != C.STOCK_SYMS:
+        fail(f"stock_table: {len(rows[0])} rows, the oracle {len(o[0])}; "
+             f"equal: {ok}; pairs lost {lost}; table rows {n_rows}, "
+             f"overflow {t_over}")
+    events = sum(len(ts) for _s, ts, _c in run)
+    eps = events / wall
+    print(f"stock_table: {events} events (a load of {C.STOCK_SYMS} and "
+          f"{ROUNDS} rounds of {SEND}-row upsert and lookup sends); "
+          f"{len(o[0])} rows equal the numpy oracle; 0 pairs lost, table "
+          f"{n_rows} rows, overflow 0; {eps:.0f} events/s, device batches "
+          f"only ({card})", flush=True)
+    print(f"launches on the stock_table path: {launches}", flush=True)
+    k = 1 + 2 * ROUNDS
+
+    def send_pair(m):
+        nonlocal k
+        lat = []
+        for _ in range(2):
+            stream, ts, cols = feed[k]
+            k += 1
+            c0 = time.perf_counter()
+            rt.get_input_handler(stream).send_arrays(ts[:m],
+                                                     [c[:m] for c in cols])
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - c0) * 1e3)
+        return lat
+    send_pair(SEND)
+    lat = [x for _ in range(4) for x in send_pair(SEND)]
+    p50, p99 = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+    lat = [x for _ in range(4) for x in send_pair(1024)]
+    p50k, p99k = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+    print(f"stock_table latency per send: 8,192 rows p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms; 1,024 rows p50 {p50k:.3f} ms, p99 {p99k:.3f} ms "
+          f"({card})", flush=True)
+    r = Router(rt, ("StockStream", "CheckStockStream"))
+    prof = []
+    for _ in range(2):
+        for _s in range(2):
+            stream, ts, cols = feed[k]
+            k += 1
+            prof.append((ts[:1024], [c[:1024] for c in cols]))
+    breakdown, busy = profile_sends(r, prof)
+    print(f"stock_table, where a 1,024-row send's device time goes "
+          f"(torch.profiler, {len(prof)} sends, ms per send): {breakdown}; "
+          f"the card is busy {busy:.3f} of the profiled wall time ({card})",
+          flush=True)
+
+    # K8 at the path's shape: one 8,192-row upsert from the live table
+    saved = dict(_kernels.LAUNCHES)
+    op = rt.queries["upsert"].operators[-1]
+    table = op.table
+    state = tstate
+    stream, ts, cols = feed[k]
+    b = batch_from_columns(rt.schemas["StockStream"], ts, cols,
+                           capacity=SEND, device=dev)
+    acting = b.valid & (b.kind == 0)
+    (mstate, hits), margs = TB.table_match_args(table, state, b, acting,
+                                                op.cond, op.sets, op.set_cols)
+    lib = _kernels.load()
+    stream_c = torch.cuda.current_stream().cuda_stream
+    lib.table_match(margs, stream_c)
+    wstate, wargs = TB.table_write_args(table, mstate, b, acting & ~hits)
+    lib.table_write(wargs, stream_c)
+    bview, bargs = TB.table_buffer_args(wstate)
+    ms_match = cuda_ms(lambda: lib.table_match(margs, stream_c), reps=10)
+    ms_write = cuda_ms(lambda: lib.table_write(wargs, stream_c), reps=20)
+    ms_buf = cuda_ms(lambda: lib.table_buffer(bargs, stream_c), reps=20)
+    k8_ms = ms_match + ms_write + ms_buf
+
+    def plain():
+        s1, h1 = TB.table_match_ref(table, state, b, acting, op.cond,
+                                    op.sets, op.set_cols)
+        s2 = TB.table_write_ref(table, s1, b, acting & ~h1)
+        TB.table_buffer_ref(s2)
+    k8_plain = cuda_ms(plain, reps=2, warmup=1)
+    key = torch.where(wstate["valid"], wstate["seq"],
+                      torch.full_like(wstate["seq"], 2 ** 62))
+    lib_ms = cuda_ms(lambda: torch.argsort(key, stable=True), reps=20)
+    _kernels.LAUNCHES.update(saved)
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    tab = lambda s: [*s["cols"], *s["nulls"], s["ts"], s["seq"],  # noqa
+                     s["valid"]]
+    ev = [b.ts, b.kind, b.valid, *b.cols, *b.nulls]
+    k8_bytes = (nbytes(tab(state)) + nbytes(ev)          # match reads
+                + nbytes([mstate["valid"], *[mstate["cols"][i]
+                                             for i in op.set_cols],
+                          *[mstate["nulls"][i] for i in op.set_cols], hits])
+                + nbytes(tab(mstate)) + nbytes(tab(wstate))  # write
+                + nbytes(tab(wstate)) + nbytes(tab(bview)))  # view
+    # the operations: the condition pass over every (event, table row)
+    # pair, a compare and a mask each (the function's [B, T] grid); the
+    # view's eight key-byte passes and gather; the write's event rows
+    k8_ops = 2 * SEND * table.cap + 9 * table.cap + SEND
+    k8_bound, k8_by = bound_of(k8_bytes, k8_ops)
+    print(f"table_step (K8), stock_table: {k8_ms:.5f} ms an upsert step "
+          f"and view ({ms_match:.5f} condition pass + {ms_write:.5f} write "
+          f"+ {ms_buf:.5f} view; {SEND} events, {table.cap}-row table); "
+          f"plain version {k8_plain:.3f} ms; torch.argsort(stable=True) of "
+          f"the seq keys {lib_ms:.5f} ms; bound {k8_bound:.5f} ms by {k8_by} "
+          f"({k8_bytes} bytes at 3.35 TB/s, {k8_ops} operations at "
+          f"67 T/s); {card}", flush=True)
+    rt.shutdown()
+    res = {"events_per_s_device_batches": eps, "rows": len(o[0]),
+           "launches": launches, "p50_ms_8192": p50, "p99_ms_8192": p99,
+           "p50_ms_1024": p50k, "p99_ms_1024": p99k,
+           "device_ms_per_send": breakdown, "busy_share": busy,
+           "k8_ms": k8_ms, "k8_match_ms": ms_match, "k8_write_ms": ms_write,
+           "k8_buffer_ms": ms_buf, "k8_plain_ms": k8_plain,
+           "k8_bound_ms": k8_bound, "k8_bound_by": k8_by,
+           "k8_library_ms": lib_ms, "card": card}
+    print(json.dumps({"stock_table": res}), flush=True)
     return res
 
 
@@ -1436,7 +2089,36 @@ def main() -> None:
             "bound_by": "bytes",
             "library_ms": r["k5_library_ms"] if key == "k5" else None})
 
-    # -- 12. result -----------------------------------------------------------
+    # -- 12. to 16. kernels K7 and K8, the join paths, stock_table ----------
+    k78_err = k78_against_plain(dev)
+    jr = join_phase(dev, card, "join")
+    jq = join_phase(dev, card, "join_eq")
+    gr = join_phase(dev, card, "join on the grid", sends=GRID_SENDS,
+                    kernel="grid",
+                    probe_rows=jr.pop("k7_rows"))
+    jq.pop("k7_rows")
+    stk = stock_table_phase(dev, card)
+    runs = (jr, jq, gr, stk)
+    table.append({
+        "name": "join_cross", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/join_cross.cu",
+        "replaces": "siddhi_tpu/ops/join.py:421",
+        "launches": sum(x["launches"][k] for x in runs
+                        for k in ("join_probe", "join_grid")),
+        "max_abs_err": k78_err, "ms": jr["k7_ms"],
+        "plain_ms": jr["k7_plain_ms"], "bound_ms": jr["k7_bound_ms"],
+        "bound_by": jr["k7_bound_by"], "library_ms": jr["k7_library_ms"]})
+    table.append({
+        "name": "table_step", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/table_step.cu",
+        "replaces": "siddhi_tpu/ops/table.py:72",
+        "launches": sum(stk["launches"][k] for k in (
+            "table_write", "table_match", "table_probe", "table_buffer")),
+        "max_abs_err": k78_err, "ms": stk["k8_ms"],
+        "plain_ms": stk["k8_plain_ms"], "bound_ms": stk["k8_bound_ms"],
+        "bound_by": stk["k8_bound_by"], "library_ms": stk["k8_library_ms"]})
+
+    # -- 17. result -----------------------------------------------------------
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

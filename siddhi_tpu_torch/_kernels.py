@@ -31,11 +31,17 @@ BUILD = Path(__file__).resolve().parent / "_build"
 SOURCES = {"unpack_packed": "unpack_packed.cu", "expr_eval": "expr_eval.cu",
            "nfa_parallel": "nfa_parallel.cu", "nfa_scan": "nfa_scan.cu",
            "window_step": "window_step.cu",
-           "aggregate_step": "aggregate_step.cu"}
+           "aggregate_step": "aggregate_step.cu",
+           "join_cross": "join_cross.cu", "table_step": "table_step.cu"}
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
-# the aggregate step's library has a second entry point, the emission
-LAUNCHES = {name: 0 for name in (*SOURCES, "aggregate_emit")}
+# entry points counted apart: the aggregate step's emission; K7's probe
+# and grid; K8's write, condition pass, index probe and seq-ordered view
+ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
+                "window_step", "aggregate_step", "aggregate_emit",
+                "join_probe", "join_grid", "table_write", "table_match",
+                "table_probe", "table_buffer")
+LAUNCHES = {name: 0 for name in ENTRY_POINTS}
 
 
 def count_launch(name: str) -> None:
@@ -307,6 +313,67 @@ class EmitArgs(ctypes.Structure):
             "k2", "i1", "i2", "perm2", "counts", "chunk", "gstart", "scal")]
 
 
+JOIN_MAX_COLS = 16
+JOIN_MAX_OUT = 32
+TABLE_MAX_PK = 8
+
+
+class PairProg(ctypes.Structure):
+    _fields_ = [("code", _P), ("consts", _P), ("ins", _P),
+                ("n_code", _I32), ("pad_", _I32)]
+
+
+class SideCols(ctypes.Structure):
+    _fields_ = [("ts", _P), ("kind", _P), ("valid", _P),
+                ("cols", _P * JOIN_MAX_COLS), ("nulls", _P * JOIN_MAX_COLS),
+                ("col_size", _I32 * JOIN_MAX_COLS),
+                ("n_cols", _I32), ("pad_", _I32)]
+
+
+class KeySortScratch(ctypes.Structure):
+    _fields_ = [(f, _P) for f in ("k1", "k2", "i1", "i2", "keys", "pad",
+                                  "order", "sk", "n_live", "counts")]
+
+
+class JoinArgs(ctypes.Structure):
+    _fields_ = [("trig", SideCols), ("opp", SideCols),
+                ("cond", PairProg), ("tkey", PairProg), ("okey", PairProg),
+                ("resid", PairProg)] + [
+        (f, _I32) for f in ("probe", "outer", "need_resid", "gate",
+                            "key_type", "levels")] + [
+        ("big", _I64), ("win_ms", _I64)] + [
+        (f, _I32) for f in ("B", "W", "CAP", "CAND", "n_out")] + [
+        ("out_from_trig", _I32 * JOIN_MAX_OUT),
+        ("out_col", _I32 * JOIN_MAX_OUT), ("out_size", _I32 * JOIN_MAX_OUT),
+        ("out_ts", _P), ("out_kind", _P), ("out_valid", _P),
+        ("out_cols", _P * JOIN_MAX_OUT), ("out_nulls", _P * JOIN_MAX_OUT),
+        ("lost", _P), ("sort", KeySortScratch)] + [
+        (f, _P) for f in ("trig_keys", "act", "lo", "cnt", "coffs", "coi", "s",
+                          "S", "surv", "soffs", "tot", "offs", "lead", "ti",
+                          "oi", "is_pair", "psum")]
+
+
+class TableBuf(ctypes.Structure):
+    _fields_ = [("cols", _P * JOIN_MAX_COLS), ("nulls", _P * JOIN_MAX_COLS)]\
+        + [(f, _P) for f in ("ts", "seq", "valid", "next_seq", "overflow")]
+
+
+class TableArgs(ctypes.Structure):
+    _fields_ = [("t", TableBuf), ("o", TableBuf), ("ev", SideCols),
+                ("col_size", _I32 * JOIN_MAX_COLS),
+                ("col_type", _I32 * JOIN_MAX_COLS)] + [
+        (f, _I32) for f in ("n_cols", "T", "B", "n_pk")] + [
+        ("pk", _I32 * TABLE_MAX_PK), ("mask", _P),
+        ("cond", PairProg), ("sets", PairProg)] + [
+        (f, _I32) for f in ("has_cond", "mode", "n_sets")] + [
+        ("set_col", _I32 * JOIN_MAX_COLS)] + [
+        (f, _I32) for f in ("attr", "key_type", "op", "levels")] + [
+        ("big", _I64), ("touched", _P), ("any_hit", _P), ("delta", _P),
+        ("sort", KeySortScratch)] + [
+        (f, _P) for f in ("hk", "tk", "hit", "win", "rank", "free_pos",
+                          "scal", "adding")]
+
+
 # -- build -------------------------------------------------------------------
 
 def _nvcc() -> str:
@@ -391,6 +458,18 @@ class _Kernels:
                                                   ctypes.c_void_p]
             getattr(self.agg_lib, fn).restype = ctypes.c_int
 
+        self.join_lib = ctypes.CDLL(str(libs["join_cross"]))
+        for fn in ("siddhi_join_probe", "siddhi_join_grid"):
+            getattr(self.join_lib, fn).argtypes = [
+                ctypes.POINTER(JoinArgs), ctypes.c_void_p]
+            getattr(self.join_lib, fn).restype = ctypes.c_int
+        self.table_lib = ctypes.CDLL(str(libs["table_step"]))
+        for fn in ("siddhi_table_write", "siddhi_table_match",
+                   "siddhi_table_probe", "siddhi_table_buffer"):
+            getattr(self.table_lib, fn).argtypes = [
+                ctypes.POINTER(TableArgs), ctypes.c_void_p]
+            getattr(self.table_lib, fn).restype = ctypes.c_int
+
     @staticmethod
     def _check(name: str, err: int) -> None:
         if err != 0:
@@ -422,6 +501,30 @@ class _Kernels:
 
     def aggregate_emit(self, args: EmitArgs, stream: int) -> None:
         self._check("aggregate_emit", self.agg_lib.siddhi_aggregate_emit(
+            ctypes.byref(args), stream))
+
+    def join_probe(self, args: JoinArgs, stream: int) -> None:
+        self._check("join_probe", self.join_lib.siddhi_join_probe(
+            ctypes.byref(args), stream))
+
+    def join_grid(self, args: JoinArgs, stream: int) -> None:
+        self._check("join_grid", self.join_lib.siddhi_join_grid(
+            ctypes.byref(args), stream))
+
+    def table_write(self, args: TableArgs, stream: int) -> None:
+        self._check("table_write", self.table_lib.siddhi_table_write(
+            ctypes.byref(args), stream))
+
+    def table_match(self, args: TableArgs, stream: int) -> None:
+        self._check("table_match", self.table_lib.siddhi_table_match(
+            ctypes.byref(args), stream))
+
+    def table_probe(self, args: TableArgs, stream: int) -> None:
+        self._check("table_probe", self.table_lib.siddhi_table_probe(
+            ctypes.byref(args), stream))
+
+    def table_buffer(self, args: TableArgs, stream: int) -> None:
+        self._check("table_buffer", self.table_lib.siddhi_table_buffer(
             ctypes.byref(args), stream))
 
 

@@ -8,6 +8,7 @@ columns and null masks, ``valid``), the aggregators' group tables
 (``keys``, ``used``, ``carry``, ``overflow``) and the counters come
 across as they are, with a window's STRING columns optionally mapped to
 the port's dictionary codes.
+``table_from_jax`` does the same for a table's state.
 ``strings_from_jax`` seeds the port's string dictionary so that its
 codes match the reference process's: both packages give strings codes
 in order of first sight, so dictionary-coded columns and string
@@ -55,7 +56,7 @@ def _remap_buffers(tree, string_cols, remap):
 
 
 def state_from_jax(snapshot: dict, device, string_cols: Sequence = (),
-                   remap=None) -> dict:
+                   remap=None, side_strings=None) -> dict:
     """A reference QueryRuntime snapshot -> the port's query state. A
     PatternQueryRuntime's snapshot also carries its NFA pending table
     (``"nfa"``: the same pytree, tuples of slot buffers included), for
@@ -68,7 +69,10 @@ def state_from_jax(snapshot: dict, device, string_cols: Sequence = (),
     ``string_cols`` in the query input's attribute order. A group
     table's slots are hashes of dictionary codes and cannot be mapped:
     it carries over only where both packages gave the feed's strings the
-    same codes."""
+    same codes. A JoinQueryRuntime's snapshot also carries both sides'
+    window states (``"sides"``, STRING columns flagged per side by
+    ``side_strings``: {"L": flags, "R": flags}) and its lost-pair count;
+    a table's state comes across with ``table_from_jax``."""
     states = snapshot["states"]
     if remap is not None:
         states = _remap_buffers(states, tuple(string_cols), remap)
@@ -77,7 +81,32 @@ def state_from_jax(snapshot: dict, device, string_cols: Sequence = (),
                                      dtype=torch.int64, device=device)}
     if "nfa" in snapshot:
         state["nfa"] = _tree(snapshot["nfa"], device)
+    if "sides" in snapshot:
+        # a join: both sides' window states, each side's STRING columns
+        # flagged by side_strings[side]
+        sides = snapshot["sides"]
+        if remap is not None:
+            sides = {s: _remap_buffers(v, tuple((side_strings or {}).get(s, ())),
+                                       remap) for s, v in sides.items()}
+        state["sides"] = _tree(sides, device)
+        state["join_overflow"] = torch.tensor(
+            int(np.asarray(snapshot["join_overflow"])), dtype=torch.int64,
+            device=device)
     return state
+
+
+def table_from_jax(tstate: dict, device, string_cols: Sequence = (),
+                   remap=None) -> dict:
+    """A reference table state (``TableRuntime.state``: columns, null
+    masks, ts, seq, valid, next_seq, overflow) -> the port's, its STRING
+    columns (flags ``string_cols``, the table's attribute order) passed
+    through ``remap``. Assign it to ``app.tables[id].state``."""
+    cols = tuple(np.asarray(remap(np.asarray(c)), np.int32)
+                 if (remap is not None and is_str) else np.asarray(c)
+                 for c, is_str in zip(
+                     tstate["cols"], tuple(string_cols) +
+                     (False,) * len(tstate["cols"])))
+    return _tree({**tstate, "cols": cols}, device)
 
 
 def strings_from_jax(codes_to_str: Sequence) -> None:

@@ -728,3 +728,417 @@ def window_feed(n: int, encode, seed: int, n_syms: int = 16,
     vol = rng.integers(1, 1000, n, dtype=np.int64)
     flag = rng.random(n) < 0.5
     return ts, [sym, price, vol, flag]
+
+
+# -- kernels K7 and K8: joins and tables --------------------------------------
+
+# bench.py's join app (``_run_join_inner``), verbatim at the bench's
+# capacities: two one-second sliding windows joined on the symbol
+JOIN_APP = """
+    @app:playback
+    define stream StockStream (symbol string, price float);
+    define stream TwitterStream (symbol string, tweets int);
+    @info(name = 'q') @cap(window.size='1024', join.pairs='131072')
+    from StockStream#window.time(1 sec) join TwitterStream#window.time(1 sec)
+    on StockStream.symbol == TwitterStream.symbol
+    select StockStream.symbol, price, tweets
+    insert into OutputStream;
+"""
+JOIN_SYMS = 1024        # bench.py bench_join
+JOIN_EQ_SYMS = 8192     # bench.py bench_join_eq
+JOIN_SPAN_MS = 1000
+
+
+def join_symbols(n_syms: int, prefix: str = "SYM") -> list:
+    return [f"{prefix}{i:05d}" for i in range(n_syms)]
+
+
+def join_feed(n_syms: int, sends: int, rows: int, encode, seed: int = 9,
+              prefix: str = "SYM"):
+    """The join bench's feed (bench.py ``_run_join_inner``): per send i
+    both sides get timestamps TS0 + i * rows + arange(rows) and the same
+    symbols, uniform over ``n_syms``; StockStream a price ~ U(0, 200)
+    float32, TwitterStream tweets ~ U[0, 50) int32. -> a list of sends
+    (ts, symbol codes, price, tweets), StockStream's sent first."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([encode(s) for s in join_symbols(n_syms, prefix)],
+                    np.int32)
+    out = []
+    for i in range(sends):
+        ts = TS0 + np.arange(rows, dtype=np.int64) + i * rows
+        sym = syms[rng.integers(0, len(syms), rows)]
+        price = rng.uniform(0, 200, rows).astype(np.float32)
+        tweets = rng.integers(0, 50, rows).astype(np.int32)
+        out.append((ts, sym, price, tweets))
+    return out
+
+
+def join_oracle(sends, span_ms: int = JOIN_SPAN_MS, cap: int = 1024):
+    """The join's rows, in emission order, for sends made StockStream then
+    TwitterStream, each in one columnar step. The opposite window at the
+    start of a step holds the newest rows (up to ``cap``) of those with
+    ts + span > the app's clock; a trigger row's pairs are the opposite
+    rows of its symbol with ts + span >= its own ts, in buffer (arrival)
+    order. Only CURRENT rows reach the output.
+    -> (symbol codes, price, tweets)."""
+    sides = {"S": [], "T": []}       # arrived (ts, sym, value) arrays
+    out_sym, out_price, out_tw = [], [], []
+    clock = None
+
+    def content(side):
+        if not sides[side] or clock is None:
+            return (np.zeros(0, np.int64), np.zeros(0, np.int32),
+                    np.zeros(0))
+        ts = np.concatenate([a[0] for a in sides[side]])
+        sym = np.concatenate([a[1] for a in sides[side]])
+        val = np.concatenate([a[2] for a in sides[side]])
+        keep = np.nonzero(ts + span_ms > clock)[0][-cap:]
+        return ts[keep], sym[keep], val[keep]
+
+    for ts, sym, price, tweets in sends:
+        for side, val in (("S", price), ("T", tweets)):
+            opp = "T" if side == "S" else "S"
+            o_ts, o_sym, o_val = content(opp)
+            for i in range(len(ts)):
+                hit = np.nonzero((o_sym == sym[i])
+                                 & (o_ts + span_ms >= ts[i]))[0]
+                if not len(hit):
+                    continue
+                out_sym.append(np.full(len(hit), sym[i], np.int32))
+                if side == "S":
+                    out_price.append(np.full(len(hit), price[i], np.float32))
+                    out_tw.append(o_val[hit].astype(np.int32))
+                else:
+                    out_price.append(o_val[hit].astype(np.float32))
+                    out_tw.append(np.full(len(hit), tweets[i], np.int32))
+            sides[side].append((ts, sym, val))
+            clock = int(ts[-1])
+    cat = lambda parts, dt: np.concatenate(parts) if parts else \
+        np.zeros(0, dt)  # noqa: E731
+    return cat(out_sym, np.int32), cat(out_price, np.float32), \
+        cat(out_tw, np.int32)
+
+
+# the stock table: Siddhi's documented table usage (an upsert keyed by a
+# primary key, read by a stream-table join)
+STOCK_TABLE_APP = """
+    @app:playback
+    define stream StockStream (symbol string, price float, volume long);
+    define stream CheckStockStream (symbol string, qty int);
+    @PrimaryKey('symbol')
+    define table StockTable (symbol string, price float, volume long);
+    @info(name = 'upsert') from StockStream select symbol, price, volume
+    update or insert into StockTable
+      set StockTable.price = price, StockTable.volume = volume
+      on StockTable.symbol == symbol;
+    @info(name = 'lookup') @cap(join.pairs='16384')
+    from CheckStockStream join StockTable
+      on CheckStockStream.symbol == StockTable.symbol
+    select CheckStockStream.symbol as symbol, qty,
+           StockTable.price as price, StockTable.volume as volume
+    insert into OutputStream;
+"""
+STOCK_SYMS = 8000
+
+
+def stock_table_feed(n_syms: int, rounds: int, rows: int, encode,
+                     seed: int = 11, prefix: str = "STK"):
+    """stock_table's feed: one load send of the ``n_syms`` distinct
+    symbols into StockTable, then ``rounds`` of a StockStream send and a
+    CheckStockStream send of ``rows`` rows each, symbols uniform over the
+    table's; timestamps 1 ms apart across both streams; price ~ U(0, 200)
+    float32, volume ~ U[1, 10^6) int64, qty ~ U[1, 1000) int32.
+    -> a list of (stream, ts, columns)."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([encode(s) for s in join_symbols(n_syms, prefix)],
+                    np.int32)
+    t = TS0
+
+    def span(n):
+        nonlocal t
+        ts = t + np.arange(n, dtype=np.int64)
+        t += n
+        return ts
+
+    def stock(sym):
+        n = len(sym)
+        return [sym, rng.uniform(0, 200, n).astype(np.float32),
+                rng.integers(1, 10 ** 6, n, dtype=np.int64)]
+
+    out = [("StockStream", span(n_syms), stock(syms.copy()))]
+    for _ in range(rounds):
+        out.append(("StockStream", span(rows),
+                    stock(syms[rng.integers(0, n_syms, rows)])))
+        out.append(("CheckStockStream", span(rows),
+                    [syms[rng.integers(0, n_syms, rows)],
+                     rng.integers(1, 1000, rows).astype(np.int32)]))
+    return out
+
+
+def stock_table_oracle(feed):
+    """Last writer wins per symbol in event order, read at each check
+    send: -> (symbol codes, qty, price, volume) of the output rows, one
+    per check row, in order."""
+    price, volume = {}, {}
+    out = [[], [], [], []]
+    for stream, _ts, cols in feed:
+        if stream == "StockStream":
+            for s, p, v in zip(*cols):
+                price[int(s)], volume[int(s)] = p, v
+        else:
+            sym, qty = cols
+            out[0].append(sym)
+            out[1].append(qty)
+            out[2].append(np.array([price[int(s)] for s in sym], np.float32))
+            out[3].append(np.array([volume[int(s)] for s in sym], np.int64))
+    return tuple(np.concatenate(o) for o in out)
+
+
+# comparison apps for K7: every join type, unidirectional, a windowless
+# side, a residual conjunct, a non-equi ON, float-key traps, null keys,
+# JOIN_CAP and candidate overflow, an aggregating selector. Streams L and
+# R; `Out` collects the rows. Fed by join_shape_feed (row sends).
+_JOIN_LR = """
+    @app:playback
+    define stream L (k string, a int, x double);
+    define stream R (k string, b int, y double);
+"""
+_JOIN_SEL = "select L.k as lk, a, x, R.k as rk, b, y"
+JOIN_APPS = {
+    "inner_length": _JOIN_LR + f"""
+        @info(name = 'q') from L#window.length(6) join R#window.length(5)
+        on L.k == R.k {_JOIN_SEL} insert all events into Out;""",
+    "left_outer_time": _JOIN_LR + f"""
+        @info(name = 'q') @cap(window.size='64')
+        from L#window.time(40) left outer join
+        R#window.time(30) on L.k == R.k {_JOIN_SEL}
+        insert all events into Out;""",
+    "right_outer": _JOIN_LR + f"""
+        @info(name = 'q') from L#window.length(4) right outer join
+        R#window.length(7) on L.k == R.k {_JOIN_SEL} insert into Out;""",
+    "full_outer_batch": _JOIN_LR + f"""
+        @info(name = 'q') @cap(window.size='64')
+        from L#window.lengthBatch(4) full outer join
+        R#window.timeBatch(25) on L.k == R.k {_JOIN_SEL}
+        insert all events into Out;""",
+    "unidirectional": _JOIN_LR + f"""
+        @info(name = 'q') from L#window.length(5) unidirectional join
+        R#window.length(5) on L.k == R.k {_JOIN_SEL} insert into Out;""",
+    "windowless": _JOIN_LR + f"""
+        @info(name = 'q') from L join R#window.length(6)
+        on L.k == R.k {_JOIN_SEL} insert into Out;""",
+    "residual": _JOIN_LR + f"""
+        @info(name = 'q') @cap(window.size='64')
+        from L#window.length(8) join R#window.time(50)
+        on L.k == R.k and a < b and x != y {_JOIN_SEL} insert into Out;""",
+    "non_equi": _JOIN_LR + f"""
+        @info(name = 'q') from L#window.length(4) join R#window.length(4)
+        on L.a < R.b {_JOIN_SEL} insert into Out;""",
+    "no_on": _JOIN_LR + f"""
+        @info(name = 'q') from L#window.length(3) join R#window.length(2)
+        {_JOIN_SEL} insert into Out;""",
+    "expression_key": _JOIN_LR + f"""
+        @info(name = 'q') from L#window.length(6) join R#window.length(6)
+        on L.a + 1 == R.b {_JOIN_SEL} insert into Out;""",
+    "join_cap": _JOIN_LR + f"""
+        @info(name = 'q') @cap(join.pairs='8')
+        from L#window.length(8) join R#window.length(8)
+        on L.k == R.k {_JOIN_SEL} insert all events into Out;""",
+    "candidate_cap": _JOIN_LR + f"""
+        @info(name = 'q') @cap(join.pairs='64', join.candidates='6')
+        from L#window.length(8) join R#window.length(8)
+        on L.k == R.k and a != b {_JOIN_SEL} insert into Out;""",
+    "aggregating": _JOIN_LR + """
+        @info(name = 'q') from L#window.length(6) join R#window.length(6)
+        on L.k == R.k select L.k as k, sum(b) as sb, count() as n
+        group by L.k insert into Out;""",
+}
+
+# float-key traps: +-0.0, NaN of both signs, +-inf, subnormals, a live
+# key equal to the pad value, LONG against DOUBLE (the lossy cast)
+_FK = """
+    @app:playback
+    define stream L (k {lt}, a int);
+    define stream R (k {rt}, b int);
+    @info(name = 'q') from L#window.length(8) join R#window.length(8)
+    on L.k == R.k select L.k as lk, a, R.k as rk, b insert into Out;
+"""
+FLOAT_KEY_APPS = {
+    "double_keys": _FK.format(lt="double", rt="double"),
+    "float_keys": _FK.format(lt="float", rt="float"),
+    "long_double_keys": _FK.format(lt="long", rt="double"),
+    "int_keys": _FK.format(lt="int", rt="int"),
+}
+JOIN_APPS.update(FLOAT_KEY_APPS)
+
+_NAN_BITS = (0x7FF8000000000123, -0x0007FFFFFFFFFABD)
+
+
+def float_key_values(t: str) -> list:
+    """The trap keys of a key type (python values; NaNs with payloads)."""
+    import struct
+    if t == "double":
+        nans = [struct.unpack("<d", struct.pack("<q", b))[0]
+                for b in _NAN_BITS]
+        return [0.0, -0.0, *nans, float("inf"), float("-inf"), 5e-324,
+                -5e-324, 2.2e-308, 1.0, 2.0, float(2 ** 53 + 1)]
+    if t == "float":
+        return [0.0, -0.0, float("nan"), -float("nan"), float("inf"),
+                float("-inf"), 1e-45, -1e-45, 1.0, 2.0]
+    if t == "long":
+        return [0, 1, 2, -1, 2 ** 53, 2 ** 53 + 1, 2 ** 63 - 1, -(2 ** 63)]
+    return [0, 1, -1, 2 ** 31 - 1, -(2 ** 31), 7]
+
+
+JOIN_SHAPE_KEYS = ("JIBM", "JWSO2", "JGOOG", "JMSFT")
+
+
+def join_shape_feed(app: str, n: int, seed: int):
+    """Row sends for a JOIN_APPS app: ``n`` events alternating between L
+    and R in sends of 1 to 5 events, timestamps rising by 0 to 7 ms;
+    keys over the four symbols of JOIN_SHAPE_KEYS with some nulls (the
+    float-key apps: their trap keys); ints with nulls. -> a list of
+    (stream, [(ts, row)])."""
+    rng = np.random.default_rng(seed)
+    fk = app in FLOAT_KEY_APPS
+    if fk:
+        kinds = {"double_keys": ("double", "double"),
+                 "float_keys": ("float", "float"),
+                 "long_double_keys": ("long", "double"),
+                 "int_keys": ("int", "int")}[app]
+        vals = {s: float_key_values(t) for s, t in zip("LR", kinds)}
+        if app == "long_double_keys":   # the same numbers on both sides
+            vals["R"] = [float(v) for v in vals["L"]]
+    keys = JOIN_SHAPE_KEYS
+    t = TS0
+    out, done = [], 0
+    while done < n:
+        side = "L" if len(out) % 2 == 0 else "R"
+        m = int(rng.integers(1, 6))
+        rows = []
+        for _ in range(m):
+            t += int(rng.integers(0, 8))
+            if fk:
+                k = vals[side][int(rng.integers(0, len(vals[side])))]
+                rows.append((t, (k, int(rng.integers(0, 9)))))
+                continue
+            k = None if rng.random() < 0.1 else \
+                keys[int(rng.integers(0, len(keys)))]
+            v = None if rng.random() < 0.1 else int(rng.integers(0, 9))
+            rows.append((t, (k, v, float(rng.integers(0, 4)) / 2)))
+        out.append((side, rows))
+        done += m
+    return out
+
+
+# comparison apps for K8: inserts, deletes through the condition pass and
+# an @Index probe, updates with and without SET, update or insert,
+# primary-key duplicates in one batch, IN-table filters through the
+# condition pass and an index, a table past its capacity. Streams S
+# (writes), D (deletes and updates), C (reads); `Out` collects C's rows.
+_TABLE_STREAMS = """
+    @app:playback
+    define stream S (k string, a int, x double);
+    define stream D (k string, a int, x double);
+    define stream C (k string, a int);
+"""
+_FILL = "@info(name = 'fill') from S select k, a, x insert into T;"
+_READ = """@info(name = 'q') from C join T on C.k == T.k
+    select C.k as k, C.a as ca, T.a as ta, T.x as tx insert into Out;"""
+TABLE_APPS = {
+    "insert_read": _TABLE_STREAMS + f"""
+        @cap('64') define table T (k string, a int, x double);
+        {_FILL} {_READ}""",
+    "delete_grid": _TABLE_STREAMS + f"""
+        @cap('64') define table T (k string, a int, x double);
+        {_FILL} {_READ}
+        @info(name = 'del') from D delete T on T.k == k and T.a < a;""",
+    "delete_bare_name": _TABLE_STREAMS + f"""
+        @cap('64') define table T (k string, a int, x double);
+        {_FILL} {_READ}
+        @info(name = 'del') from D delete T on k == T.k;""",
+    "delete_index": _TABLE_STREAMS + f"""
+        @Index('a') @cap('64') define table T (k string, a int, x double);
+        {_FILL} {_READ}
+        @info(name = 'del') from D delete T on T.a >= a;""",
+    "update_set": _TABLE_STREAMS + f"""
+        @cap('64') define table T (k string, a int, x double);
+        {_FILL} {_READ}
+        @info(name = 'upd') from D update T
+          set T.x = T.x + x, T.a = a on T.k == k;""",
+    "update_noset": _TABLE_STREAMS + f"""
+        @cap('64') define table T (k string, a int, x double);
+        {_FILL} {_READ}
+        @info(name = 'upd') from D select k, a, x update T on T.k == k;""",
+    "upsert_pk": _TABLE_STREAMS + f"""
+        @PrimaryKey('k') @cap('64') define table T (k string, a int, x double);
+        {_READ}
+        @info(name = 'ups') from S select k, a, x update or insert into T
+          set T.a = a, T.x = x on T.k == k;""",
+    "pk_duplicates": _TABLE_STREAMS + f"""
+        @PrimaryKey('k') @cap('64') define table T (k string, a int, x double);
+        {_FILL} {_READ}""",
+    "in_grid": _TABLE_STREAMS + """
+        @cap('64') define table T (k string, a int, x double);
+        @info(name = 'fill') from S select k, a, x insert into T;
+        @info(name = 'q') from C[(T.k == k and T.a > a) in T]
+        select k, a insert into Out;""",
+    "in_index": _TABLE_STREAMS + """
+        @Index('k') @cap('64') define table T (k string, a int, x double);
+        @info(name = 'fill') from S select k, a, x insert into T;
+        @info(name = 'q') from C[(T.k == k) in T] select k, a insert into Out;""",
+    "over_capacity": _TABLE_STREAMS + f"""
+        @cap('6') define table T (k string, a int, x double);
+        {_FILL} {_READ}""",
+}
+
+
+def table_shape_feed(n: int, seed: int, n_keys: int = 6):
+    """Row sends for a TABLE_APPS app: ``n`` events over S, D and C in
+    sends of 1 to 6 events (repeated keys within a send included),
+    timestamps rising by 0 to 3 ms, keys over ``n_keys`` symbols, some
+    null ints. -> a list of (stream, [(ts, row)])."""
+    rng = np.random.default_rng(seed)
+    keys = [f"T{i}" for i in range(n_keys)]
+    t = TS0
+    out, done = [], 0
+    while done < n:
+        stream = ("S", "S", "D", "C")[int(rng.integers(0, 4))]
+        m = int(rng.integers(1, 7))
+        rows = []
+        for _ in range(m):
+            t += int(rng.integers(0, 4))
+            k = keys[int(rng.integers(0, n_keys))]
+            a = None if rng.random() < 0.1 else int(rng.integers(0, 9))
+            if stream == "C":
+                rows.append((t, (k, a)))
+            else:
+                rows.append((t, (k, a, float(rng.integers(0, 8)) / 4)))
+        out.append((stream, rows))
+        done += m
+    return out
+
+
+# -- kernel K6 on special values (the repairs of its sum and min/max lanes)
+
+SPECIAL_AGG_APP = """
+    @app:playback
+    define stream S (k string, v double);
+    @info(name = 'q') from S select k, sum(v) as s, min(v) as mn,
+    max(v) as mx group by k insert into Out;
+"""
+
+
+def special_agg_feed(seed: int, encode):
+    """The feed that showed K6's two faults: 300 normals with NaN, -NaN,
+    +-0.0, +-5e-324 and +-inf, keyed by nine groups (seed 0 gave a sum
+    lane's NaN sign, seed 3 a min/max lane's -0.0 at a group's first
+    row). -> (ts, [key codes, v])."""
+    rng = np.random.default_rng(seed)
+    x = np.concatenate([rng.standard_normal(300) * 100,
+                        [np.nan, -np.nan, 0.0, -0.0, 5e-324, -5e-324,
+                         np.inf, -np.inf]])
+    x = rng.permutation(x)
+    seg = np.sort(rng.integers(0, 9, len(x)))
+    keys = np.array([encode(f"SPECIAL{i}") for i in range(9)], np.int32)
+    return TS0 + np.arange(len(x), dtype=np.int64), [keys[seg], x]

@@ -27,19 +27,29 @@ parallel_step), else K4 once per chunk, the per-event scan over a
 are read back after each step and fire K4's timer step from the
 scheduler. On the CPU every kernel takes its plain PyTorch version.
 
+A join query runs each side's chain (K1, its filters through K2, its
+window through K5), then K7 (ops/join.py join_probe or join_grid)
+against the opposite side's findable buffer, or against a table's
+seq-ordered view (K8 table_buffer), then the selector. Table outputs
+and IN-table filters run K8 (ops/table.py); on-demand queries over
+tables run in core/ondemand.py.
+
 This slice plans single-stream queries with filters, one window of
 kind time, length, lengthBatch or timeBatch, and a plain or
-aggregating selector; insert-into chains between them; and pattern and
-sequence queries. Joins, the other window kinds, tables, partitions,
-incremental aggregations, triggers, rate limiters, stream functions,
-sources and sinks raise NotImplementedError ("not ported yet") on
-every device. Window timers fire from the scheduler as in the
+aggregating selector; insert-into chains between them; pattern and
+sequence queries; joins of two streams or of a stream and a table; and
+in-memory tables. The other window kinds, @Store tables, named windows,
+partitions, incremental aggregations, triggers, rate limiters, stream
+functions, sources and sinks raise NotImplementedError ("not ported
+yet") on every device. Window timers fire from the scheduler as in the
 reference (QueryRuntime._schedule / _on_timer).
 """
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
+import os
 import threading
 import time
 from typing import Callable, Optional
@@ -54,11 +64,16 @@ from ..ops.nfa import (MatchScope, NfaCompiler, NfaEngine, rewrite_last_refs,
                        rewrite_oob_refs, timer_step)
 from ..ops.nfa_parallel import ParallelNfaEngine, parallel_supported
 from ..ops.operators import FilterOp, Operator
-from ..ops.selector import (ProjectOp, project, selector_needs_aggregation)
+from ..ops.selector import (OutputScope, ProjectOp, project,
+                            selector_needs_aggregation)
 from ..ops.sentinels import POS_INF
-from ..ops.table import expr_mentions_table
-from ..ops.windows import (LengthBatchWindowOp, LengthWindowOp,
-                           TimeBatchWindowOp, TimeWindowOp, WindowOp)
+from ..ops.join import (JoinCombinedScope, JoinCross, JoinSideScope,
+                        combined_schema)
+from ..ops.table import (TableFilterOp, TableOutputOp, TableRuntime,
+                         expr_mentions_table)
+from ..ops.windows import (EmptyWindowOp, LengthBatchWindowOp,
+                           LengthWindowOp, TimeBatchWindowOp, TimeWindowOp,
+                           WindowOp)
 from .event import (CURRENT, EXPIRED, TIMER, Attribute, EventBatch,
                     StreamSchema, batch_from_rows, rows_from_batch)
 from .ingest import PackedChunk, unpack_packed
@@ -84,6 +99,36 @@ WINDOW_CLASSES = {
 UNPORTED_WINDOWS = ("externaltime", "timelength", "delay", "batch", "sort",
                     "frequent", "lossyfrequent", "externaltimebatch",
                     "session", "cron", "hopping", "hoping")
+
+
+JOIN_KERNEL_ENV = "SIDDHI_TPU_JOIN_KERNEL"
+
+
+def _pick_join_kernel(cross) -> tuple[str, str, str]:
+    """Join kernel for one JoinCross: ``(kernel, reason, cause)``. The
+    banded probe where the ON condition carries an ``L == R`` conjunct,
+    the grid otherwise; ``SIDDHI_TPU_JOIN_KERNEL=grid|probe`` overrides
+    (probe falls back to the grid without an equi conjunct). Both are
+    hand-written kernels (K7). The port has no cost table yet, so an
+    equi join's cause is ``no-cost-table``, as in the reference without
+    one."""
+    env = os.environ.get(JOIN_KERNEL_ENV, "").strip().lower()
+    eligible = cross.equi is not None
+    if env == "grid":
+        return "grid", "SIDDHI_TPU_JOIN_KERNEL=grid override", \
+            "env-override"
+    if env == "probe":
+        if eligible:
+            return "probe", "SIDDHI_TPU_JOIN_KERNEL=probe override", \
+                "env-override"
+        return "grid", ("SIDDHI_TPU_JOIN_KERNEL=probe requested but the "
+                        "ON condition has no equi conjunct — grid "
+                        "fallback"), "no-equi-conjunct"
+    if not eligible:
+        return "grid", ("no equi conjunct in ON condition (the banded "
+                        "probe needs one)"), "no-equi-conjunct"
+    return "probe", ("equi ON condition (banded searchsorted probe); "
+                     "no cost table measured yet"), "no-cost-table"
 
 
 def bucket_capacity(n: int) -> int:
@@ -120,6 +165,16 @@ def _chain_body(ops):
         if isinstance(op, FilterOp):
             filters.append(op)
             continue
+        if getattr(op, "needs_tables", False):
+            # an IN-table filter or a table output: kernel K8 (and K2)
+            if filters:
+                b = ProgramBuilder()
+                for f in filters:
+                    f.lower(b)
+                stages.append(("filter", i, b.build()))
+                filters = []
+            stages.append(("tables", i, None))
+            continue
         if isinstance(op, WindowOp):
             if filters:
                 b = ProgramBuilder()
@@ -138,13 +193,20 @@ def _chain_body(ops):
             op.lower(b)
             stages.append(("project", i, b.build()))
         filters = []
-    assert not filters and stages[-1][0] in ("project", "aggregate"), \
-        "a query chain ends in its selector"
+    assert not filters and any(k in ("project", "aggregate")
+                               for k, _i, _p in stages), \
+        "a query chain ends in its selector (and its table output)"
 
-    def chain(states, emitted, batch, now):
+    def chain(states, emitted, batch, now, tstates=None):
+        """``tstates``: the states of the tables the chain touches, by
+        table id, replaced in place by the chain's table stages."""
         states = list(states)
         for kind, i, prog in stages:
-            if kind == "filter":
+            if kind == "tables":
+                states[i], batch, new = ops[i].step_tables(
+                    states[i], batch, now, tstates)
+                tstates.update(new)
+            elif kind == "filter":
                 _c, _n, valid = expr_eval(prog, batch)
                 batch = EventBatch(batch.ts, batch.cols, batch.nulls,
                                    batch.kind, valid)
@@ -157,7 +219,7 @@ def _chain_body(ops):
                 batch = project(ops[i], prog, batch, emitted)
         return tuple(states), batch
 
-    chain.program = stages[-1][2]
+    chain.program = [p for k, _i, p in stages if k != "tables"][-1]
     return chain
 
 
@@ -190,10 +252,10 @@ def _build_packed_step(chain, schema: StreamSchema) -> Callable:
     """Unpack + chain over a PackedChunk's single buffer: K1 then K2."""
     types = schema.types
 
-    def pstep(states, emitted, chunk: PackedChunk):
+    def pstep(states, emitted, chunk: PackedChunk, tstates=None):
         batch, now = unpack_packed(types, chunk.enc, chunk.capacity,
                                    chunk.buf)
-        return chain(states, emitted, batch, now)
+        return chain(states, emitted, batch, now, tstates)
 
     return pstep
 
@@ -272,6 +334,10 @@ class QueryRuntime(Receiver):
         self.batch_callbacks: list[Callable] = []
         self.states = _tree_to(tuple(op.init_state() for op in operators),
                                app.device)
+        # the tables the chain reads or writes, locked in sorted order
+        self.table_deps = sorted({t for op in operators
+                                  for t in getattr(op, "table_ids",
+                                                   tuple)()})
         self.max_step_capacity = SORT_HEAVY_CAP if any(
             getattr(op, "sort_heavy", False) for op in operators) else None
         # timers: when every timer window offers a host due bound, steps
@@ -298,11 +364,27 @@ class QueryRuntime(Receiver):
         """The query step's kernel K2 program."""
         return self._chain.program
 
+    def _table_locks(self):
+        stack = contextlib.ExitStack()
+        for t in self.table_deps:   # sorted: one lock order app-wide
+            stack.enter_context(self.app.tables[t].lock)
+        return stack
+
+    @contextlib.contextmanager
+    def _table_states(self):
+        """The dependent tables' states (a dict the step updates), under
+        their locks; written back to the tables on exit."""
+        with self._table_locks():
+            tstates = {t: self.app.tables[t].state for t in self.table_deps}
+            yield tstates
+            for t in self.table_deps:
+                self.app.tables[t].state = tstates[t]
+
     def process_packed(self, chunk: PackedChunk) -> None:
         self._last_now = max(self._last_now, chunk.last_ts)
-        with self._lock:
+        with self._lock, self._table_states() as tstates:
             self.states, out = self._packed_step(
-                self.states, self._emitted_dev, chunk)
+                self.states, self._emitted_dev, chunk, tstates)
         if self._host_due_all and chunk.ts_min is not None:
             self._dispatch_output(out, chunk.last_ts)
             self._schedule(min(op.host_due_bound(chunk.ts_min)
@@ -406,9 +488,9 @@ class QueryRuntime(Receiver):
         if now is None:
             now = self.app.current_time()
         self._last_now = max(self._last_now, int(now))
-        with self._lock:
+        with self._lock, self._table_states() as tstates:
             self.states, out = self._chain(self.states, self._emitted_dev,
-                                           batch, now)
+                                           batch, now, tstates)
         self._dispatch_output(out, timestamp,
                               due=None if skip_due else self._due())
 
@@ -668,6 +750,240 @@ class PatternQueryRuntime(QueryRuntime):
         self._schedule_absent()
 
 
+class JoinStreamReceiver(Receiver):
+    """Junction subscriber feeding one side of a join query."""
+
+    supports_packed = True
+
+    def __init__(self, runtime: "JoinQueryRuntime", side: str):
+        self.runtime = runtime
+        self.side = side
+
+    @property
+    def max_step_capacity(self):
+        return self.runtime.max_step_capacity
+
+    def receive(self, events):
+        self.runtime.process_side_events(self.side, events)
+
+    def process_batch(self, batch, last_ts):
+        self.runtime.process_side_batch(self.side, batch, last_ts)
+
+    def process_packed(self, chunk):
+        self.runtime.process_side_packed(self.side, chunk)
+
+
+def _side_chain(ops):
+    """One join side's handlers as a step: (states, batch, now) ->
+    (states', window output). Consecutive filters lower into one K2
+    filter program; the window runs K5."""
+    stages, filters = [], []
+
+    def flush(i):
+        if filters:
+            b = ProgramBuilder()
+            for f in filters:
+                f.lower(b)
+            stages.append(("filter", i, b.build()))
+            filters.clear()
+    for i, op in enumerate(ops):
+        if isinstance(op, FilterOp):
+            filters.append(op)
+            continue
+        flush(i)
+        stages.append(("window", i, None))
+    flush(len(ops))
+
+    def step(states, batch, now):
+        states = list(states)
+        for kind, i, prog in stages:
+            if kind == "filter":
+                _c, _n, valid = expr_eval(prog, batch)
+                batch = EventBatch(batch.ts, batch.cols, batch.nulls,
+                                   batch.kind, valid)
+            else:
+                states[i], batch = ops[i].step(states[i], batch, now)
+        return tuple(states), batch
+
+    return step
+
+
+class JoinQueryRuntime(QueryRuntime):
+    """Two-stream or stream-table join (the reference's
+    JoinStreamRuntime with cross-wired JoinProcessors). Each stream side
+    runs [filters..., window]; the window output crosses the opposite
+    side's findable buffer (kernel K7), a table side's seq-ordered view
+    (K8) read under the table's lock; then the selector. The opposite
+    side's state is only read by a step."""
+
+    supports_packed = False  # consumes via JoinStreamReceivers only
+
+    def __init__(self, name: str, left_ops, right_ops, crosses, sel_ops,
+                 in_schemas, jschema, app, side_tables=None):
+        super().__init__(name, sel_ops, jschema, app)
+        self.side_ops = {"L": left_ops, "R": right_ops}
+        self.crosses = crosses   # {"L": JoinCross | None, "R": ...}
+        self.in_schemas = in_schemas
+        self.side_tables = side_tables or {}
+        self.side_states = {
+            s: _tree_to(tuple(op.init_state() for op in ops), app.device)
+            for s, ops in self.side_ops.items()}
+        self.table_deps = sorted(set(self.table_deps) | {
+            t.table_id for t in self.side_tables.values()})
+        self._side_chains = {s: _side_chain(ops)
+                             for s, ops in self.side_ops.items()}
+        # columnar apps coalesce timer fires, so a cross gates pairs on
+        # the opposite row being alive: read once per step kind, when it
+        # is first built (the reference captures it at trace time)
+        self._gates: dict = {}
+        self._join_timer_ops = _timer_windows(
+            [op for ops in self.side_ops.values() for op in ops])
+        self._has_timers = bool(self._join_timer_ops)
+        self._join_host_due = _all_host_due(self._join_timer_ops)
+        self._overflow_dev = torch.zeros((), dtype=torch.int64,
+                                         device=app.device)
+        if any(getattr(op, "sort_heavy", False)
+               for ops in self.side_ops.values() for op in ops):
+            self.max_step_capacity = SORT_HEAVY_CAP
+
+    def receive(self, events):
+        raise RuntimeError("join runtimes consume via JoinStreamReceivers")
+
+    @property
+    def overflow(self) -> int:
+        """Join pairs (and probe candidates) dropped at their caps."""
+        with self._lock:
+            return int(self._overflow_dev.item())
+
+    def overflow_total(self) -> int:
+        """Selector + both sides' window overflow + dropped pairs."""
+        total = super().overflow_total()
+        with self._lock:
+            for states in self.side_states.values():
+                for st in states:
+                    if isinstance(st, dict) and "overflow" in st:
+                        total += int(st["overflow"])
+        return total + self.overflow
+
+    def snapshot_state(self) -> dict:
+        with self._lock:
+            return {"states": _tree_to(self.states, "cpu"),
+                    "emitted": self._emitted_dev.cpu(),
+                    "sides": _tree_to(self.side_states, "cpu"),
+                    "join_overflow": self._overflow_dev.cpu()}
+
+    def restore_state(self, snap: dict) -> None:
+        super().restore_state(snap)
+        with self._lock:
+            self.side_states = _tree_to(snap["sides"], self.app.device)
+            self._overflow_dev = torch.as_tensor(
+                snap["join_overflow"], dtype=torch.int64).to(
+                    self.app.device).clone()
+
+    def _gate(self, key) -> bool:
+        g = self._gates.get(key)
+        if g is None:
+            g = self._gates[key] = self.app._columnar
+        return g
+
+    def _side_step(self, side: str, batch: EventBatch, now, tstates,
+                   gate: bool):
+        """One side's step (the caller holds the locks): its chain, the
+        cross, the selector; -> (output, the side's next due or None)."""
+        opp = "R" if side == "L" else "L"
+        my, trig = self._side_chains[side](self.side_states[side], batch,
+                                           now)
+        cross = self.crosses[side]
+        if cross is not None:
+            table = self.side_tables.get(opp)
+            if table is not None:
+                opp_buf = table.buffer(tstates[table.table_id])
+            else:
+                opp_buf = self.side_ops[opp][-1].findable_buffer(
+                    self.side_states[opp][-1], self.app.device)
+            joined, lost = cross.cross(trig, opp_buf, gate_alive=gate)
+            self._overflow_dev = self._overflow_dev + lost
+        else:
+            joined = EventBatch.empty(self.in_schema, BATCH_BUCKETS[0],
+                                      device=self.app.device)
+        self.side_states[side] = my
+        self.states, out = self._chain(self.states, self._emitted_dev,
+                                       joined, now, tstates)
+        due = None
+        if self._has_timers:
+            dues = [op.next_due(st) for op, st in
+                    zip(self.side_ops[side], my) if isinstance(op, WindowOp)]
+            dues = [d for d in dues if d is not None]
+            due = dues[0] if dues else torch.full(
+                (), int(POS_INF), dtype=torch.int64, device=self.app.device)
+            for d in dues[1:]:
+                due = torch.minimum(due, d)
+        return out, due
+
+    def process_side_packed(self, side: str, chunk: PackedChunk) -> None:
+        self._last_now = max(self._last_now, chunk.last_ts)
+        types = self.in_schemas[side].types
+        with self._lock, self._table_states() as tstates:
+            gate = self._gate((side, chunk.enc, chunk.capacity))
+            batch, now = unpack_packed(types, chunk.enc, chunk.capacity,
+                                       chunk.buf)
+            out, due = self._side_step(side, batch, now, tstates, gate)
+        if self._join_host_due and chunk.ts_min is not None:
+            self._dispatch_output(out, chunk.last_ts)
+            self._schedule(min(op.host_due_bound(chunk.ts_min)
+                               for op in self._join_timer_ops))
+            return
+        self._dispatch_output(out, chunk.last_ts, due=due)
+
+    def process_side_events(self, side: str, events) -> None:
+        for batch, last_ts in self.encode_chunks(
+                self.in_schemas[side], events, self.app.device,
+                self.max_step_capacity):
+            self.process_side_batch(side, batch, last_ts)
+
+    def process_side_batch(self, side: str, batch: EventBatch,
+                           timestamp: int, now: Optional[int] = None,
+                           skip_due: bool = False,
+                           is_timer: bool = False) -> None:
+        cap = self.max_step_capacity
+        if cap is not None and batch.capacity > cap:
+            for off in range(0, batch.capacity, cap):
+                sl = slice(off, off + cap)
+                self.process_side_batch(side, EventBatch(
+                    batch.ts[sl], tuple(c[sl] for c in batch.cols),
+                    tuple(n[sl] for n in batch.nulls), batch.kind[sl],
+                    batch.valid[sl]), timestamp, now=now, skip_due=skip_due)
+            return
+        if not is_timer:
+            # only event steps move the due-subsumption clock: a timer
+            # fire must not suppress its own follow-up dues
+            self._last_now = max(self._last_now, int(timestamp))
+        if now is None:
+            now = self.app.current_time()
+        now_dev = torch.tensor(int(now), dtype=torch.int64,
+                               device=self.app.device)
+        with self._lock, self._table_states() as tstates:
+            out, due = self._side_step(side, batch, now_dev, tstates,
+                                       self._gate((side, None)))
+        self._dispatch_output(out, timestamp,
+                              due=None if skip_due else due)
+
+    def _on_timer(self, due: int) -> None:
+        self._sched_due = None
+        if not self.app.running:
+            return
+        now = max(due, self.app.current_time())
+        skip = self._join_host_due and self.app._playback
+        for side in ("L", "R"):
+            # TIMER rows carry the advanced clock: one fire drains every
+            # pending expiry of both sides
+            batch = _timer_batch(self.in_schemas[side], now, self.app.device)
+            self.process_side_batch(side, batch, due, now=now,
+                                    skip_due=skip, is_timer=True)
+        if skip:
+            self._schedule(now + 1)
+
+
 class SiddhiAppRuntime:
     """Per-app container: junctions, query runtimes, handlers, lifecycle
     (reference SiddhiAppRuntimeImpl: start/shutdown :440-655)."""
@@ -681,6 +997,10 @@ class SiddhiAppRuntime:
         self.schemas: dict[str, StreamSchema] = {}
         self.input_handlers: dict[str, InputHandler] = {}
         self.queries: dict[str, QueryRuntime] = {}
+        self.tables: dict[str, TableRuntime] = {}
+        # the planner's join kernel picks: {"<query>.<side>": {kernel,
+        # reason, cause}}
+        self.join_kernels: dict = {}
         self.running = False
         self._playback = False
         self._playback_time: Optional[int] = None
@@ -805,6 +1125,14 @@ class SiddhiAppRuntime:
         self.scheduler.shutdown()
         self._resolve_dues()
 
+    # -- on-demand queries (OnDemandQueryParser.java:87) ----------------
+    def query(self, q):
+        """Run an on-demand query (text or AST) against the app's tables:
+        -> result rows (select) or the number of rows touched (writes)."""
+        from .ondemand import OnDemandExecutor
+        with self.barrier:
+            return OnDemandExecutor(self).execute(q)
+
 
 class Planner:
     """AST -> runtime graph (= SiddhiAppParser + QueryParser +
@@ -818,7 +1146,6 @@ class Planner:
     def plan(self) -> None:
         app, ast = self.app, self.ast
         for what, present in (
-                ("tables", ast.table_definitions),
                 ("named windows", ast.window_definitions),
                 ("triggers", ast.trigger_definitions),
                 ("script functions", ast.function_definitions),
@@ -845,6 +1172,26 @@ class Planner:
                 Attribute(a.name, a.type) for a in sd.attributes))
             j = app.junction_for(sid, schema)
             app.input_handlers[sid] = InputHandler(sid, j, app)
+        # 1b. defined tables (@PrimaryKey: upsert in place; @Index:
+        # sorted probes for deletes and IN-table filters)
+        for tid, td in ast.table_definitions.items():
+            schema = StreamSchema(tid, tuple(
+                Attribute(a.name, a.type) for a in td.attributes))
+            if A.find_annotation(td.annotations, "Store") is not None:
+                raise not_ported("@Store tables")
+            pk, idxs = [], []
+            for name, out in (("PrimaryKey", pk), ("Index", idxs)):
+                ann = A.find_annotation(td.annotations, name)
+                if ann is not None:
+                    for nm in ann.positional or list(ann.elements.values()):
+                        out.append(schema.index_of(nm.strip("'\"")))
+            cap_a = A.find_annotation(td.annotations, "cap")
+            tcap = int(cap_a.element()) if cap_a is not None \
+                else self.DEFAULT_TABLE_CAP
+            app.tables[tid] = TableRuntime(tid, schema, capacity=tcap,
+                                           pk_indices=pk,
+                                           index_indices=idxs,
+                                           device=app.device)
         # 2. queries in order; inferred output streams defined as we go
         qcount = 0
         for el in ast.execution_elements:
@@ -852,6 +1199,8 @@ class Planner:
                 raise not_ported("partitions")
             qcount += 1
             self.plan_query(el, default_name=f"query_{qcount}")
+
+    DEFAULT_TABLE_CAP = 8192
 
     def plan_query(self, q: A.Query, default_name: str) -> None:
         app = self.app
@@ -864,7 +1213,9 @@ class Planner:
                 raise not_ported("output rate limiting")
             return self.plan_pattern_query(q, name)
         if isinstance(q.input, A.JoinInputStream):
-            raise not_ported("join queries")
+            if q.output_rate is not None:
+                raise not_ported("output rate limiting")
+            return self.plan_join_query(q, name)
         if not isinstance(q.input, A.SingleInputStream):
             raise CompileError(
                 f"query '{name}': only single-stream, join, and pattern "
@@ -879,10 +1230,9 @@ class Planner:
         scope = SingleStreamScope(schema, aliases=(sin.alias,))
 
         out = q.output
-        if isinstance(out, (A.DeleteStream, A.UpdateStream,
-                            A.UpdateOrInsertStream)):
-            raise not_ported("table output")
-        if not isinstance(out, (A.InsertIntoStream, A.ReturnStream)):
+        if not isinstance(out, (A.InsertIntoStream, A.ReturnStream,
+                                A.DeleteStream, A.UpdateStream,
+                                A.UpdateOrInsertStream)):
             raise CompileError(f"query '{name}': unsupported output "
                                f"{type(out).__name__}")
         if q.output_rate is not None:
@@ -893,6 +1243,7 @@ class Planner:
         expired_on = out_type in ("expired", "all")
         operators = self.build_single_chain(
             q, name, schema, sin, scope, target, current_on, expired_on)
+        self.append_table_output(operators, out, name)
 
         if name in app.queries:
             raise CompileError(f"duplicate query name '{name}'")
@@ -908,7 +1259,7 @@ class Planner:
         """Handler chain + selector for a single-stream query
         (= SingleInputStreamParser.parseInputStream + SelectorParser)."""
         needs_agg = selector_needs_aggregation(q.selector)
-        cap_window = self._cap_annotation(q)
+        cap_window, _pairs, _cands = self._cap_annotation(q)
         operators: list[Operator] = []
         window_op: Optional[WindowOp] = None
         for h in sin.handlers:
@@ -916,7 +1267,9 @@ class Planner:
                 # filters may stand before and after the window, in
                 # declaration order (SingleInputStreamParser.java:202-243)
                 if expr_mentions_table(h.expression):
-                    raise not_ported("table references in filters")
+                    operators.append(TableFilterOp(
+                        h.expression, schema, self.app.tables, scope))
+                    continue
                 cond = compile_expression(h.expression, scope)
                 if cond.type is not AttrType.BOOL:
                     raise CompileError(f"query '{name}': filter must be BOOL")
@@ -1030,29 +1383,209 @@ class Planner:
                                  stream_current=stream_cur)
 
     @staticmethod
-    def _cap_annotation(q: A.Query) -> Optional[int]:
-        """`@cap(window.size='N')`: the rows a time-based window keeps
-        (the reference's queues are unbounded; these buffers are fixed,
-        so capacity is a per-query dial). The reference's join.pairs and
-        join.candidates keys belong to joins, not ported yet."""
+    def _cap_annotation(q: A.Query):
+        """`@cap(window.size='N', join.pairs='M', join.candidates='C')`:
+        the rows a time-based window keeps, the joined pairs a step emits
+        (the rest are counted), the probe's candidates before its
+        residual stage (default 4x join.pairs). The reference's queues
+        are unbounded; these buffers are fixed, so capacity is a
+        per-query dial. -> (window.size, join.pairs, join.candidates),
+        None where not given."""
         ca = A.find_annotation(q.annotations, "cap")
         if ca is None:
-            return None
-        for k in ("join.pairs", "join.candidates"):
-            if ca.element(k) is not None:
-                raise not_ported(f"@cap({k}): join queries")
-        v = ca.element("window.size")
-        if v is None:
-            return None
-        try:
-            n = int(v)
-        except ValueError:
+            return None, None, None
+
+        def to_int(v, key):
+            if v is None:
+                return None
+            try:
+                n = int(v)
+            except ValueError:
+                raise CompileError(
+                    f"@cap({key}='{v}'): expected a positive integer")
+            if n <= 0:
+                raise CompileError(
+                    f"@cap({key}='{v}'): expected a positive integer")
+            return n
+
+        return (to_int(ca.element("window.size"), "window.size"),
+                to_int(ca.element("join.pairs"), "join.pairs"),
+                to_int(ca.element("join.candidates"), "join.candidates"))
+
+    # -- tables ------------------------------------------------------------
+    def append_table_output(self, operators: list, out, name: str) -> None:
+        """Insert, delete, update or update-or-insert into a table: a
+        terminal TableOutputOp (the reference's table output callbacks)."""
+        app = self.app
+        sel_schema = operators[-1].out_schema
+        escope = OutputScope(sel_schema)
+        if isinstance(out, A.InsertIntoStream) and out.target in app.tables:
+            operators.append(TableOutputOp(
+                "insert", app.tables[out.target], None, None, escope,
+                sel_schema))
+        elif isinstance(out, (A.DeleteStream, A.UpdateStream,
+                              A.UpdateOrInsertStream)):
+            tr = app.tables.get(out.target)
+            if tr is None:
+                raise CompileError(
+                    f"query '{name}': '{out.target}' is not a defined "
+                    "table")
+            kind = {"DeleteStream": "delete", "UpdateStream": "update",
+                    "UpdateOrInsertStream": "update_or_insert"}[
+                type(out).__name__]
+            set_clause = getattr(out, "set_clause", None)
+            if kind != "delete" and not set_clause:
+                # no SET: every table attribute the output has, by name
+                # (UpdateTableCallback's default)
+                set_clause = [
+                    (A.Variable(attribute=att.name),
+                     A.Variable(attribute=att.name))
+                    for att in tr.schema.attributes
+                    if att.name in sel_schema.names]
+            operators.append(TableOutputOp(
+                kind, tr, out.on, set_clause, escope, sel_schema))
+
+    # -- join queries ------------------------------------------------------
+    def plan_join_query(self, q: A.Query, name: str) -> None:
+        app = self.app
+        jin: A.JoinInputStream = q.input
+        out = q.output
+        cap_window, cap_pairs, cap_cands = self._cap_annotation(q)
+        if isinstance(out, (A.InsertIntoStream, A.ReturnStream)):
+            out_type = out.output_event_type
+        else:
+            raise CompileError(f"query '{name}': table output not yet "
+                               "supported")
+        target = out.target if isinstance(out, A.InsertIntoStream) else name
+        current_on = out_type in ("current", "all")
+        expired_on = out_type in ("expired", "all")
+        needs_agg = selector_needs_aggregation(q.selector)
+
+        def side_chain(sin: A.SingleInputStream):
+            schema = app.schemas.get(sin.stream_id)
+            if schema is None:
+                raise CompileError(
+                    f"query '{name}': undefined stream '{sin.stream_id}'")
+            scope = SingleStreamScope(schema, aliases=(sin.alias,))
+            ops: list[Operator] = []
+            window = None
+            for h in sin.handlers:
+                if isinstance(h, A.Filter):
+                    ops.append(FilterOp(compile_expression(h.expression,
+                                                           scope), schema))
+                elif isinstance(h, A.WindowHandler):
+                    if window is not None:
+                        raise CompileError(
+                            f"query '{name}': multiple windows on one "
+                            "join side")
+                    cls = self.window_class(h)
+                    expired_enabled = expired_on if cls.is_batch \
+                        else True  # joins need expired pairs for aggregates
+                    window = self.make_window(h, schema, expired_enabled,
+                                              cap_override=cap_window)
+                    ops.append(window)
+                else:
+                    raise CompileError(
+                        f"query '{name}': stream function in join not "
+                        "supported")
+            if window is None:
+                # the default window (JoinInputStreamParser.java:416)
+                ops.append(EmptyWindowOp(schema, expired_enabled=True))
+            return schema, ops
+
+        # a table side contributes its seq-ordered view and never
+        # triggers (JoinInputStreamParser's table branch)
+        side_tables = {}
+
+        def table_side(sin: A.SingleInputStream, key: str):
+            t = app.tables[sin.stream_id]
+            if sin.handlers:
+                raise CompileError(
+                    f"query '{name}': windows/filters on the table side "
+                    "of a join are not supported")
+            side_tables[key] = t
+            return t.schema, []
+
+        l_is_table = jin.left.stream_id in app.tables
+        r_is_table = jin.right.stream_id in app.tables
+        if l_is_table and r_is_table:
             raise CompileError(
-                f"@cap(window.size='{v}'): expected a positive integer")
-        if n <= 0:
+                f"query '{name}': joining two tables needs an on-demand "
+                "query, not a stream join")
+        if (l_is_table or r_is_table) and jin.unidirectional:
             raise CompileError(
-                f"@cap(window.size='{v}'): expected a positive integer")
-        return n
+                f"query '{name}': 'unidirectional' with a table side is "
+                "redundant (tables never trigger) and would silence the "
+                "stream side")
+        l_schema, l_ops = table_side(jin.left, "L") if l_is_table \
+            else side_chain(jin.left)
+        r_schema, r_ops = table_side(jin.right, "R") if r_is_table \
+            else side_chain(jin.right)
+        side_scope = JoinSideScope(l_schema, jin.left.alias,
+                                   r_schema, jin.right.alias)
+        if q.selector.select_all:
+            dup = set(l_schema.names) & set(r_schema.names)
+            if dup:
+                raise CompileError(
+                    f"query '{name}': select * over a join with "
+                    f"duplicate attribute(s) {sorted(dup)} — alias the "
+                    "outputs (the reference rejects duplicate output "
+                    "attributes)")
+        jschema = combined_schema(target, l_schema, r_schema)
+        crosses = {"L": None, "R": None}
+        join_cap = cap_pairs or 1024
+
+        def win_ms(ops):
+            if ops and isinstance(ops[-1], TimeWindowOp):
+                return ops[-1].T
+            return None
+
+        if jin.unidirectional != "right" and not l_is_table:
+            crosses["L"] = JoinCross(True, l_schema, r_schema, jin.on,
+                                     side_scope, jin.join_type,
+                                     join_cap=join_cap,
+                                     opp_window_ms=win_ms(r_ops),
+                                     cand_cap=cap_cands)
+        if jin.unidirectional != "left" and not r_is_table:
+            crosses["R"] = JoinCross(False, l_schema, r_schema, jin.on,
+                                     side_scope, jin.join_type,
+                                     join_cap=join_cap,
+                                     opp_window_ms=win_ms(l_ops),
+                                     cand_cap=cap_cands)
+        for key, side_name in (("L", "left"), ("R", "right")):
+            cross = crosses[key]
+            if cross is None:
+                continue
+            kernel, reason, cause = _pick_join_kernel(cross)
+            cross.kernel = kernel
+            app.join_kernels[f"{name}.{side_name}"] = {
+                "kernel": kernel, "reason": reason, "cause": cause}
+
+        sel_scope = JoinCombinedScope(side_scope, len(l_schema.types))
+        if needs_agg:
+            sel_ops: list[Operator] = [AggregateOp(
+                q.selector, jschema, target, sel_scope,
+                batch_mode=False, expired_possible=True,
+                current_on=current_on, expired_on=expired_on,
+                fifo_expiry=False)]
+        else:
+            sel_ops = [ProjectOp(q.selector, jschema, target, sel_scope,
+                                 current_on=current_on,
+                                 expired_on=expired_on)]
+
+        if name in app.queries:
+            raise CompileError(f"duplicate query name '{name}'")
+        qr = JoinQueryRuntime(name, l_ops, r_ops, crosses, sel_ops,
+                              {"L": l_schema, "R": r_schema}, jschema, app,
+                              side_tables=side_tables)
+        if not l_is_table:
+            app.junctions[jin.left.stream_id].subscribe(
+                JoinStreamReceiver(qr, "L"))
+        if not r_is_table:
+            app.junctions[jin.right.stream_id].subscribe(
+                JoinStreamReceiver(qr, "R"))
+        app.queries[name] = qr
+        self.wire_stream_output(qr, out, out_type)
 
     # -- pattern / sequence queries --------------------------------------
     def plan_pattern_query(self, q: A.Query, name: str) -> None:
@@ -1111,7 +1644,8 @@ class Planner:
 
     def wire_stream_output(self, qr, out, out_type: str) -> None:
         app = self.app
-        if isinstance(out, A.InsertIntoStream):
+        if isinstance(out, A.InsertIntoStream) and \
+                out.target not in app.tables:
             tj = app.junction_for(out.target, qr.out_schema)
             if out.target not in app.input_handlers:
                 app.input_handlers[out.target] = InputHandler(out.target, tj,

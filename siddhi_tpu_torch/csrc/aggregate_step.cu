@@ -60,11 +60,30 @@ __device__ __forceinline__ float flush(float x) {
 __device__ __forceinline__ int32_t flush(int32_t x) { return x; }
 __device__ __forceinline__ int64_t flush(int64_t x) { return x; }
 
+// NaN results as the plain version's lanes make them (ops/keyed.py
+// _nan_pick; the card would return its canonical NaN): a NaN second
+// operand propagates first, then a NaN first operand, made quiet; an
+// invalid operation on numbers gives the negative indefinite NaN.
+// nan_pick(r, p, q): p's NaN before q's.
+__device__ __forceinline__ double nan_pick(double r, double a, double b) {
+  const long long q = 0x0008000000000000ll;
+  if (!isnan(r)) return r;
+  if (isnan(a)) return __longlong_as_double(__double_as_longlong(a) | q);
+  if (isnan(b)) return __longlong_as_double(__double_as_longlong(b) | q);
+  return __longlong_as_double((long long)0xfff8000000000000ull);
+}
+__device__ __forceinline__ float nan_pick(float r, float a, float b) {
+  if (!isnan(r)) return r;
+  if (isnan(a)) return __int_as_float(__float_as_int(a) | 0x00400000);
+  if (isnan(b)) return __int_as_float(__float_as_int(b) | 0x00400000);
+  return __int_as_float((int)0xffc00000u);
+}
+
 __device__ __forceinline__ double add(double a, double b) {
-  return flush(__dadd_rn(flush(a), flush(b)));
+  return flush(nan_pick(__dadd_rn(flush(a), flush(b)), b, a));
 }
 __device__ __forceinline__ float add(float a, float b) {
-  return flush(__fadd_rn(flush(a), flush(b)));
+  return flush(nan_pick(__fadd_rn(flush(a), flush(b)), b, a));
 }
 __device__ __forceinline__ int64_t add(int64_t a, int64_t b) {
   return (int64_t)((uint64_t)a + (uint64_t)b);
@@ -73,10 +92,23 @@ __device__ __forceinline__ int32_t add(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a + (uint32_t)b);
 }
 __device__ __forceinline__ double sub(double a, double b) {
-  return flush(__dsub_rn(flush(a), flush(b)));
+  return flush(nan_pick(__dsub_rn(flush(a), flush(b)), b, a));
 }
 __device__ __forceinline__ float sub(float a, float b) {
-  return flush(__fsub_rn(flush(a), flush(b)));
+  return flush(nan_pick(__fsub_rn(flush(a), flush(b)), b, a));
+}
+
+// a scan result as jax's _interleave leaves it: + 0.0 from the other
+// half's zero padding (-0.0 and subnormals become +0.0, a NaN keeps its
+// bits, made quiet)
+template <typename T> __device__ __forceinline__ T plus_zero(T x) {
+  return add(x, (T)0);
+}
+template <> __device__ __forceinline__ int32_t plus_zero(int32_t x) {
+  return x;
+}
+template <> __device__ __forceinline__ int64_t plus_zero(int64_t x) {
+  return x;
 }
 __device__ __forceinline__ int64_t sub(int64_t a, int64_t b) {
   return (int64_t)((uint64_t)a - (uint64_t)b);
@@ -387,7 +419,9 @@ template <typename T> struct Elem {
 // min/max lane is _segmented_scan's combine
 template <typename T>
 __device__ __forceinline__ Elem<T> comb(int op, Elem<T> x, Elem<T> y) {
-  if (op == LANE_SUM) return {add(x.v, y.v), 0};
+  // operands swapped, as ops/keyed.py cumsum_fast adds them: of two
+  // NaNs the left one's propagates, as in the reference's compiled tree
+  if (op == LANE_SUM) return {add(y.v, x.v), 0};
   return {x.s == y.s ? combine<T>(op, x.v, y.v) : y.v,
           x.s > y.s ? x.s : y.s};
 }
@@ -478,7 +512,7 @@ __global__ void down(const AggArgs a, int l0) {
     const int64_t k = a.level_off[lv[n]] + ps[n];
     acc = comb<T>(op, acc, Elem<T>{tv[k], a.tree_seg[k]});
   }
-  ((T*)a.res)[j] = acc.v;
+  ((T*)a.res)[j] = plus_zero<T>(acc.v);
 }
 
 // a row's running value: the segment's scan, the carry in, unsorted

@@ -339,7 +339,7 @@ cudaError_t siddhi_nfa_scan(const ScanArgs* a, cudaStream_t stream);
 
 // window kinds (ops/windows.py WindowOp.KIND)
 enum WinKind { WIN_TIME = 0, WIN_LENGTH = 1, WIN_LENGTH_BATCH = 2,
-               WIN_TIME_BATCH = 3 };
+               WIN_TIME_BATCH = 3, WIN_EMPTY = 4 };
 
 // A struct-of-arrays batch or window buffer; `seq` is unused for batches.
 typedef struct {
@@ -499,6 +499,127 @@ typedef struct {
 
 // Kernel K6, the emission (ops/aggregators.py aggregate_emit).
 cudaError_t siddhi_aggregate_emit(const EmitArgs* a, cudaStream_t stream);
+
+// ---- K7 and K8: joins and tables (join_cross.cu, table_step.cu) ---------
+
+#define SIDDHI_JOIN_MAX_COLS 16
+#define SIDDHI_JOIN_MAX_OUT 32
+#define SIDDHI_TABLE_MAX_PK 8
+
+// A program of the K2 interpreter whose loads read one of two sides:
+// ins[k] = side << 16 | column (ops/table.py PairProgram). In device
+// memory; n_code 0: no program.
+typedef struct {
+  const int32_t* code;
+  const int64_t* consts;
+  const int32_t* ins;
+  int32_t n_code;
+  int32_t pad_;
+} PairProg;
+
+// One side's rows: a batch, a window's findable buffer, a table.
+typedef struct {
+  const int64_t* ts;
+  const int32_t* kind;      // or NULL
+  const bool* valid;
+  const void* cols[SIDDHI_JOIN_MAX_COLS];
+  const bool* nulls[SIDDHI_JOIN_MAX_COLS];
+  int32_t col_size[SIDDHI_JOIN_MAX_COLS];
+  int32_t n_cols;
+  int32_t pad_;
+} SideCols;
+
+// Scratch of the key view's sort (key_sort.cuh), n rows.
+typedef struct {
+  int64_t *k1, *k2;         // uint64 sort keys, ping-pong
+  int32_t *i1, *i2;         // index ping-pong
+  int64_t* keys;            // [n] each row's sortable key
+  uint8_t* pad;             // [n] 1: a padded (dead) row, sorted last
+  int32_t* order;           // [n] sorted position -> row
+  int64_t* sk;              // [n] sorted keys
+  int64_t* n_live;          // [1]
+  int32_t* counts;          // [256 * blocks]
+} KeySortScratch;
+
+typedef struct {
+  SideCols trig, opp;       // the trigger batch [B], the opposite buffer [W]
+  PairProg cond;            // grid: the ON condition (n_code 0: TRUE)
+  PairProg tkey, okey;      // probe: the band key of each side, cast
+  PairProg resid;           // probe: the residual conjuncts, or none
+  int32_t probe, outer, need_resid, gate;
+  int32_t key_type;         // ValType of the band key
+  int32_t levels;           // jnp.searchsorted's halvings over W
+  int64_t big;              // the key type's pad value, encoded
+  int64_t win_ms;           // the liveness gate's window span
+  int32_t B, W, CAP, CAND, n_out;
+  int32_t out_from_trig[SIDDHI_JOIN_MAX_OUT];
+  int32_t out_col[SIDDHI_JOIN_MAX_OUT];
+  int32_t out_size[SIDDHI_JOIN_MAX_OUT];
+  int64_t* out_ts;
+  int32_t* out_kind;
+  bool* out_valid;
+  void* out_cols[SIDDHI_JOIN_MAX_OUT];
+  bool* out_nulls[SIDDHI_JOIN_MAX_OUT];
+  int64_t* lost;            // 0-d: pairs beyond CAP plus candidates beyond CAND
+  KeySortScratch sort;
+  // scratch
+  int64_t* trig_keys;       // [B] the trigger rows' sortable keys
+  uint8_t* act;             // [B]
+  int32_t* lo;              // [B]
+  int64_t *cnt, *coffs;     // [B]
+  int32_t* coi;             // [CAND]
+  uint8_t* s;               // [CAND]
+  int64_t* S;               // [CAND]
+  int64_t *surv, *soffs, *tot, *offs;  // [B]
+  uint8_t* lead;            // [B]
+  int32_t *ti, *oi;         // [CAP]
+  uint8_t* is_pair;         // [CAP]
+  int64_t* psum;            // [tiles of CAND]: prefix sums' tile totals
+} JoinArgs;
+
+cudaError_t siddhi_join_probe(const JoinArgs* a, cudaStream_t stream);
+cudaError_t siddhi_join_grid(const JoinArgs* a, cudaStream_t stream);
+
+// A table's state (ops/table.py TableRuntime.init_state).
+typedef struct {
+  void* cols[SIDDHI_JOIN_MAX_COLS];
+  bool* nulls[SIDDHI_JOIN_MAX_COLS];
+  int64_t* ts;
+  int64_t* seq;
+  bool* valid;
+  int64_t* next_seq;        // 0-d
+  int64_t* overflow;        // 0-d
+} TableBuf;
+
+typedef struct {
+  TableBuf t;               // the state read
+  TableBuf o;               // the state written (or the seq-ordered view)
+  SideCols ev;              // the events [B]
+  int32_t col_size[SIDDHI_JOIN_MAX_COLS];
+  int32_t col_type[SIDDHI_JOIN_MAX_COLS];
+  int32_t n_cols, T, B, n_pk;
+  int32_t pk[SIDDHI_TABLE_MAX_PK];
+  const bool* mask;         // the acting (or adding) events; NULL: all
+  PairProg cond;            // side 0 the events, side 1 the table
+  PairProg sets;            // the SET values, one output each
+  int32_t has_cond;
+  int32_t mode;             // table_match: 0 any_hit, 1 delete, 2 update
+  int32_t n_sets;
+  int32_t set_col[SIDDHI_JOIN_MAX_COLS];
+  int32_t attr, key_type, op, levels;   // table_probe
+  int64_t big;
+  bool* touched;            // [T]
+  bool* any_hit;            // [B]
+  int32_t* delta;           // [T + 1]
+  KeySortScratch sort;
+  int64_t *hk, *tk, *hit, *win, *rank, *free_pos, *scal;
+  uint8_t* adding;
+} TableArgs;
+
+cudaError_t siddhi_table_write(const TableArgs* a, cudaStream_t stream);
+cudaError_t siddhi_table_match(const TableArgs* a, cudaStream_t stream);
+cudaError_t siddhi_table_probe(const TableArgs* a, cudaStream_t stream);
+cudaError_t siddhi_table_buffer(const TableArgs* a, cudaStream_t stream);
 
 #ifdef __cplusplus
 }

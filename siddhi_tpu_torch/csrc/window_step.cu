@@ -2,8 +2,10 @@
 //
 // Replaces the reference's window steps, siddhi_tpu/ops/windows.py:
 // TimeWindowOp.step (:289), LengthWindowOp.step (:367),
-// LengthBatchWindowOp.step (:459), TimeBatchWindowOp.step (:581), with
-// their helpers make_pool (:78), keep_newest (:113, the region path),
+// LengthBatchWindowOp.step (:459), TimeBatchWindowOp.step (:581) and
+// the empty window of a join side without one (siddhi_tpu/ops/
+// windows2.py EmptyWindowOp.step, :1460), with their helpers
+// make_pool (:78), keep_newest (:113, the region path),
 // emission_sort (:151), running_time (:178), arrival_seqs (:185) and
 // current_row_positions (:194).
 //
@@ -262,6 +264,14 @@ __global__ void cand_marks(const WindowArgs a, uint32_t inv) {
       }
       break;
     }
+    case WIN_EMPTY: {        // CURRENT, then its EXPIRED clone at now
+      const int32_t seg = c / B, i = c % B;
+      src = EB + a.W + i;
+      ts = seg == 0 ? a.batch.ts[i] : now;
+      kind = seg == 0 ? CUR : EXP;
+      if (v.cur(i)) key = (int64_t)i * 4 + (seg == 0 ? 2 : 3);
+      break;
+    }
     case WIN_LENGTH: {
       if (a.length == 0) {   // CURRENT, its EXPIRED clone, then RESET
         const int32_t seg = c / B, i = c % B;
@@ -430,7 +440,8 @@ extern "C" cudaError_t siddhi_window_step(const WindowArgs* p,
   const WindowArgs& a = *p;
   batch_prefix<<<1, SS_BLOCK, 0, stream>>>(a);
   scalars<<<1, 1, 0, stream>>>(a);
-  const bool pooled = !(a.kind == WIN_LENGTH && a.length == 0);
+  const bool pooled =
+      !(a.kind == WIN_LENGTH && a.length == 0) && a.kind != WIN_EMPTY;
   if (pooled) {
     pool_marks<<<grid(a.P), T1, 0, stream>>>(a);
     keep_scan<<<1, SS_BLOCK, 0, stream>>>(a, 0);
@@ -445,7 +456,9 @@ extern "C" cudaError_t siddhi_window_step(const WindowArgs* p,
                                     a.i1, a.i2, a.counts, stream);
   if (err != cudaSuccess) return err;
   out_gather<<<grid(a.N), T1, 0, stream>>>(a, inv);
-  if (!pooled) {   // length(0): the buffer stays as it was
+  if (a.kind == WIN_EMPTY) {
+    // no buffer to keep
+  } else if (!pooled) {   // length(0): the buffer stays as it was
     keep_gather<<<grid(a.W), T1, 0, stream>>>(a, 0, a.na, a.W, S_ZERO, a.a);
   } else if (a.kind == WIN_LENGTH_BATCH) {
     keep_gather<<<grid(a.W), T1, 0, stream>>>(a, 0, a.na, a.W, -1, a.a);

@@ -118,7 +118,7 @@ def _const(t: AttrType, value) -> CompiledExpr:
 # step runs over; ('slot', j, a, c) and ('slot_last', j, a, k) read a
 # pattern row's capture (ops/nfa.py PatternScope), resolved per (row,
 # event) by kernel K3 (ops/nfa_parallel.py)
-LOAD_KEYS = ("attr", "slot", "slot_last")
+LOAD_KEYS = ("attr", "slot", "slot_last", "L", "R", "T", "S")
 
 
 class Scope:

@@ -8,9 +8,17 @@ fixed-capacity table; slot state lives in dense [K] tensors.
 These are the plain versions kernel K6 (csrc/aggregate_step.cu) is held
 against; they reproduce the reference's results bit for bit:
 - ``cumsum_fast`` adds in ``jax.lax.associative_scan``'s own tree order
-  (pair-reduce, recurse, fill the even elements), not torch.cumsum's;
+  (pair-reduce, recurse, fill the even elements), not torch.cumsum's,
+  with the NaN of each add's left element first, as the reference's
+  compiled tree picks it;
+- every level of ``associative_scan`` interleaves its two halves the
+  way jax does (``_interleave``): each half padded with zeros and the
+  two added, so a float result passes through ``+ 0.0`` (-0.0 and
+  subnormals come out as +0.0, a NaN keeps its bits);
 - float adds and subtractions flush subnormal operands and results, as
-  the reference's compiled CPU code does;
+  the reference's compiled CPU code does, and give their NaN bits by one
+  explicit rule (``_nan_pick``), so that the plain version gives the same
+  bits on the card as on the CPU;
 - ``minimum``/``maximum`` are XLA's: NaN-propagating with its own
   choice between two NaNs, -0.0 below +0.0, subnormals read as zeros of
   their sign.
@@ -102,18 +110,40 @@ def lookup_or_insert(table_keys, used, keys, active, max_probes: int = 16):
 # ---------------------------------------------------------------------------
 
 
+_QUIET = {torch.float32: (torch.int32, 0x00400000, -0x00400000),
+          torch.float64: (torch.int64, 0x0008000000000000,
+                          -0x0008000000000000)}
+
+
+def _nan_pick(r, a, b):
+    """NaN results as the port's float lanes make them on every device,
+    the bits the x86 CPU gives ``a + b`` and ``a - b`` in torch: a NaN
+    ``b`` propagates first, then a NaN ``a`` (made quiet); an invalid
+    operation on numbers gives the negative indefinite NaN."""
+    ib, quiet, indefinite = _QUIET[r.dtype]
+
+    def quieted(v):
+        return (v.view(ib) | quiet).view(r.dtype)
+    default = torch.tensor(indefinite, dtype=ib, device=r.device).view(
+        r.dtype)
+    return torch.where(torch.isnan(b), quieted(b), torch.where(
+        torch.isnan(a), quieted(a), torch.where(torch.isnan(r), default, r)))
+
+
 def add(a, b):
     """a + b as the reference's compiled code adds: ints wrap, floats
-    flush subnormal operands and results."""
+    flush subnormal operands and results; NaN bits by ``_nan_pick``."""
     if not a.is_floating_point():
         return a + b
-    return flush_subnormal(flush_subnormal(a) + flush_subnormal(b))
+    r = flush_subnormal(a) + flush_subnormal(b)
+    return flush_subnormal(_nan_pick(r, a, b.expand_as(r)))
 
 
 def sub(a, b):
     if not a.is_floating_point():
         return a - b
-    return flush_subnormal(flush_subnormal(a) - flush_subnormal(b))
+    r = flush_subnormal(a) - flush_subnormal(b)
+    return flush_subnormal(_nan_pick(r, a, b.expand_as(r)))
 
 
 def _two_sum(a, b):
@@ -183,10 +213,19 @@ def maximum(a, b):
 # ---------------------------------------------------------------------------
 
 
+def _plus_zero(v):
+    """A float result of jax's ``_interleave``: v + 0.0, the zero of the
+    other half's padding (ints and bools pass unchanged)."""
+    if not v.is_floating_point():
+        return v
+    return add(v, torch.zeros_like(v))
+
+
 def associative_scan(fn, elems):
     """``jax.lax.associative_scan(fn, elems)`` along axis 0, in its own
     order: combine adjacent pairs, scan those, then fill the even
-    elements. ``elems`` is a tuple of tensors; -> a tuple."""
+    elements, and interleave the two halves by padding and adding
+    (``_plus_zero``). ``elems`` is a tuple of tensors; -> a tuple."""
     n = elems[0].shape[0]
     if n < 2:
         return elems
@@ -203,13 +242,16 @@ def associative_scan(fn, elems):
         r[0] = e[0]
         r[2::2] = ev
         r[1::2] = od
-        out.append(r)
+        out.append(_plus_zero(r))
     return tuple(out)
 
 
 def cumsum_fast(vals):
-    """Inclusive prefix sum in the reference's associative-scan order."""
-    return associative_scan(lambda a, b: (add(a[0], b[0]),), (vals,))[0]
+    """Inclusive prefix sum in the reference's associative-scan order,
+    each add taking its operands swapped (right element first): of two
+    NaN elements the left one's propagates, as in the reference's
+    compiled tree."""
+    return associative_scan(lambda a, b: (add(b[0], a[0]),), (vals,))[0]
 
 
 def segment_starts(seg_ids):

@@ -169,3 +169,20 @@ def project(op: ProjectOp, prog, batch: EventBatch, emitted) -> EventBatch:
         cols, nulls = batch.cols, batch.nulls
     return EventBatch(ts=batch.ts, cols=cols, nulls=nulls, kind=batch.kind,
                       valid=valid)
+
+
+class OutputScope(Scope):
+    """Scope over a selector's own output attributes (a table output's
+    conditions and SET values read them; reference ops/selector.py
+    OutputScope)."""
+
+    def __init__(self, schema: StreamSchema):
+        self.schema = schema
+
+    def resolve(self, var: A.Variable):
+        if var.index is not None:
+            raise CompileError(
+                f"indexed reference '{var.attribute}' is not an output "
+                "attribute")
+        idx = self.schema.index_of(var.attribute)
+        return ("attr", idx), self.schema.types[idx]

@@ -186,6 +186,15 @@ class WindowOp(Operator):
     def step(self, state, batch: EventBatch, now):
         return window_step(self, state, batch, now)
 
+    def findable_buffer(self, state, device=None) -> dict:
+        """The window content a join or table find() searches (the
+        reference's expiredEventQueue handed to OperatorParser,
+        e.g. TimeWindowProcessor.java:172-184). ``device``: where a
+        window that keeps no state makes its empty buffer."""
+        raise CompileError(
+            f"window '{type(self).__name__}' is not findable (cannot be "
+            "used in joins)")
+
 
 # ---------------------------------------------------------------------------
 # sliding windows
@@ -249,6 +258,9 @@ class TimeWindowOp(WindowOp):
 
     def host_due_bound(self, ts_min: int) -> int:
         return ts_min + self.T
+
+    def findable_buffer(self, state, device=None):
+        return state["buf"]
 
 
 class LengthWindowOp(WindowOp):
@@ -317,6 +329,15 @@ class LengthWindowOp(WindowOp):
 # ---------------------------------------------------------------------------
 # batch (tumbling) windows
 # ---------------------------------------------------------------------------
+
+
+LengthWindowOp.findable_buffer = TimeWindowOp.findable_buffer
+
+
+def _batch_findable(self, state, device=None):
+    """A batch window's findable content: the current batch in
+    stream-current mode, else the last flushed one."""
+    return state["cur"] if self.stream_current else state["exp"]
 
 
 def _select(cond, a: dict, b: dict) -> dict:
@@ -522,6 +543,45 @@ class TimeBatchWindowOp(WindowOp):
         return torch.where(ne == -1, torch.full_like(ne, int(POS_INF)), ne)
 
 
+LengthBatchWindowOp.findable_buffer = _batch_findable
+TimeBatchWindowOp.findable_buffer = _batch_findable
+
+
+class EmptyWindowOp(WindowOp):
+    """The default window of a join side declared without one
+    (JoinInputStreamParser.java:416, EmptyWindowProcessor; reference
+    siddhi_tpu/ops/windows2.py:1442): CURRENT rows pass, each followed
+    by its EXPIRED clone at ``now`` when expired output is on, and
+    nothing is kept: the side triggers the cross and is never found."""
+
+    kind_name = "empty"
+    KIND = 4
+
+    def init_state(self, device="cpu"):
+        return ()
+
+    def step(self, state, batch: EventBatch, now):
+        if not self.expired_enabled:
+            return state, batch.mask(batch.valid & (batch.kind == CURRENT))
+        return window_step(self, state, batch, now)
+
+    def step_ref(self, state, batch: EventBatch, now):
+        B = batch.capacity
+        dev = batch.ts.device
+        cur = batch.valid & (batch.kind == CURRENT)
+        out = {"ts": torch.cat([batch.ts, _i64(now, dev).expand(B)]),
+               "cols": tuple(torch.cat([c, c]) for c in batch.cols),
+               "nulls": tuple(torch.cat([n, n]) for n in batch.nulls),
+               "kind": _kinds(dev, (B, CURRENT), (B, EXPIRED))}
+        rows = torch.arange(B, dtype=I64, device=dev)
+        phase = torch.cat([_full(B, 2, I64, dev), _full(B, 3, I64, dev)])
+        return state, emission_sort(out, torch.cat([rows, rows]), phase,
+                                    torch.cat([cur, cur]), 2 * B)
+
+    def findable_buffer(self, state, device=None):
+        return empty_buffer(self.schema, 1, device or "cpu")
+
+
 # ---------------------------------------------------------------------------
 # kernel K5 and its plain version
 # ---------------------------------------------------------------------------
@@ -549,9 +609,12 @@ def window_step(op: WindowOp, state, batch: EventBatch, now):
     return new_state, out
 
 
-def _bufs(op: WindowOp, state):
+def _bufs(op: WindowOp, state, dev):
     """(A, E): the window's buffer (or current batch) and its expired
-    batch (None for the sliding windows)."""
+    batch (None for the sliding windows; the empty window's A is a
+    one-row stand-in K5 never reads)."""
+    if isinstance(op, EmptyWindowOp):
+        return empty_buffer(op.schema, 1, dev), None
     if isinstance(op, (TimeWindowOp, LengthWindowOp)):
         return state["buf"], None
     return state["cur"], state["exp"]
@@ -559,6 +622,8 @@ def _bufs(op: WindowOp, state):
 
 def out_capacity(op: WindowOp, B: int) -> int:
     """Rows of K5's output for a B-row batch (the reference's out_cap)."""
+    if isinstance(op, EmptyWindowOp):
+        return 2 * B
     W = op.cap
     P = W + B
     if isinstance(op, TimeWindowOp):
@@ -597,7 +662,7 @@ def window_args(op: WindowOp, state, batch: EventBatch, now):
         raise NotImplementedError(
             f"not ported yet: a window over more than "
             f"{_kernels.WIN_MAX_COLS} attributes ({C})")
-    A, E = _bufs(op, state)
+    A, E = _bufs(op, state, dev)
     W = A["seq"].shape[0]
     EB = 0 if E is None else E["seq"].shape[0]
     P, N = W + B, out_capacity(op, B)
@@ -639,7 +704,10 @@ def window_args(op: WindowOp, state, batch: EventBatch, now):
         _win_buf(a.e, E["ts"], E["seq"], E["cols"], E["nulls"], E["valid"])
         _win_buf(a.ne, ne["ts"], ne["seq"], ne["cols"], ne["nulls"],
                  ne["valid"])
-    a.next_seq = state["next_seq"].data_ptr()
+    empty = isinstance(op, EmptyWindowOp)
+    if empty:   # no state: a zero seq in, the seq out discarded
+        sc["ns"] = torch.zeros((), dtype=I64, device=dev)
+    a.next_seq = (sc["ns"] if empty else state["next_seq"]).data_ptr()
     a.o_next_seq = new["next_seq"].data_ptr()
     if "overflow" in state:
         a.overflow = state["overflow"].data_ptr()
@@ -662,7 +730,10 @@ def window_args(op: WindowOp, state, batch: EventBatch, now):
     a.start_time = int(start or 0)
     a.length = int(getattr(op, "L", 0))
     a.span_ms = int(getattr(op, "T", 0))
-    if E is None:
+    if empty:   # the seq out lives in the scratch, alive until launch
+        sc["ns_out"] = new["next_seq"]
+        new = ()
+    elif E is None:
         new["buf"] = na
     else:
         new["cur"], new["exp"] = na, ne

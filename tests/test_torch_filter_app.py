@@ -268,7 +268,7 @@ def test_strings_carried_over_from_reference():
     "insert into O;",
     "define stream S (a int); from S select distinctCount(a) as s "
     "insert into O;",
-    "define stream S (a int); define table T (a int);"
+    "define stream S (a int); @Store(type='rdbms') define table T (a int);"
     " from S insert into T;",
     "define stream S (a int); from S select a order by a insert into O;",
     "define stream S (a int); from S select coalesce(a, 1) as b insert into O;",
@@ -276,8 +276,8 @@ def test_strings_carried_over_from_reference():
     " from S select a insert into O;",
     "define stream S (a int); from S select a output every 2 events"
     " insert into O;",
-    "define stream S (a int); define stream T (a int);"
-    " from S join T on S.a == T.a select S.a insert into O;",
+    "define stream S (a int); define window W (a int) length(5);"
+    " from S insert into W;",
 ])
 def test_unported_parts_raise(text):
     with pytest.raises(NotImplementedError, match="not ported yet"):

@@ -1,6 +1,7 @@
 """The port stands alone: siddhi_tpu_torch imports and runs the filter
-app, a pattern app and a windowed aggregation with jax and siddhi_tpu
-blocked, neither the package nor
+app, a pattern app, a windowed aggregation, the join app and
+stock_table (with an on-demand query) with jax and siddhi_tpu blocked,
+neither the package nor
 chip_smoke.py imports them, and the manager never falls back to the CPU
 on its own."""
 import ast
@@ -57,6 +58,28 @@ rt.start()
 rt.get_input_handler("StockStream").send_arrays(
     *window_agg_feed(2048, GLOBAL_STRINGS.encode))
 assert len(flushes) == 2, len(flushes)
+
+# joins, tables and on-demand queries: the join app and stock_table
+import siddhi_tpu_torch.core.ondemand, siddhi_tpu_torch.ops.join
+import siddhi_tpu_torch.ops.table, siddhi_tpu_torch.carry
+from siddhi_tpu_torch.checks import (JOIN_APP, STOCK_TABLE_APP, join_feed,
+                                     stock_table_feed)
+rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(JOIN_APP)
+joined = []
+rt.add_callback("OutputStream", StreamCallback(joined.extend))
+rt.start()
+for ts, sym, price, tweets in join_feed(64, 2, 256, GLOBAL_STRINGS.encode):
+    rt.get_input_handler("StockStream").send_arrays(ts, [sym, price])
+    rt.get_input_handler("TwitterStream").send_arrays(ts, [sym, tweets])
+assert joined
+rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(STOCK_TABLE_APP)
+looked = []
+rt.add_callback("OutputStream", StreamCallback(looked.extend))
+rt.start()
+for stream, ts, cols in stock_table_feed(32, 1, 64, GLOBAL_STRINGS.encode):
+    rt.get_input_handler(stream).send_arrays(ts, cols)
+assert len(looked) == 64, len(looked)
+assert len(rt.query("from StockTable select symbol")) == 32
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "siddhi_tpu")]
 assert not loaded, loaded

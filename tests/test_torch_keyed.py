@@ -183,3 +183,33 @@ def test_fused_multiply_add_is_rounded_once():
     want = np.array([float(Fraction(z) - Fraction(x) * Fraction(x))
                      for x, z in zip(a, c)])
     assert same(want, got)
+
+
+def _special_feed(seed):
+    """The feed that showed both faults: 300 normals with NaN, -NaN,
+    +-0.0, +-5e-324 and +-inf, in segments of a sorted id (ROADMAP's
+    search: seed 0 gave the NaN sign of a sum lane at element 211, seed
+    3 the -0.0 at a segment's first element of a min/max lane)."""
+    rng = np.random.default_rng(seed)
+    x = np.concatenate([rng.standard_normal(300) * 100,
+                        [np.nan, -np.nan, 0.0, -0.0, 5e-324, -5e-324,
+                         np.inf, -np.inf]])
+    x = rng.permutation(x)
+    return x, np.sort(rng.integers(0, 9, len(x)))
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("scan", ["cumsum_fast", "segmented_cumsum",
+                                  "segmented_cummin", "segmented_cummax"])
+def test_scans_on_special_values_equal_the_reference(scan, seed):
+    """NaN of either sign, both infinities, -0.0 and subnormals: the
+    reference's tree takes the NaN of each add's second operand, and its
+    interleave adds +0.0 to every result (jax's _interleave)."""
+    x, seg = _special_feed(seed)
+    if scan == "cumsum_fast":
+        j = jax.jit(jk.cumsum_fast)(jnp.asarray(x))
+        t = tk.cumsum_fast(T(x))
+    else:
+        j = jax.jit(getattr(jk, scan))(jnp.asarray(x), jnp.asarray(seg))
+        t = getattr(tk, scan)(T(x), T(seg))
+    assert same(j, t)

@@ -7,9 +7,10 @@ test suite). They split four ways:
 - against the Java rows: the cases below that run;
 - the cases that expect a deploy error: both packages raise one;
 - the cases that need what the port does not have yet raise "not
-  ported yet" with the reason, listed by name in UNPORTED (joins; the
-  stateful aggregators). The corpus's one known window failure
-  (lengthBatchWindowTest14) is a join, so it is among them.
+  ported yet" with the reason, listed by name in UNPORTED (the stateful
+  aggregators);
+- the corpus's one known window failure (lengthBatchWindowTest14, a
+  join) gives the reference's rows.
 Also: CountPattern testQuery17-20, pattern queries whose selectors
 aggregate (kernel K6 over the scan engine's matches), replay with rows
 equal to the reference's."""
@@ -24,17 +25,9 @@ from test_torch_scan_corpus import CASES as SCAN_CASES
 from test_torch_scan_corpus import replay_reference
 
 FILES = ("LengthBatch", "Length", "TimeBatch", "Time")
-JOIN = "join queries"
 UNPORTED = {
-    "window_LengthBatchWindowTestCase.lengthBatchWindowTest8": JOIN,
-    "window_LengthBatchWindowTestCase.lengthBatchWindowTest9": JOIN,
-    "window_LengthBatchWindowTestCase.lengthBatchWindowTest13": JOIN,
-    "window_LengthBatchWindowTestCase.lengthBatchWindowTest14": JOIN,
     "window_LengthWindowTestCase.lengthWindowTest4":
         "stateful aggregator max",
-    "window_TimeBatchWindowTestCase.timeWindowBatchTest5": JOIN,
-    "window_TimeBatchWindowTestCase.timeWindowBatchTest6": JOIN,
-    "window_TimeBatchWindowTestCase.timeWindowBatchTest8": JOIN,
 }
 
 
@@ -52,14 +45,15 @@ KNOWN = {ln.split("|")[0].strip()
          for ln in (DIR / "known_failures.txt").read_text().splitlines()
          if ln.startswith("window_")}
 ERRORS = sorted(c for c in CASES if CASES[c].get("expect_error"))
-JAVA = sorted(set(CASES) - set(ERRORS) - set(UNPORTED))
+JAVA = sorted(set(CASES) - set(ERRORS) - set(UNPORTED) - KNOWN)
 
 
 def test_the_split_covers_the_window_cases():
     assert len(CASES) == 39
     assert set(UNPORTED) <= set(CASES) and not set(UNPORTED) & set(ERRORS)
-    assert KNOWN & set(CASES) and KNOWN & set(CASES) <= set(UNPORTED)
-    assert len(JAVA) == 14 and len(ERRORS) == 17
+    assert KNOWN & set(CASES) == {
+        "window_LengthBatchWindowTestCase.lengthBatchWindowTest14"}
+    assert len(JAVA) == 20 and len(ERRORS) == 17
 
 
 @pytest.mark.parametrize("cid", JAVA)
@@ -100,6 +94,14 @@ def test_unported_window_case_raises_not_ported(cid):
                        match=f"not ported yet: {UNPORTED[cid]}"):
         SiddhiManager(device="cpu").create_siddhi_app_runtime(
             "@app:playback " + CASES[cid]["app"])
+
+
+@pytest.mark.parametrize("cid", sorted(KNOWN & set(CASES)))
+def test_known_window_failure_gives_the_reference_rows(cid):
+    got, want = replay(CASES[cid]), replay_reference(CASES[cid])
+    assert (got["in"], got["rm"]) == (want["in"], want["rm"])
+    assert got["in_rows"] == want["in_rows"]
+    assert got["rm_rows"] == want["rm_rows"]
 
 
 @pytest.mark.parametrize("k", [17, 18, 19, 20])
