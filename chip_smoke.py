@@ -7,8 +7,8 @@ Phases, each of which stops the run with a non-zero exit on failure:
 
 1. device: CUDA must be there; prints the device, the build and
    ``nvidia-smi``'s name and power limit;
-2. build the port's eight CUDA kernels from csrc/ (one nvcc each, all at
-   once) and hold kernel K1 (packed-ingest decode) against its plain
+2. build the port's CUDA kernels from csrc/ (nine sources, one nvcc each,
+   all at once) and hold kernel K1 (packed-ingest decode) against its plain
    PyTorch version on the card, bit for bit, for every lane code at
    capacities 16, 1024, 65536;
 3. hold kernel K2 (expression evaluation) against its plain version on
@@ -95,8 +95,36 @@ Phases, each of which stops the run with a non-zero exit on failure:
    K7 and K2 on every step of theirs; then events/s, latency, a profiler
    split and K8's time against its plain version, its byte bound and
    torch.argsort of the seq keys;
-17. print the kernel table as one JSON line, the card's name and power
+17. hold kernels A (K5's second-wave kinds), B (the sort window), C
+   (min/max over expiring content) and D (distinctCount) against their
+   plain versions on the card, bit for bit, state and output, at every
+   step of each app of checks.WINDOW2_APPS (every new window kind with
+   its parameters, TIMER flushes included; sort on int, long, float and
+   double keys, asc and desc; min/max and distinctCount over time,
+   length, externalTime and batch windows) on a feed with NaN, +-0.0,
+   infinities and the integer extremes, a key past its ring, more pairs
+   than the pair table, nulls, a join side on an externalTime window,
+   and the three apps below at their own send sizes, overflow 0;
+18. to 20. run window_ext_grouped (externalTime, 1 min, min/max/avg per
+   ticker; 64 sends of 16,384 rows), window_ext_bars (externalTimeBatch
+   bars and distinctCount breadth; 16 sends of 65,536) and window_sort
+   (sort(1000); 4 sends of 65,536) through SiddhiManager, send_arrays
+   and batch_callbacks, each against its numpy oracle with overflow 0;
+   the launch counters must show K1 and the path's kernels on every
+   step; then events/s, latency at the path's send size and at 1,024
+   rows (overflow still 0) and each new kernel's time against its plain version and its bound;
+21. run bench.py's seq2 (its app and feed) at the bench's sizes, 4
+   chunks of 65,536 orders and payments, and at 1,024-row chunks, each
+   against its numpy oracle, with K1 on every send and K3; then
+   events/s and latency;
+22. the same for bench.py's kleene (K3's counting states), whose oracle
+   models the 4,096-row pattern table that the bench's chunks fill;
+23. print the kernel table as one JSON line, the card's name and power
    limit, and the result line.
+
+`python3 chip_smoke.py --k5-time` times K5 alone (window_agg's and
+window_time_grouped's step) and prints one JSON line: run from another
+tree's root, a copy of this script times that tree's K5.
 
 Imports neither JAX nor the reference package.
 """
@@ -201,7 +229,8 @@ def tree_clone(tree):
 def k3_against_plain(dev) -> float:
     """Phase 5: one step of kernel K3 against its plain version, from the
     same table, on the card; the whole table and the match batch must be
-    bit-equal. -> max abs error (0)."""
+    bit-equal: seq5 and kleene at their 65,536-row sends, the overflow
+    feeds, the counting and sequence chains. -> max abs error (0)."""
     from siddhi_tpu_torch import SiddhiManager, _kernels
     from siddhi_tpu_torch.checks import (COUNT0_APP, COUNT_APP,
                                          COUNT_EVERY_APP, FINAL_COUNT_APP,
@@ -301,6 +330,17 @@ def k3_against_plain(dev) -> float:
         for blk in np.array_split(np.arange(16384), 2):
             step(what, q, "S1", ts[blk], [c[blk] for c in cols], 8192)
         rt.shutdown()
+
+    # kleene (bench.py's app and feed) at its 65,536-row sends: an A step
+    # into a full table, then a B step
+    from siddhi_tpu_torch.checks import KLEENE_APP, kleene_chunks
+    rt, q = app(KLEENE_APP)
+    (ta, a, tb, b), (ta2, a2, tb2, b2) = kleene_chunks(2, 65536)
+    rt.get_input_handler("A").send_arrays(ta, [a])
+    rt.get_input_handler("B").send_arrays(tb, [b])
+    step("kleene, A", q, "A", ta2, [a2], 65536)
+    step("kleene, B", q, "B", tb2, [b2], 65536)
+    rt.shutdown()
     return err
 
 
@@ -844,16 +884,32 @@ class KernelCheck:
     def __init__(self):
         from siddhi_tpu_torch.ops import aggregators as G
         from siddhi_tpu_torch.ops import windows as W
-        self.G, self.W = G, W
+        from siddhi_tpu_torch.ops import windows2 as W2
+        self.G, self.W, self.W2 = G, W, W2
         self.err = 0.0
-        self.steps = {"window_step": 0, "aggregate_step": 0,
-                      "aggregate_emit": 0}
+        self.steps = {"window_step": 0, "sort_window": 0,
+                      "aggregate_step": 0, "aggregate_emit": 0}
         self.shapes = set()
 
     def __enter__(self):
-        G, W = self.G, self.W
-        self.saved = (W.window_step, G.aggregate_step, G.aggregate_emit)
-        k_win, k_agg, k_emit = self.saved
+        G, W, W2 = self.G, self.W, self.W2
+        self.saved = (W.window_step, G.aggregate_step, G.aggregate_emit,
+                      W2.sort_window_step)
+        k_win, k_agg, k_emit, k_sort = self.saved
+
+        def sort_window_step(op, state, batch, now):
+            ks, ko = k_sort(op, state, batch, now)
+            rs, ro = W2.sort_window_step_ref(op, state, batch, now)
+            what = f"sort window B={batch.capacity}"
+            self.err = max(self.err, compare(
+                what + " state", tree_leaves(ks), tree_leaves(rs)))
+            self.err = max(self.err, compare(
+                what + " output", [ko.ts, *ko.cols, *ko.nulls, ko.kind,
+                                   ko.valid],
+                [ro.ts, *ro.cols, *ro.nulls, ro.kind, ro.valid]))
+            self.steps["sort_window"] += 1
+            self.shapes.add(("K5s", op.L, batch.capacity))
+            return ks, ko
 
         def window_step(op, state, batch, now):
             ks, ko = k_win(op, state, batch, now)
@@ -895,11 +951,13 @@ class KernelCheck:
 
         W.window_step, G.aggregate_step, G.aggregate_emit = \
             window_step, aggregate_step, aggregate_emit
+        W2.sort_window_step = sort_window_step
         return self
 
     def __exit__(self, *exc):
-        W, G = self.W, self.G
-        W.window_step, G.aggregate_step, G.aggregate_emit = self.saved
+        W, G, W2 = self.W, self.G, self.W2
+        W.window_step, G.aggregate_step, G.aggregate_emit, \
+            W2.sort_window_step = self.saved
         return False
 
 
@@ -1122,8 +1180,8 @@ def window_phase(dev, card: str, which: str) -> dict:
         return wout.cols[i], wout.nulls[i]
     key_cols = [col(ke) for ke in aop.key_exprs]
     arg_cols = [col(a) if a is not None else None for a in aop.agg_args]
-    slots, aggs, _as, aargs = G.agg_args(aop, ast, key_cols, arg_cols,
-                                         wout.kind, wout.valid)
+    slots, aggs, _as, aargs, _st = G.agg_args(aop, ast, key_cols, arg_cols,
+                                              wout.kind, wout.valid)
     lib.aggregate_step(aargs, stream)
     from siddhi_tpu_torch.core.event import EventBatch
     from siddhi_tpu_torch.ops.expr import expr_eval
@@ -1191,6 +1249,653 @@ def window_phase(dev, card: str, which: str) -> dict:
            "device_ms_per_send": breakdown, "busy_share": busy,
            "card": card}
     print(json.dumps({which: res}), flush=True)
+    return res
+
+
+def k5_time(dev, rounds: int = 5) -> dict:
+    """K5's device time a 65,536-row step of window_agg and
+    window_time_grouped, from a live state (two sends in: the time
+    window holds its full minute), the launches alone: `rounds` means of
+    50 launches each. `python3 chip_smoke.py --k5-time` prints it and
+    nothing else; it uses only what K5 has had since it was ported, so
+    a copy of this script run from another tree's root times that
+    tree's K5, and two trees compare within one call."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.event import batch_from_columns
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    from siddhi_tpu_torch.ops import windows as W
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    mgr = SiddhiManager(device="cuda")
+    res = {}
+    for which, text, feed in (
+            ("window_agg", C.WINDOW_AGG_APP, C.window_agg_feed),
+            ("window_time_grouped", C.WINDOW_TIME_APP, C.window_time_feed)):
+        rt = mgr.create_siddhi_app_runtime(text)
+        rt.start()
+        h = rt.get_input_handler("StockStream")
+        ts, cols = feed(3 * 65536, GLOBAL_STRINGS.encode)
+        for k in range(2):
+            s = slice(k * 65536, (k + 1) * 65536)
+            h.send_arrays(ts[s], [c[s] for c in cols])
+        q = rt.queries["q"]
+        s = slice(2 * 65536, 3 * 65536)
+        batch = batch_from_columns(rt.schemas["StockStream"], ts[s],
+                                   [c[s] for c in cols], capacity=65536,
+                                   device=dev)
+        now = torch.tensor(int(ts[s][-1]), dtype=torch.int64, device=dev)
+        _ns, _out, wargs = W.window_args(q.operators[0], q.states[0], batch,
+                                         now)
+        res[which] = [cuda_ms(lambda: lib.window_step(wargs, stream),
+                              reps=50) for _ in range(rounds)]
+        rt.shutdown()
+    return res
+
+
+# -- kernels A (K5's second-wave kinds), B (the sort window), C
+# (min/max over expiring content) and D (distinctCount) ---------------------
+
+def _send_all(h, ts, cols, cuts):
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        h.send_arrays(ts[a:b], [c[a:b] for c in cols])
+
+
+# the second-wave paths' send sizes: window_ext_grouped sends 16,384 rows,
+# since a key's ring (256 values) must hold its live rows (about 117)
+# plus the adds of one send to it (128 a key at 65,536-row sends: the
+# ring overflows)
+WAVE2_SEND = {"window_ext_grouped": 16384, "window_ext_bars": 65536,
+              "window_sort": 65536}
+
+
+def _overflows(rt, qs) -> dict:
+    """Each query's overflow count, with its parts (window, group table,
+    aggregator tables), where it is not 0."""
+    out = {}
+    for qn in qs:
+        st = rt.queries[qn].stats()
+        if st["overflow"] != 0:
+            sts = rt.queries[qn].states
+            out[qn] = (st["overflow"], [int(x["overflow"]) for x in sts
+                       if isinstance(x, dict) and "overflow" in x] +
+                       [int(t["overflow"]) for x in sts if isinstance(x, dict)
+                        for t in x.get("tables", ()) if t])
+    return out
+
+
+def wave2_against_plain(dev) -> float:
+    """Kernels A-D against their plain versions on the card, bit for bit,
+    state and output, at every step of: each comparison app of
+    checks.WINDOW2_APPS (externalTime; timeLength where time and length
+    each bind; delay; batch with L = 0 and L > 0; externalTimeBatch with
+    a start constant, a start attribute, a timeout on a feed with quiet
+    gaps, so that TIMER flushes fire, and replace.with.batchtime;
+    hopping under both names; sort on int, long, float and double keys,
+    asc and desc; min/max and distinctCount over time, length,
+    externalTime and batch windows, grouped and ungrouped), on a feed
+    with NaN, -NaN, +-0.0, +-inf and the integer extremes; a key past
+    its 256-row ring; more (group, value) pairs than the 4,096-slot pair
+    table; nulls (row sends); a join side on an externalTime window;
+    and the three main apps at their main paths' send sizes (WAVE2_SEND:
+    five sends of 16,384 rows for window_ext_grouped, past its one-minute
+    window, so that the window is full and expires), overflow 0.
+    -> max abs error (0)."""
+    from siddhi_tpu_torch import Event, SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    enc = GLOBAL_STRINGS.encode
+    mgr = SiddhiManager()
+    saved = dict(_kernels.LAUNCHES)
+    with KernelCheck() as chk:
+        for name, text in C.WINDOW2_APPS.items():
+            rt = mgr.create_siddhi_app_runtime(text)
+            rt.start()
+            h = rt.get_input_handler("S")
+            timers = "timeout" in name or "replace" in name
+            ts, cols = C.window2_feed(600, enc, seed=3, quiet_every=40
+                                      if timers else 0)
+            cuts = tuple(range(0, 601, 40)) if timers else (0, 100, 356, 600)
+            _send_all(h, ts, cols, cuts)
+            st = rt.queries["q"].stats()
+            rt.shutdown()
+            print(f"kernels A-D, {name}: bit-equal to their plain versions "
+                  f"(600 events; emitted {st['emitted']}, overflow "
+                  f"{st['overflow']}; steps so far {chk.steps})", flush=True)
+        for name, text, kw, cuts in (
+                ("a key past its ring", C.RING_OVERFLOW_APP,
+                 dict(n=2400, seed=6, n_syms=2), (0, 800, 1600, 2400)),
+                ("more pairs than the pair table", C.PAIRS_OVERFLOW_APP,
+                 dict(n=6000, seed=7, n_vols=1000), (0, 2000, 4000, 6000))):
+            rt = mgr.create_siddhi_app_runtime(text)
+            rt.start()
+            ts, cols = C.window2_feed(encode=enc, **kw)
+            _send_all(rt.get_input_handler("S"), ts, cols, cuts)
+            st = rt.queries["q"].stats()
+            rt.shutdown()
+            if st["overflow"] == 0:
+                fail(f"kernels C/D feed '{name}' did not overflow")
+            print(f"kernels C/D, {name}: bit-equal to their plain versions "
+                  f"(overflow {st['overflow']})", flush=True)
+        # nulls: rows sent one at a time, a fifth of the values null
+        rt = mgr.create_siddhi_app_runtime(
+            C.WINDOW2_APPS["min/max over length, grouped"])
+        rt.start()
+        h = rt.get_input_handler("S")
+        ts, cols = C.window2_feed(120, enc, seed=8, specials=False)
+        rng = np.random.default_rng(8)
+        for i in range(120):
+            row = [GLOBAL_STRINGS.decode(int(cols[0][i]))] + \
+                [c[i].item() for c in cols[1:]]
+            row = [None if k > 0 and rng.random() < 0.2 else v
+                   for k, v in enumerate(row)]
+            h.send(Event(int(ts[i]), row))
+        rt.shutdown()
+        print("kernels C/D with nulls (120 row sends): bit-equal to their "
+              "plain versions", flush=True)
+        # a join side on an externalTime window
+        rt = mgr.create_siddhi_app_runtime(C.EXT_JOIN_APP)
+        rt.start()
+        rng = np.random.default_rng(9)
+        keys = np.array([enc(f"J{i}") for i in range(4)], np.int32)
+        for k in range(3):
+            t = C.TS0 + k * 100 + np.arange(64, dtype=np.int64)
+            rt.get_input_handler("L").send_arrays(
+                t, [keys[rng.integers(0, 4, 64)], t.copy(),
+                    rng.integers(0, 9, 64).astype(np.int32)])
+            rt.get_input_handler("R").send_arrays(
+                t + 1, [keys[rng.integers(0, 4, 64)], t + 1,
+                        rng.standard_normal(64)])
+        rt.shutdown()
+        print("kernel A on a join side (externalTime): bit-equal to its "
+              "plain version", flush=True)
+        for name, text, sends, qs in (
+                ("window_ext_grouped", C.WINDOW_EXT_APP, 5, ("q",)),
+                ("window_ext_bars", C.WINDOW_BARS_APP, 2,
+                 ("bars", "breadth")),
+                ("window_sort", C.WINDOW_SORT_APP, 1, ("q",))):
+            send = WAVE2_SEND[name]
+            rt = mgr.create_siddhi_app_runtime(text)
+            rt.start()
+            ts, cols = C.trades_feed(sends * send, enc, seed=5)
+            _send_all(rt.get_input_handler("Trades"), ts, cols,
+                      tuple(range(0, sends * send + 1, send)))
+            st = {q: rt.queries[q].stats() for q in qs}
+            ovf = _overflows(rt, qs)
+            rt.shutdown()
+            if ovf:
+                fail(f"kernels A-D, {name} at its main path's sends: "
+                     f"overflow {ovf}")
+            print(f"kernels A-D, {name}, {sends} sends of {send} rows (its "
+                  f"main path's): bit-equal to their plain versions, "
+                  f"overflow 0 ({st})", flush=True)
+    _kernels.LAUNCHES.update(saved)   # not launches of a main path
+    print(f"kernels A-D: shapes held against the plain versions: "
+          f"{sorted((x for x in chk.shapes if x[0] != 'K6'), key=str)}; "
+          f"steps {chk.steps}", flush=True)
+    return chk.err
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _buf_tensors(buf):
+    return [buf["ts"], buf["seq"], *buf["cols"], *buf["nulls"], buf["valid"]]
+
+
+def wave2_phase(dev, card: str, which: str, N: int = 0,
+                SEND: int = 0) -> dict:
+    """window_ext_grouped (kernels A and C), window_ext_bars (A and D, and
+    K6's batch-mode min/max) or window_sort (B) end to end on the card
+    through SiddhiManager, send_arrays and batch_callbacks: 1,048,576
+    events in 16 sends of 65,536 rows (window_ext_grouped: 64 sends of
+    16,384; window_sort: 262,144 events in 4 sends),
+    checked against the independent numpy oracle of checks.py, overflow
+    0; the launch counters must show K1 on every send and the path's
+    kernels on every step; then events/s, per-send latency at the path's
+    send size and at 1,024 rows (overflow still 0), and each of the path's new kernels' device time at this
+    path's shapes against its plain version and its bound."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.event import batch_from_columns
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    from siddhi_tpu_torch.ops import aggregators as G
+    from siddhi_tpu_torch.ops import windows as W
+    from siddhi_tpu_torch.ops import windows2 as W2
+    N = N or ((1 << 18) if which == "window_sort" else (1 << 20))
+    SEND = SEND or WAVE2_SEND[which]
+    text, qs = {"window_ext_grouped": (C.WINDOW_EXT_APP, ("q",)),
+                "window_ext_bars": (C.WINDOW_BARS_APP, ("bars", "breadth")),
+                "window_sort": (C.WINDOW_SORT_APP, ("q",))}[which]
+    enc = GLOBAL_STRINGS.encode
+    mgr = SiddhiManager(device="cuda")
+    wtext = text
+    for qn in qs:
+        wtext = wtext.replace(f"'{qn}'", f"'w{qn}'")
+    warm = mgr.create_siddhi_app_runtime(wtext)
+    warm.start()
+    wts, wcols = C.trades_feed(2 * SEND, enc, seed=3)
+    _send_all(warm.get_input_handler("Trades"), wts, wcols, (0, SEND,
+                                                             2 * SEND))
+    torch.cuda.synchronize()
+    warm.shutdown()
+
+    rt = mgr.create_siddhi_app_runtime(text)
+    if rt.device.type != "cuda":
+        fail(f"the {which} runtime is on {rt.device}, not the card")
+    outs = {qn: [] for qn in qs}
+    for qn in qs:
+        rt.queries[qn].batch_callbacks.append(outs[qn].append)
+    rt.start()
+    h = rt.get_input_handler("Trades")
+    extra = 10 * 65536 + 70 * 1024
+    ts_all, cols_all = C.trades_feed(N + extra, enc)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    for s in range(0, N, SEND):
+        h.send_arrays(ts_all[s:s + SEND], [c[s:s + SEND] for c in cols_all])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    steps = {qn: len(outs[qn]) for qn in qs}
+    total = sum(steps.values())
+    want = {"unpack_packed": N // SEND * len(qs), "aggregate_step": 0
+            if which == "window_sort" else total}
+    if which == "window_ext_grouped":
+        want.update(window_step=total, sliding_minmax=2 * total)
+    elif which == "window_ext_bars":
+        want.update(window_step=total, distinct_count=steps["breadth"])
+    else:
+        want.update(sort_window=total, window_step=0)
+    for k, n in want.items():
+        if launches[k] != n or (n == 0 and k not in ("aggregate_step",
+                                                     "window_step")):
+            fail(f"{which} path: kernel {k} launched {launches[k]} times, "
+                 f"expected {n} (steps {steps})")
+    if which != "window_sort" and launches["expr_eval"] == 0:
+        fail(f"{which} path: K2 never launched")
+    ets, sym, price, vol = (c[:N] for c in cols_all)
+
+    def got(qn):
+        q = rt.queries[qn]
+        o = outs[qn]
+        return ([torch.cat([b.cols[i][b.valid] for b in o]).cpu().numpy()
+                 for i in range(len(q.out_schema.types))],
+                torch.cat([b.kind[b.valid] for b in o]).cpu().numpy())
+    stats = {qn: rt.queries[qn].stats() for qn in qs}
+    ovf = _overflows(rt, qs)
+    if ovf:
+        fail(f"{which}: overflow (query: count, [window, group table, "
+             f"aggregator tables]) {ovf}; the oracle assumes none")
+    detail = ""
+    if which == "window_ext_grouped":
+        o_sym, hi, lo, ap, n = C.window_ext_oracle(ets, sym, price)
+        (g_sym, g_hi, g_lo, g_ap, g_n), _k = got("q")
+        ok = len(g_ap) == len(ap) and np.array_equal(g_sym, o_sym) and \
+            np.array_equal(bits_np(g_hi), bits_np(hi)) and \
+            np.array_equal(bits_np(g_lo), bits_np(lo)) and \
+            np.array_equal(g_n, n)
+        rel = float(np.max(np.abs(g_ap - ap) / np.abs(ap))) if ok else None
+        ok = ok and rel <= 1e-12
+        rows = len(ap)
+        detail = f"ap within {rel} relative (limit 1e-12)"
+    elif which == "window_ext_bars":
+        (o_bars, o_br) = C.window_bars_oracle(ets, sym, price, vol)
+        g_bars, _k = got("bars")
+        g_br, _k2 = got("breadth")
+        ok = all(len(a) == len(b) and np.array_equal(bits_np(a), bits_np(b))
+                 for a, b in zip(g_bars, o_bars)) and \
+            all(np.array_equal(a, b) for a, b in zip(g_br, o_br))
+        rows = len(o_bars[0]) + len(o_br[0])
+        detail = (f"{len(o_bars[0])} bar rows, {len(o_br[0])} breadth rows; "
+                  f"distinct symbols a bar up to {int(o_br[0].max())}")
+    else:
+        o_exp, o_sym, o_price, o_vol = C.window_sort_oracle(sym, price, vol)
+        (g_sym, g_price, g_vol), g_kind = got("q")
+        ok = len(g_kind) == len(o_exp) and \
+            np.array_equal(g_kind == 1, o_exp) and \
+            np.array_equal(g_sym, o_sym) and \
+            np.array_equal(bits_np(g_price), bits_np(o_price)) and \
+            np.array_equal(g_vol, o_vol)
+        rows = len(o_exp)
+    emitted = sum(st["emitted"] for st in stats.values())
+    if not ok or emitted != rows:
+        fail(f"{which}: rows differ from the numpy oracle ({emitted} "
+             f"emitted, the oracle {rows}; {detail})")
+    eps = N / wall
+    print(f"{which}: {N} events in {N // SEND} sends of {SEND}; {rows} rows "
+          f"equal the numpy oracle (exact columns exact; {detail}); "
+          f"overflow 0; {eps:.0f} events/s, device batches only ({card})",
+          flush=True)
+    print(f"launches on the {which} path: {launches}", flush=True)
+
+    k_next = N
+
+    def chunk(m):
+        nonlocal k_next
+        s = slice(k_next, k_next + m)
+        k_next += m
+        return ts_all[s], [c[s] for c in cols_all]
+
+    def latency(m, reps):
+        h.send_arrays(*chunk(m))
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(reps):
+            c0 = time.perf_counter()
+            h.send_arrays(*chunk(m))
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - c0) * 1e3)
+        return float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+    # at the path's own send size (window_ext_grouped's rings overflow at
+    # 65,536 rows), then 1,024; the configuration holds: overflow 0
+    p50, p99 = latency(SEND, 4 if which == "window_sort" else 8)
+    p50k, p99k = latency(1024, 64)
+    ovf = _overflows(rt, qs)
+    if ovf:
+        fail(f"{which}: overflow after the latency sends {ovf}")
+    print(f"{which} latency per send: {SEND} rows p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms; 1,024 rows p50 {p50k:.3f} ms, p99 {p99k:.3f} ms; "
+          f"overflow 0 ({card})", flush=True)
+
+    # the path's new kernels at its shapes, from the live state: one step
+    # of the path's send size, the launches alone (arguments built once)
+    ts_c, cols_c = chunk(SEND)
+    batch = batch_from_columns(rt.schemas["Trades"], ts_c, cols_c,
+                               capacity=SEND, device=dev)
+    now = torch.tensor(int(ts_c[-1]), dtype=torch.int64, device=dev)
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    res = {"events_per_s_device_batches": eps, "send": SEND,
+           "p50_ms_send": p50, "p99_ms_send": p99, "p50_ms_1024": p50k,
+           "p99_ms_1024": p99k,
+           "rows": rows, "launches": launches, "card": card}
+    row_bytes = sum(c.element_size() + 1 for c in batch.cols) + 8 + 4 + 1
+    if which == "window_sort":
+        q = rt.queries["q"]
+        op, st = q.operators[0], q.states[0]
+        _ns, sout, sargs = W2.sort_args(op, st, batch, now)
+        b_ms = cuda_ms(lambda: lib.sort_window(sargs, stream), reps=3,
+                       warmup=1)
+        b_plain = cuda_ms(lambda: W2.sort_window_step_ref(op, st, batch, now),
+                          reps=1, warmup=0)
+        cur = int((batch.valid & (batch.kind == 0)).sum())
+        n_bytes = SEND * row_bytes + 2 * _nbytes(_buf_tensors(st["buf"])) + \
+            _nbytes([sout.ts, sout.kind, sout.valid, *sout.cols,
+                     *sout.nulls])
+        n_ops = cur * st["buf"]["seq"].shape[0] * (len(op.keys) + 2)
+        bound, by = bound_of(n_bytes, n_ops)
+        print(f"sort_window (kernel B): {b_ms:.3f} ms a {SEND}-row send "
+              f"(buffer {op.L + 1} rows, one block walking the rows); "
+              f"plain version {b_plain:.1f} ms; bound {bound:.5f} ms "
+              f"({n_bytes} bytes, {n_ops} operations: {by}); {card}",
+              flush=True)
+        res.update(b_ms=b_ms, b_plain_ms=b_plain, b_bound_ms=bound,
+                   b_bound_by=by)
+    else:
+        qn = "q" if which == "window_ext_grouped" else "breadth"
+        q = rt.queries[qn]
+        wop, aop = q.operators[0], q.operators[-1]
+        wst, ast = q.states[0], q.states[-1]
+        _ws, wout, wargs = W.window_args(wop, wst, batch, now)
+        lib.window_step(wargs, stream)
+
+        def col(ce):
+            i = G._bare_column(ce)
+            return wout.cols[i], wout.nulls[i]
+        key_cols = [col(ke) for ke in aop.key_exprs]
+        arg_cols = [col(a) if a is not None else None for a in aop.agg_args]
+        _sl, _ag, _as, aargs, stats_k = G.agg_args(
+            aop, ast, key_cols, arg_cols, wout.kind, wout.valid)
+        lib.aggregate_step(aargs, stream, 1)
+        ctx = G.agg_context(aop, ast, key_cols, wout.kind, wout.valid)[0]
+        # the stateful aggregators: spec, kernel arguments, argument, table
+        idx = [i for i, sp in enumerate(aop.agg_specs)
+               if getattr(sp, "stateful", False)]
+        specs = [(sp, st_, arg_cols[i], ast["tables"][i])
+                 for i, (sp, st_) in zip(idx, stats_k)]
+        kern = lib.sliding_minmax if which == "window_ext_grouped" \
+            else lib.distinct_count
+        x_ms = cuda_ms(lambda: [kern(aargs, st_, stream)
+                                for _s, st_, _a, _t in specs], reps=20)
+        x_plain = cuda_ms(lambda: [sp.run_ref(a_, ctx, t_)
+                                   for sp, _st, a_, t_ in specs],
+                          reps=2, warmup=1)
+        Bo = wout.capacity
+        tab_bytes = sum(_nbytes(list(t_.values())) for *_x, t_ in specs)
+        arg_bytes = sum(_nbytes([a_[0], a_[1]]) for _s, _st, a_, _t in specs)
+        x_bytes = arg_bytes + 2 * tab_bytes + Bo * (4 + 8 + 4 + 1) + \
+            len(specs) * Bo * 16
+        x_ops = len(specs) * Bo * 40
+        x_bound, x_by = bound_of(x_bytes, x_ops)
+        kname = "sliding_minmax (kernel C)" if which == "window_ext_grouped" \
+            else "distinct_count (kernel D)"
+        print(f"{kname}, {which}: {x_ms:.5f} ms a step ({len(specs)} "
+              f"aggregators, {Bo} rows, K {aop.K}); plain version "
+              f"{x_plain:.3f} ms; bound {x_bound:.5f} ms ({x_bytes} bytes: "
+              f"{x_by}); {card}", flush=True)
+        res.update(x_ms=x_ms, x_plain_ms=x_plain, x_bound_ms=x_bound,
+                   x_bound_by=x_by)
+        if which == "window_ext_grouped":
+            a_ms = cuda_ms(lambda: lib.window_step(wargs, stream), reps=20)
+            a_plain = cuda_ms(lambda: W.window_step_ref(wop, wst, batch, now),
+                              reps=2, warmup=1)
+            keys = wargs._keep[3]["keys"].clone()
+            lib_ms = cuda_ms(lambda: torch.sort(keys, stable=True), reps=20)
+            a_bytes = SEND * row_bytes + 2 * _nbytes(
+                _buf_tensors(wst["buf"])) + _nbytes(
+                [wout.ts, wout.kind, wout.valid, *wout.cols, *wout.nulls])
+            a_bound, a_by = bound_of(a_bytes, 0)
+            print(f"window_step (kernel A, externalTime), {which}: "
+                  f"{a_ms:.5f} ms a {SEND}-row step (output {Bo} rows, "
+                  f"window {wst['buf']['seq'].shape[0]} rows); plain "
+                  f"version {a_plain:.3f} ms; torch.sort(stable=True) of the "
+                  f"emission keys {lib_ms:.5f} ms; bound {a_bound:.5f} ms "
+                  f"({a_bytes} bytes); {card}", flush=True)
+            res.update(a_ms=a_ms, a_plain_ms=a_plain, a_bound_ms=a_bound,
+                       a_library_ms=lib_ms)
+    _kernels.LAUNCHES.update(launches)   # timing launches: not the path's
+    rt.shutdown()
+    del outs
+    gc.collect()
+    print(json.dumps({which: res}), flush=True)
+    return res
+
+
+def bits_np(a):
+    """A float array as its bits (NaN payloads and -0.0 compare exactly);
+    other arrays as they are."""
+    if a.dtype.kind == "f":
+        return a.view(np.int64 if a.itemsize == 8 else np.int32)
+    return a
+
+
+def seq2_phase(dev, card: str, m: int = 65536, n_chunks: int = 4) -> dict:
+    """bench.py's seq2 (`bench_seq2`, its app and feed verbatim) end to
+    end on the card at the bench's own sizes: 4 chunks of 65,536 orders
+    and 65,536 payments (524,288 events), through SiddhiManager,
+    send_arrays and batch_callbacks, checked against the independent
+    numpy oracle of checks.py (at these sizes the one start, without
+    `every`, expires before the first payment: no row), overflow 0; the
+    same at 1,024-row chunks, where the oracle's one row must come; the
+    launch counters must show K1 on every send and K3; then events/s and
+    per-send latency at 65,536 and 1,024 rows. -> the path's numbers."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    mgr = SiddhiManager(device="cuda")
+
+    def run(text, chunks, qn="q"):
+        rt = mgr.create_siddhi_app_runtime(text)
+        if rt.device.type != "cuda":
+            fail(f"the seq2 runtime is on {rt.device}, not the card")
+        q = rt.queries[qn]
+        outs = []
+        q.batch_callbacks.append(outs.append)
+        rt.start()
+        ho, hp = rt.get_input_handler("OrderS"), rt.get_input_handler("PayS")
+        t0 = time.perf_counter()
+        for ts, oid, amt, pts, pid, poid in chunks:
+            ho.send_arrays(ts, [oid, amt])
+            hp.send_arrays(pts, [pid, poid])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows = [(int(o.cols[0][k]), int(o.cols[1][k])) for o in outs
+                for k in torch.nonzero(o.valid).flatten().tolist()]
+        return rt, q, ho, hp, rows, wall
+
+    warm = run(C.SEQ2_APP.replace("'q'", "'w'"), C.seq2_chunks(1, m, 3), "w")
+    warm[0].shutdown()
+    small = C.seq2_chunks(4, 1024)
+    rt, q, _ho, _hp, rows, _w = run(C.SEQ2_APP, small)
+    want = C.seq2_oracle(small)
+    if rows != want or len(want) != 1 or q.stats()["overflow"] != 0:
+        fail(f"seq2 at 1,024-row chunks: rows {rows}, the oracle {want} "
+             f"({q.stats()})")
+    rt.shutdown()
+    chunks = C.seq2_chunks(n_chunks + 8 + 64, m)
+    _kernels.reset_launches()
+    rt, q, ho, hp, rows, wall = run(C.SEQ2_APP, chunks[:n_chunks])
+    launches = dict(_kernels.LAUNCHES)
+    want = C.seq2_oracle(chunks[:n_chunks])
+    stats = q.stats()
+    n_events = 2 * n_chunks * m
+    if launches["unpack_packed"] != 2 * n_chunks or \
+            launches["nfa_parallel"] == 0:
+        fail(f"seq2 path: launches {launches}, expected K1 {2 * n_chunks} "
+             f"(one per send) and K3")
+    if rows != want or stats["overflow"] != 0 or stats["emitted"] != len(want):
+        fail(f"seq2: rows {rows}, the oracle {want}; {stats}")
+    eps = n_events / wall
+    print(f"seq2: {n_events} events in {n_chunks} chunks of {m} orders and "
+          f"{m} payments; rows {rows} equal the numpy oracle's (the one "
+          f"start expires unmatched; at 1,024-row chunks its one row "
+          f"{C.seq2_oracle(small)} came); overflow 0; {eps:.0f} events/s, "
+          f"device batches only ({card})", flush=True)
+    print(f"launches on the seq2 path: {launches}", flush=True)
+    nxt = n_chunks
+
+    def lat(rows_per_send, reps):
+        nonlocal nxt
+        out = []
+        for _ in range(reps):
+            ts, oid, amt, pts, pid, poid = chunks[nxt]
+            nxt += 1
+            for h, a, b in ((ho, ts, [oid, amt]), (hp, pts, [pid, poid])):
+                a, b = a[:rows_per_send], [c[:rows_per_send] for c in b]
+                c0 = time.perf_counter()
+                h.send_arrays(a, b)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - c0) * 1e3)
+        return float(np.percentile(out, 50)), float(np.percentile(out, 99))
+    p50, p99 = lat(m, 8)
+    p50k, p99k = lat(1024, 64)
+    print(f"seq2 latency per send: 65,536 rows p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms; 1,024 rows p50 {p50k:.3f} ms, p99 {p99k:.3f} ms "
+          f"({card})", flush=True)
+    _kernels.LAUNCHES.update(launches)
+    rt.shutdown()
+    res = {"events_per_s_device_batches": eps, "p50_ms_65536": p50,
+           "p99_ms_65536": p99, "p50_ms_1024": p50k, "p99_ms_1024": p99k,
+           "launches": launches, "card": card}
+    print(json.dumps({"seq2": res}), flush=True)
+    return res
+
+
+def kleene_phase(dev, card: str, m: int = 65536, n_chunks: int = 4) -> dict:
+    """bench.py's kleene (`bench_kleene`, its app and feed verbatim: K3's
+    counting states) end to end on the card at the bench's own sizes: 4
+    chunks of 65,536 A and 65,536 B events (524,288 events), through
+    SiddhiManager, send_arrays and batch_callbacks, checked against the
+    independent numpy oracle of checks.py, which models the pattern
+    table's 4,096 rows: the rows and the lost count must be the
+    oracle's (at these sizes most runs find the table full); the same at
+    1,024-row chunks, where nothing is lost; the launch counters must
+    show K1 on every send and K3; then events/s and per-send latency at
+    65,536 and 1,024 rows. -> the path's numbers."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    mgr = SiddhiManager(device="cuda")
+
+    def run(text, chunks, qn="q"):
+        rt = mgr.create_siddhi_app_runtime(text)
+        if rt.device.type != "cuda":
+            fail(f"the kleene runtime is on {rt.device}, not the card")
+        q = rt.queries[qn]
+        outs = []
+        q.batch_callbacks.append(outs.append)
+        rt.start()
+        ha, hb = rt.get_input_handler("A"), rt.get_input_handler("B")
+        t0 = time.perf_counter()
+        for ta, a, tb, b in chunks:
+            ha.send_arrays(ta, [a])
+            hb.send_arrays(tb, [b])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows = [(int(o.ts[k]), int(o.cols[0][k]), int(o.cols[1][k]))
+                for o in outs for k in torch.nonzero(o.valid).flatten().tolist()]
+        return rt, q, ha, hb, rows, wall
+
+    warm = run(C.KLEENE_APP.replace("'q'", "'w'"), C.kleene_chunks(1, m, 3),
+               "w")
+    warm[0].shutdown()
+    small = C.kleene_chunks(4, 1024)
+    rt, q, _ha, _hb, rows, _w = run(C.KLEENE_APP, small)
+    want, lost = C.kleene_oracle(small)
+    if rows != want or lost != 0 or q.stats()["overflow"] != 0:
+        fail(f"kleene at 1,024-row chunks: {len(rows)} rows, the oracle "
+             f"{len(want)} (equal: {rows == want}); {q.stats()}")
+    rt.shutdown()
+    n_small = len(want)
+    chunks = C.kleene_chunks(n_chunks + 8 + 64, m)
+    _kernels.reset_launches()
+    rt, q, ha, hb, rows, wall = run(C.KLEENE_APP, chunks[:n_chunks])
+    launches = dict(_kernels.LAUNCHES)
+    want, lost = C.kleene_oracle(chunks[:n_chunks])
+    stats = q.stats()
+    n_events = 2 * n_chunks * m
+    if launches["unpack_packed"] != 2 * n_chunks or \
+            launches["nfa_parallel"] == 0:
+        fail(f"kleene path: launches {launches}, expected K1 "
+             f"{2 * n_chunks} (one per send) and K3")
+    if rows != want or stats["overflow"] != lost or \
+            stats["emitted"] != len(want):
+        fail(f"kleene: {len(rows)} rows, the oracle {len(want)} (equal: "
+             f"{rows == want}); lost {stats['overflow']}, the oracle {lost}")
+    eps = n_events / wall
+    print(f"kleene: {n_events} events in {n_chunks} chunks of {m} A and {m} "
+          f"B events; {len(rows)} rows and {lost} runs lost to the full "
+          f"4,096-row table equal the numpy oracle's (at 1,024-row chunks "
+          f"{n_small} rows, none lost); {eps:.0f} events/s, device batches "
+          f"only ({card})", flush=True)
+    print(f"launches on the kleene path: {launches}", flush=True)
+    nxt = n_chunks
+
+    def lat(rows_per_send, reps):
+        nonlocal nxt
+        out = []
+        for _ in range(reps):
+            ta, a, tb, b = chunks[nxt]
+            nxt += 1
+            for h, t, v in ((ha, ta, a), (hb, tb, b)):
+                c0 = time.perf_counter()
+                h.send_arrays(t[:rows_per_send], [v[:rows_per_send]])
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - c0) * 1e3)
+        return float(np.percentile(out, 50)), float(np.percentile(out, 99))
+    p50, p99 = lat(m, 8)
+    p50k, p99k = lat(1024, 64)
+    print(f"kleene latency per send: 65,536 rows p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms; 1,024 rows p50 {p50k:.3f} ms, p99 {p99k:.3f} ms "
+          f"({card})", flush=True)
+    _kernels.LAUNCHES.update(launches)
+    rt.shutdown()
+    res = {"events_per_s_device_batches": eps, "p50_ms_65536": p50,
+           "p99_ms_65536": p99, "p50_ms_1024": p50k, "p99_ms_1024": p99k,
+           "rows": len(rows), "lost": lost, "launches": launches,
+           "card": card}
+    print(json.dumps({"kleene": res}), flush=True)
     return res
 
 
@@ -1825,6 +2530,20 @@ def main() -> None:
           f"{torch.__version__}, CUDA {torch.version.cuda}; {card}",
           flush=True)
 
+    if "--k5-time" in sys.argv[1:]:   # K5 alone, for comparing trees
+        _kernels.load()
+        print(json.dumps({"k5_ms": k5_time(dev), "card": card}), flush=True)
+        return
+
+    # the group tables hash dictionary codes, and a table of 1,024 slots
+    # places 512 keys within its 16 probes for most code ranges but not
+    # all: the run interns the symbols of its two grouped 512-key paths
+    # first (window_ext_*'s, then window_time_grouped's), so that their
+    # codes, and the probes, do not depend on the order of the phases
+    from siddhi_tpu_torch.checks import time_symbols
+    for sym in time_symbols(512, "T") + time_symbols(1500, "K"):
+        GLOBAL_STRINGS.encode(sym)
+
     # -- 2. build, then K1 against its plain version -------------------------
     t0 = time.perf_counter()
     _kernels.load(verbose=True)
@@ -2118,7 +2837,50 @@ def main() -> None:
         "plain_ms": stk["k8_plain_ms"], "bound_ms": stk["k8_bound_ms"],
         "bound_by": stk["k8_bound_by"], "library_ms": stk["k8_library_ms"]})
 
-    # -- 17. result -----------------------------------------------------------
+    # -- 17. to 20. kernels A-D: the second-wave windows and stateful
+    # aggregators
+    w2_err = wave2_against_plain(dev)
+    w2 = {w: wave2_phase(dev, card, w) for w in (
+        "window_ext_grouped", "window_ext_bars", "window_sort")}
+    ext, bars, srt = (w2[k] for k in ("window_ext_grouped",
+                                      "window_ext_bars", "window_sort"))
+    table.append({
+        "name": "window_step_wave2", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/window_step.cu",
+        "replaces": "siddhi_tpu/ops/windows2.py:85",
+        "launches": ext["launches"]["window_step"] +
+        bars["launches"]["window_step"],
+        "max_abs_err": w2_err, "ms": ext["a_ms"],
+        "plain_ms": ext["a_plain_ms"], "bound_ms": ext["a_bound_ms"],
+        "bound_by": "bytes", "library_ms": ext["a_library_ms"]})
+    table.append({
+        "name": "sort_window", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/window_seq.cu",
+        "replaces": "siddhi_tpu/ops/windows2.py:443",
+        "launches": srt["launches"]["sort_window"], "max_abs_err": w2_err,
+        "ms": srt["b_ms"], "plain_ms": srt["b_plain_ms"],
+        "bound_ms": srt["b_bound_ms"], "bound_by": srt["b_bound_by"],
+        "library_ms": None})
+    for kname, repl, r in (
+            ("sliding_minmax", "siddhi_tpu/ops/aggregators.py:511", ext),
+            ("distinct_count", "siddhi_tpu/ops/aggregators.py:306", bars)):
+        table.append({
+            "name": kname, "route": "cuda",
+            "source": "siddhi_tpu_torch/csrc/aggregate_step.cu",
+            "replaces": repl, "launches": r["launches"][kname],
+            "max_abs_err": w2_err, "ms": r["x_ms"],
+            "plain_ms": r["x_plain_ms"], "bound_ms": r["x_bound_ms"],
+            "bound_by": r["x_bound_by"], "library_ms": None})
+
+    # -- 21. and 22. bench.py's seq2 and kleene on K3 --------------------------
+    s2 = seq2_phase(dev, card)
+    kl = kleene_phase(dev, card)
+    for row in table:
+        if row["name"] == "nfa_parallel":   # K3: seq5's, seq2's, kleene's
+            row["launches"] += s2["launches"]["nfa_parallel"] + \
+                kl["launches"]["nfa_parallel"]
+
+    # -- 23. result -----------------------------------------------------------
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

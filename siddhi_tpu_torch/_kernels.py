@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 SOURCES = {"unpack_packed": "unpack_packed.cu", "expr_eval": "expr_eval.cu",
            "nfa_parallel": "nfa_parallel.cu", "nfa_scan": "nfa_scan.cu",
-           "window_step": "window_step.cu",
+           "window_step": "window_step.cu", "window_seq": "window_seq.cu",
            "aggregate_step": "aggregate_step.cu",
            "join_cross": "join_cross.cu", "table_step": "table_step.cu"}
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -38,7 +38,8 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # entry points counted apart: the aggregate step's emission; K7's probe
 # and grid; K8's write, condition pass, index probe and seq-ordered view
 ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
-                "window_step", "aggregate_step", "aggregate_emit",
+                "window_step", "sort_window", "aggregate_step",
+                "sliding_minmax", "distinct_count", "aggregate_emit",
                 "join_probe", "join_grid", "table_write", "table_match",
                 "table_probe", "table_buffer")
 LAUNCHES = {name: 0 for name in ENTRY_POINTS}
@@ -252,17 +253,36 @@ class WindowArgs(ctypes.Structure):
                 ("e", WinBuf), ("na", WinBuf), ("ne", WinBuf)] + [
         (f, _P) for f in (
             "next_seq", "overflow", "next_emit", "now", "o_next_seq",
-            "o_overflow", "o_next_emit")] + [
+            "o_overflow", "o_next_emit", "start", "flushed", "sched",
+            "last_ext", "o_start", "o_flushed", "o_sched",
+            "o_last_ext")] + [
         ("out", WinBuf), ("out_kind", _P)] + [
         (f, _P) for f in (
             "b_seq", "rt", "cur_rows", "scal", "keys", "k1", "k2", "i1",
             "i2", "order", "counts", "cand_src", "cand_ts", "cand_kind",
-            "keep", "rank_pos")] + [
+            "keep", "rank_pos", "rank_of", "pflag")] + [
         ("col_size", _I32 * WIN_MAX_COLS)] + [
         (f, _I32) for f in (
-            "n_cols", "kind", "B", "W", "EB", "N", "P", "expired_enabled",
-            "stream_current", "has_start")] + [
-        (f, _I64) for f in ("length", "span_ms", "start_time")]
+            "n_cols", "kind", "B", "W", "EB", "N", "P", "S",
+            "expired_enabled", "stream_current", "has_start", "ts_idx",
+            "start_attr", "has_timeout", "replace_ts")] + [
+        (f, _I64) for f in ("length", "span_ms", "start_time", "timeout_ms",
+                            "hop_ms")]
+
+
+SORT_MAX_KEYS = 8
+
+
+class SortArgs(ctypes.Structure):
+    _fields_ = [("batch", WinBuf), ("batch_kind", _P), ("a", WinBuf),
+                ("na", WinBuf), ("ev", WinBuf)] + [
+        (f, _P) for f in ("next_seq", "now", "o_next_seq")] + [
+        ("out", WinBuf), ("out_kind", _P), ("mask", _P), ("pos", _P),
+        ("col_size", _I32 * WIN_MAX_COLS)] + [
+        (f, _I32) for f in ("n_cols", "B", "W", "L", "expired_enabled",
+                            "n_keys")] + [
+        ("key_col", _I32 * SORT_MAX_KEYS), ("key_desc", _I32 * SORT_MAX_KEYS),
+        ("key_type", _I32 * SORT_MAX_KEYS)]
 
 
 AGG_MAX_KEYS = 8
@@ -297,7 +317,19 @@ class AggArgs(ctypes.Structure):
             "perm", "inv_perm", "seg_sorted", "seg_start", "slot_first",
             "slot_last", "tree", "tree_seg", "res")] + [
         ("level_off", _I64 * AGG_MAX_LEVELS),
-        ("level_n", _I64 * AGG_MAX_LEVELS), ("n_levels", _I32)]
+        ("level_n", _I64 * AGG_MAX_LEVELS), ("n_levels", _I32),
+        ("spec_contrib", _P * AGG_MAX_SPECS)]
+
+
+class StatArgs(ctypes.Structure):
+    _fields_ = [(f, _I32) for f in ("spec", "W", "D")] + [
+        ("arg", _P), ("arg_null", _P), ("arg_type", _I32), ("pad_", _I32)] + [
+        (f, _P) for f in (
+            "ring", "heads", "tails", "new_ring", "new_heads", "new_tails",
+            "tree", "keys", "used", "counts", "new_keys", "new_used",
+            "new_counts", "overflow", "new_overflow", "r0", "r1", "r2", "r3",
+            "i0", "i1", "flags", "claim", "pkeys", "perm2", "seg2", "ksum",
+            "count")]
 
 
 class EmitArgs(ctypes.Structure):
@@ -451,11 +483,21 @@ class _Kernels:
         self.win_lib.siddhi_window_step.argtypes = [
             ctypes.POINTER(WindowArgs), ctypes.c_void_p]
         self.win_lib.siddhi_window_step.restype = ctypes.c_int
+        self.seq_lib = ctypes.CDLL(str(libs["window_seq"]))
+        self.seq_lib.siddhi_sort_window.argtypes = [
+            ctypes.POINTER(SortArgs), ctypes.c_void_p]
+        self.seq_lib.siddhi_sort_window.restype = ctypes.c_int
         self.agg_lib = ctypes.CDLL(str(libs["aggregate_step"]))
-        for fn, st in (("siddhi_aggregate_step", AggArgs),
-                       ("siddhi_aggregate_emit", EmitArgs)):
-            getattr(self.agg_lib, fn).argtypes = [ctypes.POINTER(st),
-                                                  ctypes.c_void_p]
+        self.agg_lib.siddhi_aggregate_step.argtypes = [
+            ctypes.POINTER(AggArgs), ctypes.c_void_p, ctypes.c_int32]
+        self.agg_lib.siddhi_aggregate_emit.argtypes = [
+            ctypes.POINTER(EmitArgs), ctypes.c_void_p]
+        for fn in ("siddhi_sliding_minmax", "siddhi_distinct_count"):
+            getattr(self.agg_lib, fn).argtypes = [
+                ctypes.POINTER(AggArgs), ctypes.POINTER(StatArgs),
+                ctypes.c_void_p]
+        for fn in ("siddhi_aggregate_step", "siddhi_aggregate_emit",
+                   "siddhi_sliding_minmax", "siddhi_distinct_count"):
             getattr(self.agg_lib, fn).restype = ctypes.c_int
 
         self.join_lib = ctypes.CDLL(str(libs["join_cross"]))
@@ -495,9 +537,24 @@ class _Kernels:
         self._check("window_step", self.win_lib.siddhi_window_step(
             ctypes.byref(args), stream))
 
-    def aggregate_step(self, args: AggArgs, stream: int) -> None:
-        self._check("aggregate_step", self.agg_lib.siddhi_aggregate_step(
+    def sort_window(self, args: SortArgs, stream: int) -> None:
+        self._check("sort_window", self.seq_lib.siddhi_sort_window(
             ctypes.byref(args), stream))
+
+    def aggregate_step(self, args: AggArgs, stream: int,
+                       part: int = 3) -> None:
+        self._check("aggregate_step", self.agg_lib.siddhi_aggregate_step(
+            ctypes.byref(args), stream, part))
+
+    def sliding_minmax(self, args: AggArgs, st: StatArgs,
+                       stream: int) -> None:
+        self._check("sliding_minmax", self.agg_lib.siddhi_sliding_minmax(
+            ctypes.byref(args), ctypes.byref(st), stream))
+
+    def distinct_count(self, args: AggArgs, st: StatArgs,
+                       stream: int) -> None:
+        self._check("distinct_count", self.agg_lib.siddhi_distinct_count(
+            ctypes.byref(args), ctypes.byref(st), stream))
 
     def aggregate_emit(self, args: EmitArgs, stream: int) -> None:
         self._check("aggregate_emit", self.agg_lib.siddhi_aggregate_emit(

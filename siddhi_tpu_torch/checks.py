@@ -1142,3 +1142,488 @@ def special_agg_feed(seed: int, encode):
     seg = np.sort(rng.integers(0, 9, len(x)))
     keys = np.array([encode(f"SPECIAL{i}") for i in range(9)], np.int32)
     return TS0 + np.arange(len(x), dtype=np.int64), [keys[seg], x]
+
+
+# -- the second-wave windows (K5, the sort window) and the
+# stateful aggregators (kernels C and D) -------------------------------------
+
+# trades carrying an exchange timestamp (ets); the three paths of
+# chip_smoke.py read this stream
+TRADES_STREAM = """
+    @app:playback
+    define stream Trades (ets long, symbol string, price float, volume long);
+"""
+# Siddhi's documented externalTime usage: the rolling one-minute high and
+# low of each ticker on the exchange's own clock
+WINDOW_EXT_APP = TRADES_STREAM + """
+    @info(name = 'q') @cap(window.size='65536')
+    from Trades#window.externalTime(ets, 1 min)
+    select symbol, max(price) as hi, min(price) as lo, avg(price) as ap,
+           count() as n
+    group by symbol
+    insert into Out;
+"""
+# one-second bars per ticker and the market's breadth (distinct tickers
+# a bar), both on the exchange's clock
+WINDOW_BARS_APP = TRADES_STREAM + """
+    @info(name = 'bars')
+    from Trades#window.externalTimeBatch(ets, 1 sec)
+    select symbol, max(price) as hi, min(price) as lo, sum(volume) as vol,
+           count() as n
+    group by symbol
+    insert into Bars;
+    @info(name = 'breadth')
+    from Trades#window.externalTimeBatch(ets, 1 sec)
+    select distinctCount(symbol) as syms, count() as n
+    insert into Breadth;
+"""
+# the 1,000 cheapest quotes (ties: the larger volume stays)
+WINDOW_SORT_APP = TRADES_STREAM + """
+    @info(name = 'q')
+    from Trades#window.sort(1000, price, 'asc', volume, 'desc')
+    select symbol, price, volume
+    insert all events into Out;
+"""
+WINDOW_EXT_MS = 60_000
+WINDOW_BAR_MS = 1_000
+WINDOW_SORT_L = 1_000
+
+
+def trades_feed(n: int, encode, n_syms: int = 512, seed: int = 12,
+                prefix: str = "T"):
+    """Trades: arrival timestamps 1 ms apart from TS0; ets non-decreasing
+    from TS0 with gaps drawn from {0, 1, 2} ms (ties occur); symbols
+    uniform over ``n_syms``; price ~ U(0, 200) float32; volume ~
+    U[1, 1000) int64. -> (ts, [ets, symbol codes, price, volume])."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([encode(s) for s in time_symbols(n_syms, prefix)],
+                    np.int32)
+    ts = TS0 + np.arange(n, dtype=np.int64)
+    gaps = rng.integers(0, 3, n).astype(np.int64)
+    gaps[0] = 0
+    ets = TS0 + np.cumsum(gaps)
+    sym = syms[rng.integers(0, n_syms, n)]
+    price = rng.uniform(0, 200, n).astype(np.float32)
+    vol = rng.integers(1, 1000, n, dtype=np.int64)
+    return ts, [ets, sym, price, vol]
+
+
+def window_ext_oracle(ets, sym, price, span_ms: int = WINDOW_EXT_MS):
+    """The grouped externalTime window, independently: event i's window
+    is its symbol's rows j <= i with ets[j] > cummax(ets)[i] - span.
+    -> (symbol, hi, lo, ap, n) per event, in event order."""
+    from collections import deque
+    n = len(ets)
+    rt = np.maximum.accumulate(ets)
+    p = price.astype(np.float64).tolist()
+    e = ets.tolist()
+    s = sym.tolist()
+    hi = np.empty(n, np.float32)
+    lo = np.empty(n, np.float32)
+    ap = np.empty(n, np.float64)
+    cnt = np.empty(n, np.int64)
+    live, mx, mn, tot = {}, {}, {}, {}
+    for i in range(n):
+        k = s[i]
+        if k not in live:
+            live[k], mx[k], mn[k], tot[k] = deque(), deque(), deque(), 0.0
+        q, qx, qn = live[k], mx[k], mn[k]
+        limit = int(rt[i]) - span_ms
+        while q and e[q[0]] <= limit:
+            j = q.popleft()
+            tot[k] -= p[j]
+            if qx and qx[0] == j:
+                qx.popleft()
+            if qn and qn[0] == j:
+                qn.popleft()
+        v = p[i]
+        q.append(i)
+        tot[k] += v
+        while qx and p[qx[-1]] <= v:
+            qx.pop()
+        qx.append(i)
+        while qn and p[qn[-1]] >= v:
+            qn.pop()
+        qn.append(i)
+        hi[i] = p[qx[0]]
+        lo[i] = p[qn[0]]
+        cnt[i] = len(q)
+        ap[i] = tot[k] / len(q)
+    return sym.copy(), hi, lo, ap, cnt
+
+
+def window_bars_oracle(ets, sym, price, vol, bar_ms: int = WINDOW_BAR_MS):
+    """One-second bars on the exchange clock, independently: bar
+    (ets - ets[0]) // bar_ms; every bar but the last is flushed (at the
+    next bar's first event): per symbol in the bar's first-seen order its
+    high, low, volume and count; and the bar's distinct symbols and
+    count. -> ((symbol, hi, lo, vol, n), (syms, n))."""
+    bar = (ets - ets[0]) // bar_ms
+    starts = np.flatnonzero(np.r_[True, bar[1:] != bar[:-1]])
+    ends = np.r_[starts[1:], len(bar)]
+    out = ([], [], [], [], [])
+    breadth = ([], [])
+    for a, b in zip(starts[:-1], ends[:-1]):
+        s, p, v = sym[a:b], price[a:b], vol[a:b]
+        keys, first, inv = np.unique(s, return_index=True,
+                                     return_inverse=True)
+        order = np.argsort(first, kind="stable")
+        hi = np.full(len(keys), -np.inf, np.float32)
+        lo = np.full(len(keys), np.inf, np.float32)
+        np.maximum.at(hi, inv, p)
+        np.minimum.at(lo, inv, p)
+        sv = np.bincount(inv, weights=None, minlength=len(keys))
+        vs = np.zeros(len(keys), np.int64)
+        np.add.at(vs, inv, v)
+        for col, x in zip(out, (keys, hi, lo, vs, sv.astype(np.int64))):
+            col.append(x[order])
+        breadth[0].append(len(keys))
+        breadth[1].append(b - a)
+    return (tuple(np.concatenate(c) for c in out),
+            (np.array(breadth[0], np.int64), np.array(breadth[1], np.int64)))
+
+
+def window_sort_oracle(sym, price, vol, length: int = WINDOW_SORT_L):
+    """The sort window, independently: a heap of the kept events; once an
+    arrival makes length + 1, the largest (price, -volume, arrival) is
+    evicted. -> the output rows in order: (is_expired, symbol, price,
+    volume) columns."""
+    import heapq
+    heap = []
+    out_e, out_i = [], []
+    p = price.astype(np.float64).tolist()
+    v = vol.tolist()
+    for i in range(len(p)):
+        heapq.heappush(heap, (-p[i], v[i], -i))
+        out_e.append(False)
+        out_i.append(i)
+        if len(heap) > length:
+            j = -heapq.heappop(heap)[2]
+            out_e.append(True)
+            out_i.append(j)
+    idx = np.array(out_i, np.int64)
+    return np.array(out_e), sym[idx], price[idx], vol[idx]
+
+
+# the comparison apps of kernels A-D on the card and in the parity tests:
+# every new kind with its parameters, sort on each key type and order,
+# min/max over the sliding windows on int/long/float/double with special
+# values, distinctCount with resets and past its pair table, the ring
+# overflow
+_W2_STREAM = """
+    @app:playback
+    define stream S (sym string, price float, volume long, flag bool,
+                     ets long, qty int, score double);
+"""
+W2_START = TS0 + 3
+WINDOW2_APPS = {
+    "externalTime, grouped": _W2_STREAM + """
+        @info(name = 'q') @cap(window.size='256')
+        from S#window.externalTime(ets, 40 milliseconds)
+        select sym, max(price) as hp, min(price) as lp, max(qty) as hq,
+               min(volume) as lv, max(score) as hs, min(score) as ls,
+               avg(price) as ap, distinctCount(qty) as dq
+        group by sym
+        insert all events into Out;
+    """,
+    "timeLength": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.timeLength(30 milliseconds, 20)
+        select sym, min(score) as ls, max(qty) as hq, count() as n
+        insert all events into Out;
+    """,
+    "delay": _W2_STREAM + """
+        @info(name = 'q') @cap(window.size='256')
+        from S#window.delay(10 milliseconds)
+        select sym, price, volume, ets
+        insert into Out;
+    """,
+    "batch()": _W2_STREAM + """
+        @info(name = 'q') @cap(window.size='256')
+        from S#window.batch()
+        select sym, sum(volume) as sv, distinctCount(qty) as d,
+               count() as n
+        group by sym
+        insert all events into Out;
+    """,
+    "batch(7)": _W2_STREAM + """
+        @info(name = 'q') @cap(window.size='256')
+        from S#window.batch(7)
+        select max(price) as hp, min(qty) as lq, distinctCount(sym) as d,
+               count() as n
+        insert all events into Out;
+    """,
+    "externalTimeBatch, start constant": _W2_STREAM + f"""
+        @info(name = 'q') @cap(window.size='256')
+        from S#window.externalTimeBatch(ets, 20 milliseconds, {W2_START})
+        select sym, max(price) as hp, min(score) as ls, sum(volume) as sv,
+               count() as n
+        group by sym
+        insert all events into Out;
+    """,
+    "externalTimeBatch, start attribute": _W2_STREAM + """
+        @info(name = 'q') @cap(window.size='256')
+        from S#window.externalTimeBatch(ets, 20 milliseconds, volume)
+        select sym, ets, volume
+        insert all events into Out;
+    """,
+    "externalTimeBatch, timeout": _W2_STREAM + f"""
+        @info(name = 'q') @cap(window.size='256')
+        from S#window.externalTimeBatch(ets, 20 milliseconds, {W2_START},
+                                        15 milliseconds)
+        select sym, count() as n, distinctCount(sym) as d
+        insert all events into Out;
+    """,
+    "externalTimeBatch, replace batch time": _W2_STREAM + f"""
+        @info(name = 'q') @cap(window.size='256')
+        from S#window.externalTimeBatch(ets, 20 milliseconds, {W2_START},
+                                        15 milliseconds, true)
+        select sym, ets, price
+        insert all events into Out;
+    """,
+    "hopping": _W2_STREAM + """
+        @info(name = 'q') @cap(window.size='256')
+        from S#window.hopping(30 milliseconds, 10 milliseconds)
+        select sym, count() as n, max(price) as hp
+        insert all events into Out;
+    """,
+    "hoping": _W2_STREAM + """
+        @info(name = 'q') @cap(window.size='256')
+        from S#window.hoping(25 milliseconds, 15 milliseconds)
+        select sym, price, ets
+        insert all events into Out;
+    """,
+    "sort int desc, long asc": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.sort(5, qty, 'desc', volume)
+        select sym, qty, volume
+        insert all events into Out;
+    """,
+    "sort double asc, float desc": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.sort(7, score, 'asc', price, 'desc')
+        select sym, score, price, sum(volume) as sv
+        insert all events into Out;
+    """,
+    "sort long desc, int asc": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.sort(6, volume, 'desc', qty, 'asc')
+        select sym, volume, qty
+        insert all events into Out;
+    """,
+    "sort float asc, double desc": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.sort(4, price, 'asc', score, 'desc')
+        select sym, price, score
+        insert all events into Out;
+    """,
+    "min/max over time, ungrouped": _W2_STREAM + """
+        @info(name = 'q') @cap(window.size='256')
+        from S#window.time(30 milliseconds)
+        select max(score) as hs, min(score) as ls, max(qty) as hq,
+               min(qty) as lq, max(volume) as hv, min(price) as lp
+        insert all events into Out;
+    """,
+    "min/max over length, grouped": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.length(40)
+        select sym, max(score) as hs, min(qty) as lq, max(volume) as hv,
+               distinctCount(score) as ds
+        group by sym
+        insert all events into Out;
+    """,
+    "distinctCount over lengthBatch": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.lengthBatch(9)
+        select sym, distinctCount(qty) as dq, distinctCount(sym) as ds
+        group by sym
+        insert all events into Out;
+    """,
+}
+# a key with more live rows than its ring (W = 256): the extreme drops
+# the oldest and counts them
+RING_OVERFLOW_APP = _W2_STREAM + """
+    @info(name = 'q')
+    from S#window.length(1200)
+    select sym, max(price) as hp, min(score) as ls
+    group by sym
+    insert into Out;
+"""
+# more (group, value) pairs over the app's life than the pair table's
+# D = 4,096 slots: the rest are counted
+PAIRS_OVERFLOW_APP = _W2_STREAM + """
+    @info(name = 'q')
+    from S#window.length(3000)
+    select sym, distinctCount(volume) as d
+    group by sym
+    insert into Out;
+"""
+# a join side on an externalTime window
+EXT_JOIN_APP = """
+    @app:playback
+    define stream L (k string, ets long, a int);
+    define stream R (k string, ets long, b double);
+    @info(name = 'q')
+    from L#window.externalTime(ets, 30 milliseconds) join
+         R#window.length(8) on L.k == R.k
+    select L.k as lk, a, b, L.ets as le
+    insert all events into Out;
+"""
+
+_I32_EXT = (np.iinfo(np.int32).min, np.iinfo(np.int32).max)
+_I64_EXT = (np.iinfo(np.int64).min, np.iinfo(np.int64).max)
+
+
+def window2_feed(n: int, encode, seed: int, n_syms: int = 16,
+                 gap_ms: int = 3, prefix: str = "K", specials: bool = True,
+                 quiet_every: int = 0, n_vols: int = 1000):
+    """Events for WINDOW2_APPS: checks.window_feed's columns (symbols,
+    timestamps rising by U[0, gap_ms] ms, price, volume, flag), ets =
+    the timestamp, qty ~ U[-20, 20] int32, score ~ N(0, 100) float64;
+    with ``specials``, qty takes the int32 extremes, volume the int64
+    extremes, score NaN, -NaN, +-0.0 and +-inf, price NaN and +-0.0, a
+    few rows each; ``quiet_every`` > 0 adds a 60 ms gap every that many
+    rows (timers fire in it). -> (ts, [sym, price, volume, flag, ets,
+    qty, score])."""
+    ts, (sym, price, vol, flag) = window_feed(n, encode, seed, n_syms,
+                                              gap_ms, prefix)
+    rng = np.random.default_rng(seed + 1000)
+    if quiet_every:
+        ts = ts + 60 * (np.arange(n) // quiet_every)
+    vol = rng.integers(1, n_vols + 1, n, dtype=np.int64)
+    qty = rng.integers(-20, 21, n).astype(np.int32)
+    score = rng.standard_normal(n) * 100
+    if specials:
+        def put(col, vals):
+            idx = rng.choice(n, size=len(vals) * 3, replace=False)
+            col[idx] = np.repeat(np.asarray(vals, col.dtype), 3)
+        put(qty, _I32_EXT)
+        put(vol, _I64_EXT)
+        put(score, [np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf])
+        put(price, [np.nan, 0.0, -0.0])
+    return ts, [sym, price, vol, flag, ts.copy(), qty, score]
+
+
+# bench.py's seq2 app (bench_seq2), verbatim: an order, then its payment
+# within 5 s, without `every`
+SEQ2_APP = """
+        @app:playback
+        define stream OrderS (oid int, amt float);
+        define stream PayS (pid int, oid int);
+        @info(name = 'q')
+        from e1=OrderS[amt > 10.0] -> e2=PayS[oid == e1.oid] within 5 sec
+        select e1.oid as o, e2.pid as p
+        insert into Out;
+"""
+
+
+def seq2_chunks(n_chunks: int, m: int, seed: int = 10):
+    """bench_seq2's feed: chunk i is m orders (oid ~ U[0, 1000), amt ~
+    U(0, 100) float32) at TS0 + i * m + k, then m payments (pid k, the
+    k-th order's oid) m ms later. -> [(order ts, oid, amt, pay ts, pid,
+    pay oid)] in send order."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_chunks):
+        ts = TS0 + np.arange(m, dtype=np.int64) + i * m
+        oid = rng.integers(0, 1000, m).astype(np.int32)
+        amt = rng.uniform(0, 100, m).astype(np.float32)
+        out.append((ts, oid, amt, ts + m, np.arange(m, dtype=np.int32),
+                    oid.copy()))
+    return out
+
+
+def seq2_oracle(chunks, within_ms: int = 5000):
+    """seq2 independently: without `every` the pattern starts once, at
+    the first order with amt > 10; the first payment after it with its
+    oid, within 5 s of it, completes it; once 5 s have passed the start
+    is spent and nothing more matches. -> [(o, p)] (at most one row)."""
+    first = None
+    for ts, oid, amt, pts, pid, poid in chunks:
+        if first is None:
+            k = np.flatnonzero(amt > np.float32(10.0))
+            if len(k):
+                first = (int(ts[k[0]]), int(oid[k[0]]))
+        if first is not None:
+            t0, o = first
+            hit = np.flatnonzero((poid == o) & (pts - t0 <= within_ms))
+            if len(hit):
+                return [(o, int(pid[hit[0]]))]
+            if int(pts[-1]) - t0 > within_ms:
+                return []
+    return []
+
+
+# bench.py's kleene app (bench_kleene), verbatim: every run of A events
+# above 10, then a B above the run's first value, within 10 s
+KLEENE_APP = """
+        @app:playback
+        define stream A (v int);
+        define stream B (v int);
+        @info(name = 'q')
+        from every e1=A[v > 10]+, e2=B[v > e1.v] within 10 sec
+        select count(e1.v) as n, e2.v as bv
+        insert into Out;
+"""
+
+
+def kleene_chunks(n_chunks: int, m: int, seed: int = 11):
+    """bench_kleene's feed: chunk i is m A events (v ~ U[0, 100)) at TS0
+    + i * m + k, then m B events (v ~ U[0, 100)) m ms later. -> [(A ts,
+    A v, B ts, B v)] in send order."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_chunks):
+        ts = TS0 + np.arange(m, dtype=np.int64) + i * m
+        a = rng.integers(0, 100, m).astype(np.int32)
+        b = rng.integers(0, 100, m).astype(np.int32)
+        out.append((ts, a, ts + m, b))
+    return out
+
+
+def kleene_oracle(chunks, rows: int = 4096, sub: int = 4096,
+                  within_ms: int = 10_000):
+    """kleene independently, with the pattern table's bounds. Every A
+    above 10 starts a run; an unindexed `e1.v` is the run's first value
+    (e1[0]). A run ends at the first B above its first value within 10 s
+    of its first A, as one row: the B's timestamp, the running count of
+    rows so far (`count(e1.v)`, no window), the B's value. The runs live
+    in a table of `rows` rows, and the events are taken `sub` at a time
+    (the round-parallel engine's sub-batch): after each sub-batch a run
+    whose first A lies more than 10 s from the sub-batch's first or last
+    event is dropped, and the runs started in it take the free rows in
+    arrival order, the rest counted as lost. -> ([(ts, n, bv)], lost)."""
+    ts0 = np.zeros(0, np.int64)
+    first = np.zeros(0, np.int64)
+    out, lost = [], 0
+
+    def live(t, keep_ts0):
+        lo, hi = int(t.min()), int(t.max())
+        return np.maximum(np.abs(hi - keep_ts0), np.abs(lo - keep_ts0)) \
+            <= within_ms
+
+    for ta, a, tb, b in chunks:
+        step = min(sub, len(ta))
+        for o in range(0, len(ta), step):
+            t, v = ta[o:o + step], a[o:o + step].astype(np.int64)
+            keep = live(t, ts0)
+            ts0, first = ts0[keep], first[keep]
+            new = v > 10
+            s_ts, s_v = t[new], v[new]
+            keep = live(t, s_ts)
+            s_ts, s_v = s_ts[keep], s_v[keep]
+            free = rows - len(ts0)
+            lost += max(0, len(s_ts) - free)
+            ts0 = np.concatenate([ts0, s_ts[:free]])
+            first = np.concatenate([first, s_v[:free]])
+        step = min(sub, len(tb))
+        for o in range(0, len(tb), step):
+            t, v = tb[o:o + step], b[o:o + step].astype(np.int64)
+            ok = (v[None, :] > first[:, None]) & \
+                (np.abs(t[None, :] - ts0[:, None]) <= within_ms)
+            hit = ok.any(axis=1)
+            for j in np.sort(ok.argmax(axis=1)[hit]):
+                out.append((int(t[j]), len(out) + 1, int(v[j])))
+            keep = ~hit & live(t, ts0)
+            ts0, first = ts0[keep], first[keep]
+    return out, lost

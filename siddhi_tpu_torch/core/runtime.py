@@ -71,6 +71,10 @@ from ..ops.join import (JoinCombinedScope, JoinCross, JoinSideScope,
                         combined_schema)
 from ..ops.table import (TableFilterOp, TableOutputOp, TableRuntime,
                          expr_mentions_table)
+from ..ops.windows2 import (BatchWindowOp, DelayWindowOp,
+                            ExternalTimeBatchWindowOp, ExternalTimeWindowOp,
+                            HoppingWindowOp, SortWindowOp,
+                            TimeLengthWindowOp)
 from ..ops.windows import (EmptyWindowOp, LengthBatchWindowOp,
                            LengthWindowOp, TimeBatchWindowOp, TimeWindowOp,
                            WindowOp)
@@ -94,11 +98,17 @@ WINDOW_CLASSES = {
     "length": LengthWindowOp,
     "lengthbatch": LengthBatchWindowOp,
     "timebatch": TimeBatchWindowOp,
+    "externaltime": ExternalTimeWindowOp,
+    "timelength": TimeLengthWindowOp,
+    "delay": DelayWindowOp,
+    "batch": BatchWindowOp,
+    "sort": SortWindowOp,
+    "externaltimebatch": ExternalTimeBatchWindowOp,
+    "hopping": HoppingWindowOp,
+    "hoping": HoppingWindowOp,   # the reference's spelling
 }
 # the reference's other window kinds (siddhi_tpu/ops/windows2.py)
-UNPORTED_WINDOWS = ("externaltime", "timelength", "delay", "batch", "sort",
-                    "frequent", "lossyfrequent", "externaltimebatch",
-                    "session", "cron", "hopping", "hoping")
+UNPORTED_WINDOWS = ("frequent", "lossyfrequent", "session", "cron")
 
 
 JOIN_KERNEL_ENV = "SIDDHI_TPU_JOIN_KERNEL"
@@ -1336,6 +1346,88 @@ class Planner:
                 raise CompileError(
                     f"window '{name}' {role} must be a constant")
             return p
+
+        def attr_idx(p, role):
+            if not isinstance(p, A.Variable):
+                raise CompileError(
+                    f"window '{name}' {role} must be a stream attribute")
+            try:
+                return schema.index_of(p.attribute)
+            except (KeyError, ValueError):
+                raise CompileError(
+                    f"window '{name}': '{p.attribute}' is not an "
+                    "attribute of the input stream")
+
+        def long_attr(p):
+            ti = attr_idx(p, "timestamp parameter")
+            if schema.attributes[ti].type is not AttrType.LONG:
+                raise CompileError(
+                    f"window '{name}' timestamp attribute must be LONG")
+            return ti
+        if key in ("hopping", "hoping"):
+            _expect(params, 2, name)
+            return HoppingWindowOp(schema, _ms(params[0], name),
+                                   _ms(params[1], name), cap=time_cap,
+                                   expired_enabled=expired_enabled)
+        if key == "externaltimebatch":
+            if len(params) not in (2, 3, 4, 5):
+                raise CompileError(f"{name} takes 2-5 parameters")
+            ti = long_attr(params[0])
+            start = start_attr = None
+            if len(params) >= 3:
+                if isinstance(params[2], A.Variable):
+                    start_attr = attr_idx(params[2], "start time")
+                else:
+                    start = int(const_of(params[2], "start time"))
+            timeout = _ms(params[3], name) if len(params) >= 4 else None
+            replace = bool(const_of(params[4], "replace flag")) \
+                if len(params) == 5 else False
+            return ExternalTimeBatchWindowOp(
+                schema, ti, _ms(params[1], name), start_time=start,
+                cap=time_cap, expired_enabled=expired_enabled,
+                start_attr=start_attr, timeout_ms=timeout, replace_ts=replace)
+        if key == "externaltime":
+            _expect(params, 2, name)
+            return ExternalTimeWindowOp(schema, long_attr(params[0]),
+                                        _ms(params[1], name), cap=time_cap,
+                                        expired_enabled=expired_enabled)
+        if key == "timelength":
+            _expect(params, 2, name)
+            return TimeLengthWindowOp(schema, _ms(params[0], name),
+                                      int(const_of(params[1], "length")),
+                                      expired_enabled=expired_enabled)
+        if key == "delay":
+            _expect(params, 1, name)
+            return DelayWindowOp(schema, _ms(params[0], name), cap=time_cap,
+                                 expired_enabled=expired_enabled)
+        if key == "batch":
+            if len(params) > 1:
+                raise CompileError(f"{name} takes 0-1 parameters")
+            length = int(const_of(params[0], "length")) if params else 0
+            return BatchWindowOp(schema, length, cap=time_cap,
+                                 expired_enabled=expired_enabled)
+        if key == "sort":
+            if not params:
+                raise CompileError(f"{name} needs a length parameter")
+            keys = []
+            i = 1
+            while i < len(params):
+                ki = attr_idx(params[i], "sort attribute")
+                order = 1
+                if i + 1 < len(params) and isinstance(params[i + 1], str):
+                    d = params[i + 1].lower()
+                    if d not in ("asc", "desc"):
+                        raise CompileError(
+                            f"{name}: order must be 'asc' or 'desc'")
+                    order = 1 if d == "asc" else -1
+                    i += 1
+                keys.append((ki, order))
+                i += 1
+            if not keys:
+                raise CompileError(f"{name} needs at least one sort "
+                                   "attribute")
+            return SortWindowOp(schema, int(const_of(params[0], "length")),
+                                keys, expired_enabled=expired_enabled)
         if key == "time":
             _expect(params, 1, name)
             return TimeWindowOp(schema, _ms(params[0], name), cap=time_cap,

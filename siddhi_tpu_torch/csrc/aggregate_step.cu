@@ -220,6 +220,7 @@ template <typename T> __device__ __forceinline__ T signed_(T x, Row r) {
 template <typename T>
 __device__ T contrib(const AggArgs& a, int l, int64_t i) {
   const int s = a.lane_spec[l], k = l - a.spec_lane0[s];
+  if (a.spec_contrib[s]) return (T)a.spec_contrib[s][i];
   const Row r = row_of(a, i);
   const int kind = a.spec_kind[s];
   const int at = a.arg_type[s];
@@ -284,79 +285,104 @@ __global__ void hash_rows(const AggArgs a) {
   a.hk[i] = h;
 }
 
-// one block: the probe rounds of lookup_or_insert
-__global__ void probe(const AggArgs a) {
-  __shared__ int64_t buf[SS_BLOCK];
-  const int32_t B = a.B, K = a.K;
+// the probe rounds of lookup_or_insert over a table of K slots, by one
+// block: `slot_out` gets each active row's slot, -1 where the probe ran
+// out (and for inactive rows); -> the rows lost, in every thread
+__device__ int64_t probe_table(int32_t B, int32_t K, const int64_t* keys,
+                               const bool* used, int64_t* new_keys,
+                               bool* new_used, const int64_t* hk,
+                               const uint8_t* active, int32_t* slot_out,
+                               int32_t* prb, uint8_t* flags, int32_t* claim,
+                               int64_t* buf) {
   for (int32_t k = threadIdx.x; k < K; k += SS_BLOCK) {
-    a.new_keys[k] = a.keys[k];
-    a.new_used[k] = a.used[k];
+    new_keys[k] = keys[k];
+    new_used[k] = used[k];
   }
   for (int32_t i = threadIdx.x; i < B; i += SS_BLOCK) {
-    const Row r = row_of(a, i);
-    const bool active = r.add || r.rem;
-    if (!a.grouped) {
-      a.slots[i] = active ? 0 : K;
-      continue;
-    }
-    const int64_t key = a.hk[i];
+    const int64_t key = hk[i];
     const int64_t ab = key == INT64_MIN ? key : (key < 0 ? -key : key);
     int64_t s = ab % K;
     if (s < 0) s += K;
-    a.probe[i] = (int32_t)s;
-    a.flags[i] = active ? 0 : 1;    // bit 0: placed
-    a.slots[i] = -1;
+    prb[i] = (int32_t)s;
+    flags[i] = active[i] ? 0 : 1;    // bit 0: placed
+    slot_out[i] = -1;
   }
   __syncthreads();
-  if (!a.grouped) {
-    if (threadIdx.x == 0) *a.new_overflow = *a.overflow;
-    return;
-  }
   for (int round = 0; round < 16; ++round) {
     int64_t pend = 0, total;
     for (int32_t i = threadIdx.x; i < B; i += SS_BLOCK)
-      pend += !(a.flags[i] & 1);
+      pend += !(flags[i] & 1);
     ss::block_scan_sum(pend, buf, &total);
     if (total == 0) break;
-    for (int32_t k = threadIdx.x; k < K; k += SS_BLOCK) a.claim[k] = B;
+    for (int32_t k = threadIdx.x; k < K; k += SS_BLOCK) claim[k] = B;
     __syncthreads();
     for (int32_t i = threadIdx.x; i < B; i += SS_BLOCK) {
-      if (a.flags[i] & 1) continue;
-      const bool want = !a.new_used[a.probe[i]];
-      a.flags[i] = want ? 2 : 0;
-      if (want) atomicMin(&a.claim[a.probe[i]], i);
+      if (flags[i] & 1) continue;
+      const bool want = !new_used[prb[i]];
+      flags[i] = want ? 2 : 0;
+      if (want) atomicMin(&claim[prb[i]], i);
     }
     __syncthreads();
     for (int32_t i = threadIdx.x; i < B; i += SS_BLOCK) {
-      const int32_t s = a.probe[i];
-      if ((a.flags[i] & 2) && a.claim[s] == i) {
-        a.new_keys[s] = a.hk[i];
-        a.new_used[s] = true;
+      const int32_t s = prb[i];
+      if ((flags[i] & 2) && claim[s] == i) {
+        new_keys[s] = hk[i];
+        new_used[s] = true;
       }
     }
     __syncthreads();
     for (int32_t i = threadIdx.x; i < B; i += SS_BLOCK) {
-      if (a.flags[i] & 1) continue;
-      const int32_t s = a.probe[i];
-      if (a.new_used[s] && a.new_keys[s] == a.hk[i]) {
-        a.slots[i] = s;
-        a.flags[i] = 1;
+      if (flags[i] & 1) continue;
+      const int32_t s = prb[i];
+      if (new_used[s] && new_keys[s] == hk[i]) {
+        slot_out[i] = s;
+        flags[i] = 1;
       } else {
-        a.flags[i] = 0;
-        a.probe[i] = s + 1 == K ? 0 : s + 1;
+        flags[i] = 0;
+        prb[i] = s + 1 == K ? 0 : s + 1;
       }
     }
     __syncthreads();
   }
   int64_t lost = 0, total;
+  for (int32_t i = threadIdx.x; i < B; i += SS_BLOCK)
+    lost += active[i] && slot_out[i] < 0;
+  ss::block_scan_sum(lost, buf, &total);
+  return total;
+}
+
+// one block: the group table's probe (lookup_or_insert)
+__global__ void probe(const AggArgs a) {
+  __shared__ int64_t buf[SS_BLOCK];
+  const int32_t B = a.B, K = a.K;
+  if (!a.grouped) {
+    for (int32_t i = threadIdx.x; i < B; i += SS_BLOCK) {
+      const Row r = row_of(a, i);
+      a.slots[i] = (r.add || r.rem) ? 0 : K;
+    }
+    for (int32_t k = threadIdx.x; k < K; k += SS_BLOCK) {
+      a.new_keys[k] = a.keys[k];
+      a.new_used[k] = a.used[k];
+    }
+    if (threadIdx.x == 0) *a.new_overflow = *a.overflow;
+    return;
+  }
+  // the rows' activity, one byte a row in the sort keys' scratch (the
+  // segments launch writes the keys after the probe)
+  uint8_t* active = (uint8_t*)a.skeys;
   for (int32_t i = threadIdx.x; i < B; i += SS_BLOCK) {
     const Row r = row_of(a, i);
-    const bool active = r.add || r.rem;
-    if (active && a.slots[i] < 0) ++lost;
-    if (!active || a.slots[i] < 0) a.slots[i] = K;
+    active[i] = r.add || r.rem;
   }
-  ss::block_scan_sum(lost, buf, &total);
-  if (threadIdx.x == 0) *a.new_overflow = *a.overflow + total;
+  __syncthreads();
+  const int64_t lost = probe_table(B, K, a.keys, a.used, a.new_keys,
+                                   a.new_used, a.hk, active, a.slots,
+                                   a.probe, a.flags, a.claim, buf);
+  for (int32_t i = threadIdx.x; i < B; i += SS_BLOCK) {
+    const Row r = row_of(a, i);
+    if (!(r.add || r.rem) || a.slots[i] < 0) a.slots[i] = K;
+  }
+  if (threadIdx.x == 0) *a.new_overflow = *a.overflow + lost;
 }
 
 // one block: reset segments, and the slots as sort keys
@@ -575,6 +601,7 @@ __global__ void values(const AggArgs a) {
     bool* nul = a.out_nulls[s];
     switch (a.spec_kind[s]) {
       case AGG_COUNT:
+      case AGG_DISTINCT:
         ((int64_t*)out)[i] = run_at<int64_t>(a, l, i);
         nul[i] = false;
         break;
@@ -769,27 +796,368 @@ __global__ void emit_gather(const EmitArgs a) {
 }  // namespace
 
 extern "C" cudaError_t siddhi_aggregate_step(const AggArgs* p,
-                                             cudaStream_t stream) {
+                                             cudaStream_t stream,
+                                             int32_t part) {
   const AggArgs& a = *p;
-  if (a.grouped) hash_rows<<<grid(a.B), T1, 0, stream>>>(a);
-  probe<<<1, SS_BLOCK, 0, stream>>>(a);
-  segments<<<1, SS_BLOCK, 0, stream>>>(a);
-  cudaError_t err = ss::stable_sort(a.skeys, a.B, ss::key_bits(a.K), a.perm,
-                                    a.k1, a.k2, a.i1, a.i2, a.counts,
-                                    stream);
-  if (err != cudaSuccess) return err;
-  sorted_meta<<<grid(a.B), T1, 0, stream>>>(a);
-  seg_starts<<<1, SS_BLOCK, 0, stream>>>(a);
-  for (int l = 0; l < a.n_lanes; ++l) {
-    switch (a.lane_type[l]) {
-      case VT_INT: lane<int32_t>(a, l, stream); break;
-      case VT_LONG: lane<int64_t>(a, l, stream); break;
-      case VT_FLOAT: lane<float>(a, l, stream); break;
-      default: lane<double>(a, l, stream);
-    }
+  if (part & 1) {
+    if (a.grouped) hash_rows<<<grid(a.B), T1, 0, stream>>>(a);
+    probe<<<1, SS_BLOCK, 0, stream>>>(a);
+    segments<<<1, SS_BLOCK, 0, stream>>>(a);
+    cudaError_t err = ss::stable_sort(a.skeys, a.B, ss::key_bits(a.K),
+                                      a.perm, a.k1, a.k2, a.i1, a.i2,
+                                      a.counts, stream);
+    if (err != cudaSuccess) return err;
+    sorted_meta<<<grid(a.B), T1, 0, stream>>>(a);
+    seg_starts<<<1, SS_BLOCK, 0, stream>>>(a);
   }
-  values<<<grid(a.B), T1, 0, stream>>>(a);
+  if (part & 2) {
+    for (int l = 0; l < a.n_lanes; ++l) {
+      const int k = a.spec_kind[a.lane_spec[l]];
+      if (k == AGG_SLIDING || k == AGG_DISTINCT) continue;   // C, D
+      switch (a.lane_type[l]) {
+        case VT_INT: lane<int32_t>(a, l, stream); break;
+        case VT_LONG: lane<int64_t>(a, l, stream); break;
+        case VT_FLOAT: lane<float>(a, l, stream); break;
+        default: lane<double>(a, l, stream);
+      }
+    }
+    values<<<grid(a.B), T1, 0, stream>>>(a);
+  }
   return cudaGetLastError();
+}
+
+namespace {
+
+// ---------------------------------------------------- kernel C: min/max
+//
+// Replaces the reference's SlidingMinMaxAgg.run (siddhi_tpu/ops/
+// aggregators.py:511). A key's live values are a contiguous sequence
+// range [head, tail) of its ring (FIFO expiry); each row's extreme is a
+// bottom-up range query over an implicit segment tree of its key's ring
+// (index 1 the root, the ring at [W, 2W)), over the two non-wrapping
+// leaf ranges of its live range. The tree is indexed in place: no row
+// gathers its key's whole tree. Bound: the rings and trees (K * 3W
+// values) and a query of 2 log2(W) + 2 reads a row.
+
+__device__ __forceinline__ int64_t fmod_pos(int64_t x, int64_t m) {
+  int64_t r = x % m;
+  return r < 0 ? r + m : r;
+}
+
+// the inclusive prefix, in slot order, of the rows' adds (r0) and
+// removes (r1), one block
+__global__ void mm_prefix(const AggArgs a, const StatArgs st) {
+  __shared__ int64_t buf[SS_BLOCK];
+  int64_t lo, hi, na = 0, nr = 0;
+  ss::span(a.B, &lo, &hi);
+  auto add_rem = [&](int64_t j, int64_t* ad, int64_t* rm) {
+    const int32_t i = a.perm[j];
+    const Row r = row_of(a, i);
+    const bool live = a.slots[i] < a.K && !st.arg_null[i];
+    *ad = r.add && live;
+    *rm = r.rem && live;
+  };
+  for (int64_t j = lo; j < hi; ++j) {
+    int64_t x, y;
+    add_rem(j, &x, &y);
+    na += x;
+    nr += y;
+  }
+  int64_t ra = ss::block_scan_sum(na, buf, nullptr) - na;
+  int64_t rr = ss::block_scan_sum(nr, buf, nullptr) - nr;
+  for (int64_t j = lo; j < hi; ++j) {
+    int64_t x, y;
+    add_rem(j, &x, &y);
+    ra += x;
+    rr += y;
+    st.r0[j] = ra;
+    st.r1[j] = rr;
+  }
+  if (threadIdx.x == 0) *st.count = 0;
+}
+
+// a row's rank among its slot's rows (inclusive), from a prefix
+__device__ __forceinline__ int64_t seg_rank(const AggArgs& a,
+                                            const int64_t* pref, int32_t s,
+                                            int64_t j) {
+  const int32_t f = a.slot_first[s];
+  return pref[j] - (f > 0 ? pref[f - 1] : 0);
+}
+
+// per key: its adds and removes in the batch; the ring copied
+template <typename T>
+__global__ void mm_keys(const AggArgs a, const StatArgs st) {
+  const int64_t x = (int64_t)blockIdx.x * T1 + threadIdx.x;
+  if (x < (int64_t)a.K * st.W)
+    ((T*)st.new_ring)[x] = ((const T*)st.ring)[x];
+  if (x >= a.K) return;
+  const int32_t f = a.slot_first[x], l = a.slot_last[x];
+  int64_t na = 0, nr = 0;
+  if (f >= 0) {
+    na = st.r0[l] - (f > 0 ? st.r0[f - 1] : 0);
+    nr = st.r1[l] - (f > 0 ? st.r1[f - 1] : 0);
+  }
+  st.ksum[x] = na;
+  st.ksum[a.K + x] = nr;
+}
+
+struct MmRow {
+  int32_t s;                 // the key's slot, clipped
+  bool add;
+  int64_t tail_row, head_eff, end_tail;
+};
+
+__device__ __forceinline__ MmRow mm_row(const AggArgs& a, const StatArgs& st,
+                                        int32_t i) {
+  const int32_t us = a.slots[i];
+  MmRow m;
+  m.s = us > a.K - 1 ? a.K - 1 : us;
+  const Row r = row_of(a, i);
+  m.add = r.add && us < a.K && !st.arg_null[i];
+  const int64_t j = a.inv_perm[i];
+  const int64_t add_rank = seg_rank(a, st.r0, us, j);
+  const int64_t rem_rank = seg_rank(a, st.r1, us, j);
+  const int64_t* heads0 = a.scal[0] > 0 ? st.tails : st.heads;
+  m.tail_row = st.tails[m.s] + add_rank;
+  const int64_t head_row = heads0[m.s] + rem_rank;
+  const int64_t over = m.tail_row - head_row - st.W;
+  m.head_eff = head_row + (over > 0 ? over : 0);
+  m.end_tail = st.tails[m.s] + st.ksum[m.s];
+  return m;
+}
+
+// the batch's added values into the rings: of two adds of a key W apart
+// the later one stays, as the reference's in-order scatter leaves it
+template <typename T>
+__global__ void mm_scatter(const AggArgs a, const StatArgs st) {
+  const int32_t i = blockIdx.x * T1 + threadIdx.x;
+  if (i >= a.B) return;
+  const MmRow m = mm_row(a, st, i);
+  if (!m.add || m.tail_row <= m.end_tail - st.W) return;
+  ((T*)st.new_ring)[(int64_t)m.s * st.W + fmod_pos(m.tail_row - 1, st.W)] =
+      ((const T*)st.arg)[i];
+}
+
+// one block a key: the tree, level by level (cur[0::2] with cur[1::2])
+template <typename T>
+__global__ void mm_tree(const AggArgs a, const StatArgs st, int op) {
+  const int64_t W = st.W;
+  T* tree = (T*)st.tree + (int64_t)blockIdx.x * 2 * W;
+  const T* ring = (const T*)st.new_ring + (int64_t)blockIdx.x * W;
+  for (int64_t w = threadIdx.x; w < W; w += blockDim.x) tree[W + w] = ring[w];
+  if (threadIdx.x == 0) tree[0] = identity<T>(op);
+  __syncthreads();
+  for (int64_t n = W / 2; n >= 1; n /= 2) {
+    for (int64_t q = threadIdx.x; q < n; q += blockDim.x)
+      tree[n + q] = combine<T>(op, tree[2 * (n + q)], tree[2 * (n + q) + 1]);
+    __syncthreads();
+  }
+}
+
+// the bottom-up range query over leaves [a0, b0) of one key's tree
+template <typename T>
+__device__ __forceinline__ T rmq(const T* tree, int op, int64_t W,
+                                 int levels, int64_t a0, int64_t b0) {
+  T res = identity<T>(op);
+  int64_t li = a0 + W, ri = b0 + W;
+  for (int k = 0; k <= levels; ++k) {
+    if (li < ri && (li & 1)) {
+      res = combine<T>(op, res, tree[li]);
+      ++li;
+    }
+    if (li < ri && (ri & 1)) {
+      res = combine<T>(op, res, tree[ri - 1]);
+      --ri;
+    }
+    li >>= 1;
+    ri >>= 1;
+  }
+  return res;
+}
+
+template <typename T>
+__global__ void mm_query(const AggArgs a, const StatArgs st, int l0, int op,
+                         int levels) {
+  const int32_t i = blockIdx.x * T1 + threadIdx.x;
+  if (i >= a.B) return;
+  const MmRow m = mm_row(a, st, i);
+  const int64_t W = st.W;
+  const T* tree = (const T*)st.tree + (int64_t)m.s * 2 * W;
+  const int64_t d = m.tail_row - m.head_eff;
+  const int64_t span = d > 0 ? d : 0;
+  const int64_t h = fmod_pos(m.head_eff, W);
+  const int64_t end = h + (span < W ? span : W);
+  const T r1 = rmq<T>(tree, op, W, levels, h, end < W ? end : W);
+  const T r2 = rmq<T>(tree, op, W, levels, 0, end - W > 0 ? end - W : 0);
+  ((T*)a.run[l0])[i] = combine<T>(op, r1, r2);
+  ((int64_t*)a.run[l0 + 1])[i] = span;
+  if (a.slots[i] < a.K && m.end_tail - m.head_eff > W)
+    atomicAdd(st.count, 1ull);
+}
+
+__global__ void mm_finish(const AggArgs a, const StatArgs st) {
+  const int32_t k = blockIdx.x * T1 + threadIdx.x;
+  if (k == 0) *st.new_overflow = *st.overflow + (int64_t)*st.count;
+  if (k >= a.K) return;
+  const int64_t h0 = a.scal[0] > 0 ? st.tails[k] : st.heads[k];
+  const int64_t nt = st.tails[k] + st.ksum[k];
+  const int64_t nh = h0 + st.ksum[a.K + k];
+  st.new_tails[k] = nt;
+  st.new_heads[k] = nh > nt - st.W ? nh : nt - st.W;
+}
+
+template <typename T>
+cudaError_t sliding(const AggArgs& a, const StatArgs& st,
+                    cudaStream_t stream) {
+  const int l0 = a.spec_lane0[st.spec];
+  const int op = a.lane_op[l0];
+  int levels = 0;
+  while ((1 << (levels + 1)) <= st.W) ++levels;
+  mm_prefix<<<1, SS_BLOCK, 0, stream>>>(a, st);
+  const int64_t kw = (int64_t)a.K * st.W;
+  mm_keys<T><<<grid(kw > a.K ? kw : a.K), T1, 0, stream>>>(a, st);
+  mm_scatter<T><<<grid(a.B), T1, 0, stream>>>(a, st);
+  mm_tree<T><<<a.K, T1, 0, stream>>>(a, st, op);
+  mm_query<T><<<grid(a.B), T1, 0, stream>>>(a, st, l0, op, levels);
+  mm_finish<<<grid(a.K), T1, 0, stream>>>(a, st);
+  return cudaGetLastError();
+}
+
+// -------------------------------------------- kernel D: distinctCount
+//
+// Replaces the reference's DistinctCountAgg.run (siddhi_tpu/ops/
+// aggregators.py:306). Each row's (group slot, value) pair is found or
+// placed in a table of D pairs by K6's own probe rounds; the rows sorted
+// by (pair, reset segment) (a stable radix sort) give each row's running
+// pair count, whose 0<->1 transitions are the lane's contributions; the
+// lane then runs K6's own scan and carry over (group, reset). Pair
+// slots are never freed. Bound: the B-row passes and the sort, a few
+// words a row.
+
+__global__ void dc_hash(const AggArgs a, const StatArgs st) {
+  const int32_t i = blockIdx.x * T1 + threadIdx.x;
+  if (i >= a.B) return;
+  int64_t lane;
+  switch (st.arg_type) {
+    case VT_DOUBLE:
+      lane = __double_as_longlong(((const double*)st.arg)[i]);
+      break;
+    case VT_FLOAT:
+      lane = __float_as_int(((const float*)st.arg)[i]);
+      break;
+    default: lane = int_at(st.arg, st.arg_type, i);
+  }
+  if (st.arg_null[i]) lane = -987654321987654321LL;
+  st.r0[i] = mix64(mix64(1469598103934665603LL, a.slots[i]), lane);
+  st.flags[i] = a.slots[i] < a.K;   // active: an aggregated row
+}
+
+__global__ void dc_probe(const AggArgs a, const StatArgs st) {
+  __shared__ int64_t buf[SS_BLOCK];
+  // the activity bytes move aside: the probe reuses the flags
+  uint8_t* active = (uint8_t*)st.pkeys;
+  for (int32_t i = threadIdx.x; i < a.B; i += SS_BLOCK)
+    active[i] = st.flags[i];
+  __syncthreads();
+  const int64_t lost = probe_table(a.B, st.D, st.keys, st.used, st.new_keys,
+                                   st.new_used, st.r0, active, st.i0, st.i1,
+                                   st.flags, st.claim, buf);
+  if (threadIdx.x == 0) *st.new_overflow = *st.overflow + lost;
+}
+
+// each row's pair segment as a sort key; the new counts' base
+__global__ void dc_keys(const AggArgs a, const StatArgs st) {
+  const int32_t x = blockIdx.x * T1 + threadIdx.x;
+  if (x < st.D)
+    st.new_counts[x] = a.scal[0] == 0 ? st.counts[x] : 0;
+  if (x >= a.B) return;
+  const bool tracked = a.slots[x] < a.K && st.i0[x] >= 0;
+  const int64_t ps = st.i0[x] < 0 ? 0 : st.i0[x];
+  const int64_t seg = (tracked ? ps : st.D) * (a.B + 1) + a.reset_seg[x];
+  st.pkeys[x] = (uint32_t)(seg < 0x7fffffffLL ? seg : 0x7fffffffLL);
+}
+
+__device__ __forceinline__ int64_t dc_sgn(const AggArgs& a,
+                                          const StatArgs& st, int32_t i) {
+  const Row r = row_of(a, i);
+  const bool tracked = a.slots[i] < a.K && st.i0[i] >= 0;
+  return tracked ? (r.add ? 1 : (r.rem ? -1 : 0)) : 0;
+}
+
+// one block: the running pair counts (a segmented prefix over the pair
+// order), each row's transition, the new pair counts
+__global__ void dc_scan(const AggArgs a, const StatArgs st) {
+  __shared__ int64_t buf[SS_BLOCK];
+  int64_t lo, hi, n = 0, m = 0;
+  ss::span(a.B, &lo, &hi);
+  const uint32_t* k = st.pkeys;
+  const int32_t* p2 = st.perm2;
+  for (int64_t j = lo; j < hi; ++j) {
+    n += dc_sgn(a, st, p2[j]);
+    if (j == 0 || k[p2[j]] != k[p2[j - 1]]) m = j;
+  }
+  int64_t run = ss::block_scan_sum(n, buf, nullptr) - n;
+  const int64_t st_incl = ss::block_scan_max(m, buf);
+  buf[threadIdx.x] = st_incl;
+  __syncthreads();
+  int64_t gs = threadIdx.x > 0 ? buf[threadIdx.x - 1] : 0;
+  for (int64_t j = lo; j < hi; ++j) {
+    run += dc_sgn(a, st, p2[j]);
+    st.r1[j] = run;
+    if (j == 0 || k[p2[j]] != k[p2[j - 1]]) gs = j;
+    st.seg2[j] = gs;
+  }
+  __syncthreads();
+  const int64_t nres = a.scal[0];
+  for (int64_t j = lo; j < hi; ++j) {
+    const int32_t i = p2[j];
+    const int64_t g = st.seg2[j];
+    const int64_t rs = st.r1[j] - (g > 0 ? st.r1[g - 1] : 0);
+    const bool tracked = a.slots[i] < a.K && st.i0[i] >= 0;
+    const int64_t ps = st.i0[i] < 0 ? 0 : st.i0[i];
+    const int64_t carry = a.reset_seg[i] == 0 && tracked ? st.counts[ps] : 0;
+    const int64_t rn = rs + carry;
+    st.r3[i] = rn;
+    const Row r = row_of(a, i);
+    st.r2[i] = (tracked && r.add && rn == 1) ? 1
+               : ((tracked && r.rem && rn == 0) ? -1 : 0);
+    const bool last = j == a.B - 1 || k[p2[j + 1]] != k[i];
+    if (last && tracked && a.reset_seg[i] == nres) st.new_counts[ps] = rn;
+  }
+}
+
+cudaError_t distinct(const AggArgs& a, const StatArgs& st,
+                     cudaStream_t stream) {
+  dc_hash<<<grid(a.B), T1, 0, stream>>>(a, st);
+  dc_probe<<<1, SS_BLOCK, 0, stream>>>(a, st);
+  dc_keys<<<grid(a.B > st.D ? a.B : st.D), T1, 0, stream>>>(a, st);
+  const uint64_t max_key = (uint64_t)st.D * (a.B + 1) + a.B;
+  cudaError_t err = ss::stable_sort(st.pkeys, a.B, ss::key_bits(max_key),
+                                    st.perm2, a.k1, a.k2, a.i1, a.i2,
+                                    a.counts, stream);
+  if (err != cudaSuccess) return err;
+  dc_scan<<<1, SS_BLOCK, 0, stream>>>(a, st);
+  lane<int64_t>(a, a.spec_lane0[st.spec], stream);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" cudaError_t siddhi_sliding_minmax(const AggArgs* p,
+                                             const StatArgs* q,
+                                             cudaStream_t stream) {
+  switch (p->lane_type[p->spec_lane0[q->spec]]) {
+    case VT_INT: return sliding<int32_t>(*p, *q, stream);
+    case VT_LONG: return sliding<int64_t>(*p, *q, stream);
+    case VT_FLOAT: return sliding<float>(*p, *q, stream);
+    default: return sliding<double>(*p, *q, stream);
+  }
+}
+
+extern "C" cudaError_t siddhi_distinct_count(const AggArgs* p,
+                                             const StatArgs* q,
+                                             cudaStream_t stream) {
+  return distinct(*p, *q, stream);
 }
 
 extern "C" cudaError_t siddhi_aggregate_emit(const EmitArgs* p,

@@ -337,9 +337,11 @@ cudaError_t siddhi_nfa_scan(const ScanArgs* a, cudaStream_t stream);
 
 #define SIDDHI_WIN_MAX_COLS 16
 
-// window kinds (ops/windows.py WindowOp.KIND)
+// window kinds (ops/windows.py, ops/windows2.py WindowOp.KIND)
 enum WinKind { WIN_TIME = 0, WIN_LENGTH = 1, WIN_LENGTH_BATCH = 2,
-               WIN_TIME_BATCH = 3, WIN_EMPTY = 4 };
+               WIN_TIME_BATCH = 3, WIN_EMPTY = 4, WIN_EXT_TIME = 5,
+               WIN_TIME_LENGTH = 6, WIN_DELAY = 7, WIN_BATCH = 8,
+               WIN_EXT_BATCH = 9, WIN_HOPPING = 10 };
 
 // A struct-of-arrays batch or window buffer; `seq` is unused for batches.
 typedef struct {
@@ -353,23 +355,33 @@ typedef struct {
 typedef struct {
   WinBuf batch;               // the input, B rows
   const int32_t* batch_kind;
-  WinBuf a, e;                // state: a = buf / cur (W rows), e = exp (EB)
+  // state: a = buf / cur (batch: the reset row; W rows), e = exp (EB)
+  WinBuf a, e;
   WinBuf na, ne;              // the new state buffers (fresh memory)
   // 0-d device scalars: the state's counters and the step's clock
   const int64_t* next_seq;
   const int64_t* overflow;    // NULL for a window without one
-  const int64_t* next_emit;   // timeBatch
+  const int64_t* next_emit;   // timeBatch; hopping's next_hop
   const int64_t* now;
   int64_t* o_next_seq;
   int64_t* o_overflow;
   int64_t* o_next_emit;
+  // externalTimeBatch's start, flushed, sched and last_ext
+  const int64_t* start;
+  const bool* flushed;
+  const int64_t* sched;
+  const int64_t* last_ext;
+  int64_t* o_start;
+  bool* o_flushed;
+  int64_t* o_sched;
+  int64_t* o_last_ext;
   WinBuf out;                 // the output batch, N rows
   int32_t* out_kind;
   // scratch (device memory, sizes in ops/windows.py window_scratch)
   int64_t* b_seq;             // [B]
   int64_t* rt;                // [B] running time
   int32_t* cur_rows;          // [B]
-  int64_t* scal;              // [16]
+  int64_t* scal;              // [32]
   uint32_t* keys;             // [N]
   uint32_t* k1;               // [N]
   uint32_t* k2;               // [N]
@@ -380,16 +392,46 @@ typedef struct {
   int32_t* cand_src;          // [N] source row: E, then A, then the batch
   int64_t* cand_ts;           // [N]
   int32_t* cand_kind;         // [N]
-  uint8_t* keep;              // [2 * P] keep masks over the pool
-  int32_t* rank_pos;          // [2 * P] pool row of each kept rank
+  uint8_t* keep;              // [2 * S] keep masks over the sources
+  int32_t* rank_pos;          // [2 * S] source row of each kept rank
+  int32_t* rank_of;           // [2 * S] kept rank of each source row
+  uint8_t* pflag;             // [P] externalTimeBatch: a batch's first row
   int32_t col_size[SIDDHI_WIN_MAX_COLS];   // bytes per element: 1, 4 or 8
-  int32_t n_cols, kind, B, W, EB, N, P;
+  // S = EB + W + B sources: E's rows, then A's, then the batch's
+  int32_t n_cols, kind, B, W, EB, N, P, S;
   int32_t expired_enabled, stream_current, has_start;
-  int64_t length, span_ms, start_time;
+  int32_t ts_idx, start_attr, has_timeout, replace_ts;   // -1: none
+  int64_t length, span_ms, start_time, timeout_ms, hop_ms;
 } WindowArgs;
 
 // Kernel K5: one window step (ops/windows.py window_step).
 cudaError_t siddhi_window_step(const WindowArgs* a, cudaStream_t stream);
+
+// ---- K5s: the sort window's step (window_seq.cu) ---------------------------
+
+#define SIDDHI_SORT_MAX_KEYS 8
+
+typedef struct {
+  WinBuf batch;               // the input, B rows
+  const int32_t* batch_kind;
+  WinBuf a;                   // the buffer, W = L + 1 rows
+  WinBuf na;                  // the new buffer (fresh memory)
+  WinBuf ev;                  // scratch [B]: each row's evicted copy
+  const int64_t* next_seq;
+  const int64_t* now;
+  int64_t* o_next_seq;
+  WinBuf out;                 // the output batch, 2 * B rows
+  int32_t* out_kind;
+  uint8_t* mask;              // scratch [W]
+  int32_t* pos;               // scratch [2 * B] each candidate's place
+  int32_t col_size[SIDDHI_WIN_MAX_COLS];
+  int32_t n_cols, B, W, L, expired_enabled, n_keys;
+  int32_t key_col[SIDDHI_SORT_MAX_KEYS];
+  int32_t key_desc[SIDDHI_SORT_MAX_KEYS];
+  int32_t key_type[SIDDHI_SORT_MAX_KEYS];   // ValType
+} SortArgs;
+
+cudaError_t siddhi_sort_window(const SortArgs* a, cudaStream_t stream);
 
 // ---- K6: aggregate step and emission (aggregate_step.cu) ------------------
 
@@ -401,7 +443,8 @@ cudaError_t siddhi_window_step(const WindowArgs* a, cudaStream_t stream);
 
 // aggregator kinds (ops/aggregators.py AggSpec.KIND) and lane ops
 enum AggKind { AGG_SUM = 0, AGG_AVG = 1, AGG_COUNT = 2, AGG_STDDEV = 3,
-               AGG_MINMAX = 4, AGG_FOREVER = 5, AGG_BOOL = 6 };
+               AGG_MINMAX = 4, AGG_FOREVER = 5, AGG_BOOL = 6,
+               AGG_SLIDING = 7, AGG_DISTINCT = 8 };
 enum LaneOp { LANE_SUM = 0, LANE_MIN = 1, LANE_MAX = 2 };
 
 typedef struct {
@@ -460,10 +503,62 @@ typedef struct {
   int64_t level_off[SIDDHI_AGG_MAX_LEVELS];
   int64_t level_n[SIDDHI_AGG_MAX_LEVELS];
   int32_t n_levels;
+  // a stateful aggregator's lane contributions, made by its kernel
+  // (distinctCount's 0<->1 transitions), NULL for the others
+  const int64_t* spec_contrib[SIDDHI_AGG_MAX_SPECS];
 } AggArgs;
 
-// Kernel K6, the step (ops/aggregators.py aggregate_step).
-cudaError_t siddhi_aggregate_step(const AggArgs* a, cudaStream_t stream);
+// Kernel K6, the step (ops/aggregators.py aggregate_step): `part` 1 the
+// group slots, reset segments and slot sort; 2 the lanes of the
+// aggregators that are not stateful, and every value; 3 both.
+cudaError_t siddhi_aggregate_step(const AggArgs* a, cudaStream_t stream,
+                                  int32_t part);
+
+// A stateful aggregator's table and scratch (kernels C and D, between
+// K6's parts 1 and 2).
+typedef struct {
+  int32_t spec, W, D;
+  const void* arg;                  // [B] the argument, ValType arg_type
+  const bool* arg_null;
+  int32_t arg_type, pad_;
+  // C: per-key rings [K, W], heads and tails [K]
+  const void* ring;
+  const int64_t* heads;
+  const int64_t* tails;
+  void* new_ring;
+  int64_t* new_heads;
+  int64_t* new_tails;
+  void* tree;                       // [K, 2W]
+  // D: the pair table [D]: keys, used, counts
+  const int64_t* keys;
+  const bool* used;
+  const int64_t* counts;
+  int64_t* new_keys;
+  bool* new_used;
+  int64_t* new_counts;
+  const int64_t* overflow;
+  int64_t* new_overflow;
+  // scratch
+  int64_t* r0;                      // [B] C: add prefix; D: pair hash
+  int64_t* r1;                      // [B] C: remove prefix; D: prefix
+  int64_t* r2;                      // [B] D: the rows' deltas
+  int64_t* r3;                      // [B] D: running pair counts
+  int32_t* i0;                      // [B] D: pair slot
+  int32_t* i1;                      // [B] D: probe
+  uint8_t* flags;                   // [B]
+  int32_t* claim;                   // [D]
+  uint32_t* pkeys;                  // [B] D: pair segments as sort keys
+  int32_t* perm2;                   // [B]
+  int64_t* seg2;                    // [B] D: segment start, sorted order
+  int64_t* ksum;                    // [2 K] C: adds and removes per key
+  unsigned long long* count;        // [1] overflowed rows
+} StatArgs;
+
+// Kernels C (SlidingMinMaxAgg) and D (DistinctCountAgg).
+cudaError_t siddhi_sliding_minmax(const AggArgs* a, const StatArgs* st,
+                                  cudaStream_t stream);
+cudaError_t siddhi_distinct_count(const AggArgs* a, const StatArgs* st,
+                                  cudaStream_t stream);
 
 typedef struct {
   int32_t B, K, batch_mode, n_cols;

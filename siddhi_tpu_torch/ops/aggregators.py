@@ -33,9 +33,12 @@ for CUDA tensors they launch csrc/aggregate_step.cu. Group-by keys and
 aggregate arguments that are not bare columns, and the filters before
 the selector, run in one K2 program first.
 
-Not ported yet: min()/max() over expiring content (SlidingMinMaxAgg),
-distinctCount() and unionSet(), whose state is not a [K] accumulator;
-order-by. Each raises NotImplementedError ("not ported yet").
+The stateful aggregators, whose state is not a [K] accumulator, keep a
+table of their own in the query state: min()/max() over expiring content
+(SlidingMinMaxAgg, kernel C) and distinctCount() (DistinctCountAgg,
+kernel D), both launched between K6's slot sort and its lanes. Not
+ported yet: unionSet() (its argument is a createSet() result) and
+order-by; each raises NotImplementedError ("not ported yet").
 """
 from __future__ import annotations
 
@@ -329,6 +332,210 @@ class BoolAgg(AggSpec):
         return v, torch.zeros_like(v)
 
 
+def _tree_levels(w: int) -> int:
+    return int(w).bit_length() - 1
+
+
+class SlidingMinMaxAgg(AggSpec):
+    """min()/max() over sliding-window content (with removals).
+
+    Window expiry is FIFO (clones expire in arrival order), so a key's
+    live values are a contiguous per-key sequence range [head, tail).
+    Values land in a per-key ring of W; each row's extreme is a range
+    query over an implicit segment tree built once a step over the rings
+    ([K, 2W], index 1 the root, the ring at [W, 2W)). Live content beyond
+    W drops off the extreme and is counted (``overflow``). ``run_ref`` is
+    the plain version of kernel C (csrc/aggregate_step.cu
+    siddhi_sliding_minmax), which aggregate_step launches on a CUDA
+    batch between K6's slot sort and its lanes."""
+    KIND = 7
+    stateful = True
+
+    def __init__(self, arg_type: AttrType, is_max: bool, grouped: bool):
+        if arg_type not in NUMERIC_TYPES:
+            raise CompileError("min()/max() requires numeric input")
+        self.name = "max" if is_max else "min"
+        self.is_max = is_max
+        self.out_type = aggregator_result_type(self.name, arg_type)
+        self.dtype = torch_dtype(arg_type)
+        self.W = 256 if grouped else 4096      # ring capacity per key
+        self.lanes = (Lane("max" if is_max else "min", self.dtype),
+                      Lane("sum", I64))
+
+    def init_table(self, K: int, device="cpu"):
+        return {"ring": self.lanes[0].identity(device).expand(
+                    K, self.W).clone(),
+                "heads": torch.zeros((K,), dtype=I64, device=device),
+                "tails": torch.zeros((K,), dtype=I64, device=device),
+                "overflow": torch.zeros((), dtype=I64, device=device)}
+
+    def run_ref(self, arg, ctx, tab):
+        """Plain version of kernel C: the reference's
+        ``SlidingMinMaxAgg.run``, the tree indexed in place of the
+        reference's per-row gather of a key's whole tree. -> ((extreme,
+        count) per row, table')."""
+        B, K, W = ctx["B"], ctx["K"], self.W
+        values, nulls = arg
+        dev = values.device
+        lane = self.lanes[0]
+        ident = lane.identity(dev)
+        slots = torch.clamp(ctx["slots"], 0, K - 1).to(I64)
+        agg_row = ctx["agg_row"]
+        is_add = ctx["is_add"] & agg_row & ~nulls
+        is_remove = ctx["is_remove"] & agg_row & ~nulls
+        # RESET clears all state: heads := tails, before the whole batch
+        heads0 = torch.where(ctx["n_resets"] > 0, tab["tails"], tab["heads"])
+        perm, inv_perm = ctx["perm"], ctx["inv_perm"]
+        gseg = ctx["slot_sorted"].to(I64)
+        add_rank = segmented_cumsum(is_add[perm].to(I64), gseg)[inv_perm]
+        rem_rank = segmented_cumsum(is_remove[perm].to(I64), gseg)[inv_perm]
+        tail_row = tab["tails"][slots] + add_rank
+        head_row = heads0[slots] + rem_rank
+        over = torch.clamp(tail_row - head_row - W, min=0)
+        head_eff = head_row + over
+        n_adds = torch.zeros((K,), dtype=I64, device=dev).index_add(
+            0, slots, is_add.to(I64))
+        n_rems = torch.zeros((K,), dtype=I64, device=dev).index_add(
+            0, slots, is_remove.to(I64))
+        new_tails = tab["tails"] + n_adds
+        end_tail = new_tails[slots]
+        # the batch's added values into the rings; of two adds of a key W
+        # apart the later one stays, as the reference's in-order scatter
+        # leaves it
+        pos = torch.remainder(tail_row - 1, W)
+        wr = is_add & (tail_row > end_tail - W)
+        ring = tab["ring"].clone()
+        ring.view(-1)[(slots * W + pos)[wr]] = values.to(self.dtype)[wr]
+        levels, cur = [ring], ring
+        for _ in range(_tree_levels(W)):
+            cur = lane.combine(cur[:, 0::2], cur[:, 1::2])
+            levels.append(cur)
+        tree = torch.cat([ident.expand(K, 1)] + levels[::-1], dim=1)
+        flat = tree.reshape(-1)
+        base = slots * (2 * W)
+
+        def rmq(a, b):
+            res = ident.expand(B).clone()
+            li, ri = a + W, b + W
+            for _ in range(_tree_levels(W) + 1):
+                take_l = (li < ri) & ((li & 1) == 1)
+                vl = flat[base + torch.where(take_l, li, 1)]
+                res = torch.where(take_l, lane.combine(res, vl), res)
+                li = torch.where(take_l, li + 1, li)
+                take_r = (li < ri) & ((ri & 1) == 1)
+                vr = flat[base + torch.where(take_r, ri - 1, 1)]
+                res = torch.where(take_r, lane.combine(res, vr), res)
+                ri = torch.where(take_r, ri - 1, ri)
+                li, ri = li >> 1, ri >> 1
+            return res
+
+        # the ring range may wrap: two non-wrapping leaf ranges
+        span = torch.clamp(tail_row - head_eff, min=0)
+        h = torch.remainder(head_eff, W)
+        end = h + torch.clamp(span, max=W)
+        res = lane.combine(rmq(h, torch.clamp(end, max=W)),
+                           rmq(torch.zeros_like(h),
+                               torch.clamp(end - W, min=0)))
+        overflow_rows = (agg_row & (end_tail - head_eff > W)).sum(dtype=I64)
+        new_heads = torch.maximum(heads0 + n_rems, new_tails - W)
+        return (res, span), {"ring": ring, "heads": new_heads,
+                             "tails": new_tails,
+                             "overflow": tab["overflow"] + overflow_rows}
+
+    def value(self, lane_vals):
+        m, cnt = lane_vals
+        return torch.where(cnt == 0, torch.zeros_like(m), m), cnt == 0
+
+
+class DistinctCountAgg(AggSpec):
+    """distinctCount(): the exact count of distinct values per group,
+    with removals. One open-addressing table of D (group, value) pairs
+    holds each pair's multiplicity; a row's 0<->1 transition (+1 on the
+    first add, -1 on the last remove) feeds an ordinary sum lane over
+    (group, reset) segments with a [K] carry. Pair slots are never
+    freed: pairs beyond D are dropped and counted (``overflow``).
+    ``run_ref`` is the plain version of kernel D (csrc/aggregate_step.cu
+    siddhi_distinct_count), which aggregate_step launches on a CUDA batch
+    between K6's slot sort and its lanes."""
+    KIND = 8
+    stateful = True
+    D = 4096
+
+    def __init__(self, arg_type: AttrType):
+        if arg_type is None:
+            raise CompileError("distinctCount() needs an argument")
+        self.name = "distinctCount"
+        self.out_type = aggregator_result_type("distinctcount", arg_type)
+        self.lanes = (Lane("sum", I64),)
+
+    def init_table(self, K: int, device="cpu"):
+        return {"keys": torch.zeros((self.D,), dtype=I64, device=device),
+                "used": torch.zeros((self.D,), dtype=torch.bool,
+                                    device=device),
+                "counts": torch.zeros((self.D,), dtype=I64, device=device),
+                "carry": torch.zeros((K,), dtype=I64, device=device),
+                "overflow": torch.zeros((), dtype=I64, device=device)}
+
+    def run_ref(self, arg, ctx, tab):
+        """Plain version of kernel D: the reference's
+        ``DistinctCountAgg.run``. -> ((distinct count,) per row, table')."""
+        B, K, D = ctx["B"], ctx["K"], self.D
+        values, nulls = arg
+        dev = values.device
+        slots, agg_row = ctx["slots"], ctx["agg_row"]
+        is_add, is_remove = ctx["is_add"], ctx["is_remove"]
+        reset_seg, n_resets = ctx["reset_seg"], ctx["n_resets"]
+        ph = hash_columns([slots.to(I64), values],
+                          [torch.zeros_like(nulls), nulls])
+        pslots, pkeys, pused, ovf = lookup_or_insert(tab["keys"], tab["used"],
+                                                     ph, agg_row)
+        tracked = agg_row & (pslots >= 0)
+        one = torch.ones((B,), dtype=I64, device=dev)
+        zero = torch.zeros((B,), dtype=I64, device=dev)
+        sgn = torch.where(tracked & is_add, one,
+                          torch.where(tracked & is_remove, -one, zero))
+        ps_safe = torch.clamp(pslots, 0, D - 1).to(I64)
+        pair_seg = torch.where(tracked, ps_safe, torch.full_like(ps_safe, D)) \
+            * (B + 1) + reset_seg
+        perm2 = torch.argsort(torch.clamp(pair_seg, 0, 2 ** 31 - 1).to(
+            torch.int32), stable=True)
+        inv2 = torch.argsort(perm2, stable=True)
+        seg_s = pair_seg[perm2]
+        run_s = segmented_cumsum(sgn[perm2], seg_s)
+        carry_pair = torch.where((reset_seg == 0) & tracked,
+                                 tab["counts"][ps_safe], zero)
+        run = run_s[inv2] + carry_pair
+        delta = torch.where(tracked & is_add & (run == 1), one,
+                            torch.where(tracked & is_remove & (run == 0),
+                                        -one, zero))
+        # new pair counts: each pair's last running count in the LAST
+        # reset segment (pairs untouched after a reset drop to 0)
+        new_counts = torch.where(n_resets == 0, tab["counts"],
+                                 torch.zeros_like(tab["counts"]))
+        is_last_s = torch.ones((B,), dtype=torch.bool, device=dev)
+        is_last_s[:-1] = seg_s[:-1] != seg_s[1:]
+        pair_last = is_last_s[inv2] & tracked & (reset_seg == n_resets)
+        new_counts[ps_safe[pair_last]] = run[pair_last]
+        # the distinct count per row: the deltas scanned over (group, reset)
+        pref = segmented_cumsum(delta[ctx["perm"]], ctx["seg_sorted"])
+        slot_safe = torch.clamp(ctx["slot_sorted"], 0, K - 1).to(I64)
+        cin = torch.where(ctx["segzero_sorted"], tab["carry"][slot_safe],
+                          torch.zeros_like(pref))
+        running = (cin + pref)[ctx["inv_perm"]]
+        last_mask = (reset_seg == n_resets) & tracked
+        base = torch.where(n_resets == 0, tab["carry"],
+                           torch.zeros_like(tab["carry"]))
+        new_carry = base.index_add(0, slots[last_mask].to(I64),
+                                   delta[last_mask])
+        return (running,), {"keys": pkeys, "used": pused,
+                            "counts": new_counts, "carry": new_carry,
+                            "overflow": tab["overflow"] + ovf}
+
+    def value(self, lane_vals):
+        (d,) = lane_vals
+        return d, torch.zeros_like(d, dtype=torch.bool)
+
+
 def make_agg_spec(name: str, arg_type: Optional[AttrType],
                   expired_possible: bool, grouped: bool = False,
                   fifo_expiry: bool = True) -> AggSpec:
@@ -348,18 +555,14 @@ def make_agg_spec(name: str, arg_type: Optional[AttrType],
                 "frequent/lossyFrequent) is not supported — the sliding "
                 "extreme relies on arrival-order expiry")
         if expired_possible:
-            raise not_ported(f"stateful aggregator {key}() over expiring "
-                             "content (SlidingMinMaxAgg)")
+            return SlidingMinMaxAgg(arg_type, key == "max", grouped)
         return MinMaxAgg(arg_type, key == "max")
     if key in ("minforever", "maxforever"):
         return ForeverMinMaxAgg(arg_type, key == "maxforever")
     if key in ("and", "or"):
         return BoolAgg(arg_type, key == "and")
     if key == "distinctcount":
-        if arg_type is None:
-            raise CompileError("distinctCount() needs an argument")
-        raise not_ported("stateful aggregator distinctCount() "
-                         "(DistinctCountAgg)")
+        return DistinctCountAgg(arg_type)
     if key == "unionset":
         if arg_type is not AttrType.OBJECT:
             raise CompileError(
@@ -554,7 +757,9 @@ class AggregateOp(Operator):
             "carry": tuple(tuple(lane.identity(device).expand(self.K).clone()
                                  for lane in spec.lanes)
                            for spec in self.agg_specs),
-            "tables": tuple(() for _ in self.agg_specs),
+            "tables": tuple(spec.init_table(self.K, device)
+                            if getattr(spec, "stateful", False) else ()
+                            for spec in self.agg_specs),
             "overflow": torch.zeros((), dtype=I64, device=device),
         }
 
@@ -628,11 +833,11 @@ class AggregateOp(Operator):
 # ---------------------------------------------------------------------------
 
 
-def aggregate_step_ref(op: AggregateOp, state, key_cols, arg_cols, kind,
-                       valid):
-    """Plain PyTorch version of K6's step: the reference's
-    ``AggregateOp.step`` up to the projection. -> (slots [B] int32,
-    [(values, nulls)] one per aggregator, state')."""
+def agg_context(op: AggregateOp, state, key_cols, kind, valid):
+    """The plain version of K6's first part: group slots, reset segments
+    and the slot order. -> (ctx, the new group table's keys and used,
+    the overflow count): ``ctx`` is what a stateful aggregator's run
+    reads (the reference's AggregateOp.step ctx)."""
     B = kind.shape[0]
     K = op.K
     dev = kind.device
@@ -653,18 +858,44 @@ def aggregate_step_ref(op: AggregateOp, state, key_cols, arg_cols, kind,
     else:
         new_keys, new_used = state["keys"], state["used"]
         slots = torch.where(agg_row, torch.zeros_like(kfull), kfull)
-
     reset_seg = torch.cumsum(is_reset.to(I64), 0)
     n_resets = reset_seg[B - 1]
     perm = torch.argsort(slots, stable=True)
     inv_perm = torch.argsort(perm, stable=True)
     seg_sorted = (slots.to(I64) * (B + 1) + reset_seg)[perm]
-    slot_safe = torch.clamp(slots[perm], 0, K - 1).to(I64)
-    segzero_sorted = (reset_seg == 0)[perm]
-    last_mask = (reset_seg == n_resets) & agg_row
+    ctx = {"B": B, "K": K, "slots": slots, "agg_row": agg_row,
+           "is_add": is_add, "is_remove": is_remove, "reset_seg": reset_seg,
+           "n_resets": n_resets, "perm": perm, "inv_perm": inv_perm,
+           "seg_sorted": seg_sorted, "slot_sorted": slots[perm],
+           "segzero_sorted": (reset_seg == 0)[perm]}
+    return ctx, new_keys, new_used, overflow
 
-    aggs, new_carries = [], []
-    for spec, arg, carry in zip(op.agg_specs, arg_cols, state["carry"]):
+
+def aggregate_step_ref(op: AggregateOp, state, key_cols, arg_cols, kind,
+                       valid):
+    """Plain PyTorch version of K6's step (with kernels C and D): the
+    reference's ``AggregateOp.step`` up to the projection. -> (slots [B]
+    int32, [(values, nulls)] one per aggregator, state')."""
+    ctx, new_keys, new_used, overflow = agg_context(op, state, key_cols,
+                                                    kind, valid)
+    K, slots, agg_row = op.K, ctx["slots"], ctx["agg_row"]
+    is_add, is_remove = ctx["is_add"], ctx["is_remove"]
+    perm, inv_perm = ctx["perm"], ctx["inv_perm"]
+    seg_sorted, segzero_sorted = ctx["seg_sorted"], ctx["segzero_sorted"]
+    reset_seg, n_resets = ctx["reset_seg"], ctx["n_resets"]
+    dev = kind.device
+    slot_safe = torch.clamp(ctx["slot_sorted"], 0, K - 1).to(I64)
+    last_mask = (reset_seg == n_resets) & agg_row
+    aggs, new_carries, new_tables = [], [], []
+    for spec, arg, carry, tab in zip(op.agg_specs, arg_cols, state["carry"],
+                                     state["tables"]):
+        if getattr(spec, "stateful", False):
+            runnings, ntab = spec.run_ref(arg, ctx, tab)
+            aggs.append(spec.value(tuple(runnings)))
+            new_carries.append(carry)
+            new_tables.append(ntab)
+            continue
+        new_tables.append(tab)
         contribs = spec.contribs(arg, is_add, is_remove)
         runnings, lane_carries = [], []
         for lane, contrib, cvec in zip(spec.lanes, contribs, carry):
@@ -678,7 +909,7 @@ def aggregate_step_ref(op: AggregateOp, state, key_cols, arg_cols, kind,
         aggs.append(spec.value(tuple(runnings)))
         new_carries.append(tuple(lane_carries))
     new_state = {"keys": new_keys, "used": new_used,
-                 "carry": tuple(new_carries), "tables": state["tables"],
+                 "carry": tuple(new_carries), "tables": tuple(new_tables),
                  "overflow": overflow}
     return slots, aggs, new_state
 
@@ -758,12 +989,31 @@ def aggregate_step(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
         return aggregate_step_ref(op, state, key_cols, arg_cols, kind, valid)
     if dev.type != "cuda":
         raise ValueError(f"aggregate_step: unsupported device {dev}")
-    slots, aggs, new_state, args = agg_args(op, state, key_cols, arg_cols,
-                                            kind, valid)
-    _kernels.load().aggregate_step(
-        args, torch.cuda.current_stream(dev).cuda_stream)
+    slots, aggs, new_state, args, stats = agg_args(op, state, key_cols,
+                                                   arg_cols, kind, valid)
+    k = _kernels.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if not stats:
+        k.aggregate_step(args, stream, 3)
+    else:   # kernels C and D between the slot sort and the lanes
+        k.aggregate_step(args, stream, 1)
+        for spec, st in stats:
+            stateful_launch(k, spec, args, st, stream)
+        k.aggregate_step(args, stream, 2)
     _kernels.count_launch("aggregate_step")
     return slots, aggs, new_state
+
+
+def stateful_launch(k, spec, args, st, stream) -> None:
+    """Kernel C (min/max over expiring content) or D (distinctCount) of
+    one stateful aggregator, on K6's slot order (``args`` after its part
+    1)."""
+    if isinstance(spec, SlidingMinMaxAgg):
+        k.sliding_minmax(args, st, stream)
+        _kernels.count_launch("sliding_minmax")
+    else:
+        k.distinct_count(args, st, stream)
+        _kernels.count_launch("distinct_count")
 
 
 def aggregate_emit(op: AggregateOp, slots, qualifying, batch: EventBatch,
@@ -827,10 +1077,16 @@ def agg_args(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
     slots = t(B, torch.int32)
     aggs = [(t(B, torch_dtype(sp.out_type)), t(B, torch.bool))
             for sp in specs]
+    stateful = [getattr(sp, "stateful", False) for sp in specs]
     new_state = {"keys": t(K, I64), "used": t(K, torch.bool),
-                 "carry": tuple(tuple(torch.empty_like(c) for c in carry)
-                                for carry in state["carry"]),
-                 "tables": state["tables"],
+                 "carry": tuple(carry if sf else
+                                tuple(torch.empty_like(c) for c in carry)
+                                for carry, sf in zip(state["carry"],
+                                                     stateful)),
+                 "tables": tuple({k: torch.empty_like(v)
+                                  for k, v in tab.items()} if sf else tab
+                                 for tab, sf in zip(state["tables"],
+                                                    stateful)),
                  "overflow": torch.empty((), dtype=I64, device=dev)}
     total = offs[-1] + sizes[-1]
     sc = {"hk": t(B, I64), "probe": t(B, torch.int32),
@@ -845,7 +1101,7 @@ def agg_args(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
           "slot_first": t(K + 1, torch.int32),
           "slot_last": t(K + 1, torch.int32), "tree": t(total, I64),
           "tree_seg": t(total, I64), "res": t(B, I64)}
-    runs = []
+    runs, stats = [], []
     a = _kernels.AggArgs()
     a.B, a.K, a.grouped = B, K, int(bool(op.group_by))
     a.n_keys, a.n_specs, a.n_lanes = len(key_cols), len(specs), n_lanes
@@ -865,6 +1121,10 @@ def agg_args(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
                 arg[1].data_ptr()
         a.out_type[s] = _VT_OF[ov.dtype]
         a.out_vals[s], a.out_nulls[s] = ov.data_ptr(), on.data_ptr()
+        if isinstance(sp, DistinctCountAgg):
+            # the lane carries in the spec's table
+            carry = (state["tables"][s]["carry"],)
+            ncarry = (new_state["tables"][s]["carry"],)
         for ln, c, nc in zip(sp.lanes, carry, ncarry):
             r = t(B, ln.dtype)
             runs.append(r)
@@ -874,6 +1134,13 @@ def agg_args(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
             a.carry[lane], a.new_carry[lane] = c.data_ptr(), nc.data_ptr()
             a.run[lane] = r.data_ptr()
             lane += 1
+        if stateful[s]:
+            st, keep = stat_args(sp, s, arg, state["tables"][s],
+                                 new_state["tables"][s], B, K, dev)
+            stats.append((sp, st))
+            runs.append(keep)
+            if isinstance(sp, DistinctCountAgg):
+                a.spec_contrib[s] = st.r2
     a.keys, a.used = state["keys"].data_ptr(), state["used"].data_ptr()
     a.overflow = state["overflow"].data_ptr()
     a.new_keys = new_state["keys"].data_ptr()
@@ -886,7 +1153,44 @@ def agg_args(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
         a.level_off[k], a.level_n[k] = o, n
     a.n_levels = len(offs)
     a._keep = (state, runs, sc)
-    return slots[:B], [(v[:B], n[:B]) for v, n in aggs], new_state, a
+    return slots[:B], [(v[:B], n[:B]) for v, n in aggs], new_state, a, stats
+
+
+def stat_args(sp, s: int, arg, tab, ntab, B: int, K: int, dev):
+    """Kernel C's or D's arguments for aggregator ``s``: its table, the
+    new table's tensors and the scratch. -> (``_kernels.StatArgs``, the
+    tensors to keep alive until the launch)."""
+    if isinstance(sp, DistinctCountAgg):
+        assert sp.D * (B + 1) + B < 2 ** 31, (sp.D, B)   # pair_seg keys
+
+    def t(n, dtype):
+        return torch.empty((max(int(n), 1),), dtype=dtype, device=dev)
+    st = _kernels.StatArgs()
+    st.spec = s
+    st.arg, st.arg_null = arg[0].data_ptr(), arg[1].data_ptr()
+    st.arg_type = _VT_OF[arg[0].dtype]
+    sc = {"r0": t(B, I64), "r1": t(B, I64), "r2": t(B, I64),
+          "r3": t(B, I64), "i0": t(B, torch.int32), "i1": t(B, torch.int32),
+          "flags": t(B, torch.uint8), "pkeys": t(B, torch.int32),
+          "perm2": t(B, torch.int32), "seg2": t(B, I64),
+          "ksum": t(2 * K, I64), "count": t(1, I64)}
+    if isinstance(sp, SlidingMinMaxAgg):
+        st.W = sp.W
+        sc["tree"] = torch.empty((K, 2 * sp.W), dtype=sp.dtype, device=dev)
+        for f in ("ring", "heads", "tails"):
+            setattr(st, f, tab[f].data_ptr())
+            setattr(st, "new_" + f, ntab[f].data_ptr())
+    else:
+        st.D = sp.D
+        sc["claim"] = t(sp.D, torch.int32)
+        for f in ("keys", "used", "counts"):
+            setattr(st, f, tab[f].data_ptr())
+            setattr(st, "new_" + f, ntab[f].data_ptr())
+    st.overflow = tab["overflow"].data_ptr()
+    st.new_overflow = ntab["overflow"].data_ptr()
+    for k, v in sc.items():
+        setattr(st, k, v.data_ptr())
+    return st, (sc, arg)
 
 
 def emit_args(op: AggregateOp, slots, qualifying, batch: EventBatch,

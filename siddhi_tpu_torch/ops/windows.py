@@ -16,8 +16,11 @@ arrival sequence numbers. One step consumes a whole input batch:
 Reference mapping (modules/siddhi-core/.../query/processor/stream/window/):
 TimeWindowProcessor -> TimeWindowOp, LengthWindowProcessor ->
 LengthWindowOp, LengthBatchWindowProcessor -> LengthBatchWindowOp,
-TimeBatchWindowProcessor -> TimeBatchWindowOp. The other window kinds of
-the reference (siddhi_tpu/ops/windows2.py) are not ported yet.
+TimeBatchWindowProcessor -> TimeBatchWindowOp. The reference's second
+wave (siddhi_tpu/ops/windows2.py) is in ops/windows2.py: externalTime,
+timeLength, delay, batch, externalTimeBatch and hopping run on K5 too;
+the sort window has a kernel of its own; frequent, lossyFrequent,
+session and cron are not ported yet.
 
 ``window_step`` is K5. For tensors on the CPU it runs the window's
 ``step_ref``, the plain PyTorch version, which follows the reference's
@@ -169,6 +172,14 @@ class WindowOp(Operator):
     fifo_expiry = True
     host_due_bound = None
     KIND = -1      # csrc/window_step.cu's kind code
+    # K5's state buffers (A, E): the buffer or current batch, and the
+    # expired batch (None where the window keeps none)
+    buf_keys = ("buf", None)
+
+    def out_capacity(self, B: int) -> int:
+        """Rows of K5's output for a B-row batch (the reference's
+        out_cap): a sliding window's expired pool rows and arrivals."""
+        return self.cap + 2 * B
 
     def __init__(self, schema: StreamSchema, expired_enabled: bool = True):
         self.schema = schema
@@ -281,6 +292,10 @@ class LengthWindowOp(WindowOp):
     def cap(self):
         return max(self.L, 1)
 
+    def out_capacity(self, B: int) -> int:
+        """length(0) emits each arrival and its expiry."""
+        return 3 * B if self.L == 0 else self.cap + 2 * B
+
     def init_state(self, device="cpu"):
         return {"buf": empty_buffer(self.schema, self.cap, device),
                 "next_seq": _i64(0, device)}
@@ -359,6 +374,7 @@ class LengthBatchWindowOp(WindowOp):
     kind_name = "lengthBatch"
     is_batch = True
     KIND = 2
+    buf_keys = ("cur", "exp")
 
     def __init__(self, schema, length: int, expired_enabled: bool = True,
                  stream_current: bool = False):
@@ -371,6 +387,10 @@ class LengthBatchWindowOp(WindowOp):
     @property
     def cap(self):
         return self.L
+
+    def out_capacity(self, B: int) -> int:
+        """The expired batch, and three segments over the pool."""
+        return self.cap + 3 * (self.cap + B)
 
     def init_state(self, device="cpu"):
         return {"cur": empty_buffer(self.schema, self.L, device),
@@ -461,6 +481,7 @@ class TimeBatchWindowOp(WindowOp):
     kind_name = "timeBatch"
     is_batch = True
     KIND = 3
+    buf_keys = ("cur", "exp")
 
     def __init__(self, schema, duration_ms: int,
                  start_time: Optional[int] = None, cap: int = 4096,
@@ -470,6 +491,12 @@ class TimeBatchWindowOp(WindowOp):
         self.start_time = start_time
         self.cap = int(cap)
         self.stream_current = bool(stream_current)
+
+    def out_capacity(self, B: int) -> int:
+        """The expired batch, the pool, the reset row, and the
+        stream-current copies."""
+        P = self.cap + B
+        return self.cap + P + 1 + (P if self.stream_current else 0)
 
     def init_state(self, device="cpu"):
         return {"cur": empty_buffer(self.schema, self.cap, device),
@@ -557,6 +584,10 @@ class EmptyWindowOp(WindowOp):
     kind_name = "empty"
     KIND = 4
 
+    def out_capacity(self, B: int) -> int:
+        """Each arrival and its expiry."""
+        return 2 * B
+
     def init_state(self, device="cpu"):
         return ()
 
@@ -610,29 +641,12 @@ def window_step(op: WindowOp, state, batch: EventBatch, now):
 
 
 def _bufs(op: WindowOp, state, dev):
-    """(A, E): the window's buffer (or current batch) and its expired
-    batch (None for the sliding windows; the empty window's A is a
-    one-row stand-in K5 never reads)."""
+    """(A, E): the window's buffers (E None for the sliding windows; the
+    empty window's A is a one-row stand-in K5 never reads)."""
     if isinstance(op, EmptyWindowOp):
         return empty_buffer(op.schema, 1, dev), None
-    if isinstance(op, (TimeWindowOp, LengthWindowOp)):
-        return state["buf"], None
-    return state["cur"], state["exp"]
-
-
-def out_capacity(op: WindowOp, B: int) -> int:
-    """Rows of K5's output for a B-row batch (the reference's out_cap)."""
-    if isinstance(op, EmptyWindowOp):
-        return 2 * B
-    W = op.cap
-    P = W + B
-    if isinstance(op, TimeWindowOp):
-        return P + B
-    if isinstance(op, LengthWindowOp):
-        return 3 * B if op.L == 0 else P + B
-    if isinstance(op, LengthBatchWindowOp):
-        return W + 3 * P
-    return W + P + 1 + (P if op.stream_current else 0)
+    ka, ke = op.buf_keys
+    return state[ka], (state[ke] if ke is not None else None)
 
 
 def _win_buf(wb, ts, seq, cols, nulls, valid) -> None:
@@ -665,7 +679,8 @@ def window_args(op: WindowOp, state, batch: EventBatch, now):
     A, E = _bufs(op, state, dev)
     W = A["seq"].shape[0]
     EB = 0 if E is None else E["seq"].shape[0]
-    P, N = W + B, out_capacity(op, B)
+    P, N = W + B, op.out_capacity(B)
+    S = EB + P
     na = _empty_like_buf(A)
     ne = _empty_like_buf(E) if E is not None else None
     out = EventBatch(ts=torch.empty((N,), dtype=I64, device=dev),
@@ -677,24 +692,26 @@ def window_args(op: WindowOp, state, batch: EventBatch, now):
                      kind=torch.empty((N,), dtype=torch.int32, device=dev),
                      valid=torch.empty((N,), dtype=torch.bool, device=dev))
     new = {"next_seq": torch.empty((), dtype=I64, device=dev)}
-    if "overflow" in state:
-        new["overflow"] = torch.empty((), dtype=I64, device=dev)
-    if "next_emit" in state:
-        new["next_emit"] = torch.empty((), dtype=I64, device=dev)
+    for k in ("overflow", "next_emit", "next_hop", "start", "flushed",
+              "sched", "last_ext"):
+        if k in state:
+            new[k] = torch.empty_like(state[k])
 
     def scratch(n, dtype):
         return torch.empty((max(int(n), 1),), dtype=dtype, device=dev)
     blocks = (N + 1023) // 1024
     sc = {"b_seq": scratch(B, I64), "rt": scratch(B, I64),
-          "cur_rows": scratch(B, torch.int32), "scal": scratch(16, I64),
+          "cur_rows": scratch(B, torch.int32), "scal": scratch(32, I64),
           "keys": scratch(N, torch.int32), "k1": scratch(N, torch.int32),
           "k2": scratch(N, torch.int32), "i1": scratch(N, torch.int32),
           "i2": scratch(N, torch.int32), "order": scratch(N, torch.int32),
           "counts": scratch(256 * blocks, torch.int32),
           "cand_src": scratch(N, torch.int32), "cand_ts": scratch(N, I64),
           "cand_kind": scratch(N, torch.int32),
-          "keep": scratch(2 * P, torch.uint8),
-          "rank_pos": scratch(2 * P, torch.int32)}
+          "keep": scratch(2 * S, torch.uint8),
+          "rank_pos": scratch(2 * S, torch.int32),
+          "rank_of": scratch(2 * S, torch.int32),
+          "pflag": scratch(P, torch.uint8)}
     a = _kernels.WindowArgs()
     _win_buf(a.batch, batch.ts, None, batch.cols, batch.nulls, batch.valid)
     a.batch_kind = batch.kind.data_ptr()
@@ -712,9 +729,12 @@ def window_args(op: WindowOp, state, batch: EventBatch, now):
     if "overflow" in state:
         a.overflow = state["overflow"].data_ptr()
         a.o_overflow = new["overflow"].data_ptr()
-    if "next_emit" in state:
-        a.next_emit = state["next_emit"].data_ptr()
-        a.o_next_emit = new["next_emit"].data_ptr()
+    for k, f in (("next_emit", "next_emit"), ("next_hop", "next_emit"),
+                 ("start", "start"), ("flushed", "flushed"),
+                 ("sched", "sched"), ("last_ext", "last_ext")):
+        if k in state:
+            setattr(a, f, state[k].data_ptr())
+            setattr(a, "o_" + f, new[k].data_ptr())
     a.now = now.data_ptr()
     _win_buf(a.out, out.ts, None, out.cols, out.nulls, out.valid)
     a.out_kind = out.kind.data_ptr()
@@ -722,20 +742,30 @@ def window_args(op: WindowOp, state, batch: EventBatch, now):
         setattr(a, k, t.data_ptr())
     for k, c in enumerate(batch.cols):
         a.col_size[k] = c.element_size()
-    a.n_cols, a.kind, a.B, a.W, a.EB, a.N, a.P = C, op.KIND, B, W, EB, N, P
+    a.n_cols, a.kind, a.B, a.W, a.EB, a.N, a.P, a.S = \
+        C, op.KIND, B, W, EB, N, P, S
     a.expired_enabled = int(op.expired_enabled)
     a.stream_current = int(getattr(op, "stream_current", False))
     start = getattr(op, "start_time", None)
     a.has_start = int(start is not None)
     a.start_time = int(start or 0)
     a.length = int(getattr(op, "L", 0))
-    a.span_ms = int(getattr(op, "T", 0))
+    a.span_ms = int(getattr(op, "T", getattr(op, "W_ms", 0)))
+    a.hop_ms = int(getattr(op, "H_ms", 0))
+    a.ts_idx = int(getattr(op, "ts_idx", -1))
+    sa = getattr(op, "start_attr", None)
+    a.start_attr = -1 if sa is None else int(sa)
+    to = getattr(op, "timeout_ms", None)
+    a.has_timeout = int(to is not None)
+    a.timeout_ms = int(to or 0)
+    a.replace_ts = int(getattr(op, "replace_ts", False))
     if empty:   # the seq out lives in the scratch, alive until launch
         sc["ns_out"] = new["next_seq"]
         new = ()
-    elif E is None:
-        new["buf"] = na
     else:
-        new["cur"], new["exp"] = na, ne
+        ka, ke = op.buf_keys
+        new[ka] = na
+        if ke is not None:
+            new[ke] = ne
     a._keep = (state, new, out, sc, now)   # alive until the launch is made
     return new, out, a
