@@ -7,8 +7,8 @@ Phases, each of which stops the run with a non-zero exit on failure:
 
 1. device: CUDA must be there; prints the device, the build and
    ``nvidia-smi``'s name and power limit;
-2. build the port's CUDA kernels from csrc/ (nine sources, one nvcc each,
-   all at once) and hold kernel K1 (packed-ingest decode) against its plain
+2. build the port's CUDA kernels from csrc/ (eleven sources, one nvcc
+   each, all at once) and hold kernel K1 (packed-ingest decode) against its plain
    PyTorch version on the card, bit for bit, for every lane code at
    capacities 16, 1024, 65536;
 3. hold kernel K2 (expression evaluation) against its plain version on
@@ -119,7 +119,36 @@ Phases, each of which stops the run with a non-zero exit on failure:
    events/s and latency;
 22. the same for bench.py's kleene (K3's counting states), whose oracle
    models the 4,096-row pattern table that the bench's chunks fill;
-23. print the kernel table as one JSON line, the card's name and power
+23. hold kernels E (frequent and lossyFrequent), F (session) and G
+   (order-by, offset and limit) against their plain versions on the
+   card, bit for bit, state, output and the emitted counter, at every
+   step of each app of checks.KEYED_APPS (frequent at N = 1, 2 and 64,
+   with and without key attributes, expired events only; lossyFrequent
+   at two (support, error) pairs, one past its 32 slots; session keyed
+   and not, aggregated, closing by the event clock and by TIMER rows,
+   past its 64 slots and 128 members; order-by on INT, LONG, FLOAT,
+   DOUBLE and BOOL keys, asc and desc, with offset, limit and having,
+   plain and aggregating), the lexsort traps, and the new paths' apps
+   at 65,536-row sends;
+24. run window_frequent (Siddhi's fraud query, frequent(2, cardNo);
+   then frequent(64, cardNo) and lossyFrequent(0.1, 0.01, cardNo)):
+   262,144 purchases of 4,096 Zipf-skewed cards in 4 sends of 65,536,
+   each against its numpy oracle (lossyFrequent's insert overflow equal
+   to the oracle's); K1, K2 and E on every send;
+25. run window_session (per-user sessions, count and sum by user):
+   1,048,576 clicks of 48 users in 16 sends of 65,536, then a TIMER,
+   against its numpy oracle (the reference's step modelled, its member
+   overflow equal); K1 and F, K6, K2 on every step;
+26. run window_top10 (the ten largest tickers by volume per batch,
+   ordered at the host edge by a STRING key; the same all on the card;
+   a stateless top-100 by price): 1,048,576 trades in 16 sends of
+   65,536, against their numpy oracles; G on every step of the two
+   device orderings; each path reports events/s, latency at 65,536 and
+   1,024 rows and its new kernel's time against its plain version, its
+   bound and (G) chained stable torch.sort and the gathers;
+27. run bench.py's chain3 and fanout (K1, K2): 4 sends of 65,536
+   against their numpy oracles, with events/s and latency;
+28. print the kernel table as one JSON line, the card's name and power
    limit, and the result line.
 
 `python3 chip_smoke.py --k5-time` times K5 alone (window_agg's and
@@ -155,6 +184,8 @@ def bound_of(n_bytes: int, n_ops: int):
 # the join and table paths: rows a send, sends a side (join, join_eq),
 # the grid pass's sends, stock_table's rounds
 SEND_ROWS, JOIN_SENDS, GRID_SENDS, STOCK_ROUNDS = 8192, 64, 16, 64
+# the keyed windows', the top-10's and chain3's and fanout's sends
+KEYED_SEND = 65536
 
 
 def fail(msg: str) -> None:
@@ -2496,6 +2527,641 @@ def stock_table_phase(dev, card: str) -> dict:
     return res
 
 
+class KeyedCheck:
+    """While installed, every step of kernels E (frequent and
+    lossyFrequent), F (session) and G (order-by, offset and limit) that
+    the runtime makes on the card also runs the plain version on the
+    same inputs; kernel and plain results (state, output and the emitted
+    counter) must be bit-equal (tolerance 0). The runtime goes on with
+    the kernel's."""
+
+    def __init__(self):
+        from siddhi_tpu_torch.ops import aggregators as G
+        from siddhi_tpu_torch.ops import selector as S
+        from siddhi_tpu_torch.ops import windows2 as W2
+        self.G, self.S, self.W2 = G, S, W2
+        self.err = 0.0
+        self.steps = {"freq_window": 0, "session_window": 0, "order_by": 0}
+        self.shapes = set()
+
+    def _out(self, o):
+        return [o.ts, *o.cols, *o.nulls, o.kind, o.valid]
+
+    def __enter__(self):
+        G, S, W2 = self.G, self.S, self.W2
+        self.saved = (W2.freq_window_step, W2.session_step, S.shape_chunk,
+                      G.shape_chunk)
+        k_freq, k_sess, k_shape = self.saved[:3]
+
+        def freq_window_step(op, state, batch, now):
+            ks, ko = k_freq(op, state, batch, now)
+            rs, ro = op.step_ref(state, batch, now)
+            what = f"kernel E {op.kind_name} N={op.N} B={batch.capacity}"
+            self.err = max(self.err, compare(
+                what + " state", tree_leaves(ks), tree_leaves(rs)))
+            self.err = max(self.err, compare(
+                what + " output", self._out(ko), self._out(ro)))
+            self.steps["freq_window"] += 1
+            self.shapes.add(("E", op.kind_name, op.N, batch.capacity))
+            return ks, ko
+
+        def session_step(op, state, batch, now):
+            ks, ko = k_sess(op, state, batch, now)
+            rs, ro = op.step_ref(state, batch, now)
+            what = f"kernel F B={batch.capacity}"
+            self.err = max(self.err, compare(
+                what + " state", tree_leaves(ks), tree_leaves(rs)))
+            self.err = max(self.err, compare(
+                what + " output", self._out(ko), self._out(ro)))
+            self.steps["session_window"] += 1
+            self.shapes.add(("F", batch.capacity))
+            return ks, ko
+
+        def shape_chunk(out, order_by, offset, limit, emitted=None):
+            e_ref = emitted.clone() if emitted is not None else None
+            ko = k_shape(out, order_by, offset, limit, emitted)
+            ro = S.shape_chunk_ref(out, order_by, offset, limit, e_ref)
+            self.err = max(self.err, compare(
+                f"kernel G keys {order_by} offset {offset} limit {limit} "
+                f"B={out.capacity}", self._out(ko) + (
+                    [emitted] if emitted is not None else []),
+                self._out(ro) + ([e_ref] if e_ref is not None else [])))
+            self.steps["order_by"] += 1
+            self.shapes.add(("G", len(order_by), out.capacity))
+            return ko
+
+        W2.freq_window_step, W2.session_step = freq_window_step, session_step
+        S.shape_chunk = G.shape_chunk = shape_chunk
+        return self
+
+    def __exit__(self, *exc):
+        G, S, W2 = self.G, self.S, self.W2
+        W2.freq_window_step, W2.session_step, S.shape_chunk, \
+            G.shape_chunk = self.saved
+        return False
+
+
+def keyed_against_plain(dev) -> float:
+    """Kernels E, F and G against their plain versions on the card, bit
+    for bit, state and output, at every step of each app of
+    checks.KEYED_APPS (frequent at N = 1, 2 and 64, with and without key
+    attributes, expired events only; lossyFrequent at two (support,
+    error) pairs, one past its 32 slots; session keyed and not,
+    aggregated, carried sessions closing by the event clock and by TIMER
+    rows, 80 keys past the 64 slots and a session past its 128 members;
+    order-by on INT, LONG, FLOAT, DOUBLE and BOOL keys, asc and desc,
+    with offset, limit and having, plain and aggregating) on a feed with
+    NaN, +-0.0, infinities and the integer extremes; the lexsort traps
+    of checks.ORDER_TRAP_APP; and the three paths' apps at their sends of
+    65,536 rows. -> max abs error (0)."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    enc = GLOBAL_STRINGS.encode
+    mgr = SiddhiManager()
+    saved = dict(_kernels.LAUNCHES)
+    with KeyedCheck() as chk:
+        for name, text in C.KEYED_APPS.items():
+            rt = mgr.create_siddhi_app_runtime(text)
+            rt.start()
+            ts, cols, cuts = C.keyed_feed(name, enc, seed=3)
+            _send_all(rt.get_input_handler("S"), ts, cols, cuts)
+            st = rt.queries["q"].stats()
+            rt.shutdown()
+            if (st["overflow"] > 0) != (name in C.KEYED_OVERFLOW):
+                fail(f"kernels E-G, {name}: overflow {st['overflow']}")
+            print(f"kernels E-G, {name}: bit-equal to their plain versions "
+                  f"({cuts[-1]} events; emitted {st['emitted']}, overflow "
+                  f"{st['overflow']}; steps so far {chk.steps})", flush=True)
+        for key in ("d", "d desc", "f desc", "i desc", "l desc", "b desc, d",
+                    "b, i desc, l"):
+            rt = mgr.create_siddhi_app_runtime(
+                C.ORDER_TRAP_APP.format(key=key))
+            rt.start()
+            ts, cols = C.order_trap_feed()
+            rt.get_input_handler("S").send_arrays(ts, cols)
+            rt.shutdown()
+        print("kernel G, the lexsort traps: bit-equal to its plain version",
+              flush=True)
+        # the three paths' apps, one 65,536-row send each (two for the
+        # session, so that sessions carry)
+        SEND = KEYED_SEND
+        for name, text, stream, feed, sends in (
+                ("window_frequent N=2", C.fraud_app(2), "Purchase",
+                 C.purchase_feed, 1),
+                ("window_frequent N=64", C.fraud_app(64), "Purchase",
+                 C.purchase_feed, 1),
+                ("window_frequent lossy", C.LOSSY_APP, "Purchase",
+                 C.purchase_feed, 1),
+                ("window_session", C.CLICK_APP, "Click", C.click_feed, 2),
+                ("window_top10 by hi", C.TOP10_HI_APP, "Trades",
+                 C.trades_feed, 1),
+                ("window_top10 hi", C.HI_APP, "Trades", C.trades_feed, 1)):
+            rt = mgr.create_siddhi_app_runtime(text)
+            rt.start()
+            ts, cols = feed(sends * SEND, enc)
+            _send_all(rt.get_input_handler(stream), ts, cols,
+                      tuple(range(0, sends * SEND + 1, SEND)))
+            st = rt.queries["q"].stats()
+            rt.shutdown()
+            print(f"kernels E-G, {name}, {sends} send(s) of {SEND} rows: "
+                  f"bit-equal to their plain versions ({st})", flush=True)
+    _kernels.LAUNCHES.update(saved)   # not launches of a main path
+    print(f"kernels E-G: shapes held against the plain versions: "
+          f"{sorted(chk.shapes, key=str)}; steps {chk.steps}", flush=True)
+    for k, n in chk.steps.items():
+        if n == 0:
+            fail(f"kernel {k} was never held against its plain version")
+    return chk.err
+
+
+def _latency(h, chunk, m, reps):
+    h.send_arrays(*chunk(m))
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(reps):
+        c0 = time.perf_counter()
+        h.send_arrays(*chunk(m))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - c0) * 1e3)
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+
+def _chunker(ts_all, cols_all, start):
+    k = [start]
+
+    def chunk(m):
+        s = slice(k[0], k[0] + m)
+        k[0] += m
+        return ts_all[s], [c[s] for c in cols_all]
+    return chunk
+
+
+def _out_bytes(o):
+    return _nbytes([o.ts, o.kind, o.valid, *o.cols, *o.nulls])
+
+
+def frequent_phase(dev, card: str, n_sends: int = 4) -> dict:
+    """window_frequent: Siddhi's documented fraud query (frequent(2,
+    cardNo) over the purchases of 30 or more, insert all events) end to
+    end on the card through SiddhiManager, send_arrays and
+    batch_callbacks: 262,144 purchases of 4,096 cards with Zipf-skewed
+    use in 4 sends of 65,536, then the same feed through frequent(64,
+    cardNo) and lossyFrequent(0.1, 0.01, cardNo); each checked against
+    checks.freq_oracle (the rows in order; lossyFrequent's insert
+    overflow equal to the oracle's, the others 0); the launch counters
+    must show K1, K2 and kernel E on every send; then events/s,
+    latency at 65,536 and 1,024 rows, and E's time against its plain
+    version and its bound."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.event import batch_from_columns
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    from siddhi_tpu_torch.ops import windows2 as W2
+    enc = GLOBAL_STRINGS.encode
+    SEND = KEYED_SEND
+    N = n_sends * SEND
+    ts_all, cols_all = C.purchase_feed(N + 8 * SEND + 70 * 1024, enc)
+    card_np, price_np = (c[:N] for c in cols_all)
+    mgr = SiddhiManager(device="cuda")
+    res = {"send": SEND, "card": card}
+    for label, text, lossy in (("N=2", C.fraud_app(2), None),
+                               ("N=64", C.fraud_app(64), None),
+                               ("lossy", C.LOSSY_APP, (0.1, 0.01))):
+        warm = mgr.create_siddhi_app_runtime(text.replace("'q'", "'w'"))
+        warm.start()
+        wts, wcols = C.purchase_feed(2 * SEND, enc, seed=5)
+        _send_all(warm.get_input_handler("Purchase"), wts, wcols,
+                  (0, SEND, 2 * SEND))
+        torch.cuda.synchronize()
+        warm.shutdown()
+        rt = mgr.create_siddhi_app_runtime(text)
+        q = rt.queries["q"]
+        outs = []
+        q.batch_callbacks.append(outs.append)
+        rt.start()
+        h = rt.get_input_handler("Purchase")
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        for s in range(0, N, SEND):
+            h.send_arrays(ts_all[s:s + SEND],
+                          [c[s:s + SEND] for c in cols_all])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_kernels.LAUNCHES)
+        if launches["unpack_packed"] != n_sends or \
+                launches["freq_window"] != n_sends or \
+                launches["expr_eval"] < n_sends:
+            fail(f"window_frequent {label}: launches {launches}")
+        kind = torch.cat([b.kind[b.valid] for b in outs]).cpu().numpy()
+        g_card = torch.cat([b.cols[0][b.valid] for b in outs]).cpu().numpy()
+        g_price = torch.cat([b.cols[1][b.valid] for b in outs]).cpu().numpy()
+        want, ovf = C.freq_oracle(card_np, price_np, 2 if label == "N=2"
+                                  else 64, lossy=lossy)
+        w_exp = np.array([e for e, _c, _p in want], bool)
+        w_card = np.array([c for _e, c, _p in want], np.int32)
+        w_price = np.array([p for _e, _c, p in want], np.float64)
+        st = q.stats()
+        if not (len(kind) == len(want) and np.array_equal(kind == 1, w_exp)
+                and np.array_equal(g_card, w_card)
+                and np.array_equal(bits_np(g_price), bits_np(w_price))) \
+                or st["overflow"] != ovf:
+            fail(f"window_frequent {label}: {len(kind)} rows, the oracle "
+                 f"{len(want)}; overflow {st['overflow']}, the oracle {ovf}")
+        eps = N / wall
+        print(f"window_frequent {label}: {N} purchases in {n_sends} sends "
+              f"of {SEND}; {len(want)} rows ({int(w_exp.sum())} expired) "
+              f"equal the numpy oracle; overflow {ovf} (the oracle's); "
+              f"{eps:.0f} events/s, device batches only ({card})",
+              flush=True)
+        print(f"launches on the window_frequent {label} path: {launches}",
+              flush=True)
+        r = {"events_per_s_device_batches": eps, "rows": len(want),
+             "overflow": ovf, "launches": launches}
+        chunk = _chunker(ts_all, cols_all, N + (0 if label == "N=2" else
+                                                4 * SEND))
+        if label == "N=2":
+            p50, p99 = _latency(h, chunk, SEND, 4)
+            p50k, p99k = _latency(h, chunk, 1024, 64)
+            r.update(p50_ms_send=p50, p99_ms_send=p99, p50_ms_1024=p50k,
+                     p99_ms_1024=p99k)
+            print(f"window_frequent latency per send: {SEND} rows p50 "
+                  f"{p50:.3f} ms, p99 {p99:.3f} ms; 1,024 rows p50 "
+                  f"{p50k:.3f} ms, p99 {p99k:.3f} ms ({card})", flush=True)
+        # kernel E at the path's shape: one 65,536-row step from the live
+        # state (its input: the filter's output batch)
+        ts_c, cols_c = chunk(SEND)
+        batch = batch_from_columns(rt.schemas["Purchase"], ts_c, cols_c,
+                                   capacity=SEND, device=dev)
+        op, st0 = q.operators[1], q.states[1]
+        now = torch.tensor(int(ts_c[-1]), dtype=torch.int64, device=dev)
+        _ns, eout, eargs = W2.freq_args(op, st0, batch, now)
+        lib = _kernels.load()
+        stream = torch.cuda.current_stream().cuda_stream
+        e_ms = cuda_ms(lambda: lib.freq_window(eargs, stream), reps=5,
+                       warmup=1)
+        e_plain = cuda_ms(lambda: op.step_ref(st0, batch, now), reps=1,
+                          warmup=0)
+        n_bytes = SEND * (8 + 4 + 1 + 4 + 1 + 8 + 1) + \
+            2 * _nbytes(tree_leaves(st0)) + _out_bytes(eout)
+        n_ops = SEND * op.N * 4
+        bound, by = bound_of(n_bytes, n_ops)
+        print(f"freq_window (kernel E, {op.kind_name}, N {op.N}): "
+              f"{e_ms:.3f} ms a {SEND}-row step (output {eout.capacity} "
+              f"rows; one warp walking the rows); plain version "
+              f"{e_plain:.1f} ms; bound {bound:.5f} ms ({n_bytes} bytes, "
+              f"{n_ops} operations: {by}); {card}", flush=True)
+        r.update(e_ms=e_ms, e_plain_ms=e_plain, e_bound_ms=bound,
+                 e_bound_by=by)
+        _kernels.LAUNCHES.update(launches)
+        res[label] = r
+        rt.shutdown()
+        del outs
+        gc.collect()
+    print(json.dumps({"window_frequent": res}), flush=True)
+    return res
+
+
+def session_phase(dev, card: str, n_sends: int = 16) -> dict:
+    """window_session: Siddhi's documented session usage (per-user
+    sessions with a 5 s gap, count() and sum(dwell) by user, insert all
+    events) end to end on the card through SiddhiManager, send_arrays and
+    batch_callbacks: 1,048,576 clicks of 48 users (bursts of 20-120
+    clicks 1-20 ms apart, silences of 6-30 s) in 16 sends of 65,536,
+    then a TIMER past the last session's end; checked against
+    checks.session_oracle (each user's rows in order, the member
+    overflow equal to the oracle's; every key placed: key overflow 0);
+    the launch counters must show K1 on every send and kernel F, K6 and
+    K2 on every step; then events/s, latency at 65,536 and 1,024 rows,
+    and F's time against its plain version and its bound."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.event import batch_from_columns
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    from siddhi_tpu_torch.ops import windows2 as W2
+    enc = GLOBAL_STRINGS.encode
+    SEND = KEYED_SEND
+    N = n_sends * SEND
+    mgr = SiddhiManager(device="cuda")
+    warm = mgr.create_siddhi_app_runtime(C.CLICK_APP.replace("'q'", "'w'"))
+    warm.start()
+    wts, wcols = C.click_feed(2 * SEND, enc, seed=5)
+    _send_all(warm.get_input_handler("Click"), wts, wcols,
+              (0, SEND, 2 * SEND))
+    torch.cuda.synchronize()
+    warm.shutdown()
+    rt = mgr.create_siddhi_app_runtime(C.CLICK_APP)
+    q = rt.queries["q"]
+    outs = []
+    q.batch_callbacks.append(outs.append)
+    rt.start()
+    h = rt.get_input_handler("Click")
+    ts_all, cols_all = C.click_feed(N + 8 * SEND + 70 * 1024, enc)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    for s in range(0, N, SEND):
+        h.send_arrays(ts_all[s:s + SEND], [c[s:s + SEND] for c in cols_all])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flush = int(ts_all[N - 1]) + 2 * C.SESSION_GAP_MS
+    with rt.barrier:
+        rt.on_ingest_ts(flush)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    steps = len(outs)
+    if launches["unpack_packed"] != n_sends or \
+            launches["session_window"] != steps or steps <= n_sends or \
+            launches["aggregate_step"] != steps or \
+            launches["expr_eval"] < steps:
+        fail(f"window_session: launches {launches}, steps {steps}")
+    user = torch.cat([b.cols[0][b.valid] for b in outs]).cpu().numpy()
+    clicks = torch.cat([b.cols[1][b.valid] for b in outs]).cpu().numpy()
+    dwell = torch.cat([b.cols[2][b.valid] for b in outs]).cpu().numpy()
+    dnull = torch.cat([b.nulls[2][b.valid] for b in outs]).cpu().numpy()
+    got = {}
+    for u, c, d, dn in zip(user.tolist(), clicks.tolist(), dwell.tolist(),
+                           dnull.tolist()):
+        got.setdefault(u, []).append((c, None if dn else d))
+    chunks = [(ts_all[s:s + SEND], cols_all[0][s:s + SEND],
+               cols_all[1][s:s + SEND]) for s in range(0, N, SEND)]
+    want, ovf = C.session_oracle(chunks, flush_at=flush)
+    st = q.stats()
+    placed = int(q.states[0]["used"].sum())
+    if placed != C.SESSION_USERS:
+        fail(f"window_session: {placed} of {C.SESSION_USERS} users placed "
+             f"in the 64-slot table (key overflow)")
+    rows = sum(len(v) for v in want.values())
+    if got != want or st["overflow"] != ovf:
+        fail(f"window_session: rows differ from the oracle ({len(user)} "
+             f"rows, the oracle {rows}; overflow {st['overflow']}, the "
+             f"oracle {ovf})")
+    eps = N / wall
+    print(f"window_session: {N} clicks of {C.SESSION_USERS} users in "
+          f"{n_sends} sends of {SEND}, {steps - n_sends} timer steps; "
+          f"{rows} rows equal the numpy oracle (each user's rows in order); "
+          f"every user placed (key overflow 0); overflow {ovf} (the "
+          f"oracle's: members of sessions the reference's close-time quirk "
+          f"merges); {eps:.0f} events/s, "
+          f"device batches only ({card})", flush=True)
+    print(f"launches on the window_session path: {launches}", flush=True)
+    chunk = _chunker(ts_all, cols_all, N)
+    p50, p99 = _latency(h, chunk, SEND, 4)
+    p50k, p99k = _latency(h, chunk, 1024, 64)
+    print(f"window_session latency per send: {SEND} rows p50 {p50:.3f} ms, "
+          f"p99 {p99:.3f} ms; 1,024 rows p50 {p50k:.3f} ms, p99 "
+          f"{p99k:.3f} ms ({card})", flush=True)
+    ts_c, cols_c = chunk(SEND)
+    batch = batch_from_columns(rt.schemas["Click"], ts_c, cols_c,
+                               capacity=SEND, device=dev)
+    op, st0 = q.operators[0], q.states[0]
+    now = torch.tensor(int(ts_c[-1]), dtype=torch.int64, device=dev)
+    _ns, fout, fargs = W2.session_args(op, st0, batch)
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    f_ms = cuda_ms(lambda: lib.session_window(fargs, stream), reps=20)
+    f_plain = cuda_ms(lambda: op.step_ref(st0, batch, now), reps=3,
+                      warmup=1)
+    n_bytes = SEND * (8 + 4 + 1 + 4 + 1 + 8 + 1) + \
+        2 * _nbytes(tree_leaves(st0)) + _out_bytes(fout)
+    bound, by = bound_of(n_bytes, SEND * 64)
+    print(f"session_window (kernel F): {f_ms:.4f} ms a {SEND}-row step "
+          f"(output {fout.capacity} rows); plain version {f_plain:.3f} ms; "
+          f"bound {bound:.5f} ms ({n_bytes} bytes: {by}); {card}",
+          flush=True)
+    _kernels.LAUNCHES.update(launches)
+    res = {"events_per_s_device_batches": eps, "send": SEND,
+           "p50_ms_send": p50, "p99_ms_send": p99, "p50_ms_1024": p50k,
+           "p99_ms_1024": p99k, "rows": rows, "overflow": ovf,
+           "users_placed": placed, "timer_steps": steps - n_sends,
+           "launches": launches, "f_ms": f_ms, "f_plain_ms": f_plain,
+           "f_bound_ms": bound, "f_bound_by": by, "card": card}
+    rt.shutdown()
+    del outs
+    gc.collect()
+    print(json.dumps({"window_session": res}), flush=True)
+    return res
+
+
+def top10_phase(dev, card: str, n_sends: int = 16) -> dict:
+    """window_top10: the ten largest tickers by volume per 65,536-trade
+    batch (lengthBatch, sum and max by symbol, having, order by vol desc
+    then the symbol: a STRING key, so the ordering runs at the host edge,
+    read through a row StreamCallback), the same ordered by vol desc then
+    hi (all on the card, kernel G), and a stateless top-100 by price
+    (kernel G on the projection), each end to end on the card: 1,048,576
+    trades of 512 symbols in 16 sends of 65,536, checked against
+    checks.top10_oracle and checks.hi_oracle; the launch counters must
+    show K1 on every send and G on every step of the two device
+    orderings; then events/s, latency, and G's time against its plain
+    version, its bound and the library call (chained stable torch.sort
+    and the gathers)."""
+    from siddhi_tpu_torch import SiddhiManager, StreamCallback, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.event import batch_from_columns
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    from siddhi_tpu_torch.ops import selector as S
+    enc = GLOBAL_STRINGS.encode
+    SEND = KEYED_SEND
+    N = n_sends * SEND
+    ts_all, cols_all = C.trades_feed(N + 8 * SEND + 70 * 1024, enc)
+    _ets, sym, price, vol = (c[:N] for c in cols_all)
+    names = {int(c): GLOBAL_STRINGS.decode(int(c)) for c in np.unique(sym)}
+    mgr = SiddhiManager(device="cuda")
+    res = {"send": SEND, "card": card}
+    for label, text in (("top10", C.TOP10_APP), ("top10 by hi",
+                                                 C.TOP10_HI_APP),
+                        ("hi", C.HI_APP)):
+        text = text.replace("65536", str(SEND))   # a batch a send
+        warm = mgr.create_siddhi_app_runtime(text.replace("'q'", "'w'"))
+        warm.start()
+        wts, wcols = C.trades_feed(2 * SEND, enc, seed=5)
+        _send_all(warm.get_input_handler("Trades"), wts, wcols,
+                  (0, SEND, 2 * SEND))
+        torch.cuda.synchronize()
+        warm.shutdown()
+        rt = mgr.create_siddhi_app_runtime(text)
+        q = rt.queries["q"]
+        rows_cb, outs = [], []
+        if label == "top10":
+            rt.add_callback("Top", StreamCallback(lambda evs: rows_cb.extend(
+                (enc(e.data[0]), e.data[1], e.data[2]) for e in evs)))
+        else:
+            q.batch_callbacks.append(outs.append)
+        rt.start()
+        h = rt.get_input_handler("Trades")
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        for s in range(0, N, SEND):
+            h.send_arrays(ts_all[s:s + SEND],
+                          [c[s:s + SEND] for c in cols_all])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_kernels.LAUNCHES)
+        want_g = 0 if label == "top10" else n_sends
+        if launches["unpack_packed"] != n_sends or \
+                launches["order_by"] != want_g:
+            fail(f"window_top10 {label}: launches {launches}")
+        if label == "hi":
+            want = C.hi_oracle(sym, price, vol, SEND)
+            got = list(zip(
+                torch.cat([b.cols[0][b.valid] for b in outs]).tolist(),
+                torch.cat([b.cols[1][b.valid] for b in outs]).tolist(),
+                torch.cat([b.cols[2][b.valid] for b in outs]).tolist()))
+        else:
+            want = [r for batch in C.top10_oracle(
+                sym, price, vol, SEND, by_hi=label.endswith("hi"),
+                names=names) for r in batch]
+            if label == "top10":
+                got = [(c, v, float(np.float32(h_))) for c, v, h_ in rows_cb]
+            else:
+                got = list(zip(
+                    torch.cat([b.cols[0][b.valid] for b in outs]).tolist(),
+                    torch.cat([b.cols[1][b.valid] for b in outs]).tolist(),
+                    torch.cat([b.cols[2][b.valid] for b in outs]).tolist()))
+        if got != want:
+            fail(f"window_top10 {label}: {len(got)} rows differ from the "
+                 f"oracle's {len(want)}")
+        eps = N / wall
+        print(f"window_top10 {label}: {N} trades in {n_sends} sends of "
+              f"{SEND}; {len(want)} rows equal the numpy oracle; "
+              f"{eps:.0f} events/s ({'row callback' if label == 'top10' else 'device batches only'}; {card})", flush=True)
+        print(f"launches on the window_top10 {label} path: {launches}",
+              flush=True)
+        r = {"events_per_s": eps, "rows": len(want), "launches": launches}
+        chunk = _chunker(ts_all, cols_all, N)
+        p50, p99 = _latency(h, chunk, SEND, 4)
+        p50k, p99k = _latency(h, chunk, 1024, 64)
+        r.update(p50_ms_send=p50, p99_ms_send=p99, p50_ms_1024=p50k,
+                 p99_ms_1024=p99k)
+        print(f"window_top10 {label} latency per send: {SEND} rows p50 "
+              f"{p50:.3f} ms, p99 {p99:.3f} ms; 1,024 rows p50 {p50k:.3f} "
+              f"ms, p99 {p99k:.3f} ms ({card})", flush=True)
+        if label == "hi":
+            # kernel G at the stateless top-100's shape: the projection's
+            # 65,536 rows, nearly all valid, one FLOAT key
+            ts_c, cols_c = chunk(SEND)
+            batch = batch_from_columns(rt.schemas["Trades"], ts_c, cols_c,
+                                       capacity=SEND, device=dev)
+            from siddhi_tpu_torch.core.event import EventBatch
+            proj = EventBatch(batch.ts, (batch.cols[1], batch.cols[2],
+                                         batch.cols[3]),
+                              (batch.nulls[1], batch.nulls[2],
+                               batch.nulls[3]), batch.kind,
+                              batch.valid & (batch.cols[2] > 0))
+            ob = [(1, "desc")]
+            emitted = torch.zeros((), dtype=torch.int64, device=dev)
+            gout, gargs = S.order_args(proj, ob, None, 100, emitted)
+            lib = _kernels.load()
+            stream = torch.cuda.current_stream().cuda_stream
+            g_ms = cuda_ms(lambda: lib.order_by(gargs, stream), reps=50)
+            g_plain = cuda_ms(lambda: S.shape_chunk_ref(proj, ob, None, 100),
+                              reps=5)
+            kw = S.sort_key(proj.cols[1], True)
+            dead = (~proj.valid).to(torch.uint8)
+
+            def library():
+                p1 = torch.sort(kw, stable=True).indices
+                p2 = p1[torch.sort(dead[p1], stable=True).indices]
+                return [proj.ts[p2], *(c[p2] for c in proj.cols),
+                        *(n[p2] for n in proj.nulls), proj.kind[p2],
+                        proj.valid[p2]]
+            g_lib = cuda_ms(library, reps=20)
+            n_bytes = 2 * _out_bytes(proj)
+            bound, by = bound_of(n_bytes, SEND * 10)
+            print(f"order_by (kernel G): {g_ms:.4f} ms a {SEND}-row chunk "
+                  f"(one FLOAT key desc, limit 100); plain version "
+                  f"{g_plain:.3f} ms; chained torch.sort(stable=True) and "
+                  f"the gathers {g_lib:.4f} ms; bound {bound:.5f} ms "
+                  f"({n_bytes} bytes: {by}); {card}", flush=True)
+            r.update(g_ms=g_ms, g_plain_ms=g_plain, g_library_ms=g_lib,
+                     g_bound_ms=bound, g_bound_by=by)
+        _kernels.LAUNCHES.update(launches)
+        res[label] = r
+        rt.shutdown()
+        del outs, rows_cb
+        gc.collect()
+    print(json.dumps({"window_top10": res}), flush=True)
+    return res
+
+
+def chain_phase(dev, card: str, which: str, n_sends: int = 4) -> dict:
+    """bench.py's chain3 (three queries chained by insert into) or fanout
+    (four queries on one stream), their apps and feeds verbatim, end to
+    end on the card through SiddhiManager, send_arrays and
+    batch_callbacks: 262,144 events in 4 sends of 65,536, checked against
+    the numpy oracles of checks.py; the launch counters must show K1 and
+    K2; then events/s and latency at 65,536 and 1,024 rows."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    enc = GLOBAL_STRINGS.encode
+    SEND = KEYED_SEND
+    N = n_sends * SEND
+    text, feed, qs = {
+        "chain3": (C.CHAIN3_APP, C.chain3_feed, ("q3",)),
+        "fanout": (C.FANOUT_APP, C.fanout_feed, ("q1", "q2", "q3", "q4"))
+    }[which]
+    ts_all, cols_all = feed(N + 8 * SEND + 70 * 1024, enc)
+    mgr = SiddhiManager(device="cuda")
+    warm = mgr.create_siddhi_app_runtime(text.replace("OutS", "OutW"))
+    warm.start()
+    warm.get_input_handler("S").send_arrays(ts_all[:SEND],
+                                            [c[:SEND] for c in cols_all])
+    torch.cuda.synchronize()
+    warm.shutdown()
+    rt = mgr.create_siddhi_app_runtime(text)
+    outs = {qn: [] for qn in qs}
+    for qn in qs:
+        rt.queries[qn].batch_callbacks.append(outs[qn].append)
+    rt.start()
+    h = rt.get_input_handler("S")
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    for s in range(0, N, SEND):
+        h.send_arrays(ts_all[s:s + SEND], [c[s:s + SEND] for c in cols_all])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    if launches["unpack_packed"] == 0 or launches["expr_eval"] == 0:
+        fail(f"{which}: launches {launches}")
+    cols = [c[:N] for c in cols_all]
+
+    def got(qn, i):
+        return torch.cat([b.cols[i][b.valid] for b in outs[qn]]).cpu().numpy()
+    if which == "chain3":
+        keep = C.chain3_oracle(*cols)
+        ok = all(np.array_equal(bits_np(got("q3", i)), bits_np(cols[i][keep]))
+                 for i in range(3))
+        rows = len(keep)
+    else:
+        keep, spread = C.fanout_oracle(*cols)
+        sym, price, vol = cols[0], cols[1], cols[5]
+        ok = all(np.array_equal(got(qn, 0), sym[keep]) for qn in qs) and \
+            np.array_equal(bits_np(got("q1", 1)), bits_np(price[keep])) and \
+            np.array_equal(bits_np(got("q2", 1)), bits_np(price[keep])) and \
+            np.array_equal(bits_np(got("q3", 1)), bits_np(spread[keep])) \
+            and np.array_equal(got("q4", 1), vol[keep])
+        rows = 4 * len(keep)
+    if not ok:
+        fail(f"{which}: rows differ from the numpy oracle")
+    eps = N / wall
+    chunk = _chunker(ts_all, cols_all, N)
+    p50, p99 = _latency(h, chunk, SEND, 8)
+    p50k, p99k = _latency(h, chunk, 1024, 64)
+    print(f"{which}: {N} events in {n_sends} sends of {SEND}; {rows} rows "
+          f"equal the numpy oracle; {eps:.0f} events/s, device batches "
+          f"only; latency {SEND} rows p50 {p50:.3f} ms, p99 {p99:.3f} ms; "
+          f"1,024 rows p50 {p50k:.3f} ms, p99 {p99k:.3f} ms ({card})",
+          flush=True)
+    print(f"launches on the {which} path: {launches}", flush=True)
+    _kernels.LAUNCHES.update(launches)
+    rt.shutdown()
+    return {"events_per_s_device_batches": eps, "rows": rows,
+            "p50_ms_send": p50, "p99_ms_send": p99, "p50_ms_1024": p50k,
+            "p99_ms_1024": p99k, "launches": launches, "card": card}
+
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2540,8 +3206,12 @@ def main() -> None:
     # all: the run interns the symbols of its two grouped 512-key paths
     # first (window_ext_*'s, then window_time_grouped's), so that their
     # codes, and the probes, do not depend on the order of the phases
-    from siddhi_tpu_torch.checks import time_symbols
-    for sym in time_symbols(512, "T") + time_symbols(1500, "K"):
+    # (and the keyed paths' cards and users, after them)
+    from siddhi_tpu_torch.checks import (FRAUD_CARDS, SESSION_USERS,
+                                         card_symbols, time_symbols,
+                                         user_symbols)
+    for sym in time_symbols(512, "T") + time_symbols(1500, "K") + \
+            user_symbols(SESSION_USERS) + card_symbols(FRAUD_CARDS):
         GLOBAL_STRINGS.encode(sym)
 
     # -- 2. build, then K1 against its plain version -------------------------
@@ -2880,7 +3550,49 @@ def main() -> None:
             row["launches"] += s2["launches"]["nfa_parallel"] + \
                 kl["launches"]["nfa_parallel"]
 
-    # -- 23. result -----------------------------------------------------------
+    # -- 23. to 27. kernels E, F and G: window_frequent, window_session,
+    # window_top10; bench.py's chain3 and fanout
+    keyed_err = keyed_against_plain(dev)
+    fq = frequent_phase(dev, card)
+    se = session_phase(dev, card)
+    tp = top10_phase(dev, card)
+    chain_phase(dev, card, "chain3")
+    chain_phase(dev, card, "fanout")
+    table.append({
+        "name": "freq_window", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/window_seq.cu",
+        "replaces": "siddhi_tpu/ops/windows2.py:569",
+        "launches": sum(fq[k]["launches"]["freq_window"]
+                        for k in ("N=2", "N=64", "lossy")),
+        "max_abs_err": keyed_err, "ms": fq["N=2"]["e_ms"],
+        "plain_ms": fq["N=2"]["e_plain_ms"],
+        "bound_ms": fq["N=2"]["e_bound_ms"],
+        "bound_by": fq["N=2"]["e_bound_by"], "library_ms": None})
+    table.append({
+        "name": "session_window", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/session_step.cu",
+        "replaces": "siddhi_tpu/ops/windows2.py:1168",
+        "launches": se["launches"]["session_window"],
+        "max_abs_err": keyed_err, "ms": se["f_ms"],
+        "plain_ms": se["f_plain_ms"], "bound_ms": se["f_bound_ms"],
+        "bound_by": se["f_bound_by"], "library_ms": None})
+    table.append({
+        "name": "order_by", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/order_by.cu",
+        "replaces": "siddhi_tpu/ops/selector.py:88",
+        "launches": sum(tp[k]["launches"]["order_by"]
+                        for k in ("top10", "top10 by hi", "hi")),
+        "max_abs_err": keyed_err, "ms": tp["hi"]["g_ms"],
+        "plain_ms": tp["hi"]["g_plain_ms"], "bound_ms": tp["hi"]["g_bound_ms"],
+        "bound_by": tp["hi"]["g_bound_by"],
+        "library_ms": tp["hi"]["g_library_ms"]})
+    for row in table:   # K2 and K1 ran on every path; K6 on the session's
+        if row["name"] == "aggregate_step":
+            row["launches"] += se["launches"]["aggregate_step"] + \
+                tp["top10"]["launches"]["aggregate_step"] + \
+                tp["top10 by hi"]["launches"]["aggregate_step"]
+
+    # -- 28. result -----------------------------------------------------------
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

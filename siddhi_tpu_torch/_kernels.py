@@ -32,7 +32,8 @@ SOURCES = {"unpack_packed": "unpack_packed.cu", "expr_eval": "expr_eval.cu",
            "nfa_parallel": "nfa_parallel.cu", "nfa_scan": "nfa_scan.cu",
            "window_step": "window_step.cu", "window_seq": "window_seq.cu",
            "aggregate_step": "aggregate_step.cu",
-           "join_cross": "join_cross.cu", "table_step": "table_step.cu"}
+           "join_cross": "join_cross.cu", "table_step": "table_step.cu",
+           "session_step": "session_step.cu", "order_by": "order_by.cu"}
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 # entry points counted apart: the aggregate step's emission; K7's probe
@@ -41,7 +42,8 @@ ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
                 "window_step", "sort_window", "aggregate_step",
                 "sliding_minmax", "distinct_count", "aggregate_emit",
                 "join_probe", "join_grid", "table_write", "table_match",
-                "table_probe", "table_buffer")
+                "table_probe", "table_buffer", "freq_window",
+                "session_window", "order_by")
 LAUNCHES = {name: 0 for name in ENTRY_POINTS}
 
 
@@ -285,6 +287,61 @@ class SortArgs(ctypes.Structure):
         ("key_type", _I32 * SORT_MAX_KEYS)]
 
 
+class FreqArgs(ctypes.Structure):
+    _fields_ = [("batch", WinBuf), ("batch_kind", _P), ("a", WinBuf),
+                ("na", WinBuf)] + [
+        (f, _P) for f in (
+            "keys", "counts", "buckets", "o_keys", "o_counts", "o_buckets",
+            "next_seq", "total", "overflow", "o_next_seq", "o_total",
+            "o_overflow", "now")] + [
+        ("out", WinBuf), ("out_kind", _P)] + [
+        (f, _P) for f in ("hk", "dmask", "vbefore", "cbefore", "scal")] + [
+        ("col_size", _I32 * WIN_MAX_COLS), ("key_col", _I32 * WIN_MAX_COLS),
+        ("key_type", _I32 * WIN_MAX_COLS)] + [
+        (f, _I32) for f in ("n_cols", "n_keys", "B", "N", "lossy",
+                            "expired_enabled")] + [
+        ("width", _I64), ("thresh", ctypes.c_double)]
+
+
+class SessArgs(ctypes.Structure):
+    _fields_ = [("batch", WinBuf), ("batch_kind", _P), ("buf", WinBuf),
+                ("nbuf", WinBuf)] + [
+        (f, _P) for f in (
+            "keys", "used", "count", "end", "open", "next_seq", "overflow",
+            "o_keys", "o_used", "o_count", "o_end", "o_open", "o_next_seq",
+            "o_overflow")] + [
+        ("out", WinBuf), ("out_kind", _P)] + [
+        (f, _P) for f in (
+            "hk", "cur", "slots", "prb", "flags", "claim", "rt", "order",
+            "s_a", "s_b", "s_c", "s_f", "r_close_ts", "r_close_row", "r_pos",
+            "r_flags", "sl_close_row", "sl_flags", "ekey", "eorder", "k1",
+            "k2", "i1", "i2", "counts", "scal")] + [
+        ("col_size", _I32 * WIN_MAX_COLS)] + [
+        (f, _I32) for f in ("n_cols", "B", "K", "S", "M", "has_key",
+                            "key_col", "key_type", "expired_enabled",
+                            "pad_")] + [
+        ("gap", _I64)]
+
+
+ORDER_MAX_COLS = 32
+ORDER_MAX_KEYS = 8
+
+
+class OrderArgs(ctypes.Structure):
+    _fields_ = [(f, _I32) for f in ("B", "n_cols", "n_keys", "pad_")] + [
+        ("offset", _I64), ("limit", _I64),
+        ("ts", _P), ("kind", _P), ("valid", _P),
+        ("cols", _P * ORDER_MAX_COLS), ("nulls", _P * ORDER_MAX_COLS),
+        ("col_size", _I32 * ORDER_MAX_COLS),
+        ("key_col", _I32 * ORDER_MAX_KEYS),
+        ("key_type", _I32 * ORDER_MAX_KEYS),
+        ("key_desc", _I32 * ORDER_MAX_KEYS),
+        ("out_ts", _P), ("out_kind", _P), ("out_valid", _P),
+        ("out_cols", _P * ORDER_MAX_COLS), ("out_nulls", _P * ORDER_MAX_COLS),
+        ("emitted", _P)] + [
+        (f, _P) for f in ("k1", "k2", "i1", "i2", "counts", "rank", "sums")]
+
+
 AGG_MAX_KEYS = 8
 AGG_MAX_SPECS = 16
 AGG_MAX_LANES = 48
@@ -333,7 +390,8 @@ class StatArgs(ctypes.Structure):
 
 
 class EmitArgs(ctypes.Structure):
-    _fields_ = [(f, _I32) for f in ("B", "K", "batch_mode", "n_cols")] + [
+    _fields_ = [(f, _I32) for f in ("B", "K", "batch_mode", "n_cols",
+                                    "keep_order", "pad_")] + [
         ("offset", _I64), ("limit", _I64)] + [
         (f, _P) for f in ("slots", "qual", "ts", "kind", "valid")] + [
         ("cols", _P * AGG_MAX_OUTS), ("nulls", _P * AGG_MAX_OUTS),
@@ -487,6 +545,17 @@ class _Kernels:
         self.seq_lib.siddhi_sort_window.argtypes = [
             ctypes.POINTER(SortArgs), ctypes.c_void_p]
         self.seq_lib.siddhi_sort_window.restype = ctypes.c_int
+        self.seq_lib.siddhi_freq_window.argtypes = [
+            ctypes.POINTER(FreqArgs), ctypes.c_void_p]
+        self.seq_lib.siddhi_freq_window.restype = ctypes.c_int
+        self.sess_lib = ctypes.CDLL(str(libs["session_step"]))
+        self.sess_lib.siddhi_session_window.argtypes = [
+            ctypes.POINTER(SessArgs), ctypes.c_void_p]
+        self.sess_lib.siddhi_session_window.restype = ctypes.c_int
+        self.order_lib = ctypes.CDLL(str(libs["order_by"]))
+        self.order_lib.siddhi_order_by.argtypes = [
+            ctypes.POINTER(OrderArgs), ctypes.c_void_p]
+        self.order_lib.siddhi_order_by.restype = ctypes.c_int
         self.agg_lib = ctypes.CDLL(str(libs["aggregate_step"]))
         self.agg_lib.siddhi_aggregate_step.argtypes = [
             ctypes.POINTER(AggArgs), ctypes.c_void_p, ctypes.c_int32]
@@ -539,6 +608,18 @@ class _Kernels:
 
     def sort_window(self, args: SortArgs, stream: int) -> None:
         self._check("sort_window", self.seq_lib.siddhi_sort_window(
+            ctypes.byref(args), stream))
+
+    def freq_window(self, args: FreqArgs, stream: int) -> None:
+        self._check("freq_window", self.seq_lib.siddhi_freq_window(
+            ctypes.byref(args), stream))
+
+    def session_window(self, args: SessArgs, stream: int) -> None:
+        self._check("session_window", self.sess_lib.siddhi_session_window(
+            ctypes.byref(args), stream))
+
+    def order_by(self, args: OrderArgs, stream: int) -> None:
+        self._check("order_by", self.order_lib.siddhi_order_by(
             ctypes.byref(args), stream))
 
     def aggregate_step(self, args: AggArgs, stream: int,

@@ -1627,3 +1627,714 @@ def kleene_oracle(chunks, rows: int = 4096, sub: int = 4096,
             keep = ~hit & live(t, ts0)
             ts0, first = ts0[keep], first[keep]
     return out, lost
+
+
+# -- kernels E, F and G: the keyed windows and order-by ----------------------
+
+# Siddhi's documented fraud query: the cards among the two most frequent
+# of the purchases of 30 or more (frequent window, Misra-Gries); and
+# lossyFrequent(0.1, 0.01) over the same stream, keyed by the card
+PURCHASE_STREAM = """
+    @app:playback
+    define stream Purchase (cardNo string, price double);
+"""
+
+
+def fraud_app(n: int = 2) -> str:
+    return PURCHASE_STREAM + f"""
+    @info(name = 'q')
+    from Purchase[price >= 30]#window.frequent({n}, cardNo)
+    select cardNo, price
+    insert all events into PotentialFraud;
+"""
+
+
+LOSSY_APP = PURCHASE_STREAM + """
+    @info(name = 'q')
+    from Purchase[price >= 30]#window.lossyFrequent(0.1, 0.01, cardNo)
+    select cardNo, price
+    insert all events into PotentialFraud;
+"""
+FRAUD_CARDS = 4096
+
+
+def card_symbols(n: int, prefix: str = "CARD") -> list:
+    return [f"{prefix}{i:05d}" for i in range(n)]
+
+
+def purchase_feed(n: int, encode, n_cards: int = FRAUD_CARDS, seed: int = 21,
+                  prefix: str = "CARD"):
+    """Purchases 1 ms apart from TS0: the card by Zipf-skewed use (rank
+    ~ Zipf(1.3), folded into ``n_cards``), price ~ U(0, 100) in cents
+    (float64). -> (ts, [card codes, price])."""
+    rng = np.random.default_rng(seed)
+    cards = np.array([encode(s) for s in card_symbols(n_cards, prefix)],
+                     np.int32)
+    rank = (rng.zipf(1.3, n) - 1) % n_cards
+    price = np.round(rng.uniform(0, 100, n), 2)
+    return TS0 + np.arange(n, dtype=np.int64), [cards[rank], price]
+
+
+def freq_oracle(card, price, n: int = 2, lossy=None):
+    """frequent(n, cardNo) (or, with ``lossy`` = (support, error),
+    lossyFrequent over 32 slots) over the purchases of 30 or more,
+    independently: a slot table walked row by row; a new key takes the
+    lowest free slot. frequent: a full table decrements every count and
+    frees the zeroed keys (emitted EXPIRED, in slot order, before the
+    row); the row is admitted if that freed a slot. lossyFrequent: a key
+    passes while its count is at least (support - error) of the rows so
+    far; every ceil(1/error) rows the slots with count + bucket <= the
+    bucket are pruned (emitted after the row); a key finding no slot is
+    counted. -> ([(expired, card, price)], overflow)."""
+    keep = price >= 30.0
+    card, price = card[keep].tolist(), price[keep].tolist()
+    size = 32 if lossy else n
+    keys = [None] * size
+    counts = [0] * size
+    buckets = [0] * size
+    vals = [None] * size
+    where = {}
+    out, ovf, total = [], 0, 0
+    if lossy:
+        support, error = lossy
+        width = int(-(-1.0 // error)) or 1
+        thresh = support - error
+    for c, p in zip(card, price):
+        if not lossy:
+            s = where.get(c)
+            if s is not None:
+                counts[s] += 1
+                vals[s] = (c, p)
+                out.append((False, c, p))
+                continue
+            if len(where) == size:
+                freed = []
+                for j in range(size):
+                    counts[j] -= 1
+                    if counts[j] <= 0:
+                        freed.append(j)
+                for j in freed:
+                    out.append((True,) + vals[j])
+                    del where[keys[j]]
+                    keys[j] = None
+                    counts[j] = 0
+                if not freed:
+                    continue
+            s = keys.index(None)
+            keys[s], counts[s], vals[s] = c, 1, (c, p)
+            where[c] = s
+            out.append((False, c, p))
+            continue
+        total += 1
+        bucket = (total + width - 1) // width
+        s = where.get(c)
+        if s is not None:
+            counts[s] += 1
+            vals[s] = (c, p)
+        elif None in keys:
+            s = keys.index(None)
+            keys[s], counts[s], buckets[s], vals[s] = c, 1, bucket - 1, (c, p)
+            where[c] = s
+        else:
+            ovf += 1
+        if s is not None and float(counts[s]) >= thresh * float(total):
+            out.append((False, c, p))
+        if total % width == 0:
+            for j in range(size):
+                if keys[j] is not None and counts[j] + buckets[j] <= bucket:
+                    out.append((True,) + vals[j])
+                    del where[keys[j]]
+                    keys[j] = None
+    return out, ovf
+
+
+# Siddhi's documented session usage: per-user web sessions
+CLICK_APP = """
+    @app:playback
+    define stream Click (user string, dwell long);
+    @info(name = 'q')
+    from Click#window.session(5 sec, user)
+    select user, count() as clicks, sum(dwell) as dwell
+    group by user
+    insert all events into Sessions;
+"""
+SESSION_USERS = 48
+SESSION_GAP_MS = 5000
+
+
+def user_symbols(n: int, prefix: str = "USER") -> list:
+    return [f"{prefix}{i:03d}" for i in range(n)]
+
+
+def click_feed(n: int, encode, n_users: int = SESSION_USERS, seed: int = 22,
+               prefix: str = "USER"):
+    """Clicks: each user clicks in bursts of U[20, 120] events U[1, 20]
+    ms apart, with silences of U[6, 30] s between bursts, from TS0 plus
+    U[0, 30) s; the users' clicks merged by time (ties by user). dwell ~
+    U[1, 60000) ms. -> (ts, [user codes, dwell]), n events."""
+    rng = np.random.default_rng(seed)
+    codes = np.array([encode(s) for s in user_symbols(n_users, prefix)],
+                     np.int32)
+    per = n // n_users + 200
+    ts_all, user_all = [], []
+    for u in range(n_users):
+        gaps = rng.integers(1, 21, per).astype(np.int64)
+        burst = np.cumsum(rng.integers(20, 121, per // 20 + 2))
+        starts = burst[burst < per]
+        gaps[starts] = rng.integers(6000, 30001, len(starts))
+        gaps[0] = rng.integers(0, 30000)
+        ts_all.append(TS0 + np.cumsum(gaps))
+        user_all.append(np.full(per, u, np.int32))
+    ts = np.concatenate(ts_all)
+    user = np.concatenate(user_all)
+    o = np.lexsort((user, ts))[:n]
+    return ts[o], [codes[user[o]], rng.integers(1, 60000, n,
+                                                dtype=np.int64)]
+
+
+# numpy's model of the reference's slot table (ops/keyed.py)
+_GOLDEN = -7046029254386353131
+_M1 = -4658895280553007687
+_M2 = -7723592293110705685
+_HASH_SEED = 1469598103934665603
+
+
+def np_hash(codes):
+    """hash_columns of one int32 column without nulls."""
+    with np.errstate(over="ignore"):
+        h = np.full(codes.shape, _HASH_SEED, np.int64)
+        h = h ^ (codes.astype(np.int64) + np.int64(_GOLDEN))
+        h = (h ^ (h >> 30)) * np.int64(_M1)
+        h = (h ^ (h >> 27)) * np.int64(_M2)
+        return h ^ (h >> 31)
+
+
+def np_lookup_or_insert(tkeys, used, keys, active, probes: int = 16):
+    """lookup_or_insert in rounds: a free probed slot is claimed by the
+    lowest pending row; -> (slots or -1, tkeys', used', lost)."""
+    K, B = len(tkeys), len(keys)
+    tkeys, used = tkeys.copy(), used.copy()
+    slot = np.abs(keys) % K
+    placed = ~active
+    res = np.full(B, -1, np.int64)
+    rows = np.arange(B)
+    for _ in range(probes):
+        pend = ~placed
+        if not pend.any():
+            break
+        match = pend & used[slot] & (tkeys[slot] == keys)
+        want = pend & ~used[slot]
+        claim = np.full(K, B)
+        np.minimum.at(claim, slot[want], rows[want])
+        win = want & (claim[slot] == rows)
+        tkeys[slot[win]] = keys[win]
+        used[slot[win]] = True
+        match |= pend & used[slot] & (tkeys[slot] == keys)
+        res[match] = slot[match]
+        placed |= match
+        slot = np.where(placed, slot, (slot + 1) % K)
+    return res, tkeys, used, int((active & (res < 0)).sum())
+
+
+# the runtime's step capacities (core/runtime.py BATCH_BUCKETS): a step's
+# padding rows count in the session window's scatter
+STEP_BUCKETS = (16, 128, 1024, 8192, 65536, 262144, 1048576)
+
+
+def _session_steps(chunks, gap: int, flush_at=None):
+    """The steps a playback session query takes over ``chunks``: each
+    chunk, and the TIMER steps of the runtime's scheduler around them (a
+    chunk arms a timer at its first ts + gap; a timer fired at ``now``
+    steps a 16-row batch whose one row is that TIMER and re-arms at now
+    + 1; timers due before a chunk's first ts fire before it at their
+    due, those due by its last ts after it at its last ts). A chunk
+    steps at its bucket's capacity (the runtime's STEP_BUCKETS), the
+    rows past it padding. A TIMER step's rows are not current; padding
+    rows carry ts NEG_INF. -> [(ts, user, dwell, current)]."""
+    NEG = -(2 ** 62)
+    steps = []
+    sched = None
+    prev_last = None
+
+    def timer(now):
+        ts = np.full(16, NEG, np.int64)
+        ts[0] = now
+        steps.append((ts, np.zeros(16, np.int32), np.zeros(16, np.int64),
+                      np.zeros(16, bool)))
+
+    def fire(upto, clock):
+        nonlocal sched
+        while sched is not None and sched <= upto:
+            now = max(sched, clock)
+            sched = None
+            timer(now)
+            sched = now + 1
+    for ts, user, dwell in chunks:
+        first, last = int(ts[0]), int(ts[-1])
+        if prev_last is not None:
+            fire(first - 1, prev_last)
+        n = len(ts)
+        cap = next(b for b in STEP_BUCKETS if b >= n)
+        pad = cap - n
+        steps.append((np.concatenate([ts, np.full(pad, NEG, np.int64)]),
+                      np.concatenate([user, np.zeros(pad, np.int32)]),
+                      np.concatenate([dwell, np.zeros(pad, np.int64)]),
+                      np.arange(cap) < n))
+        due = int(ts.min()) + gap
+        if sched is None or sched > due:
+            sched = due
+        fire(last, last)
+        prev_last = last
+    if flush_at is not None:
+        fire(flush_at, flush_at)
+    return steps
+
+
+def session_oracle(chunks, gap: int = SESSION_GAP_MS, K: int = 64,
+                   S: int = 128, flush_at=None):
+    """The session window of CLICK_APP, modelled in numpy step by step as
+    the reference computes it (SessionWindowOp.step), then its grouped
+    count() and sum(dwell), by user. Per step: the rows by key slot
+    (stable); a session breaks where a row reaches the previous member's
+    ts + gap (the first row of a slot: the carried session's end); a
+    session's close time is the largest last-member ts of its own and
+    every LATER session in slot order, plus gap, and it closes where the
+    running clock reaches it; the non-final sessions of a slot that do
+    not close are dropped, as in the reference; a slot's final session
+    stays open with at most S members. The steps are the runtime's: the
+    chunks and the scheduler's TIMER steps (``_session_steps``);
+    ``flush_at``: the clock moved there after the chunks. -> ({user:
+    [(clicks, dwell)]}, kovf + member
+    overflow); each user's rows in order, EXPIRED rows subtracting (the
+    sum of an empty group is null)."""
+    NEG, POS = -(2 ** 62), 2 ** 62
+    tkeys = np.zeros(K, np.int64)
+    used = np.zeros(K, bool)
+    bts = np.zeros((K, S), np.int64)
+    buser = np.zeros((K, S), np.int64)
+    bdw = np.zeros((K, S), np.int64)
+    bval = np.zeros((K, S), bool)
+    count = np.zeros(K, np.int64)
+    end = np.full(K, POS, np.int64)
+    opn = np.zeros(K, bool)
+    ovf = 0
+    emitted = []     # (expired, user, dwell) in emission order
+    for ts, user, dwell, cur in _session_steps(chunks, gap, flush_at):
+        B = len(ts)
+        rt = np.maximum.accumulate(ts)
+        rt_max = rt[-1]
+        slots, tkeys, used, kovf = np_lookup_or_insert(
+            tkeys, used, np_hash(user), cur)
+        routed = cur & (slots >= 0)
+        order = np.argsort(np.where(routed, slots, 2 ** 31 - 1),
+                           kind="stable")
+        inv = np.empty(B, np.int64)
+        inv[order] = np.arange(B)
+        s_slot = np.where(routed, slots, -1)[order]
+        s_ts, s_val = ts[order], routed[order]
+        same = np.zeros(B, bool)
+        same[1:] = (s_slot[1:] == s_slot[:-1]) & s_val[1:] & s_val[:-1]
+        prev = np.concatenate([[0], s_ts[:-1]])
+        cs = np.clip(s_slot, 0, K - 1)
+        bound = s_val & np.where(same, s_ts >= prev + gap,
+                                 ~opn[cs] | (s_ts >= end[cs]))
+        first = s_val & ~same
+        brk = (first | bound).astype(np.int64)
+        seg_start = np.maximum.accumulate(np.where(
+            np.concatenate([[True], s_slot[1:] != s_slot[:-1]]),
+            np.arange(B), 0))
+        csum = np.cumsum(brk)
+        sid = csum - np.where(seg_start > 0, csum[seg_start - 1], 0) - 1
+        fidx = np.maximum.accumulate(np.where(first, np.arange(B), -1))
+        cont = (first & ~bound)[np.clip(fidx, 0, None)] & (fidx >= 0)
+        joins = s_val & (sid == 0) & cont
+        key = s_slot.astype(np.int64) * (B + 1) + sid
+        last = np.concatenate([key[:-1] != key[1:], [True]]) & s_val
+        lrev = np.maximum.accumulate(np.where(last, s_ts, NEG)[::-1])[::-1]
+        close_s = np.where(s_val, lrev + gap, POS)
+        close_ts = close_s[inv]
+        closes = (close_s <= rt_max)[inv] & routed
+        close_row = np.clip(np.searchsorted(rt, close_s, "left")[inv], 0,
+                            B - 1)
+        row_sid = np.where(routed, sid[inv], -1)
+        rj = joins[inv] & routed
+        sc = np.clip(slots, 0, K - 1)
+        ext = np.full(K, np.iinfo(np.int64).min)
+        np.maximum.at(ext, sc, np.where(rj, close_ts, NEG))
+        has_ext = np.zeros(K, bool)
+        np.logical_or.at(has_ext, sc, rj)
+        sl_close_ts = np.where(has_ext, ext, end)
+        sl_closes = opn & (sl_close_ts <= rt_max)
+        sl_row = np.clip(np.searchsorted(rt, sl_close_ts, "left"), 0, B - 1)
+        b_exp = closes & np.where(rj, sl_closes[sc], True)
+        # emission: carried members, the batch's closing rows, currents
+        e_row = np.concatenate([np.repeat(sl_row, S),
+                                np.where(b_exp, close_row, 0),
+                                np.arange(B)])
+        e_ph = np.concatenate([np.zeros(K * S + B, np.int64),
+                               np.full(B, 2)])
+        e_ok = np.concatenate([(bval & sl_closes[:, None]).ravel(), b_exp,
+                               routed])
+        e_user = np.concatenate([buser.ravel(), user, user])
+        e_dw = np.concatenate([bdw.ravel(), dwell, dwell])
+        e_exp = np.arange(K * S + 2 * B) < K * S + B
+        o = np.argsort(np.where(e_ok, e_row * 4 + e_ph, 2 ** 31 - 1),
+                       kind="stable")[:int(e_ok.sum())]
+        emitted += zip(e_exp[o].tolist(), e_user[o].tolist(),
+                       e_dw[o].tolist())
+        # the new state
+        final = np.full(K, np.iinfo(np.int64).min)
+        np.maximum.at(final, sc, np.where(routed, row_sid, -1))
+        keep = opn & ~sl_closes
+        stays = routed & ~closes & (row_sid == final[sc])
+        base = np.where(keep, count, 0)
+        st_s = stays[order].astype(np.int64)
+        c2 = np.cumsum(st_s)
+        rank = (c2 - np.where(seg_start > 0, c2[seg_start - 1], 0))[inv]
+        pos = base[sc] + rank - 1
+        in_cap = stays & (pos < S)
+        ovf += kovf + int((stays & ~in_cap).sum())
+        for arr in (bts, buser, bdw, bval):
+            arr[~keep] = 0
+        last_other = np.max(np.where(~in_cap, np.arange(B), -1))
+        at00 = np.flatnonzero(in_cap & (sc == 0) & (pos == 0))
+        c00 = (bts[0, 0], buser[0, 0], bdw[0, 0], bval[0, 0])
+        k_, p_ = sc[in_cap], pos[in_cap]
+        bts[k_, p_], buser[k_, p_] = ts[in_cap], user[in_cap]
+        bdw[k_, p_], bval[k_, p_] = dwell[in_cap], True
+        if last_other > (at00[0] if len(at00) else -1):
+            bts[0, 0], buser[0, 0], bdw[0, 0], bval[0, 0] = c00
+        nst = np.zeros(K, np.int64)
+        np.add.at(nst, sc, stays.astype(np.int64))
+        count = np.minimum(base + nst, S)
+        st_end = np.full(K, np.iinfo(np.int64).min)
+        np.maximum.at(st_end, sc, np.where(stays, close_ts, NEG))
+        any_st = np.zeros(K, bool)
+        np.logical_or.at(any_st, sc, stays)
+        end = np.where(st_end > NEG, st_end, np.where(keep, end, POS))
+        opn = (keep | any_st) & (end < POS)
+    agg = {}
+    rows = {}
+    for exp, u, d in emitted:
+        n, s = agg.get(u, (0, 0))
+        n, s = (n - 1, s - d) if exp else (n + 1, s + d)
+        agg[u] = (n, s)
+        rows.setdefault(u, []).append((n, s if n else None))
+    return rows, ovf
+
+
+# the day's ten largest tickers by volume, per 65,536-trade batch: the
+# STRING second key orders at the host edge; the same with a DOUBLE
+# second key (all on the card); and a stateless top-100 by price
+TOP10_APP = TRADES_STREAM + """
+    @info(name = 'q')
+    from Trades#window.lengthBatch(65536)
+    select symbol, sum(volume) as vol, max(price) as hi
+    group by symbol
+    having vol > 0
+    order by vol desc, symbol
+    limit 10
+    insert into Top;
+"""
+TOP10_HI_APP = TOP10_APP.replace("order by vol desc, symbol",
+                                 "order by vol desc, hi")
+HI_APP = TRADES_STREAM + """
+    @info(name = 'q')
+    from Trades[price > 0]
+    select symbol, price, volume
+    order by price desc
+    limit 100
+    insert into Hi;
+"""
+
+
+def top10_oracle(sym, price, vol, batch: int = 65536, by_hi: bool = False,
+                 names=None):
+    """Per full batch of ``batch`` trades: each symbol's sum(volume) and
+    max(price), the ten largest by volume, ties by the symbol's name
+    (``names``: code -> name) or, with ``by_hi``, by hi and then the
+    symbol's last row in the batch. -> [[(code, vol, hi)] per batch]."""
+    out = []
+    for a in range(0, len(sym) - batch + 1, batch):
+        s, p, v = sym[a:a + batch], price[a:a + batch], vol[a:a + batch]
+        rows = []
+        for c in np.unique(s):
+            m = s == c
+            last = int(np.flatnonzero(m)[-1])
+            rows.append((int(c), int(v[m].sum()), float(p[m].max()), last))
+        if by_hi:
+            rows.sort(key=lambda r: (-r[1], r[2], r[3]))
+        else:
+            rows.sort(key=lambda r: (-r[1], names[r[0]]))
+        out.append([r[:3] for r in rows if r[1] > 0][:10])
+    return out
+
+
+def hi_oracle(sym, price, vol, send: int):
+    """Per send: the trades with price > 0, by price descending (ties in
+    row order), the first 100. -> [(code, price, vol)]."""
+    out = []
+    for a in range(0, len(sym), send):
+        p = price[a:a + send]
+        idx = np.flatnonzero(p > 0)
+        idx = idx[np.argsort(-p[idx].astype(np.float64), kind="stable")][:100]
+        out += [(int(sym[a + i]), float(p[i]), int(vol[a + i]))
+                for i in idx]
+    return out
+
+
+# bench.py's chain3 and fanout apps, verbatim
+CHAIN3_APP = """
+    @app:playback
+    define stream S (sym string, v int, price float);
+    @info(name = 'q1')
+    from S[v > 3] select sym, v, price insert into S1;
+    @info(name = 'q2')
+    from S1[price > 10.0] select sym, v, price insert into S2;
+    @info(name = 'q3')
+    from S2[v < 900] select sym, v, price insert into OutS;
+"""
+FANOUT_APP = """
+    @app:playback
+    define stream S (sym string, price float, qty long, bid float,
+                     ask float, vol long);
+    @info(name = 'q1')
+    from S[price * qty > 500.0 and ask - bid < 5.0][vol > 10]
+        select sym, price insert into O1;
+    @info(name = 'q2')
+    from S[price * qty > 500.0 and ask - bid < 5.0][vol > 10]
+        select sym, price insert into O2;
+    @info(name = 'q3')
+    from S[price * qty > 500.0 and ask - bid < 5.0][vol > 10]
+        select sym, ask - bid as spread insert into O3;
+    @info(name = 'q4')
+    from S[price * qty > 500.0 and ask - bid < 5.0][vol > 10]
+        select sym, vol insert into O4;
+"""
+
+
+def chain3_feed(n: int, encode, seed: int = 13):
+    """bench.py's chain3 feed: sym over SYMS, v ~ U[0, 1000) int32,
+    price ~ U(0, 200) float32. -> (ts, [sym, v, price])."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([encode(s) for s in SYMS], np.int32)
+    return TS0 + np.arange(n, dtype=np.int64), [
+        syms[rng.integers(0, len(syms), n)],
+        rng.integers(0, 1000, n).astype(np.int32),
+        rng.uniform(0, 200, n).astype(np.float32)]
+
+
+def chain3_oracle(sym, v, price):
+    """The three filters in a row: -> the kept rows' indices."""
+    return np.flatnonzero((v > 3) & (price > np.float32(10.0)) & (v < 900))
+
+
+def fanout_feed(n: int, encode, seed: int = 23):
+    """bench.py's fanout feed. -> (ts, [sym, price, qty, bid, ask, vol])."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([encode(s) for s in SYMS], np.int32)
+    return TS0 + np.arange(n, dtype=np.int64), [
+        syms[rng.integers(0, len(syms), n)],
+        rng.uniform(0, 200, n).astype(np.float32),
+        rng.integers(1, 100, n, dtype=np.int64),
+        rng.uniform(0, 100, n).astype(np.float32),
+        rng.uniform(0, 100, n).astype(np.float32),
+        rng.integers(1, 1000, n, dtype=np.int64)]
+
+
+def fanout_oracle(sym, price, qty, bid, ask, vol):
+    """The shared filter: price * qty (FLOAT times LONG: float32) above
+    500, ask - bid below 5, vol above 10. -> (kept indices, spread)."""
+    keep = (price * qty.astype(np.float32) > 500.0) & \
+        ((ask - bid) < np.float32(5.0)) & (vol > 10)
+    return np.flatnonzero(keep), (ask - bid)
+
+
+# the comparison apps of kernels E, F and G (chip_smoke.py holds each
+# kernel against its plain version at every step; the parity tests hold
+# the port against the reference): frequent at N = 1, 2 and 64, with and
+# without key attributes, with expired events only; lossyFrequent at two
+# (support, error) pairs, one past its 32 slots; session with and
+# without a key, aggregated, and past its 64 key slots and 128 members;
+# order-by on INT, LONG, FLOAT, DOUBLE and BOOL keys, asc and desc, with
+# offset, limit and having, on plain and aggregating selectors. Their
+# feeds: window2_feed with KEYED_FEEDS[app]'s arguments.
+KEYED_APPS = {
+    "frequent 1, no key": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.frequent(1)
+        select sym, qty, score
+        insert all events into Out;
+    """,
+    "frequent 2 by sym": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.frequent(2, sym)
+        select sym, price, volume
+        insert all events into Out;
+    """,
+    "frequent 64 by sym, qty": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.frequent(64, sym, qty)
+        select sym, qty, score, flag
+        insert all events into Out;
+    """,
+    "frequent 3, expired": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.frequent(3, sym)
+        select sym, score
+        insert expired events into Out;
+    """,
+    "lossyFrequent 0.1, 0.01": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.lossyFrequent(0.1, 0.01, sym)
+        select sym, price, qty
+        insert all events into Out;
+    """,
+    "lossyFrequent 0.05, 0.005, past its slots": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.lossyFrequent(0.05, 0.005, sym, qty)
+        select sym, qty, volume
+        insert all events into Out;
+    """,
+    "session by sym": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.session(30 milliseconds, sym)
+        select sym, price, volume, ets
+        insert all events into Out;
+    """,
+    "session, no key": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.session(2 milliseconds)
+        select sym, qty
+        insert all events into Out;
+    """,
+    "session aggregated": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.session(20 milliseconds, sym)
+        select sym, count() as n, sum(volume) as sv, max(score) as hs
+        group by sym
+        insert all events into Out;
+    """,
+    "session past its slots and members": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.session(50 milliseconds, sym)
+        select sym, qty
+        insert all events into Out;
+    """,
+    "order int desc, long asc": _W2_STREAM + """
+        @info(name = 'q')
+        from S
+        select sym, qty, volume
+        order by qty desc, volume
+        limit 7 offset 2
+        insert into Out;
+    """,
+    "order float asc": _W2_STREAM + """
+        @info(name = 'q')
+        from S
+        select sym, price, score
+        order by price
+        offset 3
+        insert into Out;
+    """,
+    "order double desc, bool asc": _W2_STREAM + """
+        @info(name = 'q')
+        from S
+        select sym, score, flag
+        order by score desc, flag
+        limit 11
+        insert into Out;
+    """,
+    "order long desc, double asc, having": _W2_STREAM + """
+        @info(name = 'q')
+        from S
+        select volume, score, qty
+        having qty > -10
+        order by volume desc, score
+        insert into Out;
+    """,
+    "order bool desc, float desc": _W2_STREAM + """
+        @info(name = 'q')
+        from S
+        select flag, price, ets
+        order by flag desc, price desc
+        limit 20 offset 5
+        insert into Out;
+    """,
+    "order aggregated": _W2_STREAM + """
+        @info(name = 'q')
+        from S#window.lengthBatch(50)
+        select sym, sum(volume) as sv, max(score) as hs, count() as n
+        group by sym
+        having n > 1
+        order by hs desc, sv
+        limit 6
+        insert into Out;
+    """,
+    "having, limit": _W2_STREAM + """
+        @info(name = 'q')
+        from S[qty != 0]
+        select sym, qty, price
+        having price > 20
+        limit 5 offset 1
+        insert into Out;
+    """,
+}
+# window2_feed's arguments for each app (the rest: its defaults):
+# timers fire in quiet gaps for the sessions; 80 keys overflow the
+# session's 64 slots, 3 keys a gap of 50 ms its 128 members
+KEYED_FEEDS = {
+    "session by sym": {"quiet_every": 100},
+    "session, no key": {"quiet_every": 150},
+    "session aggregated": {"quiet_every": 120},
+    "session past its slots and members": {"n_syms": 80},
+}
+KEYED_OVERFLOW = {"lossyFrequent 0.05, 0.005, past its slots",
+                  "session past its slots and members"}
+
+# the lexsort traps: zeros of both signs, NaN of both signs and the
+# infinities (ties keep row order; NaN above +inf both ways), the INT
+# and LONG extremes (desc wraps the minimum to itself)
+ORDER_TRAP_APP = """
+    @app:playback
+    define stream S (d double, f float, i int, l long, b bool);
+    @info(name = 'q')
+    from S#window.lengthBatch(8)
+    select d, f, i, l, b
+    order by {key}
+    insert into Out;
+"""
+ORDER_TRAP_VALUES = [0.0, -0.0, float("nan"), float("inf"), float("-inf"),
+                     1.0, -float("nan"), 0.0]
+ORDER_TRAP_INTS = [-2 ** 31, 0, 5, -5, 2 ** 31 - 1, 7, 0, -2 ** 31]
+ORDER_TRAP_LONGS = [-2 ** 63, 0, 5, -5, 2 ** 63 - 1, 7, -2 ** 63, 1]
+
+
+def order_trap_feed():
+    """The eight trap rows, 1 ms apart. -> (ts, [d, f, i, l, b])."""
+    d = np.array(ORDER_TRAP_VALUES, np.float64)
+    d[6] = -np.abs(d[6])      # a NaN with its sign bit set
+    f = d.astype(np.float32)
+    return TS0 + np.arange(8, dtype=np.int64), [
+        d, f, np.array(ORDER_TRAP_INTS, np.int32),
+        np.array(ORDER_TRAP_LONGS, np.int64),
+        np.array([True, False, True, False, False, True, True, False])]
+
+
+def keyed_feed(app: str, encode, seed: int, prefix: str = "K"):
+    """The feed and the send cuts of KEYED_APPS[app]: window2_feed with
+    KEYED_FEEDS[app]'s arguments, 356 events in sends of 100, 128 and
+    128; for the session past its slots and members, 228 events over 80
+    keys (past the 64 slots), then 192 of one key at most 1 ms apart (a
+    session past its 128 members). -> (ts, cols, cuts)."""
+    if app == "session past its slots and members":
+        ts, cols = window2_feed(228, encode, seed=seed, prefix=prefix,
+                                n_syms=80)
+        ts2, cols2 = window2_feed(192, encode, seed=seed + 1, prefix=prefix,
+                                  n_syms=1, gap_ms=1)
+        return (np.concatenate([ts, ts2 - ts2[0] + ts[-1] + 1]),
+                [np.concatenate([a, b]) for a, b in zip(cols, cols2)],
+                (0, 100, 228, 420))
+    ts, cols = window2_feed(356, encode, seed=seed, prefix=prefix,
+                            **KEYED_FEEDS.get(app, {}))
+    return ts, cols, (0, 100, 228, 356)

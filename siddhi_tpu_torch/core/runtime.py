@@ -34,15 +34,17 @@ seq-ordered view (K8 table_buffer), then the selector. Table outputs
 and IN-table filters run K8 (ops/table.py); on-demand queries over
 tables run in core/ondemand.py.
 
-This slice plans single-stream queries with filters, one window of
-kind time, length, lengthBatch or timeBatch, and a plain or
-aggregating selector; insert-into chains between them; pattern and
-sequence queries; joins of two streams or of a stream and a table; and
-in-memory tables. The other window kinds, @Store tables, named windows,
-partitions, incremental aggregations, triggers, rate limiters, stream
-functions, sources and sinks raise NotImplementedError ("not ported
-yet") on every device. Window timers fire from the scheduler as in the
-reference (QueryRuntime._schedule / _on_timer).
+The port plans single-stream queries with filters, one window of any
+kind but cron, and a plain or aggregating selector with having,
+order-by, offset and limit (kernel G; a STRING order-by shapes the
+decoded rows at the host edge, ``_host_shape_rows``); insert-into
+chains between them; pattern and sequence queries; joins of two
+streams or of a stream and a table; and in-memory tables. The cron
+window, @Store tables, named windows, partitions, incremental
+aggregations, triggers, rate limiters, stream functions, sources and
+sinks raise NotImplementedError ("not ported yet") on every device.
+Window timers fire from the scheduler as in the reference
+(QueryRuntime._schedule / _on_timer).
 """
 from __future__ import annotations
 
@@ -73,8 +75,9 @@ from ..ops.table import (TableFilterOp, TableOutputOp, TableRuntime,
                          expr_mentions_table)
 from ..ops.windows2 import (BatchWindowOp, DelayWindowOp,
                             ExternalTimeBatchWindowOp, ExternalTimeWindowOp,
-                            HoppingWindowOp, SortWindowOp,
-                            TimeLengthWindowOp)
+                            FrequentWindowOp, HoppingWindowOp,
+                            LossyFrequentWindowOp, SessionWindowOp,
+                            SortWindowOp, TimeLengthWindowOp)
 from ..ops.windows import (EmptyWindowOp, LengthBatchWindowOp,
                            LengthWindowOp, TimeBatchWindowOp, TimeWindowOp,
                            WindowOp)
@@ -106,9 +109,12 @@ WINDOW_CLASSES = {
     "externaltimebatch": ExternalTimeBatchWindowOp,
     "hopping": HoppingWindowOp,
     "hoping": HoppingWindowOp,   # the reference's spelling
+    "frequent": FrequentWindowOp,
+    "lossyfrequent": LossyFrequentWindowOp,
+    "session": SessionWindowOp,
 }
 # the reference's other window kinds (siddhi_tpu/ops/windows2.py)
-UNPORTED_WINDOWS = ("frequent", "lossyfrequent", "session", "cron")
+UNPORTED_WINDOWS = ("cron",)
 
 
 JOIN_KERNEL_ENV = "SIDDHI_TPU_JOIN_KERNEL"
@@ -533,9 +539,29 @@ class QueryRuntime(Receiver):
         out_rows = rows_from_batch(self.out_schema.types, out)
         if not out_rows:
             return
+        out_rows = self._host_shape_rows(out_rows)
         for h in row_handlers:
             h.handle(timestamp, out_rows)
         self.callback_handler.handle(timestamp, out_rows)
+
+    def _host_shape_rows(self, rows):
+        """A STRING order-by (with its offset and limit) on the decoded
+        rows: the host edge of the selector's shaping. Python's stable
+        ``sorted``, once per key, the last key first; ``batch_callbacks``
+        see the batch unordered, as in the reference."""
+        shape = getattr(self.operators[-1], "host_shape", None)
+        if not shape:
+            return rows
+        order, offset, limit = shape
+        for idx, direction in reversed(order):
+            rows = sorted(rows,
+                          key=lambda r: (r[2][idx] is None, r[2][idx]),
+                          reverse=(direction == "desc"))
+        if offset or limit:
+            off = offset or 0
+            rows = rows[off:off + limit] if limit is not None \
+                else rows[off:]
+        return rows
 
     # -- window timers ---------------------------------------------------
     def _schedule(self, due: int) -> None:
@@ -1428,6 +1454,37 @@ class Planner:
                                    "attribute")
             return SortWindowOp(schema, int(const_of(params[0], "length")),
                                 keys, expired_enabled=expired_enabled)
+        if key == "session":
+            if len(params) not in (1, 2):
+                raise CompileError(
+                    f"{name} takes 1-2 parameters (allowedLatency is not "
+                    "supported)")
+            ki = None
+            if len(params) == 2:
+                ki = attr_idx(params[1], "session key")
+                if schema.attributes[ki].type is not AttrType.STRING:
+                    raise CompileError(
+                        f"window '{name}' session key must be STRING")
+            return SessionWindowOp(schema, _ms(params[0], name), ki,
+                                   expired_enabled=expired_enabled)
+        if key == "frequent":
+            if not params:
+                raise CompileError(f"{name} needs a count parameter")
+            idxs = [attr_idx(p, "key attribute") for p in params[1:]]
+            return FrequentWindowOp(schema, int(const_of(params[0], "count")),
+                                    idxs, expired_enabled=expired_enabled)
+        if key == "lossyfrequent":
+            if not params:
+                raise CompileError(f"{name} needs a support parameter")
+            error = None
+            rest = params[1:]
+            if rest and not isinstance(rest[0], A.Variable):
+                error = float(const_of(rest[0], "error"))
+                rest = rest[1:]
+            idxs = [attr_idx(p, "key attribute") for p in rest]
+            return LossyFrequentWindowOp(
+                schema, float(const_of(params[0], "support")), error, idxs,
+                expired_enabled=expired_enabled)
         if key == "time":
             _expect(params, 1, name)
             return TimeWindowOp(schema, _ms(params[0], name), cap=time_cap,
@@ -1511,6 +1568,13 @@ class Planner:
         app = self.app
         sel_schema = operators[-1].out_schema
         escope = OutputScope(sel_schema)
+        target = getattr(out, "target", None)
+        if target in app.tables and \
+                getattr(operators[-1], "host_shape", None):
+            raise CompileError(
+                "order by on a STRING attribute shapes rows at the host "
+                "boundary and cannot feed a device table output (tables "
+                "insert inside the step)")
         if isinstance(out, A.InsertIntoStream) and out.target in app.tables:
             operators.append(TableOutputOp(
                 "insert", app.tables[out.target], None, None, escope,
@@ -1724,7 +1788,8 @@ class Planner:
         else:
             sel_ops = [ProjectOp(
                 q.selector, engine.match_schema, target, scope,
-                current_on=current_on, expired_on=expired_on)]
+                current_on=current_on, expired_on=expired_on,
+                having_in_scope=scope)]
 
         if name in app.queries:
             raise CompileError(f"duplicate query name '{name}'")

@@ -38,9 +38,12 @@
 // and having), in batch mode the last per (slot, flush chunk) (a stable
 // sort of slot * (B + 1) + chunk), placed by emission order with prefix
 // sums (no sort), then offset and limit, and the count added to the
-// query's emitted counter.
+// query's emitted counter. With an order-by (keep_order) the qualifying
+// rows are placed in row order, unshaped and uncounted: kernel G
+// (order_by.cu) orders, offsets, limits and counts them.
 #include <cfloat>
 
+#include "keyed.cuh"
 #include "siddhi_kernels.h"
 #include "sort_scan.cuh"
 
@@ -257,13 +260,6 @@ __device__ T contrib(const AggArgs& a, int l, int64_t i) {
 
 // ------------------------------------------------------------- the table
 
-__device__ __forceinline__ int64_t mix64(int64_t h, int64_t v) {
-  h = h ^ (int64_t)((uint64_t)v + 0x9E3779B97F4A7C15ULL);
-  h = (int64_t)((uint64_t)(h ^ (h >> 30)) * 0xBF58476D1CE4E5B9ULL);
-  h = (int64_t)((uint64_t)(h ^ (h >> 27)) * 0x94D049BB133111EBULL);
-  return h ^ (h >> 31);
-}
-
 __global__ void hash_rows(const AggArgs a) {
   const int64_t i = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (i >= a.B) return;
@@ -280,75 +276,9 @@ __global__ void hash_rows(const AggArgs a) {
       default: lane = int_at(a.key_cols[c], a.key_type[c], i);
     }
     if (a.key_nulls[c][i]) lane = -987654321987654321LL;
-    h = mix64(h, lane);
+    h = kd::mix64(h, lane);
   }
   a.hk[i] = h;
-}
-
-// the probe rounds of lookup_or_insert over a table of K slots, by one
-// block: `slot_out` gets each active row's slot, -1 where the probe ran
-// out (and for inactive rows); -> the rows lost, in every thread
-__device__ int64_t probe_table(int32_t B, int32_t K, const int64_t* keys,
-                               const bool* used, int64_t* new_keys,
-                               bool* new_used, const int64_t* hk,
-                               const uint8_t* active, int32_t* slot_out,
-                               int32_t* prb, uint8_t* flags, int32_t* claim,
-                               int64_t* buf) {
-  for (int32_t k = threadIdx.x; k < K; k += SS_BLOCK) {
-    new_keys[k] = keys[k];
-    new_used[k] = used[k];
-  }
-  for (int32_t i = threadIdx.x; i < B; i += SS_BLOCK) {
-    const int64_t key = hk[i];
-    const int64_t ab = key == INT64_MIN ? key : (key < 0 ? -key : key);
-    int64_t s = ab % K;
-    if (s < 0) s += K;
-    prb[i] = (int32_t)s;
-    flags[i] = active[i] ? 0 : 1;    // bit 0: placed
-    slot_out[i] = -1;
-  }
-  __syncthreads();
-  for (int round = 0; round < 16; ++round) {
-    int64_t pend = 0, total;
-    for (int32_t i = threadIdx.x; i < B; i += SS_BLOCK)
-      pend += !(flags[i] & 1);
-    ss::block_scan_sum(pend, buf, &total);
-    if (total == 0) break;
-    for (int32_t k = threadIdx.x; k < K; k += SS_BLOCK) claim[k] = B;
-    __syncthreads();
-    for (int32_t i = threadIdx.x; i < B; i += SS_BLOCK) {
-      if (flags[i] & 1) continue;
-      const bool want = !new_used[prb[i]];
-      flags[i] = want ? 2 : 0;
-      if (want) atomicMin(&claim[prb[i]], i);
-    }
-    __syncthreads();
-    for (int32_t i = threadIdx.x; i < B; i += SS_BLOCK) {
-      const int32_t s = prb[i];
-      if ((flags[i] & 2) && claim[s] == i) {
-        new_keys[s] = hk[i];
-        new_used[s] = true;
-      }
-    }
-    __syncthreads();
-    for (int32_t i = threadIdx.x; i < B; i += SS_BLOCK) {
-      if (flags[i] & 1) continue;
-      const int32_t s = prb[i];
-      if (new_used[s] && new_keys[s] == hk[i]) {
-        slot_out[i] = s;
-        flags[i] = 1;
-      } else {
-        flags[i] = 0;
-        prb[i] = s + 1 == K ? 0 : s + 1;
-      }
-    }
-    __syncthreads();
-  }
-  int64_t lost = 0, total;
-  for (int32_t i = threadIdx.x; i < B; i += SS_BLOCK)
-    lost += active[i] && slot_out[i] < 0;
-  ss::block_scan_sum(lost, buf, &total);
-  return total;
 }
 
 // one block: the group table's probe (lookup_or_insert)
@@ -375,7 +305,7 @@ __global__ void probe(const AggArgs a) {
     active[i] = r.add || r.rem;
   }
   __syncthreads();
-  const int64_t lost = probe_table(B, K, a.keys, a.used, a.new_keys,
+  const int64_t lost = kd::probe_table(B, K, a.keys, a.used, a.new_keys,
                                    a.new_used, a.hk, active, a.slots,
                                    a.probe, a.flags, a.claim, buf);
   for (int32_t i = threadIdx.x; i < B; i += SS_BLOCK) {
@@ -716,7 +646,9 @@ __global__ void emit_groups(const EmitArgs a) {   // one block
     if (j == 0 || k != qk[p2[j - 1]]) gs = j;
     const bool last = j == a.B - 1 || k != qk[p2[j + 1]];
     a.ovalid[p2[j]] = last && k < 0x7fffffffu;
-    a.emit_order[p2[j]] = p2[gs];
+    // with an order-by the qualifying rows stay in row order (kernel G
+    // sorts them after)
+    a.emit_order[p2[j]] = a.keep_order ? p2[j] : p2[gs];
   }
 }
 
@@ -1048,7 +980,7 @@ __global__ void dc_hash(const AggArgs a, const StatArgs st) {
     default: lane = int_at(st.arg, st.arg_type, i);
   }
   if (st.arg_null[i]) lane = -987654321987654321LL;
-  st.r0[i] = mix64(mix64(1469598103934665603LL, a.slots[i]), lane);
+  st.r0[i] = kd::mix64(kd::mix64(1469598103934665603LL, a.slots[i]), lane);
   st.flags[i] = a.slots[i] < a.K;   // active: an aggregated row
 }
 
@@ -1059,9 +991,10 @@ __global__ void dc_probe(const AggArgs a, const StatArgs st) {
   for (int32_t i = threadIdx.x; i < a.B; i += SS_BLOCK)
     active[i] = st.flags[i];
   __syncthreads();
-  const int64_t lost = probe_table(a.B, st.D, st.keys, st.used, st.new_keys,
-                                   st.new_used, st.r0, active, st.i0, st.i1,
-                                   st.flags, st.claim, buf);
+  const int64_t lost = kd::probe_table(a.B, st.D, st.keys, st.used,
+                                       st.new_keys, st.new_used, st.r0,
+                                       active, st.i0, st.i1, st.flags,
+                                       st.claim, buf);
   if (threadIdx.x == 0) *st.new_overflow = *st.overflow + lost;
 }
 

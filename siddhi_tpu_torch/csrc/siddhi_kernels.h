@@ -433,6 +433,101 @@ typedef struct {
 
 cudaError_t siddhi_sort_window(const SortArgs* a, cudaStream_t stream);
 
+// ---- E: frequent and lossyFrequent (window_seq.cu) -------------------------
+
+typedef struct {
+  WinBuf batch;               // the input, B rows
+  const int32_t* batch_kind;
+  WinBuf a;                   // the buffer, N rows (seq unused)
+  WinBuf na;                  // the new buffer (fresh memory)
+  const int64_t *keys, *counts, *buckets;     // [N] (buckets: lossy)
+  int64_t *o_keys, *o_counts, *o_buckets;
+  const int64_t *next_seq, *total, *overflow; // 0-d (total, overflow: lossy)
+  int64_t *o_next_seq, *o_total, *o_overflow;
+  const int64_t* now;
+  WinBuf out;                 // the output batch, B * N + B rows
+  int32_t* out_kind;
+  // scratch
+  int64_t* hk;                // [B] key hashes
+  int64_t* dmask;             // [B] each row's dying slots (bit j: slot j)
+  int32_t* vbefore;           // [B] valid expired rows before row i
+  int32_t* cbefore;           // [B] passing rows before row i
+  int64_t* scal;              // [4]
+  int32_t col_size[SIDDHI_WIN_MAX_COLS];
+  int32_t key_col[SIDDHI_WIN_MAX_COLS];
+  int32_t key_type[SIDDHI_WIN_MAX_COLS];   // ValType
+  int32_t n_cols, n_keys, B, N, lossy, expired_enabled;
+  int64_t width;
+  double thresh;
+} FreqArgs;
+
+cudaError_t siddhi_freq_window(const FreqArgs* a, cudaStream_t stream);
+
+// ---- F: the session window (session_step.cu) -------------------------------
+
+typedef struct {
+  WinBuf batch;               // the input, B rows
+  const int32_t* batch_kind;
+  WinBuf buf;                 // the members, K * S rows (seq unused)
+  WinBuf nbuf;                // the new members (fresh memory)
+  const int64_t* keys; const bool* used; const int64_t* count;
+  const int64_t* end; const bool* open;
+  const int64_t* next_seq; const int64_t* overflow;
+  int64_t* o_keys; bool* o_used; int64_t* o_count;
+  int64_t* o_end; bool* o_open;
+  int64_t* o_next_seq; int64_t* o_overflow;
+  WinBuf out;                 // the output batch, M = K * S + 2B rows
+  int32_t* out_kind;
+  // scratch: rows [B], slots [K], candidates [M]
+  int64_t* hk; uint8_t* cur; int32_t* slots; int32_t* prb;
+  uint8_t* flags; int32_t* claim; int64_t* rt; int32_t* order;
+  int64_t *s_a, *s_b, *s_c; uint8_t* s_f;
+  int64_t* r_close_ts; int32_t* r_close_row; int64_t* r_pos;
+  uint8_t* r_flags;
+  int32_t* sl_close_row; uint8_t* sl_flags;
+  uint32_t* ekey; int32_t* eorder; uint32_t *k1, *k2; int32_t *i1, *i2;
+  int32_t* counts; int64_t* scal;
+  int32_t col_size[SIDDHI_WIN_MAX_COLS];
+  int32_t n_cols, B, K, S, M, has_key, key_col, key_type, expired_enabled;
+  int32_t pad_;
+  int64_t gap;
+} SessArgs;
+
+cudaError_t siddhi_session_window(const SessArgs* a, cudaStream_t stream);
+
+// ---- G: order-by, offset and limit (order_by.cu) ---------------------------
+
+#define SIDDHI_ORDER_MAX_COLS 32
+#define SIDDHI_ORDER_MAX_KEYS 8
+
+typedef struct {
+  int32_t B, n_cols, n_keys, pad_;
+  int64_t offset, limit;      // -1: none
+  const int64_t* ts;          // [B] the chunk
+  const int32_t* kind;
+  const bool* valid;
+  const void* cols[SIDDHI_ORDER_MAX_COLS];
+  const bool* nulls[SIDDHI_ORDER_MAX_COLS];
+  int32_t col_size[SIDDHI_ORDER_MAX_COLS];
+  int32_t key_col[SIDDHI_ORDER_MAX_KEYS];
+  int32_t key_type[SIDDHI_ORDER_MAX_KEYS];  // ValType
+  int32_t key_desc[SIDDHI_ORDER_MAX_KEYS];
+  int64_t* out_ts;            // [B] the shaped chunk
+  int32_t* out_kind;
+  bool* out_valid;
+  void* out_cols[SIDDHI_ORDER_MAX_COLS];
+  bool* out_nulls[SIDDHI_ORDER_MAX_COLS];
+  int64_t* emitted;           // 0-d, added to; or NULL
+  // scratch
+  uint64_t *k1, *k2;          // [B]
+  int32_t *i1, *i2;           // [B]
+  int32_t* counts;            // [256 * ceil(B / 1024)]
+  int64_t* rank;              // [B]
+  int64_t* sums;              // [ceil(B / 1024)]
+} OrderArgs;
+
+cudaError_t siddhi_order_by(const OrderArgs* a, cudaStream_t stream);
+
 // ---- K6: aggregate step and emission (aggregate_step.cu) ------------------
 
 #define SIDDHI_AGG_MAX_KEYS 8
@@ -562,6 +657,8 @@ cudaError_t siddhi_distinct_count(const AggArgs* a, const StatArgs* st,
 
 typedef struct {
   int32_t B, K, batch_mode, n_cols;
+  int32_t keep_order;               // 1: qualifying rows in row order
+  int32_t pad_;
   int64_t offset, limit;            // -1: none
   const int32_t* slots;             // [B]
   const bool* qual;                 // [B] K2's gate and having

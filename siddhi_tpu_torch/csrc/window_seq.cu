@@ -1,4 +1,6 @@
-// Kernel K5s: the sort window's step (ops/windows2.py sort_window_step).
+// Kernel K5s (B): the sort window's step (ops/windows2.py
+// sort_window_step); and kernel E, the frequent and lossyFrequent
+// windows' step (freq_window_step), after it.
 //
 // Replaces the reference's SortWindowOp.step (siddhi_tpu/ops/
 // windows2.py:443), a lax.scan over the batch's rows with the buffer of
@@ -32,6 +34,7 @@
 // B steps of a few microseconds, not a memory-bound pass.
 #include <cfloat>
 
+#include "keyed.cuh"
 #include "siddhi_kernels.h"
 #include "sort_scan.cuh"
 
@@ -285,6 +288,337 @@ __global__ void sort_gather(const SortArgs a) {
   }
 }
 
+
+// ---------------------------------------------------------------- kernel E
+//
+// Replaces the reference's FrequentWindowOp.step (siddhi_tpu/ops/
+// windows2.py:569) and LossyFrequentWindowOp.step (:732): a lax.scan
+// over the batch's rows, each row's admission depending on the table the
+// row before left. One warp walks the rows in order; lane l holds the
+// table's slots l and l + 32 (key, count, bucket) in registers, the
+// slots' stored events in shared memory, so every slot operation of a
+// row is one warp vote: the hit (the lowest set bit of a ballot, jnp's
+// argmax of `found`), the first free slot (the lowest clear bit of the
+// valid mask, argmin of `valid`), the decrement of every count and the
+// dying mask, the prune. The rows come in tiles of 32 through shared
+// memory. Keys compare as the 64-bit hash of the key attributes, as in
+// the reference.
+//
+// Emission: the reference emits B * N expired candidates (ts = now) and
+// B current ones through its emission sort, whose order for the valid
+// rows is the walk's own order: frequent emits a row's dying slots (in
+// slot order) before the row, lossyFrequent after it. So the walk writes
+// each valid row at its final place, keeps per row the dying mask and
+// the counts of valid rows before it, and a second launch places the
+// invalid candidates after the valid ones in candidate order, as the
+// stable sort leaves them (expired ones: ts = now and zeros; current
+// ones: the batch's row).
+//
+// Bound: latency. The walk is a chain of B steps of a few warp votes
+// and shared-memory accesses each; the fill is a pass over B * N + B
+// output rows, bound by their bytes.
+
+#define FREQ_SLOTS 64
+#define FREQ_TILE 32
+
+__device__ __forceinline__ int64_t raw_at(const void* col, int64_t i,
+                                          int sz) {
+  if (sz == 8) return ((const int64_t*)col)[i];
+  if (sz == 4) return (int64_t)((const uint32_t*)col)[i];
+  return (int64_t)((const uint8_t*)col)[i];
+}
+
+__device__ __forceinline__ void raw_put(void* col, int64_t j, int64_t v,
+                                        int sz) {
+  if (sz == 8) ((int64_t*)col)[j] = v;
+  else if (sz == 4) ((uint32_t*)col)[j] = (uint32_t)v;
+  else ((uint8_t*)col)[j] = (uint8_t)v;
+}
+
+__device__ __forceinline__ uint64_t ballot64(bool lo, bool hi) {
+  return (uint64_t)__ballot_sync(0xffffffffu, lo) |
+         ((uint64_t)__ballot_sync(0xffffffffu, hi) << 32);
+}
+
+// each row's key: hash_columns over the key attributes
+__global__ void freq_hash(const FreqArgs a) {
+  const int64_t i = (int64_t)blockIdx.x * T1 + threadIdx.x;
+  if (i >= a.B) return;
+  int64_t h = kd::HASH_SEED;
+  for (int k = 0; k < a.n_keys; ++k) {
+    const int c = a.key_col[k];
+    h = kd::mix64(h, kd::key_lane(a.batch.cols[c], a.key_type[k],
+                                  a.batch.nulls[c], i));
+  }
+  a.hk[i] = h;
+}
+
+__global__ void freq_walk(const FreqArgs a) {
+  __shared__ int64_t s_val[SIDDHI_WIN_MAX_COLS][FREQ_SLOTS];
+  __shared__ bool s_null[SIDDHI_WIN_MAX_COLS][FREQ_SLOTS];
+  __shared__ int64_t s_ts[FREQ_SLOTS];
+  __shared__ int64_t t_val[SIDDHI_WIN_MAX_COLS][FREQ_TILE];
+  __shared__ bool t_null[SIDDHI_WIN_MAX_COLS][FREQ_TILE];
+  __shared__ int64_t t_ts[FREQ_TILE];
+  __shared__ int64_t t_hk[FREQ_TILE];
+  __shared__ bool t_cur[FREQ_TILE];
+  const int l = threadIdx.x;
+  const int N = a.N, C = a.n_cols;
+  const int64_t B = a.B;
+  const uint64_t nmask = N == 64 ? ~0ull : ((1ull << N) - 1ull);
+  const int s0 = l, s1 = l + 32;
+  int64_t key0 = 0, key1 = 0, cnt0 = 0, cnt1 = 0, bkt0 = 0, bkt1 = 0;
+  bool v0 = false, v1 = false;
+  if (s0 < N) {
+    key0 = a.keys[s0];
+    cnt0 = a.counts[s0];
+    bkt0 = a.lossy ? a.buckets[s0] : 0;
+    v0 = a.a.valid[s0];
+    s_ts[s0] = a.a.ts[s0];
+  }
+  if (s1 < N) {
+    key1 = a.keys[s1];
+    cnt1 = a.counts[s1];
+    bkt1 = a.lossy ? a.buckets[s1] : 0;
+    v1 = a.a.valid[s1];
+    s_ts[s1] = a.a.ts[s1];
+  }
+  for (int c = 0; c < C; ++c) {
+    if (s0 < N) {
+      s_val[c][s0] = raw_at(a.a.cols[c], s0, a.col_size[c]);
+      s_null[c][s0] = a.a.nulls[c][s0];
+    }
+    if (s1 < N) {
+      s_val[c][s1] = raw_at(a.a.cols[c], s1, a.col_size[c]);
+      s_null[c][s1] = a.a.nulls[c][s1];
+    }
+  }
+  uint64_t valid = ballot64(v0, v1);
+  __syncwarp();
+  const int64_t now = *a.now;
+  int64_t nseq = *a.next_seq;
+  int64_t total = a.lossy ? *a.total : 0, ovf = a.lossy ? *a.overflow : 0;
+  int64_t run = 0, vexp = 0, vcur = 0;
+
+  // the row in tile row r into slot s (lane c: column c; lane 31: ts)
+  auto store = [&](int s, int r) {
+    for (int c = l; c < C; c += 32) {
+      s_val[c][s] = t_val[c][r];
+      s_null[c][s] = t_null[c][r];
+    }
+    if (l == 31) s_ts[s] = t_ts[r];
+  };
+  auto put_cur = [&](int r, int64_t pos) {
+    for (int c = l; c < C; c += 32) {
+      raw_put(a.out.cols[c], pos, t_val[c][r], a.col_size[c]);
+      a.out.nulls[c][pos] = t_null[c][r];
+    }
+    if (l == 31) {
+      a.out.ts[pos] = t_ts[r];
+      a.out_kind[pos] = CUR;
+      a.out.valid[pos] = true;
+    }
+  };
+  auto put_exp = [&](int s, int64_t pos) {
+    for (int c = l; c < C; c += 32) {
+      raw_put(a.out.cols[c], pos, s_val[c][s], a.col_size[c]);
+      a.out.nulls[c][pos] = s_null[c][s];
+    }
+    if (l == 31) {
+      a.out.ts[pos] = now;
+      a.out_kind[pos] = EXP;
+      a.out.valid[pos] = true;
+    }
+  };
+  auto emit_dying = [&](uint64_t dies) {
+    if (!a.expired_enabled) return;
+    for (uint64_t m = dies; m; m &= m - 1) {
+      put_exp(__ffsll((long long)m) - 1, run++);
+      ++vexp;
+    }
+  };
+  // the owner lane of slot s sets its key, count and bucket
+  auto set_slot = [&](int s, int64_t kh, int64_t cnt, int64_t bkt) {
+    if (l == (s & 31)) {
+      if (s < 32) {
+        key0 = kh; cnt0 = cnt; bkt0 = bkt;
+      } else {
+        key1 = kh; cnt1 = cnt; bkt1 = bkt;
+      }
+    }
+  };
+
+  for (int64_t base = 0; base < B; base += FREQ_TILE) {
+    const int64_t il = base + l;
+    if (il < B) {
+      t_hk[l] = a.hk[il];
+      t_ts[l] = a.batch.ts[il];
+      t_cur[l] = a.batch.valid[il] && a.batch_kind[il] == CUR;
+      for (int c = 0; c < C; ++c) {
+        t_val[c][l] = raw_at(a.batch.cols[c], il, a.col_size[c]);
+        t_null[c][l] = a.batch.nulls[c][il];
+      }
+    } else {
+      t_cur[l] = false;
+    }
+    __syncwarp();
+    const int nr = B - base < FREQ_TILE ? (int)(B - base) : FREQ_TILE;
+    for (int r = 0; r < nr; ++r) {
+      const int64_t i = base + r;
+      if (l == 0) {
+        a.vbefore[i] = (int32_t)vexp;
+        a.cbefore[i] = (int32_t)vcur;
+      }
+      uint64_t dies = 0;
+      if (t_cur[r]) {
+        ++nseq;
+        const int64_t kh = t_hk[r];
+        const uint64_t found = ballot64(
+            s0 < N && ((valid >> s0) & 1) && key0 == kh,
+            s1 < N && ((valid >> s1) & 1) && key1 == kh);
+        if (!a.lossy) {
+          bool passed = true;
+          if (found) {
+            const int s = __ffsll((long long)found) - 1;
+            const int64_t cs = __shfl_sync(0xffffffffu, s < 32 ? cnt0 : cnt1,
+                                           s & 31);
+            set_slot(s, kh, cs + 1, 0);
+            store(s, r);
+          } else if (__popcll((long long)valid) < N) {
+            const int s = __ffsll((long long)(~valid & nmask)) - 1;
+            set_slot(s, kh, 1, 0);
+            store(s, r);
+            valid |= 1ull << s;
+          } else {
+            // a full table: every count decremented, the zeroed freed
+            bool d0 = false, d1 = false;
+            if (s0 < N && ((valid >> s0) & 1)) {
+              --cnt0;
+              d0 = cnt0 <= 0;
+              if (d0) cnt0 = 0;
+            }
+            if (s1 < N && ((valid >> s1) & 1)) {
+              --cnt1;
+              d1 = cnt1 <= 0;
+              if (d1) cnt1 = 0;
+            }
+            dies = ballot64(d0, d1);
+            emit_dying(dies);
+            valid &= ~dies;
+            passed = dies != 0;
+            if (passed) {
+              const int s = __ffsll((long long)(~valid & nmask)) - 1;
+              set_slot(s, kh, 1, 0);
+              store(s, r);
+              valid |= 1ull << s;
+            }
+          }
+          if (passed) {
+            put_cur(r, run++);
+            ++vcur;
+          }
+        } else {
+          ++total;
+          const int64_t bucket = (total + a.width - 1) / a.width;
+          const uint64_t freeb = ~valid & nmask;
+          const bool admitted = found != 0 || freeb != 0;
+          const int s = found ? __ffsll((long long)found) - 1
+                              : (freeb ? __ffsll((long long)freeb) - 1 : 0);
+          const int64_t cs = __shfl_sync(0xffffffffu, s < 32 ? cnt0 : cnt1,
+                                         s & 31);
+          const int64_t bs = __shfl_sync(0xffffffffu, s < 32 ? bkt0 : bkt1,
+                                         s & 31);
+          int64_t nc = cs;
+          if (admitted) {
+            nc = found ? cs + 1 : 1;
+            set_slot(s, kh, nc, found ? bs : bucket - 1);
+            store(s, r);
+            valid |= 1ull << s;
+          } else {
+            ++ovf;
+          }
+          if (admitted &&
+              (double)nc >= __dmul_rn(a.thresh, (double)total)) {
+            put_cur(r, run++);
+            ++vcur;
+          }
+          if (total % a.width == 0) {
+            dies = ballot64(
+                s0 < N && ((valid >> s0) & 1) && cnt0 + bkt0 <= bucket,
+                s1 < N && ((valid >> s1) & 1) && cnt1 + bkt1 <= bucket);
+            emit_dying(dies);
+            valid &= ~dies;
+          }
+        }
+      }
+      if (l == 0) a.dmask[i] = (int64_t)dies;
+    }
+    __syncwarp();
+  }
+  // the new table
+  for (int h = 0; h < 2; ++h) {
+    const int s = h ? s1 : s0;
+    if (s >= N) continue;
+    a.o_keys[s] = h ? key1 : key0;
+    a.o_counts[s] = h ? cnt1 : cnt0;
+    if (a.lossy) a.o_buckets[s] = h ? bkt1 : bkt0;
+    a.na.valid[s] = (valid >> s) & 1;
+    a.na.ts[s] = s_ts[s];
+    for (int c = 0; c < C; ++c) {
+      raw_put(a.na.cols[c], s, s_val[c][s], a.col_size[c]);
+      a.na.nulls[c][s] = s_null[c][s];
+    }
+  }
+  if (l == 0) {
+    *a.o_next_seq = nseq;
+    if (a.lossy) {
+      *a.o_total = total;
+      *a.o_overflow = ovf;
+    }
+    a.scal[0] = run;
+    a.scal[1] = vexp;
+    a.scal[2] = vcur;
+  }
+}
+
+// the invalid candidates after the valid ones, in candidate order
+__global__ void freq_fill(const FreqArgs a) {
+  const int64_t c = (int64_t)blockIdx.x * T1 + threadIdx.x;
+  const int64_t B = a.B, N = a.N, BN = B * N;
+  if (c >= BN + B) return;
+  const int64_t V = a.scal[0], VE = a.scal[1], VC = a.scal[2];
+  const bool exp_first = !a.lossy;
+  const bool is_exp = exp_first ? c < BN : c >= B;
+  const int64_t e = exp_first ? c : c - B;          // expired index
+  const int64_t i = is_exp ? e / N : (exp_first ? c - BN : c);
+  int64_t pos;
+  if (is_exp) {
+    const int64_t j = e - i * N;
+    const uint64_t dm = a.expired_enabled ? (uint64_t)a.dmask[i] : 0ull;
+    if ((dm >> j) & 1) return;             // a valid row: the walk's
+    const int64_t before =
+        a.vbefore[i] + __popcll((long long)(dm & ((1ull << j) - 1ull)));
+    pos = V + (exp_first ? 0 : B - VC) + (e - before);
+    a.out.ts[pos] = *a.now;
+    a.out_kind[pos] = EXP;
+    for (int k = 0; k < a.n_cols; ++k) {
+      zero_val(a.out.cols[k], pos, a.col_size[k]);
+      a.out.nulls[k][pos] = false;
+    }
+  } else {
+    const int64_t nxt = i + 1 < B ? a.cbefore[i + 1] : VC;
+    if (nxt != a.cbefore[i]) return;       // it passed: the walk's
+    pos = V + (exp_first ? BN - VE : 0) + (i - a.cbefore[i]);
+    a.out.ts[pos] = a.batch.ts[i];
+    a.out_kind[pos] = CUR;
+    for (int k = 0; k < a.n_cols; ++k) {
+      copy_val(a.out.cols[k], pos, a.batch.cols[k], i, a.col_size[k]);
+      a.out.nulls[k][pos] = a.batch.nulls[k][i];
+    }
+  }
+  a.out.valid[pos] = false;
+}
+
 }  // namespace
 
 extern "C" cudaError_t siddhi_sort_window(const SortArgs* p,
@@ -293,5 +627,15 @@ extern "C" cudaError_t siddhi_sort_window(const SortArgs* p,
   sort_walk<<<1, SS_BLOCK, 0, stream>>>(a);
   sort_place<<<1, SS_BLOCK, 0, stream>>>(a);
   sort_gather<<<(int)((2 * (int64_t)a.B + T1 - 1) / T1), T1, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t siddhi_freq_window(const FreqArgs* p,
+                                          cudaStream_t stream) {
+  const FreqArgs& a = *p;
+  const int64_t M = (int64_t)a.B * a.N + a.B;
+  freq_hash<<<(int)((a.B + T1 - 1) / T1), T1, 0, stream>>>(a);
+  freq_walk<<<1, 32, 0, stream>>>(a);
+  freq_fill<<<(int)((M + T1 - 1) / T1), T1, 0, stream>>>(a);
   return cudaGetLastError();
 }

@@ -36,9 +36,11 @@ the selector, run in one K2 program first.
 The stateful aggregators, whose state is not a [K] accumulator, keep a
 table of their own in the query state: min()/max() over expiring content
 (SlidingMinMaxAgg, kernel C) and distinctCount() (DistinctCountAgg,
-kernel D), both launched between K6's slot sort and its lanes. Not
-ported yet: unionSet() (its argument is a createSet() result) and
-order-by; each raises NotImplementedError ("not ported yet").
+kernel D), both launched between K6's slot sort and its lanes. With an
+order-by the emission keeps the qualifying rows in row order and kernel
+G (ops/selector.py shape_chunk) orders, offsets and limits them. Not
+ported yet: unionSet() (its argument is a createSet() result); it
+raises NotImplementedError ("not ported yet").
 """
 from __future__ import annotations
 
@@ -55,14 +57,14 @@ from ..core.event import (CURRENT, EXPIRED, RESET, Attribute, EventBatch,
 from ..core.types import NUMERIC_TYPES, AttrType, flush_subnormal, \
     torch_dtype
 from ..lang import ast as A
-from .expr import (OP_LOAD, VT, CompiledExpr, CompileError, ProgramBuilder,
-                   Scope, compile_expression, expr_eval)
+from .expr import (DTYPE_VT, OP_LOAD, CompiledExpr, CompileError,
+                   ProgramBuilder, Scope, compile_expression, expr_eval)
 from .keyed import (add, fma, hash_columns, lookup_or_insert, maximum,
                     minimum, segmented_cumsum, segmented_cummax,
                     segmented_cummin)
 from .operators import Operator
 from .selector import (AGGREGATOR_NAMES, compile_order_by, const_int,
-                       output_attribute_name, shape_output)
+                       output_attribute_name, shape_chunk, shape_output)
 
 I64 = torch.int64
 F64 = torch.float64
@@ -740,10 +742,15 @@ class AggregateOp(Operator):
                                              functions)
             if self.having.type is not AttrType.BOOL:
                 raise CompileError("HAVING must be BOOL")
-        compile_order_by(selector, self._schema)
+        # order by / limit / offset (STRING keys shape at the host edge)
+        self.order_by, host_order = compile_order_by(selector, self._schema)
         self.limit = const_int(selector.limit, "limit")
         self.offset = const_int(selector.offset, "offset")
-        self.host_shape = None
+        if host_order:
+            self.host_shape = (host_order, self.offset, self.limit)
+            self.limit = self.offset = None
+        else:
+            self.host_shape = None
         self._progs = None
 
     @property
@@ -823,9 +830,15 @@ class AggregateOp(Operator):
             hb = EventBatch(batch.ts, tuple(out_cols) + ext.cols,
                             tuple(out_nulls) + ext.nulls, batch.kind, qual)
             _, _, qual = expr_eval(hav, hb)
-        out = aggregate_emit(self, slots, qual, batch, out_cols, out_nulls,
-                             emitted)
-        return new_state, out
+        if not self.order_by:
+            return new_state, aggregate_emit(self, slots, qual, batch,
+                                             out_cols, out_nulls, emitted)
+        # the qualifying rows in row order, then kernel G orders, offsets
+        # and limits them (the reference's lexsort ignores the emission
+        # order)
+        out = aggregate_emit(self, slots, qual, batch, out_cols, out_nulls)
+        return new_state, shape_chunk(out, self.order_by, self.offset,
+                                      self.limit, emitted)
 
 
 # ---------------------------------------------------------------------------
@@ -974,6 +987,8 @@ def aggregate_emit_ref(op: AggregateOp, slots, qualifying,
     out = EventBatch(ts=batch.ts, cols=tuple(out_cols),
                      nulls=tuple(out_nulls), kind=batch.kind,
                      valid=out_valid)
+    if op.order_by:   # row order; kernel G shapes the chunk after
+        return shape_output(out, None, None, rows)
     out = shape_output(out, op.offset, op.limit, emit_order)
     if emitted is not None:
         emitted += out.valid.sum(dtype=I64)
@@ -1031,11 +1046,6 @@ def aggregate_emit(op: AggregateOp, slots, qualifying, batch: EventBatch,
         args, torch.cuda.current_stream(dev).cuda_stream)
     _kernels.count_launch("aggregate_emit")
     return out
-
-
-_VT_OF = {torch.int32: VT[AttrType.INT], torch.int64: VT[AttrType.LONG],
-          torch.float32: VT[AttrType.FLOAT],
-          torch.float64: VT[AttrType.DOUBLE], torch.bool: VT[AttrType.BOOL]}
 
 
 def tree_levels(n: int):
@@ -1108,18 +1118,18 @@ def agg_args(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
     a.kind, a.valid = kind.data_ptr(), valid.data_ptr()
     for k, (c, n) in enumerate(key_cols):
         a.key_cols[k], a.key_nulls[k] = c.data_ptr(), n.data_ptr()
-        a.key_type[k] = _VT_OF[c.dtype]
+        a.key_type[k] = DTYPE_VT[c.dtype]
     lane = 0
     for s, (sp, arg, carry, ncarry, (ov, on)) in enumerate(zip(
             specs, arg_cols, state["carry"], new_state["carry"], aggs)):
         a.spec_kind[s] = sp.KIND
         a.spec_flag[s] = int(getattr(sp, "is_and", False))
         a.spec_lane0[s] = lane
-        a.arg_type[s] = -1 if arg is None else _VT_OF[arg[0].dtype]
+        a.arg_type[s] = -1 if arg is None else DTYPE_VT[arg[0].dtype]
         if arg is not None:
             a.arg_cols[s], a.arg_nulls[s] = arg[0].data_ptr(), \
                 arg[1].data_ptr()
-        a.out_type[s] = _VT_OF[ov.dtype]
+        a.out_type[s] = DTYPE_VT[ov.dtype]
         a.out_vals[s], a.out_nulls[s] = ov.data_ptr(), on.data_ptr()
         if isinstance(sp, DistinctCountAgg):
             # the lane carries in the spec's table
@@ -1129,7 +1139,7 @@ def agg_args(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
             r = t(B, ln.dtype)
             runs.append(r)
             a.lane_op[lane] = LANE_OPS[ln.op]
-            a.lane_type[lane] = _VT_OF[ln.dtype]
+            a.lane_type[lane] = DTYPE_VT[ln.dtype]
             a.lane_spec[lane] = s
             a.carry[lane], a.new_carry[lane] = c.data_ptr(), nc.data_ptr()
             a.run[lane] = r.data_ptr()
@@ -1168,7 +1178,7 @@ def stat_args(sp, s: int, arg, tab, ntab, B: int, K: int, dev):
     st = _kernels.StatArgs()
     st.spec = s
     st.arg, st.arg_null = arg[0].data_ptr(), arg[1].data_ptr()
-    st.arg_type = _VT_OF[arg[0].dtype]
+    st.arg_type = DTYPE_VT[arg[0].dtype]
     sc = {"r0": t(B, I64), "r1": t(B, I64), "r2": t(B, I64),
           "r3": t(B, I64), "i0": t(B, torch.int32), "i1": t(B, torch.int32),
           "flags": t(B, torch.uint8), "pkeys": t(B, torch.int32),
@@ -1219,8 +1229,11 @@ def emit_args(op: AggregateOp, slots, qualifying, batch: EventBatch,
           "chunk": t(B, I64), "gstart": t(B, I64), "scal": t(4, I64)}
     a = _kernels.EmitArgs()
     a.B, a.K, a.batch_mode, a.n_cols = B, op.K, int(op.batch_mode), n
-    a.offset = -1 if op.offset is None else op.offset
-    a.limit = -1 if op.limit is None else op.limit
+    # with an order-by: the qualifying rows in row order, unshaped and
+    # uncounted (kernel G shapes and counts them)
+    a.keep_order = int(bool(op.order_by))
+    a.offset = -1 if op.offset is None or op.order_by else op.offset
+    a.limit = -1 if op.limit is None or op.order_by else op.limit
     a.slots, a.qual = slots.data_ptr(), qualifying.data_ptr()
     a.ts, a.kind = batch.ts.data_ptr(), batch.kind.data_ptr()
     a.valid = batch.valid.data_ptr()
@@ -1231,7 +1244,8 @@ def emit_args(op: AggregateOp, slots, qualifying, batch: EventBatch,
         a.out_cols[k], a.out_nulls[k] = oc.data_ptr(), on.data_ptr()
     a.out_ts, a.out_kind = out.ts.data_ptr(), out.kind.data_ptr()
     a.out_valid = out.valid.data_ptr()
-    a.emitted = emitted.data_ptr() if emitted is not None else None
+    a.emitted = emitted.data_ptr() \
+        if emitted is not None and not op.order_by else None
     for k, v in sc.items():
         setattr(a, k, v.data_ptr())
     a._keep = (sc,)

@@ -60,6 +60,10 @@ class CompileError(Exception):
 VT = {AttrType.INT: 0, AttrType.LONG: 1, AttrType.FLOAT: 2,
       AttrType.DOUBLE: 3, AttrType.BOOL: 4, AttrType.STRING: 5}
 VT_TYPE = {v: k for k, v in VT.items()}
+# a column's ValType from its dtype (STRING codes are int32: INT)
+DTYPE_VT = {torch.int32: VT[AttrType.INT], torch.int64: VT[AttrType.LONG],
+            torch.float32: VT[AttrType.FLOAT],
+            torch.float64: VT[AttrType.DOUBLE], torch.bool: VT[AttrType.BOOL]}
 (OP_LOAD, OP_CONST, OP_NULLC, OP_CAST, OP_ADD, OP_SUB, OP_MUL, OP_DIV,
  OP_MOD, OP_EQ, OP_NE, OP_GT, OP_GE, OP_LT, OP_LE, OP_AND, OP_OR, OP_NOT,
  OP_ISNULL, OP_KEEP, OP_OUT, OP_ZNULL, OP_NEG) = range(23)

@@ -19,8 +19,8 @@ LengthWindowOp, LengthBatchWindowProcessor -> LengthBatchWindowOp,
 TimeBatchWindowProcessor -> TimeBatchWindowOp. The reference's second
 wave (siddhi_tpu/ops/windows2.py) is in ops/windows2.py: externalTime,
 timeLength, delay, batch, externalTimeBatch and hopping run on K5 too;
-the sort window has a kernel of its own; frequent, lossyFrequent,
-session and cron are not ported yet.
+the sort window, frequent and lossyFrequent, and session have kernels
+of their own; cron is not ported yet.
 
 ``window_step`` is K5. For tensors on the CPU it runs the window's
 ``step_ref``, the plain PyTorch version, which follows the reference's

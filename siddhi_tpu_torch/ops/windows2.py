@@ -1,6 +1,7 @@
 """Window operators, second wave (PyTorch port of siddhi_tpu/ops/
 windows2.py): externalTime, timeLength, delay, batch, externalTimeBatch
-and hopping on kernel K5's frame, and the sort window on a kernel of its
+and hopping on kernel K5's frame; the sort window (kernel B), frequent
+and lossyFrequent (kernel E) and session (kernel F) on kernels of their
 own.
 
 Reference mapping (modules/siddhi-core/.../query/processor/stream/window/):
@@ -11,13 +12,20 @@ Reference mapping (modules/siddhi-core/.../query/processor/stream/window/):
 - SortWindowProcessor.java:152-183              -> SortWindowOp
 - ExternalTimeBatchWindowProcessor.java:253-311 -> ExternalTimeBatchWindowOp
 - HopingWindowProcessor.java:48                 -> HoppingWindowOp
+- FrequentWindowProcessor.java:115-172          -> FrequentWindowOp
+- LossyFrequentWindowProcessor.java:149-210     -> LossyFrequentWindowOp
+- SessionWindowProcessor.java:227-310           -> SessionWindowOp
 
 Each ``step_ref`` is the plain PyTorch version and follows the
 reference's ``step`` line by line. The K5-frame kinds run kernel K5
 (csrc/window_step.cu) on a CUDA batch, as the first wave's windows do
 (ops/windows.py window_step); the sort window runs csrc/window_seq.cu
 (``sort_window_step``), one block walking the batch row by row as the
-reference's ``lax.scan`` does.
+reference's ``lax.scan`` does; frequent and lossyFrequent run
+csrc/window_seq.cu's kernel E (``freq_window_step``), one warp walking
+the rows; session runs csrc/session_step.cu (``session_step``), the
+reference's vectorised pass stage by stage. The cron window is not
+ported yet.
 
 The reference's documented deviation is kept: delay(0) releases at the
 next step, not interleaved after the next in-chunk event.
@@ -30,12 +38,14 @@ import torch
 
 from .. import _kernels
 from ..core.event import CURRENT, EXPIRED, RESET, TIMER, EventBatch
-from ..core.types import AttrType
-from .expr import CompileError
+from ..core.types import AttrType, col_zeros
+from .expr import DTYPE_VT, CompileError
+from .keyed import hash_columns, lookup_or_insert, segmented_cumsum
+from .sentinels import I32_MAX
 from .windows import (I64, NEG_INF, POS_INF, WindowOp, _full, _i64, _kinds,
                       _select, arrival_seqs, current_row_positions,
                       _win_buf, emission_sort, empty_buffer, keep_newest,
-                      make_pool)
+                      make_pool, running_time)
 
 BIG = 2 ** 62
 
@@ -651,6 +661,17 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+def _host_copy(state, batch: EventBatch, now):
+    return (_to(state, "cpu"), EventBatch(*(_to(x, "cpu") for x in (
+        batch.ts, batch.cols, batch.nulls, batch.kind, batch.valid))),
+        _i64(now, "cpu"))
+
+
+def _to_dev(st, out: EventBatch, dev):
+    return _to(st, dev), EventBatch(*(_to(x, dev) for x in (
+        out.ts, out.cols, out.nulls, out.kind, out.valid)))
+
+
 class SortWindowOp(WindowOp):
     """#window.sort(L, attr [asc|desc], ...): keep the L smallest events
     by the comparator; when an arrival makes L+1, the comparator-max
@@ -713,13 +734,8 @@ class SortWindowOp(WindowOp):
         and hands the results back to the card."""
         dev = batch.ts.device
         if dev.type != "cpu":
-            host = {"buf": _to(state["buf"], "cpu"),
-                    "next_seq": state["next_seq"].cpu()}
-            hb = EventBatch(*(_to(x, "cpu") for x in (
-                batch.ts, batch.cols, batch.nulls, batch.kind, batch.valid)))
-            st, out = self.step_ref(host, hb, _i64(now, "cpu"))
-            return _to(st, dev), EventBatch(*(_to(x, dev) for x in (
-                out.ts, out.cols, out.nulls, out.kind, out.valid)))
+            return _to_dev(*self.step_ref(*_host_copy(state, batch, now)),
+                           dev)
         B, L = batch.capacity, self.L
         now = _i64(now, dev)
         cur, seq, next_seq = arrival_seqs(batch, state["next_seq"])
@@ -791,9 +807,6 @@ def sort_window_step(op: SortWindowOp, state, batch: EventBatch, now):
     return new_state, out
 
 
-_SORT_VT = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
-            torch.float64: 3}
-
 
 def sort_args(op: SortWindowOp, state, batch: EventBatch, now):
     """The sort window kernel's arguments: the new state's and the output
@@ -849,7 +862,653 @@ def sort_args(op: SortWindowOp, state, batch: EventBatch, now):
     for k, (idx, order) in enumerate(op.keys):
         a.key_col[k] = idx
         a.key_desc[k] = int(order < 0)
-        a.key_type[k] = _SORT_VT[batch.cols[idx].dtype]
+        a.key_type[k] = DTYPE_VT[batch.cols[idx].dtype]
     a._keep = (state, new, out, ev, sc, now)   # alive until the launch
     return new, out, a
 
+
+
+# ---------------------------------------------------------------------------
+# the keyed windows: frequent and lossyFrequent (kernel E), session (F)
+# ---------------------------------------------------------------------------
+
+
+def _key_hash(batch: EventBatch, key_idxs):
+    return hash_columns([batch.cols[i] for i in key_idxs],
+                        [batch.nulls[i] for i in key_idxs])
+
+
+class FrequentWindowOp(WindowOp):
+    """#window.frequent(N [, attrs...]): retain the events of the N most
+    frequent keys (Misra-Gries). A new key finding the table full
+    decrements every tracked count; zeroed keys are emitted EXPIRED
+    (ts = now) and freed; if that made room the new event is admitted,
+    else it is ignored (its zeroed keys are emitted all the same). Keys
+    compare as their 64-bit hash, as in the reference (a collision is
+    the reference's behaviour)."""
+
+    kind_name = "frequent"
+    fifo_expiry = False
+    LOSSY = False
+
+    def __init__(self, schema, n: int, key_idxs: list,
+                 expired_enabled: bool = True):
+        super().__init__(schema, expired_enabled)
+        if not 0 < n <= 64:
+            raise CompileError("frequent window count must be in 1..64")
+        self.N = int(n)
+        self.key_idxs = list(key_idxs) or list(range(len(schema.types)))
+
+    def init_state(self, device="cpu"):
+        N = self.N
+        return {"buf": empty_buffer(self.schema, N, device),
+                "keys": torch.zeros((N,), dtype=I64, device=device),
+                "counts": torch.zeros((N,), dtype=I64, device=device),
+                "next_seq": _i64(0, device)}
+
+    def step(self, state, batch: EventBatch, now):
+        return freq_window_step(self, state, batch, now)
+
+    def step_ref(self, state, batch: EventBatch, now):
+        """The reference's row walk (its ``lax.scan``), one row at a
+        time. On a card it walks copies on the host and hands the
+        results back."""
+        dev = batch.ts.device
+        if dev.type != "cpu":
+            return _to_dev(*self.step_ref(*_host_copy(state, batch, now)),
+                           dev)
+        B, N = batch.capacity, self.N
+        cur, seq, next_seq = arrival_seqs(batch, state["next_seq"])
+        khash = _key_hash(batch, self.key_idxs)
+        buf = _clone_buf(state["buf"])
+        keys, counts = state["keys"].clone(), state["counts"].clone()
+        st = {"buf": buf, "keys": keys, "counts": counts}
+        passed = torch.zeros((B,), dtype=torch.bool)
+        dies = torch.zeros((B, N), dtype=torch.bool)
+        ev = _ev_zeros(batch, B, N)
+        for i in torch.nonzero(cur).flatten().tolist():
+            passed[i] = self._walk_row(st, batch, i, int(khash[i]), dies, ev)
+        out = _keyed_output(self, batch, now, passed & cur, dies, ev)
+        return ({"buf": buf, "keys": keys, "counts": counts,
+                 "next_seq": next_seq}, out)
+
+    def _walk_row(self, st, batch, i, kh, dies, ev) -> bool:
+        buf, keys, counts = st["buf"], st["keys"], st["counts"]
+        valid = buf["valid"]
+        found = valid & (keys == kh)
+        if bool(found.any()):
+            s = int(torch.argmax(found.to(torch.int8)))
+            _store(buf, s, batch, i)
+            keys[s] = kh
+            counts[s] += 1
+            return True
+        if int(valid.sum()) < self.N:
+            s = int(torch.argmin(valid.to(torch.int8)))
+            _store(buf, s, batch, i)
+            keys[s] = kh
+            counts[s] = 1
+            return True
+        dec = counts - valid.to(I64)
+        d = valid & (dec <= 0)
+        dies[i] = d
+        if self.expired_enabled:
+            _capture(ev, buf, i, d)
+        valid &= ~d
+        counts.copy_(torch.where(d, torch.zeros_like(dec), dec))
+        if not bool(d.any()):
+            return False
+        s = int(torch.argmin(valid.to(torch.int8)))
+        _store(buf, s, batch, i)
+        keys[s] = kh
+        counts[s] = 1
+        return True
+
+    def findable_buffer(self, state, device=None):
+        return state["buf"]
+
+
+class LossyFrequentWindowOp(FrequentWindowOp):
+    """#window.lossyFrequent(support [, error [, attrs...]]): lossy
+    counting over CAP = 32 slots. A key whose count reaches
+    (support - error) of the events so far passes; every ceil(1/error)
+    events the slots with count + bucket <= the current bucket are
+    pruned and their stored events emitted EXPIRED (ts = now), after the
+    passing event. An event finding no slot is counted as overflow.
+    ``width`` and ``thresh`` are the reference's Python float arithmetic
+    at compile time; the pass test compares the updated count as a
+    double against thresh * total."""
+
+    kind_name = "lossyFrequent"
+    LOSSY = True
+    CAP = 32
+
+    def __init__(self, schema, support: float, error: Optional[float],
+                 key_idxs: list, expired_enabled: bool = True):
+        WindowOp.__init__(self, schema, expired_enabled)
+        self.support = float(support)
+        self.error = float(error) if error is not None else \
+            self.support / 10.0
+        if not 0 < self.error < 1:
+            raise CompileError("lossyFrequent error must be in (0,1)")
+        self.width = int(-(-1.0 // self.error)) or 1  # ceil(1/error)
+        self.thresh = self.support - self.error
+        self.N = self.CAP
+        self.key_idxs = list(key_idxs) or list(range(len(schema.types)))
+
+    def init_state(self, device="cpu"):
+        C = self.CAP
+        return {"buf": empty_buffer(self.schema, C, device),
+                "keys": torch.zeros((C,), dtype=I64, device=device),
+                "counts": torch.zeros((C,), dtype=I64, device=device),
+                "buckets": torch.zeros((C,), dtype=I64, device=device),
+                "total": _i64(0, device), "overflow": _i64(0, device),
+                "next_seq": _i64(0, device)}
+
+    def step_ref(self, state, batch: EventBatch, now):
+        dev = batch.ts.device
+        if dev.type != "cpu":
+            return _to_dev(*self.step_ref(*_host_copy(state, batch, now)),
+                           dev)
+        B, C = batch.capacity, self.CAP
+        cur, seq, next_seq = arrival_seqs(batch, state["next_seq"])
+        khash = _key_hash(batch, self.key_idxs)
+        buf = _clone_buf(state["buf"])
+        keys, counts = state["keys"].clone(), state["counts"].clone()
+        buckets = state["buckets"].clone()
+        total, ovf = int(state["total"]), int(state["overflow"])
+        passed = torch.zeros((B,), dtype=torch.bool)
+        dies = torch.zeros((B, C), dtype=torch.bool)
+        ev = _ev_zeros(batch, B, C)
+        width, thresh = self.width, self.thresh
+        for i in torch.nonzero(cur).flatten().tolist():
+            kh = int(khash[i])
+            total += 1
+            bucket = (total + width - 1) // width
+            valid = buf["valid"]
+            found = valid & (keys == kh)
+            hit = bool(found.any())
+            free_ok = bool((~valid).any())
+            s = int(torch.argmax(found.to(torch.int8))) if hit else \
+                int(torch.argmin(valid.to(torch.int8)))
+            admitted = hit or free_ok
+            if admitted:
+                _store(buf, s, batch, i)
+                keys[s] = kh
+                if hit:
+                    counts[s] += 1
+                else:
+                    counts[s] = 1
+                    buckets[s] = bucket - 1
+            else:
+                ovf += 1
+            passed[i] = admitted and \
+                float(counts[s]) >= thresh * float(total)
+            if total % width == 0:
+                d = buf["valid"] & (counts + buckets <= bucket)
+                dies[i] = d
+                if self.expired_enabled:
+                    _capture(ev, buf, i, d)
+                buf["valid"] &= ~d
+        out = _keyed_output(self, batch, now, passed & cur, dies, ev)
+        return ({"buf": buf, "keys": keys, "counts": counts,
+                 "buckets": buckets, "total": _i64(total, "cpu"),
+                 "overflow": _i64(ovf, "cpu"), "next_seq": next_seq}, out)
+
+
+def _clone_buf(buf) -> dict:
+    return {k: (tuple(c.clone() for c in v) if isinstance(v, tuple)
+                else v.clone()) for k, v in buf.items()}
+
+
+def _store(buf, s: int, batch: EventBatch, i: int) -> None:
+    buf["ts"][s] = batch.ts[i]
+    for c, bc in zip(buf["cols"], batch.cols):
+        c[s] = bc[i]
+    for n, bn in zip(buf["nulls"], batch.nulls):
+        n[s] = bn[i]
+    buf["valid"][s] = True
+
+
+def _ev_zeros(batch: EventBatch, B: int, N: int) -> dict:
+    return {"cols": tuple(torch.zeros((B, N), dtype=c.dtype)
+                          for c in batch.cols),
+            "nulls": tuple(torch.zeros((B, N), dtype=torch.bool)
+                           for _ in batch.nulls)}
+
+
+def _capture(ev, buf, i: int, d) -> None:
+    """Row i's dying slots, as the expired events it emits."""
+    for e, c in zip(ev["cols"], buf["cols"]):
+        e[i] = torch.where(d, c, torch.zeros_like(c))
+    for e, n in zip(ev["nulls"], buf["nulls"]):
+        e[i] = n & d
+
+
+def _keyed_output(op, batch: EventBatch, now, passed, dies, ev):
+    """The walk's [B * N] expired rows (ts = now) and [B] current rows in
+    emission order: frequent emits a row's expired events before it
+    (phase 0, then 2), lossyFrequent after it (phase 2, then 3). The
+    expired candidates that do not die hold zeros (the reference holds
+    the buffer there; only valid rows are ever read)."""
+    B, N = dies.shape
+    dev = batch.ts.device
+    rows = torch.arange(B, dtype=I64, device=dev)
+    ev_valid = dies.reshape(B * N) if op.expired_enabled \
+        else torch.zeros((B * N,), dtype=torch.bool, device=dev)
+    ecols = [c.reshape(B * N) for c in ev["cols"]]
+    enulls = [n.reshape(B * N) for n in ev["nulls"]]
+    ets = _i64(now, dev).expand(B * N)
+    erow = rows.repeat_interleave(N)
+    if op.LOSSY:
+        out = {"ts": torch.cat([batch.ts, ets]),
+               "cols": tuple(torch.cat([b, e]) for b, e in
+                             zip(batch.cols, ecols)),
+               "nulls": tuple(torch.cat([b, e]) for b, e in
+                              zip(batch.nulls, enulls)),
+               "kind": _kinds(dev, (B, CURRENT), (B * N, EXPIRED))}
+        emit_row = torch.cat([rows, erow])
+        phase = torch.cat([_full(B, 2, I64, dev), _full(B * N, 3, I64, dev)])
+        valid = torch.cat([passed, ev_valid])
+    else:
+        out = {"ts": torch.cat([ets, batch.ts]),
+               "cols": tuple(torch.cat([e, b]) for b, e in
+                             zip(batch.cols, ecols)),
+               "nulls": tuple(torch.cat([e, b]) for b, e in
+                              zip(batch.nulls, enulls)),
+               "kind": _kinds(dev, (B * N, EXPIRED), (B, CURRENT))}
+        emit_row = torch.cat([erow, rows])
+        phase = torch.cat([_full(B * N, 0, I64, dev), _full(B, 2, I64, dev)])
+        valid = torch.cat([ev_valid, passed])
+    return emission_sort(out, emit_row, phase, valid, B * N + B)
+
+
+def freq_window_step(op: FrequentWindowOp, state, batch: EventBatch, now):
+    """Kernel E: the frequent or lossyFrequent window's step. A batch on
+    the CPU takes the plain version; a CUDA batch launches
+    csrc/window_seq.cu (one warp walks the rows in order, the table in
+    its lanes; no host sync)."""
+    dev = batch.ts.device
+    if dev.type == "cpu":
+        return op.step_ref(state, batch, now)
+    if dev.type != "cuda":
+        raise ValueError(f"freq_window_step: unsupported device {dev}")
+    new_state, out, args = freq_args(op, state, batch, _i64(now, dev))
+    _kernels.load().freq_window(args,
+                                torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.count_launch("freq_window")
+    return new_state, out
+
+
+
+def _key_spec(a, batch: EventBatch, key_idxs) -> None:
+    if len(key_idxs) > _kernels.WIN_MAX_COLS:
+        raise NotImplementedError(
+            f"not ported yet: more than {_kernels.WIN_MAX_COLS} key "
+            "attributes")
+    a.n_keys = len(key_idxs)
+    for k, idx in enumerate(key_idxs):
+        a.key_col[k] = idx
+        a.key_type[k] = DTYPE_VT[batch.cols[idx].dtype]
+
+
+def freq_args(op: FrequentWindowOp, state, batch: EventBatch, now):
+    """Kernel E's arguments: the new state's and the output batch's
+    tensors (fresh), the scratch, and ``_kernels.FreqArgs``.
+    -> (state', output batch, args)."""
+    dev = batch.ts.device
+    B, C, N = batch.capacity, len(batch.cols), op.N
+    if C > _kernels.WIN_MAX_COLS:
+        raise NotImplementedError(
+            f"not ported yet: a {op.kind_name} window over more than "
+            f"{_kernels.WIN_MAX_COLS} attributes")
+    buf = state["buf"]
+    M = B * N + B
+
+    def like(t, n):
+        return torch.empty((n,), dtype=t.dtype, device=dev)
+    na = {"ts": like(buf["ts"], N), "seq": buf["seq"].clone(),
+          "cols": tuple(like(c, N) for c in buf["cols"]),
+          "nulls": tuple(like(n, N) for n in buf["nulls"]),
+          "valid": like(buf["valid"], N)}
+    new = {"buf": na, "keys": like(state["keys"], N),
+           "counts": like(state["counts"], N),
+           "next_seq": torch.empty((), dtype=I64, device=dev)}
+    if op.LOSSY:
+        new["buckets"] = like(state["buckets"], N)
+        for k in ("total", "overflow"):
+            new[k] = torch.empty((), dtype=I64, device=dev)
+    out = EventBatch(ts=torch.empty((M,), dtype=I64, device=dev),
+                     cols=tuple(like(c, M) for c in batch.cols),
+                     nulls=tuple(like(n, M) for n in batch.nulls),
+                     kind=torch.empty((M,), dtype=torch.int32, device=dev),
+                     valid=torch.empty((M,), dtype=torch.bool, device=dev))
+    sc = {"hk": torch.empty((B,), dtype=I64, device=dev),
+          "dmask": torch.empty((B,), dtype=I64, device=dev),
+          "vbefore": torch.empty((B,), dtype=torch.int32, device=dev),
+          "cbefore": torch.empty((B,), dtype=torch.int32, device=dev),
+          "scal": torch.empty((4,), dtype=I64, device=dev)}
+    a = _kernels.FreqArgs()
+    _win_buf(a.batch, batch.ts, None, batch.cols, batch.nulls, batch.valid)
+    a.batch_kind = batch.kind.data_ptr()
+    _win_buf(a.a, buf["ts"], None, buf["cols"], buf["nulls"], buf["valid"])
+    _win_buf(a.na, na["ts"], None, na["cols"], na["nulls"], na["valid"])
+    _win_buf(a.out, out.ts, None, out.cols, out.nulls, out.valid)
+    a.out_kind = out.kind.data_ptr()
+    for f in ("keys", "counts", "next_seq"):
+        setattr(a, f, state[f].data_ptr())
+        setattr(a, "o_" + f, new[f].data_ptr())
+    if op.LOSSY:
+        for f in ("buckets", "total", "overflow"):
+            setattr(a, f, state[f].data_ptr())
+            setattr(a, "o_" + f, new[f].data_ptr())
+    a.now = now.data_ptr()
+    for k, v in sc.items():
+        setattr(a, k, v.data_ptr())
+    for k, c in enumerate(batch.cols):
+        a.col_size[k] = c.element_size()
+    _key_spec(a, batch, op.key_idxs)
+    a.n_cols, a.B, a.N = C, B, N
+    a.lossy, a.expired_enabled = int(op.LOSSY), int(op.expired_enabled)
+    if op.LOSSY:
+        a.width, a.thresh = op.width, op.thresh
+    a._keep = (state, new, out, sc, now)   # alive until the launch
+    return new, out, a
+
+
+class SessionWindowOp(WindowOp):
+    """#window.session(gap [, keyAttr]): per-key sessions. Arrivals pass
+    as CURRENT and join their key's open session; a session whose gap
+    elapses (by the event clock or a TIMER row) emits its members
+    EXPIRED, in order, at its close row. The reference's vectorised
+    step: rows grouped by (key slot, in-step session id), a session's
+    close row a search of the running clock for its last member's ts +
+    gap; the final session of a slot stays open in a [K, S] buffer. Keys
+    beyond the K = 64 slot table and members beyond S = 128 are dropped
+    and counted. Quirks kept: the backward pass that finds a session's
+    last member's ts runs over every later row, not only its own
+    slot's; and buffer cell (slot 0, member 0) takes the last write of
+    the reference's scatter, where every row that does not stay writes
+    the cell's old value."""
+
+    kind_name = "session"
+    K = 64   # key slots
+    S = 128  # members per open session
+
+    def __init__(self, schema, gap_ms: int, key_idx: Optional[int] = None,
+                 expired_enabled: bool = True):
+        super().__init__(schema, expired_enabled)
+        self.gap = int(gap_ms)
+        self.key_idx = key_idx
+
+    def init_state(self, device="cpu"):
+        K, S = self.K, self.S
+        return {
+            "keys": torch.zeros((K,), dtype=I64, device=device),
+            "used": torch.zeros((K,), dtype=torch.bool, device=device),
+            "buf": {"ts": torch.zeros((K, S), dtype=I64, device=device),
+                    "cols": tuple(col_zeros(t, K * S, device).reshape(K, S)
+                                  for t in self.schema.types),
+                    "nulls": tuple(torch.zeros((K, S), dtype=torch.bool,
+                                               device=device)
+                                   for _ in self.schema.types),
+                    "valid": torch.zeros((K, S), dtype=torch.bool,
+                                         device=device)},
+            "count": torch.zeros((K,), dtype=I64, device=device),
+            "end": torch.full((K,), int(POS_INF), dtype=I64, device=device),
+            "open": torch.zeros((K,), dtype=torch.bool, device=device),
+            "next_seq": _i64(0, device),
+            "overflow": _i64(0, device),
+        }
+
+    def step(self, state, batch: EventBatch, now):
+        return session_step(self, state, batch, now)
+
+    def next_due(self, state):
+        return torch.where(state["open"], state["end"],
+                           torch.full_like(state["end"], int(POS_INF))).min()
+
+    def host_due_bound(self, ts_min: int) -> int:
+        return ts_min + self.gap
+
+    def step_ref(self, state, batch: EventBatch, now):
+        """The reference's ``SessionWindowOp.step`` in torch ops, stable
+        sorts where it sorts."""
+        B, K, S, gap = batch.capacity, self.K, self.S, self.gap
+        dev = batch.ts.device
+        cur, seq, next_seq = arrival_seqs(batch, state["next_seq"])
+        rt = running_time(batch)
+        rt_max = rt[B - 1]
+        if self.key_idx is not None:
+            khash = hash_columns([batch.cols[self.key_idx]],
+                                 [batch.nulls[self.key_idx]])
+        else:
+            khash = torch.zeros((B,), dtype=I64, device=dev)
+        slots, keys, used, kovf = lookup_or_insert(
+            state["keys"], state["used"], khash, cur)
+        routed = cur & (slots >= 0)
+        rows = torch.arange(B, dtype=I64, device=dev)
+        # rows by slot, stable, the unrouted last
+        order = torch.argsort(torch.where(routed, slots, int(I32_MAX)),
+                              stable=True)
+        inv = torch.empty_like(order)
+        inv[order] = rows
+        s_slot = torch.where(routed, slots, -1)[order]
+        s_ts = batch.ts[order]
+        s_valid = routed[order]
+        same_prev = torch.zeros((B,), dtype=torch.bool, device=dev)
+        same_prev[1:] = (s_slot[1:] == s_slot[:-1]) & s_valid[1:] & \
+            s_valid[:-1]
+        prev_ts = torch.cat([torch.zeros((1,), dtype=I64, device=dev),
+                             s_ts[:-1]])
+        cs = torch.clamp(s_slot, 0, K - 1).to(I64)
+        carried_end, carried_open = state["end"][cs], state["open"][cs]
+        boundary = s_valid & torch.where(
+            same_prev, s_ts >= prev_ts + gap,
+            ~carried_open | (s_ts >= carried_end))
+        slot_first = s_valid & ~same_prev
+        grp_break = slot_first | boundary
+        sid = segmented_cumsum(grp_break.to(I64), s_slot) - 1
+        fidx = torch.cummax(torch.where(slot_first, rows, -1), 0).values
+        first_cont = slot_first & ~boundary
+        cont = first_cont[torch.clamp(fidx, min=0)] & (fidx >= 0)
+        joins_carried = s_valid & (sid == 0) & cont
+        seg_key = s_slot.to(I64) * (B + 1) + sid
+        is_last = torch.ones((B,), dtype=torch.bool, device=dev)
+        is_last[:-1] = seg_key[:-1] != seg_key[1:]
+        is_last = is_last & s_valid
+        last_ts_rev = torch.flip(torch.cummax(torch.flip(torch.where(
+            is_last, s_ts, int(NEG_INF)), (0,)), 0).values, (0,))
+        close_ts_sorted = torch.where(s_valid, last_ts_rev + gap,
+                                      int(POS_INF))
+        closes_sorted = close_ts_sorted <= rt_max
+        close_row_sorted = torch.searchsorted(rt, close_ts_sorted,
+                                              side="left")
+        # back to row order
+        close_ts = close_ts_sorted[inv]
+        closes = closes_sorted[inv] & routed
+        close_row = torch.clamp(close_row_sorted[inv], 0, B - 1)
+        row_sid = torch.where(routed, sid[inv], -1)
+        row_joins_carried = joins_carried[inv] & routed
+        # carried sessions: extended close or standalone timeout
+        slot_c = torch.clamp(slots, 0, K - 1).to(I64)
+        ext_close_ts = _seg_max(torch.where(row_joins_carried, close_ts,
+                                            int(NEG_INF)), slot_c, K)
+        has_ext = _seg_max(row_joins_carried.to(I64), slot_c, K) > 0
+        slot_close_ts = torch.where(has_ext, ext_close_ts, state["end"])
+        slot_closes = state["open"] & (slot_close_ts <= rt_max)
+        slot_close_row = torch.clamp(torch.searchsorted(
+            rt, slot_close_ts, side="left"), 0, B - 1)
+        # emissions: carried members [K, S] close with their slot
+        buf = state["buf"]
+        c_valid = buf["valid"] & slot_closes[:, None]
+        b_exp_valid = closes & torch.where(row_joins_carried,
+                                           slot_closes[slot_c],
+                                           torch.ones_like(closes))
+        KS = K * S
+        out = {"ts": torch.cat([buf["ts"].reshape(KS), batch.ts, batch.ts]),
+               "cols": tuple(torch.cat([c.reshape(KS), bc, bc]) for c, bc in
+                             zip(buf["cols"], batch.cols)),
+               "nulls": tuple(torch.cat([n.reshape(KS), bn, bn]) for n, bn in
+                              zip(buf["nulls"], batch.nulls)),
+               "kind": _kinds(dev, (KS + B, EXPIRED), (B, CURRENT))}
+        emit_row = torch.cat([slot_close_row.repeat_interleave(S),
+                              torch.where(b_exp_valid, close_row, 0), rows])
+        phase = torch.cat([_full(KS + B, 0, I64, dev), _full(B, 2, I64, dev)])
+        if self.expired_enabled:
+            exp_c, exp_b = c_valid.reshape(KS), b_exp_valid
+        else:
+            exp_c = torch.zeros((KS,), dtype=torch.bool, device=dev)
+            exp_b = torch.zeros((B,), dtype=torch.bool, device=dev)
+        result = emission_sort(out, emit_row, phase,
+                               torch.cat([exp_c, exp_b, routed]), KS + 2 * B)
+        # new state: a slot's final session (or the surviving carried
+        # one) stays open if it did not close
+        final_sid = _seg_max(torch.where(routed, row_sid, -1), slot_c, K)
+        keep_carried = state["open"] & ~slot_closes
+        stays = routed & ~closes & (row_sid == final_sid[slot_c])
+        base = torch.where(keep_carried, state["count"], 0)
+        s_rank = segmented_cumsum(stays[order].to(I64), s_slot)
+        pos = base[slot_c] + s_rank[inv] - 1
+        in_cap = stays & (pos < S)
+        member_ovf = (stays & ~in_cap).sum(dtype=I64)
+        new_buf = _session_scatter(buf, keep_carried, batch, in_cap, slot_c,
+                                   pos)
+        new_count = torch.clamp(base + torch.zeros((K,), dtype=I64,
+                                                   device=dev).index_add(
+            0, slot_c, stays.to(I64)), max=S)
+        stay_end = _seg_max(torch.where(stays, close_ts, int(NEG_INF)),
+                            slot_c, K)
+        new_open = keep_carried | (_seg_max(stays.to(I64), slot_c, K) > 0)
+        new_end = torch.where(stay_end > int(NEG_INF), stay_end,
+                              torch.where(keep_carried, state["end"],
+                                          int(POS_INF)))
+        new_open = new_open & (new_end < int(POS_INF))
+        return ({"keys": keys, "used": used, "buf": new_buf,
+                 "count": new_count, "end": new_end, "open": new_open,
+                 "next_seq": next_seq,
+                 "overflow": state["overflow"] + kovf + member_ovf}, result)
+
+
+def _seg_max(vals, seg, K: int):
+    """jax.ops.segment_max over K segments (an empty one: the type's
+    minimum)."""
+    init = torch.full((K,), torch.iinfo(vals.dtype).min, dtype=vals.dtype,
+                      device=vals.device)
+    return init.scatter_reduce(0, seg, vals, "amax", include_self=True)
+
+
+def _session_scatter(buf, keep_carried, batch: EventBatch, in_cap, slot_c,
+                     pos):
+    """The reference's ``tgt.at[sk, sp].set(where(in_cap, vals,
+    tgt[sk, sp]))`` over the cleared buffer, as its scatter applies the
+    rows, one after the other: an in-capacity row writes its own cell;
+    every other row writes cell (0, 0)'s cleared value back, so that
+    cell keeps a member only if no such row comes after it."""
+    K, S = buf["valid"].shape
+    dev = in_cap.device
+    keep = keep_carried[:, None]
+    B = in_cap.shape[0]
+    rows = torch.arange(B, dtype=I64, device=dev)
+    last_other = torch.where(~in_cap, rows, -1).max()
+    at00 = in_cap & (slot_c == 0) & (pos == 0)
+    mine = torch.where(at00, rows, -1).max()
+    revert = last_other > mine
+    sk, sp = slot_c[in_cap], pos[in_cap]
+
+    def put(old, vals):
+        t = torch.where(keep, old, torch.zeros_like(old))
+        c00 = t[0, 0].clone()
+        t = t.clone()
+        t[sk, sp] = vals[in_cap]
+        t[0, 0] = torch.where(revert, c00, t[0, 0])
+        return t
+    return {"ts": put(buf["ts"], batch.ts),
+            "cols": tuple(put(c, bc) for c, bc in
+                          zip(buf["cols"], batch.cols)),
+            "nulls": tuple(put(n, bn) for n, bn in
+                           zip(buf["nulls"], batch.nulls)),
+            "valid": put(buf["valid"], torch.ones_like(batch.valid))}
+
+
+def session_step(op: SessionWindowOp, state, batch: EventBatch, now):
+    """Kernel F: the session window's step. A batch on the CPU takes the
+    plain version; a CUDA batch launches csrc/session_step.cu (the slot
+    probe, a stable radix sort by slot, the sessions' scans, the [K, S]
+    buffers and the emission sort; no host sync)."""
+    dev = batch.ts.device
+    if dev.type == "cpu":
+        return op.step_ref(state, batch, now)
+    if dev.type != "cuda":
+        raise ValueError(f"session_step: unsupported device {dev}")
+    new_state, out, args = session_args(op, state, batch)
+    _kernels.load().session_window(args,
+                                   torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.count_launch("session_window")
+    return new_state, out
+
+
+def session_args(op: SessionWindowOp, state, batch: EventBatch):
+    """Kernel F's arguments: the new state's and the output batch's
+    tensors (fresh), the scratch, and ``_kernels.SessArgs``.
+    -> (state', output batch, args)."""
+    dev = batch.ts.device
+    B, C, K, S = batch.capacity, len(batch.cols), op.K, op.S
+    if C > _kernels.WIN_MAX_COLS:
+        raise NotImplementedError(
+            f"not ported yet: a session window over more than "
+            f"{_kernels.WIN_MAX_COLS} attributes")
+    KS = K * S
+    M = KS + 2 * B
+    buf = state["buf"]
+
+    def e(n, dtype):
+        return torch.empty((max(int(n), 1),), dtype=dtype, device=dev)
+    nb = {"ts": torch.empty_like(buf["ts"]),
+          "cols": tuple(torch.empty_like(c) for c in buf["cols"]),
+          "nulls": tuple(torch.empty_like(n) for n in buf["nulls"]),
+          "valid": torch.empty_like(buf["valid"])}
+    new = {"keys": e(K, I64), "used": e(K, torch.bool), "buf": nb,
+           "count": e(K, I64), "end": e(K, I64), "open": e(K, torch.bool),
+           "next_seq": torch.empty((), dtype=I64, device=dev),
+           "overflow": torch.empty((), dtype=I64, device=dev)}
+    out = EventBatch(ts=e(M, I64), cols=tuple(e(M, c.dtype)
+                                               for c in batch.cols),
+                     nulls=tuple(e(M, torch.bool) for _ in batch.cols),
+                     kind=e(M, torch.int32), valid=e(M, torch.bool))
+    blocks = (M + 1023) // 1024
+    sc = {"hk": e(B, I64), "cur": e(B, torch.uint8),
+          "slots": e(B, torch.int32), "prb": e(B, torch.int32),
+          "flags": e(B, torch.uint8), "claim": e(K, torch.int32),
+          "rt": e(B, I64), "order": e(B, torch.int32),
+          "s_a": e(B, I64), "s_b": e(B, I64), "s_c": e(B, I64),
+          "s_f": e(B, torch.uint8), "r_close_ts": e(B, I64),
+          "r_close_row": e(B, torch.int32), "r_pos": e(B, I64),
+          "r_flags": e(B, torch.uint8), "sl_close_row": e(K, torch.int32),
+          "sl_flags": e(K, torch.uint8), "ekey": e(M, torch.int32),
+          "eorder": e(M, torch.int32), "k1": e(M, torch.int32),
+          "k2": e(M, torch.int32), "i1": e(M, torch.int32),
+          "i2": e(M, torch.int32), "counts": e(256 * blocks, torch.int32),
+          "scal": e(16, I64)}
+    a = _kernels.SessArgs()
+    _win_buf(a.batch, batch.ts, None, batch.cols, batch.nulls, batch.valid)
+    a.batch_kind = batch.kind.data_ptr()
+    _win_buf(a.buf, buf["ts"], None, buf["cols"], buf["nulls"], buf["valid"])
+    _win_buf(a.nbuf, nb["ts"], None, nb["cols"], nb["nulls"], nb["valid"])
+    for f in ("keys", "used", "count", "end", "open", "next_seq",
+              "overflow"):
+        setattr(a, f, state[f].data_ptr())
+        setattr(a, "o_" + f, new[f].data_ptr())
+    _win_buf(a.out, out.ts, None, out.cols, out.nulls, out.valid)
+    a.out_kind = out.kind.data_ptr()
+    for k, v in sc.items():
+        setattr(a, k, v.data_ptr())
+    for k, c in enumerate(batch.cols):
+        a.col_size[k] = c.element_size()
+    a.n_cols, a.B, a.K, a.S, a.M = C, B, K, S, M
+    a.has_key = int(op.key_idx is not None)
+    a.key_col = op.key_idx if op.key_idx is not None else 0
+    a.key_type = DTYPE_VT[batch.cols[a.key_col].dtype] if C else 0
+    a.expired_enabled = int(op.expired_enabled)
+    a.gap = op.gap
+    a._keep = (state, new, out, sc)   # alive until the launch
+    return new, out, a

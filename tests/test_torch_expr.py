@@ -29,6 +29,8 @@ import siddhi_tpu_torch.ops.selector as tsel
 from siddhi_tpu_torch.checks import (EXPR_SCHEMA, EXPR_STRINGS, expr_cases,
                                      expr_columns, filter_cases)
 
+torch.set_num_threads(1)
+
 ROWS = 512
 
 

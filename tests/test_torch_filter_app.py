@@ -10,6 +10,7 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 import siddhi_tpu as J
 import siddhi_tpu_torch as T
@@ -17,6 +18,8 @@ from siddhi_tpu.core.types import GLOBAL_STRINGS as JSTR
 from siddhi_tpu_torch.carry import state_from_jax, strings_from_jax
 from siddhi_tpu_torch.checks import FILTER_APP, filter_feed
 from siddhi_tpu_torch.core.types import GLOBAL_STRINGS as TSTR
+
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -280,9 +283,9 @@ def test_strings_carried_over_from_reference():
     " from S insert into W;",
 ])
 def test_unported_parts_raise(text):
-    """What the port lacks says so; the sort window and distinctCount,
-    ported since, deploy and give the reference's rows."""
-    if "sort(2, a)" in text or "distinctCount" in text:
+    """What the port lacks says so; the sort window, distinctCount and
+    order-by, ported since, deploy and give the reference's rows."""
+    if "sort(2, a)" in text or "distinctCount" in text or "order by" in text:
         rows = {}
         for pkg in (J, T):
             kw = {"device": "cpu"} if pkg is T else {}
@@ -306,10 +309,10 @@ def test_validate_and_shutdown():
     mgr.validate_siddhi_app(FILTER_APP)
     assert not mgr.app_runtimes
     with pytest.raises(NotImplementedError,
-                       match="not ported yet: window 'session'"):
+                       match="not ported yet: window 'cron'"):
         mgr.validate_siddhi_app(
-            "define stream S (a int); from S#window.session(1 sec) select a "
-            "insert into O;")
+            "define stream S (a int); from S#window.cron('*/5 * * * * ?') "
+            "select a insert into O;")
     rt = mgr.create_siddhi_app_runtime(FILTER_APP)
     rt.start()
     mgr.shutdown()

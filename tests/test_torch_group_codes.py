@@ -23,6 +23,8 @@ from siddhi_tpu_torch.core.types import GLOBAL_STRINGS as TSTR
 from siddhi_tpu_torch.ops.keyed import hash_columns, lookup_or_insert
 from test_torch_window import Run, align_strings, run_both
 
+torch.set_num_threads(1)
+
 SYMS = 512
 PREFIX = "G"
 BARS_APP = TRADES_STREAM + """

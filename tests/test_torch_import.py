@@ -12,6 +12,8 @@ import sys
 import pytest
 import torch
 
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "siddhi_tpu")
 

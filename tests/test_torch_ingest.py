@@ -16,6 +16,8 @@ import siddhi_tpu_torch.core.event as tev
 import siddhi_tpu_torch.core.ingest as ting
 from siddhi_tpu_torch.checks import INGEST_SPANS, INGEST_TYPES, ingest_chunk
 
+torch.set_num_threads(1)
+
 NAMES = [f"a{i}" for i in range(len(INGEST_TYPES))]
 
 

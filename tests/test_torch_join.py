@@ -12,6 +12,7 @@ for bit. Also:
   run's rows;
 - a reference state carried into the port (carry.py) steps on equal."""
 import pytest
+import torch
 
 import siddhi_tpu as J
 import siddhi_tpu_torch as T
@@ -21,6 +22,8 @@ from siddhi_tpu_torch.checks import (JOIN_APP, JOIN_EQ_SYMS, JOIN_SYMS,
 from test_torch_join_shapes import (KERNEL_ENV, TABLES, MultiRun,
                                     compare_runs, norm)
 from test_torch_window import align_strings
+
+torch.set_num_threads(1)
 
 SENDS, ROWS = 4, 1024
 CONFIGS = {"join": (JOIN_SYMS, "JA"), "join_eq": (JOIN_EQ_SYMS, "JB")}

@@ -7,11 +7,14 @@ send; where the reference's own probe and grid disagree (NaN keys), each
 port kernel follows the reference's kernel of its name. Also the
 planner's kernel pick and its environment override."""
 import pytest
+import torch
 
 import siddhi_tpu_torch as T
 from siddhi_tpu_torch.checks import (FLOAT_KEY_APPS, JOIN_APPS,
                                      join_shape_feed)
 from test_torch_join_shapes import KERNEL_ENV, MultiRun, replay_both
+
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("kernel", ["probe", "grid"])

@@ -25,6 +25,8 @@ import siddhi_tpu  # noqa: F401  (x64 on)
 from siddhi_tpu.ops import keyed as jk
 from siddhi_tpu_torch.ops import keyed as tk
 
+torch.set_num_threads(1)
+
 
 def bits(a):
     a = np.asarray(a)

@@ -31,11 +31,16 @@ def run(pkg, chunks):
     return rows, stats
 
 
+# the 8,192-row case, which fills the pattern table, runs in
+# test_torch_kleene2.py
 @pytest.mark.parametrize("m,n_chunks,seed,lost", [(1024, 2, 11, 0),
-                                                  (8, 24, 5, 0),
-                                                  (8192, 1, 11, 1)])
+                                                  (8, 24, 5, 0)])
 def test_kleene_equals_the_reference_and_its_oracle(m, n_chunks, seed,
                                                     lost):
+    check_kleene(m, n_chunks, seed, lost)
+
+
+def check_kleene(m, n_chunks, seed, lost) -> None:
     chunks = kleene_chunks(n_chunks, m, seed)
     got, stats = run(T, chunks)
     want, _ = run(J, chunks)

@@ -5,10 +5,13 @@ floats by their bits; or the number of rows a write touched) and the
 table's whole state after each query are equal. On-demand queries on
 windows and aggregations raise "not ported yet"."""
 import pytest
+import torch
 
 import siddhi_tpu as J
 import siddhi_tpu_torch as T
 from test_torch_join_shapes import MultiRun, compare_runs, norm
+
+torch.set_num_threads(1)
 
 APP = """
     @app:playback

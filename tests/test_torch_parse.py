@@ -7,9 +7,12 @@ import json
 import pathlib
 
 import pytest
+import torch
 
 import siddhi_tpu.lang.parser as jparser
 import siddhi_tpu_torch.lang.parser as tparser
+
+torch.set_num_threads(1)
 
 CORPUS = pathlib.Path(__file__).parent / "ref_corpus"
 

@@ -17,6 +17,7 @@ import struct
 
 import numpy as np
 import pytest
+import torch
 
 import siddhi_tpu as J
 import siddhi_tpu_torch as T
@@ -38,6 +39,8 @@ from siddhi_tpu_torch.lang import ast as TA
 from siddhi_tpu_torch.lang.parser import parse as tparse
 from siddhi_tpu_torch.ops import nfa as tnfa
 from siddhi_tpu_torch.ops import nfa_parallel as tpar
+
+torch.set_num_threads(1)
 
 CORPUS = pathlib.Path(__file__).parent / "ref_corpus"
 TABLES = {J: JSTR, T: TSTR}

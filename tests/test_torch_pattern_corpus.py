@@ -14,9 +14,12 @@ import json
 import pathlib
 
 import pytest
+import torch
 
 from siddhi_tpu_torch import Event, QueryCallback, SiddhiManager, \
     StreamCallback
+
+torch.set_num_threads(1)
 
 DIR = pathlib.Path(__file__).parent / "ref_corpus"
 T0 = 1_500_000_000_000

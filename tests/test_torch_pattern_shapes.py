@@ -16,6 +16,8 @@ from siddhi_tpu_torch.checks import (COUNT_APP, PAIR_APP, SEQ5_APP, SEQ_APP,
 from siddhi_tpu_torch.core.runtime import _tree_to
 from test_torch_pattern import TABLES, Run, assert_tables_equal
 
+torch.set_num_threads(1)
+
 def test_out_overflow_feed():
     """One step emits more than the 16,384-row match batch holds: the
     rows kept, their order and the lost count are the reference's."""

@@ -12,12 +12,8 @@ steps fire between the sends there, from each package's scheduler.
 Also, one step at a time from a live table that carry.state_from_jax
 brings across: the port's stream step, timer step and arm_start equal the
 reference engine's (table, match batch and next_due, bit for bit); feeds
-that overflow the 128-row table and the 256-row match batch; and over
-the reference corpus, the port's planner picks the scan engine, at 128
-rows and 256 matches, exactly where the reference's does."""
-import json
-import pathlib
-
+that overflow the 128-row table and the 256-row match batch, and the
+planner's choice over the reference corpus, are in test_torch_scan2.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,16 +22,13 @@ import torch
 import siddhi_tpu as J
 import siddhi_tpu_torch as T
 from siddhi_tpu.core.event import batch_from_columns as jbatch
-from siddhi_tpu_torch.checks import (TABLE_OVERFLOW_APP, TIMEOUT_APP,
-                                     timeout_burst_feed, timeout_feed,
-                                     timeout_oracle)
+from siddhi_tpu_torch.checks import TIMEOUT_APP, timeout_feed, timeout_oracle
 from siddhi_tpu_torch.core.event import batch_from_columns as tbatch
 from siddhi_tpu_torch.core.runtime import _tree_to
 from siddhi_tpu_torch.ops import nfa as tnfa
 from test_torch_pattern import (TABLES, _np, assert_tables_equal, bits,
                                 carried, norm)
-
-CORPUS = pathlib.Path(__file__).parent / "ref_corpus"
+torch.set_num_threads(1)
 
 
 class Run:
@@ -142,25 +135,6 @@ def test_timeout_timer_steps_fire_between_sends(timeout_runs):
     assert len(t.batches) > sends and max(t.batches) <= 256
 
 
-@pytest.mark.parametrize("what", ["table", "match batch"])
-def test_overflow_feeds_equal_the_reference(what):
-    """More live requests than the 128-row table holds; more deadlines
-    fired in one step than the 256-row match batch holds."""
-    if what == "table":
-        runs = [Run(pkg, TABLE_OVERFLOW_APP, out="Timeouts")
-                for pkg in (J, T)]
-        ts, cols = timeout_feed(1024, seed=6, p_answer=0.5)
-    else:
-        runs = [Run(pkg, TIMEOUT_APP, out="Timeouts") for pkg in (J, T)]
-        ts, cols = timeout_burst_feed()
-    send_all(runs, "Ev", ts, cols, 1024)
-    j, t = runs
-    assert_runs_equal(j, t)
-    assert t.q.overflow_total() > 0
-    if what == "match batch":
-        assert len(t.rows()) == 256
-
-
 # ---------------------------------------------------------------------------
 # one step at a time, from a live table carried over from the reference
 # ---------------------------------------------------------------------------
@@ -236,38 +210,3 @@ def test_timeout_steps_from_a_live_table(timeout_runs):
     assert int(np.asarray(jr.table()["valid"]).sum()) > 10
     part = [c[N_TIMEOUT:] for c in cols]
     assert steps_equal(jr, tr, "Ev", ts[N_TIMEOUT:], part, part) > 100
-
-
-# ---------------------------------------------------------------------------
-# the planner's choice over the reference corpus
-# ---------------------------------------------------------------------------
-
-CORPUS_FILES = sorted(p.name for p in CORPUS.glob("*.json")
-                      if p.name.startswith(("pattern", "sequence")))
-
-
-def engines(pkg, app):
-    kw = {"device": "cpu"} if pkg is T else {}
-    try:
-        rt = pkg.SiddhiManager(**kw).create_siddhi_app_runtime(
-            "@app:playback " + app)
-    except NotImplementedError as exc:
-        return str(exc)
-    return sorted((name, type(q.engine).__name__, q.engine.M, q.engine.OUT)
-                  for name, q in rt.queries.items() if hasattr(q, "engine"))
-
-
-@pytest.mark.parametrize("fname", CORPUS_FILES)
-def test_planner_picks_the_scan_engine_where_the_reference_does(fname):
-    cases = json.loads((CORPUS / fname).read_text())["cases"]
-    for c in cases:
-        if c.get("expect_error"):
-            continue
-        t = engines(T, c["app"])
-        if isinstance(t, str):
-            assert "not ported yet" in t, (c["name"], t)
-            continue
-        assert t == engines(J, c["app"]), c["name"]
-        for _name, kind, M, OUT in t:
-            assert (kind, M, OUT) in (("NfaEngine", 128, 256),
-                                      ("ParallelNfaEngine", 4096, 16384))

@@ -19,12 +19,15 @@ import json
 import pathlib
 
 import pytest
+import torch
 
 import siddhi_tpu as J
 from siddhi_tpu_torch import SiddhiManager
 from test_torch_pattern_corpus import (DIR, NOT_PORTED, PARALLEL_CASES,
                                        T0, _is_ordered_subset, _rows_match,
                                        replay)
+
+torch.set_num_threads(1)
 
 UNPORTED = {
     "pattern_absent_AbsentPatternTestCase.testQueryAbsent43": "partitions",
@@ -63,6 +66,7 @@ JAVA = sorted(set(CASES) - KNOWN - set(UNPORTED))
 def test_the_split_covers_the_scan_cases():
     assert len(CASES) == 338
     assert len(KNOWN) == 6 and KNOWN <= set(CASES)
+    assert sorted(KNOWN_PARTS[0] + KNOWN_PARTS[1]) == sorted(KNOWN)
     assert set(UNPORTED) <= set(CASES)
 
 
@@ -149,10 +153,22 @@ def replay_reference(case) -> dict:
     return state
 
 
-@pytest.mark.parametrize("cid", sorted(KNOWN))
+# the known failures in two parts: the sequences' but one run in
+# test_torch_scan_corpus2.py
+KNOWN_PARTS = [sorted(c for c in KNOWN if c.startswith("pattern")
+                      or c.endswith("testQueryAbsent48")),
+               sorted(c for c in KNOWN if c.startswith("sequence")
+                      and not c.endswith("testQueryAbsent48"))]
+
+
+@pytest.mark.parametrize("cid", KNOWN_PARTS[0])
 def test_known_failure_replays_like_the_reference(cid):
     """Where the reference differs from Java, the port equals the
     reference."""
+    check_known(cid)
+
+
+def check_known(cid) -> None:
     case = CASES[cid]
     got, want = replay(case), replay_reference(case)
     assert (got["in"], got["rm"]) == (want["in"], want["rm"])

@@ -1,7 +1,8 @@
 """The scan engine's absent shapes (checks.SCAN_APPS: an every-scoped
 absent start, an AND group with an absent partner, an OR of two absent
 lanes in mid chain) through kernel K4's plain version against the
-reference, on the CPU (test_torch_scan_shapes2.py has the others).
+reference, on the CPU (one shape a file: this file, _shapes3.py and
+_shapes4.py; test_torch_scan_shapes2.py and _shapes5.py have the others).
 
 Each app gets a seeded three-stream feed, sent as rows in runs of one
 stream (at most 16 events a send), through both SiddhiManagers: rows in
@@ -10,12 +11,15 @@ from the reference's live table carried over (carry.state_from_jax), one
 stream step, one timer step and arm_start equal the reference engine's,
 bit for bit."""
 import pytest
+import torch
 
 import siddhi_tpu as J
 import siddhi_tpu_torch as T
 from siddhi_tpu_torch.checks import SCAN_APPS, three_stream_feed
 from test_torch_pattern import TABLES
 from test_torch_scan import Run, assert_runs_equal, steps_equal
+
+torch.set_num_threads(1)
 
 N = 320      # events sent before the compared step
 STEP = 48    # events of the compared step
@@ -67,7 +71,9 @@ def check_steps(shape):
                 [c[sel] for c in tcols])
 
 
-@pytest.fixture(scope="module", params=SHAPES)
+# one shape a file: the every-scoped start here, the AND and the OR
+# groups in test_torch_scan_shapes3.py and _shapes4.py
+@pytest.fixture(scope="module", params=SHAPES[:1])
 def shape(request):
     return build_shape(request.param)
 

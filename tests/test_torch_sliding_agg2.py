@@ -6,6 +6,7 @@ After every send rows, statistics (overflow counts included) and the
 whole state are equal, bit for bit. Helpers: test_torch_window.py."""
 import numpy as np
 import pytest
+import torch
 
 import siddhi_tpu as J
 import siddhi_tpu_torch as T
@@ -14,6 +15,8 @@ from siddhi_tpu_torch.checks import (PAIRS_OVERFLOW_APP, RING_OVERFLOW_APP,
                                      window2_feed)
 from siddhi_tpu_torch.core.types import GLOBAL_STRINGS as TSTR
 from test_torch_window import Run, align_strings, assert_same_state, run_both
+
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -17,6 +17,7 @@ equal, bit for bit:
 Join planning errors raise in both packages."""
 import numpy as np
 import pytest
+import torch
 
 import siddhi_tpu as J
 import siddhi_tpu_torch as T
@@ -26,6 +27,8 @@ from siddhi_tpu_torch.checks import (STOCK_TABLE_APP, TABLE_APPS,
 from test_torch_join_shapes import (TABLES, MultiRun, compare_runs, norm,
                                     replay_both)
 from test_torch_window import align_strings
+
+torch.set_num_threads(1)
 
 PREFIX = "TB"
 
@@ -117,51 +120,6 @@ def test_reference_table_scenario(case, monkeypatch):
     _rj, rt = replay_both(_BASE + extra, _FILL + sends, monkeypatch)
     got = set(rt.rt.query("from StockTable select symbol, price, volume"))
     assert {(s, round(p, 4), v) for s, p, v in got} == want
-
-
-# -- the reference's tests/test_index.py scenarios -------------------------
-
-def _index_app(index: bool, op: str):
-    idx = "@Index('k')" if index else ""
-    return f"""
-        @app:playback
-        {idx}
-        define table T (k int, v string);
-        define stream Fill (k int, v string);
-        define stream Del (kk int);
-        @info(name='fill') from Fill select k, v insert into T;
-        @info(name='del') from Del delete T on T.k {op} kk;
-    """
-
-
-@pytest.mark.parametrize("op", ["==", "<", "<=", ">", ">="])
-def test_indexed_delete_equals_the_reference_and_the_scan(op, monkeypatch):
-    rng = np.random.default_rng(3)
-    fill = [("Fill", [(1000 + i, (int(k), f"s{k}"))])
-            for i, k in enumerate(rng.integers(0, 20, 40))]
-    dels = [("Del", [(2000 + j, (int(k),))])
-            for j, k in enumerate(rng.integers(0, 20, 5))]
-    left = {}
-    for index in (True, False):
-        _rj, rt = replay_both(_index_app(index, op), fill + dels, monkeypatch)
-        assert (rt.rt.queries["del"].operators[-1].index_probe
-                is not None) == index
-        left[index] = sorted(rt.rt.query("from T select k, v"))
-    assert left[True] == left[False]
-
-
-def test_index_falls_back_to_the_condition_pass():
-    for cond in ("T.v == x", "T.k == x and T.v > 0"):
-        rt = T.SiddhiManager(device="cpu").create_siddhi_app_runtime(f"""
-            @Index('k') define table T (k int, v int);
-            define stream D (x int);
-            @info(name='del') from D delete T on {cond};""")
-        assert rt.queries["del"].operators[-1].index_probe is None
-    rt = T.SiddhiManager(device="cpu").create_siddhi_app_runtime("""
-        @PrimaryKey('k') define table T (k int);
-        define stream D (x int);
-        @info(name='del') from D delete T on T.k == x;""")
-    assert rt.queries["del"].operators[-1].index_probe is not None
 
 
 @pytest.mark.parametrize("index", [True, False])

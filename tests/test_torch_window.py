@@ -14,8 +14,8 @@ carries, counters) are equal, bit for bit (tolerance 0).
 - steps from a reference state carried into the port (carry.py);
 - row-mode sends with the scheduler's timers between them;
 - the windows that are not ported yet raise "not ported yet" with
-  their names; those ported since, and min/max/distinctCount over a
-  length window, deploy and equal the reference.
+  their names; those ported since, min/max/distinctCount over a length
+  window and an order-by, deploy and equal the reference.
 
 The comparison apps of checks.WINDOW_APPS run in
 test_torch_window_apps.py and test_torch_window_apps2.py, with the
@@ -248,67 +248,6 @@ def test_steps_from_a_carried_reference_state(app):
     assert_same_state(rj, rt, "after the carried step")
 
 
-ROW_APPS = {
-    "timeBatch timers": """
-        @app:playback
-        define stream S (sym string, price float, volume long, flag bool);
-        @info(name = 'q') @cap(window.size='64')
-        from S#window.timeBatch(20 milliseconds)
-        select sym, sum(volume) as sv, count() as n
-        group by sym
-        insert all events into Out;
-    """,
-    "time window timers": """
-        @app:playback
-        define stream S (sym string, price float, volume long, flag bool);
-        @info(name = 'q') @cap(window.size='64')
-        from S#window.time(15 milliseconds)
-        select sym, avg(price) as ap, count() as n
-        insert all events into Out;
-    """,
-    # null values in every argument and in the group key
-    "nulls": """
-        @app:playback
-        define stream S (sym string, price float, volume long, flag bool);
-        @info(name = 'q')
-        from S#window.length(6)
-        select sym, sum(price) as sp, avg(volume) as av, count() as n,
-               stdDev(price) as sd, maxForever(volume) as mx, or(flag) as o
-        group by sym
-        insert all events into Out;
-    """,
-}
-
-
-@pytest.mark.parametrize("app", sorted(ROW_APPS))
-def test_row_sends_and_timers_equal_the_reference(app):
-    """Events sent one row at a time with gaps between them: the
-    scheduler fires the windows' timers (TIMER rows) as the clock moves,
-    in both packages alike (the "nulls" app: a fifth of the values
-    null)."""
-    runs = {pkg: Run(pkg, ROW_APPS[app]) for pkg in (J, T)}
-    rng = np.random.default_rng(31)
-    t = 1_700_000_000_000
-    for k in range(60):
-        t += int(rng.integers(0, 12))
-        row = (TIME_SYMS[int(rng.integers(0, 3))],
-               float(np.float32(rng.uniform(0, 200))),
-               int(rng.integers(1, 100)), bool(k % 2))
-        if app == "nulls":
-            row = tuple(None if rng.random() < 0.2 else v for v in row)
-        for pkg, r in runs.items():
-            r.h.send(pkg.Event(t, row))
-        if k % 10 == 9:
-            t += 40
-            for r in runs.values():
-                with r.rt.barrier:
-                    r.rt.on_ingest_ts(t)
-    assert runs[T].rows == runs[J].rows and runs[T].rows
-    if app == "nulls":
-        assert any(v is None for r in runs[T].rows for v in r[2])
-    assert_same_state(runs[J], runs[T], "after the row sends")
-
-
 UNPORTED_WINDOWS = {
     "externalTime(ts, 1 sec)": "externalTime", "timeLength(1 sec, 10)":
     "timeLength", "delay(1 sec)": "delay", "batch()": "batch",
@@ -324,7 +263,8 @@ UNPORTED_WINDOWS = {
 # the names of UNPORTED_WINDOWS that the port has now: each deploys and
 # its sends equal the reference's
 PORTED_WINDOWS = {"externalTime", "timeLength", "delay", "batch", "sort",
-                  "externalTimeBatch", "hopping", "hoping"}
+                  "externalTimeBatch", "hopping", "hoping", "frequent",
+                  "lossyFrequent", "session"}
 
 
 def _ts_price_feed(encode):
@@ -371,9 +311,9 @@ def test_stateful_aggregators_say_so(select, name):
 
 
 def test_order_by_says_so():
-    text = """define stream S (ts long, price float);
-        from S#window.length(4) select ts, sum(price) as v
-        order by v insert into Out;"""
-    with pytest.raises(NotImplementedError,
-                       match="not ported yet: order by"):
-        T.SiddhiManager(device="cpu").create_siddhi_app_runtime(text)
+    """Ported since (kernel G): the same app deploys, and two sends equal
+    the reference's rows and states."""
+    rj, rt = run_both(_ts_price_app("#window.length(4)",
+                                    "ts, sum(price) as v order by v"),
+                      [(0, 30), (30, 60)], _ts_price_feed)
+    assert rt.rows

@@ -12,10 +12,13 @@ ways:
 import json
 
 import pytest
+import torch
 
 from siddhi_tpu_torch import SiddhiManager
 from test_torch_pattern_corpus import (DIR, _is_ordered_subset, _rows_match,
                                        replay)
+
+torch.set_num_threads(1)
 
 FILES = ("ExternalTimeBatch", "TimeLength", "Sort", "ExternalTime")
 

@@ -8,6 +8,7 @@ equal, bit for bit. Also the one-second bars of window_ext_bars at a
 small size against their numpy oracle. Helpers: test_torch_window.py."""
 import numpy as np
 import pytest
+import torch
 
 from siddhi_tpu_torch.checks import (WINDOW2_APPS, WINDOW_BARS_APP,
                                      time_symbols, trades_feed,
@@ -15,10 +16,12 @@ from siddhi_tpu_torch.checks import (WINDOW2_APPS, WINDOW_BARS_APP,
 from siddhi_tpu_torch.core.types import GLOBAL_STRINGS as TSTR
 from test_torch_window import align_strings, run_both
 
+torch.set_num_threads(1)
+
+# the timeout and replace.with.batchtime apps run in
+# test_torch_window2_etb2.py and test_torch_window2_etb3.py
 APPS = ["externalTimeBatch, start constant",
-        "externalTimeBatch, start attribute",
-        "externalTimeBatch, timeout",
-        "externalTimeBatch, replace batch time"]
+        "externalTimeBatch, start attribute"]
 SENDS = [(a, a + 40) for a in range(0, 600, 40)]
 
 
@@ -29,8 +32,12 @@ def aligned_symbols():
 
 @pytest.mark.parametrize("app", APPS)
 def test_external_time_batch_app_equals_the_reference(app):
+    check_app(app, "E")
+
+
+def check_app(app: str, prefix: str) -> None:
     rj, rt = run_both(WINDOW2_APPS[app], SENDS, lambda enc: window2_feed(
-        600, enc, seed=4, prefix="E", quiet_every=40))
+        600, enc, seed=4, prefix=prefix, quiet_every=40))
     assert rt.rows
 
 
@@ -38,7 +45,6 @@ def test_bars_equal_their_oracle():
     """window_ext_bars' two queries at 12,000 events (64 symbols) in
     sends of 4,096: the bars and the breadth equal the numpy oracle."""
     from siddhi_tpu_torch import SiddhiManager
-    import torch
     ts, cols = trades_feed(12000, TSTR.encode, n_syms=64, prefix="EB")
     rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(
         WINDOW_BARS_APP)

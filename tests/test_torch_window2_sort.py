@@ -16,6 +16,8 @@ from siddhi_tpu_torch.checks import (WINDOW2_APPS, WINDOW_SORT_APP,
 from siddhi_tpu_torch.core.types import GLOBAL_STRINGS as TSTR
 from test_torch_window import align_strings, run_both
 
+torch.set_num_threads(1)
+
 APPS = ["sort int desc, long asc", "sort double asc, float desc",
         "sort long desc, int asc", "sort float asc, double desc"]
 SENDS = [(0, 100), (100, 356), (356, 600)]

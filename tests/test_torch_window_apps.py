@@ -7,9 +7,12 @@ send the rows (timestamp, kind, values: floats by their bits, in
 order), the statistics and the whole query state are equal, bit for bit
 (tolerance 0). Helpers: test_torch_window.py."""
 import pytest
+import torch
 
 from siddhi_tpu_torch.checks import WINDOW_APPS, time_symbols, window_feed
 from test_torch_window import align_strings, run_both
+
+torch.set_num_threads(1)
 
 APPS = ["time, grouped, all events", "length, having", "length(0), expired",
         "lengthBatch, grouped", "time, offset and limit"]

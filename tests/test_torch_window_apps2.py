@@ -7,11 +7,14 @@ more distinct keys (1,500) than the 1,024-slot group table. Rows,
 statistics (overflow counts included) and states after every send are
 equal, bit for bit (tolerance 0). Helpers: test_torch_window.py."""
 import pytest
+import torch
 
 from siddhi_tpu_torch.checks import (KEYS_OVERFLOW_APP, WINDOW_APPS,
                                      WINDOW_OVERFLOW_APP, time_symbols,
                                      window_feed)
 from test_torch_window import align_strings, run_both
+
+torch.set_num_threads(1)
 
 APPS = ["lengthBatch, stream current", "lengthBatch, reset heavy",
         "timeBatch, start time", "timeBatch, stream current"]
