@@ -7,13 +7,15 @@ Phases, each of which stops the run with a non-zero exit on failure:
 
 1. device: CUDA must be there; prints the device, the build and
    ``nvidia-smi``'s name and power limit;
-2. build the port's CUDA kernels from csrc/ (eleven sources, one nvcc
+2. build the port's CUDA kernels from csrc/ (twelve sources, one nvcc
    each, all at once) and hold kernel K1 (packed-ingest decode) against its plain
    PyTorch version on the card, bit for bit, for every lane code at
    capacities 16, 1024, 65536;
 3. hold kernel K2 (expression evaluation) against its plain version on
    the card, bit for bit, over random columns with nulls and trap
-   values, for every opcode and the repaired constant-folding cases;
+   values, for every opcode and the repaired constant-folding cases,
+   and every built-in function of checks.function_cases (the
+   math-library functions within 2 ulp);
 4. run the filter bench app through SiddhiManager/send_arrays on the
    card: 1,048,576 events in 16 sends of 65,536 rows, checked against a
    numpy oracle in count and order; the launch counters must show that
@@ -148,7 +150,27 @@ Phases, each of which stops the run with a non-zero exit on failure:
    bound and (G) chained stable torch.sort and the gathers;
 27. run bench.py's chain3 and fanout (K1, K2): 4 sends of 65,536
    against their numpy oracles, with events/s and latency;
-28. print the kernel table as one JSON line, the card's name and power
+28. hold K2's function ops, kernel H (unionSet) and set rows through K5
+   and K6 against their plain versions on the card at every launch:
+   each app of checks.FUNC_APPS (functions in every context: filter,
+   projection, having, aggregator arguments, grouping, both pattern
+   engines, a join's ON, a table's ON), the set family's cases, and the
+   new paths' apps at two 65,536-row sends;
+29. run functions (market-data normalisation: every everyday function
+   in a filter and a projection), polar (#pol2Cart and a bearing) and
+   distinct_symbols (Siddhi's unionSet query over a 10 s timeBatch, on
+   24 Zipf-skewed and 512 symbols) end to end: 1,048,576 events in 16
+   sends of 65,536 each, against numpy oracles (sqrt, ln, cos, sin and
+   atan within 4 ulp; unionSet and window overflow equal to the
+   oracle's; the 24-symbol run's frozensets through a row callback);
+   the launch counters must show each path's kernels (K1, K2; K5, K6
+   and H for distinct_symbols); then events/s, latency at 65,536 and
+   1,024 rows, K2's time on the functions chunk and H's at its path's
+   shape against their plain versions, bounds and (H) torch.sort with
+   torch.unique_consecutive;
+30. run log (#log over 3 sends of 16 rows): each send's printed lines
+   equal the oracle's;
+31. print the kernel table as one JSON line, the card's name and power
    limit, and the result line.
 
 `python3 chip_smoke.py --k5-time` times K5 alone (window_agg's and
@@ -3101,7 +3123,7 @@ def chain_phase(dev, card: str, which: str, n_sends: int = 4) -> dict:
         "chain3": (C.CHAIN3_APP, C.chain3_feed, ("q3",)),
         "fanout": (C.FANOUT_APP, C.fanout_feed, ("q1", "q2", "q3", "q4"))
     }[which]
-    ts_all, cols_all = feed(N + 8 * SEND + 70 * 1024, enc)
+    ts_all, cols_all = feed(N + 9 * SEND + 70 * 1024, enc)
     mgr = SiddhiManager(device="cuda")
     warm = mgr.create_siddhi_app_runtime(text.replace("OutS", "OutW"))
     warm.start()
@@ -3162,6 +3184,531 @@ def chain_phase(dev, card: str, which: str, n_sends: int = 4) -> dict:
 
 
 
+# -- slice 8: function calls, stream functions, the set family -----------------
+
+# the K2 entry points of the modules that call it by name
+_K2_USERS = ("ops.expr", "ops.selector", "ops.aggregators", "ops.operators",
+             "ops.table", "ops.streamfn", "core.runtime", "core.ondemand")
+
+
+def library_program(prog) -> bool:
+    """Whether a K2 program runs a math-library function (held to 2 ulp
+    against its plain version; every other op bit for bit)."""
+    from siddhi_tpu_torch.ops import expr as E
+    lib = {E.MATH_FNS.index(f) for f in E.LIBRARY_FNS}
+    for word in prog.code:
+        op, arg = word & 0xFF, word >> 16
+        if op == E.OP_POW or (op == E.OP_MATH and arg in lib):
+            return True
+    return False
+
+
+def compare_ulp(name: str, got, want, lib: bool):
+    """compare(), except that with ``lib`` the float64 outputs may differ
+    by 2 ulp. -> (max abs error, largest ulp gap)."""
+    if not lib:
+        return compare(name, got, want), 0
+    from siddhi_tpu_torch.checks import ulp_gap
+    exact_g, exact_w, gap = [], [], 0
+    for g, w in zip(got, want):
+        if g.dtype == torch.float64 and g.shape == w.shape:
+            gap = max(gap, ulp_gap(g.reshape(-1).cpu().numpy(),
+                                   w.reshape(-1).cpu().numpy()))
+        else:
+            exact_g.append(g)
+            exact_w.append(w)
+    if gap > 2:
+        fail(f"{name}: a math-library output is {gap} ulp from the plain "
+             "version's")
+    return compare(name, exact_g, exact_w), gap
+
+
+class FuncCheck:
+    """While installed, every K2 launch the runtime makes on the card also
+    runs the plain version on the same inputs; outputs, null masks, the
+    valid mask and the emitted counter must be bit-equal, except the
+    float64 outputs of a program with a math-library function, which
+    may differ by 2 ulp (the largest gap is kept). The runtime goes on
+    with the kernel's."""
+
+    def __init__(self):
+        import importlib
+        from siddhi_tpu_torch.ops import expr as E
+        self.E = E
+        self.mods = [importlib.import_module(f"siddhi_tpu_torch.{m}")
+                     for m in _K2_USERS]
+        self.err, self.ulp, self.steps = 0.0, 0, 0
+
+    def __enter__(self):
+        E = self.E
+        k_eval = E.expr_eval
+
+        def expr_eval(prog, batch, emitted=None, now=None):
+            e_ref = emitted.clone() if emitted is not None else None
+            kc, kn, kv = k_eval(prog, batch, emitted, now)
+            rc, rn, rv = E.expr_eval_ref(prog, batch, e_ref, now)
+            err, gap = compare_ulp(
+                f"K2 B={batch.capacity}",
+                [*kc, *kn, kv] + ([emitted] if emitted is not None else []),
+                [*rc, *rn, rv] + ([e_ref] if e_ref is not None else []),
+                library_program(prog))
+            self.err, self.ulp = max(self.err, err), max(self.ulp, gap)
+            self.steps += 1
+            return kc, kn, kv
+
+        self.saved = k_eval
+        for m in self.mods:
+            if hasattr(m, "expr_eval"):
+                m.expr_eval = expr_eval
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            if hasattr(m, "expr_eval"):
+                m.expr_eval = self.saved
+        return False
+
+
+def func_against_plain(dev) -> dict:
+    """K2's function ops, and kernels H, K5 and K6 with set rows, against
+    their plain versions on the card, at every launch: each app of
+    checks.FUNC_APPS (functions in a filter and a projection, having,
+    aggregator arguments, a grouped selector, a pattern condition on
+    each engine, a join's ON, a table's ON and an update-or-insert) on
+    checks.func_feed; the reference's set-family cases (createSet of
+    every element type, unionSet over a sliding length window with
+    removals, over lengthBatch resets, past its 32 lanes); and the new
+    paths' apps (functions, polar, distinct_symbols on both feeds) at
+    two 65,536-row sends. -> {"k2_err", "k2_ulp", "h_err"}."""
+    from siddhi_tpu_torch import Event, SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    enc = GLOBAL_STRINGS.encode
+    mgr = SiddhiManager()
+    saved = dict(_kernels.LAUNCHES)
+    sets = {
+        "createSet of each type": """
+            define stream S (s string, i int, j int, l long, f float,
+                             d double, b bool);
+            from S select createSet(i) as ci, createSet(l) as cl,
+                          createSet(f) as cf, createSet(d) as cd,
+                          createSet(b) as cb, createSet(s) as cs,
+                          sizeOfSet(createSet(d / f)) as n
+            insert into P;
+            @info(name = 'q') from P#window.lengthBatch(7)
+            select unionSet(cd) as u, sizeOfSet(unionSet(cf)) as m,
+                   unionSet(cs) as us
+            insert into Out;""",
+        "unionSet over length(5)": C.FUNC_STREAM + """
+            from S select createSet(l) as vs insert into P;
+            @info(name = 'q') from P#window.length(5)
+            select unionSet(vs) as u insert all events into Out;""",
+        "unionSet past 32 lanes": C.FUNC_STREAM + """
+            from S select createSet(l) as vs insert into P;
+            @info(name = 'q') from P#window.lengthBatch(64)
+            select unionSet(vs) as u, sizeOfSet(unionSet(vs)) as n
+            insert into Out;"""}
+    rows = C.func_feed(400, seed=7)
+    feeds = {n: C.func_app_sends(n) for n in C.FUNC_APPS}
+    feeds.update({n: [("S", rows[a:a + 100]) for a in range(0, 400, 100)]
+                  for n in sets})
+    apps = [(n, "@app:playback " + t) for n, t in
+            list(C.FUNC_APPS.items()) + list(sets.items())]
+    with FuncCheck() as fchk, KernelCheck() as kchk, JoinTableCheck() as jchk:
+        for name, text in apps:
+            rt = mgr.create_siddhi_app_runtime(text)
+            rt.start()
+            for stream, sends in feeds[name]:
+                rt.get_input_handler(stream).send(
+                    [Event(ts, row) for ts, row in sends])
+            rt.shutdown()
+            print(f"K2 functions, {name}: bit-equal to the plain version "
+                  f"(launches held so far {fchk.steps}, largest library "
+                  f"ulp {fchk.ulp}; K5/K6/H {kchk.steps})", flush=True)
+        SEND = KEYED_SEND
+        for name, text, stream, feed in (
+                ("functions", C.FUNCTIONS_APP, "Trade",
+                 lambda n: C.trade_feed(n, enc)),
+                ("polar", C.POLAR_APP, "Radar", C.radar_feed),
+                ("distinct_symbols 24", C.DISTINCT_APP, "stockStream",
+                 lambda n: C.distinct_feed(n, enc, 24)),
+                ("distinct_symbols 512", C.DISTINCT_APP, "stockStream",
+                 lambda n: C.distinct_feed(n, enc, 512))):
+            rt = mgr.create_siddhi_app_runtime(text)
+            rt.start()
+            ts, cols = feed(2 * SEND)
+            _send_all(rt.get_input_handler(stream), ts, cols,
+                      (0, SEND, 2 * SEND))
+            rt.shutdown()
+            print(f"{name}, 2 sends of {SEND}: K2, K5, K6 and H equal to "
+                  f"their plain versions (largest library ulp "
+                  f"{fchk.ulp})", flush=True)
+    _kernels.LAUNCHES.update(saved)
+    if fchk.steps == 0 or kchk.steps["aggregate_step"] == 0:
+        fail("K2 or K6 was never held against its plain version")
+    return {"k2_err": max(fchk.err, jchk.err), "k2_ulp": fchk.ulp,
+            "h_err": kchk.err}
+
+
+def _path_run(text, stream, ts_all, cols_all, N, SEND, qname="q"):
+    """One path end to end: a warm-up runtime, then the measured one with
+    a batch callback. -> (runtime, outputs, wall seconds, launches)."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    mgr = SiddhiManager(device="cuda")
+    warm = mgr.create_siddhi_app_runtime(text)
+    warm.start()
+    _send_all(warm.get_input_handler(stream), ts_all[N:], 
+              [c[N:] for c in cols_all], (0, SEND, 2 * SEND))
+    torch.cuda.synchronize()
+    warm.shutdown()
+    rt = mgr.create_siddhi_app_runtime(text)
+    outs = []
+    rt.queries[qname].batch_callbacks.append(outs.append)
+    rt.start()
+    h = rt.get_input_handler(stream)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    for s in range(0, N, SEND):
+        h.send_arrays(ts_all[s:s + SEND], [c[s:s + SEND] for c in cols_all])
+    torch.cuda.synchronize()
+    return rt, outs, time.perf_counter() - t0, dict(_kernels.LAUNCHES)
+
+
+def _report(name, N, SEND, n_sends, rows, eps, launches, card, extra=""):
+    print(f"{name}: {N} events in {n_sends} sends of {SEND}; {rows} rows "
+          f"equal the numpy oracle{extra}; {eps:.0f} events/s, device "
+          f"batches only ({card})", flush=True)
+    print(f"launches on the {name} path: {launches}", flush=True)
+
+
+def functions_phase(dev, card: str, n_sends: int = 16) -> dict:
+    """functions: market-data normalisation (checks.FUNCTIONS_APP: a
+    filter and a projection of every everyday function, the nulls made by
+    the query from zero lots) end to end on the card through
+    SiddhiManager, send_arrays and batch_callbacks: 1,048,576 trades of
+    512 symbols in 16 sends of 65,536, every column against
+    checks.functions_oracle bit for bit (sqrt and ln within 4 ulp of
+    numpy's); the launch counters must show K1 and K2 on every send; then
+    events/s, latency at 65,536 and 1,024 rows, and K2's time on the
+    path's chunk against its plain version and its bound."""
+    from siddhi_tpu_torch import _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.event import batch_from_columns
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    from siddhi_tpu_torch.ops.expr import (expr_eval, expr_eval_ref,
+                                           expr_params)
+    enc = GLOBAL_STRINGS.encode
+    SEND = KEYED_SEND
+    N = n_sends * SEND
+    ts_all, cols_all = C.trade_feed(N + 10 * SEND + 70 * 1024, enc)
+    rt, outs, wall, launches = _path_run(C.FUNCTIONS_APP, "Trade", ts_all,
+                                         cols_all, N, SEND)
+    if launches["unpack_packed"] != n_sends or \
+            launches["expr_eval"] < n_sends:
+        fail(f"functions: launches {launches}")
+    ots, ocols, onulls = C.emitted_columns(outs)
+    want = C.functions_oracle(ts_all[:N], [c[:N] for c in cols_all], enc)
+    names = ["symbol", "vol32", "pf", "per_lot", "px_lot", "band", "lo",
+             "hi", "spread", "sq", "rp", "lnp"]
+    if not np.array_equal(ots, want["ts"]) or \
+            not np.array_equal(ocols[-1], want["ts"]) or \
+            any(n.any() for n in onulls):
+        fail(f"functions: {len(ots)} rows, the oracle {len(want['ts'])}")
+    gaps = {}
+    for k, n in enumerate(names):
+        if n in ("sq", "lnp"):
+            gaps[n] = C.ulp_gap(ocols[k], want[n])
+            if gaps[n] > 4:
+                fail(f"functions: {n} is {gaps[n]} ulp from numpy's")
+        elif not np.array_equal(bits_np(ocols[k]), bits_np(want[n])):
+            fail(f"functions: column {n} differs from the numpy oracle")
+    eps = N / wall
+    _report("functions", N, SEND, n_sends, len(ots), eps, launches, card,
+            f" (sqrt {gaps['sq']} ulp, ln {gaps['lnp']} ulp from numpy's)")
+    h = rt.get_input_handler("Trade")
+    chunk = _chunker(ts_all, cols_all, N)
+    p50, p99 = _latency(h, chunk, SEND, 8)
+    p50k, p99k = _latency(h, chunk, 1024, 64)
+    print(f"functions latency per send: {SEND} rows p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms; 1,024 rows p50 {p50k:.3f} ms, p99 {p99k:.3f} ms "
+          f"({card})", flush=True)
+    # K2 at the path's shape: the query's one program over a 65,536-row
+    # chunk (kernel arguments built once)
+    ts_c, cols_c = chunk(SEND)
+    batch = batch_from_columns(rt.schemas["Trade"], ts_c, cols_c,
+                               capacity=SEND, device=dev)
+    prog = rt.queries["q"].program
+    emitted = torch.zeros((), dtype=torch.int64, device=dev)
+    oc, on, ov = expr_eval(prog, batch, emitted)
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    p2 = expr_params(prog, batch, oc, on, ov, emitted)
+    k2_ms = cuda_ms(lambda: lib.expr_eval(p2, stream), reps=200)
+    k2_plain = cuda_ms(lambda: expr_eval_ref(prog, batch, None), reps=20)
+    in_bytes = sum(batch.cols[i].element_size() + 1 if isinstance(i, int)
+                   else 8 for i in prog.inputs)
+    out_bytes = sum(o.element_size() + 1 for o in oc)
+    n_bytes = SEND * (in_bytes + 4 + 1 + out_bytes + 1) + 8
+    n_ops = SEND * len(prog.code)
+    bound, by = bound_of(n_bytes, n_ops)
+    print(f"expr_eval (K2, the functions program: {len(prog.code)} "
+          f"instructions): {k2_ms:.5f} ms per {SEND}-row chunk, plain "
+          f"version {k2_plain:.4f} ms, bound {bound:.5f} ms ({n_bytes} "
+          f"bytes, {n_ops} operations: {by}); {card}", flush=True)
+    _kernels.LAUNCHES.update(launches)
+    rt.shutdown()
+    del outs
+    gc.collect()
+    return {"events_per_s_device_batches": eps, "rows": len(ots),
+            "p50_ms_send": p50, "p99_ms_send": p99, "p50_ms_1024": p50k,
+            "p99_ms_1024": p99k, "launches": launches, "k2_ms": k2_ms,
+            "k2_plain_ms": k2_plain, "k2_bound_ms": bound,
+            "k2_bound_by": by, "ulp": gaps, "card": card}
+
+
+def polar_phase(dev, card: str, n_sends: int = 16) -> dict:
+    """polar: Siddhi's documented pol2Cart usage (checks.POLAR_APP:
+    radar returns over 5 m to Cartesian tracks and a bearing) end to end
+    on the card: 1,048,576 returns in 16 sends of 65,536 against
+    checks.polar_oracle (ids and cartZ bit for bit; cartX, cartY and the
+    bearing within 4 ulp of numpy's); K1 and K2 on every send; events/s
+    and latency."""
+    from siddhi_tpu_torch import _kernels
+    from siddhi_tpu_torch import checks as C
+    SEND = KEYED_SEND
+    N = n_sends * SEND
+    ts_all, cols_all = C.radar_feed(N + 9 * SEND + 70 * 1024)
+    rt, outs, wall, launches = _path_run(C.POLAR_APP, "Radar", ts_all,
+                                         cols_all, N, SEND)
+    if launches["unpack_packed"] != n_sends or \
+            launches["expr_eval"] < 2 * n_sends:
+        fail(f"polar: launches {launches}")
+    ots, ocols, _on = C.emitted_columns(outs)
+    want = C.polar_oracle(ts_all[:N], [c[:N] for c in cols_all])
+    if not (np.array_equal(ots, want["ts"])
+            and np.array_equal(ocols[0], want["id"])
+            and np.array_equal(bits_np(ocols[3]), bits_np(want["cartZ"]))):
+        fail(f"polar: {len(ots)} rows, the oracle {len(want['ts'])}")
+    gaps = {n: C.ulp_gap(ocols[k], want[n])
+            for k, n in ((1, "cartX"), (2, "cartY"), (4, "bearing"))}
+    if max(gaps.values()) > 4:
+        fail(f"polar: ulp gaps {gaps} past 4")
+    eps = N / wall
+    _report("polar", N, SEND, n_sends, len(ots), eps, launches, card,
+            f" (ulp from numpy's: {gaps})")
+    h = rt.get_input_handler("Radar")
+    chunk = _chunker(ts_all, cols_all, N)
+    p50, p99 = _latency(h, chunk, SEND, 8)
+    p50k, p99k = _latency(h, chunk, 1024, 64)
+    print(f"polar latency per send: {SEND} rows p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms; 1,024 rows p50 {p50k:.3f} ms, p99 {p99k:.3f} ms "
+          f"({card})", flush=True)
+    _kernels.LAUNCHES.update(launches)
+    rt.shutdown()
+    return {"events_per_s_device_batches": eps, "rows": len(ots),
+            "p50_ms_send": p50, "p99_ms_send": p99, "p50_ms_1024": p50k,
+            "p99_ms_1024": p99k, "launches": launches, "ulp": gaps,
+            "card": card}
+
+
+def _union_overflow(q) -> int:
+    st = q.states[-1]
+    return sum(int(t["overflow"]) for t in st["tables"] if "vals" in t)
+
+
+def distinct_phase(dev, card: str, n_sends: int = 16) -> dict:
+    """distinct_symbols: Siddhi's documented unionSet query (createSet
+    per quote, unionSet and sizeOfSet over a 10 s timeBatch) end to end
+    on the card: two feeds of 1,048,576 quotes in 16 sends of 65,536, 24
+    Zipf-skewed symbols (every set fits its 32 lanes: overflow 0) and
+    512 uniform (the overflow counted), each against
+    checks.distinct_oracle (the emitted rows' times, sets and sizes; the
+    unionSet and window overflow); the 24-symbol run also through a row
+    callback, whose frozensets the host edge decodes; K1, K2, K5, K6 and
+    H on every step; then events/s, latency at 65,536 and 1,024 rows
+    (the latter's quotes 16 ms apart, so that each send closes a
+    batch), and H's time at the path's shape against its plain version,
+    its bound and torch.sort with torch.unique_consecutive."""
+    from siddhi_tpu_torch import StreamCallback, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS, SET_EMPTY
+    enc = GLOBAL_STRINGS.encode
+    SEND = KEYED_SEND
+    N = n_sends * SEND
+    res = {"card": card}
+    for n_syms in (24, 512):
+        label = f"distinct_symbols {n_syms}"
+        ts_all, cols_all = C.distinct_feed(N + 8 * SEND, enc, n_syms)
+        rt, outs, wall, launches = _path_run(
+            C.DISTINCT_APP, "stockStream", ts_all, cols_all, N, SEND)
+        if launches["unpack_packed"] != n_sends or \
+                launches["window_step"] < n_sends or \
+                launches["union_set"] < 2 * n_sends or \
+                launches["aggregate_step"] < n_sends or \
+                launches["aggregate_emit"] < n_sends:
+            fail(f"{label}: launches {launches}")
+        q = rt.queries["q"]
+        want, u_over, w_over = C.distinct_oracle(
+            ts_all[:N], [c[:N] for c in cols_all], SEND)
+        ots, ocols, onulls = C.emitted_columns(outs)
+        got_sets = [np.sort(r[1:][r[1:] != SET_EMPTY]) for r in ocols[0]]
+        ok = len(ots) == len(want) and all(
+            t == w[0] and np.array_equal(s, w[1]) and int(n) == w[2]
+            for t, s, n, w in zip(ots, got_sets, ocols[1], want))
+        wov = int(q.states[0]["overflow"])
+        uov = _union_overflow(q)
+        if not ok or uov != u_over or wov != w_over or \
+                any(n.any() for n in onulls):
+            fail(f"{label}: {len(ots)} rows, the oracle {len(want)}; "
+                 f"unionSet overflow {uov} (oracle {u_over}), window "
+                 f"overflow {wov} (oracle {w_over})")
+        eps = N / wall
+        _report(label, N, SEND, n_sends, len(ots), eps, launches, card,
+                f"; unionSet overflow {uov} and window overflow {wov}, the "
+                "oracle's")
+        r = {"events_per_s_device_batches": eps, "rows": len(ots),
+             "union_overflow": uov, "window_overflow": wov,
+             "launches": launches}
+        if n_syms == 24:
+            # the host edge: a row callback decodes the frozensets
+            rows = []
+            rt2 = rt.manager.create_siddhi_app_runtime(C.DISTINCT_APP)
+            rt2.add_callback("distinctStockStream", StreamCallback(
+                lambda evs: rows.extend(e.data for e in evs)))
+            rt2.start()
+            _send_all(rt2.get_input_handler("stockStream"), ts_all[:N],
+                      [c[:N] for c in cols_all],
+                      tuple(range(0, N + 1, SEND)))
+            rt2.shutdown()
+            names = [frozenset(GLOBAL_STRINGS.decode(int(c)) for c in w[1])
+                     for w in want]
+            if [d[0] for d in rows] != names or \
+                    [d[1] for d in rows] != [w[2] for w in want]:
+                fail(f"{label}: the decoded rows differ from the oracle")
+            print(f"{label}: {len(rows)} rows through a row callback, the "
+                  "decoded frozensets equal the oracle's", flush=True)
+            # latency: 65,536-row sends, then 1,024-row sends 16 ms apart
+            h = rt.get_input_handler("stockStream")
+            chunk = _chunker(ts_all, cols_all, N)
+            p50, p99 = _latency(h, chunk, SEND, 4)
+            lts, lcols = C.distinct_feed(70 * 1024, enc, n_syms, seed=9)
+            lts = int(ts_all[-1]) + 16 * (
+                np.arange(len(lts), dtype=np.int64) + 1)
+            p50k, p99k = _latency(h, _chunker(lts, lcols, 0), 1024, 64)
+            r.update(p50_ms_send=p50, p99_ms_send=p99, p50_ms_1024=p50k,
+                     p99_ms_1024=p99k)
+            print(f"{label} latency per send: {SEND} rows p50 {p50:.3f} "
+                  f"ms, p99 {p99:.3f} ms; 1,024 rows p50 {p50k:.3f} ms, "
+                  f"p99 {p99k:.3f} ms ({card})", flush=True)
+        else:
+            r.update(_h_times(rt, dev, card, int(ts_all[N - 1])))
+        _kernels.LAUNCHES.update(launches)
+        rt.shutdown()
+        del outs
+        gc.collect()
+        res[label] = r
+    return res
+
+
+def _h_times(rt, dev, card, last_ts: int) -> dict:
+    """Kernel H alone at the path's shape: one unionSet step over a flush
+    of the 512-symbol feed (its K6 part 1 run once), against its plain
+    version, its bound and the nearest library calls (torch.sort of the
+    same pair values, then torch.unique_consecutive with counts)."""
+    from siddhi_tpu_torch import _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS, SET_LANES
+    from siddhi_tpu_torch.ops import aggregators as G
+    captured = []
+    k_agg = G.aggregate_step
+
+    def capture(op, state, key_cols, arg_cols, kind, valid):
+        captured.append((op, tree_clone(state), key_cols, arg_cols, kind,
+                         valid))
+        return k_agg(op, state, key_cols, arg_cols, kind, valid)
+    G.aggregate_step = capture
+    try:
+        h = rt.get_input_handler("stockStream")
+        ts, cols = C.distinct_feed(2 * KEYED_SEND, GLOBAL_STRINGS.encode,
+                                   512, seed=13)
+        ts = ts + (last_ts + 1 - C.TS0)
+        _send_all(h, ts, cols, (0, KEYED_SEND, 2 * KEYED_SEND))
+        torch.cuda.synchronize()
+    finally:
+        G.aggregate_step = k_agg
+    op, state, key_cols, arg_cols, kind, valid = max(
+        captured, key=lambda c: int(c[5].sum()))
+    B = kind.shape[0]
+    s = next(i for i, sp in enumerate(op.agg_specs)
+             if isinstance(sp, G.UnionSetAgg))
+    spec, arg = op.agg_specs[s], arg_cols[s]
+    _slots, aggs, new_state, args, stats = G.agg_args(op, state, key_cols,
+                                                      arg_cols, kind, valid)
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    lib.aggregate_step(args, stream, 1)
+    ua = next(st for sp, st in stats if sp is spec)
+    h_ms = cuda_ms(lambda: lib.union_set(args, ua, stream), reps=20)
+    ctx = G.agg_context(op, state, key_cols, kind, valid)[0]
+    tab = state["tables"][s]
+    h_plain = cuda_ms(lambda: spec.run_ref(arg, ctx, tab), reps=5)
+    n = SET_LANES * (1 + B)
+    pairs = torch.cat([tab["vals"], arg[0][:, 1:].reshape(-1)])
+
+    def library():
+        v, _ = torch.sort(pairs)
+        return torch.unique_consecutive(v, return_counts=True)
+    lib_ms = cuda_ms(library, reps=20)
+    n_bytes = 2 * B * (1 + SET_LANES) * 8 + B * (4 + 1 + 8 + 1 + 1) + \
+        4 * SET_LANES * 8 + 32
+    n_ops = 8 * 2 * n   # eight digit passes over n keys, rank and scatter
+    bound, by = bound_of(n_bytes, n_ops)
+    print(f"union_set (kernel H): {h_ms:.4f} ms a {B}-row step ({n} "
+          f"(value, sign) pairs, {int(valid.sum())} rows of the flush); "
+          f"plain version {h_plain:.3f} ms; torch.sort + "
+          f"torch.unique_consecutive {lib_ms:.4f} ms; bound {bound:.5f} ms "
+          f"({n_bytes} bytes, {n_ops} operations: {by}); {card}",
+          flush=True)
+    return {"h_ms": h_ms, "h_plain_ms": h_plain, "h_library_ms": lib_ms,
+            "h_bound_ms": bound, "h_bound_by": by, "h_rows": B}
+
+
+def log_phase(dev, card: str, n_sends: int = 3, rows: int = 16) -> dict:
+    """log: #log('INFO', 'checkpoint') over 3 sends of 16 rows on the
+    card; each send's printed lines (a set: the reference prints
+    asynchronously) equal checks.log_oracle's, and the rows pass
+    through."""
+    import contextlib
+    import io
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    ts, cols = C.log_feed(n_sends * rows)
+    rt = SiddhiManager().create_siddhi_app_runtime(C.LOG_APP)
+    outs = []
+    rt.queries["q"].batch_callbacks.append(outs.append)
+    rt.start()
+    h = rt.get_input_handler("S")
+    _kernels.reset_launches()
+    for k in range(n_sends):
+        s = slice(k * rows, (k + 1) * rows)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            h.send_arrays(ts[s], [c[s] for c in cols])
+            torch.cuda.synchronize()
+        got = set(buf.getvalue().splitlines())
+        if got != set(C.log_oracle(ts[s], [c[s] for c in cols])):
+            fail(f"log: send {k} printed {sorted(got)[:2]}...")
+    launches = dict(_kernels.LAUNCHES)
+    ots, ocols, _n = C.emitted_columns(outs)
+    if not (np.array_equal(ots, ts) and np.array_equal(ocols[0], cols[0])):
+        fail("log: the rows did not pass through")
+    print(f"log: {n_sends} sends of {rows} rows; every send's printed "
+          f"lines equal the oracle's; launches {launches} ({card})",
+          flush=True)
+    rt.shutdown()
+    return {"launches": launches}
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3172,7 +3719,8 @@ def main() -> None:
                                          FILTER_APP, INGEST_SPANS,
                                          INGEST_TYPES, expr_cases,
                                          expr_columns, filter_cases,
-                                         filter_feed, ingest_chunk)
+                                         filter_feed, function_cases,
+                                         function_columns, ingest_chunk)
     from siddhi_tpu_torch.core.event import (Attribute, EventBatch,
                                              StreamSchema, rows_from_batch)
     from siddhi_tpu_torch.core.ingest import (PackedEncoder, layout,
@@ -3288,10 +3836,38 @@ def main() -> None:
             "K2 filter", [expr_eval(prog, batch)[2]],
             [expr_eval_ref(prog, batch)[2]]))
         n_progs += 1
+    # the function calls (slice 8), twelve a program, over columns with
+    # subnormals among the traps
+    fcols, fnulls, fkind, fvalid = function_columns(B, seed=6)
+    fcols = [codes[c] if t.value == "string" else c
+             for c, (_n, t) in zip(fcols, EXPR_SCHEMA)]
+    fbatch = EventBatch(ts=t(np.arange(B, dtype=np.int64)),
+                        cols=[t(c) for c in fcols],
+                        nulls=[t(n) for n in fnulls], kind=t(fkind),
+                        valid=t(fvalid))
+    fexprs = [compile_expression(parse_expression(e), scope)
+              for e in function_cases()]
+    k2_ulp = 0
+    for k in range(0, len(fexprs), 12):
+        b = ProgramBuilder()
+        b.keep(conds[(k // 12) % len(conds)])
+        for ce in fexprs[k:k + 12]:
+            b.out(ce)
+        prog = b.build()
+        em_k = torch.zeros((), dtype=torch.int64, device=dev)
+        em_r = torch.zeros((), dtype=torch.int64, device=dev)
+        kc, kn, kv = expr_eval(prog, fbatch, em_k)
+        rc, rn, rv = expr_eval_ref(prog, fbatch, em_r)
+        err, gap = compare_ulp(f"K2 function program {k}",
+                               [*kc, *kn, kv, em_k], [*rc, *rn, rv, em_r],
+                               library_program(prog))
+        k2_err, k2_ulp = max(k2_err, err), max(k2_ulp, gap)
+        n_progs += 1
     torch.cuda.synchronize()
     print(f"K2 expr_eval: bit-equal to its plain version over "
-          f"{len(exprs)} expressions and {len(conds)} filters "
-          f"({n_progs} programs, {B} rows)", flush=True)
+          f"{len(exprs)} expressions, {len(conds)} filters and "
+          f"{len(fexprs)} function calls (math-library functions within "
+          f"{k2_ulp} ulp; {n_progs} programs, {B} rows)", flush=True)
 
     # -- 4. the filter app through the public API, on the card -------------------
     N, SEND = 1 << 20, 65536
@@ -3592,7 +4168,48 @@ def main() -> None:
                 tp["top10"]["launches"]["aggregate_step"] + \
                 tp["top10 by hi"]["launches"]["aggregate_step"]
 
-    # -- 28. result -----------------------------------------------------------
+    # -- 28. to 30. slice 8: function calls (K2's new ops), kernel H, set
+    # rows through K5 and K6; the functions, polar, distinct_symbols and
+    # log paths
+    f8 = func_against_plain(dev)
+    fn = functions_phase(dev, card)
+    po = polar_phase(dev, card)
+    ds = distinct_phase(dev, card)
+    log_phase(dev, card)
+    ds24, ds512 = ds["distinct_symbols 24"], ds["distinct_symbols 512"]
+    new_runs = (fn, po, ds24, ds512)
+    for row in table:
+        if row["name"] == "unpack_packed":
+            row["launches"] += sum(r["launches"]["unpack_packed"]
+                                   for r in new_runs)
+        elif row["name"] == "expr_eval":
+            # K2's time is now the functions path's program, on its chunk
+            row["launches"] += sum(r["launches"]["expr_eval"]
+                                   for r in new_runs)
+            row["max_abs_err"] = max(row["max_abs_err"], f8["k2_err"])
+            row["max_ulp"] = max(k2_ulp, f8["k2_ulp"])
+            row.update(ms=fn["k2_ms"], plain_ms=fn["k2_plain_ms"],
+                       bound_ms=fn["k2_bound_ms"],
+                       bound_by=fn["k2_bound_by"])
+        elif row["name"] == "window_step":
+            row["launches"] += ds24["launches"]["window_step"] + \
+                ds512["launches"]["window_step"]
+        elif row["name"] == "aggregate_step":
+            row["launches"] += ds24["launches"]["aggregate_step"] + \
+                ds512["launches"]["aggregate_step"]
+            row["max_abs_err"] = max(row["max_abs_err"], f8["h_err"])
+    table.append({
+        "name": "union_set", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/union_set.cu",
+        "replaces": "siddhi_tpu/ops/aggregators.py:413",
+        "launches": ds24["launches"]["union_set"] +
+        ds512["launches"]["union_set"],
+        "max_abs_err": f8["h_err"], "ms": ds512["h_ms"],
+        "plain_ms": ds512["h_plain_ms"], "bound_ms": ds512["h_bound_ms"],
+        "bound_by": ds512["h_bound_by"],
+        "library_ms": ds512["h_library_ms"]})
+
+    # -- 31. result -----------------------------------------------------------
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

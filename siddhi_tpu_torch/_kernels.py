@@ -33,7 +33,8 @@ SOURCES = {"unpack_packed": "unpack_packed.cu", "expr_eval": "expr_eval.cu",
            "window_step": "window_step.cu", "window_seq": "window_seq.cu",
            "aggregate_step": "aggregate_step.cu",
            "join_cross": "join_cross.cu", "table_step": "table_step.cu",
-           "session_step": "session_step.cu", "order_by": "order_by.cu"}
+           "session_step": "session_step.cu", "order_by": "order_by.cu",
+           "union_set": "union_set.cu"}
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 # entry points counted apart: the aggregate step's emission; K7's probe
@@ -43,7 +44,7 @@ ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
                 "sliding_minmax", "distinct_count", "aggregate_emit",
                 "join_probe", "join_grid", "table_write", "table_match",
                 "table_probe", "table_buffer", "freq_window",
-                "session_window", "order_by")
+                "session_window", "order_by", "union_set")
 LAUNCHES = {name: 0 for name in ENTRY_POINTS}
 
 
@@ -98,7 +99,8 @@ class ExprParams(ctypes.Structure):
                 ("code", ctypes.c_int32 * MAX_CODE),
                 ("n_code", ctypes.c_int32), ("rows", ctypes.c_int32),
                 ("timer_pass", ctypes.c_int32),
-                ("gate_bits", ctypes.c_int32)]
+                ("gate_bits", ctypes.c_int32),
+                ("now_input", ctypes.c_int32)]
 
 
 _P = ctypes.c_void_p
@@ -425,6 +427,17 @@ class KeySortScratch(ctypes.Structure):
                                   "order", "sk", "n_live", "counts")]
 
 
+class UnionArgs(ctypes.Structure):
+    _fields_ = [("B", _I32), ("pad_", _I32), ("n", _I64)] + [
+        (f, _P) for f in ("arg", "arg_null", "vals", "counts", "tag",
+                          "overflow", "new_vals", "new_counts", "new_tag",
+                          "new_overflow", "out", "out_null")] + [
+        (f, _P) for f in ("keys_all", "sgn_all", "keep")] + [
+        ("sort", KeySortScratch)] + [
+        (f, _P) for f in ("sgn", "total", "csum", "live", "rank", "sums",
+                          "n_kept")]
+
+
 class JoinArgs(ctypes.Structure):
     _fields_ = [("trig", SideCols), ("opp", SideCols),
                 ("cond", PairProg), ("tkey", PairProg), ("okey", PairProg),
@@ -574,6 +587,11 @@ class _Kernels:
             getattr(self.join_lib, fn).argtypes = [
                 ctypes.POINTER(JoinArgs), ctypes.c_void_p]
             getattr(self.join_lib, fn).restype = ctypes.c_int
+        self.union_lib = ctypes.CDLL(str(libs["union_set"]))
+        self.union_lib.siddhi_union_set.argtypes = [
+            ctypes.POINTER(AggArgs), ctypes.POINTER(UnionArgs),
+            ctypes.c_void_p]
+        self.union_lib.siddhi_union_set.restype = ctypes.c_int
         self.table_lib = ctypes.CDLL(str(libs["table_step"]))
         for fn in ("siddhi_table_write", "siddhi_table_match",
                    "siddhi_table_probe", "siddhi_table_buffer"):
@@ -636,6 +654,10 @@ class _Kernels:
                        stream: int) -> None:
         self._check("distinct_count", self.agg_lib.siddhi_distinct_count(
             ctypes.byref(args), ctypes.byref(st), stream))
+
+    def union_set(self, args: AggArgs, ua: "UnionArgs", stream: int) -> None:
+        self._check("union_set", self.union_lib.siddhi_union_set(
+            ctypes.byref(args), ctypes.byref(ua), stream))
 
     def aggregate_emit(self, args: EmitArgs, stream: int) -> None:
         self._check("aggregate_emit", self.agg_lib.siddhi_aggregate_emit(

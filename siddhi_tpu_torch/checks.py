@@ -206,6 +206,211 @@ def expr_columns(rows: int, seed: int):
     return cols, nulls, kind, valid
 
 
+# -- kernel K2's function calls (slice 8) -------------------------------------
+
+def function_cases() -> list:
+    """Every built-in and math:* function over EXPR_SCHEMA columns, with
+    nulls from the columns and from division by zero, and constant
+    arguments that fold at plan time."""
+    conv = [f"convert({a}, '{t}')" for a in ("i", "l", "f", "d", "b")
+            for t in ("int", "long", "float", "double")]
+    conv += ["cast(d, 'float')", "cast(f, 'double')", "convert(s, 'string')",
+             "convert(b, 'bool')", "convert(d / e, 'int')",
+             "convert(3.7, 'int')", "convert(-3e9, 'int')",
+             "cast(1e300, 'float')"]
+    sel = ["coalesce(i, l)", "coalesce(i / j, l, d)", "coalesce(f, g)",
+           "coalesce(s, t)", "coalesce(d / e, -1.0)", "coalesce(i / 0, j)",
+           "coalesce(i / j, m / l)", "default(i / j, 0)", "default(f, d)",
+           "default(s, t)", "default(d / 0.0, e)", "default(l / m, i / j)",
+           "ifThenElse(b, i, l)", "ifThenElse(i > j, f, d)",
+           "ifThenElse(b and c, s, t)", "ifThenElse(d > e, 'HIGH', 'LOW')",
+           "ifThenElse(i / j > 0, d, e)", "ifThenElse(b, i / j, m / l)",
+           "ifThenElse(true, i, j)"]
+    ext = ["maximum(i, j)", "maximum(f, g, d)", "minimum(l, m)",
+           "minimum(d, e, f)", "maximum(i / j, l, d / e)",
+           "minimum(d / e, f, i / j)", "maximum(d, 1e-310)",
+           "minimum(-0.0, d, 0.0)", "maximum(f, 1.0e-40f, g)",
+           "maximum(1, 2.5)", "minimum(i / 0, j / 0)"]
+    inst = ["instanceOfInteger(i)", "instanceOfLong(i / j)",
+            "instanceOfLong(l / m)", "instanceOfFloat(f)",
+            "instanceOfDouble(d / e)", "instanceOfBoolean(b)",
+            "instanceOfString(s)", "instanceOfDouble(i)"]
+    math = [f"math:{fn}({a})" for fn in ("abs", "ceil", "floor", "signum",
+                                         "round")
+            for a in ("i", "l", "f", "d", "d / e")]
+    math += [f"math:{fn}({a})" for fn in ("sqrt", "exp", "ln", "log10",
+                                          "sin", "cos", "tan", "asin",
+                                          "acos", "atan")
+             for a in ("d", "d / 1000.0", "f", "l")]
+    math += ["math:power(d, e / 1000.0)", "math:power(f, 2)",
+             "math:power(i, j)", "math:power(d / e, 0.5)", "math:sqrt(2)",
+             "math:sin(1)", "math:ln(0.0)", "math:round(2.5)",
+             "math:signum(-0.0)", "math:abs(-2147483648)"]
+    sets = [f"createSet({a})" for a in ("i", "l", "f", "d", "b", "s",
+                                        "d / e")]
+    sets += [f"sizeOfSet(createSet({a}))" for a in ("i", "d / e", "s")]
+    return conv + sel + ext + inst + math + sets + ["eventTimestamp()"]
+
+
+def function_columns(rows: int, seed: int):
+    """expr_columns with subnormals among the FLOAT and DOUBLE traps, as
+    the function cases need them. -> (cols, nulls, kind, valid)."""
+    cols, nulls, kind, valid = expr_columns(rows, seed)
+    rng = np.random.default_rng(seed + 1)
+    sub = {AttrType.FLOAT: np.array([1e-40, -1e-40, 1.17e-38, 0.5, 2.5],
+                                    np.float32),
+           AttrType.DOUBLE: np.array([5e-324, -1e-310, 2.5, -2.5, 0.5,
+                                      4.5e15 + 0.5, -745.5, 710.0])}
+    for k, (_n, t) in enumerate(EXPR_SCHEMA):
+        if t in sub:
+            pick = rng.random(rows) < 0.1
+            cols[k][pick] = sub[t][rng.integers(0, len(sub[t]),
+                                                int(pick.sum()))]
+    return cols, nulls, kind, valid
+
+
+# Function calls in every context a program runs in: each app's query
+# 'q' reads stream S (FUNC_STREAM), or L and R, or the table T.
+FUNC_STREAM = """
+    define stream S (s string, i int, j int, l long, f float, d double,
+                     b bool);"""
+FUNC_APPS = {
+    # kernel K2: a filter and a projection
+    "filter_project": FUNC_STREAM + """
+        @info(name = 'q')
+        from S[instanceOfDouble(d) and maximum(f, d) > 0.0
+               and coalesce(i / j, 1) != 0]
+        select s, convert(l, 'int') as li, cast(d, 'float') as df,
+               coalesce(l / i, -1L) as q, default(d / convert(i, 'double'),
+               0.0) as r, ifThenElse(d > 1.0, 'HIGH', 'LOW') as hl,
+               minimum(f, d) as mn, maximum(i, j, l) as mx,
+               math:abs(d - f) as ad, math:round(d) as rd,
+               math:floor(f) as fl, math:signum(i) as sg,
+               eventTimestamp() as ts
+        insert into Out;""",
+    # K2's having program over an aggregating selector (K6)
+    "having": FUNC_STREAM + """
+        @info(name = 'q')
+        from S#window.lengthBatch(8)
+        select s, sum(l) as total, max(d) as top
+        group by s
+        having coalesce(total, 0L) > -5L and instanceOfDouble(top)
+               and math:abs(top) >= 0.0
+        insert into Out;""",
+    # aggregator arguments (K2's pre-program, then K6)
+    "aggregator_argument": FUNC_STREAM + """
+        @info(name = 'q')
+        from S#window.length(10)
+        select sum(convert(l, 'double')) as sd, max(math:abs(i)) as mx,
+               avg(coalesce(d / f, 0.0)) as av,
+               min(ifThenElse(b, i, j)) as mn, count() as n
+        insert into Out;""",
+    # grouped (the group-by keys are attribute references in the grammar)
+    "group_by": FUNC_STREAM + """
+        @info(name = 'q')
+        from S#window.length(20)
+        select s, sum(maximum(i, j)) as m, min(math:floor(d)) as fl,
+               convert(sum(l), 'int') as si
+        group by s
+        insert into Out;""",
+    # a pattern on the round-parallel engine (kernel K3)
+    "pattern_parallel": FUNC_STREAM + """
+        @info(name = 'q')
+        from every e1=S[math:abs(i) > 2] -> e2=S[maximum(e1.i, i) == i
+                                               and coalesce(e1.s, 'x') == s]
+        within 50 milliseconds
+        select e1.i as a, e2.i as b, convert(e2.d, 'int') as c,
+               minimum(e1.d, e2.d) as m
+        insert into Out;""",
+    # a pattern on the scan engine (kernel K4: a logical OR state)
+    "pattern_scan": FUNC_STREAM + """
+        @info(name = 'q')
+        from every e1=S[ifThenElse(b, i, j) > 1]
+             -> e2=S[math:round(d) > e1.d] or e3=S[instanceOfInteger(i)
+                                                and j == e1.j]
+        within 50 milliseconds
+        select e1.i as a, e2.d as d2, e3.i as c
+        insert into Out;""",
+    # a join's ON condition (kernel K7)
+    "join": """
+        define stream L (k int, d double, s string);
+        define stream R (k int, d double, s string);
+        @info(name = 'q')
+        from L#window.length(6) join R#window.length(5)
+        on maximum(L.k, 0) == R.k and math:abs(L.d - R.d) < 50.0
+           and eventTimestamp() % 3L != 0L
+        select L.k as lk, R.d as rd, coalesce(L.d, R.d) as cd,
+               ifThenElse(L.d > R.d, L.s, R.s) as hi
+        insert into Out;""",
+    # a table's conditions (kernel K8): an update-or-insert ON and a
+    # stream-table join's ON
+    "table": """
+        define stream S (s string, i int, l long, d double);
+        define stream Q (s string, k long);
+        @cap('64') define table T (s string, v long, d double);
+        @info(name = 'w')
+        from S select s, convert(i, 'long') as v, math:abs(d) as d
+        update or insert into T
+        on T.s == s and coalesce(T.v, 0L) >= minimum(v, 0L)
+           and eventTimestamp() > 0L;
+        @info(name = 'q')
+        from Q join T on T.s == Q.s and T.v > convert(Q.k, 'long') - 3L
+           and eventTimestamp() % 2L == 0L
+        select Q.s as s, T.v as v, maximum(T.d, 1.0) as m
+        insert into Out;""",
+}
+# the feed's symbols (a prefix of their own: a test module aligns the two
+# packages' codes for them)
+FUNC_SYMS = ("FN_IBM", "FN_WSO2", "FN_GOOG", None)
+
+
+def func_feed(n: int, seed: int):
+    """Rows of FUNC_STREAM (1 ms apart from 1000): small ints with zeros
+    (null divisions), NaN, +-0.0 and +-inf among the floats, nulls. ->
+    [(ts, row)]."""
+    rng = np.random.default_rng(seed)
+    specials = [float("nan"), -0.0, 0.0, float("inf"), float("-inf")]
+    rows = []
+    for k in range(n):
+        d = float(rng.standard_normal() * 50)
+        f = float(np.float32(rng.standard_normal() * 10))
+        if rng.random() < 0.15:
+            d = specials[int(rng.integers(len(specials)))]
+        row = [FUNC_SYMS[int(rng.integers(4))], int(rng.integers(-4, 5)),
+               int(rng.integers(-3, 4)), int(rng.integers(-50, 50)), f, d,
+               bool(rng.random() < 0.5)]
+        if rng.random() < 0.1:
+            row[int(rng.integers(1, 7))] = None
+        rows.append((1000 + k, tuple(row)))
+    return rows
+
+
+def func_app_sends(name: str) -> list:
+    """FUNC_APPS[name]'s feed as row sends: [(stream, [(ts, row)])]."""
+    if name == "join":
+        rng = np.random.default_rng(5)
+        out = []
+        for k in range(12):
+            side = "L" if k % 2 == 0 else "R"
+            rows = [(1000 + 8 * k + r, (int(rng.integers(-2, 4)),
+                                        float(rng.standard_normal() * 40),
+                                        FUNC_SYMS[int(rng.integers(3))]))
+                    for r in range(8)]
+            out.append((side, rows))
+        return out
+    if name == "table":
+        rows = func_feed(96, seed=4)
+        out = []
+        for k in range(0, 96, 12):
+            out.append(("S", [(ts, (r[0] or FUNC_SYMS[0], r[1], r[3], r[5]))
+                              for ts, r in rows[k:k + 12]]))
+            out.append(("Q", [(ts + 1000, (r[0] or FUNC_SYMS[1], r[3]))
+                              for ts, r in rows[k:k + 6]]))
+        return out
+    rows = func_feed(160, seed=sorted(FUNC_APPS).index(name))
+    return [("S", rows[k:k + 16]) for k in range(0, 160, 16)]
+
+
 # -- kernel K3: pattern apps and feeds ---------------------------------------
 
 # the reference bench's north-star app (bench.py SEQ5_APP)
@@ -2338,3 +2543,241 @@ def keyed_feed(app: str, encode, seed: int, prefix: str = "K"):
     ts, cols = window2_feed(356, encode, seed=seed, prefix=prefix,
                             **KEYED_FEEDS.get(app, {}))
     return ts, cols, (0, 100, 228, 356)
+
+
+# -- slice 8's paths: functions, polar, distinct_symbols, log ------------------
+
+# market-data normalisation, the everyday use of Siddhi's functions; the
+# nulls come from the query itself (lots is 0 in 10 % of rows)
+FUNCTIONS_APP = """
+    @app:playback
+    define stream Trade (symbol string, price double, volume long,
+                         lots int, bid float, ask float);
+    @info(name = 'q')
+    from Trade[instanceOfDouble(price) and maximum(bid, ask) > 0.0]
+    select symbol, convert(volume, 'int') as vol32,
+           cast(price, 'float') as pf,
+           coalesce(volume / lots, -1L) as per_lot,
+           default(price / convert(lots, 'double'), 0.0) as px_lot,
+           ifThenElse(price > 100.0, 'HIGH', 'LOW') as band,
+           minimum(bid, ask) as lo, maximum(bid, ask, price) as hi,
+           math:abs(ask - bid) as spread, math:sqrt(price) as sq,
+           math:round(price) as rp, math:ln(price) as lnp,
+           eventTimestamp() as ts
+    insert into Norm;
+"""
+FUNC_SYMBOLS = 512
+
+
+def func_symbols(n: int = FUNC_SYMBOLS, prefix: str = "F") -> list:
+    return [f"{prefix}{i:04d}" for i in range(n)]
+
+
+def trade_feed(n: int, encode, seed: int = 31, prefix: str = "F"):
+    """FUNCTIONS_APP's feed: 1 ms apart from TS0, FUNC_SYMBOLS symbols
+    uniform, price ~ U(1, 200), volume ~ U[1, 10^6), lots ~ U[1, 100)
+    with 10 % zeros, bid ~ U(0.5, 200) float32 and ask = bid + U(0, 1),
+    both negated in 5 % of rows (the filter drops those). -> (ts,
+    [symbol codes, price, volume, lots, bid, ask])."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([encode(s) for s in func_symbols(prefix=prefix)],
+                    np.int32)
+    ts = TS0 + np.arange(n, dtype=np.int64)
+    sym = syms[rng.integers(0, len(syms), n)]
+    price = rng.uniform(1, 200, n)
+    volume = rng.integers(1, 1_000_000, n, dtype=np.int64)
+    lots = rng.integers(1, 100, n).astype(np.int32)
+    lots[rng.random(n) < 0.1] = 0
+    bid = rng.uniform(0.5, 200, n).astype(np.float32)
+    ask = (bid + rng.uniform(0, 1, n).astype(np.float32)).astype(np.float32)
+    neg = rng.random(n) < 0.05
+    bid[neg], ask[neg] = -bid[neg], -ask[neg]
+    return ts, [sym, price, volume, lots, bid, ask]
+
+
+def functions_oracle(ts, cols, encode):
+    """FUNCTIONS_APP in numpy: the kept rows' columns, each as the
+    reference computes it (sq and lnp: numpy's sqrt and log, which the
+    port's library functions are held to within 4 ulp). -> dict of
+    arrays (and ``null_per_lot``/``null_px_lot``, all False: both
+    defaults fill their nulls)."""
+    sym, price, volume, lots, bid, ask = cols
+    keep = np.maximum(bid, ask) > 0
+    sym, price, volume, lots, bid, ask = (c[keep] for c in cols)
+    zero = lots == 0
+    safe = np.where(zero, 1, lots).astype(np.int64)
+    with np.errstate(all="ignore"):
+        px_lot = np.where(zero, 0.0, price / lots.astype(np.float64))
+    hi = np.where(ask > bid, ask, bid).astype(np.float64)
+    hi = np.where(price > hi, price, hi)
+    return {
+        "ts": ts[keep], "symbol": sym,
+        "vol32": volume.astype(np.int32),
+        "pf": price.astype(np.float32),
+        "per_lot": np.where(zero, -1, volume // safe),
+        "px_lot": px_lot,
+        "band": np.where(price > 100.0, encode("HIGH"),
+                         encode("LOW")).astype(np.int32),
+        "lo": np.where(ask < bid, ask, bid),
+        "hi": hi,
+        "spread": np.abs(ask - bid),
+        "sq": np.sqrt(price), "rp": np.round(price), "lnp": np.log(price),
+    }
+
+
+# Siddhi's documented pol2Cart usage: polar sensor readings to Cartesian
+# tracks; the filter reads only the feed's own values
+POLAR_APP = """
+    @app:playback
+    define stream Radar (id int, theta double, rho double, z double);
+    @info(name = 'q')
+    from Radar[rho > 5.0]#pol2Cart(theta, rho, z)
+    select id, cartX, cartY, cartZ, math:atan(cartY / cartX) as bearing
+    insert into Track;
+"""
+
+
+def radar_feed(n: int, seed: int = 32):
+    """Radar returns 1 ms apart from TS0: id = k, theta ~ U(-pi, pi),
+    rho ~ U(0, 100) (5 % at or under 5, dropped), z ~ N(0, 30). -> (ts,
+    [id, theta, rho, z])."""
+    rng = np.random.default_rng(seed)
+    ts = TS0 + np.arange(n, dtype=np.int64)
+    return ts, [np.arange(n, dtype=np.int32), rng.uniform(-np.pi, np.pi, n),
+                rng.uniform(0, 100, n), rng.standard_normal(n) * 30]
+
+
+def polar_oracle(ts, cols):
+    """POLAR_APP in numpy: the kept rows' id, cartX, cartY, cartZ and
+    bearing (numpy's cos, sin and arctan)."""
+    ids, theta, rho, z = cols
+    keep = rho > 5.0
+    x = rho[keep] * np.cos(theta[keep])
+    y = rho[keep] * np.sin(theta[keep])
+    return {"ts": ts[keep], "id": ids[keep], "cartX": x, "cartY": y,
+            "cartZ": z[keep], "bearing": np.arctan(y / x)}
+
+
+# Siddhi's documented unionSet query, verbatim (the stream as its
+# documentation defines stockStream); the window's capacity annotation
+# holds one send's rows (the default, 4,096, would drop most of them)
+DISTINCT_CAP = 65536
+DISTINCT_APP = """
+    @app:playback
+    define stream stockStream (symbol string, price float, volume long);
+    from stockStream select createSet(symbol) as initialSet
+    insert into initStream;
+    @info(name = 'q') @cap(window.size='65536')
+    from initStream#window.timeBatch(10 sec)
+    select unionSet(initialSet) as distinctSymbols,
+           sizeOfSet(unionSet(initialSet)) as n
+    insert into distinctStockStream;
+"""
+
+
+def distinct_feed(n: int, encode, n_syms: int, seed: int = 33,
+                  prefix: str = "U"):
+    """Quotes 1 ms apart from TS0 over ``n_syms`` symbols: Zipf(1.3)-
+    skewed for 24 symbols (every send's set fits its 32 lanes), uniform
+    otherwise; price ~ U(0, 200) float32, volume ~ U[1, 1000). -> (ts,
+    [symbol codes, price, volume])."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([encode(s) for s in time_symbols(n_syms, prefix)],
+                    np.int32)
+    if n_syms <= 32:
+        pick = (rng.zipf(1.3, n) - 1) % n_syms
+    else:
+        pick = rng.integers(0, n_syms, n)
+    ts = TS0 + np.arange(n, dtype=np.int64)
+    return ts, [syms[pick], rng.uniform(0, 200, n).astype(np.float32),
+                rng.integers(1, 1000, n, dtype=np.int64)]
+
+
+def distinct_oracle(ts, cols, send: int, W: int = DISTINCT_CAP,
+                    S: int = 32, T: int = 10_000):
+    """DISTINCT_APP in numpy, step by step as the reference computes it
+    at the path's send size. The time batch's first step sets its next
+    flush a period after its clock (the send's last ts) and keeps its
+    rows; a later step whose clock has reached the next flush emits
+    every row the window holds plus the send's, after a RESET, and the
+    period advances (the timer steps after it find the window empty).
+    Every step counts the pool's rows beyond the window's W (the
+    reference keeps the newest W for its expired batch, flush or not).
+    A flush emits one row, the union of its rows' symbols: the
+    reference's unionSet keeps the S smallest values (the dictionary
+    codes, by signed order) and counts the rest, once a step for each of
+    the query's two unionSet() aggregators. -> ([(ts, codes kept, n)],
+    the unionSet overflow, the window's overflow)."""
+    sym = cols[0].astype(np.int64)
+    cur = np.zeros(0, np.int64)
+    next_emit = None
+    rows, u_over, w_over = [], 0, 0
+    for a in range(0, len(ts), send):
+        idx = np.arange(a, min(a + send, len(ts)))
+        now = int(ts[idx[-1]])
+        if next_emit is None:
+            next_emit = now + T
+        pool = np.concatenate([cur, idx])
+        w_over += max(len(pool) - W, 0)
+        if now >= next_emit:
+            d = np.unique(sym[pool])
+            rows.append((int(ts[pool[-1]]), d[:S], int(min(len(d), S))))
+            u_over += 2 * max(len(d) - S, 0)
+            cur = np.zeros(0, np.int64)
+            while next_emit <= now:
+                next_emit += T
+        else:
+            cur = pool[-W:]
+    return rows, u_over, w_over
+
+
+LOG_APP = """
+    @app:playback
+    define stream S (v int, x double);
+    @info(name = 'q')
+    from S#log('INFO', 'checkpoint') select v insert into Out;
+"""
+
+
+def log_feed(n: int, seed: int = 34):
+    rng = np.random.default_rng(seed)
+    ts = TS0 + np.arange(n, dtype=np.int64)
+    return ts, [rng.integers(-100, 100, n).astype(np.int32),
+                rng.standard_normal(n)]
+
+
+def log_oracle(ts, cols) -> list:
+    """LOG_APP's printed lines for one send, as the reference prints
+    them (the values as numpy scalars)."""
+    v, x = cols
+    return [f"[INFO] checkpoint, StreamEvent{{ timestamp={ts[i]}, "
+            f"data={[v[i], x[i]]} }}" for i in range(len(ts))]
+
+
+def emitted_columns(batches) -> tuple:
+    """The valid rows of output batches, in order, on the host: (ts,
+    [column arrays], [null masks])."""
+    ts, cols, nulls = [], None, None
+    for b in batches:
+        v = b.valid.cpu().numpy()
+        ts.append(b.ts.cpu().numpy()[v])
+        if cols is None:
+            cols, nulls = [[] for _ in b.cols], [[] for _ in b.cols]
+        for k, (c, n) in enumerate(zip(b.cols, b.nulls)):
+            cols[k].append(c.cpu().numpy()[v])
+            nulls[k].append(n.cpu().numpy()[v])
+    return (np.concatenate(ts), [np.concatenate(c) for c in cols],
+            [np.concatenate(n) for n in nulls])
+
+
+def ulp_gap(a, b) -> int:
+    """The largest distance in float64 units in the last place between
+    two arrays (NaN against NaN: 0)."""
+    def ordered(x):
+        i = np.asarray(x, np.float64).view(np.int64).astype(object)
+        return np.where(i < 0, -(i & 0x7FFFFFFFFFFFFFFF), i)
+    if len(a) == 0:
+        return 0
+    d = np.abs(ordered(a) - ordered(b))
+    d[np.isnan(a) & np.isnan(b)] = 0
+    return int(d.max())

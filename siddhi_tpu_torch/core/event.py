@@ -24,8 +24,8 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from .types import (AttrType, GLOBAL_STRINGS, col_zeros, np_dtype,
-                    null_value)
+from .types import (AttrType, GLOBAL_STRINGS, col_zeros, decode_set,
+                    np_dtype, null_value)
 
 # Event kinds (match reference ComplexEvent.Type ordinal semantics)
 CURRENT = 0
@@ -140,9 +140,19 @@ def batch_from_rows(
     cols = []
     nulls = []
     for i, t in enumerate(schema.types):
+        nul = np.zeros((capacity,), dtype=np.bool_)
+        if t is AttrType.OBJECT:   # set rows: sent empty or null only
+            col = col_zeros(t, capacity).numpy()
+            for r, row in enumerate(rows):
+                if row[i] is not None:
+                    raise NotImplementedError(
+                        "not ported yet: an OBJECT value sent as a row")
+                nul[r] = True
+            cols.append(col)
+            nulls.append(nul)
+            continue
         dt = np_dtype(t)
         col = np.full((capacity,), null_value(t), dtype=dt)
-        nul = np.zeros((capacity,), dtype=np.bool_)
         for r, row in enumerate(rows):
             v = row[i]
             if v is None:
@@ -216,7 +226,9 @@ def rows_from_batch(schema_types: Sequence[AttrType], batch) -> list:
     for i, t in enumerate(schema_types):
         vals = host(batch.cols[i])
         nul = host(batch.nulls[i])
-        if t is AttrType.STRING:
+        if t is AttrType.OBJECT:   # set rows -> frozensets
+            vals = [decode_set(v) for v in vals]
+        elif t is AttrType.STRING:
             vals = [GLOBAL_STRINGS.decode(v, uuid_key=(nonce, ts[k],
                                                        int(idx[k]), i))
                     for k, v in enumerate(vals.tolist())]

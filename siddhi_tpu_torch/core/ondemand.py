@@ -84,12 +84,12 @@ def _decode(values, nulls, typ, key_tag="od", row_ids=None):
     return out
 
 
-def _eval(ce, batch: EventBatch):
+def _eval(ce, batch: EventBatch, now):
     """One compiled expression over the view through K2 -> (values,
-    nulls) tensors."""
+    nulls) tensors. ``now``: the app's clock (currentTimeMillis())."""
     b = ProgramBuilder()
     b.out(ce)
-    cols, nulls, _valid = expr_eval(b.build(), batch)
+    cols, nulls, _valid = expr_eval(b.build(), batch, now=now)
     return cols[0], nulls[0]
 
 
@@ -138,7 +138,8 @@ class OnDemandExecutor:
                 raise CompileError("on-demand ON condition must be BOOL")
             b = ProgramBuilder()
             b.keep(cond)
-            _c, _n, mask = expr_eval(b.build(), batch)
+            _c, _n, mask = expr_eval(b.build(), batch,
+                                      now=self.app.current_time())
         if out is None or isinstance(out, A.ReturnStream):
             return self._select(q, schema, scope, batch, mask, buf)
         if isinstance(out, A.DeleteStream):
@@ -161,7 +162,7 @@ class OnDemandExecutor:
 
         def eval_rows(expr, pos=0):
             ce = compile_expression(expr, scope)
-            v, n = _eval(ce, batch)
+            v, n = _eval(ce, batch, self.app.current_time())
             return _decode(v.cpu().numpy()[idx], n.cpu().numpy()[idx],
                            ce.type, key_tag=(q.input_id, pos, repr(expr)),
                            row_ids=row_ids)
@@ -267,7 +268,8 @@ class OnDemandExecutor:
                 cols, nulls = list(st["cols"]), list(st["nulls"])
                 for var, expr in sets:
                     ci = schema.index_of(var.attribute)
-                    v, nl = _eval(compile_expression(expr, scope), batch)
+                    v, nl = _eval(compile_expression(expr, scope), batch,
+                                  self.app.current_time())
                     cols[ci] = torch.where(phys, v[inv].to(cols[ci].dtype),
                                            cols[ci])
                     nulls[ci] = torch.where(phys, nl[inv], nulls[ci])

@@ -69,6 +69,7 @@ from ..ops.operators import FilterOp, Operator
 from ..ops.selector import (OutputScope, ProjectOp, project,
                             selector_needs_aggregation)
 from ..ops.sentinels import POS_INF
+from ..ops.streamfn import StreamFunctionOp, make_stream_function
 from ..ops.join import (JoinCombinedScope, JoinCross, JoinSideScope,
                         combined_schema)
 from ..ops.table import (TableFilterOp, TableOutputOp, TableRuntime,
@@ -191,7 +192,7 @@ def _chain_body(ops):
                 filters = []
             stages.append(("tables", i, None))
             continue
-        if isinstance(op, WindowOp):
+        if isinstance(op, (WindowOp, StreamFunctionOp)):
             if filters:
                 b = ProgramBuilder()
                 for f in filters:
@@ -223,7 +224,7 @@ def _chain_body(ops):
                     states[i], batch, now, tstates)
                 tstates.update(new)
             elif kind == "filter":
-                _c, _n, valid = expr_eval(prog, batch)
+                _c, _n, valid = expr_eval(prog, batch, now=now)
                 batch = EventBatch(batch.ts, batch.cols, batch.nulls,
                                    batch.kind, valid)
             elif kind == "window":
@@ -232,7 +233,7 @@ def _chain_body(ops):
                 states[i], batch = ops[i].step(states[i], batch, now,
                                                emitted)
             else:
-                batch = project(ops[i], prog, batch, emitted)
+                batch = project(ops[i], prog, batch, emitted, now)
         return tuple(states), batch
 
     chain.program = [p for k, _i, p in stages if k != "tables"][-1]
@@ -834,7 +835,7 @@ def _side_chain(ops):
         states = list(states)
         for kind, i, prog in stages:
             if kind == "filter":
-                _c, _n, valid = expr_eval(prog, batch)
+                _c, _n, valid = expr_eval(prog, batch, now=now)
                 batch = EventBatch(batch.ts, batch.cols, batch.nulls,
                                    batch.kind, valid)
             else:
@@ -1324,7 +1325,11 @@ class Planner:
                                              cap_override=cap_window)
                 operators.append(window_op)
             else:
-                raise not_ported("stream functions")
+                op = make_stream_function(h, schema, scope, {}, name)
+                operators.append(op)
+                if op.out_schema.types != schema.types:
+                    schema = op.out_schema
+                    scope = SingleStreamScope(schema, aliases=(sin.alias,))
         batch_mode = window_op is not None and window_op.is_batch
         expired_possible = window_op is not None and window_op.expired_enabled
         if needs_agg:
@@ -1366,6 +1371,10 @@ class Planner:
                     "attributes")
         key = name.lower()
         time_cap = cap_override or self.DEFAULT_TIME_CAP
+        if AttrType.OBJECT in schema.types and key in (
+                "sort", "frequent", "lossyfrequent", "session"):
+            # kernels B, E and F move one element a row
+            raise not_ported(f"a set column through window '{name}'")
 
         def const_of(p, role):
             if isinstance(p, A.Variable):

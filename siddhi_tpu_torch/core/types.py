@@ -244,6 +244,15 @@ def col_zeros(t: AttrType, cap: int, device="cpu"):
     return torch.zeros((cap,), dtype=torch_dtype(t), device=device)
 
 
+def row_bytes(col) -> int:
+    """The bytes of one row of a device column: its element size, or a
+    set column's 1 + SET_LANES int64 lanes (264)."""
+    n = 1
+    for d in col.shape[1:]:
+        n *= d
+    return col.element_size() * n
+
+
 def null_value(t: AttrType):
     """The in-band placeholder stored in the data column where null; the
     actual null signal is the per-column null mask."""

@@ -530,6 +530,8 @@ __global__ void values(const AggArgs a) {
     void* out = a.out_vals[s];
     bool* nul = a.out_nulls[s];
     switch (a.spec_kind[s]) {
+      case AGG_UNION:   // kernel H wrote the set rows
+        break;
       case AGG_COUNT:
       case AGG_DISTINCT:
         ((int64_t*)out)[i] = run_at<int64_t>(a, l, i);
@@ -714,13 +716,7 @@ __global__ void emit_gather(const EmitArgs a) {
   a.out_kind[q] = a.kind[i];
   a.out_valid[q] = v;
   for (int c = 0; c < a.n_cols; ++c) {
-    const int sz = a.col_size[c];
-    if (sz == 8)
-      ((int64_t*)a.out_cols[c])[q] = ((const int64_t*)a.cols[c])[i];
-    else if (sz == 4)
-      ((int32_t*)a.out_cols[c])[q] = ((const int32_t*)a.cols[c])[i];
-    else
-      ((uint8_t*)a.out_cols[c])[q] = ((const uint8_t*)a.cols[c])[i];
+    copy_row(a.out_cols[c], q, a.cols[c], i, a.col_size[c]);
     a.out_nulls[c][q] = a.nulls[c][i];
   }
 }
@@ -745,7 +741,8 @@ extern "C" cudaError_t siddhi_aggregate_step(const AggArgs* p,
   if (part & 2) {
     for (int l = 0; l < a.n_lanes; ++l) {
       const int k = a.spec_kind[a.lane_spec[l]];
-      if (k == AGG_SLIDING || k == AGG_DISTINCT) continue;   // C, D
+      // C, D; H's lane only carries the reference's [K] carry along
+      if (k == AGG_SLIDING || k == AGG_DISTINCT || k == AGG_UNION) continue;
       switch (a.lane_type[l]) {
         case VT_INT: lane<int32_t>(a, l, stream); break;
         case VT_LONG: lane<int64_t>(a, l, stream); break;

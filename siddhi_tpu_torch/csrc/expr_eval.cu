@@ -25,7 +25,12 @@
 //
 // The semantics (null, flush and NaN rules, kept bit for bit from the
 // reference) live in the interpreter, csrc/expr_interp.cuh, which
-// kernel K3 shares.
+// kernels K3, K4, K7 and K8 share. What only this kernel reads: the
+// row's timestamp and the step's clock (eventTimestamp(),
+// currentTimeMillis(): inputs with no null mask, the clock one int64
+// every row reads) and set columns, [rows, 1 + SET_LANES] int64 rows
+// that a projection copies (VT_SETREF), counts (VT_SETSIZE, sizeOfSet())
+// or writes from a createSet() element (VT_SET, its tag in OUT's arg).
 #include "expr_interp.cuh"
 
 namespace {
@@ -40,12 +45,41 @@ __global__ void expr_eval_kernel(const ExprParams p) {
         p.n_code, [&](int pc) { return p.code[pc]; },
         [&](int i) { return p.consts[i]; },
         [&](int arg, int type, Slot* s) {
-          s->v = load_col(p.in_cols[arg], type, row);
-          s->null = p.in_nulls[arg][row];
+          s->null = p.in_nulls[arg] != nullptr && p.in_nulls[arg][row];
+          if (type == VT_SETREF) {
+            s->v = arg;
+          } else if (type == VT_SETSIZE) {
+            const int64_t* set = (const int64_t*)p.in_cols[arg] +
+                                 (int64_t)row * (1 + SIDDHI_SET_LANES);
+            int n = 0;
+            for (int l = 1; l <= SIDDHI_SET_LANES; ++l)
+              n += set[l] != SIDDHI_SET_EMPTY;
+            s->v = n;
+          } else {
+            s->v = load_col(p.in_cols[arg], type,
+                            arg == p.now_input ? 0 : row);
+          }
         },
         [&](int arg, int type, const Slot& s) {
-          store_col(p.out_cols[arg], type, row, s.v);
-          p.out_nulls[arg][row] = s.null;
+          if (type == VT_SET || type == VT_SETREF) {
+            const int k = arg & 0xff;
+            int64_t* o = (int64_t*)p.out_cols[k] +
+                         (int64_t)row * (1 + SIDDHI_SET_LANES);
+            if (type == VT_SET) {
+              o[0] = arg >> 8;
+              o[1] = s.v;
+              for (int l = 2; l <= SIDDHI_SET_LANES; ++l)
+                o[l] = SIDDHI_SET_EMPTY;
+            } else {
+              const int64_t* src = (const int64_t*)p.in_cols[s.v] +
+                                   (int64_t)row * (1 + SIDDHI_SET_LANES);
+              for (int l = 0; l <= SIDDHI_SET_LANES; ++l) o[l] = src[l];
+            }
+            p.out_nulls[k][row] = s.null;
+          } else {
+            store_col(p.out_cols[arg], type, row, s.v);
+            p.out_nulls[arg][row] = s.null;
+          }
         });
     const int kind = p.kind[row];
     keep = keep || (p.timer_pass && kind == 2);  // TIMER passes filters

@@ -248,6 +248,90 @@ __device__ __forceinline__ int64_t math(int op, int type, int64_t a,
   return of_d(flush(nan_rule(r, x, y)));
 }
 
+// OP_CONVERT: the reference's astype where it is not a widening. Ints
+// narrow by wrapping; FLOAT/DOUBLE -> INT/LONG truncate toward zero and
+// saturate, a NaN giving 0 (XLA's conversion); DOUBLE -> FLOAT rounds to
+// nearest, reads a subnormal as zero and flushes a subnormal result, a
+// NaN keeping its sign and its high payload bits (x86's cvtsd2ss); BOOL
+// is 0 or 1.
+__device__ __forceinline__ int64_t convert(int64_t v, int from, int to) {
+  if (from == VT_FLOAT || from == VT_DOUBLE) {
+    const double x = from == VT_FLOAT ? (double)as_f(v) : as_d(v);
+    if (to == VT_FLOAT) {
+      if (isnan(x)) {
+        const unsigned long long u = (unsigned long long)v;
+        return (int64_t)(uint32_t)(((u >> 63) << 31) | 0x7fc00000u |
+                                   ((u >> 29) & 0x3fffffu));
+      }
+      return of_f(flush(__double2float_rn(flush(x))));
+    }
+    if (to == VT_DOUBLE) return of_d(widen(as_f(v)));
+    if (isnan(x)) return 0;
+    if (to == VT_INT) {
+      if (x >= 2147483648.0) return 2147483647;
+      if (x < -2147483648.0) return -2147483647 - 1;
+      return (int32_t)x;
+    }
+    if (x >= 9223372036854775808.0) return 9223372036854775807ll;
+    if (x < -9223372036854775808.0) return -9223372036854775807ll - 1;
+    return (int64_t)x;
+  }
+  if (from == VT_BOOL) v = v ? 1 : 0;
+  if (to == VT_INT) return (int32_t)v;   // sign-extended
+  if (to == VT_LONG) return v;
+  return cast(v, VT_LONG, to);
+}
+
+// OP_MATH over one operand of its result type (every function but abs
+// reads a DOUBLE), as the reference's XLA code computes it: abs is a
+// sign bit; ceil, floor, round and signum read a subnormal operand as
+// zero, signum keeps a NaN and a zero's sign, round halves to even. The
+// library functions are CUDA's double-precision ones (not bit-equal to
+// XLA's: held to 2 ulp); sqrt, ln, log10 and atan read a subnormal
+// operand as zero, exp flushes a subnormal result, asin gives a zero of
+// the operand's sign below twice the smallest normal (ops/expr.py
+// FLUSH_IN, FLUSH_OUT, ASIN_ZERO).
+__device__ __forceinline__ int64_t math_fn(int fn, int type, int64_t v) {
+  if (fn == MF_ABS) {
+    switch (type) {
+      case VT_INT: {
+        const int32_t x = (int32_t)v;
+        return (int32_t)(x < 0 ? 0u - (uint32_t)x : (uint32_t)x);
+      }
+      case VT_LONG:
+        return (int64_t)(v < 0 ? 0ull - (uint64_t)v : (uint64_t)v);
+      case VT_FLOAT: return of_f(fabsf(as_f(v)));
+      default: return of_d(fabs(as_d(v)));
+    }
+  }
+  const double x = as_d(v), fx = flush(x);
+  switch (fn) {
+    case MF_CEIL: return of_d(ceil(fx));
+    case MF_FLOOR: return of_d(floor(fx));
+    case MF_ROUND: return of_d(rint(fx));
+    case MF_SIGNUM:
+      return of_d(isnan(x) || fx == 0.0 ? fx : copysign(1.0, fx));
+    case MF_SQRT: return of_d(sqrt(fx));
+    case MF_EXP: return of_d(flush(exp(x)));
+    case MF_LN: return of_d(log(fx));
+    case MF_LOG10: return of_d(log10(fx));
+    case MF_SIN: return of_d(sin(x));
+    case MF_COS: return of_d(cos(x));
+    case MF_TAN: return of_d(tan(x));
+    case MF_ASIN:
+      return of_d(fabs(x) < 2 * DBL_MIN ? copysign(0.0, x) : asin(x));
+    case MF_ACOS: return of_d(acos(x));
+    default: return of_d(atan(fx));
+  }
+}
+
+// a createSet() element as its int64 lane (ops/expr.py set_element)
+__device__ __forceinline__ int64_t set_element(int64_t v, int type) {
+  if (type == VT_FLOAT) return of_d(widen(as_f(v)));
+  if (type == VT_BOOL) return v ? 1 : 0;
+  return v;   // INT/STRING sign-extended, LONG, DOUBLE bits
+}
+
 template <typename T>
 __device__ __forceinline__ bool compare(int op, T x, T y) {
   switch (op) {
@@ -351,6 +435,67 @@ __device__ __forceinline__ bool interp(int n_code, Ins ins, Cst cst,
         Slot& x = st[sp - 1];
         x.v = x.null ? 1 : 0;
         x.null = false;
+        break;
+      }
+      case OP_CONVERT:
+        st[sp - 1].v = convert(st[sp - 1].v, arg, type);
+        break;
+      case OP_COALESCE: case OP_DEFAULT: {
+        Slot& l = st[sp - 2];
+        const Slot r = st[sp - 1];
+        --sp;
+        if (l.null && (op == OP_DEFAULT || !r.null)) l.v = r.v;
+        l.null = l.null && r.null;
+        break;
+      }
+      case OP_IFELSE: {
+        const Slot c = st[sp - 3];
+        sp -= 2;
+        if (!(c.v && !c.null)) st[sp - 1] = st[sp + 1];
+        else st[sp - 1] = st[sp];
+        break;
+      }
+      case OP_MAXIMUM: case OP_MINIMUM: {
+        Slot& l = st[sp - 2];
+        const Slot r = st[sp - 1];
+        --sp;
+        const int cmp = op == OP_MAXIMUM ? OP_GT : OP_LT;
+        bool c;
+        switch (type) {
+          case VT_FLOAT:
+            c = compare(cmp, flush(as_f(r.v)), flush(as_f(l.v)));
+            break;
+          case VT_DOUBLE:
+            c = compare(cmp, flush(as_d(r.v)), flush(as_d(l.v)));
+            break;
+          default: c = compare(cmp, r.v, l.v); break;
+        }
+        if (((c && !r.null) || l.null) && !r.null) l.v = r.v;
+        l.null = l.null && r.null;
+        break;
+      }
+      case OP_MATH: {
+        Slot& x = st[sp - 1];
+        x.v = x.null ? 0 : math_fn(arg, type, x.v);
+        break;
+      }
+      case OP_POW: {
+        Slot& l = st[sp - 2];
+        const Slot r = st[sp - 1];
+        --sp;
+        l.null = l.null || r.null;
+        l.v = l.null ? 0 : of_d(flush(pow(as_d(l.v), as_d(r.v))));
+        break;
+      }
+      case OP_SETELEM: {
+        Slot& x = st[sp - 1];
+        x.v = x.null ? SIDDHI_SET_EMPTY : set_element(x.v, type);
+        x.null = false;
+        break;
+      }
+      case OP_SETSIZE: {
+        Slot& x = st[sp - 1];
+        x.v = x.v != SIDDHI_SET_EMPTY ? 1 : 0;
         break;
       }
       case OP_KEEP:

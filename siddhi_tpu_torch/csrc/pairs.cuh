@@ -12,6 +12,9 @@ namespace pairs {
 
 using siddhi::Slot;
 
+// the column index of side 0's timestamps (ops/table.py TS_COL)
+constexpr int TS_COL = 0xffff;
+
 // Run `p` for the pair (row r0 of side 0, row r1 of side 1); a side is
 // any struct with `cols` and `nulls` arrays (SideCols, TableBuf), taken
 // by reference so that no pointer into the kernel's parameters is made
@@ -28,7 +31,10 @@ __device__ __forceinline__ bool run(const PairProg& p, const S0& s0,
       [&](int arg, int type, Slot* sl) {
         const int in = p.ins[arg];
         const int col = in & 0xffff;
-        if (in >> 16) {
+        if (col == TS_COL) {   // side 0's row timestamp (eventTimestamp())
+          sl->v = s0.ts[r0];
+          sl->null = false;
+        } else if (in >> 16) {
           sl->v = siddhi::load_col(s1.cols[col], type, r1);
           sl->null = s1.nulls[col][r1];
         } else {

@@ -59,7 +59,48 @@ cudaError_t siddhi_unpack_packed(const UnpackParams* p, cudaStream_t stream);
 
 // value types (ops/expr.py VT_*)
 enum ValType { VT_INT = 0, VT_LONG = 1, VT_FLOAT = 2, VT_DOUBLE = 3,
-               VT_BOOL = 4, VT_STRING = 5 };
+               VT_BOOL = 4, VT_STRING = 5,
+               // set values (kernel K2 only): a createSet() singleton
+               // (the slot holds the encoded element), a loaded
+               // [rows, 1 + SIDDHI_SET_LANES] int64 column (the slot holds
+               // the input index; OUT copies the row), and a load of such
+               // a column's size (an INT)
+               VT_SET = 6, VT_SETREF = 7, VT_SETSIZE = 8 };
+
+#define SIDDHI_SET_LANES 32
+#define SIDDHI_SET_EMPTY (-(1ll << 62))
+
+#ifdef __CUDACC__
+// Row `from` of a column into row `to` of another, rows of `size` bytes:
+// 8, 4 or 1 for a scalar column, a multiple of 8 for a set column
+// ([rows, 1 + SIDDHI_SET_LANES] int64, 264 bytes a row).
+static __device__ __forceinline__ void copy_row(void* dst, int64_t to,
+                                                const void* src,
+                                                int64_t from, int size) {
+  if (size == 8) {
+    ((int64_t*)dst)[to] = ((const int64_t*)src)[from];
+  } else if (size == 4) {
+    ((int32_t*)dst)[to] = ((const int32_t*)src)[from];
+  } else if (size == 1) {
+    ((uint8_t*)dst)[to] = ((const uint8_t*)src)[from];
+  } else {
+    const int w = size / 8;
+    for (int k = 0; k < w; ++k)
+      ((int64_t*)dst)[to * w + k] = ((const int64_t*)src)[from * w + k];
+  }
+}
+static __device__ __forceinline__ void zero_row(void* dst, int64_t to,
+                                                int size) {
+  if (size == 4) {
+    ((int32_t*)dst)[to] = 0;
+  } else if (size == 1) {
+    ((uint8_t*)dst)[to] = 0;
+  } else {
+    const int w = size / 8;
+    for (int k = 0; k < w; ++k) ((int64_t*)dst)[to * w + k] = 0;
+  }
+}
+#endif
 
 // opcodes (ops/expr.py OP_*); an instruction is one int32:
 // op | type << 8 | arg << 16
@@ -75,12 +116,28 @@ enum OpCode {
   OP_KEEP = 19,   // pop a BOOL: the row is kept only if it is TRUE
   OP_OUT = 20,    // pop into output column `arg` (values + nulls)
   OP_ZNULL = 21,  // value of a null top := 0 (math whose op was dropped)
-  OP_NEG = 22     // float top := -top (sign flip), then as OP_ZNULL
+  OP_NEG = 22,    // float top := -top (sign flip), then as OP_ZNULL
+  // the function calls (ops/expr.py _compile_function)
+  OP_CONVERT = 23,   // top from type `arg` to `type`: narrowing, float ->
+                     // int (saturating), DOUBLE -> FLOAT, BOOL -> number
+  OP_COALESCE = 24,  // pop r: top := r where top is null and r is not
+  OP_DEFAULT = 25,   // pop r: top := r where top is null
+  OP_IFELSE = 26,    // pop b, a, c: c TRUE (not null) ? a : b
+  OP_MAXIMUM = 27, OP_MINIMUM = 28,  // pop r: one step of the fold
+  OP_MATH = 29,      // math:<fn> of top, fn = `arg` (MathFn)
+  OP_POW = 30,       // pop y: top := power(top, y), DOUBLE
+  OP_SETELEM = 31,   // top (of type `type`) as a createSet() singleton
+  OP_SETSIZE = 32    // a singleton's size (0 or 1), INT
 };
+
+// OP_MATH's functions (ops/expr.py MATH_FNS)
+enum MathFn { MF_ABS = 0, MF_CEIL, MF_FLOOR, MF_SIGNUM, MF_ROUND, MF_SQRT,
+              MF_EXP, MF_LN, MF_LOG10, MF_SIN, MF_COS, MF_TAN, MF_ASIN,
+              MF_ACOS, MF_ATAN };
 
 typedef struct {
   const void* in_cols[SIDDHI_MAX_COLS];
-  const bool* in_nulls[SIDDHI_MAX_COLS];
+  const bool* in_nulls[SIDDHI_MAX_COLS];   // NULL: the input is never null
   void* out_cols[SIDDHI_MAX_OUTS];
   bool* out_nulls[SIDDHI_MAX_OUTS];
   const int32_t* kind;           // [rows]
@@ -93,6 +150,7 @@ typedef struct {
   int32_t rows;
   int32_t timer_pass;  // rows of kind TIMER pass the filters
   int32_t gate_bits;   // bit k set: rows of kind k pass the selector gate
+  int32_t now_input;   // the input that is the step's clock (one int64), or -1
 } ExprParams;
 
 cudaError_t siddhi_expr_eval(const ExprParams* p, cudaStream_t stream);
@@ -539,7 +597,7 @@ cudaError_t siddhi_order_by(const OrderArgs* a, cudaStream_t stream);
 // aggregator kinds (ops/aggregators.py AggSpec.KIND) and lane ops
 enum AggKind { AGG_SUM = 0, AGG_AVG = 1, AGG_COUNT = 2, AGG_STDDEV = 3,
                AGG_MINMAX = 4, AGG_FOREVER = 5, AGG_BOOL = 6,
-               AGG_SLIDING = 7, AGG_DISTINCT = 8 };
+               AGG_SLIDING = 7, AGG_DISTINCT = 8, AGG_UNION = 9 };
 enum LaneOp { LANE_SUM = 0, LANE_MIN = 1, LANE_MAX = 2 };
 
 typedef struct {
@@ -812,6 +870,45 @@ cudaError_t siddhi_table_write(const TableArgs* a, cudaStream_t stream);
 cudaError_t siddhi_table_match(const TableArgs* a, cudaStream_t stream);
 cudaError_t siddhi_table_probe(const TableArgs* a, cudaStream_t stream);
 cudaError_t siddhi_table_buffer(const TableArgs* a, cudaStream_t stream);
+
+// ---- kernel H: unionSet (union_set.cu) -----------------------------------
+
+// One unionSet() aggregator's step, between K6's parts 1 and 2: it reads
+// the rows' kinds, validity and reset segments (and the reset count,
+// scal[0]) from K6's AggArgs.
+typedef struct {
+  int32_t B;
+  int32_t pad_;
+  int64_t n;                  // (value, sign) pairs: SET_LANES * (1 + B)
+  const int64_t* arg;         // [B, 1 + SET_LANES] the rows' sets
+  const bool* arg_null;       // [B]
+  // the table and the new one (fresh memory)
+  const int64_t* vals;        // [SET_LANES]
+  const int64_t* counts;      // [SET_LANES]
+  const int64_t* tag;         // 0-d
+  const int64_t* overflow;    // 0-d
+  int64_t* new_vals;
+  int64_t* new_counts;
+  int64_t* new_tag;
+  int64_t* new_overflow;
+  int64_t* out;               // [B, 1 + SET_LANES] the union every row sees
+  bool* out_null;             // [B]
+  // scratch
+  int64_t* keys_all;          // [n] each pair's sortable value
+  int64_t* sgn_all;           // [n] each pair's multiplicity
+  uint8_t* keep;              // [n] 1: a pair with a non-zero sign
+  KeySortScratch sort;        // keys: the kept pairs' values, compacted
+  int64_t* sgn;               // [n] the kept pairs' signs, compacted
+  int64_t* total;             // [n] sorted order: sign, then the totals
+  int64_t* csum;              // [n] the signs' inclusive prefix
+  uint8_t* live;              // [n]
+  int64_t* rank;              // [n] positions, then the live prefix
+  int64_t* sums;              // [ceil(n / 1024)] prefix tile totals
+  int64_t* n_kept;            // [1] host-visible (pinned): kept pairs
+} UnionArgs;
+
+cudaError_t siddhi_union_set(const AggArgs* a, const UnionArgs* u,
+                             cudaStream_t stream);
 
 #ifdef __cplusplus
 }

@@ -173,9 +173,7 @@ __device__ __forceinline__ void copy_col(const WindowArgs& a, int c,
     return;
   }
   if (s < 0) {
-    if (sz == 8) ((int64_t*)dst)[j] = 0;
-    else if (sz == 4) ((int32_t*)dst)[j] = 0;
-    else ((uint8_t*)dst)[j] = 0;
+    zero_row(dst, j, sz);
     return;
   }
   const void* src;
@@ -190,12 +188,7 @@ __device__ __forceinline__ void copy_col(const WindowArgs& a, int c,
     src = a.batch.cols[c];
     r = s - a.EB - a.W;
   }
-  if (sz == 8)
-    ((int64_t*)dst)[j] = ((const int64_t*)src)[r];
-  else if (sz == 4)
-    ((int32_t*)dst)[j] = ((const int32_t*)src)[r];
-  else
-    ((uint8_t*)dst)[j] = ((const uint8_t*)src)[r];
+  copy_row(dst, j, src, r, sz);
 }
 
 __device__ __forceinline__ bool src_null(const WindowArgs& a, int c,
@@ -849,13 +842,7 @@ __global__ void keep_gather(const WindowArgs a, int m, WinBuf dst, int32_t cap,
     dst.seq[j] = old.seq[j];
     dst.valid[j] = old.valid[j];
     for (int k = 0; k < a.n_cols; ++k) {
-      const int sz = a.col_size[k];
-      if (sz == 8)
-        ((int64_t*)dst.cols[k])[j] = ((const int64_t*)old.cols[k])[j];
-      else if (sz == 4)
-        ((int32_t*)dst.cols[k])[j] = ((const int32_t*)old.cols[k])[j];
-      else
-        ((uint8_t*)dst.cols[k])[j] = ((const uint8_t*)old.cols[k])[j];
+      copy_row(dst.cols[k], j, old.cols[k], j, a.col_size[k]);
       dst.nulls[k][j] = old.nulls[k][j];
     }
     return;

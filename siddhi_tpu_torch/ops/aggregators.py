@@ -35,12 +35,12 @@ the selector, run in one K2 program first.
 
 The stateful aggregators, whose state is not a [K] accumulator, keep a
 table of their own in the query state: min()/max() over expiring content
-(SlidingMinMaxAgg, kernel C) and distinctCount() (DistinctCountAgg,
-kernel D), both launched between K6's slot sort and its lanes. With an
-order-by the emission keeps the qualifying rows in row order and kernel
-G (ops/selector.py shape_chunk) orders, offsets and limits them. Not
-ported yet: unionSet() (its argument is a createSet() result); it
-raises NotImplementedError ("not ported yet").
+(SlidingMinMaxAgg, kernel C), distinctCount() (DistinctCountAgg, kernel
+D) and unionSet() (UnionSetAgg, kernel H, whose value is a
+[B, 1 + SET_LANES] set column), all launched between K6's slot sort and
+its lanes. With an order-by the emission keeps the qualifying rows in
+row order and kernel G (ops/selector.py shape_chunk) orders, offsets and
+limits them.
 """
 from __future__ import annotations
 
@@ -54,8 +54,8 @@ from .. import _kernels
 from ..analysis.schema import aggregator_result_type
 from ..core.event import (CURRENT, EXPIRED, RESET, Attribute, EventBatch,
                           StreamSchema)
-from ..core.types import NUMERIC_TYPES, AttrType, flush_subnormal, \
-    torch_dtype
+from ..core.types import NUMERIC_TYPES, SET_EMPTY, SET_LANES, AttrType, \
+    flush_subnormal, row_bytes, torch_dtype
 from ..lang import ast as A
 from .expr import (DTYPE_VT, OP_LOAD, CompiledExpr, CompileError,
                    ProgramBuilder, Scope, compile_expression, expr_eval)
@@ -538,6 +538,92 @@ class DistinctCountAgg(AggSpec):
         return d, torch.zeros_like(d, dtype=torch.bool)
 
 
+class UnionSetAgg(AggSpec):
+    """unionSet(): the union of the rows' sets, with removals
+    (UnionSetAttributeAggregatorExecutor.java:43 keeps a Set and a
+    value -> count map for the expired decrement).
+
+    A bounded table of SET_LANES (value, multiplicity) entries. A step
+    merges the table (unless a reset wiped it) and every lane of the
+    step's rows (+1 added, -1 removed, 0 otherwise) by value, sums each
+    distinct value's multiplicities, and keeps the SET_LANES smallest
+    live values (total > 0) by signed int64 order; the rest are counted
+    (``overflow``). Every row of the step observes the end-of-step union
+    (exact for batch windows, chunk-granular for sliding ones); the tag
+    is the running max. Ungrouped only. ``run_ref`` is the plain version
+    of kernel H (csrc/union_set.cu), which aggregate_step launches on a
+    CUDA batch between K6's two parts."""
+    KIND = 9
+    stateful = True
+
+    def __init__(self, arg_type: AttrType, grouped: bool):
+        if arg_type is not AttrType.OBJECT:
+            raise CompileError(
+                "Parameter passed to unionSet aggregator should be a set "
+                "object (createSet() result)")
+        if grouped:
+            raise CompileError(
+                "unionSet() with group by is not supported yet")
+        self.name = "unionSet"
+        self.out_type = aggregator_result_type("unionset", arg_type)
+        # the reference's one [K] lane: its carry rides along untouched
+        self.lanes = (Lane("sum", I64),)
+
+    def init_table(self, K: int, device="cpu"):
+        return {"vals": torch.full((SET_LANES,), SET_EMPTY, dtype=I64,
+                                   device=device),
+                "counts": torch.zeros((SET_LANES,), dtype=I64,
+                                      device=device),
+                "tag": torch.zeros((), dtype=I64, device=device),
+                "overflow": torch.zeros((), dtype=I64, device=device)}
+
+    def run_ref(self, arg, ctx, tab):
+        """Plain version of kernel H: the reference's ``UnionSetAgg.run``.
+        -> (([B, 1 + SET_LANES] union per row,), table')."""
+        S = SET_LANES
+        values, nulls = arg
+        dev = values.device
+        eff = ctx["agg_row"] & ~nulls & (ctx["reset_seg"] == ctx["n_resets"])
+        one = torch.ones_like(ctx["reset_seg"])
+        sgn_row = torch.where(eff & ctx["is_add"], one, torch.where(
+            eff & ctx["is_remove"], -one, torch.zeros_like(one)))
+        flat_vals = values[:, 1:].reshape(-1)
+        flat_sgn = torch.where(flat_vals == SET_EMPTY,
+                               torch.zeros_like(flat_vals),
+                               sgn_row.repeat_interleave(S))
+        keep_tab = ctx["n_resets"] == 0
+        all_vals = torch.cat([torch.where(
+            keep_tab, tab["vals"], torch.full_like(tab["vals"], SET_EMPTY)),
+            flat_vals])
+        all_sgn = torch.cat([torch.where(keep_tab, tab["counts"],
+                                         torch.zeros_like(tab["counts"])),
+                             flat_sgn])
+        # distinct values in signed order and their total multiplicities
+        v_s, order = torch.sort(all_vals)
+        uniq, inv = torch.unique_consecutive(v_s, return_inverse=True)
+        totals = torch.zeros(uniq.shape, dtype=I64, device=dev).index_add_(
+            0, inv, all_sgn[order])
+        live = (totals > 0) & (uniq != SET_EMPTY)
+        n_live = live.sum(dtype=I64)
+        kept_vals, kept_cnt = uniq[live][:S], totals[live][:S]
+        new_vals = torch.full((S,), SET_EMPTY, dtype=I64, device=dev)
+        new_cnt = torch.zeros((S,), dtype=I64, device=dev)
+        new_vals[:kept_vals.shape[0]] = kept_vals
+        new_cnt[:kept_cnt.shape[0]] = kept_cnt
+        tag = torch.maximum(tab["tag"], torch.where(
+            eff, values[:, 0], torch.zeros_like(values[:, 0])).max())
+        new_tab = {"vals": new_vals, "counts": new_cnt, "tag": tag,
+                   "overflow": tab["overflow"]
+                   + torch.clamp(n_live - S, min=0)}
+        running = torch.cat([tag[None], new_vals]).expand(
+            values.shape[0], S + 1)
+        return (running,), new_tab
+
+    def value(self, lane_vals):
+        (v,) = lane_vals
+        return v, torch.zeros(v.shape[:1], dtype=torch.bool, device=v.device)
+
+
 def make_agg_spec(name: str, arg_type: Optional[AttrType],
                   expired_possible: bool, grouped: bool = False,
                   fifo_expiry: bool = True) -> AggSpec:
@@ -566,11 +652,7 @@ def make_agg_spec(name: str, arg_type: Optional[AttrType],
     if key == "distinctcount":
         return DistinctCountAgg(arg_type)
     if key == "unionset":
-        if arg_type is not AttrType.OBJECT:
-            raise CompileError(
-                "Parameter passed to unionSet aggregator should be a set "
-                "object (createSet() result)")
-        raise not_ported("stateful aggregator unionSet() (UnionSetAgg)")
+        return UnionSetAgg(arg_type, grouped)
     raise CompileError(f"unknown aggregator '{name}'")
 
 
@@ -642,6 +724,9 @@ class AggScope(Scope):
     def resolve_stream_isnull(self, is_null):
         return self.base.resolve_stream_isnull(is_null)
 
+    def clock_key(self, which: str):
+        return self.base.clock_key(which)
+
 
 class HavingScope(Scope):
     """HAVING resolves output attribute names first, then the input scope
@@ -664,6 +749,9 @@ class HavingScope(Scope):
 
     def resolve_stream_isnull(self, is_null):
         return self.base.resolve_stream_isnull(is_null)
+
+    def clock_key(self, which: str):
+        return self.base.clock_key(which)
 
 
 def _bare_column(ce: CompiledExpr) -> Optional[int]:
@@ -808,7 +896,7 @@ class AggregateOp(Operator):
         pre, computed, proj, hav = self._programs()
         cols, nulls = batch.cols, batch.nulls
         if pre is not None:
-            pc, pn, valid = expr_eval(pre, batch)
+            pc, pn, valid = expr_eval(pre, batch, now=now)
             batch = EventBatch(batch.ts, batch.cols, batch.nulls, batch.kind,
                                valid)
             pre_out = {id(e): (c, n) for e, c, n in zip(computed, pc, pn)}
@@ -825,11 +913,11 @@ class AggregateOp(Operator):
         ext = EventBatch(batch.ts, tuple(cols) + tuple(v for v, _ in aggs),
                          tuple(nulls) + tuple(n for _, n in aggs),
                          batch.kind, batch.valid)
-        out_cols, out_nulls, qual = expr_eval(proj, ext)
+        out_cols, out_nulls, qual = expr_eval(proj, ext, now=now)
         if hav is not None:
             hb = EventBatch(batch.ts, tuple(out_cols) + ext.cols,
                             tuple(out_nulls) + ext.nulls, batch.kind, qual)
-            _, _, qual = expr_eval(hav, hb)
+            _, _, qual = expr_eval(hav, hb, now=now)
         if not self.order_by:
             return new_state, aggregate_emit(self, slots, qual, batch,
                                              out_cols, out_nulls, emitted)
@@ -1020,10 +1108,13 @@ def aggregate_step(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
 
 
 def stateful_launch(k, spec, args, st, stream) -> None:
-    """Kernel C (min/max over expiring content) or D (distinctCount) of
-    one stateful aggregator, on K6's slot order (``args`` after its part
-    1)."""
-    if isinstance(spec, SlidingMinMaxAgg):
+    """Kernel C (min/max over expiring content), D (distinctCount) or H
+    (unionSet) of one stateful aggregator, on K6's slot order (``args``
+    after its part 1)."""
+    if isinstance(spec, UnionSetAgg):
+        k.union_set(args, st, stream)
+        _kernels.count_launch("union_set")
+    elif isinstance(spec, SlidingMinMaxAgg):
         k.sliding_minmax(args, st, stream)
         _kernels.count_launch("sliding_minmax")
     else:
@@ -1085,7 +1176,9 @@ def agg_args(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
     def t(n, dtype):
         return torch.empty((max(int(n), 1),), dtype=dtype, device=dev)
     slots = t(B, torch.int32)
-    aggs = [(t(B, torch_dtype(sp.out_type)), t(B, torch.bool))
+    aggs = [(torch.empty((B, 1 + SET_LANES), dtype=I64, device=dev)
+             if sp.out_type is AttrType.OBJECT
+             else t(B, torch_dtype(sp.out_type)), t(B, torch.bool))
             for sp in specs]
     stateful = [getattr(sp, "stateful", False) for sp in specs]
     new_state = {"keys": t(K, I64), "used": t(K, torch.bool),
@@ -1144,7 +1237,12 @@ def agg_args(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
             a.carry[lane], a.new_carry[lane] = c.data_ptr(), nc.data_ptr()
             a.run[lane] = r.data_ptr()
             lane += 1
-        if stateful[s]:
+        if isinstance(sp, UnionSetAgg):
+            ua, keep = union_args(arg, state["tables"][s],
+                                  new_state["tables"][s], (ov, on), B, dev)
+            stats.append((sp, ua))
+            runs.append(keep)
+        elif stateful[s]:
             st, keep = stat_args(sp, s, arg, state["tables"][s],
                                  new_state["tables"][s], B, K, dev)
             stats.append((sp, st))
@@ -1203,6 +1301,44 @@ def stat_args(sp, s: int, arg, tab, ntab, B: int, K: int, dev):
     return st, (sc, arg)
 
 
+def union_args(arg, tab, ntab, out, B: int, dev):
+    """Kernel H's arguments for one unionSet() aggregator: its table, the
+    new table's tensors, its [B, 1 + SET_LANES] output and the scratch.
+    -> (``_kernels.UnionArgs``, the tensors to keep alive until the
+    launch)."""
+    S = SET_LANES
+    n = S * (1 + B)
+    values, nulls = arg
+    if values.shape != (B, 1 + S) or not values.is_contiguous():
+        raise ValueError("union_set: the argument must be contiguous "
+                         f"[{B}, {1 + S}] set rows")
+
+    def t(m, dtype):
+        return torch.empty((max(int(m), 1),), dtype=dtype, device=dev)
+    blocks = (n + 1023) // 1024
+    sc = {"keys_all": t(n, I64), "sgn_all": t(n, I64),
+          "keep": t(n, torch.uint8), "sgn": t(n, I64), "total": t(n, I64),
+          "csum": t(n, I64), "live": t(n, torch.uint8), "rank": t(n, I64),
+          "sums": t(blocks, I64),
+          "n_kept": torch.empty((1,), dtype=I64, pin_memory=True)}
+    srt = {"k1": t(n, I64), "k2": t(n, I64), "i1": t(n, torch.int32),
+           "i2": t(n, torch.int32), "keys": t(n, I64),
+           "order": t(n, torch.int32), "sk": t(n, I64),
+           "counts": t(256 * blocks, torch.int32)}
+    u = _kernels.UnionArgs()
+    u.B, u.n = B, n
+    u.arg, u.arg_null = values.data_ptr(), nulls.data_ptr()
+    for f in ("vals", "counts", "tag", "overflow"):
+        setattr(u, f, tab[f].data_ptr())
+        setattr(u, "new_" + f, ntab[f].data_ptr())
+    u.out, u.out_null = out[0].data_ptr(), out[1].data_ptr()
+    for k, v in sc.items():
+        setattr(u, k, v.data_ptr())
+    for k, v in srt.items():
+        setattr(u.sort, k, v.data_ptr())
+    return u, (sc, srt, arg)
+
+
 def emit_args(op: AggregateOp, slots, qualifying, batch: EventBatch,
               out_cols, out_nulls, emitted):
     """K6's emission arguments and its output batch (fresh tensors).
@@ -1217,7 +1353,9 @@ def emit_args(op: AggregateOp, slots, qualifying, batch: EventBatch,
 
     def t(m, dtype):
         return torch.empty((max(int(m), 1),), dtype=dtype, device=dev)
-    out = EventBatch(ts=t(B, I64), cols=tuple(t(B, c.dtype) for c in out_cols),
+    out = EventBatch(ts=t(B, I64),
+                     cols=tuple(torch.empty(c.shape, dtype=c.dtype, device=dev)
+                                for c in out_cols),
                      nulls=tuple(t(B, torch.bool) for _ in out_cols),
                      kind=t(B, torch.int32), valid=t(B, torch.bool))
     sc = {"ovalid": t(B, torch.uint8), "emit_order": t(B, torch.int32),
@@ -1240,7 +1378,7 @@ def emit_args(op: AggregateOp, slots, qualifying, batch: EventBatch,
     for k, (c, nl, oc, on) in enumerate(zip(out_cols, out_nulls, out.cols,
                                             out.nulls)):
         a.cols[k], a.nulls[k] = c.data_ptr(), nl.data_ptr()
-        a.col_size[k] = c.element_size()
+        a.col_size[k] = row_bytes(c)
         a.out_cols[k], a.out_nulls[k] = oc.data_ptr(), on.data_ptr()
     a.out_ts, a.out_kind = out.ts.data_ptr(), out.kind.data_ptr()
     a.out_valid = out.valid.data_ptr()

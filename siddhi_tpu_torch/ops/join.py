@@ -43,9 +43,9 @@ from ..core.event import (CURRENT, EXPIRED, RESET, Attribute, EventBatch,
                           StreamSchema)
 from ..core.types import NUMERIC_TYPES, AttrType, promote
 from ..lang import ast as A
-from .expr import VT, CompileError, CompiledExpr, Scope, _widen, \
+from .expr import VT, CompileError, CompiledExpr, RowScope, Scope, _widen, \
     compile_expression
-from .table import (PairProgram, band_bounds, big_key, encode_keys,
+from .table import (TS_COL, PairProgram, band_bounds, big_key, encode_keys,
                     fill_prog, fill_side, search_levels, side_cols,
                     sorted_key_view)
 
@@ -92,8 +92,18 @@ class JoinSideScope(Scope):
             f"attribute '{var.attribute}' is "
             + ("ambiguous" if hits else "unknown") + " across join sides")
 
+    def clock_key(self, which: str):
+        """eventTimestamp() in an ON condition is the trigger row's (the
+        reference's join env binds the trigger batch's __ts__ and no
+        clock)."""
+        if which == "now":
+            raise NotImplementedError(
+                "not ported yet: currentTimeMillis() in a join condition "
+                "(the reference binds no clock there)")
+        return ("ts",)
 
-class JoinCombinedScope(Scope):
+
+class JoinCombinedScope(RowScope):
     """Selector scope over the combined (left ++ right) joined batch."""
 
     def __init__(self, side_scope: JoinSideScope, left_n: int):
@@ -243,6 +253,8 @@ class JoinCross:
         tag = "L" if trigger_is_left else "R"
 
         def side_of(key):   # trigger side 0, opposite side 1
+            if key == ("ts",):   # the reference binds the trigger's __ts__
+                return 0, TS_COL
             return (0 if key[0] == tag else 1), key[1]
         if on is not None:
             cond = compile_expression(on, side_scope)
@@ -257,6 +269,10 @@ class JoinCross:
                     else (equi.right, equi.left)
                 self.tkey = PairProgram([tk], False, side_of)
                 self.okey = PairProgram([ok], False, side_of)
+                if self.tkey.reads_ts or self.okey.reads_ts:
+                    raise NotImplementedError(
+                        "not ported yet: eventTimestamp() in a join's "
+                        "equality key")
                 if residual_ast is not None:
                     self.residual = PairProgram(
                         [compile_expression(residual_ast, side_scope)],
@@ -338,7 +354,7 @@ def cross_grid_ref(cross: JoinCross, trig: EventBatch, opp_buf: dict,
         sides = (side_cols(trig.cols, trig.nulls, jrows[:, None]),
                  side_cols(opp_buf["cols"], opp_buf["nulls"],
                            (None, slice(None))))
-        grid, _ = cross.cond.run(sides, (nj, W), dev)
+        grid, _ = cross.cond.run(sides, (nj, W), dev, trig.ts[jrows][:, None])
     else:
         grid = torch.ones((nj, W), dtype=torch.bool, device=dev)
     pair = grid & opp_buf["valid"][None, :]
@@ -417,7 +433,7 @@ def cross_probe_ref(cross: JoinCross, trig: EventBatch, opp_buf: dict,
         if cross.residual is not None:
             sides = (side_cols(trig.cols, trig.nulls, cr),
                      side_cols(opp_buf["cols"], opp_buf["nulls"], coi))
-            keep, _ = cross.residual.run(sides, (CAND,), dev)
+            keep, _ = cross.residual.run(sides, (CAND,), dev, trig.ts[cr])
             s = s & keep
         if gate_alive and cross.opp_window_ms is not None:
             s = s & (opp_buf["ts"][coi] + cross.opp_window_ms

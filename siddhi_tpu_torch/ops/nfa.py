@@ -490,6 +490,11 @@ class MatchScope(PatternScope):
         super().__init__(slots)
         self.col_index = col_index
 
+    def clock_key(self, which: str):
+        """The match batch's timestamp and the step's clock: the
+        selector runs in kernel K2 over the match batch."""
+        return (which,)
+
     def resolve(self, var: A.Variable):
         key, t = super().resolve(var)
         if key[0] == "slot":

@@ -54,7 +54,7 @@ class FilterOp(Operator):
             b = ProgramBuilder()
             self.lower(b)
             self._prog = b.build()
-        _cols, _nulls, valid = expr_eval(self._prog, batch)
+        _cols, _nulls, valid = expr_eval(self._prog, batch, now=now)
         return state, EventBatch(batch.ts, batch.cols, batch.nulls,
                                  batch.kind, valid)
 

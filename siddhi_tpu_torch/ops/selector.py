@@ -30,7 +30,8 @@ from ..core.event import CURRENT, EXPIRED, Attribute, EventBatch, StreamSchema
 from ..core.types import AttrType, flush_subnormal
 from ..lang import ast as A
 from .expr import (ALL_KINDS, DTYPE_VT, CompiledExpr, CompileError,
-                   ProgramBuilder, Scope, compile_expression, expr_eval)
+                   ProgramBuilder, RowScope, Scope, compile_expression,
+                   expr_eval)
 from .operators import Operator
 
 
@@ -339,20 +340,22 @@ class ProjectOp(Operator):
             b = ProgramBuilder()
             self.lower(b)
             self._prog = b.build()
-        return state, project(self, self._prog, batch, None)
+        return state, project(self, self._prog, batch, None, now)
 
     @property
     def out_schema(self):
         return self._schema
 
 
-def project(op: ProjectOp, prog, batch: EventBatch, emitted) -> EventBatch:
+def project(op: ProjectOp, prog, batch: EventBatch, emitted,
+            now=None) -> EventBatch:
     """Run a step program that ends in ``op`` and build its output batch
     (the input columns as they are for ``select *``), then its having
     (K2) and its order-by, offset and limit (kernel G). ``emitted`` is
     increased by the rows of the final batch."""
     shapes = op.shapes
-    cols, nulls, valid = expr_eval(prog, batch, None if shapes else emitted)
+    cols, nulls, valid = expr_eval(prog, batch, None if shapes else emitted,
+                                   now)
     if op.passthrough:
         cols, nulls = batch.cols, batch.nulls
     out = EventBatch(ts=batch.ts, cols=cols, nulls=nulls, kind=batch.kind,
@@ -365,7 +368,7 @@ def project(op: ProjectOp, prog, batch: EventBatch, emitted) -> EventBatch:
         _, _, valid = expr_eval(
             op.having_program(),
             EventBatch(batch.ts, hcols, hnulls, batch.kind, valid),
-            None if op.shapes_chunk else emitted)
+            None if op.shapes_chunk else emitted, now)
         out = EventBatch(ts=batch.ts, cols=cols, nulls=nulls,
                          kind=batch.kind, valid=valid)
     if op.shapes_chunk:
@@ -373,7 +376,7 @@ def project(op: ProjectOp, prog, batch: EventBatch, emitted) -> EventBatch:
     return out
 
 
-class OutputScope(Scope):
+class OutputScope(RowScope):
     """Scope over a selector's own output attributes (a table output's
     conditions and SET values read them; reference ops/selector.py
     OutputScope)."""
@@ -390,7 +393,7 @@ class OutputScope(Scope):
         return ("attr", idx), self.schema.types[idx]
 
 
-class ProjectHavingScope(Scope):
+class ProjectHavingScope(RowScope):
     """HAVING over a plain selector: the output attributes first; for a
     pattern selector then the match batch's columns, which follow the
     output columns in the batch the having program reads (reference:

@@ -65,11 +65,17 @@ I64 = torch.int64
 # two-sided programs
 # ---------------------------------------------------------------------------
 
+# the column of side 0 that is its rows' timestamps (eventTimestamp()
+# in a join's ON, the trigger row's; in a table condition, the event's)
+TS_COL = 0xFFFF
+
+
 class PairProgram:
     """Compiled expressions as one K2-interpreter program whose loads
     read one of two sides: ``ins[k] = (side, column)`` for input k of the
-    program, side 0 or 1. ``keep``: the expressions are conditions (their
-    conjunction is the result), else each is an output."""
+    program, side 0 or 1 (column TS_COL: side 0's timestamps).
+    ``keep``: the expressions are conditions (their conjunction is the
+    result), else each is an output."""
 
     def __init__(self, ces, keep: bool, side_of):
         b = ProgramBuilder()
@@ -93,14 +99,20 @@ class PairProgram:
             self._dev[dev] = t
         return t
 
-    def run(self, sides, shape, dev):
+    def run(self, sides, shape, dev, ts0=None):
         """Plain evaluation: ``sides[s][c]`` = (values, nulls) of column c
-        of side s, each broadcastable to ``shape``. -> (keep, outs) as
-        ``run_program`` gives them."""
+        of side s, ``ts0`` side 0's timestamps, each broadcastable to
+        ``shape``. -> (keep, outs) as ``run_program`` gives them."""
         def load(key):
             s, c = self.ins[self.prog.inputs.index(key)]
+            if c == TS_COL:
+                return ts0, torch.zeros((), dtype=torch.bool, device=dev)
             return sides[s][c]
         return run_program(self.prog, load, shape, dev)
+
+    @property
+    def reads_ts(self) -> bool:
+        return any(c == TS_COL for _s, c in self.ins)
 
 
 def fill_prog(pp, prog: Optional[PairProgram], dev) -> None:
@@ -367,7 +379,7 @@ def table_match_ref(table, state: dict, batch: EventBatch, acting,
     if cond is not None:
         sides = (side_cols(batch.cols, batch.nulls, (slice(None), None)),
                  side_cols(state["cols"], state["nulls"], (None, slice(None))))
-        grid, _ = cond.run(sides, (B, T), dev)
+        grid, _ = cond.run(sides, (B, T), dev, batch.ts[:, None])
     else:
         grid = torch.ones((B, T), dtype=torch.bool, device=dev)
     if acting is not None:
@@ -384,7 +396,7 @@ def table_match_ref(table, state: dict, batch: EventBatch, acting,
     src = torch.where(touched, last, torch.zeros_like(last))
     sides = (side_cols(batch.cols, batch.nulls, src),
              side_cols(state["cols"], state["nulls"]))
-    _keep, outs = sets.run(sides, (T,), dev)
+    _keep, outs = sets.run(sides, (T,), dev, batch.ts[src])
     cols, nulls = list(state["cols"]), list(state["nulls"])
     for k, tidx in enumerate(set_cols):
         v, n = outs[k]
@@ -405,7 +417,7 @@ def probe_touched_ref(table, state: dict, probe: "IndexProbe",
     live = state["valid"] & ~state["nulls"][probe.attr]
     order, sk, n_live = sorted_key_view(keys, live, kt)
     _k, outs = probe.value.run(
-        (side_cols(batch.cols, batch.nulls), ()), (B,), dev)
+        (side_cols(batch.cols, batch.nulls), ()), (B,), dev, batch.ts)
     vv, vnull = outs[0]
     v = encode_keys(vv, kt)
     act = acting & ~vnull
@@ -705,6 +717,11 @@ class TableOnScope(Scope):
         key, t = self.event_scope.resolve(var)
         return ("S", key), t
 
+    def clock_key(self, which: str):
+        """The event's timestamp (the reference's grid env binds the
+        batch's __ts__); the clock raises in grid_env."""
+        return ("S", self.event_scope.clock_key(which))
+
 
 def grid_env(key):
     """A table program's load key -> (side, column): events are side 0,
@@ -712,6 +729,11 @@ def grid_env(key):
     if key[0] == "T":
         return 1, key[1]
     inner = key[1]
+    if inner == ("ts",):
+        return 0, TS_COL
+    if inner == ("now",):
+        raise NotImplementedError(
+            "not ported yet: currentTimeMillis() in a table condition")
     if not (isinstance(inner, tuple) and inner[0] == "attr"):
         raise NotImplementedError(
             f"not ported yet: table condition variable {inner!r}")
@@ -976,7 +998,7 @@ class TableFilterOp(Operator):
         ext = EventBatch(batch.ts, tuple(batch.cols) + tuple(hits),
                          tuple(batch.nulls) + (zeros,) * len(hits),
                          batch.kind, batch.valid)
-        _c, _n, valid = expr_eval(self.prog, ext)
+        _c, _n, valid = expr_eval(self.prog, ext, now=now)
         return state, EventBatch(batch.ts, batch.cols, batch.nulls,
                                  batch.kind, valid), tstates
 

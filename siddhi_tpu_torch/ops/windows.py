@@ -42,7 +42,7 @@ import torch
 
 from .. import _kernels
 from ..core.event import CURRENT, EXPIRED, RESET, EventBatch, StreamSchema
-from ..core.types import col_zeros
+from ..core.types import col_zeros, row_bytes
 from .expr import CompileError
 from .operators import Operator
 from .sentinels import I32_MAX, NEG_INF, POS_INF
@@ -684,7 +684,8 @@ def window_args(op: WindowOp, state, batch: EventBatch, now):
     na = _empty_like_buf(A)
     ne = _empty_like_buf(E) if E is not None else None
     out = EventBatch(ts=torch.empty((N,), dtype=I64, device=dev),
-                     cols=tuple(torch.empty((N,), dtype=c.dtype, device=dev)
+                     cols=tuple(torch.empty((N,) + c.shape[1:], dtype=c.dtype,
+                                            device=dev)
                                 for c in batch.cols),
                      nulls=tuple(torch.empty((N,), dtype=torch.bool,
                                              device=dev)
@@ -741,7 +742,7 @@ def window_args(op: WindowOp, state, batch: EventBatch, now):
     for k, t in sc.items():
         setattr(a, k, t.data_ptr())
     for k, c in enumerate(batch.cols):
-        a.col_size[k] = c.element_size()
+        a.col_size[k] = row_bytes(c)
     a.n_cols, a.kind, a.B, a.W, a.EB, a.N, a.P, a.S = \
         C, op.KIND, B, W, EB, N, P, S
     a.expired_enabled = int(op.expired_enabled)

@@ -283,9 +283,11 @@ def test_strings_carried_over_from_reference():
     " from S insert into W;",
 ])
 def test_unported_parts_raise(text):
-    """What the port lacks says so; the sort window, distinctCount and
-    order-by, ported since, deploy and give the reference's rows."""
-    if "sort(2, a)" in text or "distinctCount" in text or "order by" in text:
+    """What the port lacks says so; the sort window, distinctCount,
+    order-by and function calls, ported since, deploy and give the
+    reference's rows."""
+    if "sort(2, a)" in text or "distinctCount" in text or "order by" in text \
+            or "coalesce" in text:
         rows = {}
         for pkg in (J, T):
             kw = {"device": "cpu"} if pkg is T else {}

@@ -7,8 +7,8 @@ app text and events under @app:playback with a virtual clock, checked
 against the expected rows of the Java test suite. The 13 cases are the
 ones whose planner picks ParallelNfaEngine in the reference
 (test_torch_pattern.py checks that the port's parallel_supported picks
-the same ones); CountPattern testQuery14 also needs `having` and
-instanceOfFloat(), which the port does not have yet, and must say so.
+the same ones); CountPattern testQuery14, whose having calls
+instanceOfFloat(), replays the same way.
 """
 import json
 import pathlib
@@ -30,7 +30,8 @@ PARALLEL_CASES = (
        "pattern_EveryPatternTestCase.testQuery2",
        "pattern_WithinPatternTestCase.testQuery1",
        "pattern_WithinPatternTestCase.testQuery2"])
-NOT_PORTED = ["pattern_CountPatternTestCase.testQuery14"]
+# its having calls instanceOfFloat()
+FUNCTION_CASES = ["pattern_CountPatternTestCase.testQuery14"]
 
 
 def _case(cid: str) -> dict:
@@ -118,8 +119,8 @@ def replay(case) -> dict:
     return state
 
 
-@pytest.mark.parametrize("cid", PARALLEL_CASES)
-def test_parallel_case_replays_like_the_reference(cid):
+def check_case(cid):
+    """Replay one case and hold it to the Java rows."""
     case = _case(cid)
     assert not case.get("expect_error")
     state = replay(case)
@@ -143,8 +144,11 @@ def test_parallel_case_replays_like_the_reference(cid):
                 f"rows {got} missing expected {exp_rows}"
 
 
-@pytest.mark.parametrize("cid", NOT_PORTED)
-def test_case_needing_having_raises_not_ported(cid):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        SiddhiManager(device="cpu").create_siddhi_app_runtime(
-            "@app:playback " + _case(cid)["app"])
+@pytest.mark.parametrize("cid", PARALLEL_CASES)
+def test_parallel_case_replays_like_the_reference(cid):
+    check_case(cid)
+
+
+@pytest.mark.parametrize("cid", FUNCTION_CASES)
+def test_function_case_replays_like_the_reference(cid):
+    check_case(cid)

@@ -23,7 +23,7 @@ import torch
 
 import siddhi_tpu as J
 from siddhi_tpu_torch import SiddhiManager
-from test_torch_pattern_corpus import (DIR, NOT_PORTED, PARALLEL_CASES,
+from test_torch_pattern_corpus import (DIR, FUNCTION_CASES, PARALLEL_CASES,
                                        T0, _is_ordered_subset, _rows_match,
                                        replay)
 
@@ -54,7 +54,7 @@ def _scan_cases() -> dict:
             continue
         for c in json.loads(f.read_text())["cases"]:
             cid = f"{f.stem}.{c['name']}"
-            if cid not in PARALLEL_CASES and cid not in NOT_PORTED:
+            if cid not in PARALLEL_CASES and cid not in FUNCTION_CASES:
                 out[cid] = c
     return out
 
