@@ -7,7 +7,7 @@ Phases, each of which stops the run with a non-zero exit on failure:
 
 1. device: CUDA must be there; prints the device, the build and
    ``nvidia-smi``'s name and power limit;
-2. build the port's CUDA kernels from csrc/ (twelve sources, one nvcc
+2. build the port's CUDA kernels from csrc/ (thirteen sources, one nvcc
    each, all at once) and hold kernel K1 (packed-ingest decode) against its plain
    PyTorch version on the card, bit for bit, for every lane code at
    capacities 16, 1024, 65536;
@@ -170,7 +170,28 @@ Phases, each of which stops the run with a non-zero exit on failure:
    torch.unique_consecutive;
 30. run log (#log over 3 sends of 16 rows): each send's printed lines
    equal the oracle's;
-31. print the kernel table as one JSON line, the card's name and power
+31. hold kernel K9p (a partition block's route, compaction and due) and
+   the launches of K4, K5 and K6 with the slot axis against their plain
+   versions on the card, bit for bit, at every launch: each app of
+   checks.PARTITION_APPS (value and range keys, inner streams, group by
+   inside a block, key overflow, windows with timers, a pattern and an
+   absent pattern), a flush that overflows the compaction, and the
+   partition paths' apps at 64 slots;
+32. run partition_avg (the Siddhi query guide's partition example, a
+   per-symbol running average through an inner stream, 512 symbols at
+   1,024 slots): 1,048,576 trades in 128 sends of 8,192, against its
+   numpy oracle row for row with the overflow; K9p, K5 and K6 with the
+   slot axis and K2 on every step; then events/s, latency, and K9p's,
+   K5's and K6's times at the step's shape against their plain versions,
+   bounds and (K9p) torch.sort;
+33. and 34. run partition_fraud (every small purchase then a large one
+   within 10 min, per card, 1,024 Zipf-skewed cards at 2,048 slots):
+   262,144 transactions in 64 sends of 4,096 against its numpy oracle
+   in order; then the per-customer absence of
+   AbsentPatternTestCase.testQueryAbsent43 over 65,536 visits, driven
+   past its deadlines by a TIMER, against its oracle; K9p and K4 with
+   the slot axis on every step; K4's time at the fraud step's shape;
+35. print the kernel table as one JSON line, the card's name and power
    limit, and the result line.
 
 `python3 chip_smoke.py --k5-time` times K5 alone (window_agg's and
@@ -3709,6 +3730,758 @@ def log_phase(dev, card: str, n_sends: int = 3, rows: int = 16) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# slice 9: partition blocks (kernel K9p; K4, K5 and K6 with the slot axis)
+# ---------------------------------------------------------------------------
+
+
+def _bl(o):
+    """An EventBatch as its tensors, in a fixed order."""
+    return [o.ts, *o.cols, *o.nulls, o.kind, o.valid]
+
+
+def _slot_bytes(o):
+    """The bytes a slotted batch holds: a column the slots share (slot
+    stride 0: the block's input batch) once, the valid masks in full."""
+    return _nbytes([x[0] if x.dim() and x.stride(0) == 0 else x
+                    for x in _bl(o)])
+
+
+def _timed(fn, reps: int, warmup: int = 0):
+    """cuda_ms(fn), and fn()'s last result (a plain version's, held
+    against the kernel's on the same arguments)."""
+    box = [None]
+    ms = cuda_ms(lambda: box.__setitem__(0, fn()), reps=reps, warmup=warmup)
+    return ms, box[0]
+
+
+def _launch_ms(prep, launch, reps: int) -> float:
+    """Mean device time of launch() alone (CUDA events around it), with
+    prep() (a restore of the state it updates in place) before each."""
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for a, b in ev:
+        prep()
+        a.record()
+        launch()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in ev) / reps
+
+
+class PartitionCheck:
+    """While installed, every launch of kernel K9p (route, compaction,
+    due) and every launch of K4, K5 and K6 with a partition block's slot
+    axis also runs the plain version on the same inputs (the un-slotted
+    plain version once per slot, ops/slots.py per_slot); kernel and plain
+    results (the slot table and masks, the compacted batch and its
+    emitted and lost counters, the dues, every slot's state and output)
+    must be bit-equal (tolerance 0). The runtime goes on with the
+    kernel's. Launches without the slot axis pass through unchecked."""
+
+    def __init__(self):
+        from siddhi_tpu_torch.ops import aggregators as G
+        from siddhi_tpu_torch.ops import nfa as N
+        from siddhi_tpu_torch.ops import windows as W
+        from siddhi_tpu_torch.parallel import partition as P
+        self.G, self.N, self.W, self.P = G, N, W, P
+        self.err = 0.0
+        self.steps = {k: 0 for k in (
+            "partition_route", "partition_compact", "partition_due",
+            "nfa_scan[K]", "window_step[K]", "aggregate_step[K]",
+            "aggregate_emit[K]")}
+        self.shapes = set()
+        self.lost = 0
+
+    def _cmp(self, what, got, want):
+        self.err = max(self.err, compare(what, got, want))
+
+    def __enter__(self):
+        G, N, W, P = self.G, self.N, self.W, self.P
+        from siddhi_tpu_torch.ops.expr import expr_eval
+        from siddhi_tpu_torch.ops.slots import per_slot
+        self.saved = (P.route, P.compact, P.min_due, W.window_step,
+                      G.aggregate_step, G.aggregate_emit, N.scan_step,
+                      N.timer_step)
+        (k_route, k_compact, k_due, k_win, k_agg, k_emit, k_scan,
+         k_timer) = self.saved
+
+        def route(spec, batch, now, tbl, K):
+            ks, kv, kt = k_route(spec, batch, now, tbl, K)
+            cols, nulls, _v = expr_eval(spec.program, batch, now=now)
+            rs, rv, rt_ = P.route_ref(spec, cols, nulls, batch, tbl, K)
+            self._cmp(f"K9p route {spec.kind} K={K} B={batch.capacity}",
+                      [ks, kv] + tree_leaves(kt), [rs, rv] + tree_leaves(rt_))
+            self.steps["partition_route"] += 1
+            self.shapes.add(("route", spec.kind, K, batch.capacity))
+            return ks, kv, kt
+
+        def compact(out, cap, emitted, lost):
+            e_ref, l_ref = emitted.clone(), lost.clone()
+            l0 = int(lost.item())
+            ko = k_compact(out, cap, emitted, lost)
+            ro = P.compact_ref(out, cap, e_ref, l_ref)
+            self._cmp(f"K9p compaction {list(out.ts.shape)} -> {cap}",
+                      _bl(ko) + [emitted, lost], _bl(ro) + [e_ref, l_ref])
+            self.lost += int(lost.item()) - l0
+            self.steps["partition_compact"] += 1
+            self.shapes.add(("compact", tuple(out.ts.shape), cap))
+            return ko
+
+        def min_due(dues):
+            k = k_due(dues)
+            self._cmp(f"K9p due over {len(dues)} queries", [k],
+                      [P.min_due_ref(dues)])
+            self.steps["partition_due"] += 1
+            return k
+
+        def window_step(op, state, batch, now):
+            if batch.ts.dim() != 2:
+                return k_win(op, state, batch, now)
+            K = batch.ts.shape[0]
+            ks, ko = k_win(op, state, batch, now)
+            rs, ro = per_slot(lambda st, b: W.window_step_ref(op, st, b, now),
+                              K, state, batch)
+            what = f"K5[K] {type(op).__name__} {list(batch.ts.shape)}"
+            self._cmp(what + " state", tree_leaves(ks), tree_leaves(rs))
+            self._cmp(what + " output", _bl(ko), _bl(ro))
+            self.steps["window_step[K]"] += 1
+            self.shapes.add(("K5", type(op).__name__, K, batch.ts.shape[1]))
+            return ks, ko
+
+        def aggregate_step(op, state, key_cols, arg_cols, kind, valid):
+            if kind.dim() != 2:
+                return k_agg(op, state, key_cols, arg_cols, kind, valid)
+            k = k_agg(op, state, key_cols, arg_cols, kind, valid)
+            r = per_slot(lambda st, kc, ac, kd, v: G.aggregate_step_ref(
+                op, st, kc, ac, kd, v), kind.shape[0], state, key_cols,
+                arg_cols, kind, valid)
+            self._cmp(f"K6[K] step {list(kind.shape)}", tree_leaves(k),
+                      tree_leaves(r))
+            self.steps["aggregate_step[K]"] += 1
+            self.shapes.add(("K6", len(op.agg_specs), tuple(kind.shape)))
+            return k
+
+        def aggregate_emit(op, slots, qual, batch, oc, on, emitted=None):
+            if batch.ts.dim() != 2:
+                return k_emit(op, slots, qual, batch, oc, on, emitted)
+            e_ref = emitted.clone() if emitted is not None else None
+            ko = k_emit(op, slots, qual, batch, oc, on, emitted)
+            ro = per_slot(lambda sl, q, b, c, n: G.aggregate_emit_ref(
+                op, sl, q, b, c, n, e_ref), batch.ts.shape[0], slots, qual,
+                batch, oc, on)
+            self._cmp(f"K6[K] emission {list(batch.ts.shape)}",
+                      _bl(ko) + ([emitted] if emitted is not None else []),
+                      _bl(ro) + ([e_ref] if e_ref is not None else []))
+            self.steps["aggregate_emit[K]"] += 1
+            return ko
+
+        def scan_step(eng, sid, table, batch, due=None):
+            if batch.ts.dim() != 2:
+                return k_scan(eng, sid, table, batch, due)
+            before = tree_clone(table)
+            kt, km = k_scan(eng, sid, table, batch, due)
+            rt_, rm = per_slot(lambda t, b: eng.stream_step_ref(sid, t, b),
+                               batch.ts.shape[0], before, batch)
+            what = f"K4[K] stream step {list(batch.ts.shape)}"
+            self._cmp(what + " table", tree_leaves(kt), tree_leaves(rt_))
+            self._cmp(what + " matches", _bl(km), _bl(rm))
+            self.steps["nfa_scan[K]"] += 1
+            self.shapes.add(("K4", tuple(batch.ts.shape)))
+            return kt, km
+
+        def timer_step(eng, table, now, due=None):
+            if table["state"].dim() != 2:
+                return k_timer(eng, table, now, due)
+            before = tree_clone(table)
+            kt, km = k_timer(eng, table, now, due)
+            rt_, rm = per_slot(lambda t: eng.timer_step_ref(t, now),
+                               table["state"].shape[0], before)
+            what = f"K4[K] timer step K={table['state'].shape[0]}"
+            self._cmp(what + " table", tree_leaves(kt), tree_leaves(rt_))
+            self._cmp(what + " matches", _bl(km), _bl(rm))
+            self.steps["nfa_scan[K]"] += 1
+            return kt, km
+
+        P.route, P.compact, P.min_due = route, compact, min_due
+        W.window_step = window_step
+        G.aggregate_step, G.aggregate_emit = aggregate_step, aggregate_emit
+        N.scan_step, N.timer_step = scan_step, timer_step
+        return self
+
+    def __exit__(self, *exc):
+        G, N, W, P = self.G, self.N, self.W, self.P
+        (P.route, P.compact, P.min_due, W.window_step, G.aggregate_step,
+         G.aggregate_emit, N.scan_step, N.timer_step) = self.saved
+        return False
+
+
+def partition_against_plain(dev) -> float:
+    """Kernel K9p (route, compaction, due) and the slotted launches of
+    K4, K5 and K6 against their plain versions on the card, bit for bit
+    (slot tables and masks, compacted batches with their emitted and
+    lost counters, every slot's state and output), at every launch:
+    each app of checks.PARTITION_APPS at 4 to 8 slots (value and range
+    keys, length, time, timeBatch and lengthBatch windows, K6 plain and
+    grouped, an inner stream, two queries on one stream, key overflow,
+    a `within` pattern, an absent pattern fired by the scheduler's
+    TIMER steps) over 1,200 events in uneven sends, the clock then
+    driven a second past the last; a timeBatch flush of 32 slots whose
+    131,072 rows overflow the compaction's 65,536 (lost counted); and
+    the partition_avg (two sends of 8,192), partition_fraud and
+    per-customer absence apps (two sends of 1,024) at 64 slots. -> max
+    abs error (0)."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    enc = GLOBAL_STRINGS.encode
+    mgr = SiddhiManager()
+    saved = dict(_kernels.LAUNCHES)
+    with PartitionCheck() as chk:
+        for name, text in C.PARTITION_APPS.items():
+            rt = mgr.create_siddhi_app_runtime(text)
+            rt.start()
+            ts, cols, cuts = C.partition_feed(1200, enc)
+            _send_all(rt.get_input_handler("S"), ts, cols, cuts)
+            with rt.barrier:
+                rt.on_ingest_ts(int(ts[-1]) + 1000)
+            st = {n: q.stats() for n, q in rt.queries.items()}
+            rt.shutdown()
+            if ("overflow" in name) != (st["q"]["overflow"] > 0):
+                fail(f"K9p {name}: overflow {st['q']['overflow']}")
+            print(f"K9p and K4/K5/K6 with slots, {name}: bit-equal to their "
+                  f"plain versions ({len(cuts) - 1} sends; {st}; checked "
+                  f"so far {chk.steps})", flush=True)
+        # a compaction past its 65,536 rows: 32 slots flush 131,072 rows
+        rt = mgr.create_siddhi_app_runtime(C.PART_STREAM + """
+            @slots('32')
+            partition with (sym of S) begin
+              @info(name = 'q') @cap(window.size='8192')
+              from S#window.timeBatch(1 sec) select sym, price
+              insert into Out;
+            end;""")
+        rt.start()
+        n = 131072
+        _ts, cols, _cuts = C.partition_feed(n, enc, n_syms=32, seed=44,
+                                            prefix="PB")
+        ts = C.TS0 + (np.arange(n, dtype=np.int64) * 500) // n
+        lost0 = chk.lost
+        _send_all(rt.get_input_handler("S"), ts, cols,
+                  tuple(range(0, n + 1, 8192)))
+        with rt.barrier:
+            rt.on_ingest_ts(int(ts[-1]) + 3000)
+        st = rt.queries["q"].stats()
+        rt.shutdown()
+        if chk.lost - lost0 <= 0:
+            fail(f"K9p: the timeBatch flush lost no row ({st})")
+        print(f"K9p compaction past its cap: bit-equal, {chk.lost - lost0} "
+              f"rows lost and counted ({st})", flush=True)
+        # the two main paths' apps at 64 slots, a few sends each
+        for name, text, stream, feed, send, n_sends in (
+                ("partition_avg", C.PARTITION_AVG_APP.replace(
+                    "@slots('1024')", "@slots('64')"), "StockStream",
+                 lambda m: _avg_feed(m, enc, n_syms=48), 8192, 2),
+                ("partition_fraud", C.PARTITION_FRAUD_APP.replace(
+                    "@slots('2048')", "@slots('64')"), "Txn",
+                 lambda m: C.txn_feed(m, enc, n_cards=48), 1024, 2),
+                ("partition_absent", C.PARTITION_ABSENT_APP.replace(
+                    "@slots('2048')", "@slots('64')"), "CustomerStream",
+                 lambda m: C.customer_feed(m, enc, n_cust=48), 1024, 2)):
+            rt = mgr.create_siddhi_app_runtime(text)
+            rt.start()
+            ts, cols = feed(send * n_sends)
+            _send_all(rt.get_input_handler(stream), ts, cols,
+                      tuple(range(0, send * n_sends + 1, send)))
+            with rt.barrier:
+                rt.on_ingest_ts(int(ts[-1]) + 2000)
+            st = rt.queries["q"].stats()
+            rt.shutdown()
+            print(f"K9p and K4/K5/K6 with slots, {name} at 64 slots, "
+                  f"{n_sends} sends of {send}: bit-equal ({st})", flush=True)
+    _kernels.LAUNCHES.update(saved)   # not launches of a main path
+    print(f"K9p, K4/K5/K6 with slots: shapes held against the plain "
+          f"versions: {sorted(chk.shapes, key=str)}; launches checked "
+          f"{chk.steps}", flush=True)
+    for k, n in chk.steps.items():
+        if n == 0:
+            fail(f"kernel {k} was never held against its plain version")
+    return chk.err
+
+
+def _avg_feed(n: int, encode, n_syms: int = 512):
+    """partition_avg's feed: checks.trades_feed without its exchange
+    clock. -> (ts, [symbol codes, price, volume])."""
+    from siddhi_tpu_torch import checks as C
+    ts, (_ets, sym, price, vol) = C.trades_feed(n, encode, n_syms=n_syms)
+    return ts, [sym, price, vol]
+
+
+class _Capture:
+    """While installed, keeps the arguments of the first call of each
+    wrapped function (one step of a path, for timing its kernels at the
+    path's own shape)."""
+
+    def __init__(self, targets):
+        self.targets = targets      # [(module, attribute, predicate)]
+        self.args = {}
+
+    def __enter__(self):
+        self.saved = [getattr(m, a) for m, a, _p in self.targets]
+        for (m, a, pred), f in zip(self.targets, self.saved):
+            def wrap(*args, _f=f, _a=a, _p=pred):
+                if _a not in self.args and _p(*args):
+                    self.args[_a] = args
+                return _f(*args)
+            setattr(m, a, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, a, _p), f in zip(self.targets, self.saved):
+            setattr(m, a, f)
+        return False
+
+
+def _k9p_times(dev, cap) -> dict:
+    """K9p's route and compaction at a path's shape (their arguments
+    built once, the launches alone timed with CUDA events), their plain
+    versions on the same arguments, each held against the kernel's
+    results bit for bit (slots, masks and table; the compacted batch with
+    its emitted and lost counters), the library call (a stable
+    torch.sort of the keys and the gathers), and the bytes and
+    operations of their bound. -> the times and the max abs error."""
+    from siddhi_tpu_torch import _kernels
+    from siddhi_tpu_torch.ops.expr import expr_eval
+    from siddhi_tpu_torch.parallel import partition as P
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    spec, batch, now, tbl, K = cap["route"]
+    cols, nulls, _v = expr_eval(spec.program, batch, now=now)
+    ks, kv, kt, ra = P.route_args(spec, cols, nulls, batch, tbl, K)
+    out, out_cap, emitted, lost = cap["compact"]
+    e0, l0 = emitted.clone(), lost.clone()
+    ek, lk = e0.clone(), l0.clone()
+    kp, ca = P.compact_args(out, out_cap, ek, lk)
+    lib.partition_compact(ca, stream)   # the launch held against the plain
+    kcount = [ek.clone(), lk.clone()]
+    route_ms = cuda_ms(lambda: lib.partition_route(ra, stream), reps=50)
+    compact_ms = cuda_ms(lambda: lib.partition_compact(ca, stream), reps=10)
+    route_plain, (rs, rv, rt_) = _timed(
+        lambda: P.route_ref(spec, cols, nulls, batch, tbl, K), 3, 1)
+
+    def plain_compact():
+        e, l_ = e0.clone(), l0.clone()
+        return P.compact_ref(out, out_cap, e, l_), e, l_
+    compact_plain, (rp, re_, rl) = _timed(plain_compact, 3, 1)
+    shape = f"{list(out.ts.shape)} -> {out_cap}"
+    err = compare(f"K9p route at the path's shape (K={K}, "
+                  f"B={batch.capacity})", [ks, kv] + tree_leaves(kt),
+                  [rs, rv] + tree_leaves(rt_))
+    err = max(err, compare(f"K9p compaction at the path's shape {shape}",
+                           _bl(kp) + kcount, _bl(rp) + [re_, rl]))
+
+    def library():
+        fl = out.ts.reshape(-1)
+        key = torch.where(out.valid.reshape(-1), fl,
+                          torch.full_like(fl, 2 ** 62))
+        order = torch.sort(key, stable=True).indices[:out_cap]
+        return [x.reshape(-1)[order] for x in _bl(out)]
+    lib_ms = cuda_ms(library, reps=10)
+    B = batch.ts.shape[0]
+    n = out.ts.numel()
+    nv = int(out.valid.sum())
+    row = sum(c[0, 0].element_size() + 1 for c in out.cols) + 8 + 4 + 1
+    # route: the key, kind and valid of B rows, the table, the slots and
+    # the K x B masks; compaction: the K * N rows' valid flags, the valid
+    # rows' ts, out_cap rows read and written
+    n_bytes = B * (cols[0].element_size() + 1 + 4 + 1 + 4) + 9 * K * 2 + \
+        K * B + n + 8 * nv + 2 * out_cap * row
+    n_ops = B * 16 + K * B + n
+    bound, by = bound_of(n_bytes, n_ops)
+    return {"ms": route_ms + compact_ms, "route_ms": route_ms,
+            "compact_ms": compact_ms,
+            "plain_ms": route_plain + compact_plain, "library_ms": lib_ms,
+            "bound_ms": bound, "bound_by": by, "n_bytes": n_bytes,
+            "shape": (K, B, n, out_cap), "valid": nv, "err": err}
+
+
+def partition_avg_phase(dev, card: str, n_sends: int = 128) -> dict:
+    """partition_avg: the Siddhi query guide's partition example (a
+    per-symbol length(10) average through an inner stream, the averages
+    above 75 out; checks.PARTITION_AVG_APP) end to end on the card
+    through SiddhiManager, send_arrays and batch_callbacks: 1,048,576
+    trades of 512 symbols (interned first) in 128 sends of 8,192 rows,
+    each a step of 1,024 slots x 8,192 rows for every operator. Every
+    row against checks.partition_avg_oracle (symbol, volume, timestamp
+    exact; the average within 1e-12 relative of the exact mean) and the
+    overflow equal to the oracle's slot table; the launch counters must
+    show K9p's route and compaction, K5 and K6 with the slot axis, and
+    K2 on every step. Then events/s, latency of a send, and each
+    kernel's time at the path's shape (K9p's route and compaction, K5's
+    and K6's step and emission with the slot axis, on one step's
+    captured arguments) against its plain version on the same
+    arguments, whose results must equal the kernel's bit for bit, its
+    bound and (K9p) the library's sort."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    from siddhi_tpu_torch.ops import aggregators as G
+    from siddhi_tpu_torch.ops import windows as W
+    from siddhi_tpu_torch.parallel import partition as P
+    enc = GLOBAL_STRINGS.encode
+    SEND = 8192
+    N = n_sends * SEND
+    ts_all, cols_all = _avg_feed(N + 24 * SEND, enc)
+    mgr = SiddhiManager()
+    warm = mgr.create_siddhi_app_runtime(C.PARTITION_AVG_APP)
+    warm.start()
+    _send_all(warm.get_input_handler("StockStream"), ts_all[N:],
+              [c[N:] for c in cols_all], (0, SEND, 2 * SEND))
+    torch.cuda.synchronize()
+    warm.shutdown()
+    del warm
+    rt = mgr.create_siddhi_app_runtime(C.PARTITION_AVG_APP)
+    outs = []
+    rt.queries["q"].batch_callbacks.append(outs.append)
+    rt.start()
+    h = rt.get_input_handler("StockStream")
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    for s in range(0, N, SEND):
+        h.send_arrays(ts_all[s:s + SEND], [c[s:s + SEND] for c in cols_all])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    for k in ("partition_route", "partition_compact", "window_step[K]",
+              "aggregate_step[K]", "aggregate_emit[K]"):
+        if launches[k] != n_sends:
+            fail(f"partition_avg: {k} launched {launches[k]} times, the "
+                 f"steps {n_sends}")
+    if launches["expr_eval"] < 2 * n_sends:
+        fail(f"partition_avg: launches {launches}")
+    ots, ocols, onulls = C.emitted_columns(outs)
+    wts, wsym, wavg, wvol, wlost = C.partition_avg_oracle(
+        ts_all[:N], *[c[:N] for c in cols_all], send=SEND,
+        K=rt.partitions["partition_1"].K)
+    if len(ots) != len(wts) or not np.array_equal(ots, wts) or \
+            not np.array_equal(ocols[0], wsym) or \
+            not np.array_equal(ocols[2], wvol) or any(n.any() for n in onulls):
+        fail(f"partition_avg: {len(ots)} rows, the oracle {len(wts)}")
+    rel = float(np.max(np.abs(ocols[1] - wavg) / np.abs(wavg)))
+    if rel > 1e-12:
+        fail(f"partition_avg: an average {rel} from the exact mean")
+    st = rt.queries["q"].stats()
+    if st != {"emitted": len(wts), "overflow": wlost}:
+        fail(f"partition_avg: stats {st}, the oracle {len(wts)} rows, "
+             f"overflow {wlost}")
+    eps = N / wall
+    _report("partition_avg", N, SEND, n_sends, len(ots), eps, launches, card,
+            f" (averages within {rel:.2e} of the exact mean; overflow "
+            f"{wlost} as the oracle's slot table)")
+    chunk = _chunker(ts_all, cols_all, N)
+    with _Capture([(P, "route", lambda *a: True),
+                   (P, "compact", lambda *a: True),
+                   (W, "window_step", lambda *a: a[2].ts.dim() == 2),
+                   (G, "aggregate_step", lambda *a: a[4].dim() == 2),
+                   (G, "aggregate_emit",
+                    lambda *a: a[3].ts.dim() == 2)]) as cap:
+        p50, p99 = _latency(h, chunk, SEND, 8)
+    print(f"partition_avg latency per send: {SEND} rows p50 {p50:.3f} ms, "
+          f"p99 {p99:.3f} ms ({card})", flush=True)
+    # each kernel at the path's shape, on one step's captured arguments:
+    # the launches timed, then held against the plain version's results
+    # on the same arguments (bit for bit)
+    k9 = _k9p_times(dev, cap.args)
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    from siddhi_tpu_torch.ops.slots import per_slot
+    wop, wst, wb, wnow = cap.args["window_step"]
+    wns, wout, wargs = W.window_args(wop, wst, wb, W._i64(wnow, dev))
+    k5_ms = cuda_ms(lambda: lib.window_step(wargs, stream), reps=5)
+    k5_plain, (rws, rwo) = _timed(lambda: per_slot(
+        lambda s_, b_: W.window_step_ref(wop, s_, b_, wnow),
+        wb.ts.shape[0], wst, wb), 1)
+    err = max(k9["err"], compare(
+        f"K5[K] at the path's shape {list(wb.ts.shape)}",
+        tree_leaves(wns) + _bl(wout), tree_leaves(rws) + _bl(rwo)))
+    del rws, rwo
+    aop, ast, kc, ac, akind, avalid = cap.args["aggregate_step"]
+    asl, aag, ans, aargs, _st = G.agg_args(aop, ast, kc, ac, akind, avalid)
+    k6_ms = cuda_ms(lambda: lib.aggregate_step(aargs, stream, 3), reps=5)
+    k6_plain, ra = _timed(lambda: per_slot(
+        lambda s_, k_, a_, d_, v_: G.aggregate_step_ref(aop, s_, k_, a_, d_,
+                                                        v_),
+        akind.shape[0], ast, kc, ac, akind, avalid), 1)
+    err = max(err, compare(f"K6[K] step at the path's shape "
+                           f"{list(akind.shape)}",
+                           tree_leaves((asl, aag, ans)), tree_leaves(ra)))
+    del ra
+    eop, esl, eq, eb, eoc, eon, eem = cap.args["aggregate_emit"]
+    ek = eem.clone() if eem is not None else None
+    er = eem.clone() if eem is not None else None
+    eout, eargs = G.emit_args(eop, esl, eq, eb, eoc, eon, ek)
+    lib.aggregate_emit(eargs, stream)   # the launch held against the plain
+    ekept = [ek.clone()] if ek is not None else []
+    emit_ms = cuda_ms(lambda: lib.aggregate_emit(eargs, stream), reps=5)
+
+    def plain_emit():
+        e = er.clone() if er is not None else None
+        return per_slot(lambda sl, q, b, c, n: G.aggregate_emit_ref(
+            eop, sl, q, b, c, n, e), eb.ts.shape[0], esl, eq, eb, eoc,
+            eon), e
+    emit_plain, (reo, ree) = _timed(plain_emit, 1)
+    err = max(err, compare(f"K6[K] emission at the path's shape "
+                           f"{list(eb.ts.shape)}", _bl(eout) + ekept,
+                           _bl(reo) + ([ree] if ree is not None else [])))
+    del reo
+    print(f"K9p, K5[K] and K6[K] (step and emission) at partition_avg's "
+          f"shapes: bit-equal to their plain versions on the same "
+          f"arguments (max abs error {err})", flush=True)
+    Kw, Bw = wb.ts.shape
+    # the block's batch columns are shared by the slots: read once
+    win_bytes = _slot_bytes(wb) + _nbytes(_bl(wout)) + \
+        2 * _nbytes(tree_leaves(wst))
+    k5_bound, k5_by = bound_of(win_bytes, Kw * (wargs.N + wargs.P))
+    agg_bytes = _nbytes([akind, avalid]) + \
+        _nbytes([t for c in (kc + [a for a in ac if a is not None])
+                 for t in c]) + 2 * _nbytes(tree_leaves(ast)) + \
+        akind.numel() * (8 + 1) * len(aop.agg_specs)
+    k6_bound, k6_by = bound_of(agg_bytes, akind.numel() * 8)
+    # the emission: the qualifying flags, the slots and the rows in, the
+    # rows out
+    emit_bytes = _nbytes([esl, eq]) + _slot_bytes(eb) + \
+        _nbytes(list(eoc) + list(eon)) + _nbytes(_bl(eout))
+    emit_bound, emit_by = bound_of(emit_bytes, eb.ts.numel() * 8)
+    torch.cuda.synchronize()
+    print(f"K9p at partition_avg's step ({k9['shape'][0]} slots, "
+          f"{k9['shape'][1]} rows routed, {k9['shape'][2]} rows compacted "
+          f"to {k9['shape'][3]}): route {k9['route_ms']:.4f} ms + compaction "
+          f"{k9['compact_ms']:.4f} ms, plain version {k9['plain_ms']:.3f} ms, "
+          f"torch.sort(stable) + gathers {k9['library_ms']:.4f} ms, bound "
+          f"{k9['bound_ms']:.5f} ms ({k9['bound_by']}); {card}", flush=True)
+    print(f"window_step[K] (K5, length(10), {Kw} slots x {Bw} rows): "
+          f"{k5_ms:.3f} ms, plain version (once per slot) {k5_plain:.1f} ms, "
+          f"bound {k5_bound:.4f} ms ({k5_by}); aggregate_step[K] (K6, avg, "
+          f"{list(akind.shape)}): {k6_ms:.3f} ms, plain version "
+          f"{k6_plain:.1f} ms, bound {k6_bound:.4f} ms ({k6_by}); "
+          f"aggregate_emit[K] ({list(eb.ts.shape)}): {emit_ms:.3f} ms, "
+          f"plain version {emit_plain:.1f} ms, bound {emit_bound:.4f} ms "
+          f"({emit_by}); {card}", flush=True)
+    _kernels.LAUNCHES.update(launches)
+    rt.shutdown()
+    del outs, cap
+    gc.collect()
+    return {"events_per_s_device_batches": eps, "rows": len(ots),
+            "p50_ms_send": p50, "p99_ms_send": p99, "launches": launches,
+            "k9": k9, "k5_ms": k5_ms, "k5_plain_ms": k5_plain,
+            "k5_bound_ms": k5_bound, "k5_bound_by": k5_by, "k6_ms": k6_ms,
+            "k6_plain_ms": k6_plain, "k6_bound_ms": k6_bound,
+            "k6_bound_by": k6_by, "emit_ms": emit_ms,
+            "emit_plain_ms": emit_plain, "emit_bound_ms": emit_bound,
+            "emit_bound_by": emit_by, "err": err, "card": card}
+
+
+def partition_fraud_phase(dev, card: str, n_sends: int = 64,
+                          absent_sends: int = 16) -> dict:
+    """partition_fraud: a per-card pattern (checks.PARTITION_FRAUD_APP:
+    every small purchase followed by a large one within 10 min) end to
+    end on the card through SiddhiManager, send_arrays and
+    batch_callbacks: 262,144 transactions of 1,024 Zipf-skewed cards in
+    64 sends of 4,096, at 2,048 slots, every alert against
+    checks.fraud_oracle in order (timestamp, card, amount exact; the
+    oracle's slot table, no pending table or match batch past its
+    capacity). Then the per-customer absence of
+    AbsentPatternTestCase.testQueryAbsent43 (checks.PARTITION_ABSENT_APP)
+    over 65,536 visits of 1,024 customers in 16 sends of 4,096, the
+    clock then driven 2 s past the last visit so that the scheduler's
+    TIMER step fires every pending deadline; its alerts against
+    checks.absent_oracle (a deadline fires in the step that passes it,
+    so the rows compare sorted by (timestamp, customer); each output
+    batch is in timestamp order). The launch counters must show K9p's
+    route, compaction and due, K4 with the slot axis (stream and timer
+    steps) and K2. Then events/s, latency of a send, and K4's time with
+    the slot axis at the fraud step's shape against its plain version
+    (whose table and matches must equal the kernel's, bit for bit, on
+    the same table and batch) and its bound; the absence's latency of a
+    send and K9p's due at its shape, held against its plain version."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    from siddhi_tpu_torch.ops import nfa as NF
+    enc = GLOBAL_STRINGS.encode
+    SEND = 4096
+    N = n_sends * SEND
+    ts_all, cols_all = C.txn_feed(N + 16 * SEND, enc)
+    mgr = SiddhiManager()
+    rt = mgr.create_siddhi_app_runtime(C.PARTITION_FRAUD_APP)
+    outs = []
+    rt.queries["q"].batch_callbacks.append(outs.append)
+    rt.start()
+    h = rt.get_input_handler("Txn")
+    h.send_arrays(ts_all[N:N + SEND], [c[N:N + SEND] for c in cols_all])
+    torch.cuda.synchronize()
+    rt.shutdown()
+    # the measured run: a fresh runtime (the warm one's table is not the
+    # oracle's)
+    rt = mgr.create_siddhi_app_runtime(C.PARTITION_FRAUD_APP)
+    outs = []
+    rt.queries["q"].batch_callbacks.append(outs.append)
+    rt.start()
+    h = rt.get_input_handler("Txn")
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    for s in range(0, N, SEND):
+        h.send_arrays(ts_all[s:s + SEND], [c[s:s + SEND] for c in cols_all])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    for k in ("partition_route", "nfa_scan[K]", "partition_compact"):
+        if launches[k] != n_sends:
+            fail(f"partition_fraud: {k} launched {launches[k]} times, the "
+                 f"steps {n_sends}")
+    ots, ocols, onulls = C.emitted_columns(outs)
+    wts, wcard, wamt, wlost, max_pend, max_step = C.fraud_oracle(
+        ts_all[:N], *[c[:N] for c in cols_all], send=SEND,
+        K=rt.partitions["partition_1"].K)
+    if max_pend >= 32 or max_step >= 64:
+        fail(f"partition_fraud: the feed needs {max_pend} pending rows, "
+             f"{max_step} matches a step (32, 64)")
+    if not (np.array_equal(ots, wts) and np.array_equal(ocols[0], wcard)
+            and np.array_equal(bits_np(ocols[1]), bits_np(wamt))
+            and not any(n.any() for n in onulls)):
+        fail(f"partition_fraud: {len(ots)} alerts, the oracle {len(wts)}")
+    st = rt.queries["q"].stats()
+    if st != {"emitted": len(wts), "overflow": wlost}:
+        fail(f"partition_fraud: stats {st}, the oracle {len(wts)}, "
+             f"{wlost}")
+    eps = N / wall
+    _report("partition_fraud", N, SEND, n_sends, len(ots), eps, launches,
+            card, f" (overflow {wlost}; at most {max_pend} pending matches "
+            f"of a card, {max_step} matches of a card in a send)")
+    chunk = _chunker(ts_all, cols_all, N)
+    with _Capture([(NF, "scan_step", lambda *a: a[3].ts.dim() == 2)]) as cap:
+        p50, p99 = _latency(h, chunk, SEND, 8)
+    print(f"partition_fraud latency per send: {SEND} rows p50 {p50:.3f} ms, "
+          f"p99 {p99:.3f} ms ({card})", flush=True)
+    # K4 with the slot axis at the fraud step's shape, on one step's
+    # captured batch and a copy of the block's table: one launch held
+    # against the plain version on the same table and batch (bit for
+    # bit), then the launch alone timed, the table restored before each
+    # (K4 updates it in place)
+    from siddhi_tpu_torch.ops.slots import per_slot
+    eng, sid, table, batch = cap.args["scan_step"][:4]
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    pre = tree_clone(table)
+    work = tree_clone(pre)
+    lead = tuple(work["state"].shape[:-1])
+    kout = NF.kernel_out(eng, dev, lead)
+    sargs = NF.scan_args(eng, sid, work, batch, 0, kout, None, dev)
+    lib.nfa_scan(sargs, stream)
+    k4_plain, (rt_, rm) = _timed(lambda: per_slot(
+        lambda t, b: eng.stream_step_ref(sid, t, b), batch.ts.shape[0],
+        tree_clone(pre), batch), 1)
+    kmatch = [kout["ts"], *kout["cols"], *kout["nulls"], kout["kind"],
+              kout["valid"]]
+    err = compare(f"K4[K] stream step at the path's shape "
+                  f"{list(batch.ts.shape)}",
+                  tree_leaves(work) + kmatch, tree_leaves(rt_) + _bl(rm))
+    print(f"K4[K] at partition_fraud's shape: bit-equal to its plain "
+          f"version on the same table and batch (max abs error {err})",
+          flush=True)
+    del rt_, rm
+    wl, pl = tree_leaves(work), tree_leaves(pre)
+
+    def restore():
+        for w, p_ in zip(wl, pl):
+            w.copy_(p_)
+    k4_ms = _launch_ms(restore, lambda: lib.nfa_scan(sargs, stream), reps=3)
+    # the batch's columns are the block's, shared by the slots: read once
+    k4_bytes = _slot_bytes(batch) + 2 * _nbytes(tree_leaves(table)) + \
+        _nbytes([kout["ts"], kout["valid"], kout["kind"], *kout["cols"],
+                 *kout["nulls"]])
+    Kf, Bf = batch.ts.shape
+    k4_bound, k4_by = bound_of(k4_bytes, Kf * Bf * len(eng.program.code))
+    print(f"nfa_scan[K] (K4, {Kf} slots x {Bf} events, {eng.M} rows a "
+          f"slot): {k4_ms:.3f} ms, plain version (once per slot) "
+          f"{k4_plain:.1f} ms, bound {k4_bound:.5f} ms ({k4_by}); {card}",
+          flush=True)
+    _kernels.LAUNCHES.update(launches)
+    rt.shutdown()
+    del outs, cap
+    gc.collect()
+
+    # the per-customer absence, fired by the scheduler's TIMER step
+    AS = 4096
+    NA = absent_sends * AS
+    ts_a, cols_a = C.customer_feed(NA + 9 * AS, enc)
+    # the latency sends: the same feed's tail, 3 s past the alerts' clock
+    ts_x, cols_x = ts_a[NA:] + 3000, [c[NA:] for c in cols_a]
+    ts_a, cols_a = ts_a[:NA], [c[:NA] for c in cols_a]
+    rt = mgr.create_siddhi_app_runtime(C.PARTITION_ABSENT_APP)
+    outs = []
+    rt.queries["q"].batch_callbacks.append(outs.append)
+    rt.start()
+    h = rt.get_input_handler("CustomerStream")
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    for s in range(0, NA, AS):
+        h.send_arrays(ts_a[s:s + AS], [c[s:s + AS] for c in cols_a])
+    with rt.barrier:
+        rt.on_ingest_ts(int(ts_a[-1]) + 2000)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    la = dict(_kernels.LAUNCHES)
+    if la["partition_route"] != absent_sends or \
+            la["nfa_scan[K]"] <= absent_sends or la["partition_due"] == 0:
+        fail(f"partition_absent: launches {la} (a timer step is a K4 launch "
+             f"beyond the {absent_sends} stream steps)")
+    for o in outs:
+        v = o.valid.cpu().numpy()
+        t = o.ts.cpu().numpy()[v]
+        if (np.diff(t) < 0).any():
+            fail("partition_absent: an output batch is not in ts order")
+    ots, ocols, _on = C.emitted_columns(outs)
+    wts, wcust, wlost = C.absent_oracle(ts_a, cols_a[0], send=AS,
+                                        K=rt.partitions["partition_1"].K)
+    order = np.lexsort((ocols[0], ots))
+    if not (np.array_equal(ots[order], wts)
+            and np.array_equal(ocols[0][order], wcust)):
+        fail(f"partition_absent: {len(ots)} alerts, the oracle {len(wts)}")
+    st = rt.queries["q"].stats()
+    if st != {"emitted": len(wts), "overflow": wlost}:
+        fail(f"partition_absent: stats {st}, the oracle {len(wts)}, "
+             f"{wlost}")
+    eps_a = NA / wall_a
+    _report("partition_absent", NA, AS, absent_sends, len(ots), eps_a, la,
+            card, " (sorted by timestamp and customer; the last deadlines "
+            "fired by the scheduler's TIMER step)")
+    from siddhi_tpu_torch.parallel import partition as P
+    with _Capture([(P, "min_due", lambda *a: True)]) as cap:
+        p50a, p99a = _latency(h, _chunker(ts_x, cols_x, 0), AS, 8)
+    print(f"partition_absent latency per send: {AS} rows p50 {p50a:.3f} ms, "
+          f"p99 {p99a:.3f} ms ({card})", flush=True)
+    # K9p's due at this block's shape (2,048 slot dues of one query)
+    (dues,) = cap.args["min_due"]
+    dout, dargs = P.due_args(dues)
+    due_ms = cuda_ms(lambda: lib.partition_due(dargs, stream), reps=50)
+    due_plain, rdue = _timed(lambda: P.min_due_ref(dues), 20)
+    err = max(err, compare("K9p due at the path's shape", [dout], [rdue]))
+    print(f"K9p due ({sum(d.numel() for d in dues)} slot dues): "
+          f"{due_ms:.5f} ms, plain version {due_plain:.4f} ms ({card})",
+          flush=True)
+    rt.shutdown()
+    del outs, cap
+    gc.collect()
+    return {"events_per_s_device_batches": eps, "rows": len(wts),
+            "p50_ms_send": p50, "p99_ms_send": p99, "launches": launches,
+            "absent_launches": la, "absent_events_per_s": eps_a,
+            "absent_p50_ms_send": p50a, "absent_p99_ms_send": p99a,
+            "due_ms": due_ms, "due_plain_ms": due_plain,
+            "k4_ms": k4_ms, "k4_plain_ms": k4_plain, "k4_bound_ms": k4_bound,
+            "k4_bound_by": k4_by, "err": err, "card": card}
+
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3755,11 +4528,13 @@ def main() -> None:
     # first (window_ext_*'s, then window_time_grouped's), so that their
     # codes, and the probes, do not depend on the order of the phases
     # (and the keyed paths' cards and users, after them)
-    from siddhi_tpu_torch.checks import (FRAUD_CARDS, SESSION_USERS,
-                                         card_symbols, time_symbols,
-                                         user_symbols)
+    from siddhi_tpu_torch.checks import (FRAUD_CARDS, FRAUD_TXN_CARDS,
+                                         SESSION_USERS, card_symbols,
+                                         time_symbols, user_symbols)
     for sym in time_symbols(512, "T") + time_symbols(1500, "K") + \
-            user_symbols(SESSION_USERS) + card_symbols(FRAUD_CARDS):
+            user_symbols(SESSION_USERS) + card_symbols(FRAUD_CARDS) + \
+            card_symbols(FRAUD_TXN_CARDS, "TX") + \
+            [f"CU{i:05d}" for i in range(1024)]:
         GLOBAL_STRINGS.encode(sym)
 
     # -- 2. build, then K1 against its plain version -------------------------
@@ -4209,7 +4984,49 @@ def main() -> None:
         "bound_by": ds512["h_bound_by"],
         "library_ms": ds512["h_library_ms"]})
 
-    # -- 31. result -----------------------------------------------------------
+    # -- 31. to 34. slice 9: partition blocks (K9p; K4, K5 and K6 with the
+    # slot axis); partition_avg, partition_fraud and the per-customer
+    # absence
+    k9_err = partition_against_plain(dev)
+    pa = partition_avg_phase(dev, card)
+    pf = partition_fraud_phase(dev, card)
+    k9 = pa["k9"]
+    part_err = max(k9_err, pa["err"], pf["err"])
+    part_runs = (pa["launches"], pf["launches"], pf["absent_launches"])
+
+    def part_launches(*names):
+        return sum(r[k] for r in part_runs for k in names)
+    for row in table:
+        if row["name"] == "expr_eval":
+            row["launches"] += part_launches("expr_eval")
+    table.append({
+        "name": "partition", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/partition.cu",
+        "replaces": "siddhi_tpu/parallel/partition.py:332",
+        "launches": part_launches("partition_route", "partition_compact",
+                                  "partition_due"),
+        "max_abs_err": part_err, "ms": k9["ms"] + pf["due_ms"],
+        "plain_ms": k9["plain_ms"] + pf["due_plain_ms"],
+        "bound_ms": k9["bound_ms"], "bound_by": k9["bound_by"],
+        "library_ms": k9["library_ms"]})
+    for kname, src, repl, pre, r in (
+            ("nfa_scan[K]", "siddhi_tpu_torch/csrc/nfa_scan.cu",
+             "siddhi_tpu/ops/nfa.py:638", "k4", pf),
+            ("window_step[K]", "siddhi_tpu_torch/csrc/window_step.cu",
+             "siddhi_tpu/ops/windows.py:113", "k5", pa),
+            ("aggregate_step[K]", "siddhi_tpu_torch/csrc/aggregate_step.cu",
+             "siddhi_tpu/ops/aggregators.py:825", "k6", pa),
+            ("aggregate_emit[K]", "siddhi_tpu_torch/csrc/aggregate_step.cu",
+             "siddhi_tpu/ops/aggregators.py:825", "emit", pa)):
+        table.append({
+            "name": kname, "route": "cuda", "source": src, "replaces": repl,
+            "launches": part_launches(kname),
+            "max_abs_err": part_err, "ms": r[f"{pre}_ms"],
+            "plain_ms": r[f"{pre}_plain_ms"],
+            "bound_ms": r[f"{pre}_bound_ms"],
+            "bound_by": r[f"{pre}_bound_by"], "library_ms": None})
+
+    # -- 35. result -----------------------------------------------------------
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,17 +34,22 @@ SOURCES = {"unpack_packed": "unpack_packed.cu", "expr_eval": "expr_eval.cu",
            "aggregate_step": "aggregate_step.cu",
            "join_cross": "join_cross.cu", "table_step": "table_step.cu",
            "session_step": "session_step.cu", "order_by": "order_by.cu",
-           "union_set": "union_set.cu"}
+           "union_set": "union_set.cu", "partition": "partition.cu"}
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 # entry points counted apart: the aggregate step's emission; K7's probe
-# and grid; K8's write, condition pass, index probe and seq-ordered view
+# and grid; K8's write, condition pass, index probe and seq-ordered view;
+# K9p's route, compaction and due; and the launches of K4, K5 and K6 with
+# a partition block's slot axis ("[K]")
 ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
                 "window_step", "sort_window", "aggregate_step",
                 "sliding_minmax", "distinct_count", "aggregate_emit",
                 "join_probe", "join_grid", "table_write", "table_match",
                 "table_probe", "table_buffer", "freq_window",
-                "session_window", "order_by", "union_set")
+                "session_window", "order_by", "union_set",
+                "partition_route", "partition_compact", "partition_due",
+                "nfa_scan[K]", "window_step[K]", "aggregate_step[K]",
+                "aggregate_emit[K]")
 LAUNCHES = {name: 0 for name in ENTRY_POINTS}
 
 
@@ -241,7 +246,9 @@ class ScanArgs(ctypes.Structure):
         ("out_type", _I32 * NFA_MAX_MATCH_COLS)] + [
         (f, _P) for f in ("out_ts", "out_n", "out_valid", "out_kind", "due",
                           "code", "consts", "loads")] + [
-        (f, _I32) for f in ("n_code", "n_consts", "n_loads")]
+        (f, _I32) for f in ("n_code", "n_consts", "n_loads", "n_ev_cols")] + [
+        ("ev_size", _I32 * NFA_MAX_EV_COLS), ("n_part", _I64),
+        ("moves", _P), ("n_moves", _I64)]
 
 
 WIN_MAX_COLS = 16
@@ -271,7 +278,8 @@ class WindowArgs(ctypes.Structure):
             "expired_enabled", "stream_current", "has_start", "ts_idx",
             "start_attr", "has_timeout", "replace_ts")] + [
         (f, _I64) for f in ("length", "span_ms", "start_time", "timeout_ms",
-                            "hop_ms")]
+                            "hop_ms", "n_part")] + [
+        ("moves", _P), ("n_moves", _I64)]
 
 
 SORT_MAX_KEYS = 8
@@ -377,7 +385,8 @@ class AggArgs(ctypes.Structure):
             "slot_last", "tree", "tree_seg", "res")] + [
         ("level_off", _I64 * AGG_MAX_LEVELS),
         ("level_n", _I64 * AGG_MAX_LEVELS), ("n_levels", _I32),
-        ("spec_contrib", _P * AGG_MAX_SPECS)]
+        ("spec_contrib", _P * AGG_MAX_SPECS), ("n_part", _I64),
+        ("moves", _P), ("n_moves", _I64)]
 
 
 class StatArgs(ctypes.Structure):
@@ -402,7 +411,8 @@ class EmitArgs(ctypes.Structure):
         ("out_cols", _P * AGG_MAX_OUTS), ("out_nulls", _P * AGG_MAX_OUTS)] + [
         (f, _P) for f in (
             "emitted", "ovalid", "emit_order", "pos", "flag", "qkeys", "k1",
-            "k2", "i1", "i2", "perm2", "counts", "chunk", "gstart", "scal")]
+            "k2", "i1", "i2", "perm2", "counts", "chunk", "gstart", "scal")] + [
+        ("n_part", _I64), ("moves", _P), ("n_moves", _I64)]
 
 
 JOIN_MAX_COLS = 16
@@ -478,6 +488,41 @@ class TableArgs(ctypes.Structure):
 
 
 # -- build -------------------------------------------------------------------
+
+PART_MAX_LABELS = 16
+PART_MAX_COLS = 32
+PART_MAX_QUERIES = 32
+
+
+class RouteArgs(ctypes.Structure):
+    _fields_ = [(f, _I32) for f in ("B", "K", "mode", "n_conds")] + [
+        ("kind", _P), ("valid", _P), ("key_col", _P), ("key_null", _P),
+        ("key_type", _I32), ("pad_", _I32),
+        ("cond_vals", _P * PART_MAX_LABELS),
+        ("cond_nulls", _P * PART_MAX_LABELS),
+        ("cond_slot", _I32 * PART_MAX_LABELS)] + [
+        (f, _P) for f in ("keys", "used", "overflow", "new_keys", "new_used",
+                          "new_overflow", "slots", "valid_k", "hk", "active",
+                          "prb", "flags", "claim")]
+
+
+class CompactArgs(ctypes.Structure):
+    _fields_ = [(f, _I32) for f in ("n", "out_cap", "n_cols", "pad_")] + [
+        ("ts", _P), ("kind", _P), ("valid", _P),
+        ("cols", _P * PART_MAX_COLS), ("nulls", _P * PART_MAX_COLS),
+        ("col_size", _I32 * PART_MAX_COLS),
+        ("out_ts", _P), ("out_kind", _P), ("out_valid", _P),
+        ("out_cols", _P * PART_MAX_COLS), ("out_nulls", _P * PART_MAX_COLS),
+        ("emitted", _P), ("lost", _P)] + [
+        (f, _P) for f in ("vpref", "sums", "k0", "k1", "k2", "i0", "i1",
+                          "i2", "inv_idx", "counts")]
+
+
+class DueArgs(ctypes.Structure):
+    _fields_ = [("n_q", _I32), ("pad_", _I32),
+                ("dues", _P * PART_MAX_QUERIES),
+                ("n", _I64 * PART_MAX_QUERIES), ("out", _P)]
+
 
 def _nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
@@ -592,6 +637,13 @@ class _Kernels:
             ctypes.POINTER(AggArgs), ctypes.POINTER(UnionArgs),
             ctypes.c_void_p]
         self.union_lib.siddhi_union_set.restype = ctypes.c_int
+        self.part_lib = ctypes.CDLL(str(libs["partition"]))
+        for fn, st in (("siddhi_partition_route", RouteArgs),
+                       ("siddhi_partition_compact", CompactArgs),
+                       ("siddhi_partition_due", DueArgs)):
+            getattr(self.part_lib, fn).argtypes = [ctypes.POINTER(st),
+                                                   ctypes.c_void_p]
+            getattr(self.part_lib, fn).restype = ctypes.c_int
         self.table_lib = ctypes.CDLL(str(libs["table_step"]))
         for fn in ("siddhi_table_write", "siddhi_table_match",
                    "siddhi_table_probe", "siddhi_table_buffer"):
@@ -685,6 +737,20 @@ class _Kernels:
 
     def table_buffer(self, args: TableArgs, stream: int) -> None:
         self._check("table_buffer", self.table_lib.siddhi_table_buffer(
+            ctypes.byref(args), stream))
+
+
+    def partition_route(self, args: RouteArgs, stream: int) -> None:
+        self._check("partition_route", self.part_lib.siddhi_partition_route(
+            ctypes.byref(args), stream))
+
+    def partition_compact(self, args: CompactArgs, stream: int) -> None:
+        self._check("partition_compact",
+                    self.part_lib.siddhi_partition_compact(
+                        ctypes.byref(args), stream))
+
+    def partition_due(self, args: DueArgs, stream: int) -> None:
+        self._check("partition_due", self.part_lib.siddhi_partition_due(
             ctypes.byref(args), stream))
 
 

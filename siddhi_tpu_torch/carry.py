@@ -8,7 +8,8 @@ columns and null masks, ``valid``), the aggregators' group tables
 (``keys``, ``used``, ``carry``, ``overflow``) and the counters come
 across as they are, with a window's STRING columns optionally mapped to
 the port's dictionary codes.
-``table_from_jax`` does the same for a table's state.
+``table_from_jax`` does the same for a table's state, ``block_from_jax``
+for a partition block's.
 ``strings_from_jax`` seeds the port's string dictionary so that its
 codes match the reference process's: both packages give strings codes
 in order of first sight, so dictionary-coded columns and string
@@ -93,6 +94,28 @@ def state_from_jax(snapshot: dict, device, string_cols: Sequence = (),
             int(np.asarray(snapshot["join_overflow"])), dtype=torch.int64,
             device=device)
     return state
+
+
+def block_from_jax(snapshot: dict, device, string_cols=None,
+                   remap=None) -> dict:
+    """A reference ``PartitionBlockRuntime.snapshot_state()`` (its slot
+    table, every query's [K]-stacked state, ``emitted`` and ``lost``)
+    -> the port's, for ``PartitionBlockRuntime.restore_state``. A
+    pattern query's state, (pending table, selector states), comes
+    across as it is. ``remap`` is applied to the STRING columns of every
+    window buffer, flagged per query by ``string_cols`` ({query name:
+    flags in its input's attribute order}), as in state_from_jax. The
+    slot table holds hashes of dictionary codes and carries over only
+    where both packages gave the feed's strings the same codes; the
+    rate limiters' state is not ported."""
+    qstates = snapshot["qstates"]
+    if remap is not None:
+        qstates = {qn: _remap_buffers(st, tuple((string_cols or {}).get(
+            qn, ())), remap) for qn, st in qstates.items()}
+    return {"slot_tbl": _tree(snapshot["slot_tbl"], device),
+            "qstates": _tree(qstates, device),
+            "emitted": _tree(snapshot["emitted"], device),
+            "lost": _tree(snapshot["lost"], device)}
 
 
 def table_from_jax(tstate: dict, device, string_cols: Sequence = (),

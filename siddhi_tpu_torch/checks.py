@@ -2781,3 +2781,285 @@ def ulp_gap(a, b) -> int:
     d = np.abs(ordered(a) - ordered(b))
     d[np.isnan(a) & np.isnan(b)] = 0
     return int(d.max())
+
+
+# -- partition blocks (parallel/partition.py: K9p; K4, K5 and K6 with the
+# slot axis) -------------------------------------------------------------
+
+PART_STREAM = """
+    @app:playback
+    define stream S (sym string, price double, volume long, stage int);
+"""
+
+# small blocks over one feed, each through a different part of the slot
+# axis: value and range keys, K5's kinds, K6 plain and grouped, inner
+# streams, key overflow, timers, the scan engine's stream and timer steps
+PARTITION_APPS = {
+    "value key, length window": PART_STREAM + """
+    @slots('8')
+    partition with (sym of S) begin
+      @info(name = 'q')
+      from S#window.length(3)
+      select sym, avg(price) as ap, sum(volume) as sv, count() as n,
+             stdDev(price) as sd
+      insert all events into Out;
+    end;
+""",
+    "range key, time window": PART_STREAM + """
+    partition with (price < 30 as 'lo' or price < 70 as 'mid' or
+                    price >= 70 as 'hi' of S) begin
+      @info(name = 'q')
+      from S#window.time(40 milliseconds)
+      select sym, sum(price) as sp, count() as n
+      insert all events into Out;
+    end;
+""",
+    "inner stream, group by": PART_STREAM + """
+    @slots('8')
+    partition with (sym of S) begin
+      from S[price > 20] select sym, stage, price * 2 as p2, volume
+      insert into #I;
+      @info(name = 'q')
+      from #I select sym, stage, sum(p2) as t, count() as n
+      group by stage insert into Out;
+    end;
+""",
+    "key overflow, two queries": PART_STREAM + """
+    @slots('4')
+    partition with (sym of S) begin
+      @info(name = 'q')
+      from S[price > 50] select sym, price, volume insert into Out;
+      from S select sym, volume * 2 as v2 insert into Out2;
+    end;
+""",
+    "timeBatch, timers": PART_STREAM + """
+    @slots('8')
+    partition with (sym of S) begin
+      @info(name = 'q')
+      from S#window.timeBatch(50 milliseconds)
+      select sym, sum(volume) as sv, count() as n insert into Out;
+    end;
+""",
+    "lengthBatch, all events": PART_STREAM + """
+    @slots('8')
+    partition with (sym of S) begin
+      @info(name = 'q')
+      from S#window.lengthBatch(4)
+      select sym, avg(price) as ap, count() as n insert all events into Out;
+    end;
+""",
+    "pattern, within": PART_STREAM + """
+    @slots('8')
+    partition with (sym of S) begin
+      @info(name = 'q')
+      from every e1=S[stage == 1] -> e2=S[stage == 2 and price > e1.price]
+           within 60 milliseconds
+      select e1.sym as sym, e1.price as p1, e2.price as p2
+      insert into Out;
+    end;
+""",
+    "absent, timer step": PART_STREAM + """
+    @slots('8')
+    partition with (sym of S) begin
+      @info(name = 'q')
+      from every e1=S[stage == 1] -> not S[stage == 3] for 30 milliseconds
+      select e1.sym as sym, e1.volume as v
+      insert into Out;
+    end;
+""",
+}
+
+
+def partition_feed(n: int, encode, n_syms: int = 6, seed: int = 41,
+                   prefix: str = "PA"):
+    """PARTITION_APPS' feed: timestamps from TS0 with gaps of 1-5 ms;
+    symbols uniform over ``n_syms``; price ~ U(0, 100) to the cent;
+    volume ~ U[1, 1000); stage ~ U[0, 4). -> (ts, [sym codes, price,
+    volume, stage], send cuts of uneven sizes)."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([encode(f"{prefix}{i:02d}") for i in range(n_syms)],
+                    np.int32)
+    ts = TS0 + np.cumsum(rng.integers(1, 6, n)).astype(np.int64)
+    sym = syms[rng.integers(0, n_syms, n)]
+    price = np.round(rng.uniform(0, 100, n), 2)
+    vol = rng.integers(1, 1000, n, dtype=np.int64)
+    stage = rng.integers(0, 4, n).astype(np.int32)
+    cuts = [0]
+    while cuts[-1] < n:
+        cuts.append(min(n, cuts[-1] + int(rng.integers(1, 300))))
+    return ts, [sym, price, vol, stage], tuple(cuts)
+
+
+# the Siddhi query guide's partition example: a per-symbol running
+# average through an inner stream
+PARTITION_AVG_APP = """
+    @app:playback
+    define stream StockStream (symbol string, price float, volume long);
+    @slots('1024')
+    partition with (symbol of StockStream) begin
+      @info(name = 'avg')
+      from StockStream#window.length(10)
+      select symbol, avg(price) as avgPrice, volume
+      insert into #AvgStream;
+      @info(name = 'q')
+      from #AvgStream[avgPrice > 75]
+      select symbol, avgPrice, volume
+      insert into OutStream;
+    end;
+"""
+
+
+def _slot_steps(codes, send: int, K: int):
+    """The block's slot table over sends of ``send`` rows (one step
+    each): -> (each row's slot or -1, the rows that found none)."""
+    tkeys = np.zeros(K, np.int64)
+    used = np.zeros(K, bool)
+    slots = np.full(len(codes), -1, np.int64)
+    lost = 0
+    for s in range(0, len(codes), send):
+        keys = np_hash(codes[s:s + send])
+        res, tkeys, used, ov = np_lookup_or_insert(
+            tkeys, used, keys, np.ones(len(keys), bool))
+        slots[s:s + send] = res
+        lost += ov
+    return slots, lost
+
+
+def partition_avg_oracle(ts, sym, price, vol, send: int = 8192,
+                         K: int = 1024, length: int = 10):
+    """PARTITION_AVG_APP independently: the slot table per send (rows of
+    a symbol without a slot are dropped and counted), then each kept
+    row's symbol's average over its last ``length`` prices (float32
+    widened, summed in float64 with math.fsum), the rows whose average
+    is above 75. -> (ts, sym, avg, volume of the rows out, overflow)."""
+    import math
+    from collections import deque
+    slots, lost = _slot_steps(sym, send, K)
+    wins: dict = {}
+    keep = []
+    avgs = []
+    p64 = price.astype(np.float64)
+    for i in np.flatnonzero(slots >= 0):
+        w = wins.setdefault(int(sym[i]), deque(maxlen=length))
+        w.append(p64[i])
+        a = math.fsum(w) / len(w)
+        if a > 75:
+            keep.append(i)
+            avgs.append(a)
+    keep = np.array(keep, np.int64)
+    return ts[keep], sym[keep], np.array(avgs), vol[keep], lost
+
+
+PARTITION_FRAUD_APP = """
+    @app:playback
+    define stream Txn (card string, amount double);
+    @slots('2048')
+    partition with (card of Txn) begin
+      @info(name = 'q')
+      from every e1=Txn[amount < 10] -> e2=Txn[amount > 1000]
+           within 10 min
+      select e1.card, e2.amount
+      insert into Alert;
+    end;
+"""
+FRAUD_TXN_CARDS = 1024
+
+
+def txn_feed(n: int, encode, n_cards: int = FRAUD_TXN_CARDS, seed: int = 42,
+             prefix: str = "TX"):
+    """Card transactions: timestamps from TS0 with gaps of 1-2,000 ms
+    (strictly increasing); the card by Zipf-skewed use (rank ~
+    Zipf(1.3) folded into ``n_cards``, as window_frequent's); the amount
+    under 10 for 1 % of rows, over 1,000 for 1 %, else in [10, 1000], to
+    the cent. -> (ts, [card codes, amount])."""
+    rng = np.random.default_rng(seed)
+    cards = np.array([encode(s) for s in card_symbols(n_cards, prefix)],
+                     np.int32)
+    ts = TS0 + np.cumsum(rng.integers(1, 2001, n)).astype(np.int64)
+    rank = (rng.zipf(1.3, n) - 1) % n_cards
+    u = rng.random(n)
+    amount = np.where(u < 0.01, rng.uniform(0.01, 9.99, n),
+                      np.where(u < 0.02, rng.uniform(1000.01, 5000, n),
+                               rng.uniform(10, 1000, n)))
+    return ts, [cards[rank], np.round(amount, 2)]
+
+
+def fraud_oracle(ts, card, amount, send: int = 4096, K: int = 2048,
+                 within_ms: int = 600_000):
+    """PARTITION_FRAUD_APP independently: the slot table per send; per
+    card, every amount under 10 opens a pending match, and the next
+    amount over 1,000 of that card completes each pending match at most
+    ``within_ms`` old, in the order they opened. -> (ts, card, amount of
+    the rows out, overflow, the most pending matches of a card, the most
+    matches of a card in one send)."""
+    slots, lost = _slot_steps(card, send, K)
+    pend: dict = {}
+    rows = []
+    max_pend = max_step = 0
+    step_count: dict = {}
+    step = -1
+    for i in np.flatnonzero(slots >= 0):
+        c = int(card[i])
+        p = pend.setdefault(c, [])
+        if i // send != step:
+            step, step_count = i // send, {}
+        if amount[i] > 1000:
+            live = [t for t in p if ts[i] - t <= within_ms]
+            for _t in live:
+                rows.append(i)
+            step_count[c] = step_count.get(c, 0) + len(live)
+            max_step = max(max_step, step_count[c])
+            p.clear()
+        elif amount[i] < 10:
+            p[:] = [t for t in p if ts[i] - t <= within_ms]
+            p.append(ts[i])
+            max_pend = max(max_pend, len(p))
+    rows = np.array(rows, np.int64)
+    return ts[rows], card[rows], amount[rows], lost, max_pend, max_step
+
+
+# AbsentPatternTestCase.testQueryAbsent43's shape: per-customer absence
+PARTITION_ABSENT_APP = """
+    @app:playback
+    define stream CustomerStream (customerId string);
+    @slots('2048')
+    partition with (customerId of CustomerStream) begin
+      @info(name = 'q')
+      from e1=CustomerStream
+           -> not CustomerStream[customerId == e1.customerId] for 1 sec
+      select e1.customerId insert into OutputStream;
+    end;
+"""
+
+
+def customer_feed(n: int, encode, n_cust: int = 1024, seed: int = 43,
+                  prefix: str = "CU"):
+    """Customer visits: timestamps from TS0 with gaps of 1-40 ms; the
+    customer by Zipf-skewed use (Zipf(1.3) folded into ``n_cust``).
+    -> (ts, [customer codes])."""
+    rng = np.random.default_rng(seed)
+    cust = np.array([encode(f"{prefix}{i:05d}") for i in range(n_cust)],
+                    np.int32)
+    ts = TS0 + np.cumsum(rng.integers(1, 41, n)).astype(np.int64)
+    rank = (rng.zipf(1.3, n) - 1) % n_cust
+    return ts, [cust[rank]]
+
+
+def absent_oracle(ts, cust, send: int = 4096, K: int = 2048,
+                  wait_ms: int = 1000):
+    """PARTITION_ABSENT_APP independently, the clock then driven past
+    every deadline: a customer with a slot alerts at its first visit +
+    ``wait_ms`` unless it visits again by then. -> (alert ts, customer)
+    sorted by (ts, customer), and the overflow."""
+    slots, lost = _slot_steps(cust, send, K)
+    first: dict = {}
+    again: set = set()
+    for i in np.flatnonzero(slots >= 0):
+        c = int(cust[i])
+        if c not in first:
+            first[c] = int(ts[i])
+        elif c not in again and ts[i] - first[c] <= wait_ms:
+            again.add(c)
+    out = sorted((t + wait_ms, c) for c, t in first.items() if c not in again)
+    return (np.array([t for t, _ in out], np.int64),
+            np.array([c for _, c in out], np.int32), lost)

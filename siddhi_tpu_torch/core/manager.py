@@ -32,7 +32,10 @@ class SiddhiManager:
         self.device = resolve_device(device)
         self.app_runtimes: dict[str, SiddhiAppRuntime] = {}
 
-    def create_siddhi_app_runtime(self, source) -> SiddhiAppRuntime:
+    def create_siddhi_app_runtime(self, source,
+                                  partition_mesh=None) -> SiddhiAppRuntime:
+        if partition_mesh is not None:
+            raise NotImplementedError("not ported yet: partition_mesh")
         if isinstance(source, str):
             app_ast = parse(source)
         elif isinstance(source, A.SiddhiApp):

@@ -34,15 +34,21 @@ seq-ordered view (K8 table_buffer), then the selector. Table outputs
 and IN-table filters run K8 (ops/table.py); on-demand queries over
 tables run in core/ondemand.py.
 
+A partition block (``partition with ... begin ... end``) runs as
+parallel/partition.py's PartitionBlockRuntime: K9p routes each row to
+its key slot, the inner queries run K2 and K4, K5 and K6 with the slot
+axis, and K9p compacts each outer query's output (plan_partition).
+
 The port plans single-stream queries with filters, one window of any
 kind but cron, and a plain or aggregating selector with having,
 order-by, offset and limit (kernel G; a STRING order-by shapes the
 decoded rows at the host edge, ``_host_shape_rows``); insert-into
 chains between them; pattern and sequence queries; joins of two
-streams or of a stream and a table; and in-memory tables. The cron
-window, @Store tables, named windows, partitions, incremental
-aggregations, triggers, rate limiters, stream functions, sources and
-sinks raise NotImplementedError ("not ported yet") on every device.
+streams or of a stream and a table; in-memory tables; and partition
+blocks of single-stream and pattern queries (``_check_block_ops`` names
+what a block does not run yet). The cron window, @Store tables, named
+windows, incremental aggregations, triggers, rate limiters, sources
+and sinks raise NotImplementedError ("not ported yet") on every device.
 Window timers fire from the scheduler as in the reference
 (QueryRuntime._schedule / _on_timer).
 """
@@ -58,6 +64,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import _kernels
 from ..lang import ast as A
 from ..ops.aggregators import AggregateOp
 from ..ops.expr import CompileError, ProgramBuilder, SingleStreamScope, \
@@ -96,6 +103,9 @@ BATCH_BUCKETS = (16, 128, 1024, 8192, 65536, 262144, 1048576)
 # reference's cap, kept: the send path chunks to it, and a larger device
 # batch chained in from another query is split to it)
 SORT_HEAVY_CAP = 65536
+# the same cap inside a partition block: each of its steps runs every
+# operator over K slots (parallel/partition.py)
+PARTITION_SORT_HEAVY_CAP = 8192
 
 WINDOW_CLASSES = {
     "time": TimeWindowOp,
@@ -495,12 +505,9 @@ class QueryRuntime(Receiver):
         cap = self.max_step_capacity
         if cap is not None and batch.capacity > cap:
             # a device batch chained in from another query
-            for off in range(0, batch.capacity, cap):
-                sl = slice(off, off + cap)
-                self.process_batch(EventBatch(
-                    batch.ts[sl], tuple(c[sl] for c in batch.cols),
-                    tuple(n[sl] for n in batch.nulls), batch.kind[sl],
-                    batch.valid[sl]), timestamp, now=now, skip_due=skip_due)
+            for sub in split_batch(batch, cap):
+                self.process_batch(sub, timestamp, now=now,
+                                   skip_due=skip_due)
             return
         if now is None:
             now = self.app.current_time()
@@ -595,6 +602,16 @@ class QueryRuntime(Receiver):
             self._schedule(now + 1)
         else:
             self.process_batch(batch, due, now=now)
+
+
+def split_batch(batch: EventBatch, cap: int):
+    """Slice an oversized device batch into <= cap sub-batches (a batch
+    chained in from another query to a capacity-capped one)."""
+    for off in range(0, batch.capacity, cap):
+        sl = slice(off, off + cap)
+        yield EventBatch(batch.ts[sl], tuple(c[sl] for c in batch.cols),
+                         tuple(n[sl] for n in batch.nulls), batch.kind[sl],
+                         batch.valid[sl])
 
 
 def _tree_to(tree, device):
@@ -772,12 +789,8 @@ class PatternQueryRuntime(QueryRuntime):
         cap = self.max_step_capacity
         if cap is not None and batch.capacity > cap:
             # a device batch chained in from another query
-            for off in range(0, batch.capacity, cap):
-                sl = slice(off, off + cap)
-                self.process_pattern_batch(stream_id, EventBatch(
-                    batch.ts[sl], tuple(c[sl] for c in batch.cols),
-                    tuple(n[sl] for n in batch.nulls), batch.kind[sl],
-                    batch.valid[sl]), timestamp)
+            for sub in split_batch(batch, cap):
+                self.process_pattern_batch(stream_id, sub, timestamp)
             return
         now = self.app.current_time()
         self._last_now = max(self._last_now, int(now))
@@ -984,12 +997,9 @@ class JoinQueryRuntime(QueryRuntime):
                            is_timer: bool = False) -> None:
         cap = self.max_step_capacity
         if cap is not None and batch.capacity > cap:
-            for off in range(0, batch.capacity, cap):
-                sl = slice(off, off + cap)
-                self.process_side_batch(side, EventBatch(
-                    batch.ts[sl], tuple(c[sl] for c in batch.cols),
-                    tuple(n[sl] for n in batch.nulls), batch.kind[sl],
-                    batch.valid[sl]), timestamp, now=now, skip_due=skip_due)
+            for sub in split_batch(batch, cap):
+                self.process_side_batch(side, sub, timestamp, now=now,
+                                        skip_due=skip_due)
             return
         if not is_timer:
             # only event steps move the due-subsumption clock: a timer
@@ -1035,6 +1045,9 @@ class SiddhiAppRuntime:
         self.input_handlers: dict[str, InputHandler] = {}
         self.queries: dict[str, QueryRuntime] = {}
         self.tables: dict[str, TableRuntime] = {}
+        # partition blocks by name ("partition_1", ...); their queries'
+        # ports are in ``queries`` too
+        self.partitions: dict = {}
         # the planner's join kernel picks: {"<query>.<side>": {kernel,
         # reason, cause}}
         self.join_kernels: dict = {}
@@ -1231,9 +1244,12 @@ class Planner:
                                            device=app.device)
         # 2. queries in order; inferred output streams defined as we go
         qcount = 0
+        pcount = 0
         for el in ast.execution_elements:
-            if not isinstance(el, A.Query):
-                raise not_ported("partitions")
+            if isinstance(el, A.Partition):
+                pcount += 1
+                qcount = self.plan_partition(el, qcount, pcount)
+                continue
             qcount += 1
             self.plan_query(el, default_name=f"query_{qcount}")
 
@@ -1292,8 +1308,10 @@ class Planner:
     def build_single_chain(self, q: A.Query, name: str,
                            schema: StreamSchema, sin: A.SingleInputStream,
                            scope, target: str, current_on: bool,
-                           expired_on: bool) -> list:
-        """Handler chain + selector for a single-stream query
+                           expired_on: bool,
+                           allow_tables: bool = True) -> list:
+        """Handler chain + selector for a single-stream query, shared by
+        plan_query and the partition blocks' planning
         (= SingleInputStreamParser.parseInputStream + SelectorParser)."""
         needs_agg = selector_needs_aggregation(q.selector)
         cap_window, _pairs, _cands = self._cap_annotation(q)
@@ -1304,6 +1322,10 @@ class Planner:
                 # filters may stand before and after the window, in
                 # declaration order (SingleInputStreamParser.java:202-243)
                 if expr_mentions_table(h.expression):
+                    if not allow_tables:
+                        raise CompileError(
+                            f"query '{name}': table references inside "
+                            "partitions not yet supported")
                     operators.append(TableFilterOp(
                         h.expression, schema, self.app.tables, scope))
                     continue
@@ -1344,6 +1366,249 @@ class Planner:
                 q.selector, schema, target, scope,
                 current_on=current_on, expired_on=expired_on))
         return operators
+
+    # -- partitions ------------------------------------------------------
+    DEFAULT_PARTITION_SLOTS = 32
+    # the windows with a slot axis in kernel K5 (csrc/window_step.cu)
+    PARTITION_WINDOWS = (TimeWindowOp, LengthWindowOp, LengthBatchWindowOp,
+                         TimeBatchWindowOp)
+
+    def plan_partition(self, part: A.Partition, qcount: int,
+                       pcount: int) -> int:
+        """``partition with (...) begin ... end`` -> PartitionBlockRuntime
+        (reference: PartitionParser.java:46 + PartitionRuntimeImpl.java:75).
+        See parallel/partition.py for the slot-axis design."""
+        from ..parallel.partition import (BlockQueryPlan, BlockStreamReceiver,
+                                          KeySpec, PartitionBlockRuntime)
+        app = self.app
+        # 1. key specs per partitioned stream (shared instance space)
+        key_specs: dict = {}
+        label_slots: dict[str, int] = {}
+        has_value = False
+        for pt in part.partition_types:
+            schema = app.schemas.get(pt.stream_id)
+            if schema is None:
+                raise CompileError(
+                    f"partition: undefined stream '{pt.stream_id}'")
+            scope = SingleStreamScope(schema)
+            if isinstance(pt, A.ValuePartitionType):
+                has_value = True
+                key_specs[pt.stream_id] = KeySpec(
+                    "value", [compile_expression(pt.expression, scope)])
+            elif isinstance(pt, A.RangePartitionType):
+                conds, slots = [], []
+                for expr, label in pt.ranges:
+                    ce = compile_expression(expr, scope)
+                    if ce.type is not AttrType.BOOL:
+                        raise CompileError(
+                            "partition range condition must be BOOL")
+                    if label not in label_slots:
+                        label_slots[label] = len(label_slots)
+                    conds.append(ce)
+                    slots.append(label_slots[label])
+                if len(conds) > _kernels.PART_MAX_LABELS:
+                    # K9p's route reads one K2 output a condition
+                    raise not_ported(
+                        f"more than {_kernels.PART_MAX_LABELS} range "
+                        "conditions on one partitioned stream")
+                key_specs[pt.stream_id] = KeySpec("range", conds, slots)
+            else:
+                raise CompileError(
+                    f"unknown partition type {type(pt).__name__}")
+        # slot capacity: ranges are exactly the label count; value keys get
+        # a bounded first-seen table (@slots('N') overrides)
+        n_slots = len(label_slots) if (label_slots and not has_value) \
+            else max(self.DEFAULT_PARTITION_SLOTS, len(label_slots))
+        sa = A.find_annotation(part.annotations, "slots")
+        if sa is not None:
+            n_slots = int(sa.element())
+        if len(label_slots) > n_slots:
+            raise CompileError(
+                f"partition has {len(label_slots)} range labels but only "
+                f"{n_slots} slots; @slots must be >= the label count")
+
+        # 2. queries, in order; inner-stream (#S) schemas register as their
+        # producers are planned
+        inner_schemas: dict[str, StreamSchema] = {}
+        plans: list = []
+        block_names: set[str] = set()
+        for q in part.queries:
+            qcount += 1
+            name = q.name or f"query_{qcount}"
+            if name in app.queries or name in block_names:
+                raise CompileError(f"duplicate query name '{name}'")
+            block_names.add(name)
+            for ann in q.annotations:
+                if ann.name.lower() not in ("info", "cap"):
+                    raise not_ported(f"@{ann.name} on query '{name}'")
+            if q.output_rate is not None:
+                raise not_ported("output rate limiting inside a partition")
+            if isinstance(q.input, A.StateInputStream):
+                plan = self._plan_partition_pattern(q, name, key_specs)
+                if plan.inner_target:
+                    prev = inner_schemas.get(plan.target)
+                    if prev is not None and \
+                            prev.types != plan.out_schema.types:
+                        raise CompileError(
+                            f"inner stream '{plan.target}' schema "
+                            "mismatch between producers")
+                    inner_schemas[plan.target] = plan.out_schema
+                plans.append(plan)
+                continue
+            if not isinstance(q.input, A.SingleInputStream):
+                raise CompileError(
+                    f"query '{name}': only single-stream and pattern/"
+                    "sequence queries are supported inside partitions "
+                    "(joins in partitions are a later stage)")
+            sin = q.input
+            if sin.is_fault:
+                raise not_ported("fault and inner streams")
+            if sin.is_inner:
+                input_id = "#" + sin.stream_id
+                schema = inner_schemas.get(input_id)
+                if schema is None:
+                    raise CompileError(
+                        f"query '{name}': inner stream '{input_id}' has no "
+                        "producer earlier in this partition")
+            else:
+                input_id = sin.stream_id
+                schema = app.schemas.get(sin.stream_id)
+                if schema is None:
+                    raise CompileError(f"query '{name}': undefined stream "
+                                       f"'{sin.stream_id}'")
+                if sin.stream_id not in key_specs:
+                    raise CompileError(
+                        f"query '{name}': stream '{sin.stream_id}' is not "
+                        "partitioned (no 'partition with' clause names it)")
+            out = q.output
+            if not isinstance(out, (A.InsertIntoStream, A.ReturnStream)):
+                raise CompileError(
+                    f"query '{name}': table output inside partitions not "
+                    "yet supported")
+            out_type = out.output_event_type
+            inner_target = bool(getattr(out, "is_inner", False))
+            raw_target = getattr(out, "target", None) or name
+            target = ("#" + raw_target) if inner_target else raw_target
+            scope = SingleStreamScope(schema, aliases=(sin.alias,))
+            operators = self.build_single_chain(
+                q, name, schema, sin, scope, target,
+                current_on=out_type in ("current", "all"),
+                expired_on=out_type in ("expired", "all"),
+                allow_tables=False)
+            self._check_block_ops(name, operators)
+            plan = BlockQueryPlan(name, input_id, schema, operators,
+                                  target, inner_target, out_type)
+            if inner_target:
+                prev = inner_schemas.get(target)
+                if prev is not None and prev.types != plan.out_schema.types:
+                    raise CompileError(
+                        f"inner stream '{target}' schema mismatch between "
+                        "producers")
+                inner_schemas[target] = plan.out_schema
+            plans.append(plan)
+
+        block = PartitionBlockRuntime(app, f"partition_{pcount}", n_slots,
+                                      key_specs, plans)
+        app.partitions[block.name] = block
+
+        # 3. wiring: subscribe consumed outer streams; wire outer outputs
+        consumed = sorted(
+            {sid for p in plans
+             for sid in getattr(p, "input_ids", {p.input_id})
+             if not sid.startswith("#")})
+        for sid in consumed:
+            app.junctions[sid].subscribe(BlockStreamReceiver(block, sid))
+        for q, plan in zip(part.queries, plans):
+            port = block.ports[plan.name]
+            app.queries[plan.name] = port
+            if not plan.inner_target and isinstance(
+                    q.output, A.InsertIntoStream):
+                tj = app.junction_for(plan.target, plan.out_schema)
+                if plan.target not in app.input_handlers:
+                    app.input_handlers[plan.target] = InputHandler(
+                        plan.target, tj, app)
+                port.output_handlers.append(
+                    InsertIntoStreamHandler(tj, plan.out_type))
+        return qcount
+
+    def _check_block_ops(self, name: str, operators) -> None:
+        """The operators a partition block runs with its slot axis: the
+        windows of K5's first wave, K6's aggregators without the C, D
+        and H lanes, K2's filters and projections. The rest raise."""
+        for op in operators:
+            if isinstance(op, WindowOp) and \
+                    not isinstance(op, self.PARTITION_WINDOWS):
+                raise not_ported(f"window '{op.kind_name}' inside a "
+                                 "partition")
+            if isinstance(op, StreamFunctionOp):
+                raise not_ported("stream functions inside a partition")
+            if getattr(op, "order_by", None) or \
+                    getattr(op, "host_shape", None) or (
+                        isinstance(op, ProjectOp) and op.shapes_chunk):
+                raise not_ported(f"query '{name}': order by, offset or "
+                                 "limit on a projection inside a partition")
+            if isinstance(op, AggregateOp) and any(
+                    getattr(sp, "stateful", False) for sp in op.agg_specs):
+                raise not_ported(
+                    f"query '{name}': min/max over expiring content, "
+                    "distinctCount or unionSet inside a partition")
+
+    def _plan_partition_pattern(self, q: A.Query, name: str,
+                                key_specs: dict):
+        """A pattern/sequence query inside a partition: the scan engine
+        (kernel K4) runs per key slot (PartitionRuntimeImpl.java:75
+        clones state runtimes per key)."""
+        from ..parallel.partition import BlockPatternPlan
+        app = self.app
+        sin = q.input
+        out = q.output
+        if not isinstance(out, (A.InsertIntoStream, A.ReturnStream)):
+            raise CompileError(
+                f"query '{name}': table output inside partitions not "
+                "yet supported")
+        out_type = out.output_event_type
+        inner_target = bool(getattr(out, "is_inner", False))
+        raw_target = getattr(out, "target", None) or name
+        target = ("#" + raw_target) if inner_target else raw_target
+
+        compiler = NfaCompiler(app.schemas, sin.state_type)
+        slots, states = compiler.compile(sin.state)
+        sel = q.selector
+        if sel.attributes:
+            sel.attributes = [
+                dataclasses.replace(
+                    oa, expression=rewrite_oob_refs(
+                        rewrite_last_refs(oa.expression, slots), slots))
+                for oa in sel.attributes]
+        if sel.having is not None:
+            sel.having = rewrite_oob_refs(
+                rewrite_last_refs(sel.having, slots), slots)
+        # per-slot pending tables stay modest: K instances multiply
+        engine = NfaEngine(slots, states, sin.state_type, sin.within_ms,
+                           capacity=32, out_capacity=64)
+        scope = MatchScope(slots, engine.col_index)
+        input_ids = {s.stream_id for s in slots}
+        for sid in sorted(input_ids):
+            if sid not in key_specs:
+                raise CompileError(
+                    f"query '{name}': pattern stream '{sid}' is not "
+                    "partitioned (no 'partition with' clause names it)")
+        current_on = out_type in ("current", "all")
+        expired_on = out_type in ("expired", "all")
+        if selector_needs_aggregation(q.selector):
+            sel_ops: list[Operator] = [AggregateOp(
+                q.selector, engine.match_schema, target, scope,
+                batch_mode=False, expired_possible=False,
+                current_on=current_on, expired_on=expired_on)]
+        else:
+            sel_ops = [ProjectOp(
+                q.selector, engine.match_schema, target, scope,
+                current_on=current_on, expired_on=expired_on,
+                having_in_scope=scope)]
+        self._check_block_ops(name, sel_ops)
+        in_schema = app.schemas[sorted(input_ids)[0]]
+        return BlockPatternPlan(name, engine, sel_ops, input_ids,
+                                in_schema, target, inner_target, out_type)
 
     # -- windows ---------------------------------------------------------
     DEFAULT_TIME_CAP = 4096

@@ -260,7 +260,8 @@ __device__ T contrib(const AggArgs& a, int l, int64_t i) {
 
 // ------------------------------------------------------------- the table
 
-__global__ void hash_rows(const AggArgs a) {
+__global__ void hash_rows(const __grid_constant__ AggArgs a0) {
+  const AggArgs& a = part_args(a0);
   const int64_t i = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (i >= a.B) return;
   int64_t h = 1469598103934665603LL;
@@ -282,7 +283,9 @@ __global__ void hash_rows(const AggArgs a) {
 }
 
 // one block: the group table's probe (lookup_or_insert)
-__global__ void probe(const AggArgs a) {
+__global__ void __launch_bounds__(SS_BLOCK)
+    probe(const __grid_constant__ AggArgs a0) {
+  const AggArgs& a = part_args(a0);
   __shared__ int64_t buf[SS_BLOCK];
   const int32_t B = a.B, K = a.K;
   if (!a.grouped) {
@@ -316,7 +319,9 @@ __global__ void probe(const AggArgs a) {
 }
 
 // one block: reset segments, and the slots as sort keys
-__global__ void segments(const AggArgs a) {
+__global__ void __launch_bounds__(SS_BLOCK)
+    segments(const __grid_constant__ AggArgs a0) {
+  const AggArgs& a = part_args(a0);
   __shared__ int64_t buf[SS_BLOCK];
   int64_t lo, hi, n = 0, total;
   ss::span(a.B, &lo, &hi);
@@ -335,7 +340,8 @@ __global__ void segments(const AggArgs a) {
   }
 }
 
-__global__ void sorted_meta(const AggArgs a) {
+__global__ void sorted_meta(const __grid_constant__ AggArgs a0) {
+  const AggArgs& a = part_args(a0);
   const int64_t j = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (j >= a.B) return;
   const int32_t i = a.perm[j];
@@ -347,7 +353,9 @@ __global__ void sorted_meta(const AggArgs a) {
 }
 
 // one block: the first index of each element's run of equal segments
-__global__ void seg_starts(const AggArgs a) {
+__global__ void __launch_bounds__(SS_BLOCK)
+    seg_starts(const __grid_constant__ AggArgs a0) {
+  const AggArgs& a = part_args(a0);
   __shared__ int64_t buf[SS_BLOCK];
   int64_t lo, hi, m = 0;
   ss::span(a.B, &lo, &hi);
@@ -384,7 +392,9 @@ __device__ __forceinline__ Elem<T> comb(int op, Elem<T> x, Elem<T> y) {
 
 // level 0 (the contributions in slot order) and the tile's levels 1..11
 template <typename T>
-__global__ void up_tile(const AggArgs a, int l0) {
+__global__ void __launch_bounds__(TILE / 2)
+    up_tile(const __grid_constant__ AggArgs a0, int l0) {
+  const AggArgs& a = part_args(a0);
   __shared__ Elem<T> bufs[2][TILE / 2];
   const int op = a.lane_op[l0];
   T* tv = (T*)a.tree;
@@ -423,7 +433,9 @@ __global__ void up_tile(const AggArgs a, int l0) {
 
 // one block: the levels above the tiles
 template <typename T>
-__global__ void up_top(const AggArgs a, int l0) {
+__global__ void __launch_bounds__(SS_BLOCK)
+    up_top(const __grid_constant__ AggArgs a0, int l0) {
+  const AggArgs& a = part_args(a0);
   const int op = a.lane_op[l0];
   T* tv = (T*)a.tree;
   for (int l = TILE_LEVELS + 1; l < a.n_levels; ++l) {
@@ -443,7 +455,8 @@ __global__ void up_top(const AggArgs a, int l0) {
 // x_l[0] at p == 0; res(l + 1, (p - 1) / 2) at odd p; at even p,
 // res(l + 1, p / 2 - 1) combined with x_l[p]), deepest first
 template <typename T>
-__global__ void down(const AggArgs a, int l0) {
+__global__ void down(const __grid_constant__ AggArgs a0, int l0) {
+  const AggArgs& a = part_args(a0);
   const int64_t j = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (j >= a.B) return;
   const int op = a.lane_op[l0];
@@ -473,7 +486,8 @@ __global__ void down(const AggArgs a, int l0) {
 
 // a row's running value: the segment's scan, the carry in, unsorted
 template <typename T>
-__global__ void lane_finish(const AggArgs a, int l0) {
+__global__ void lane_finish(const __grid_constant__ AggArgs a0, int l0) {
+  const AggArgs& a = part_args(a0);
   const int64_t j = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (j >= a.B) return;
   const int op = a.lane_op[l0];
@@ -497,7 +511,8 @@ __global__ void lane_finish(const AggArgs a, int l0) {
 // contributions in that order are the tree's level 0, so the walk reads
 // contiguous memory.
 template <typename T>
-__global__ void carries(const AggArgs a, int l0) {
+__global__ void carries(const __grid_constant__ AggArgs a0, int l0) {
+  const AggArgs& a = part_args(a0);
   const int32_t k = blockIdx.x * T1 + threadIdx.x;
   if (k >= a.K) return;
   const int op = a.lane_op[l0];
@@ -522,7 +537,8 @@ template <typename T> __device__ __forceinline__ T run_at(const AggArgs& a,
   return ((const T*)a.run[l])[i];
 }
 
-__global__ void values(const AggArgs a) {
+__global__ void values(const __grid_constant__ AggArgs a0) {
+  const AggArgs& a = part_args(a0);
   const int64_t i = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (i >= a.B) return;
   for (int s = 0; s < a.n_specs; ++s) {
@@ -587,19 +603,29 @@ __global__ void values(const AggArgs a) {
 
 inline int grid(int64_t n) { return (int)((n + T1 - 1) / T1); }
 
+// a launch's grid: n rows of T1 threads, one row of blocks per
+// partition slot (blockIdx.y)
+inline dim3 rows(int64_t n, int64_t parts) {
+  return dim3(grid(n), (unsigned)parts);
+}
+
 template <typename T>
 void lane(const AggArgs& a, int l, cudaStream_t stream) {
-  up_tile<T><<<(int)((a.B + TILE - 1) / TILE), TILE / 2, 0, stream>>>(a, l);
+  const unsigned parts = (unsigned)a.n_part;
+  up_tile<T><<<dim3((unsigned)((a.B + TILE - 1) / TILE), parts), TILE / 2,
+               0, stream>>>(a, l);
   if (a.n_levels > TILE_LEVELS + 1)
-    up_top<T><<<1, SS_BLOCK, 0, stream>>>(a, l);
-  down<T><<<grid(a.B), T1, 0, stream>>>(a, l);
-  lane_finish<T><<<grid(a.B), T1, 0, stream>>>(a, l);
-  carries<T><<<grid(a.K), T1, 0, stream>>>(a, l);
+    up_top<T><<<dim3(1, parts), SS_BLOCK, 0, stream>>>(a, l);
+  down<T><<<rows(a.B, parts), T1, 0, stream>>>(a, l);
+  lane_finish<T><<<rows(a.B, parts), T1, 0, stream>>>(a, l);
+  carries<T><<<rows(a.K, parts), T1, 0, stream>>>(a, l);
 }
 
 // ------------------------------------------------------------- emission
 
-__global__ void emit_chunks(const EmitArgs a) {   // one block, batch mode
+__global__ void __launch_bounds__(SS_BLOCK)
+    emit_chunks(const __grid_constant__ EmitArgs a0) {   // one block, batch
+  const EmitArgs& a = part_args(a0);
   __shared__ int64_t buf[SS_BLOCK];
   int64_t lo, hi, m = -1, n = 0;
   ss::span(a.B, &lo, &hi);
@@ -631,7 +657,9 @@ __global__ void emit_chunks(const EmitArgs a) {   // one block, batch mode
 }
 
 // batch mode: the last row of each (slot, chunk) run and its first row
-__global__ void emit_groups(const EmitArgs a) {   // one block
+__global__ void __launch_bounds__(SS_BLOCK)
+    emit_groups(const __grid_constant__ EmitArgs a0) {   // one block
+  const EmitArgs& a = part_args(a0);
   __shared__ int64_t buf[SS_BLOCK];
   int64_t lo, hi, m = 0;
   ss::span(a.B, &lo, &hi);
@@ -654,7 +682,8 @@ __global__ void emit_groups(const EmitArgs a) {   // one block
   }
 }
 
-__global__ void emit_plain(const EmitArgs a) {
+__global__ void emit_plain(const __grid_constant__ EmitArgs a0) {
+  const EmitArgs& a = part_args(a0);
   const int64_t i = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (i >= a.B) return;
   a.ovalid[i] = a.qual[i] && a.slots[i] < a.K;
@@ -664,7 +693,9 @@ __global__ void emit_plain(const EmitArgs a) {
 // one block: each row's output place. The valid rows go first, ordered
 // by their emit_order (distinct: a group's first row), the others after
 // in row order.
-__global__ void emit_place(const EmitArgs a) {
+__global__ void __launch_bounds__(SS_BLOCK)
+    emit_place(const __grid_constant__ EmitArgs a0) {
+  const EmitArgs& a = part_args(a0);
   __shared__ int64_t buf[SS_BLOCK];
   int64_t lo, hi;
   ss::span(a.B, &lo, &hi);
@@ -701,11 +732,13 @@ __global__ void emit_place(const EmitArgs a) {
     kept = kept > off ? kept - off : 0;
     if (a.limit >= 0 && kept > a.limit) kept = a.limit;
     a.scal[0] = total_v;
-    if (a.emitted) *a.emitted += kept;
+    if (a.emitted)   // shared by a partition block's slots
+      atomicAdd((unsigned long long*)a.emitted, (unsigned long long)kept);
   }
 }
 
-__global__ void emit_gather(const EmitArgs a) {
+__global__ void emit_gather(const __grid_constant__ EmitArgs a0) {
+  const EmitArgs& a = part_args(a0);
   const int64_t i = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (i >= a.B) return;
   const int64_t q = a.pos[i];
@@ -727,16 +760,18 @@ extern "C" cudaError_t siddhi_aggregate_step(const AggArgs* p,
                                              cudaStream_t stream,
                                              int32_t part) {
   const AggArgs& a = *p;
+  const int64_t parts = a.n_part;   // partition slots, 1 outside a block
+  const dim3 one(1, (unsigned)parts);
   if (part & 1) {
-    if (a.grouped) hash_rows<<<grid(a.B), T1, 0, stream>>>(a);
-    probe<<<1, SS_BLOCK, 0, stream>>>(a);
-    segments<<<1, SS_BLOCK, 0, stream>>>(a);
+    if (a.grouped) hash_rows<<<rows(a.B, parts), T1, 0, stream>>>(a);
+    probe<<<one, SS_BLOCK, 0, stream>>>(a);
+    segments<<<one, SS_BLOCK, 0, stream>>>(a);
     cudaError_t err = ss::stable_sort(a.skeys, a.B, ss::key_bits(a.K),
                                       a.perm, a.k1, a.k2, a.i1, a.i2,
-                                      a.counts, stream);
+                                      a.counts, stream, parts);
     if (err != cudaSuccess) return err;
-    sorted_meta<<<grid(a.B), T1, 0, stream>>>(a);
-    seg_starts<<<1, SS_BLOCK, 0, stream>>>(a);
+    sorted_meta<<<rows(a.B, parts), T1, 0, stream>>>(a);
+    seg_starts<<<one, SS_BLOCK, 0, stream>>>(a);
   }
   if (part & 2) {
     for (int l = 0; l < a.n_lanes; ++l) {
@@ -750,7 +785,7 @@ extern "C" cudaError_t siddhi_aggregate_step(const AggArgs* p,
         default: lane<double>(a, l, stream);
       }
     }
-    values<<<grid(a.B), T1, 0, stream>>>(a);
+    values<<<rows(a.B, parts), T1, 0, stream>>>(a);
   }
   return cudaGetLastError();
 }
@@ -1093,16 +1128,18 @@ extern "C" cudaError_t siddhi_distinct_count(const AggArgs* p,
 extern "C" cudaError_t siddhi_aggregate_emit(const EmitArgs* p,
                                              cudaStream_t stream) {
   const EmitArgs& a = *p;
+  const int64_t parts = a.n_part;   // partition slots, 1 outside a block
+  const dim3 one(1, (unsigned)parts);
   if (a.batch_mode) {
-    emit_chunks<<<1, SS_BLOCK, 0, stream>>>(a);
+    emit_chunks<<<one, SS_BLOCK, 0, stream>>>(a);
     cudaError_t err = ss::stable_sort(a.qkeys, a.B, 31, a.perm2, a.k1, a.k2,
-                                      a.i1, a.i2, a.counts, stream);
+                                      a.i1, a.i2, a.counts, stream, parts);
     if (err != cudaSuccess) return err;
-    emit_groups<<<1, SS_BLOCK, 0, stream>>>(a);
+    emit_groups<<<one, SS_BLOCK, 0, stream>>>(a);
   } else {
-    emit_plain<<<grid(a.B), T1, 0, stream>>>(a);
+    emit_plain<<<rows(a.B, parts), T1, 0, stream>>>(a);
   }
-  emit_place<<<1, SS_BLOCK, 0, stream>>>(a);
-  emit_gather<<<grid(a.B), T1, 0, stream>>>(a);
+  emit_place<<<one, SS_BLOCK, 0, stream>>>(a);
+  emit_gather<<<rows(a.B, parts), T1, 0, stream>>>(a);
   return cudaGetLastError();
 }

@@ -152,24 +152,39 @@ inline void prefix_sum(const S* src, int64_t* dst, int64_t n, int64_t* sums,
   tile_scan<S><<<(int)tiles, SS_BLOCK, 0, stream>>>(src, n, sums, dst);
 }
 
+// The blocks of a digit pass over n rows, or over *n_dev rows where the
+// count is the device's (a grid for the most rows there can be, the
+// blocks past the rows returning at once).
+__device__ __forceinline__ int32_t pass_blocks(int32_t* n,
+                                               const int64_t* n_dev) {
+  if (!n_dev) return gridDim.x;
+  *n = (int32_t)*n_dev;
+  return (*n + SS_BLOCK - 1) / SS_BLOCK;
+}
+
 __global__ void hist64(const uint64_t* keys, int32_t n, int shift,
-                       int32_t* counts) {
+                       int32_t* counts, const int64_t* n_dev = nullptr) {
   __shared__ int32_t h[SS_DIGITS];
+  const int32_t nb = pass_blocks(&n, n_dev);
+  if ((int32_t)blockIdx.x >= nb) return;
   const int t = threadIdx.x;
   if (t < SS_DIGITS) h[t] = 0;
   __syncthreads();
   const int32_t i = blockIdx.x * SS_BLOCK + t;
   if (i < n) atomicAdd(&h[(keys[i] >> shift) & 0xff], 1);
   __syncthreads();
-  if (t < SS_DIGITS) counts[t * gridDim.x + blockIdx.x] = h[t];
+  if (t < SS_DIGITS) counts[t * nb + blockIdx.x] = h[t];
 }
 
 // ss::radix_scatter for 64-bit keys: place by digit offset, the items of
 // the digit in earlier warps, and those in earlier lanes of the warp
 __global__ void scatter64(const uint64_t* keys, const int32_t* idx,
                           int32_t n, int shift, const int32_t* offsets,
-                          uint64_t* keys_out, int32_t* idx_out) {
+                          uint64_t* keys_out, int32_t* idx_out,
+                          const int64_t* n_dev = nullptr) {
   __shared__ int32_t wcount[SS_WARPS][SS_DIGITS];
+  const int32_t nb = pass_blocks(&n, n_dev);
+  if ((int32_t)blockIdx.x >= nb) return;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   for (int k = t; k < SS_WARPS * SS_DIGITS; k += SS_BLOCK)
     (&wcount[0][0])[k] = 0;
@@ -192,7 +207,7 @@ __global__ void scatter64(const uint64_t* keys, const int32_t* idx,
   }
   __syncthreads();
   if (live) {
-    const int32_t pos = offsets[d * gridDim.x + blockIdx.x] +
+    const int32_t pos = offsets[d * nb + blockIdx.x] +
                         wcount[warp][d] + rank;
     keys_out[pos] = key;
     idx_out[pos] = idx ? idx[i] : i;

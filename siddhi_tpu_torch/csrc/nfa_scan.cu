@@ -871,7 +871,10 @@ __device__ void event_body(const ScanArgs& a, const ScanPlan& P, Shared& sh,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kMaxRows) nfa_scan_kernel(const ScanArgs a) {
+__global__ void __launch_bounds__(kMaxRows)
+    nfa_scan_kernel(const __grid_constant__ ScanArgs a0) {
+  // one block per partition slot (blockIdx.y), one outside a block
+  const ScanArgs& a = part_args(a0);
   __shared__ Shared sh;
   const int r = threadIdx.x, M = blockDim.x;
   // the plan and the condition program, into shared memory
@@ -963,8 +966,8 @@ __global__ void __launch_bounds__(kMaxRows) nfa_scan_kernel(const ScanArgs a) {
 #ifndef SIDDHI_EMU
 extern "C" cudaError_t siddhi_nfa_scan(const ScanArgs* a,
                                        cudaStream_t stream) {
-  // one block, one thread per table row
-  nfa_scan_kernel<<<1, a->rows, 0, stream>>>(*a);
+  // one block per partition slot, one thread per table row
+  nfa_scan_kernel<<<dim3(1, (unsigned)a->n_part), a->rows, 0, stream>>>(*a);
   return cudaGetLastError();
 }
 #endif

@@ -387,6 +387,11 @@ typedef struct {
   const int64_t* consts;
   const int32_t* loads;
   int32_t n_code, n_consts, n_loads;
+  int32_t n_ev_cols;
+  int32_t ev_size[SIDDHI_NFA_MAX_EV_COLS];   // an event column's bytes a row
+  int64_t n_part;             // partition slots (1 outside a block)
+  const int64_t* moves;       // [n_moves][2] (siddhi_kernels.h part_args)
+  int64_t n_moves;
 } ScanArgs;
 
 cudaError_t siddhi_nfa_scan(const ScanArgs* a, cudaStream_t stream);
@@ -460,6 +465,9 @@ typedef struct {
   int32_t expired_enabled, stream_current, has_start;
   int32_t ts_idx, start_attr, has_timeout, replace_ts;   // -1: none
   int64_t length, span_ms, start_time, timeout_ms, hop_ms;
+  int64_t n_part;             // partition slots (1 outside a block)
+  const int64_t* moves;       // [n_moves][2] (siddhi_kernels.h part_args)
+  int64_t n_moves;
 } WindowArgs;
 
 // Kernel K5: one window step (ops/windows.py window_step).
@@ -659,6 +667,9 @@ typedef struct {
   // a stateful aggregator's lane contributions, made by its kernel
   // (distinctCount's 0<->1 transitions), NULL for the others
   const int64_t* spec_contrib[SIDDHI_AGG_MAX_SPECS];
+  int64_t n_part;             // partition slots (1 outside a block)
+  const int64_t* moves;       // [n_moves][2] (siddhi_kernels.h part_args)
+  int64_t n_moves;
 } AggArgs;
 
 // Kernel K6, the step (ops/aggregators.py aggregate_step): `part` 1 the
@@ -745,6 +756,9 @@ typedef struct {
   int64_t* chunk;                   // [B]
   int64_t* gstart;                  // [B]
   int64_t* scal;                    // [4]
+  int64_t n_part;             // partition slots (1 outside a block)
+  const int64_t* moves;       // [n_moves][2] (siddhi_kernels.h part_args)
+  int64_t n_moves;
 } EmitArgs;
 
 // Kernel K6, the emission (ops/aggregators.py aggregate_emit).
@@ -910,6 +924,109 @@ typedef struct {
 cudaError_t siddhi_union_set(const AggArgs* a, const UnionArgs* u,
                              cudaStream_t stream);
 
+// ---- K9p: a partition block's route, compaction and due (partition.cu) --
+
+#define SIDDHI_PART_MAX_LABELS 16
+#define SIDDHI_PART_MAX_COLS 32
+#define SIDDHI_PART_MAX_QUERIES 32
+
+typedef struct {
+  int32_t B, K;               // the batch's rows, the block's slots
+  int32_t mode, n_conds;      // mode 0: a value key; 1: range conditions
+  const int32_t* kind;        // [B] the batch
+  const bool* valid;
+  const void* key_col;        // mode 0: the key, K2's output [B]
+  const bool* key_null;
+  int32_t key_type, pad_;     // ValType
+  const bool* cond_vals[SIDDHI_PART_MAX_LABELS];   // mode 1: BOOL [B] each
+  const bool* cond_nulls[SIDDHI_PART_MAX_LABELS];
+  int32_t cond_slot[SIDDHI_PART_MAX_LABELS];       // each condition's label
+  const int64_t* keys;        // the slot table [K], and the new one
+  const bool* used;
+  const int64_t* overflow;    // 0-d
+  int64_t* new_keys;
+  bool* new_used;
+  int64_t* new_overflow;
+  int32_t* slots;             // [B] out: each row's slot, -1 for none
+  bool* valid_k;              // [K, B] out: each slot's valid mask
+  int64_t* hk;                // [B] scratch: key hashes
+  uint8_t* active;            // [B]
+  int32_t* prb;               // [B]
+  uint8_t* flags;             // [B]
+  int32_t* claim;             // [K]
+} RouteArgs;
+
+typedef struct {
+  int32_t n, out_cap;         // n = K * N rows in, out_cap rows out
+  int32_t n_cols, pad_;
+  const int64_t* ts;          // [n] the slots' outputs, slot after slot
+  const int32_t* kind;
+  const bool* valid;
+  const void* cols[SIDDHI_PART_MAX_COLS];
+  const bool* nulls[SIDDHI_PART_MAX_COLS];
+  int32_t col_size[SIDDHI_PART_MAX_COLS];
+  int64_t* out_ts;            // [out_cap] the compacted batch
+  int32_t* out_kind;
+  bool* out_valid;
+  void* out_cols[SIDDHI_PART_MAX_COLS];
+  bool* out_nulls[SIDDHI_PART_MAX_COLS];
+  int64_t* emitted;           // 0-d, added to: the rows kept
+  int64_t* lost;              // 0-d, added to: the valid rows dropped
+  // scratch
+  int64_t* vpref;             // [n] inclusive prefix count of valid rows
+  int64_t* sums;              // [ceil(n / 1024)] its tile totals
+  uint64_t *k0, *k1, *k2;     // [n] the valid rows' keys, ping-pong
+  int32_t *i0, *i1, *i2;      // [n] their row indices, ping-pong
+  int32_t* inv_idx;           // [out_cap] the invalid rows, in row order
+  int32_t* counts;            // [256 * ceil(n / 1024)] digit counts
+} CompactArgs;
+
+typedef struct {
+  int32_t n_q, pad_;
+  const int64_t* dues[SIDDHI_PART_MAX_QUERIES];   // each query's slot dues
+  int64_t n[SIDDHI_PART_MAX_QUERIES];
+  int64_t* out;               // [n_q] each query's minimum
+} DueArgs;
+
+cudaError_t siddhi_partition_route(const RouteArgs* a, cudaStream_t stream);
+cudaError_t siddhi_partition_compact(const CompactArgs* a,
+                                     cudaStream_t stream);
+cudaError_t siddhi_partition_due(const DueArgs* a, cudaStream_t stream);
+
 #ifdef __cplusplus
+}
+#endif
+
+// ---- the slot axis of a partition block ----------------------------------
+//
+// Inside a partition block (parallel/partition.py) a K4, K5 or K6 launch
+// runs n_part slots, and its struct holds slot 0's pointers. The host
+// owns the layout (ops/slots.py part_moves): `moves` lists, for every
+// pointer whose tensor has the slot axis, the pointer's byte offset in
+// the struct and its tensor's slot stride in bytes (0 for a column all
+// slots share is left out). A kernel takes its struct as a
+// __grid_constant__ parameter and reads it through part_args: the block
+// copies it into shared memory and moves each listed pointer blockIdx.y
+// slots on. Outside a block n_part is 1, blockIdx.y is 0 and the copy is
+// all it costs.
+#if defined(__CUDACC__) && defined(__cplusplus)
+template <typename A>
+static __device__ __forceinline__ const A& part_args(const A& src) {
+  static_assert(sizeof(A) % 8 == 0, "the arguments are copied by words");
+  __shared__ A sh;
+  const unsigned long long* s = (const unsigned long long*)&src;
+  unsigned long long* d = (unsigned long long*)&sh;
+  for (int i = threadIdx.x; i < (int)(sizeof(A) / 8); i += blockDim.x)
+    d[i] = s[i];
+  __syncthreads();
+  if (blockIdx.y > 0) {
+    const int64_t k = blockIdx.y;
+    for (int64_t i = threadIdx.x; i < src.n_moves; i += blockDim.x) {
+      char** p = (char**)((char*)&sh + src.moves[2 * i]);
+      *p += k * src.moves[2 * i + 1];
+    }
+    __syncthreads();
+  }
+  return sh;
 }
 #endif

@@ -68,10 +68,15 @@ __device__ __forceinline__ void span(int64_t n, int64_t* lo, int64_t* hi) {
   if (*hi > n) *hi = n;
 }
 
+// The sort's launches take one row of blocks per partition slot
+// (blockIdx.y; siddhi_kernels.h part_args): slot k's keys, permutation
+// and scratch are k * n further on, its digit table k * 256 * blocks.
 __global__ void radix_hist(const uint32_t* keys, int32_t n, int shift,
                            int32_t* counts) {
   __shared__ int32_t hist[SS_DIGITS];
   const int t = threadIdx.x;
+  keys += (int64_t)blockIdx.y * n;
+  counts += (int64_t)blockIdx.y * SS_DIGITS * gridDim.x;
   if (t < SS_DIGITS) hist[t] = 0;
   __syncthreads();
   const int32_t i = blockIdx.x * SS_BLOCK + t;
@@ -80,9 +85,14 @@ __global__ void radix_hist(const uint32_t* keys, int32_t n, int shift,
   if (t < SS_DIGITS) counts[t * gridDim.x + blockIdx.x] = hist[t];
 }
 
-// Exclusive scan of m ints in place, one block.
-__global__ void scan_counts(int32_t* counts, int32_t m) {
+// Exclusive scan of m ints in place, one block (a slot: blockIdx.y).
+// With n_dev, the digit table of a sort whose row count the host does
+// not know (key_sort.cuh hist64): m is SS_DIGITS a block of *n_dev rows.
+__global__ void scan_counts(int32_t* counts, int32_t m,
+                            const int64_t* n_dev = nullptr) {
   __shared__ int64_t buf[SS_BLOCK];
+  if (n_dev) m = SS_DIGITS * (int32_t)((*n_dev + SS_BLOCK - 1) / SS_BLOCK);
+  counts += (int64_t)blockIdx.y * m;
   int64_t lo, hi, s = 0;
   span(m, &lo, &hi);
   for (int64_t i = lo; i < hi; ++i) s += counts[i];
@@ -100,6 +110,12 @@ __global__ void radix_scatter(const uint32_t* keys, const int32_t* idx,
                               uint32_t* keys_out, int32_t* idx_out) {
   __shared__ int32_t wcount[SS_WARPS][SS_DIGITS];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t po = (int64_t)blockIdx.y * n;
+  keys += po;
+  if (idx) idx += po;
+  offsets += (int64_t)blockIdx.y * SS_DIGITS * gridDim.x;
+  keys_out += po;
+  idx_out += po;
   for (int k = t; k < SS_WARPS * SS_DIGITS; k += SS_BLOCK)
     (&wcount[0][0])[k] = 0;
   __syncthreads();
@@ -133,12 +149,15 @@ __global__ void radix_scatter(const uint32_t* keys, const int32_t* idx,
 // Stable sort of keys[n] (only the low `bits` bits are looked at): the
 // permutation lands in perm_out (perm_out[j] = index of the j-th
 // smallest). keys is left as it was. Scratch: k1, k2 (uint32 [n]), i1,
-// i2 (int32 [n]) and counts (int32 [SS_DIGITS * blocks]).
+// i2 (int32 [n]) and counts (int32 [SS_DIGITS * blocks]). With `parts`
+// > 1, that many sorts of n keys each, one per partition slot, every
+// array a [parts] stack of the above.
 inline cudaError_t stable_sort(const uint32_t* keys, int32_t n, int bits,
                                int32_t* perm_out, uint32_t* k1, uint32_t* k2,
                                int32_t* i1, int32_t* i2, int32_t* counts,
-                               cudaStream_t stream) {
+                               cudaStream_t stream, int64_t parts = 1) {
   const int blocks = (n + SS_BLOCK - 1) / SS_BLOCK;
+  const dim3 grid(blocks, (unsigned)parts), one(1, (unsigned)parts);
   const int passes = bits <= 0 ? 1 : (bits + 7) / 8;
   const uint32_t* kin = keys;
   const int32_t* iin = nullptr;
@@ -146,10 +165,10 @@ inline cudaError_t stable_sort(const uint32_t* keys, int32_t n, int bits,
     const bool last = p == passes - 1;
     uint32_t* kout = (p & 1) ? k2 : k1;
     int32_t* iout = last ? perm_out : ((p & 1) ? i2 : i1);
-    radix_hist<<<blocks, SS_BLOCK, 0, stream>>>(kin, n, 8 * p, counts);
-    scan_counts<<<1, SS_BLOCK, 0, stream>>>(counts, SS_DIGITS * blocks);
-    radix_scatter<<<blocks, SS_BLOCK, 0, stream>>>(kin, iin, n, 8 * p,
-                                                   counts, kout, iout);
+    radix_hist<<<grid, SS_BLOCK, 0, stream>>>(kin, n, 8 * p, counts);
+    scan_counts<<<one, SS_BLOCK, 0, stream>>>(counts, SS_DIGITS * blocks);
+    radix_scatter<<<grid, SS_BLOCK, 0, stream>>>(kin, iin, n, 8 * p,
+                                                 counts, kout, iout);
     kin = kout;
     iin = iout;
   }

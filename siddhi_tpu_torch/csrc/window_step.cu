@@ -207,7 +207,9 @@ __device__ __forceinline__ int64_t block_max(int64_t v, int64_t* buf) {
   return m;
 }
 
-__global__ void batch_prefix(const WindowArgs a) {
+__global__ void __launch_bounds__(SS_BLOCK)
+    batch_prefix(const __grid_constant__ WindowArgs a0) {
+  const WindowArgs& a = part_args(a0);
   __shared__ int64_t buf[SS_BLOCK];
   const View v{a};
   const bool ext_clock = a.kind == WIN_EXT_TIME;
@@ -274,7 +276,8 @@ __global__ void batch_prefix(const WindowArgs a) {
   }
 }
 
-__global__ void scalars(const WindowArgs a) {
+__global__ void scalars(const __grid_constant__ WindowArgs a0) {
+  const WindowArgs& a = part_args(a0);
   const View v{a};
   int64_t* s = a.scal;
   const int64_t now = s[S_NOW];
@@ -326,7 +329,9 @@ __global__ void scalars(const WindowArgs a) {
 }
 
 // one block, externalTimeBatch: the flush decisions of the step
-__global__ void ext_batch_prep(const WindowArgs a) {
+__global__ void __launch_bounds__(SS_BLOCK)
+    ext_batch_prep(const __grid_constant__ WindowArgs a0) {
+  const WindowArgs& a = part_args(a0);
   __shared__ int64_t buf[SS_BLOCK];
   const View v{a};
   int64_t* s = a.scal;
@@ -443,7 +448,8 @@ __host__ __device__ __forceinline__ int32_t keep_lo(const WindowArgs& a) {
 // the keep masks over the sources from keep_lo: mask 0 -> the new A
 // buffer (batch: the new E), mask 1 -> the new E buffer (batch: the new
 // reset row; timeLength's pass 0: the survivors of the time expiry)
-__global__ void src_marks(const WindowArgs a, int pass) {
+__global__ void src_marks(const __grid_constant__ WindowArgs a0, int pass) {
+  const WindowArgs& a = part_args(a0);
   const int32_t s = keep_lo(a) + blockIdx.x * T1 + threadIdx.x;
   if (s >= a.S) return;
   const View v{a};
@@ -527,7 +533,9 @@ __global__ void src_marks(const WindowArgs a, int pass) {
 
 // one block: the source of every kept row of mask m by rank, the total,
 // and (timeLength, whose eviction reads it) each kept row's rank
-__global__ void keep_scan(const WindowArgs a, int m) {
+__global__ void __launch_bounds__(SS_BLOCK)
+    keep_scan(const __grid_constant__ WindowArgs a0, int m) {
+  const WindowArgs& a = part_args(a0);
   __shared__ int64_t buf[SS_BLOCK];
   const int32_t s0 = keep_lo(a);
   const uint8_t* keep = a.keep + (int64_t)m * a.S;
@@ -599,7 +607,9 @@ __device__ Cand ext_batch_cand(const WindowArgs& a, int32_t c) {
   return k;
 }
 
-__global__ void cand_marks(const WindowArgs a, uint32_t inv) {
+__global__ void cand_marks(
+    const __grid_constant__ WindowArgs a0, uint32_t inv) {
+  const WindowArgs& a = part_args(a0);
   const int32_t c = blockIdx.x * T1 + threadIdx.x;
   if (c >= a.N) return;
   const View v{a};
@@ -816,7 +826,9 @@ __global__ void cand_marks(const WindowArgs a, uint32_t inv) {
   a.cand_kind[c] = kind;
 }
 
-__global__ void out_gather(const WindowArgs a, uint32_t inv) {
+__global__ void out_gather(
+    const __grid_constant__ WindowArgs a0, uint32_t inv) {
+  const WindowArgs& a = part_args(a0);
   const int32_t j = blockIdx.x * T1 + threadIdx.x;
   if (j >= a.N) return;
   const int32_t c = a.order[j];
@@ -833,8 +845,13 @@ __global__ void out_gather(const WindowArgs a, uint32_t inv) {
 // the newest `cap` rows of mask m into dst (garbage rows: source
 // `garbage`, -1 a zero row); where scal[cond] is 0 (cond >= 0), dst takes
 // the old buffer's row instead. `emit`: the pool's emitted view.
-__global__ void keep_gather(const WindowArgs a, int m, WinBuf dst, int32_t cap,
-                            int cond, WinBuf old, int32_t garbage, int emit) {
+__global__ void keep_gather(const __grid_constant__ WindowArgs a0, int m,
+                            int which, int32_t cap, int cond,
+                            int32_t garbage, int emit) {
+  const WindowArgs& a = part_args(a0);
+  // which 0: the new A from the old, 1: the new E from the old
+  const WinBuf& dst = which == 0 ? a.na : a.ne;
+  const WinBuf& old = which == 0 ? a.a : a.e;
   const int32_t j = blockIdx.x * T1 + threadIdx.x;
   if (j >= cap) return;
   if (cond >= 0 && !a.scal[cond]) {
@@ -859,7 +876,8 @@ __global__ void keep_gather(const WindowArgs a, int m, WinBuf dst, int32_t cap,
   }
 }
 
-__global__ void finish(const WindowArgs a) {
+__global__ void finish(const __grid_constant__ WindowArgs a0) {
+  const WindowArgs& a = part_args(a0);
   if (a.o_overflow == nullptr) return;
   int64_t tot = 0, cap = a.W;
   switch (a.kind) {
@@ -888,67 +906,68 @@ inline int grid(int64_t n) { return (int)((n + T1 - 1) / T1); }
 extern "C" cudaError_t siddhi_window_step(const WindowArgs* p,
                                           cudaStream_t stream) {
   const WindowArgs& a = *p;
-  batch_prefix<<<1, SS_BLOCK, 0, stream>>>(a);
-  scalars<<<1, 1, 0, stream>>>(a);
-  if (a.kind == WIN_EXT_BATCH) ext_batch_prep<<<1, SS_BLOCK, 0, stream>>>(a);
+  // one row of blocks (or one block) per partition slot
+  const unsigned parts = (unsigned)a.n_part;
+  const dim3 one(1, parts);
+  auto rows = [&](int64_t n) { return dim3(grid(n), parts); };
+  batch_prefix<<<one, SS_BLOCK, 0, stream>>>(a);
+  scalars<<<one, 1, 0, stream>>>(a);
+  if (a.kind == WIN_EXT_BATCH) ext_batch_prep<<<one, SS_BLOCK, 0, stream>>>(a);
   const bool pooled =
       !(a.kind == WIN_LENGTH && a.length == 0) && a.kind != WIN_EMPTY;
   const int64_t n_src = a.S - keep_lo(a);
   if (a.kind == WIN_TIME_LENGTH) {
-    src_marks<<<grid(n_src), T1, 0, stream>>>(a, 0);
-    keep_scan<<<1, SS_BLOCK, 0, stream>>>(a, 1);
-    src_marks<<<grid(n_src), T1, 0, stream>>>(a, 1);
-    keep_scan<<<1, SS_BLOCK, 0, stream>>>(a, 0);
+    src_marks<<<rows(n_src), T1, 0, stream>>>(a, 0);
+    keep_scan<<<one, SS_BLOCK, 0, stream>>>(a, 1);
+    src_marks<<<rows(n_src), T1, 0, stream>>>(a, 1);
+    keep_scan<<<one, SS_BLOCK, 0, stream>>>(a, 0);
   } else if (pooled) {
-    src_marks<<<grid(n_src), T1, 0, stream>>>(a, 0);
-    keep_scan<<<1, SS_BLOCK, 0, stream>>>(a, 0);
+    src_marks<<<rows(n_src), T1, 0, stream>>>(a, 0);
+    keep_scan<<<one, SS_BLOCK, 0, stream>>>(a, 0);
     if (a.EB > 0 || a.kind == WIN_TIME_BATCH || a.kind == WIN_BATCH)
-      keep_scan<<<1, SS_BLOCK, 0, stream>>>(a, 1);
+      keep_scan<<<one, SS_BLOCK, 0, stream>>>(a, 1);
   }
   // keys: emit_row * 4 + phase <= 4 * B - 1, invalid ones above
   const int bits = ss::key_bits(4ull * a.B);
   const uint32_t inv = (uint32_t)((1ull << bits) - 1);
-  cand_marks<<<grid(a.N), T1, 0, stream>>>(a, inv);
+  cand_marks<<<rows(a.N), T1, 0, stream>>>(a, inv);
   cudaError_t err = ss::stable_sort(a.keys, a.N, bits, a.order, a.k1, a.k2,
-                                    a.i1, a.i2, a.counts, stream);
+                                    a.i1, a.i2, a.counts, stream, parts);
   if (err != cudaSuccess) return err;
-  out_gather<<<grid(a.N), T1, 0, stream>>>(a, inv);
+  out_gather<<<rows(a.N), T1, 0, stream>>>(a, inv);
   const int32_t pool0 = a.EB;   // the garbage row: the pool's first
   switch (a.kind) {
     case WIN_EMPTY:           // no buffer to keep
       break;
     case WIN_LENGTH:
       if (a.length == 0)      // the buffer stays as it was
-        keep_gather<<<grid(a.W), T1, 0, stream>>>(a, 0, a.na, a.W, S_ZERO,
-                                                  a.a, pool0, 0);
-      else
-        keep_gather<<<grid(a.W), T1, 0, stream>>>(a, 0, a.na, a.W, -1, a.a,
+        keep_gather<<<rows(a.W), T1, 0, stream>>>(a, 0, 0, a.W, S_ZERO,
                                                   pool0, 0);
+      else
+        keep_gather<<<rows(a.W), T1, 0, stream>>>(a, 0, 0, a.W, -1, pool0,
+                                                  0);
       break;
     case WIN_LENGTH_BATCH:
     case WIN_TIME_BATCH:
     case WIN_HOPPING:
-      keep_gather<<<grid(a.W), T1, 0, stream>>>(a, 0, a.na, a.W, -1, a.a,
-                                                pool0, 0);
-      keep_gather<<<grid(a.EB), T1, 0, stream>>>(a, 1, a.ne, a.EB, S_COND,
-                                                 a.e, pool0, 0);
+      keep_gather<<<rows(a.W), T1, 0, stream>>>(a, 0, 0, a.W, -1, pool0, 0);
+      keep_gather<<<rows(a.EB), T1, 0, stream>>>(a, 1, 1, a.EB, S_COND,
+                                                 pool0, 0);
       break;
     case WIN_BATCH:           // a pool of an empty buffer and the batch
-      keep_gather<<<grid(a.EB), T1, 0, stream>>>(a, 0, a.ne, a.EB, S_COND,
-                                                 a.e, -1, 0);
-      keep_gather<<<grid(a.W), T1, 0, stream>>>(a, 1, a.na, a.W, S_COND, a.a,
-                                                -1, 0);
+      keep_gather<<<rows(a.EB), T1, 0, stream>>>(a, 0, 1, a.EB, S_COND, -1,
+                                                 0);
+      keep_gather<<<rows(a.W), T1, 0, stream>>>(a, 1, 0, a.W, S_COND, -1,
+                                                0);
       break;
     case WIN_EXT_BATCH:       // the new exp from E and the emitted pool
-      keep_gather<<<grid(a.W), T1, 0, stream>>>(a, 0, a.na, a.W, -1, a.a,
-                                                pool0, 0);
-      keep_gather<<<grid(a.EB), T1, 0, stream>>>(a, 1, a.ne, a.EB, S_COND,
-                                                 a.e, 0, 1);
+      keep_gather<<<rows(a.W), T1, 0, stream>>>(a, 0, 0, a.W, -1, pool0, 0);
+      keep_gather<<<rows(a.EB), T1, 0, stream>>>(a, 1, 1, a.EB, S_COND, 0,
+                                                 1);
       break;
     default:                  // one buffer: time, externalTime, ...
-      keep_gather<<<grid(a.W), T1, 0, stream>>>(a, 0, a.na, a.W, -1, a.a,
-                                                pool0, 0);
+      keep_gather<<<rows(a.W), T1, 0, stream>>>(a, 0, 0, a.W, -1, pool0, 0);
   }
-  finish<<<1, 1, 0, stream>>>(a);
+  finish<<<one, 1, 0, stream>>>(a);
   return cudaGetLastError();
 }

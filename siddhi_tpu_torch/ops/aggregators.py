@@ -63,6 +63,7 @@ from .keyed import (add, fma, hash_columns, lookup_or_insert, maximum,
                     minimum, segmented_cumsum, segmented_cummax,
                     segmented_cummin)
 from .operators import Operator
+from .slots import part_moves, per_slot
 from .selector import (AGGREGATOR_NAMES, compile_order_by, const_int,
                        output_attribute_name, shape_chunk, shape_output)
 
@@ -1086,9 +1087,18 @@ def aggregate_emit_ref(op: AggregateOp, slots, qualifying,
 def aggregate_step(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
     """Kernel K6, the step: group slots, reset segments, running
     aggregates and the new state. A batch on the CPU takes the plain
-    version; a CUDA batch launches csrc/aggregate_step.cu."""
+    version; a CUDA batch launches csrc/aggregate_step.cu. Inside a
+    partition block (``kind`` of shape [K, B], a state a slot) the plain
+    version runs once per slot and the kernel once over every slot,
+    counted as ``aggregate_step[K]``."""
     dev = kind.device
+    slotted = kind.dim() == 2
     if dev.type == "cpu":
+        if slotted:
+            return per_slot(
+                lambda st, kc, ac, kd, v: aggregate_step_ref(op, st, kc, ac,
+                                                             kd, v),
+                kind.shape[0], state, key_cols, arg_cols, kind, valid)
         return aggregate_step_ref(op, state, key_cols, arg_cols, kind, valid)
     if dev.type != "cuda":
         raise ValueError(f"aggregate_step: unsupported device {dev}")
@@ -1103,7 +1113,8 @@ def aggregate_step(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
         for spec, st in stats:
             stateful_launch(k, spec, args, st, stream)
         k.aggregate_step(args, stream, 2)
-    _kernels.count_launch("aggregate_step")
+    _kernels.count_launch("aggregate_step[K]" if slotted
+                          else "aggregate_step")
     return slots, aggs, new_state
 
 
@@ -1124,9 +1135,17 @@ def stateful_launch(k, spec, args, st, stream) -> None:
 
 def aggregate_emit(op: AggregateOp, slots, qualifying, batch: EventBatch,
                    out_cols, out_nulls, emitted=None):
-    """Kernel K6, the emission (after K2's projection and having)."""
+    """Kernel K6, the emission (after K2's projection and having); once
+    per slot inside a partition block (``aggregate_emit[K]``)."""
     dev = batch.ts.device
+    slotted = batch.ts.dim() == 2
     if dev.type == "cpu":
+        if slotted:
+            return per_slot(
+                lambda sl, q, b, oc, on: aggregate_emit_ref(
+                    op, sl, q, b, oc, on, emitted),
+                batch.ts.shape[0], slots, qualifying, batch, out_cols,
+                out_nulls)
         return aggregate_emit_ref(op, slots, qualifying, batch, out_cols,
                                   out_nulls, emitted)
     if dev.type != "cuda":
@@ -1135,7 +1154,8 @@ def aggregate_emit(op: AggregateOp, slots, qualifying, batch: EventBatch,
                           emitted)
     _kernels.load().aggregate_emit(
         args, torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.count_launch("aggregate_emit")
+    _kernels.count_launch("aggregate_emit[K]" if slotted
+                          else "aggregate_emit")
     return out
 
 
@@ -1157,9 +1177,14 @@ def tree_levels(n: int):
 def agg_args(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
     """K6's step arguments: fresh tensors for the slots, the aggregate
     columns and the new state, the scratch, and ``_kernels.AggArgs``.
-    -> (slots, [(values, nulls)], state', args)."""
+    -> (slots, [(values, nulls)], state', args). Inside a partition
+    block (``kind`` [K, B], a state a slot) every tensor gets the leading
+    slot axis, ``n_part`` is the slot count and ``moves`` the slot
+    strides (ops/slots.py part_moves)."""
     dev = kind.device
-    B, K = kind.shape[0], op.K
+    slotted = kind.dim() == 2
+    lead = (kind.shape[0],) if slotted else ()
+    B, K = kind.shape[-1], op.K
     lim = _kernels
     specs = op.agg_specs
     n_lanes = sum(len(sp.lanes) for sp in specs)
@@ -1174,9 +1199,9 @@ def agg_args(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
         raise NotImplementedError(f"not ported yet: {B} rows in one step")
 
     def t(n, dtype):
-        return torch.empty((max(int(n), 1),), dtype=dtype, device=dev)
+        return torch.empty(lead + (max(int(n), 1),), dtype=dtype, device=dev)
     slots = t(B, torch.int32)
-    aggs = [(torch.empty((B, 1 + SET_LANES), dtype=I64, device=dev)
+    aggs = [(torch.empty(lead + (B, 1 + SET_LANES), dtype=I64, device=dev)
              if sp.out_type is AttrType.OBJECT
              else t(B, torch_dtype(sp.out_type)), t(B, torch.bool))
             for sp in specs]
@@ -1190,7 +1215,7 @@ def agg_args(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
                                   for k, v in tab.items()} if sf else tab
                                  for tab, sf in zip(state["tables"],
                                                     stateful)),
-                 "overflow": torch.empty((), dtype=I64, device=dev)}
+                 "overflow": torch.empty(lead, dtype=I64, device=dev)}
     total = offs[-1] + sizes[-1]
     sc = {"hk": t(B, I64), "probe": t(B, torch.int32),
           "flags": t(B, torch.uint8), "claim": t(K, torch.int32),
@@ -1260,8 +1285,12 @@ def agg_args(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
     for k, (o, n) in enumerate(zip(offs, sizes)):
         a.level_off[k], a.level_n[k] = o, n
     a.n_levels = len(offs)
+    a.n_part = lead[0] if slotted else 1
+    part_moves(a, (state, key_cols, arg_cols, kind, valid, slots, aggs,
+                   new_state, runs, sc), dev)
     a._keep = (state, runs, sc)
-    return slots[:B], [(v[:B], n[:B]) for v, n in aggs], new_state, a, stats
+    return (slots[..., :B], [(v[..., :B], n[..., :B]) for v, n in aggs],
+            new_state, a, stats)
 
 
 def stat_args(sp, s: int, arg, tab, ntab, B: int, K: int, dev):
@@ -1342,9 +1371,12 @@ def union_args(arg, tab, ntab, out, B: int, dev):
 def emit_args(op: AggregateOp, slots, qualifying, batch: EventBatch,
               out_cols, out_nulls, emitted):
     """K6's emission arguments and its output batch (fresh tensors).
-    -> (output batch, args)."""
+    -> (output batch, args); with the slot axis inside a partition
+    block, as agg_args."""
     dev = batch.ts.device
-    B = batch.capacity
+    slotted = batch.ts.dim() == 2
+    lead = (batch.ts.shape[0],) if slotted else ()
+    B = batch.ts.shape[-1]
     n = len(out_cols)
     if n > _kernels.AGG_MAX_OUTS:
         raise NotImplementedError(
@@ -1352,7 +1384,7 @@ def emit_args(op: AggregateOp, slots, qualifying, batch: EventBatch,
             f"{_kernels.AGG_MAX_OUTS} output attributes ({n})")
 
     def t(m, dtype):
-        return torch.empty((max(int(m), 1),), dtype=dtype, device=dev)
+        return torch.empty(lead + (max(int(m), 1),), dtype=dtype, device=dev)
     out = EventBatch(ts=t(B, I64),
                      cols=tuple(torch.empty(c.shape, dtype=c.dtype, device=dev)
                                 for c in out_cols),
@@ -1378,7 +1410,7 @@ def emit_args(op: AggregateOp, slots, qualifying, batch: EventBatch,
     for k, (c, nl, oc, on) in enumerate(zip(out_cols, out_nulls, out.cols,
                                             out.nulls)):
         a.cols[k], a.nulls[k] = c.data_ptr(), nl.data_ptr()
-        a.col_size[k] = row_bytes(c)
+        a.col_size[k] = row_bytes(c[0] if slotted else c)
         a.out_cols[k], a.out_nulls[k] = oc.data_ptr(), on.data_ptr()
     a.out_ts, a.out_kind = out.ts.data_ptr(), out.kind.data_ptr()
     a.out_valid = out.valid.data_ptr()
@@ -1386,5 +1418,8 @@ def emit_args(op: AggregateOp, slots, qualifying, batch: EventBatch,
         if emitted is not None and not op.order_by else None
     for k, v in sc.items():
         setattr(a, k, v.data_ptr())
+    a.n_part = lead[0] if slotted else 1
+    part_moves(a, (slots, qualifying, batch, out_cols, out_nulls, out, sc),
+               dev)
     a._keep = (sc,)
     return out, a

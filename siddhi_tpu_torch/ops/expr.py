@@ -1229,7 +1229,18 @@ def expr_eval(prog: ExprProgram, batch, emitted=None, now=None):
     plain version; a CUDA batch launches the kernel. ``emitted``: an
     int64 0-d tensor on the batch's device, increased by the rows kept
     (one atomic add per thread block), or None. ``now``: the step's
-    clock (an int or a 0-d int64 tensor), read by currentTimeMillis()."""
+    clock (an int or a 0-d int64 tensor), read by currentTimeMillis().
+    A partition block's slotted batch (``[K, rows]`` columns) runs as
+    one batch of K * rows rows: the program is row-wise."""
+    if batch.ts.dim() == 2:
+        from .slots import flat
+        K = batch.ts.shape[0]
+        cols, nulls, valid = expr_eval(prog, flat(batch), emitted, now)
+
+        def back(x):
+            return x.reshape((K, -1) + tuple(x.shape[1:]))
+        return (tuple(back(c) for c in cols), tuple(back(n) for n in nulls),
+                back(valid))
     dev = batch.ts.device
     if dev.type == "cpu":
         return expr_eval_ref(prog, batch, emitted, now)

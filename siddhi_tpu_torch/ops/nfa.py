@@ -40,6 +40,7 @@ from ..lang import ast as A
 from .expr import (VT, CompileError, CompiledExpr, ProgramBuilder, Scope,
                    compile_expression, run_program)
 from .sentinels import POS_INF
+from .slots import part_moves, per_slot
 
 
 # ---------------------------------------------------------------------------
@@ -1405,10 +1406,10 @@ class NfaEngine:
         inf = torch.tensor(int(POS_INF), dtype=torch.int64,
                            device=table["deadline"].device)
         d1 = torch.where(table["valid"] & (table["deadline"] >= 0),
-                         table["deadline"], inf).min()
+                         table["deadline"], inf).amin(-1)
         d2 = torch.where(table["valid"] & (table["deadline2"] >= 0),
-                         table["deadline2"], inf).min()
-        return torch.minimum(d1, d2)
+                         table["deadline2"], inf).amin(-1)
+        return torch.minimum(d1, d2)   # [K] dues inside a partition block
 
     def arm_start(self, table, now):
         """Arm start-state absent deadlines at app-start time (the
@@ -1919,39 +1920,45 @@ def _device_plan(eng: NfaEngine, stream_id: Optional[str], dev):
     return t
 
 
-def _staging(eng: NfaEngine, dev) -> list:
-    """The staging rows of K4's appends: the table's slot layout."""
-    key = ("staging", str(dev))
+def _staging(eng: NfaEngine, dev, lead: tuple = ()) -> list:
+    """The staging rows of K4's appends: the table's slot layout (one a
+    slot inside a partition block: ``lead`` (K,))."""
+    key = ("staging", str(dev), lead)
     s = eng._scratch.get(key)
     if s is None:
         M = eng.M
         s = eng._scratch[key] = [{
-            "cols": tuple(torch.empty((M, sp.cap), dtype=torch_dtype(t),
-                                      device=dev) for t in sp.schema.types),
-            "nulls": tuple(torch.empty((M, sp.cap), dtype=torch.bool,
+            "cols": tuple(torch.empty(lead + (M, sp.cap),
+                                      dtype=torch_dtype(t), device=dev)
+                          for t in sp.schema.types),
+            "nulls": tuple(torch.empty(lead + (M, sp.cap), dtype=torch.bool,
                                        device=dev) for _ in sp.schema.types),
-            "ts": torch.empty((M, sp.cap), dtype=torch.int64, device=dev)}
+            "ts": torch.empty(lead + (M, sp.cap), dtype=torch.int64,
+                              device=dev)}
             for sp in eng.slots]
     return s
 
 
-def kernel_out(eng: NfaEngine, dev) -> dict:
+def kernel_out(eng: NfaEngine, dev, lead: tuple = ()) -> dict:
     """The match batch's buffers for one step of kernel K3 or K4, which
-    clears and closes them itself (no fill launches)."""
+    clears and closes them itself (no fill launches); ``lead`` (K,) for
+    one a slot of a partition block."""
     OUT = eng.OUT
 
     def e(dtype):
-        return torch.empty((OUT,), dtype=dtype, device=dev)
+        return torch.empty(lead + (OUT,), dtype=dtype, device=dev)
     return {"cols": tuple(e(torch_dtype(t)) for t in eng.match_schema.types),
             "nulls": tuple(e(torch.bool) for _ in eng.match_schema.types),
             "ts": e(torch.int64), "valid": e(torch.bool),
             "kind": e(torch.int32),
-            "n": torch.empty((), dtype=torch.int64, device=dev)}
+            "n": torch.empty(lead, dtype=torch.int64, device=dev)}
 
 
 def check_table(eng: NfaEngine, table: dict, dev, what: str) -> None:
     """Kernels K3 and K4 take the table's tensors as they are: each must be
-    contiguous, of its type and shape, on ``dev``."""
+    contiguous, of its type and shape, on ``dev`` (with a leading slot
+    axis inside a partition block)."""
+    lead = tuple(table["state"].shape[:-1])
     M = eng.M
     want = {"state": torch.int32, "valid": torch.bool, "ts0": torch.int64,
             "has_ts0": torch.bool, "born": torch.int64,
@@ -1959,33 +1966,38 @@ def check_table(eng: NfaEngine, table: dict, dev, what: str) -> None:
             "deadline2": torch.int64, "seq": torch.int64}
     for k, dt in want.items():
         x = table[k]
-        if x.device != dev or x.dtype != dt or x.shape != (M,) or \
+        if x.device != dev or x.dtype != dt or x.shape != lead + (M,) or \
                 not x.is_contiguous():
             raise ValueError(f"{what}: table['{k}'] must be a "
-                             f"contiguous {dt}[{M}] on {dev}")
+                             f"contiguous {dt}{list(lead + (M,))} on {dev}")
     for k in ("next_seq", "counter", "overflow"):
         x = table[k]
-        if x.device != dev or x.dtype != torch.int64 or x.numel() != 1:
+        if x.device != dev or x.dtype != torch.int64 or \
+                x.shape != lead or not x.is_contiguous():
             raise ValueError(f"{what}: table['{k}'] must be an int64 "
-                             f"scalar on {dev}")
+                             f"{list(lead)} on {dev}")
     for spec, buf in zip(eng.slots, table["slots"]):
         n = buf["n"]
-        if n.device != dev or n.dtype != torch.int32 or n.shape != (M,) or \
-                not n.is_contiguous():
+        if n.device != dev or n.dtype != torch.int32 or \
+                n.shape != lead + (M,) or not n.is_contiguous():
             raise ValueError(f"{what}: slot fill counts must be contiguous "
-                             f"int32[{M}] on {dev}")
+                             f"int32{list(lead + (M,))} on {dev}")
         for x in list(buf["cols"]) + list(buf["nulls"]) + [buf["ts"]]:
-            if x.device != dev or x.shape != (M, spec.cap) or \
+            if x.device != dev or x.shape != lead + (M, spec.cap) or \
                     not x.is_contiguous():
-                raise ValueError(f"{what}: slot columns must be "
-                                 f"contiguous [{M}, {spec.cap}] on {dev}")
+                raise ValueError(f"{what}: slot columns must be contiguous "
+                                 f"{list(lead + (M, spec.cap))} on {dev}")
 
 
 def scan_args(eng: NfaEngine, stream_id: Optional[str], table: dict, batch,
               now: int, out: dict, due, dev):
     """K4's launch arguments: the table (updated in place), the batch (or,
     with ``batch`` None, the timer step at ``now``), the match batch's
-    buffers and ``due`` (a 0-d int64 tensor, or None)."""
+    buffers and ``due`` (a 0-d int64 tensor, or None). Inside a partition
+    block every tensor but the program carries the slot axis, ``n_part``
+    is the slot count and ``moves`` the slot strides (ops/slots.py
+    part_moves)."""
+    lead = tuple(table["state"].shape[:-1])
     code, consts, loads = eng.device_program(dev)
     a = _kernels.ScanArgs()
     a.plan = _device_plan(eng, stream_id, dev).data_ptr()
@@ -1994,8 +2006,9 @@ def scan_args(eng: NfaEngine, stream_id: Optional[str], table: dict, batch,
               "overflow"):
         setattr(a, k, table[k].data_ptr())
     x = 0
+    staging = _staging(eng, dev, lead)
     for j, (spec, tb, sb) in enumerate(zip(eng.slots, table["slots"],
-                                           _staging(eng, dev))):
+                                           staging)):
         a.tab_ts[j], a.tab_n[j] = tb["ts"].data_ptr(), tb["n"].data_ptr()
         a.stg_ts[j] = sb["ts"].data_ptr()
         for c, nl, sc, sn in zip(tb["cols"], tb["nulls"], sb["cols"],
@@ -2009,7 +2022,10 @@ def scan_args(eng: NfaEngine, stream_id: Optional[str], table: dict, batch,
                                           batch.valid.data_ptr())
         for k, (c, nl) in enumerate(zip(batch.cols, batch.nulls)):
             a.ev_cols[k], a.ev_nulls[k] = c.data_ptr(), nl.data_ptr()
-        a.n_events = batch.capacity
+            a.ev_size[k] = c.element_size()
+        a.n_ev_cols = len(batch.cols)
+        a.n_events = batch.ts.shape[-1]
+    a.n_part = lead[0] if lead else 1
     a.now = int(now)
     a.rows = eng.M
     for ci, (c, nl, t) in enumerate(zip(out["cols"], out["nulls"],
@@ -2024,6 +2040,7 @@ def scan_args(eng: NfaEngine, stream_id: Optional[str], table: dict, batch,
     prog = eng.program
     a.n_code, a.n_consts, a.n_loads = (len(prog.code), len(prog.consts),
                                        len(prog.inputs))
+    part_moves(a, (table, staging, batch, out, due), dev)
     return a
 
 
@@ -2034,10 +2051,11 @@ def _launch(eng, stream_id, table, batch, now, due, dev):
     if due is not None and (due.device != dev or due.dtype != torch.int64
                             or due.numel() != 1):
         raise ValueError(f"nfa_scan: due must be an int64 scalar on {dev}")
-    out = kernel_out(eng, dev)
+    lead = tuple(table["state"].shape[:-1])
+    out = kernel_out(eng, dev, lead)
     args = scan_args(eng, stream_id, table, batch, now, out, due, dev)
     _kernels.load().nfa_scan(args, torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.count_launch("nfa_scan")
+    _kernels.count_launch("nfa_scan[K]" if lead else "nfa_scan")
     return EventBatch(ts=out["ts"], cols=out["cols"], nulls=out["nulls"],
                       kind=out["kind"], valid=out["valid"])
 
@@ -2048,21 +2066,36 @@ def scan_step(eng: NfaEngine, stream_id: str, table: dict, batch: EventBatch,
     pending table. -> (table', match batch). A batch on the CPU takes the
     plain version (``table`` is left as it was). A CUDA batch launches the
     kernel once, with ``table`` updated in place and returned. ``due`` (a
-    0-d int64 tensor, optional) receives next_due(table')."""
+    0-d int64 tensor, optional) receives next_due(table').
+
+    Inside a partition block the table and the batch carry the slot axis
+    (``[K, M]`` tables, ``[K, B]`` events): the plain version runs once
+    per slot; the kernel runs one thread block per slot
+    (``nfa_scan[K]``), and ``due`` is then a [K] tensor."""
     dev = batch.ts.device
+    slotted = batch.ts.dim() == 2
     if dev.type == "cpu":
-        table, match = eng.stream_step_ref(stream_id, table, batch)
+        if slotted:
+            table, match = per_slot(
+                lambda t, b: eng.stream_step_ref(stream_id, t, b),
+                batch.ts.shape[0], table, batch)
+        else:
+            table, match = eng.stream_step_ref(stream_id, table, batch)
         if due is not None:
             due.copy_(eng.next_due(table))
         return table, match
     if dev.type != "cuda":
         raise ValueError(f"nfa_scan: unsupported device {dev}")
-    B = batch.capacity
+    shape = tuple(batch.ts.shape)
     for x in (batch.ts, batch.kind, batch.valid) + tuple(batch.cols) + \
             tuple(batch.nulls):
-        if x.device != dev or x.shape != (B,) or not x.is_contiguous():
+        # inside a block, each slot's rows contiguous (a shared column
+        # has slot stride 0)
+        if x.device != dev or tuple(x.shape) != shape or \
+                not (x[0] if slotted else x).is_contiguous():
             raise ValueError("nfa_scan: every event column must be a "
-                             f"contiguous [{B}] tensor on {dev}")
+                             f"{list(shape)} tensor on {dev}, contiguous "
+                             "in a slot")
     return table, _launch(eng, stream_id, table, batch, 0, due, dev)
 
 
@@ -2072,7 +2105,11 @@ def timer_step(eng: NfaEngine, table: dict, now, due=None):
     match batch), as scan_step."""
     dev = table["state"].device
     if dev.type == "cpu":
-        table, match = eng.timer_step_ref(table, now)
+        if table["state"].dim() == 2:   # every slot of a partition block
+            table, match = per_slot(lambda t: eng.timer_step_ref(t, now),
+                                    table["state"].shape[0], table)
+        else:
+            table, match = eng.timer_step_ref(table, now)
         if due is not None:
             due.copy_(eng.next_due(table))
         return table, match

@@ -46,6 +46,7 @@ from ..core.types import col_zeros, row_bytes
 from .expr import CompileError
 from .operators import Operator
 from .sentinels import I32_MAX, NEG_INF, POS_INF
+from .slots import part_moves, per_slot
 
 I64 = torch.int64
 
@@ -265,7 +266,7 @@ class TimeWindowOp(WindowOp):
         buf = state["buf"]
         due = torch.where(buf["valid"], buf["ts"] + self.T,
                           torch.full_like(buf["ts"], int(POS_INF)))
-        return due.min()
+        return due.amin(-1)   # [K] dues inside a partition block
 
     def host_due_bound(self, ts_min: int) -> int:
         return ts_min + self.T
@@ -627,24 +628,38 @@ def window_step(op: WindowOp, state, batch: EventBatch, now):
     """Kernel K5: one window step over a batch -> (state', output batch).
     A batch on the CPU takes the plain version; a CUDA batch launches
     csrc/window_step.cu (one call, a fixed sequence of launches, no host
-    sync). ``now``: an int or an int64 0-d tensor."""
+    sync). ``now``: an int or an int64 0-d tensor.
+
+    Inside a partition block the state and the batch carry the slot axis
+    (ops/slots.py): the plain version runs once per slot, the kernel
+    once with a row of thread blocks (or one block) per slot, counted as
+    ``window_step[K]``."""
     dev = batch.ts.device
+    slotted = batch.ts.dim() == 2
     if dev.type == "cpu":
+        if slotted:
+            return per_slot(lambda st, b: window_step_ref(op, st, b, now),
+                            batch.ts.shape[0], state, batch)
         return window_step_ref(op, state, batch, now)
     if dev.type != "cuda":
         raise ValueError(f"window_step: unsupported device {dev}")
     new_state, out, args = window_args(op, state, batch, _i64(now, dev))
     _kernels.load().window_step(args,
                                 torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.count_launch("window_step")
+    _kernels.count_launch("window_step[K]" if slotted else "window_step")
     return new_state, out
 
 
-def _bufs(op: WindowOp, state, dev):
+def _bufs(op: WindowOp, state, dev, K=None):
     """(A, E): the window's buffers (E None for the sliding windows; the
-    empty window's A is a one-row stand-in K5 never reads)."""
+    empty window's A is a one-row stand-in K5 never reads, one a slot
+    inside a partition block)."""
     if isinstance(op, EmptyWindowOp):
-        return empty_buffer(op.schema, 1, dev), None
+        a = empty_buffer(op.schema, 1, dev)
+        if K is not None:
+            from .slots import stacked
+            a = stacked(a, K)
+        return a, None
     ka, ke = op.buf_keys
     return state[ka], (state[ke] if ke is not None else None)
 
@@ -669,37 +684,43 @@ def _empty_like_buf(buf: dict) -> dict:
 def window_args(op: WindowOp, state, batch: EventBatch, now):
     """K5's arguments: the new state's and the output batch's tensors
     (fresh), the scratch, and ``_kernels.WindowArgs`` pointing at them.
-    -> (state', output batch, args)."""
+    -> (state', output batch, args). Inside a partition block (a [K, B]
+    batch, a state a slot) every tensor gets the leading slot axis and
+    ``n_part`` is K, with the slot strides in ``moves`` (ops/slots.py
+    part_moves)."""
     dev = batch.ts.device
-    B, C = batch.capacity, len(batch.cols)
+    slotted = batch.ts.dim() == 2
+    K = batch.ts.shape[0] if slotted else None
+    lead = (K,) if slotted else ()
+    B, C = batch.ts.shape[-1], len(batch.cols)
     if C > _kernels.WIN_MAX_COLS:
         raise NotImplementedError(
             f"not ported yet: a window over more than "
             f"{_kernels.WIN_MAX_COLS} attributes ({C})")
-    A, E = _bufs(op, state, dev)
-    W = A["seq"].shape[0]
-    EB = 0 if E is None else E["seq"].shape[0]
+    A, E = _bufs(op, state, dev, K)
+    W = A["seq"].shape[-1]
+    EB = 0 if E is None else E["seq"].shape[-1]
     P, N = W + B, op.out_capacity(B)
     S = EB + P
     na = _empty_like_buf(A)
     ne = _empty_like_buf(E) if E is not None else None
-    out = EventBatch(ts=torch.empty((N,), dtype=I64, device=dev),
-                     cols=tuple(torch.empty((N,) + c.shape[1:], dtype=c.dtype,
-                                            device=dev)
+    nd = len(lead) + 1   # a column's dims before a set row's lanes
+
+    def e(shape, dtype):
+        return torch.empty(lead + shape, dtype=dtype, device=dev)
+    out = EventBatch(ts=e((N,), I64),
+                     cols=tuple(e((N,) + tuple(c.shape[nd:]), c.dtype)
                                 for c in batch.cols),
-                     nulls=tuple(torch.empty((N,), dtype=torch.bool,
-                                             device=dev)
-                                 for _ in batch.cols),
-                     kind=torch.empty((N,), dtype=torch.int32, device=dev),
-                     valid=torch.empty((N,), dtype=torch.bool, device=dev))
-    new = {"next_seq": torch.empty((), dtype=I64, device=dev)}
+                     nulls=tuple(e((N,), torch.bool) for _ in batch.cols),
+                     kind=e((N,), torch.int32), valid=e((N,), torch.bool))
+    new = {"next_seq": e((), I64)}
     for k in ("overflow", "next_emit", "next_hop", "start", "flushed",
               "sched", "last_ext"):
         if k in state:
             new[k] = torch.empty_like(state[k])
 
     def scratch(n, dtype):
-        return torch.empty((max(int(n), 1),), dtype=dtype, device=dev)
+        return e((max(int(n), 1),), dtype)
     blocks = (N + 1023) // 1024
     sc = {"b_seq": scratch(B, I64), "rt": scratch(B, I64),
           "cur_rows": scratch(B, torch.int32), "scal": scratch(32, I64),
@@ -724,7 +745,7 @@ def window_args(op: WindowOp, state, batch: EventBatch, now):
                  ne["valid"])
     empty = isinstance(op, EmptyWindowOp)
     if empty:   # no state: a zero seq in, the seq out discarded
-        sc["ns"] = torch.zeros((), dtype=I64, device=dev)
+        sc["ns"] = torch.zeros(lead, dtype=I64, device=dev)
     a.next_seq = (sc["ns"] if empty else state["next_seq"]).data_ptr()
     a.o_next_seq = new["next_seq"].data_ptr()
     if "overflow" in state:
@@ -742,9 +763,10 @@ def window_args(op: WindowOp, state, batch: EventBatch, now):
     for k, t in sc.items():
         setattr(a, k, t.data_ptr())
     for k, c in enumerate(batch.cols):
-        a.col_size[k] = row_bytes(c)
+        a.col_size[k] = row_bytes(c[0] if slotted else c)
     a.n_cols, a.kind, a.B, a.W, a.EB, a.N, a.P, a.S = \
         C, op.KIND, B, W, EB, N, P, S
+    a.n_part = K or 1
     a.expired_enabled = int(op.expired_enabled)
     a.stream_current = int(getattr(op, "stream_current", False))
     start = getattr(op, "start_time", None)
@@ -760,6 +782,7 @@ def window_args(op: WindowOp, state, batch: EventBatch, now):
     a.has_timeout = int(to is not None)
     a.timeout_ms = int(to or 0)
     a.replace_ts = int(getattr(op, "replace_ts", False))
+    part_moves(a, (state, batch, A, E, na, ne, new, out, sc), dev)
     if empty:   # the seq out lives in the scratch, alive until launch
         sc["ns_out"] = new["next_seq"]
         new = ()

@@ -6,13 +6,15 @@ test_torch_pattern_corpus.py: the reference's own app text and events
 under @app:playback with a virtual clock, checked against the expected
 rows of the Java test suite. The 338 cases are every pattern and
 sequence case whose planner does not pick the round-parallel engine.
-They split three ways:
-- against the Java rows: all but the ones below;
+They split two ways:
+- against the Java rows: all but the ones below, the three partition
+  blocks among them (AbsentPatternTestCase.testQueryAbsent43,
+  AbsentWithEveryPatternTestCase.testQuery8 and
+  LogicalAbsentPatternTestCase.testQueryAbsent68: the scan engine per
+  key slot, parallel/partition.py);
 - the six known failures (ref_corpus/known_failures.txt), where the
   reference differs from Java: against the reference's own replay, rows
-  and counts equal;
-- three cases that need what the port does not have yet (partitions)
-  must raise "not ported yet" with the reason. The aggregating selectors
+  and counts equal. The aggregating selectors
   of CountPattern testQuery17-20 run on the port's K6 (ops/aggregators.py)
   and are held against Java like the rest."""
 import json
@@ -22,20 +24,11 @@ import pytest
 import torch
 
 import siddhi_tpu as J
-from siddhi_tpu_torch import SiddhiManager
 from test_torch_pattern_corpus import (DIR, FUNCTION_CASES, PARALLEL_CASES,
                                        T0, _is_ordered_subset, _rows_match,
                                        replay)
 
 torch.set_num_threads(1)
-
-UNPORTED = {
-    "pattern_absent_AbsentPatternTestCase.testQueryAbsent43": "partitions",
-    "pattern_absent_AbsentWithEveryPatternTestCase.testQuery8": "partitions",
-    "pattern_absent_LogicalAbsentPatternTestCase.testQueryAbsent68":
-        "partitions",
-}
-
 
 def _known_failures() -> set:
     lines = (pathlib.Path(DIR) / "known_failures.txt").read_text()
@@ -60,14 +53,19 @@ def _scan_cases() -> dict:
 
 
 CASES = _scan_cases()
-JAVA = sorted(set(CASES) - KNOWN - set(UNPORTED))
+# the cases whose app is a partition block
+PARTITION_CASES = (
+    "pattern_absent_AbsentPatternTestCase.testQueryAbsent43",
+    "pattern_absent_AbsentWithEveryPatternTestCase.testQuery8",
+    "pattern_absent_LogicalAbsentPatternTestCase.testQueryAbsent68")
+JAVA = sorted(set(CASES) - KNOWN)
 
 
 def test_the_split_covers_the_scan_cases():
     assert len(CASES) == 338
     assert len(KNOWN) == 6 and KNOWN <= set(CASES)
     assert sorted(KNOWN_PARTS[0] + KNOWN_PARTS[1]) == sorted(KNOWN)
-    assert set(UNPORTED) <= set(CASES)
+    assert set(PARTITION_CASES) <= set(JAVA)
 
 
 @pytest.mark.parametrize("cid", JAVA)
@@ -174,11 +172,3 @@ def check_known(cid) -> None:
     assert (got["in"], got["rm"]) == (want["in"], want["rm"])
     assert got["in_rows"] == want["in_rows"]
     assert got["rm_rows"] == want["rm_rows"]
-
-
-@pytest.mark.parametrize("cid", sorted(UNPORTED))
-def test_unported_case_raises_not_ported(cid):
-    with pytest.raises(NotImplementedError,
-                       match=f"not ported yet: {UNPORTED[cid]}"):
-        SiddhiManager(device="cpu").create_siddhi_app_runtime(
-            "@app:playback " + CASES[cid]["app"])
