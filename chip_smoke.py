@@ -7,7 +7,7 @@ Phases, each of which stops the run with a non-zero exit on failure:
 
 1. device: CUDA must be there; prints the device, the build and
    ``nvidia-smi``'s name and power limit;
-2. build the port's CUDA kernels from csrc/ (thirteen sources, one nvcc
+2. build the port's CUDA kernels from csrc/ (fourteen sources, one nvcc
    each, all at once) and hold kernel K1 (packed-ingest decode) against its plain
    PyTorch version on the card, bit for bit, for every lane code at
    capacities 16, 1024, 65536;
@@ -191,7 +191,26 @@ Phases, each of which stops the run with a non-zero exit on failure:
    AbsentPatternTestCase.testQueryAbsent43 over 65,536 visits, driven
    past its deadlines by a TIMER, against its oracle; K9p and K4 with
    the slot axis on every step; K4's time at the fraud step's shape;
-35. print the kernel table as one JSON line, the card's name and power
+36. hold kernel K11 (an incremental aggregation's bucket step) against
+   its plain version on the card, bit for bit, the whole per-duration
+   state after every step: every aggregator over INT, LONG, DOUBLE and
+   FLOAT arguments with nulls, a STRING and an INT group key and every
+   duration (checks.K11_CHECK_APP), an order-sensitive float feed and a
+   feed of more keys than the table's 4,096 slots;
+37. run aggregation_trades (the Siddhi query guide's incremental
+   aggregation, word for word): 1,048,576 trades of 64 symbols in 16
+   sends of 65,536, out of order across 2026-01-01T00:00:00Z; one
+   `within ... per` read a duration against a numpy group-by, the
+   unplaced buckets' rows equal to the overflow; K11 on every step;
+   then events/s, send latency, the reads' host time, and K11's time
+   at the path's shape (every captured step held against its plain
+   version) against its bound and index_add_ of one int lane;
+38. run window_named (the query guide's named-window usage: a
+   one-minute time window fed by one query, a per-room average reading
+   it): 1,048,576 readings of 512 rooms in 16 sends of 65,536 against a
+   numpy oracle, then an on-demand read of the window against it; K1,
+   K2, K5 and K6 on the path;
+39. print the kernel table as one JSON line, the card's name and power
    limit, and the result line.
 
 `python3 chip_smoke.py --k5-time` times K5 alone (window_agg's and
@@ -229,6 +248,9 @@ def bound_of(n_bytes: int, n_ops: int):
 SEND_ROWS, JOIN_SENDS, GRID_SENDS, STOCK_ROUNDS = 8192, 64, 16, 64
 # the keyed windows', the top-10's and chain3's and fanout's sends
 KEYED_SEND = 65536
+# slice 10's sends (aggregation_trades, window_named) and the largest
+# batch of K11's check against its plain version
+AGG_SEND = 65536
 
 
 def fail(msg: str) -> None:
@@ -4482,6 +4504,374 @@ def partition_fraud_phase(dev, card: str, n_sends: int = 64,
 
 
 
+# ---------------------------------------------------------------------------
+# slice 10: incremental aggregation (kernel K11) and named windows
+# ---------------------------------------------------------------------------
+
+
+def _k11_step(ar, state, batch, now, what: str):
+    """One K11 step and its plain version on the same arguments, the
+    whole new state held bit for bit. -> (the kernel's new state, the
+    max abs error)."""
+    from siddhi_tpu_torch import _kernels
+    from siddhi_tpu_torch.core import aggregation as AG
+    gcols, args, ets = AG.step_inputs(ar, batch, now)
+    new, a = AG.aggr_args(ar, state, batch, gcols, args, ets)
+    _kernels.load().aggregation_step(
+        a, torch.cuda.current_stream().cuda_stream)
+    ref = AG.aggregation_step_ref(ar, state, batch, gcols, args, ets)
+    return new, compare(what, tree_leaves(new), tree_leaves(ref))
+
+
+def aggregation_against_plain(dev) -> float:
+    """Kernel K11 against its plain version on the card, the whole
+    per-duration state (keys, used, bucket starts, group values and
+    nulls, every lane, overflow) bit for bit after every step: every
+    aggregator over INT, LONG, DOUBLE and FLOAT arguments with nulls, a
+    STRING and an INT group key (nulls too) and every duration
+    (checks.K11_CHECK_APP) on the 'mixed' feed at 16-, 1,024- and
+    16,384-row batches with invalid and EXPIRED rows among them, the
+    order-sensitive float feed and a feed of more keys than the 4,096
+    slots. -> the max abs error (0: bit-equal)."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.event import EventBatch
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    err, steps = 0.0, 0
+    # the synthetic feeds at up to 16,384 rows: the plain version folds
+    # rank by rank, and a year's slot holds thousands of their rows; the
+    # path's own 65,536-row steps are held in aggregation_phase
+    big = AGG_SEND // 4
+    for kind, sizes in (("mixed", ((16, 11), (1024, 700), (big, big),
+                                   (1024, 1024), (big, big * 5 // 8))),
+                        ("order", ((16, 16), (1024, 1024), (big, big))),
+                        ("overflow", ((8192, 8192), (8192, 8192),
+                                      (big, big * 15 // 16)))):
+        rt = SiddhiManager().create_siddhi_app_runtime(C.K11_CHECK_APP)
+        ar = rt.aggregations["A"]
+        state = ar.state
+        for i, (cap, n) in enumerate(sizes):
+            ts, cols, nulls = C.k11_check_feed(
+                kind, n, cap, GLOBAL_STRINGS.encode, seed=100 + i)
+            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+            valid = np.arange(cap) < n
+            kinds = np.zeros(cap, np.int32)
+            if kind == "mixed":
+                valid[::17] = False
+                kinds[5::13] = 1    # EXPIRED rows do not aggregate
+            batch = EventBatch(ts=t(ts), cols=[t(c) for c in cols],
+                               nulls=[t(m) for m in nulls], kind=t(kinds),
+                               valid=t(valid))
+            state, e = _k11_step(ar, state, batch, 0,
+                                 f"K11 {kind} step {i} ({cap} rows)")
+            err = max(err, e)
+            steps += 1
+        ovf = [int(x) for x in state["overflow"]]
+        if kind == "overflow" and ovf[0] == 0:
+            fail(f"K11 overflow feed: no overflow ({ovf})")
+        rt.shutdown()
+    torch.cuda.synchronize()
+    print(f"K11 aggregation_step: bit-equal to its plain version over "
+          f"{steps} steps (mixed, float-order and overflow feeds, every "
+          f"duration; the whole state after every step)", flush=True)
+    return err
+
+
+def aggregation_phase(dev, card: str, n_sends: int = 16) -> dict:
+    """aggregation_trades: the Siddhi query guide's incremental
+    aggregation (checks.AGG_TRADES_APP, word for word) end to end on the
+    card through SiddhiManager and send_arrays: 1,048,576 trades of 64
+    symbols (interned first) in 16 sends of 65,536, event times out of
+    order by up to 2 s across 2026-01-01T00:00:00Z. K11 must launch on
+    every step. Then one ``within ... per`` read a duration, every row
+    against a numpy group-by (checks.agg_oracle: the bucket by numpy's
+    calendar; the count exact from the state's ncount lane, the total
+    and the average within 1e-9 relative of numpy's, which sums in
+    another order), and the rows of the buckets the table did not place
+    equal to the reported overflow. K11's time at the path's shape (a
+    captured step's arguments), every captured step held against the
+    plain version bit for bit, the bound and index_add_ of one int
+    lane."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core import aggregation as AG
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    enc = GLOBAL_STRINGS.encode
+    SEND = AGG_SEND
+    N = n_sends * SEND
+    ts_all, cols_all = C.agg_trades_feed(N, enc)
+    mgr = SiddhiManager()
+    warm = mgr.create_siddhi_app_runtime(C.AGG_TRADES_APP)
+    warm.start()
+    _send_all(warm.get_input_handler("TradeStream"), ts_all, cols_all,
+              (0, SEND, 2 * SEND))
+    torch.cuda.synchronize()
+    warm.shutdown()
+    rt = mgr.create_siddhi_app_runtime(C.AGG_TRADES_APP)
+    rt.start()
+    ar = rt.aggregations["TradeAggregation"]
+    h = rt.get_input_handler("TradeStream")
+    captured = []
+    step = AG.aggregation_step
+
+    def capture(*a):
+        captured.append(a)
+        return step(*a)
+    AG.aggregation_step = capture
+    _kernels.reset_launches()
+    lat = []
+    try:
+        t0 = time.perf_counter()
+        for s in range(0, N, SEND):
+            c0 = time.perf_counter()
+            h.send_arrays(ts_all[s:s + SEND],
+                          [c[s:s + SEND] for c in cols_all])
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - c0) * 1e3)
+        wall = time.perf_counter() - t0
+    finally:
+        AG.aggregation_step = step
+    launches = dict(_kernels.LAUNCHES)
+    if launches["aggregation_step"] != n_sends or len(captured) != n_sends:
+        fail(f"aggregation_trades: K11 launched "
+             f"{launches['aggregation_step']} times, the steps {n_sends}")
+    sym, price, _vol, stamp = cols_all
+    lo, hi = C.AGG_WITHIN
+    q_ms, n_rows, lost_all = [], 0, []
+    rel = 0.0
+    for di, d in enumerate(ar.durations):
+        c0 = time.perf_counter()
+        rows = rt.query(f"from TradeAggregation within {lo}L, {hi}L per "
+                        f"'{d}' select symbol, total, avgPrice, "
+                        "AGG_TIMESTAMP")
+        q_ms.append((time.perf_counter() - c0) * 1e3)
+        orc = C.agg_oracle(sym, stamp, price, d)
+        st = {k: v for k, v in ar.states[d].items()}
+        used = st["used"].cpu().numpy()
+        counts = {(int(g), int(b)): int(c) for g, b, c in zip(
+            st["groups"][0].cpu().numpy()[used],
+            st["bstart"].cpu().numpy()[used],
+            st["lanes"][1].cpu().numpy()[used])}
+        got = {}
+        for symbol, total, avg, bstart in rows:
+            key = (enc(symbol), int(bstart))
+            if key in got or key not in orc:
+                fail(f"aggregation_trades {d}: bucket {key} not in the "
+                     "oracle (or twice)")
+            got[key] = (total, avg)
+        for key, (total, avg) in got.items():
+            cnt, tot = orc[key][0], orc[key][1]
+            if counts.get(key) != cnt:
+                fail(f"aggregation_trades {d}: bucket {key} count "
+                     f"{counts.get(key)}, the oracle {cnt}")
+            r = max(abs(total - tot) / abs(tot),
+                    abs(avg - tot / cnt) / abs(tot / cnt))
+            if not r <= 1e-9:
+                fail(f"aggregation_trades {d}: bucket {key} total {total} "
+                     f"avg {avg}, the oracle {tot} over {cnt}")
+            rel = max(rel, r)
+        lost = sum(v[0] for k, v in orc.items() if k not in got)
+        ovf = int(st["overflow"])
+        if lost != ovf or len(got) != len(counts):
+            fail(f"aggregation_trades {d}: {len(got)} rows of "
+                 f"{len(orc)} buckets, the unplaced buckets' rows {lost}, "
+                 f"the reported overflow {ovf}")
+        n_rows += len(got)
+        lost_all.append(lost)
+    eps = N / wall
+    p50, p99 = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+    print(f"aggregation_trades: {N} events in {n_sends} sends of {SEND}; "
+          f"{n_rows} bucket rows over {ar.durations} equal the numpy "
+          f"group-by (counts exact, totals and averages within {rel:.2e} "
+          f"relative; overflow {lost_all} as the unplaced buckets' rows); "
+          f"{eps:.0f} events/s, send p50 {p50:.3f} ms, p99 {p99:.3f} ms; "
+          f"the reads' host time {[round(x, 3) for x in q_ms]} ms ({card})",
+          flush=True)
+    print(f"launches on the aggregation_trades path: {launches}", flush=True)
+    # every captured step held against the plain version, then K11's
+    # time at a mid-run step's arguments
+    err = 0.0
+    for i, (rt_, st_, b_, now_) in enumerate(captured):
+        _new, e = _k11_step(rt_, st_, b_, now_,
+                            f"K11 at aggregation_trades' step {i}")
+        err = max(err, e)
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    rt_, st_, b_, now_ = captured[n_sends // 2]
+    gcols, args, ets = AG.step_inputs(rt_, b_, now_)
+    _new, a = AG.aggr_args(rt_, st_, b_, gcols, args, ets)
+    k11_ms = cuda_ms(lambda: lib.aggregation_step(a, stream), reps=20)
+    plain_ms, _r = _timed(lambda: AG.aggregation_step_ref(
+        rt_, st_, b_, gcols, args, ets), 1)
+    # the library yardstick: index_add_ of one int lane (ncount) over
+    # every duration's table, at the slots the kernel placed
+    D, K, B = len(rt_.durations), rt_.K, b_.capacity
+    slot = torch.empty((D, B), dtype=torch.int32, device=dev)
+    sa = _kernels.AggrArgs.from_buffer_copy(a)
+    sa.slot = slot.data_ptr()
+    lib.aggregation_step(sa, stream)
+    offs = torch.arange(D, device=dev, dtype=torch.int64)[:, None] * K
+    idx = torch.where(slot >= 0, slot.to(torch.int64) + offs,
+                      torch.full_like(offs, D * K).expand(D, B)).reshape(-1)
+    ones = torch.ones_like(idx)
+    table = torch.zeros(D * K + 1, dtype=torch.int64, device=dev)
+    lib_ms = cuda_ms(lambda: table.index_add_(0, idx, ones), reps=20)
+    # bytes: each column the step reads once (the event times, kind,
+    # valid, the group columns, each lane's argument: its null mask alone
+    # for an ncount lane, nothing for count's), a column several lanes
+    # share counted once, the state in and out; ops: a row's bucket start
+    # (the civil arithmetic), its hash and its probe compares, a duration
+    # each
+    reads = [ets if ets is not None else b_.ts, b_.kind, b_.valid]
+    reads += [x for c in gcols for x in c]
+    for (_f, kind, _a, _dt), arg in zip(rt_.lanes, args):
+        if arg is not None:
+            reads += [arg[1]] if kind == "ncount" else list(arg)
+    col_bytes = _nbytes({(t.data_ptr(), t.nbytes): t
+                         for t in reads}.values())
+    n_bytes = col_bytes + 2 * _nbytes(tree_leaves(st_))
+    n_ops = D * B * 64
+    bound, by = bound_of(n_bytes, n_ops)
+    torch.cuda.synchronize()
+    print(f"aggregation_step (K11, {D} durations x {K} slots, {B} rows): "
+          f"{k11_ms:.4f} ms a step, plain version {plain_ms:.1f} ms, "
+          f"index_add_ of one int lane {lib_ms:.4f} ms, bound "
+          f"{bound:.5f} ms ({by}; {n_bytes} bytes); every captured step "
+          f"bit-equal to the plain version; {card}", flush=True)
+    _kernels.LAUNCHES.update(launches)
+    rt.shutdown()
+    del captured
+    gc.collect()
+    return {"events_per_s": eps, "p50_ms_send": p50, "p99_ms_send": p99,
+            "launches": launches, "query_ms": q_ms, "k11_ms": k11_ms,
+            "k11_plain_ms": plain_ms, "k11_library_ms": lib_ms,
+            "k11_bound_ms": bound, "k11_bound_by": by, "err": err,
+            "overflow": lost_all}
+
+
+def window_named_phase(dev, card: str, n_sends: int = 16) -> dict:
+    """window_named: the Siddhi query guide's named-window usage in shape
+    (checks.WINDOW_NAMED_APP: a one-minute time window fed by one query
+    and read by a per-room average) end to end on the card: 1,048,576
+    readings of 512 rooms, 15 ms apart (4,000 live rows, within the
+    window's 4,096), in 16 sends of 65,536 through send_arrays, every
+    RoomAvgStream row against checks.window_named_oracle (rooms and order
+    exact, averages within 1e-9 relative), the window and the group
+    table without overflow, then the on-demand read WINDOW_NAMED_READ
+    against the oracle in count, order and values. K1, K2, K5 and K6
+    must launch on the path. Every window step (K5) and aggregate step
+    and emission (K6) of the first three sends, their timer steps among
+    them, is captured on the path and held against the plain versions on
+    the same arguments afterwards, tolerance 0."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.ops import aggregators as G
+    from siddhi_tpu_torch.ops import windows as W
+    SEND = AGG_SEND
+    N = n_sends * SEND
+    ts_all, cols_all = C.window_named_feed(N + 2 * SEND)
+    mgr = SiddhiManager()
+    warm = mgr.create_siddhi_app_runtime(C.WINDOW_NAMED_APP)
+    warm.start()
+    _send_all(warm.get_input_handler("TempStream"), ts_all[N:],
+              [c[N:] for c in cols_all], (0, SEND, 2 * SEND))
+    torch.cuda.synchronize()
+    warm.shutdown()
+    rt = mgr.create_siddhi_app_runtime(C.WINDOW_NAMED_APP)
+    outs = []
+    rt.queries["query_2"].batch_callbacks.append(outs.append)
+    rt.start()
+    h = rt.get_input_handler("TempStream")
+    # the steps of the first three sends, kept with their arguments (the
+    # emission's running count copied before the kernel adds to it)
+    taps = (W, "window_step"), (G, "aggregate_step"), (G, "aggregate_emit")
+    saved = [getattr(m, f) for m, f in taps]
+    steps, tapping = [], [True]
+
+    def tap(fname, fn):
+        def wrap(*a):
+            if tapping[0]:
+                if fname == "aggregate_emit" and len(a) > 6 and \
+                        a[6] is not None:
+                    a = a[:6] + (a[6].clone(),)
+                steps.append((fname, a))
+            return fn(*a)
+        return wrap
+    for (m, f), fn in zip(taps, saved):
+        setattr(m, f, tap(f, fn))
+    _kernels.reset_launches()
+    lat = []
+    try:
+        t0 = time.perf_counter()
+        for k, s in enumerate(range(0, N, SEND)):
+            tapping[0] = k < 3
+            c0 = time.perf_counter()
+            h.send_arrays(ts_all[s:s + SEND],
+                          [c[s:s + SEND] for c in cols_all])
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - c0) * 1e3)
+        wall = time.perf_counter() - t0
+    finally:
+        for (m, f), fn in zip(taps, saved):
+            setattr(m, f, fn)
+    launches = dict(_kernels.LAUNCHES)
+    for k in ("unpack_packed", "expr_eval", "window_step", "aggregate_step",
+              "aggregate_emit"):
+        if launches[k] < n_sends:
+            fail(f"window_named: {k} launched {launches[k]} times in "
+                 f"{n_sends} sends")
+    room, temp = (c[:N] for c in cols_all)
+    w_room, w_avg, r_room, r_temp = C.window_named_oracle(ts_all[:N], room,
+                                                          temp)
+    ots, ocols, onulls = C.emitted_columns(outs)
+    if len(ots) != N or not np.array_equal(ots, ts_all[:N]) or \
+            not np.array_equal(ocols[0], w_room) or \
+            any(n.any() for n in onulls):
+        fail(f"window_named: {len(ots)} rows, the oracle {N}")
+    rel = float(np.max(np.abs(ocols[1] - w_avg) / np.abs(w_avg)))
+    if not rel <= 1e-9:
+        fail(f"window_named: an average {rel} from the oracle's")
+    wq = rt.named_windows["OneMinTempWindow"]
+    ovf = (wq.overflow_total(), rt.queries["query_2"].stats()["overflow"])
+    if ovf != (0, 0):
+        fail(f"window_named: overflow (window, group table) {ovf}")
+    c0 = time.perf_counter()
+    rows = rt.query(C.WINDOW_NAMED_READ)
+    read_ms = (time.perf_counter() - c0) * 1e3
+    if rows != list(zip(r_room.tolist(), r_temp.tolist())):
+        fail(f"window_named: the on-demand read gave {len(rows)} rows, the "
+             f"oracle {len(r_room)}")
+    with KernelCheck() as chk:
+        for fname, a in steps:
+            getattr(W if fname == "window_step" else G, fname)(*a)
+    torch.cuda.synchronize()
+    shapes = sorted({(f, a[2].capacity if f == "window_step" else
+                      a[4].shape[0] if f == "aggregate_step" else
+                      a[3].capacity) for f, a in steps})
+    if chk.steps["window_step"] < 3 or chk.steps["aggregate_emit"] < 3 or \
+            len({b for f, b in shapes if f == "window_step"}) < 2:
+        fail(f"window_named: the captured steps {chk.steps} ({shapes}) do "
+             "not hold three sends and their timer steps")
+    print(f"K5/K6 at window_named's first three sends: {chk.steps} steps "
+          f"bit-equal to their plain versions (kernel, rows: {shapes})",
+          flush=True)
+    del steps
+    eps = N / wall
+    p50, p99 = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+    print(f"window_named: {N} events in {n_sends} sends of {SEND}; {N} "
+          f"rows equal the numpy oracle (averages within {rel:.2e}); the "
+          f"on-demand read's {len(rows)} rows equal the oracle's "
+          f"({read_ms:.3f} ms host); overflow 0; {eps:.0f} events/s, send "
+          f"p50 {p50:.3f} ms, p99 {p99:.3f} ms ({card})", flush=True)
+    print(f"launches on the window_named path: {launches}", flush=True)
+    _kernels.LAUNCHES.update(launches)
+    rt.shutdown()
+    del outs
+    gc.collect()
+    return {"events_per_s": eps, "p50_ms_send": p50, "p99_ms_send": p99,
+            "read_ms": read_ms, "launches": launches, "err": chk.err}
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4534,7 +4924,8 @@ def main() -> None:
     for sym in time_symbols(512, "T") + time_symbols(1500, "K") + \
             user_symbols(SESSION_USERS) + card_symbols(FRAUD_CARDS) + \
             card_symbols(FRAUD_TXN_CARDS, "TX") + \
-            [f"CU{i:05d}" for i in range(1024)]:
+            [f"CU{i:05d}" for i in range(1024)] + \
+            [f"TR{i:02d}" for i in range(64)]:
         GLOBAL_STRINGS.encode(sym)
 
     # -- 2. build, then K1 against its plain version -------------------------
@@ -5026,7 +5417,30 @@ def main() -> None:
             "bound_ms": r[f"{pre}_bound_ms"],
             "bound_by": r[f"{pre}_bound_by"], "library_ms": None})
 
-    # -- 35. result -----------------------------------------------------------
+    # -- 36. to 38. slice 10: incremental aggregation (kernel K11) and
+    # named windows; aggregation_trades and window_named
+    k11_err = aggregation_against_plain(dev)
+    ag = aggregation_phase(dev, card)
+    wn = window_named_phase(dev, card)
+    for row in table:   # K1, K2, K5 and K6 ran on the named-window path
+        kname = {"unpack_packed": "unpack_packed",
+                 "expr_eval": "expr_eval", "window_step": "window_step",
+                 "aggregate_step": "aggregate_step"}.get(row["name"])
+        if kname is not None:
+            row["launches"] += wn["launches"][kname]
+        if kname in ("window_step", "aggregate_step"):
+            row["max_abs_err"] = max(row["max_abs_err"], wn["err"])
+    table.append({
+        "name": "aggregation_step", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/aggregation_step.cu",
+        "replaces": "siddhi_tpu/core/aggregation.py:248",
+        "launches": ag["launches"]["aggregation_step"],
+        "max_abs_err": max(k11_err, ag["err"]), "ms": ag["k11_ms"],
+        "plain_ms": ag["k11_plain_ms"], "bound_ms": ag["k11_bound_ms"],
+        "bound_by": ag["k11_bound_by"],
+        "library_ms": ag["k11_library_ms"]})
+
+    # -- 39. result -----------------------------------------------------------
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,13 +34,14 @@ SOURCES = {"unpack_packed": "unpack_packed.cu", "expr_eval": "expr_eval.cu",
            "aggregate_step": "aggregate_step.cu",
            "join_cross": "join_cross.cu", "table_step": "table_step.cu",
            "session_step": "session_step.cu", "order_by": "order_by.cu",
-           "union_set": "union_set.cu", "partition": "partition.cu"}
+           "union_set": "union_set.cu", "partition": "partition.cu",
+           "aggregation_step": "aggregation_step.cu"}
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 # entry points counted apart: the aggregate step's emission; K7's probe
 # and grid; K8's write, condition pass, index probe and seq-ordered view;
 # K9p's route, compaction and due; and the launches of K4, K5 and K6 with
-# a partition block's slot axis ("[K]")
+# a partition block's slot axis ("[K]"); K11's bucket step
 ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
                 "window_step", "sort_window", "aggregate_step",
                 "sliding_minmax", "distinct_count", "aggregate_emit",
@@ -49,7 +50,7 @@ ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
                 "session_window", "order_by", "union_set",
                 "partition_route", "partition_compact", "partition_due",
                 "nfa_scan[K]", "window_step[K]", "aggregate_step[K]",
-                "aggregate_emit[K]")
+                "aggregate_emit[K]", "aggregation_step")
 LAUNCHES = {name: 0 for name in ENTRY_POINTS}
 
 
@@ -524,6 +525,35 @@ class DueArgs(ctypes.Structure):
                 ("n", _I64 * PART_MAX_QUERIES), ("out", _P)]
 
 
+AGGR_MAX_DUR = 6
+AGGR_MAX_GROUPS = 8
+AGGR_MAX_LANES = 40
+
+
+class AggrArgs(ctypes.Structure):
+    _fields_ = [(f, _I32) for f in ("B", "K", "D", "n_groups",
+                                    "n_lanes")] + [
+        ("dur", _I32 * AGGR_MAX_DUR),
+        ("ets", _P), ("kind", _P), ("valid", _P),
+        ("gcol", _P * AGGR_MAX_GROUPS), ("gnull", _P * AGGR_MAX_GROUPS),
+        ("gtype", _I32 * AGGR_MAX_GROUPS), ("gsize", _I32 * AGGR_MAX_GROUPS),
+        ("arg", _P * AGGR_MAX_LANES), ("arg_null", _P * AGGR_MAX_LANES),
+        ("arg_type", _I32 * AGGR_MAX_LANES),
+        ("lane_kind", _I32 * AGGR_MAX_LANES),
+        ("lane_f64", _I32 * AGGR_MAX_LANES),
+        ("keys", _P), ("used", _P), ("bstart", _P), ("overflow", _P),
+        ("groups", _P * AGGR_MAX_GROUPS), ("gnulls", _P * AGGR_MAX_GROUPS),
+        ("lanes", _P * AGGR_MAX_LANES),
+        ("new_keys", _P), ("new_used", _P), ("new_bstart", _P),
+        ("new_overflow", _P),
+        ("new_groups", _P * AGGR_MAX_GROUPS),
+        ("new_gnulls", _P * AGGR_MAX_GROUPS),
+        ("new_lanes", _P * AGGR_MAX_LANES)] + [
+        (f, _P) for f in ("bs", "hk", "active", "slot", "prb", "flags",
+                          "claim", "skey", "perm", "k1", "k2", "i1", "i2",
+                          "counts")]
+
+
 def _nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if cand and Path(cand, "bin", "nvcc").exists():
@@ -644,6 +674,10 @@ class _Kernels:
             getattr(self.part_lib, fn).argtypes = [ctypes.POINTER(st),
                                                    ctypes.c_void_p]
             getattr(self.part_lib, fn).restype = ctypes.c_int
+        self.aggr_lib = ctypes.CDLL(str(libs["aggregation_step"]))
+        self.aggr_lib.siddhi_aggregation_step.argtypes = [
+            ctypes.POINTER(AggrArgs), ctypes.c_void_p]
+        self.aggr_lib.siddhi_aggregation_step.restype = ctypes.c_int
         self.table_lib = ctypes.CDLL(str(libs["table_step"]))
         for fn in ("siddhi_table_write", "siddhi_table_match",
                    "siddhi_table_probe", "siddhi_table_buffer"):
@@ -739,7 +773,6 @@ class _Kernels:
         self._check("table_buffer", self.table_lib.siddhi_table_buffer(
             ctypes.byref(args), stream))
 
-
     def partition_route(self, args: RouteArgs, stream: int) -> None:
         self._check("partition_route", self.part_lib.siddhi_partition_route(
             ctypes.byref(args), stream))
@@ -751,6 +784,11 @@ class _Kernels:
 
     def partition_due(self, args: DueArgs, stream: int) -> None:
         self._check("partition_due", self.part_lib.siddhi_partition_due(
+            ctypes.byref(args), stream))
+
+
+    def aggregation_step(self, args: AggrArgs, stream: int) -> None:
+        self._check("aggregation_step", self.aggr_lib.siddhi_aggregation_step(
             ctypes.byref(args), stream))
 
 

@@ -9,7 +9,8 @@ columns and null masks, ``valid``), the aggregators' group tables
 across as they are, with a window's STRING columns optionally mapped to
 the port's dictionary codes.
 ``table_from_jax`` does the same for a table's state, ``block_from_jax``
-for a partition block's.
+for a partition block's, ``aggregation_from_jax`` for an incremental
+aggregation's per-duration tables.
 ``strings_from_jax`` seeds the port's string dictionary so that its
 codes match the reference process's: both packages give strings codes
 in order of first sight, so dictionary-coded columns and string
@@ -130,6 +131,25 @@ def table_from_jax(tstate: dict, device, string_cols: Sequence = (),
                      tstate["cols"], tuple(string_cols) +
                      (False,) * len(tstate["cols"])))
     return _tree({**tstate, "cols": cols}, device)
+
+
+def aggregation_from_jax(snapshot: dict, device, string_cols: Sequence = (),
+                         remap=None) -> dict:
+    """A reference ``AggregationRuntime.snapshot_state()`` ({duration:
+    keys, used, bstart, groups, gnulls, lanes, overflow}) -> the port's,
+    for ``AggregationRuntime.restore_state``. ``remap`` is applied to
+    the STRING group columns, flagged by ``string_cols`` in group-by
+    order. The slot keys are hashes of dictionary codes and carry over
+    only where both packages gave the strings the same codes."""
+    out = {}
+    for d, st in snapshot.items():
+        groups = tuple(np.asarray(remap(np.asarray(g)), np.int32)
+                       if (remap is not None and is_str) else np.asarray(g)
+                       for g, is_str in zip(
+                           st["groups"], tuple(string_cols) +
+                           (False,) * len(st["groups"])))
+        out[d] = _tree({**st, "groups": groups}, device)
+    return out
 
 
 def strings_from_jax(codes_to_str: Sequence) -> None:

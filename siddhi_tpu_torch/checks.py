@@ -3063,3 +3063,181 @@ def absent_oracle(ts, cust, send: int = 4096, K: int = 2048,
     out = sorted((t + wait_ms, c) for c, t in first.items() if c not in again)
     return (np.array([t for t, _ in out], np.int64),
             np.array([c for _, c in out], np.int32), lost)
+
+
+# ---------------------------------------------------------------------------
+# incremental aggregation (kernel K11) and named windows
+# ---------------------------------------------------------------------------
+
+# The Siddhi query guide's incremental-aggregation example, word for word
+# (`sec ... year` parses as the six durations and `weeks`, which is
+# dropped).
+AGG_TRADES_APP = """
+define stream TradeStream (symbol string, price double, volume long, timestamp long);
+define aggregation TradeAggregation
+from TradeStream
+select symbol, avg(price) as avgPrice, sum(price) as total
+group by symbol
+aggregate by timestamp every sec ... year;
+"""
+AGG_TRADES_SYMS = 64
+AGG_MIDNIGHT = 1_767_225_600_000          # 2026-01-01T00:00:00Z
+AGG_SPAN_MS = 32_768
+AGG_JITTER_MS = 2_000
+# the within bounds of the reads: every bucket of the feed, years included
+AGG_WITHIN = (1_700_000_000_000, 1_800_000_000_000)
+AGG_DURATIONS = ("seconds", "minutes", "hours", "days", "months", "years")
+
+
+def agg_trades_feed(n: int, encode, seed: int = 11,
+                    n_syms: int = AGG_TRADES_SYMS, prefix: str = "TR"):
+    """AGG_TRADES_APP's feed: ``n`` trades over AGG_SPAN_MS ms centred on
+    2026-01-01T00:00:00Z, so every duration has two buckets a symbol.
+    Arrival ts (the event ts) climb through the span, n / span rows a
+    millisecond; ``timestamp`` is the arrival ts less a seeded jitter of
+    0-AGG_JITTER_MS ms, so the events arrive out of order. Symbols
+    uniform over ``n_syms``, price ~ U(1, 500), volume ~ U[1, 1000).
+    -> (ts, [symbol codes, price, volume, timestamp])."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([encode(f"{prefix}{i:02d}") for i in range(n_syms)],
+                    np.int32)
+    ts = (AGG_MIDNIGHT - AGG_SPAN_MS // 2
+          + np.arange(n, dtype=np.int64) * AGG_SPAN_MS // n)
+    sym = syms[rng.integers(0, n_syms, n)]
+    price = rng.uniform(1.0, 500.0, n)
+    vol = rng.integers(1, 1000, n, dtype=np.int64)
+    stamp = ts - rng.integers(0, AGG_JITTER_MS + 1, n, dtype=np.int64)
+    return ts, [sym, price, vol, stamp]
+
+
+def civil_bucket(ts, duration: str):
+    """Bucket starts by numpy's calendar (datetime64), independently of
+    the engine's integer civil arithmetic."""
+    unit = {"seconds": "s", "minutes": "m", "hours": "h", "days": "D",
+            "months": "M", "years": "Y"}[duration]
+    t = np.asarray(ts, np.int64).astype("datetime64[ms]")
+    return t.astype(f"datetime64[{unit}]").astype("datetime64[ms]").astype(
+        np.int64)
+
+
+def agg_oracle(keys, stamps, values, duration: str) -> dict:
+    """A numpy group-by of ``values`` by (key, bucket of ``stamps``):
+    {(key, bucket start): (count, sum, min, max)}."""
+    bs = civil_bucket(stamps, duration)
+    pairs = np.stack([np.asarray(keys, np.int64), bs], 1)
+    uniq, inv = np.unique(pairs, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    cnt = np.bincount(inv, minlength=len(uniq))
+    tot = np.bincount(inv, weights=values, minlength=len(uniq))
+    lo = np.full(len(uniq), np.inf)
+    hi = np.full(len(uniq), -np.inf)
+    np.minimum.at(lo, inv, values)
+    np.maximum.at(hi, inv, values)
+    return {(int(k), int(b)): (int(c), float(s), float(m), float(x))
+            for (k, b), c, s, m, x in zip(uniq, cnt, tot, lo, hi)}
+
+
+# The Siddhi query guide's named-window usage, in shape (under playback,
+# so that the window's clock is the events').
+WINDOW_NAMED_APP = """
+@app:playback
+define stream TempStream (roomNo int, temp double);
+define window OneMinTempWindow (roomNo int, temp double) time(1 min);
+from TempStream select * insert into OneMinTempWindow;
+from OneMinTempWindow
+select roomNo, avg(temp) as avgTemp
+group by roomNo
+insert into RoomAvgStream;
+"""
+WINDOW_NAMED_ROOMS = 512
+WINDOW_NAMED_MS = 60_000
+# the feed's spacing: a minute holds 4,000 readings, within the window's
+# default capacity of 4,096 rows (core/runtime.py DEFAULT_TIME_CAP)
+WINDOW_NAMED_GAP_MS = 15
+WINDOW_NAMED_READ = "from OneMinTempWindow on temp > 30.0 select roomNo, temp"
+
+
+def window_named_feed(n: int, seed: int = 12,
+                      n_rooms: int = WINDOW_NAMED_ROOMS,
+                      gap_ms: int = WINDOW_NAMED_GAP_MS):
+    """WINDOW_NAMED_APP's feed: readings ``gap_ms`` apart from TS0, rooms
+    uniform over ``n_rooms``, temp ~ U(10, 40). -> (ts, [rooms, temp])."""
+    rng = np.random.default_rng(seed)
+    ts = TS0 + np.arange(n, dtype=np.int64) * gap_ms
+    room = rng.integers(0, n_rooms, n).astype(np.int32)
+    temp = rng.uniform(10.0, 40.0, n)
+    return ts, [room, temp]
+
+
+def window_named_oracle(ts, room, temp, span_ms: int = WINDOW_NAMED_MS):
+    """WINDOW_NAMED_APP independently: one RoomAvgStream row an event, the
+    mean temp of its room's events still in the window (event i's window:
+    the same-room events j <= i with ts[j] + span > ts[i]); and the
+    on-demand read WINDOW_NAMED_READ after the last event: the events
+    with ts + span > the last ts and temp > 30, in arrival order.
+    -> (rooms, avg temps, read rooms, read temps)."""
+    _room, avg, _sv, _cnt = window_time_oracle(
+        ts, room, temp, np.zeros(len(ts), np.int64), span_ms)
+    live = (ts + span_ms > ts[-1]) & (temp > 30.0)
+    return room, avg, room[live], temp[live]
+
+
+# Kernel K11 against its plain version: every aggregator over INT, LONG,
+# DOUBLE and FLOAT arguments, a STRING and an INT group key, every
+# duration.
+K11_CHECK_APP = """
+define stream S (sym string, room int, i int, l long, d double, f float,
+                 ts long);
+define aggregation A from S
+select sym, room, sum(i) as si, avg(i) as ai, count() as n, min(i) as mi,
+       max(i) as xi, sum(l) as sl, avg(l) as al, min(l) as ml, max(l) as xl,
+       sum(d) as sd, avg(d) as ad, min(d) as md, max(d) as xd,
+       sum(f) as sf, min(f) as mf, max(f) as xf
+group by sym, room
+aggregate by ts every sec ... year;
+"""
+K11_SYMS = ("KA", "KB", "KC")
+_F64_SPECIALS = (1.0, 1e16, -1e16, 0.0, -0.0, np.inf, -np.inf, 1e-310,
+                 -3e-320, 2.3e-308, -2.25e-308)
+_NAN_BITS64 = (0x7FF8000000000011, 0xFFF8000000000022, 0x7FF8000000000123)
+
+
+def k11_check_feed(kind: str, n: int, capacity: int, encode, seed: int):
+    """One batch of K11_CHECK_APP's stream as numpy columns: 'mixed'
+    (nulls in every argument, event times out of order across decades,
+    before 1970 too, and bunched around 2026-01-01), 'order' (runs of
+    [1, 1e16, -1e16] either way round, NaNs of both signs, +-0.0,
+    infinities, subnormals; a few buckets) or 'overflow' (every row its
+    own second: more keys than a table's 4,096 slots).
+    -> (ts, cols, nulls) of ``capacity`` rows, the first ``n`` valid."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([encode(s) for s in K11_SYMS], np.int32)
+    ts = np.sort(rng.integers(0, 10 ** 6, capacity)).astype(np.int64)
+    d = rng.normal(size=capacity) * 10.0 ** rng.integers(-3, 6, capacity)
+    if kind == "mixed":
+        ets = np.where(rng.random(capacity) < 0.5,
+                       rng.integers(-3 * 10 ** 12, 3 * 10 ** 12, capacity),
+                       AGG_MIDNIGHT + rng.integers(-90_000, 90_000,
+                                                   capacity))
+    elif kind == "order":
+        ets = AGG_MIDNIGHT + rng.integers(0, 2_500, capacity)
+        k = np.arange(capacity)
+        pat = np.array([1.0, 1e16, -1e16])[k % 3] * np.where(
+            (k // 3) % 2 == 1, 1.0, -1.0)
+        spec = np.array(_F64_SPECIALS + tuple(
+            np.array(_NAN_BITS64, np.uint64).view(np.float64)))
+        d = np.where(k % 7 < 3, pat,
+                     spec[rng.integers(0, len(spec), capacity)])
+    else:
+        ets = AGG_MIDNIGHT + rng.permutation(capacity).astype(np.int64) * 1000
+    f = rng.choice(np.array([1e-40, -1e-41, 3.5, -0.0, np.nan, 1e30, 0.25],
+                            np.float32), capacity)
+    cols = [syms[rng.integers(0, len(syms), capacity)],
+            rng.integers(0, 4, capacity).astype(np.int32),
+            rng.integers(-2 ** 31, 2 ** 31, capacity).astype(np.int32),
+            rng.integers(-2 ** 62, 2 ** 62, capacity).astype(np.int64),
+            d.astype(np.float64), f, ets.astype(np.int64)]
+    null_p = 0.0 if kind == "overflow" else 0.12
+    nulls = [rng.random(capacity) < null_p for _ in cols[:6]] + \
+        [np.zeros(capacity, bool)]
+    return ts, cols, nulls

@@ -15,9 +15,11 @@ on the caller's thread.
 
 Supported: select (projection, group by, sum/avg/count/min/max/
 distinctCount, order by, limit, offset), delete, update, update or
-insert, insert of constants, against in-memory tables. On-demand queries
-on named windows, incremental aggregations and @Store tables raise
-"not ported yet".
+insert, insert of constants, against in-memory tables; select against
+named windows (their findable buffer) and incremental aggregations
+(``within`` / ``per``: the duration's table materialised on the host,
+core/aggregation.py). On-demand queries on @Store tables raise "not
+ported yet".
 """
 from __future__ import annotations
 
@@ -106,23 +108,45 @@ class OnDemandExecutor:
         self.app = app
 
     def _source(self, q: A.OnDemandQuery):
+        app = self.app
         tid = q.input_id
         if tid is None and q.output is not None:
             tid = getattr(q.output, "target", None)
-        t = self.app.tables.get(tid)
+        t = app.tables.get(tid)
         if t is not None:
             return t, t.schema, t.buffer(t.state)
+        w = app.named_windows.get(tid)
+        if w is not None:
+            with w._lock:
+                return None, w.in_schema, w.operators[0].findable_buffer(
+                    w.states[0], device=app.device)
+        a = app.aggregations.get(tid)
+        if a is not None:
+            if q.per is None:
+                raise CompileError(
+                    "querying an aggregation needs `per '<duration>'`")
+            per = q.per.value if isinstance(q.per, A.Constant) else None
+            if per is None:
+                raise CompileError("per must be a constant duration")
+            start = end = None
+            if q.within is not None:
+                s, e = q.within
+                if not isinstance(s, A.Constant) or \
+                        (e is not None and not isinstance(e, A.Constant)):
+                    raise CompileError(
+                        "within bounds must be constant epoch-ms longs")
+                start = int(s.value)
+                end = int(e.value) if e is not None else None
+            schema, buf = a.materialize(str(per), start, end)
+            return None, schema, buf
         raise CompileError(
-            f"on-demand query: '{tid}' is not a defined table (on-demand "
-            "queries on windows and aggregations are not ported yet)")
+            f"on-demand query: '{tid}' is not a defined table, window, "
+            "or aggregation")
 
     def execute(self, q):
         if isinstance(q, str):
             from ..lang.parser import parse_on_demand_query
             q = parse_on_demand_query(q)
-        if q.within is not None or q.per is not None:
-            raise NotImplementedError(
-                "not ported yet: on-demand queries on aggregations")
         table, schema, buf = self._source(q)
         scope = SingleStreamScope(schema, aliases=(q.alias,))
         batch = _batch_of_buffer(buf)
@@ -142,6 +166,9 @@ class OnDemandExecutor:
                                       now=self.app.current_time())
         if out is None or isinstance(out, A.ReturnStream):
             return self._select(q, schema, scope, batch, mask, buf)
+        if table is None:
+            raise CompileError(
+                "on-demand writes target tables, not windows")
         if isinstance(out, A.DeleteStream):
             return self._delete(table, mask)
         if isinstance(out, (A.UpdateStream, A.UpdateOrInsertStream)):
@@ -158,7 +185,7 @@ class OnDemandExecutor:
         sel = q.selector
         idx = np.nonzero(mask.cpu().numpy())[0]
         # a stable per-row identity: uuid() cells survive re-reads
-        row_ids = buf["seq"].cpu().numpy()[idx]
+        row_ids = buf["seq"].cpu().numpy()[idx] if "seq" in buf else None
 
         def eval_rows(expr, pos=0):
             ce = compile_expression(expr, scope)

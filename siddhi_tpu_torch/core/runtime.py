@@ -46,9 +46,12 @@ decoded rows at the host edge, ``_host_shape_rows``); insert-into
 chains between them; pattern and sequence queries; joins of two
 streams or of a stream and a table; in-memory tables; and partition
 blocks of single-stream and pattern queries (``_check_block_ops`` names
-what a block does not run yet). The cron window, @Store tables, named
-windows, incremental aggregations, triggers, rate limiters, sources
-and sinks raise NotImplementedError ("not ported yet") on every device.
+what a block does not run yet); named windows (one shared window
+instance a definition, fed by ``insert into`` and read by queries, joins
+and on-demand queries); and incremental aggregations
+(core/aggregation.py, kernel K11). The cron window, @Store tables,
+triggers, rate limiters, sources and sinks raise NotImplementedError
+("not ported yet") on every device.
 Window timers fire from the scheduler as in the reference
 (QueryRuntime._schedule / _on_timer).
 """
@@ -220,8 +223,10 @@ def _chain_body(ops):
             op.lower(b)
             stages.append(("project", i, b.build()))
         filters = []
-    assert not filters and any(k in ("project", "aggregate")
-                               for k, _i, _p in stages), \
+    # a named window's chain is its window alone (Planner.plan)
+    assert not filters and (any(k in ("project", "aggregate")
+                                for k, _i, _p in stages)
+                            or [k for k, _i, _p in stages] == ["window"]), \
         "a query chain ends in its selector (and its table output)"
 
     def chain(states, emitted, batch, now, tstates=None):
@@ -324,6 +329,42 @@ class InsertIntoStreamHandler(OutputHandler):
     def handle(self, timestamp, rows):
         events = [Event(timestamp=ts, data=vals) for ts, kind, vals in rows]
         self.junction.publish(events)
+
+
+class InsertIntoWindowHandler(OutputHandler):
+    """``insert into <named window>``: feed the shared window instance
+    (query/output/callback/InsertIntoWindowCallback.java): inserted
+    events enter the window as fresh CURRENT arrivals."""
+
+    def __init__(self, wq: "QueryRuntime"):
+        self.wq = wq
+
+    def handle_device_batch(self, out, timestamp, current=None):
+        cur = current() if current is not None else _as_current(out)
+        self.wq.process_batch(cur, timestamp)
+        return True
+
+
+class WindowPublishHandler(OutputHandler):
+    """Publish a named window's output with its kinds kept, so consuming
+    queries see CURRENT and EXPIRED rows as after an inline window
+    (window/Window.java:65); the definition's output event type filters
+    what subscribers observe."""
+
+    def __init__(self, junction: StreamJunction, out_type: str):
+        self.junction = junction
+        self.out_type = out_type
+
+    def _filtered(self, out):
+        if self.out_type == "current":
+            return out.mask(out.kind == CURRENT)
+        if self.out_type == "expired":
+            return out.mask(out.kind == EXPIRED)
+        return out
+
+    def handle_device_batch(self, out, timestamp, current=None):
+        self.junction.publish_batch(self._filtered(out), timestamp)
+        return True
 
 
 class QueryCallbackHandler(OutputHandler):
@@ -1045,6 +1086,9 @@ class SiddhiAppRuntime:
         self.input_handlers: dict[str, InputHandler] = {}
         self.queries: dict[str, QueryRuntime] = {}
         self.tables: dict[str, TableRuntime] = {}
+        # named windows: the shared window instance of each definition
+        self.named_windows: dict[str, QueryRuntime] = {}
+        self.aggregations: dict = {}  # id -> AggregationRuntime
         # partition blocks by name ("partition_1", ...); their queries'
         # ports are in ``queries`` too
         self.partitions: dict = {}
@@ -1196,10 +1240,8 @@ class Planner:
     def plan(self) -> None:
         app, ast = self.app, self.ast
         for what, present in (
-                ("named windows", ast.window_definitions),
                 ("triggers", ast.trigger_definitions),
-                ("script functions", ast.function_definitions),
-                ("incremental aggregations", ast.aggregation_definitions)):
+                ("script functions", ast.function_definitions)):
             if present:
                 raise not_ported(what)
         for ann in ast.annotations:
@@ -1242,6 +1284,35 @@ class Planner:
                                            pk_indices=pk,
                                            index_indices=idxs,
                                            device=app.device)
+        # 1c. named windows: one shared window instance a definition
+        # (window/Window.java:65); queries consume from its junction,
+        # insert-into feeds the instance
+        for wid, wd in ast.window_definitions.items():
+            schema = StreamSchema(wid, tuple(
+                Attribute(a.name, a.type) for a in wd.attributes))
+            fo = wd.window
+            if fo is None:
+                raise CompileError(f"window '{wid}' needs a window type")
+            h = A.WindowHandler(namespace=fo.namespace, name=fo.name,
+                                parameters=fo.parameters)
+            self.window_class(h)   # the kinds not ported yet raise
+            op = self.make_window(h, schema, expired_enabled=True)
+            wq = QueryRuntime(f"__window__{wid}", [op], schema, app)
+            out_j = app.junction_for(wid, schema)
+            wq.output_handlers.append(
+                WindowPublishHandler(out_j, wd.output_event_type))
+            app.named_windows[wid] = wq
+        # 1c2. incremental aggregations (AggregationParser.java:93)
+        from .aggregation import AggregationRuntime
+        for aid, ad in ast.aggregation_definitions.items():
+            sid = ad.input.stream_id
+            schema = app.schemas.get(sid)
+            if schema is None:
+                raise CompileError(
+                    f"aggregation '{aid}': undefined stream '{sid}'")
+            ar = AggregationRuntime(app, ad, schema)
+            app.junctions[sid].subscribe(ar)
+            app.aggregations[aid] = ar
         # 2. queries in order; inferred output streams defined as we go
         qcount = 0
         pcount = 0
@@ -1353,14 +1424,20 @@ class Planner:
                     schema = op.out_schema
                     scope = SingleStreamScope(schema, aliases=(sin.alias,))
         batch_mode = window_op is not None and window_op.is_batch
-        expired_possible = window_op is not None and window_op.expired_enabled
+        # a query reading a named window sees its EXPIRED rows
+        src_window = None if sin.is_inner else \
+            self.app.named_windows.get(sin.stream_id)
+        expired_possible = (window_op is not None
+                            and window_op.expired_enabled) or \
+            src_window is not None
         if needs_agg:
+            fifo = window_op.fifo_expiry if window_op is not None else (
+                src_window.operators[0].fifo_expiry
+                if src_window is not None else True)
             operators.append(AggregateOp(
                 q.selector, schema, target, scope, batch_mode=batch_mode,
                 expired_possible=expired_possible, current_on=current_on,
-                expired_on=expired_on,
-                fifo_expiry=(window_op.fifo_expiry if window_op is not None
-                             else True)))
+                expired_on=expired_on, fifo_expiry=fifo))
         else:
             operators.append(ProjectOp(
                 q.selector, schema, target, scope,
@@ -1455,6 +1532,10 @@ class Planner:
                     inner_schemas[plan.target] = plan.out_schema
                 plans.append(plan)
                 continue
+            if getattr(q.output, "target", None) in app.named_windows or (
+                    isinstance(q.input, A.SingleInputStream) and
+                    q.input.stream_id in app.named_windows):
+                raise not_ported("named windows inside a partition")
             if not isinstance(q.input, A.SingleInputStream):
                 raise CompileError(
                     f"query '{name}': only single-stream and pattern/"
@@ -2075,6 +2156,11 @@ class Planner:
 
     def wire_stream_output(self, qr, out, out_type: str) -> None:
         app = self.app
+        if isinstance(out, A.InsertIntoStream) and \
+                out.target in app.named_windows:
+            qr.output_handlers.append(
+                InsertIntoWindowHandler(app.named_windows[out.target]))
+            return
         if isinstance(out, A.InsertIntoStream) and \
                 out.target not in app.tables:
             tj = app.junction_for(out.target, qr.out_schema)

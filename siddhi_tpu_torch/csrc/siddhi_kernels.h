@@ -993,6 +993,67 @@ cudaError_t siddhi_partition_compact(const CompactArgs* a,
                                      cudaStream_t stream);
 cudaError_t siddhi_partition_due(const DueArgs* a, cudaStream_t stream);
 
+// ---- K11: an incremental aggregation's bucket step (aggregation_step.cu) -
+
+#define SIDDHI_AGGR_MAX_DUR 6
+#define SIDDHI_AGGR_MAX_GROUPS 8
+#define SIDDHI_AGGR_MAX_LANES 40
+
+// durations (core/aggregation.py DURATIONS) and lane kinds (_LANE_KINDS)
+enum AggrDur { DUR_SECONDS = 0, DUR_MINUTES, DUR_HOURS, DUR_DAYS,
+               DUR_MONTHS, DUR_YEARS };
+enum AggrLane { AGGR_COUNT = 0, AGGR_NCOUNT = 1, AGGR_SUM = 2, AGGR_MIN = 3,
+                AGGR_MAX = 4 };
+
+// Every state tensor is [D, K] (overflow [D]), one row a duration; the
+// scratch is [D, B] (claim [D, K]).
+typedef struct {
+  int32_t B, K, D;            // the batch's rows, the table's slots, durations
+  int32_t n_groups, n_lanes;
+  int32_t dur[SIDDHI_AGGR_MAX_DUR];             // AggrDur of each row
+  const int64_t* ets;         // [B] the event times: the aggregate-by
+                              // column (LONG), else the batch ts
+  const int32_t* kind;        // [B] the batch
+  const bool* valid;
+  const void* gcol[SIDDHI_AGGR_MAX_GROUPS];     // [B] the group-by columns
+  const bool* gnull[SIDDHI_AGGR_MAX_GROUPS];
+  int32_t gtype[SIDDHI_AGGR_MAX_GROUPS];        // ValType
+  int32_t gsize[SIDDHI_AGGR_MAX_GROUPS];        // bytes of a value
+  const void* arg[SIDDHI_AGGR_MAX_LANES];       // [B] each lane's argument
+  const bool* arg_null[SIDDHI_AGGR_MAX_LANES];
+  int32_t arg_type[SIDDHI_AGGR_MAX_LANES];      // ValType
+  int32_t lane_kind[SIDDHI_AGGR_MAX_LANES];     // AggrLane
+  int32_t lane_f64[SIDDHI_AGGR_MAX_LANES];      // 1: float64, 0: int64
+  const int64_t* keys;        // the state
+  const bool* used;
+  const int64_t* bstart;
+  const int64_t* overflow;
+  const void* groups[SIDDHI_AGGR_MAX_GROUPS];
+  const bool* gnulls[SIDDHI_AGGR_MAX_GROUPS];
+  const void* lanes[SIDDHI_AGGR_MAX_LANES];
+  int64_t* new_keys;          // the new state
+  bool* new_used;
+  int64_t* new_bstart;
+  int64_t* new_overflow;
+  void* new_groups[SIDDHI_AGGR_MAX_GROUPS];
+  bool* new_gnulls[SIDDHI_AGGR_MAX_GROUPS];
+  void* new_lanes[SIDDHI_AGGR_MAX_LANES];
+  int64_t* bs;                // scratch: bucket starts
+  int64_t* hk;                // key hashes
+  uint8_t* active;
+  int32_t* slot;              // each row's slot, -1 for none
+  int32_t* prb;
+  uint8_t* flags;
+  int32_t* claim;             // [D, K]
+  uint32_t* skey;             // the sort key: the slot, K for none
+  int32_t* perm;              // the rows by slot, in row order within one
+  uint32_t *k1, *k2;          // the sort's ping-pong
+  int32_t *i1, *i2;
+  int32_t* counts;            // [D, 256 * ceil(B / 1024)] digit counts
+} AggrArgs;
+
+cudaError_t siddhi_aggregation_step(const AggrArgs* a, cudaStream_t stream);
+
 #ifdef __cplusplus
 }
 #endif

@@ -281,19 +281,24 @@ def test_strings_carried_over_from_reference():
     " insert into O;",
     "define stream S (a int); define window W (a int) length(5);"
     " from S insert into W;",
+    "define stream S (a int); define trigger T at every 1 sec;"
+    " from T select triggered_time insert into O;",
+    "define stream S (a int); from S#window.cron('*/1 * * * * ?')"
+    " select a insert into O;",
 ])
 def test_unported_parts_raise(text):
     """What the port lacks says so; the sort window, distinctCount,
-    order-by and function calls, ported since, deploy and give the
-    reference's rows."""
+    order-by, function calls and named windows, ported since, deploy and
+    give the reference's rows (a named window's on its own junction)."""
     if "sort(2, a)" in text or "distinctCount" in text or "order by" in text \
-            or "coalesce" in text:
+            or "coalesce" in text or "define window" in text:
         rows = {}
         for pkg in (J, T):
             kw = {"device": "cpu"} if pkg is T else {}
             rt = pkg.SiddhiManager(**kw).create_siddhi_app_runtime(text)
             got = rows[pkg] = []
-            rt.add_callback("O", pkg.StreamCallback(
+            rt.add_callback("W" if "define window" in text else "O",
+                            pkg.StreamCallback(
                 lambda evs, got=got: got.extend(
                     (e.timestamp, tuple(e.data)) for e in evs)))
             rt.start()

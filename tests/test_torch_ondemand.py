@@ -3,7 +3,8 @@ table view of kernel K8 and K2 on the CPU) against the reference: the
 same table contents, the same query texts; the results (rows in order,
 floats by their bits; or the number of rows a write touched) and the
 table's whole state after each query are equal. On-demand queries on
-windows and aggregations raise "not ported yet"."""
+named windows and aggregations are in test_torch_named_window.py and
+test_torch_aggregation.py."""
 import pytest
 import torch
 
