@@ -7,7 +7,7 @@ Phases, each of which stops the run with a non-zero exit on failure:
 
 1. device: CUDA must be there; prints the device, the build and
    ``nvidia-smi``'s name and power limit;
-2. build the port's CUDA kernels from csrc/ (fourteen sources, one nvcc
+2. build the port's CUDA kernels from csrc/ (fifteen sources, one nvcc
    each, all at once) and hold kernel K1 (packed-ingest decode) against its plain
    PyTorch version on the card, bit for bit, for every lane code at
    capacities 16, 1024, 65536;
@@ -210,7 +210,30 @@ Phases, each of which stops the run with a non-zero exit on failure:
    it): 1,048,576 readings of 512 rooms in 16 sends of 65,536 against a
    numpy oracle, then an on-demand read of the window against it; K1,
    K2, K5 and K6 on the path;
-39. print the kernel table as one JSON line, the card's name and power
+40. hold kernels K10 (the reorder ring's step) and K5c (the cron
+   window's step) against their plain versions on the card, bit for bit,
+   every output written: K10 at C = 8, 1,024 and 65,536 on an empty and
+   a full ring, a final step, a forced min_rel, equal timestamps, no
+   watermark and no rows, over every column type with the float traps;
+   K5c at capacities 16 and 4,096 with a firing with nothing pending and
+   a buffer past its capacity;
+41. run cron_trades (a cron('*/5 * * * * ?') named window fed by insert
+   into and read by a grouped sum, a 5 s trigger through a projection, a
+   one-minute average with output last every 5 sec): 1,048,576 trades of
+   512 symbols 2 ms apart, a send a 5 s period (420 sends, 419
+   firings), against checks.cron_trades_oracle: each firing's report
+   rows, the trigger's rows, each limiter flush; no overflow; K5c on
+   every send and firing, K1, K2, K5, K6 on the path; K5c's time at a
+   firing against its plain version and its bound;
+42. run watermark_sensors (window_time_grouped under
+   @app:watermark(lateness='200 ms')): window_time_feed's 1,048,576
+   events delivered out of order (0-200 ms delays, 0.1 % stragglers
+   500-1,000 ms late) in 16 sends of 65,536 and the final flush; the rows
+   equal the in-order oracle over the events that were not late, the
+   late count the feed's own, forced 0; K10 on every send; K10's time
+   against its plain version, its bound and torch.sort(stable=True)
+   with the gathers;
+43. print the kernel table as one JSON line, the card's name and power
    limit, and the result line.
 
 `python3 chip_smoke.py --k5-time` times K5 alone (window_agg's and
@@ -4872,6 +4895,415 @@ def window_named_phase(dev, card: str, n_sends: int = 16) -> dict:
             "read_ms": read_ms, "launches": launches, "err": chk.err}
 
 
+# -- slice 11: event time and schedules ---------------------------------------
+
+# the ring's columns in K10's check: every type a ring packs (the STRING
+# codes as int32)
+_RING_DTYPES = (torch.int32, torch.int64, torch.float32, torch.float64,
+                torch.bool, torch.int32)
+
+
+def _ring_inputs(rng, dev, C, count, n_in, spread=500):
+    """A ring of C rows (``count`` live) and C arrivals (``n_in`` live):
+    timestamps within ``spread`` ms, every column type with the float
+    traps (NaN, -0.0, infinities)."""
+    def cols():
+        out = []
+        for dt in _RING_DTYPES:
+            if dt.is_floating_point:
+                v = rng.choice(np.array([0.5, -0.0, np.nan, np.inf, -2.0,
+                                         1e-30]), C)
+                out.append(torch.from_numpy(v).to(dt).to(dev))
+            elif dt == torch.bool:
+                out.append(torch.from_numpy(rng.random(C) < 0.5).to(dev))
+            else:
+                out.append(torch.from_numpy(rng.integers(-9, 9, C)).to(
+                    dt).to(dev))
+        return tuple(out)
+    sts = torch.from_numpy(TS0_RING + rng.integers(0, spread, C)).to(dev)
+    in_ts = torch.from_numpy(TS0_RING + rng.integers(0, spread, C)).to(dev)
+    return (sts, cols()), in_ts, cols(), count, n_in
+
+
+TS0_RING = 1_700_000_000_000
+
+
+def _ring_compare(what, k, r):
+    (ks, kc), kb, km = k
+    (rs, rc), rb, rm = r
+    return compare(what, [ks, *kc, *_bl(kb), km], [rs, *rc, *_bl(rb), rm])
+
+
+def event_time_against_plain(dev) -> float:
+    """Phase 40: kernels K10 (the reorder ring's step) and K5c (the cron
+    window's step) against their plain versions on the card, bit for
+    bit, every output written (the released batch past the cut, the new
+    ring past its count; the cron window's whole output and both
+    buffers): K10 at C = 8, 1,024 and 65,536 on a ring that is empty, one
+    that is full, a final step, a forced min_rel, equal timestamps, no
+    watermark and no rows, over every column type with the float traps;
+    K5c at capacities 16 and 4,096: a firing with nothing pending,
+    arrivals past the capacity (overflow), firings that rotate, a TIMER
+    row among arrivals, expired rows off. -> max abs error (0)."""
+    from siddhi_tpu_torch.core.event import (TIMER, Attribute, EventBatch,
+                                             StreamSchema,
+                                             batch_from_columns)
+    from siddhi_tpu_torch.core.types import AttrType
+    from siddhi_tpu_torch.ops import windows as W
+    from siddhi_tpu_torch.ops.windows2 import CronWindowOp
+    from siddhi_tpu_torch.resilience import ordering as O
+    err, n10, n5c = 0.0, 0, 0
+    rng = np.random.default_rng(40)
+    for C in (8, 1024, 65536):
+        cases = {"random": (C // 3, C // 2, 250, 0, False, 500),
+                 "empty ring": (0, C - 1, 100, 0, False, 500),
+                 "full ring": (C, C, 400, 0, False, 500),
+                 "final": (C // 2, C // 4, 0, 0, True, 500),
+                 "forced min_rel": (C - 2, C, -5, C // 2 + 3, False, 500),
+                 "no watermark": (C // 2, C // 2, None, 0, False, 500),
+                 "ties": (C, C, 1, 0, False, 3),
+                 "nothing": (0, 0, 10, 0, False, 500)}
+        for name, (count, n_in, dwm, min_rel, final, spread) in \
+                cases.items():
+            state, in_ts, in_cols, count, n_in = _ring_inputs(
+                rng, dev, C, count, n_in, spread)
+            wm = -(2 ** 62) if dwm is None else TS0_RING + dwm
+            args = (state, in_ts, in_cols, count, n_in, wm, min_rel, final)
+            err = max(err, _ring_compare(f"K10 {name} C={C}",
+                                         O.ring_step(*args),
+                                         O.ring_step_ref(*args)))
+            n10 += 1
+    schema = StreamSchema("S", (Attribute("sym", AttrType.STRING),
+                                Attribute("price", AttrType.FLOAT),
+                                Attribute("volume", AttrType.LONG)))
+    for cap, expired in ((16, True), (4096, True), (4096, False)):
+        op = CronWindowOp(schema, "*/5 * * * * ?", cap=cap,
+                          expired_enabled=expired)
+        st = op.init_state(dev)
+        t = TS0_RING
+        plan = ["fire", "arr:5", "arr:900", "fire", "fire",
+                f"arr:{cap + 1000}", "fire", "mixed", "arr:0", "fire"]
+        for p in plan:
+            if p == "fire":
+                batch = batch_from_columns(
+                    schema, np.array([t], np.int64),
+                    [np.zeros(1, np.int32), np.zeros(1, np.float32),
+                     np.zeros(1, np.int64)], capacity=16, device=dev)
+                batch.kind[0] = TIMER
+            else:
+                m = 6 if p == "mixed" else int(p[4:])
+                B = max(16, 1 << max(m - 1, 1).bit_length())
+                batch = batch_from_columns(
+                    schema, t + np.sort(rng.integers(0, 900, m)),
+                    [rng.integers(1, 9, m).astype(np.int32),
+                     rng.choice(np.array([1.5, np.nan, -0.0], np.float32),
+                                m),
+                     rng.integers(0, 99, m)], capacity=B, device=dev)
+                if p == "mixed":
+                    batch.kind[2] = TIMER
+            ks, ko = W.window_step(op, st, batch, t + 3)
+            rs, ro = W.window_step_ref(op, st, batch, t + 3)
+            err = max(err, compare(f"K5c {p} cap={cap}",
+                                   tree_leaves(ks) + _bl(ko),
+                                   tree_leaves(rs) + _bl(ro)))
+            st = ks
+            t += 1000
+            n5c += 1
+        if cap == 4096 and int(st["overflow"]) == 0:
+            fail("K5c: the overflowing feed did not overflow")
+    torch.cuda.synchronize()
+    print(f"K10 reorder_ring: bit-equal to its plain version in {n10} "
+          f"steps (C = 8, 1,024, 65,536; empty, full, final, forced, "
+          f"ties); K5c cron_window: bit-equal in {n5c} steps (capacities "
+          f"16 and 4,096, overflow, nothing pending)", flush=True)
+    return err
+
+
+def cron_trades_phase(dev, card: str) -> dict:
+    """cron_trades: trading-desk reports on wall-clock boundaries
+    (checks.CRON_TRADES_APP: a cron('*/5 * * * * ?') named window fed by
+    `insert into` and read by a grouped sum, a 5 s trigger through a
+    projection, a one-minute average with `output last every 5 sec`):
+    1,048,576 trades of 512 symbols 2 ms apart, sent a 5 s period a send
+    (a columnar send is one step, and timers fire only between sends),
+    420 sends and 419 firings. Each firing's report rows against
+    checks.cron_trades_oracle (symbols and order exact, sums within
+    1e-9), the trigger's rows every 5,000 ms from the arming point, the
+    limiter's rows flush by flush, no window or group overflow. K5c must
+    launch on every send and firing, K1, K2, K5 and K6 on the path. The
+    steps of the first four sends are held against the plain versions
+    as they run (KernelCheck, tolerance 0); then K5c's time on a firing
+    step against its plain version and its bound."""
+    from siddhi_tpu_torch import SiddhiManager, StreamCallback, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    from siddhi_tpu_torch.ops import windows as W
+    N = 1 << 20
+    ts, cols = C.cron_trades_feed(N, GLOBAL_STRINGS.encode)
+    cuts = C.cron_trades_cuts(ts)
+    rep_sym, rep_sum, ticks, flushes = C.cron_trades_oracle(
+        ts, cols[0], cols[1], cuts)
+    mgr = SiddhiManager()
+    warm = mgr.create_siddhi_app_runtime(C.CRON_TRADES_APP)
+    warm.start()
+    _send_all(warm.get_input_handler("StockEventStream"), ts, cols,
+              cuts[:4])
+    torch.cuda.synchronize()
+    warm.shutdown()
+    rt = mgr.create_siddhi_app_runtime(C.CRON_TRADES_APP)
+    outs, tick_rows, avg_lists = [], [], []
+    rt.queries["report"].batch_callbacks.append(outs.append)
+    rt.add_callback("TickStream", StreamCallback(
+        lambda evs: tick_rows.extend(e.data for e in evs)))
+    rt.add_callback("AvgStream", StreamCallback(
+        lambda evs: avg_lists.append([(e.timestamp, e.data) for e in evs])))
+    rt.start()
+    h = rt.get_input_handler("StockEventStream")
+    # the firing steps of K5c, kept with their arguments for the timing
+    firing = []
+    real = W.window_step
+
+    def keep(op, state, batch, now):
+        if op.LAUNCH == "cron_window" and len(firing) < 2 and \
+                batch.capacity == 16 and bool(state["cur"]["valid"].any()):
+            firing.append((op, state, batch, int(now)))
+        return real(op, state, batch, now)
+    _kernels.reset_launches()
+    n_sends = len(cuts) - 1
+    with KernelCheck() as chk:
+        for k in range(4):
+            h.send_arrays(ts[cuts[k]:cuts[k + 1]],
+                          [c[cuts[k]:cuts[k + 1]] for c in cols])
+    torch.cuda.synchronize()
+    W.window_step = keep
+    lat = []
+    try:
+        t0 = time.perf_counter()
+        for k in range(4, n_sends):
+            a, b = cuts[k], cuts[k + 1]
+            c0 = time.perf_counter()
+            h.send_arrays(ts[a:b], [c[a:b] for c in cols])
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - c0) * 1e3)
+        wall = time.perf_counter() - t0
+    finally:
+        W.window_step = real
+    launches = dict(_kernels.LAUNCHES)
+    n_fires = n_sends - 1
+    if launches["cron_window"] < n_sends + n_fires:
+        fail(f"cron_trades: K5c launched {launches['cron_window']} times "
+             f"for {n_sends} sends and {n_fires} firings")
+    for k in ("unpack_packed", "expr_eval", "window_step",
+              "aggregate_step", "aggregate_emit"):
+        if launches[k] < n_sends:
+            fail(f"cron_trades: {k} launched {launches[k]} times in "
+                 f"{n_sends} sends")
+    if chk.steps["window_step"] < 8:
+        fail(f"cron_trades: the first sends held {chk.steps}")
+    ots, ocols, _on = C.emitted_columns(outs)
+    if len(ots) != len(rep_sym) or not np.array_equal(ocols[0], rep_sym):
+        fail(f"cron_trades: {len(ots)} report rows, the oracle "
+             f"{len(rep_sym)}")
+    gap = float(np.max(np.abs(ocols[1] - rep_sum)))
+    if not gap <= 1e-9:
+        fail(f"cron_trades: a report sum {gap} from the oracle's")
+    want_ticks = [(int(t), int(t) - 5000) for t in ticks]
+    if tick_rows != want_ticks:
+        fail(f"cron_trades: {len(tick_rows)} trigger rows, the oracle "
+             f"{len(want_ticks)}")
+    if len(avg_lists) != len(flushes):
+        fail(f"cron_trades: {len(avg_lists)} limiter flushes, the oracle "
+             f"{len(flushes)}")
+    for got, (fts, fsym, fap) in zip(avg_lists, flushes):
+        gsym = np.array([GLOBAL_STRINGS.encode(r[1][0]) for r in got])
+        gap_a = np.abs(np.array([r[1][1] for r in got]) - fap) / fap
+        if [r[0] for r in got] != fts.tolist() or \
+                not np.array_equal(gsym, fsym) or not gap_a.max() <= 1e-12:
+            fail("cron_trades: a limiter flush differs from the oracle's")
+    ovf = {q: rt.queries[q].stats()["overflow"] for q in
+           ("report", "lastavg")}
+    ovf["window"] = rt.named_windows["StockEventWindow"].overflow_total()
+    if any(ovf.values()):
+        fail(f"cron_trades: overflow {ovf}")
+    eps = (N - int(cuts[4])) / wall
+    p50, p99 = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+    # K5c alone on a firing step: the launch with its arguments built once
+    # (it writes only its fresh outputs), then the plain version
+    op, state, batch, now = firing[-1]
+    _ns, _o, args = W.window_args(op, state, batch,
+                                  torch.tensor(now, dtype=torch.int64,
+                                               device=dev))
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    k5c_ms = cuda_ms(lambda: lib.window_step(args, stream), reps=100)
+    k5c_plain, (rs, ro) = _timed(
+        lambda: W.window_step_ref(op, state, batch, now), reps=10)
+    ks, ko = real(op, state, batch, now)
+    err = max(chk.err, compare("K5c at a cron_trades firing",
+                               tree_leaves(ks) + _bl(ko),
+                               tree_leaves(rs) + _bl(ro)))
+    nbytes = _nbytes(_buf_tensors(state["cur"]) + _buf_tensors(state["exp"])
+                     + _bl(batch) + _bl(ko) + _buf_tensors(ks["cur"]) +
+                     _buf_tensors(ks["exp"]))
+    bound, by = bound_of(nbytes, 0)
+    print(f"cron_trades: {N} trades in {n_sends} sends (a 5 s period "
+          f"each), {n_fires} firings; {len(ots)} report rows equal the "
+          f"oracle (sums within {gap:.1e}), {len(tick_rows)} trigger rows "
+          f"and {len(avg_lists)} limiter flushes equal it; overflow 0; "
+          f"{eps:.0f} events/s, send p50 {p50:.3f} ms, p99 {p99:.3f} ms "
+          f"({card})", flush=True)
+    print(f"K5c cron_window at a firing (W = {op.cap}, {int(state['cur']['valid'].sum())} "
+          f"rows pending): {k5c_ms:.5f} ms, plain version {k5c_plain:.4f} "
+          f"ms, bound {bound:.6f} ms ({nbytes} bytes at 3.35 TB/s); "
+          f"{card}", flush=True)
+    print(f"launches on the cron_trades path: {launches}", flush=True)
+    _kernels.LAUNCHES.update(launches)
+    rt.shutdown()
+    del outs, firing
+    gc.collect()
+    return {"events_per_s": eps, "p50_ms_send": p50, "p99_ms_send": p99,
+            "launches": launches, "err": err, "k5c_ms": k5c_ms,
+            "k5c_plain_ms": k5c_plain, "k5c_bound_ms": bound,
+            "k5c_bound_by": by}
+
+
+def watermark_sensors_phase(dev, card: str, n_sends: int = 16) -> dict:
+    """watermark_sensors: producers that deliver with bounded skew.
+    window_time_grouped's app under @app:watermark(lateness='200 ms'),
+    policy DROP (checks.watermark_sensors_app); window_time_feed's
+    1,048,576 events of 512 symbols in the order
+    checks.watermark_sensors_feed delivers them (a seeded 0-200 ms delay
+    an event, 0.1 % stragglers 500-1,000 ms late), 16 sends of 65,536,
+    then flush_watermarks(final=True). Every disordered send runs K10
+    (C = 65,536: 131,072-row steps), whose released batch reaches the
+    query without K1. The rows must equal checks.window_time_oracle over
+    the events that were not late, in timestamp order (averages within
+    1e-12 relative); the late count the feed's own
+    (checks.watermark_late_mask); forced 0. The ring steps of the first
+    three sends are held against the plain version afterwards,
+    tolerance 0; then K10's time on the second send's step against its
+    plain version, its bound, and torch.sort(stable=True) of the key with
+    the gathers."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    from siddhi_tpu_torch.resilience import ordering as O
+    SEND = AGG_SEND
+    N = n_sends * SEND
+    ts, cols = C.watermark_sensors_feed(N, GLOBAL_STRINGS.encode)
+    cuts = np.arange(0, N + 1, SEND)
+    late = C.watermark_late_mask(ts, cuts)
+    keep = ~late
+    order = np.argsort(ts[keep], kind="stable")
+    ts_k = ts[keep][order]
+    sym, price, vol = (c[keep][order] for c in cols)
+    osym, ap, sv, cnt = C.window_time_oracle(ts_k, sym, price, vol)
+    app = C.watermark_sensors_app()
+    mgr = SiddhiManager()
+    warm = mgr.create_siddhi_app_runtime(app)
+    warm.start()
+    _send_all(warm.get_input_handler("StockStream"), ts, cols, cuts[:3])
+    torch.cuda.synchronize()
+    warm.shutdown()
+    rt = mgr.create_siddhi_app_runtime(app)
+    outs = []
+    rt.queries["q"].batch_callbacks.append(outs.append)
+    rt.start()
+    h = rt.get_input_handler("StockStream")
+    steps = []
+    real = O.ring_step
+
+    def tap(*a):
+        if len(steps) < 3:
+            steps.append(a)
+        return real(*a)
+    O.ring_step = tap
+    _kernels.reset_launches()
+    lat = []
+    try:
+        t0 = time.perf_counter()
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            c0 = time.perf_counter()
+            h.send_arrays(ts[a:b], [c[a:b] for c in cols])
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - c0) * 1e3)
+        rt.flush_watermarks(final=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        O.ring_step = real
+    launches = dict(_kernels.LAUNCHES)
+    buf = rt._reorder["StockStream"]
+    cnt_ = dict(buf.counters)
+    if launches["reorder_ring"] < n_sends or cnt_["ring_steps"] != \
+            n_sends + 1:
+        fail(f"watermark_sensors: K10 launched {launches['reorder_ring']} "
+             f"times, {cnt_['ring_steps']} ring steps, in {n_sends} sends")
+    for k in ("window_step", "aggregate_step", "aggregate_emit",
+              "expr_eval"):
+        if launches[k] < n_sends:
+            fail(f"watermark_sensors: {k} launched {launches[k]} times")
+    if cnt_["late"] != int(late.sum()) or cnt_["late_dropped"] != \
+            cnt_["late"] or cnt_["forced"] != 0:
+        fail(f"watermark_sensors: counters {cnt_}, the feed's late count "
+             f"{int(late.sum())}")
+    ots, ocols, onulls = C.emitted_columns(outs)
+    if len(ots) != len(ts_k) or not np.array_equal(ots, ts_k) or \
+            not np.array_equal(ocols[0], osym) or \
+            not np.array_equal(ocols[2], sv) or \
+            not np.array_equal(ocols[3], cnt):
+        fail(f"watermark_sensors: {len(ots)} rows, the oracle {len(ts_k)}")
+    rel = float(np.max(np.abs(ocols[1] - ap) / np.abs(ap)))
+    if not rel <= 1e-12:
+        fail(f"watermark_sensors: an average {rel} from the oracle's")
+    err = 0.0
+    for i, a in enumerate(steps):
+        err = max(err, _ring_compare(f"K10 at watermark_sensors step {i}",
+                                     real(*a), O.ring_step_ref(*a)))
+    eps = N / wall
+    p50, p99 = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+    # K10 alone on the second send's step, its arguments built once
+    state, in_ts, in_cols, count, n_in, wm, min_rel, final = steps[1]
+    _s, kb, _m, args = O.ring_args(*steps[1])
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    k10_ms = cuda_ms(lambda: lib.reorder_ring(args, stream), reps=50)
+    k10_plain = cuda_ms(lambda: O.ring_step_ref(*steps[1]), reps=10,
+                        warmup=2)
+    sts, scols = state
+    ts_all = torch.cat([sts, in_ts])
+    cols_all = [torch.cat([s, c]) for s, c in zip(scols, in_cols)]
+
+    def library():
+        o = torch.sort(ts_all, stable=True).indices
+        return [ts_all[o]] + [c[o] for c in cols_all]
+    lib_ms = cuda_ms(library, reps=50)
+    C_ = sts.shape[0]
+    row = 8 + sum(c.element_size() for c in scols)
+    nbytes = 3 * C_ * row + 2 * C_ * (row + len(scols) + 4 + 1) + 32
+    bound, by = bound_of(nbytes, 0)
+    print(f"watermark_sensors: {N} events in {n_sends} disordered sends "
+          f"then the final flush; {len(ots)} rows equal the in-order "
+          f"oracle (averages within {rel:.2e}); {cnt_['late']} late "
+          f"dropped, as the feed's own count; forced 0; "
+          f"{cnt_['ring_steps']} ring steps; {eps:.0f} events/s, send p50 "
+          f"{p50:.3f} ms, p99 {p99:.3f} ms ({card})", flush=True)
+    print(f"K10 reorder_ring at C = {C_} ({count} ring rows, {n_in} "
+          f"arrivals): {k10_ms:.5f} ms, plain version {k10_plain:.4f} ms, "
+          f"torch.sort(stable=True) + gathers {lib_ms:.5f} ms, bound "
+          f"{bound:.6f} ms ({nbytes} bytes at 3.35 TB/s); {card}",
+          flush=True)
+    print(f"launches on the watermark_sensors path: {launches}", flush=True)
+    _kernels.LAUNCHES.update(launches)
+    rt.shutdown()
+    del outs, steps
+    gc.collect()
+    return {"events_per_s": eps, "p50_ms_send": p50, "p99_ms_send": p99,
+            "launches": launches, "err": err, "k10_ms": k10_ms,
+            "k10_plain_ms": k10_plain, "k10_bound_ms": bound,
+            "k10_bound_by": by, "k10_library_ms": lib_ms}
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -5440,7 +5872,36 @@ def main() -> None:
         "bound_by": ag["k11_bound_by"],
         "library_ms": ag["k11_library_ms"]})
 
-    # -- 39. result -----------------------------------------------------------
+    # -- 40. to 42. slice 11: event time and schedules (kernels K10 and
+    # K5c); cron_trades and watermark_sensors
+    et_err = event_time_against_plain(dev)
+    ct = cron_trades_phase(dev, card)
+    ws = watermark_sensors_phase(dev, card)
+    for row in table:   # K1, K2, K5 and K6 ran on the new paths
+        kname = row["name"]
+        if kname in ("unpack_packed", "expr_eval", "window_step",
+                     "aggregate_step"):
+            row["launches"] += ct["launches"][kname] + \
+                ws["launches"][kname]
+    table.append({
+        "name": "cron_window", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/window_step.cu",
+        "replaces": "siddhi_tpu/ops/windows2.py:1393",
+        "launches": ct["launches"]["cron_window"],
+        "max_abs_err": max(et_err, ct["err"]), "ms": ct["k5c_ms"],
+        "plain_ms": ct["k5c_plain_ms"], "bound_ms": ct["k5c_bound_ms"],
+        "bound_by": ct["k5c_bound_by"], "library_ms": None})
+    table.append({
+        "name": "reorder_ring", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/reorder_ring.cu",
+        "replaces": "siddhi_tpu/resilience/ordering.py:820",
+        "launches": ws["launches"]["reorder_ring"],
+        "max_abs_err": max(et_err, ws["err"]), "ms": ws["k10_ms"],
+        "plain_ms": ws["k10_plain_ms"], "bound_ms": ws["k10_bound_ms"],
+        "bound_by": ws["k10_bound_by"],
+        "library_ms": ws["k10_library_ms"]})
+
+    # -- 43. result -----------------------------------------------------------
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

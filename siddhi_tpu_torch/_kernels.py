@@ -35,13 +35,15 @@ SOURCES = {"unpack_packed": "unpack_packed.cu", "expr_eval": "expr_eval.cu",
            "join_cross": "join_cross.cu", "table_step": "table_step.cu",
            "session_step": "session_step.cu", "order_by": "order_by.cu",
            "union_set": "union_set.cu", "partition": "partition.cu",
-           "aggregation_step": "aggregation_step.cu"}
+           "aggregation_step": "aggregation_step.cu",
+           "reorder_ring": "reorder_ring.cu"}
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 # entry points counted apart: the aggregate step's emission; K7's probe
 # and grid; K8's write, condition pass, index probe and seq-ordered view;
 # K9p's route, compaction and due; and the launches of K4, K5 and K6 with
-# a partition block's slot axis ("[K]"); K11's bucket step
+# a partition block's slot axis ("[K]"); K11's bucket step; K5's cron
+# kind (K5c); the reorder ring's step (K10)
 ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
                 "window_step", "sort_window", "aggregate_step",
                 "sliding_minmax", "distinct_count", "aggregate_emit",
@@ -50,7 +52,8 @@ ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
                 "session_window", "order_by", "union_set",
                 "partition_route", "partition_compact", "partition_due",
                 "nfa_scan[K]", "window_step[K]", "aggregate_step[K]",
-                "aggregate_emit[K]", "aggregation_step")
+                "aggregate_emit[K]", "aggregation_step", "cron_window",
+                "reorder_ring")
 LAUNCHES = {name: 0 for name in ENTRY_POINTS}
 
 
@@ -554,6 +557,23 @@ class AggrArgs(ctypes.Structure):
                           "counts")]
 
 
+RING_MAX_COLS = 16
+
+
+class RingArgs(ctypes.Structure):
+    _fields_ = [(f, _I32) for f in ("C", "n_cols", "count", "n_in")] + [
+        ("wm", _I64)] + [
+        (f, _I32) for f in ("min_rel", "final_", "levels", "pad_")] + [
+        ("sts", _P), ("scols", _P * RING_MAX_COLS),
+        ("in_ts", _P), ("in_cols", _P * RING_MAX_COLS),
+        ("col_size", _I32 * RING_MAX_COLS),
+        ("new_ts", _P), ("new_cols", _P * RING_MAX_COLS),
+        ("rel_ts", _P), ("rel_cols", _P * RING_MAX_COLS),
+        ("rel_nulls", _P * RING_MAX_COLS), ("rel_kind", _P),
+        ("rel_valid", _P), ("meta", _P), ("sort", KeySortScratch)] + [
+        (f, _P) for f in ("rank", "keep", "kpre", "sums")]
+
+
 def _nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if cand and Path(cand, "bin", "nvcc").exists():
@@ -678,6 +698,10 @@ class _Kernels:
         self.aggr_lib.siddhi_aggregation_step.argtypes = [
             ctypes.POINTER(AggrArgs), ctypes.c_void_p]
         self.aggr_lib.siddhi_aggregation_step.restype = ctypes.c_int
+        self.ring_lib = ctypes.CDLL(str(libs["reorder_ring"]))
+        self.ring_lib.siddhi_reorder_ring.argtypes = [
+            ctypes.POINTER(RingArgs), ctypes.c_void_p]
+        self.ring_lib.siddhi_reorder_ring.restype = ctypes.c_int
         self.table_lib = ctypes.CDLL(str(libs["table_step"]))
         for fn in ("siddhi_table_write", "siddhi_table_match",
                    "siddhi_table_probe", "siddhi_table_buffer"):
@@ -789,6 +813,10 @@ class _Kernels:
 
     def aggregation_step(self, args: AggrArgs, stream: int) -> None:
         self._check("aggregation_step", self.aggr_lib.siddhi_aggregation_step(
+            ctypes.byref(args), stream))
+
+    def reorder_ring(self, args: RingArgs, stream: int) -> None:
+        self._check("reorder_ring", self.ring_lib.siddhi_reorder_ring(
             ctypes.byref(args), stream))
 
 

@@ -10,7 +10,10 @@ across as they are, with a window's STRING columns optionally mapped to
 the port's dictionary codes.
 ``table_from_jax`` does the same for a table's state, ``block_from_jax``
 for a partition block's, ``aggregation_from_jax`` for an incremental
-aggregation's per-duration tables.
+aggregation's per-duration tables, ``cron_window_from_jax`` for a cron
+window's buffers, ``reorder_from_jax`` and ``ring_from_jax`` for a
+stream's reorder buffer and its device ring, ``ratelimit_from_jax`` for
+an output rate limiter's rows and counters.
 ``strings_from_jax`` seeds the port's string dictionary so that its
 codes match the reference process's: both packages give strings codes
 in order of first sight, so dictionary-coded columns and string
@@ -20,6 +23,7 @@ Neither function imports the reference: they take its plain values.
 """
 from __future__ import annotations
 
+import copy
 from typing import Sequence
 
 import numpy as np
@@ -150,6 +154,65 @@ def aggregation_from_jax(snapshot: dict, device, string_cols: Sequence = (),
                            (False,) * len(st["groups"])))
         out[d] = _tree({**st, "groups": groups}, device)
     return out
+
+
+def cron_window_from_jax(state: dict, device, string_cols: Sequence = (),
+                         remap=None) -> dict:
+    """A reference cron window's state (``CronWindowOp.init_state``'s
+    pytree: the buffered batch ``cur``, the expired batch ``exp``,
+    ``next_seq`` and ``overflow``) -> the port's, its STRING columns
+    (flags ``string_cols``, the stream's attribute order) passed through
+    ``remap``. It goes in the window's place of ``QueryRuntime.states``."""
+    if remap is not None:
+        state = _remap_buffers(state, tuple(string_cols), remap)
+    return _tree({k: state[k] for k in ("cur", "exp", "next_seq",
+                                        "overflow")}, device)
+
+
+def _remap_cols(cols, string_cols, remap):
+    return [np.asarray(remap(np.asarray(c)), np.int32)
+            if (remap is not None and is_str) else np.array(c, copy=True)
+            for c, is_str in zip(cols, tuple(string_cols) +
+                                 (False,) * len(cols))]
+
+
+def reorder_from_jax(snapshot: dict, string_cols: Sequence = (),
+                     remap=None) -> dict:
+    """A reference ``ReorderBuffer.snapshot_state()`` (the lane, the
+    event-time frontier ``max_ts``, the pending columnar segments, with a
+    device ring's rows as one more segment in arrival order, the pending
+    rows and the counters) -> the port's, for
+    ``ReorderBuffer.restore_state``: host values both, the segments'
+    STRING columns (flags ``string_cols``) passed through ``remap``; the
+    rows' strings are strings already."""
+    return {"lane": snapshot["lane"], "max_ts": snapshot["max_ts"],
+            "cols": [(np.array(t, np.int64, copy=True),
+                      _remap_cols(cs, string_cols, remap))
+                     for t, cs in snapshot["cols"]],
+            "rows": [(int(ts), tuple(data), bool(exp))
+                     for ts, data, exp in snapshot["rows"]],
+            "counters": {k: int(v) for k, v in
+                         snapshot.get("counters", {}).items()}}
+
+
+def ring_from_jax(ring_state, count: int, device,
+                  string_cols: Sequence = (), remap=None):
+    """A reference ``DeviceReorderRing``'s state ((ts, cols) of capacity
+    C, rows [0, count) live in arrival order) -> the port's ring state,
+    for ``DeviceReorderRing.state`` with ``count``; every row comes
+    across, the dead ones too."""
+    ts, cols = ring_state
+    cols = _remap_cols([np.asarray(c) for c in cols], string_cols, remap)
+    return (torch.from_numpy(np.array(ts, np.int64, copy=True)).to(device),
+            tuple(torch.from_numpy(c).to(device) for c in cols))
+
+
+def ratelimit_from_jax(snapshot: dict) -> dict:
+    """A reference output rate limiter's ``snapshot_state()`` (rows as
+    (ts, kind, values) tuples, keyed by group key where it groups, and
+    its counters and times: host values in both packages) -> the port's,
+    for the limiter's ``restore_state``: a copy."""
+    return copy.deepcopy(snapshot)
 
 
 def strings_from_jax(codes_to_str: Sequence) -> None:

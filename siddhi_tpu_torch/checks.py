@@ -3241,3 +3241,175 @@ def k11_check_feed(kind: str, n: int, capacity: int, encode, seed: int):
     nulls = [rng.random(capacity) < null_p for _ in cols[:6]] + \
         [np.zeros(capacity, bool)]
     return ts, cols, nulls
+
+
+# ---------------------------------------------------------------------------
+# event time and schedules: cron_trades and watermark_sensors
+# ---------------------------------------------------------------------------
+
+# cron_trades: trading-desk reports on wall-clock boundaries, Siddhi's
+# query-guide cron-window example in shape (a named cron window fed by
+# `insert into`, a grouped sum over it), a periodic trigger through a
+# projection, and a one-minute average limited to its last row per
+# symbol every 5 s
+CRON_TRADES_APP = """
+@app:playback
+define stream StockEventStream (symbol string, price float, volume long);
+define window StockEventWindow (symbol string, price float, volume long)
+    cron('*/5 * * * * ?');
+define trigger FiveSecTrigger at every 5 sec;
+@info(name = 'fill')
+from StockEventStream insert into StockEventWindow;
+@info(name = 'report')
+from StockEventWindow
+select symbol, sum(price) as totalPrice
+group by symbol
+insert into ReportStream;
+@info(name = 'tick')
+from FiveSecTrigger
+select triggered_time, triggered_time - 5000 as periodStart
+insert into TickStream;
+@info(name = 'lastavg') @cap(window.size='32768')
+from StockEventStream#window.time(1 min)
+select symbol, avg(price) as avgPrice
+group by symbol
+output last every 5 sec
+insert into AvgStream;
+"""
+CRON_TRADES_PERIOD_MS = 5000
+# trades 2 ms apart: a 5 s firing holds 2,500 rows, within the named
+# window's 4,096 (core/runtime.py DEFAULT_TIME_CAP); a minute 30,000,
+# within the time window's @cap
+CRON_TRADES_GAP_MS = 2
+CRON_TRADES_SYMS = 512
+
+
+def cron_trades_feed(n: int, encode, seed: int = 13,
+                     n_syms: int = CRON_TRADES_SYMS, prefix: str = "T"):
+    """CRON_TRADES_APP's feed: trades 2 ms apart from TS0 + 1 (TS0 is on
+    a 5 s boundary, so no trade falls on a firing), symbols uniform over
+    ``n_syms``, price ~ U(0, 200) float32, volume ~ U[1, 1000) int64.
+    -> (ts, [symbol codes, price, volume])."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([encode(s) for s in time_symbols(n_syms, prefix)],
+                    np.int32)
+    ts = TS0 + 1 + CRON_TRADES_GAP_MS * np.arange(n, dtype=np.int64)
+    sym = syms[rng.integers(0, n_syms, n)]
+    price = rng.uniform(0, 200, n).astype(np.float32)
+    vol = rng.integers(1, 1000, n, dtype=np.int64)
+    return ts, [sym, price, vol]
+
+
+def cron_trades_cuts(ts, period_ms: int = CRON_TRADES_PERIOD_MS):
+    """The send boundaries: one send a 5 s period of trades. A columnar
+    send is one step, and timers fire only before and after it, so a
+    firing can only split the feed between sends. -> cut indices, 0
+    first and len(ts) last."""
+    k = (ts - TS0) // period_ms
+    inner = np.flatnonzero(k[1:] != k[:-1]) + 1
+    return np.concatenate([[0], inner, [len(ts)]]).astype(np.int64)
+
+
+def cron_trades_oracle(ts, sym, price, cuts,
+                       period_ms: int = CRON_TRADES_PERIOD_MS,
+                       span_ms: int = 60_000):
+    """CRON_TRADES_APP independently, for sends cut at ``cuts``:
+
+    - report: the cron window fires on each period boundary; the firing
+      on send k's arrival emits send k-1's trades CURRENT (after send
+      k-2's EXPIRED, which take the group sums back to zero), each row
+      the running float64 sum of its symbol's prices in that batch;
+    - ticks: the trigger, armed at the first ts less 1, fires every
+      5,000 ms of event time up to the last ts;
+    - last: ``output last every 5 sec`` as the limiter runs: armed when
+      rows come, at the clock (the send's last ts) + 5 s, fired when the
+      clock passes it (before a send: its first ts less 1; after it: its
+      last ts); a flush emits the last row of each symbol since the
+      previous flush, in order of the symbol's first row there, each
+      row's average over the symbol's trades of the last minute.
+    -> (report symbols, report sums, ticks, [(row ts, symbols, averages)
+    a flush])."""
+    rep_sym, rep_sum = [], []
+    for k in range(1, len(cuts) - 1):
+        a, b = cuts[k - 1], cuts[k]
+        s, p = sym[a:b], price[a:b].astype(np.float64)
+        run = np.empty(b - a, np.float64)
+        for u in np.unique(s):
+            idx = np.flatnonzero(s == u)
+            run[idx] = np.cumsum(p[idx])
+        rep_sym.append(s)
+        rep_sum.append(run)
+    base = int(ts[0]) - 1
+    n_ticks = (int(ts[-1]) - base) // period_ms
+    ticks = base + period_ms * np.arange(1, n_ticks + 1, dtype=np.int64)
+    _s, ap, _sv, _n = window_time_oracle(ts, sym, price,
+                                         np.zeros(len(ts), np.int64),
+                                         span_ms)
+    flushes = []
+    due, start = None, 0
+
+    def flush(end):
+        s = sym[start:end]
+        _u, first = np.unique(s, return_index=True)
+        _u2, rlast = np.unique(s[::-1], return_index=True)
+        lastp = (end - start - 1) - rlast
+        order = np.argsort(first, kind="stable")
+        li = start + lastp[order]
+        flushes.append((ts[li], sym[li], ap[li]))
+    for k in range(len(cuts) - 1):
+        a, b = cuts[k], cuts[k + 1]
+        if due is not None and due <= int(ts[a]) - 1:
+            flush(a)
+            due, start = None, a
+        if due is None:
+            due = int(ts[b - 1]) + period_ms
+        if due <= int(ts[b - 1]):
+            flush(b)
+            due, start = None, b
+    return (np.concatenate(rep_sym), np.concatenate(rep_sum), ticks,
+            flushes)
+
+
+def watermark_sensors_app(lateness: str = "200 ms", span: str = "1 min",
+                          cap: int = 65536) -> str:
+    """window_time_grouped's app (window_time_app) under
+    ``@app:watermark(lateness=...)``, policy DROP: the reorder buffer
+    re-sorts each send before the window sees it."""
+    return window_time_app(span, cap).replace(
+        "@app:playback", f"@app:watermark(lateness='{lateness}')")
+
+
+WATERMARK_LATENESS_MS = 200
+
+
+def watermark_sensors_feed(n: int, encode, seed: int = 14,
+                           n_syms: int = WINDOW_TIME_SYMS,
+                           prefix: str = "K",
+                           max_delay: int = WATERMARK_LATENESS_MS,
+                           straggle: float = 0.001):
+    """window_time_feed's events in the order a fleet of producers
+    delivers them: each event delayed by a seeded 0-``max_delay`` ms,
+    and a ``straggle`` share of them by 500-1,000 ms (late past the
+    lateness bound). -> (ts, [symbol codes, price, volume]) in arrival
+    order."""
+    ts, cols = window_time_feed(n, encode, n_syms=n_syms, prefix=prefix)
+    rng = np.random.default_rng(seed)
+    delay = rng.integers(0, max_delay + 1, n)
+    strag = rng.random(n) < straggle
+    delay[strag] = rng.integers(500, 1001, int(strag.sum()))
+    order = np.argsort(ts + delay, kind="stable")
+    return ts[order], [c[order] for c in cols]
+
+
+def watermark_late_mask(ts, cuts, lateness_ms: int = WATERMARK_LATENESS_MS):
+    """The late events of a feed sent in sends cut at ``cuts``: an event
+    is late iff its ts is below the greatest ts of the earlier sends less
+    the lateness (the watermark when its send arrives)."""
+    late = np.zeros(len(ts), bool)
+    mx = None
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        if mx is not None:
+            late[a:b] = ts[a:b] < mx - lateness_ms
+        m = int(ts[a:b].max())
+        mx = m if mx is None else max(mx, m)
+    return late

@@ -40,7 +40,7 @@ its key slot, the inner queries run K2 and K4, K5 and K6 with the slot
 axis, and K9p compacts each outer query's output (plan_partition).
 
 The port plans single-stream queries with filters, one window of any
-kind but cron, and a plain or aggregating selector with having,
+kind, and a plain or aggregating selector with having,
 order-by, offset and limit (kernel G; a STRING order-by shapes the
 decoded rows at the host edge, ``_host_shape_rows``); insert-into
 chains between them; pattern and sequence queries; joins of two
@@ -49,9 +49,11 @@ blocks of single-stream and pattern queries (``_check_block_ops`` names
 what a block does not run yet); named windows (one shared window
 instance a definition, fed by ``insert into`` and read by queries, joins
 and on-demand queries); and incremental aggregations
-(core/aggregation.py, kernel K11). The cron window, @Store tables,
-triggers, rate limiters, sources and sinks raise NotImplementedError
-("not ported yet") on every device.
+(core/aggregation.py, kernel K11); triggers, the cron window (kernel
+K5c), output rate limiters (core/ratelimit.py) and ``@watermark``
+reorder buffers (resilience/ordering.py, kernel K10). @Store tables,
+sources and sinks raise NotImplementedError ("not ported yet") on every
+device.
 Window timers fire from the scheduler as in the reference
 (QueryRuntime._schedule / _on_timer).
 """
@@ -84,7 +86,7 @@ from ..ops.join import (JoinCombinedScope, JoinCross, JoinSideScope,
                         combined_schema)
 from ..ops.table import (TableFilterOp, TableOutputOp, TableRuntime,
                          expr_mentions_table)
-from ..ops.windows2 import (BatchWindowOp, DelayWindowOp,
+from ..ops.windows2 import (BatchWindowOp, CronWindowOp, DelayWindowOp,
                             ExternalTimeBatchWindowOp, ExternalTimeWindowOp,
                             FrequentWindowOp, HoppingWindowOp,
                             LossyFrequentWindowOp, SessionWindowOp,
@@ -126,9 +128,10 @@ WINDOW_CLASSES = {
     "frequent": FrequentWindowOp,
     "lossyfrequent": LossyFrequentWindowOp,
     "session": SessionWindowOp,
+    "cron": CronWindowOp,
 }
 # the reference's other window kinds (siddhi_tpu/ops/windows2.py)
-UNPORTED_WINDOWS = ("cron",)
+UNPORTED_WINDOWS = ()
 
 
 JOIN_KERNEL_ENV = "SIDDHI_TPU_JOIN_KERNEL"
@@ -344,6 +347,10 @@ class InsertIntoWindowHandler(OutputHandler):
         self.wq.process_batch(cur, timestamp)
         return True
 
+    def handle(self, timestamp, rows):
+        """Rows from a rate limiter enter the window as CURRENT events."""
+        self.wq.receive([Event(ts, vals) for ts, kind, vals in rows])
+
 
 class WindowPublishHandler(OutputHandler):
     """Publish a named window's output with its kinds kept, so consuming
@@ -413,12 +420,17 @@ class QueryRuntime(Receiver):
         self._timer_ops = _timer_windows(operators)
         self._has_timers = bool(self._timer_ops)
         self._host_due_all = _all_host_due(self._timer_ops)
+        # host-computed schedules (cron windows: the next fire time cannot
+        # come from device state)
+        self._host_sched = [op.host_schedule for op in operators
+                            if getattr(op, "host_schedule", None)]
         self._sched_due: Optional[int] = None
         # clock of the latest event step: timers due at or before it were
         # covered by the step's own per-row expiry (see _schedule)
         self._last_now = -(2 ** 62)
         self._skip_past_dues = not any(
             getattr(op, "needs_catchup", False) for op in operators)
+        self.rate_limiter = None
         self._chain = _chain_body(operators)
         self._packed_step = _build_packed_step(self._chain, in_schema)
         # device-resident emitted-row counter: kernel K2 adds to it in
@@ -483,8 +495,11 @@ class QueryRuntime(Receiver):
     # -- snapshot ---------------------------------------------------------
     def snapshot_state(self) -> dict:
         with self._lock:
-            return {"states": _tree_to(self.states, "cpu"),
+            snap = {"states": _tree_to(self.states, "cpu"),
                     "emitted": self._emitted_dev.cpu()}
+            if self.rate_limiter is not None:
+                snap["rate"] = self.rate_limiter.snapshot_state()
+            return snap
 
     def restore_state(self, snap: dict) -> None:
         """Restore from ``snapshot_state()`` output (or from a reference
@@ -495,6 +510,8 @@ class QueryRuntime(Receiver):
             self._emitted_dev = torch.as_tensor(
                 snap["emitted"], dtype=torch.int64).to(
                     self.app.device).clone()
+            if self.rate_limiter is not None and "rate" in snap:
+                self.rate_limiter.restore_state(snap["rate"])
 
     def overflow_total(self) -> int:
         """Sum of overflow counters across operator states (windows and
@@ -559,14 +576,35 @@ class QueryRuntime(Receiver):
         self._dispatch_output(out, timestamp,
                               due=None if skip_due else self._due())
 
+    def set_rate_limiter(self, rl) -> None:
+        """Install an output rate limiter: every row consumer (insert-into
+        handlers, query and stream callbacks) sees only what it emits;
+        ``batch_callbacks`` stay a tap before the limiter."""
+        rl.emit = self._emit_limited
+        rl.start(self.app)
+        self.rate_limiter = rl
+
+    def _emit_limited(self, timestamp: int, rows) -> None:
+        for h in self.output_handlers:
+            h.handle(timestamp, rows)
+        self.callback_handler.handle(timestamp, rows)
+
     def _dispatch_output(self, out, timestamp: int, due=None) -> None:
         """Raw-batch observers, timer scheduling, device-to-device
         chaining, and (only when someone still needs rows) one host
-        decode shared by every handler and callback. The reference's
-        rate-limiter and debugger branches are not ported yet (the
-        planner rejects both)."""
+        decode shared by every handler and callback. With a rate limiter
+        every row goes through it on the host (the reference's branch;
+        its debugger branch is not ported)."""
         for cb in self.batch_callbacks:
             cb(out)
+        if self.rate_limiter is not None:
+            if due is not None:
+                self._schedule(int(due.item()))
+            rows = self._host_shape_rows(
+                rows_from_batch(self.out_schema.types, out))
+            if rows:
+                self.rate_limiter.process(timestamp, rows)
+            return
         _current: list = []
 
         def current_once():
@@ -643,6 +681,14 @@ class QueryRuntime(Receiver):
             self._schedule(now + 1)
         else:
             self.process_batch(batch, due, now=now)
+        if self._host_sched:
+            self.arm_host_timers(due)
+
+    def arm_host_timers(self, base_ms: int) -> None:
+        """Schedule the host-computed fires (cron windows) after
+        ``base_ms``."""
+        for fn in self._host_sched:
+            self._schedule(int(fn(base_ms)))
 
 
 def split_batch(batch: EventBatch, cap: int):
@@ -1072,6 +1118,41 @@ class JoinQueryRuntime(QueryRuntime):
             self._schedule(now + 1)
 
 
+class TriggerRuntime:
+    """``define trigger T at every 5 sec | at '<cron>' | at 'start'``:
+    publishes (triggered_time) events into stream T on schedule
+    (trigger/{Periodic,Cron,Start}Trigger.java; PeriodicTrigger.java:73).
+    Its rows reach the queries as host events, as in the reference."""
+
+    def __init__(self, app, td, junction: StreamJunction):
+        self.app = app
+        self.td = td
+        self.junction = junction
+        self.cron = None
+        if td.at_cron not in (None, "start"):
+            from ..utils.cron import CronSchedule
+            self.cron = CronSchedule(td.at_cron)
+
+    def arm(self, base_ms: int) -> None:
+        if self.td.at_cron == "start":
+            self._fire(base_ms)
+            return
+        if self.cron is not None:
+            due = self.cron.next_fire(base_ms)
+        else:
+            due = base_ms + self.td.at_every_ms
+        self.app.scheduler.notify_at(due, self._on_timer)
+
+    def _on_timer(self, due: int) -> None:
+        if not self.app.running:
+            return
+        self._fire(due)
+        self.arm(due)
+
+    def _fire(self, ts: int) -> None:
+        self.junction.publish([Event(ts, (ts,))])
+
+
 class SiddhiAppRuntime:
     """Per-app container: junctions, query runtimes, handlers, lifecycle
     (reference SiddhiAppRuntimeImpl: start/shutdown :440-655)."""
@@ -1092,12 +1173,18 @@ class SiddhiAppRuntime:
         # partition blocks by name ("partition_1", ...); their queries'
         # ports are in ``queries`` too
         self.partitions: dict = {}
+        self.triggers: dict[str, TriggerRuntime] = {}
+        # @watermark reorder buffers by stream (resilience/ordering.py)
+        self._reorder: dict = {}
         # the planner's join kernel picks: {"<query>.<side>": {kernel,
         # reason, cause}}
         self.join_kernels: dict = {}
         self.running = False
         self._playback = False
         self._playback_time: Optional[int] = None
+        # cron windows and triggers are armed once: at start, or under
+        # playback at the first event time
+        self._cron_armed = False
         # set by the first columnar send (InputHandler.send_arrays)
         self._columnar = False
         # window dues of steps whose output no host consumer read: read
@@ -1144,16 +1231,31 @@ class SiddhiAppRuntime:
             for q in pats:
                 q.arm_start_deadlines(base)
 
+    def _arm_cron_once(self, base: int) -> None:
+        """Under playback, arm the cron windows and triggers once, at
+        ``base`` (the first event time less 1)."""
+        if not self._cron_armed:
+            self._cron_armed = True
+            self._arm_cron(base)
+
+    def _no_regress(self, last_ts: int) -> int:
+        """Under watermarks the clock never goes back: PROCESS-policy
+        late events carry old timestamps."""
+        if self._reorder and self._playback_time is not None:
+            return max(last_ts, self._playback_time)
+        return last_ts
+
     def on_ingest_ts(self, last_ts: int,
                      first_ts: Optional[int] = None) -> None:
         """Advance the playback clock (and due timers) to an ingested
         timestamp — shared by the row and columnar ingest paths."""
         self._resolve_dues()
         if self._playback:
-            self._arm_patterns(first_ts if first_ts is not None
-                               else last_ts)
-            self._playback_time = last_ts
-            self.scheduler.advance_to(last_ts)
+            base = first_ts if first_ts is not None else last_ts
+            self._arm_patterns(base)
+            self._arm_cron_once(base - 1)
+            self._playback_time = self._no_regress(last_ts)
+            self.scheduler.advance_to(self._playback_time)
 
     def on_ingest_span(self, first_ts: int, last_ts: int) -> None:
         """Columnar-chunk variant: fire only timers due STRICTLY BEFORE
@@ -1162,8 +1264,64 @@ class SiddhiAppRuntime:
         self._resolve_dues()
         if self._playback:
             self._arm_patterns(first_ts)
+            self._arm_cron_once(first_ts - 1)
             self.scheduler.advance_to(first_ts - 1)
-            self._playback_time = last_ts
+            self._playback_time = self._no_regress(last_ts)
+
+    def on_event_time(self, target_ms: int) -> None:
+        """Watermark-driven clock (resilience/ordering.py): advance the
+        virtual clock and due timers monotonically to the global
+        watermark, so windows, joins and patterns fire on watermark
+        progress instead of raw arrival, and never backwards."""
+        self._resolve_dues()
+        if not self._playback:
+            return
+        cur = self._playback_time
+        if cur is not None and target_ms <= cur:
+            return
+        self._arm_patterns(target_ms)
+        self._arm_cron_once(target_ms - 1)
+        self._playback_time = target_ms
+        self.scheduler.advance_to(target_ms)
+
+    def global_watermark(self) -> Optional[int]:
+        """The least watermark of the watermarked streams (a stream that
+        has seen no event yet does not hold it back); None before any
+        has seen traffic."""
+        wms = [b.watermark for b in self._reorder.values()
+               if b.watermark is not None]
+        return min(wms) if wms else None
+
+    def flush_watermarks(self, final: bool = False) -> None:
+        """Release the reorder-buffered events up to each stream's
+        watermark, or all of them when ``final`` (the shutdown path, which
+        also advances the clock to the observed event-time frontier so
+        that trailing window boundaries fire where an unbuffered run's
+        would)."""
+        if not self._reorder:
+            return
+        with self.barrier:
+            for buf in self._reorder.values():
+                buf.flush(final=final)
+            if final:
+                fronts = [b.max_ts for b in self._reorder.values()
+                          if b.max_ts is not None]
+                if fronts:
+                    self.on_event_time(max(fronts))
+            else:
+                wm = self.global_watermark()
+                if wm is not None:
+                    self.on_event_time(wm)
+
+    def _arm_cron(self, base_ms: int) -> None:
+        # the named windows too: the reference arms only app.queries, so
+        # a cron named window never fires there (ROADMAP Queue 3)
+        for q in list(self.queries.values()) + \
+                list(self.named_windows.values()):
+            if getattr(q, "_host_sched", None):
+                q.arm_host_timers(base_ms)
+        for t in self.triggers.values():
+            t.arm(base_ms)
 
     def junction_for(self, stream_id: str,
                      schema: Optional[StreamSchema] = None) -> StreamJunction:
@@ -1204,18 +1362,54 @@ class SiddhiAppRuntime:
             j.subscribe(StreamCallbackReceiver(callback))
 
     def statistics(self) -> dict:
-        """Per-query counters: {query name: {"emitted", "overflow"}}."""
+        """Per-query counters: {query name: {"emitted", "overflow"}}; with
+        reorder buffers, "reorder": {stream: {"watermark", "lag_ms",
+        "depth", and the buffer's counters}}, as the reference reports."""
         with self.barrier:
-            return {n: q.stats() for n, q in self.queries.items()}
+            report = {n: q.stats() for n, q in self.queries.items()}
+            if self._reorder:
+                report["reorder"] = {
+                    sid: {"watermark": b.watermark, "lag_ms": b.lag_ms,
+                          "depth": b.depth, **b.counters}
+                    for sid, b in self._reorder.items()}
+            return report
+
+    def stream_gauges(self) -> dict:
+        """The event-time gauges of each watermarked stream under the
+        reference's metric names: ``siddhi.<app>.stream.<sid>.watermark``
+        (-1 before traffic), ``.watermark.lag_ms``, ``.reorder.depth`` and
+        ``.reorder.<counter>``."""
+        flat = {}
+        with self.barrier:
+            for sid, buf in self._reorder.items():
+                base = f"siddhi.{self.name}.stream.{sid}"
+                wm = buf.watermark
+                flat[f"{base}.watermark"] = -1 if wm is None else int(wm)
+                flat[f"{base}.watermark.lag_ms"] = buf.lag_ms
+                flat[f"{base}.reorder.depth"] = buf.depth
+                for k, v in buf.counters.items():
+                    flat[f"{base}.reorder.{k}"] = v
+        return flat
 
     def start(self) -> None:
         self.running = True
         self.scheduler.start()
         if not self._playback:
+            self._arm_cron(self.current_time())
             self._arm_patterns(self.current_time())
 
     def shutdown(self) -> None:
-        self.running = False
+        self.running = False   # reject new sends before draining
+        if self._reorder:
+            # release what the reorder buffers still hold: an accepted
+            # event is never lost at shutdown
+            try:
+                self.flush_watermarks(final=True)
+            except Exception:  # noqa: BLE001 — shutdown must finish
+                import logging
+                logging.getLogger("siddhi_tpu_torch.runtime").exception(
+                    "app '%s': reorder-buffer final flush failed",
+                    self.name)
         self.scheduler.shutdown()
         self._resolve_dues()
 
@@ -1239,11 +1433,8 @@ class Planner:
 
     def plan(self) -> None:
         app, ast = self.app, self.ast
-        for what, present in (
-                ("triggers", ast.trigger_definitions),
-                ("script functions", ast.function_definitions)):
-            if present:
-                raise not_ported(what)
+        if ast.function_definitions:
+            raise not_ported("script functions")
         for ann in ast.annotations:
             name = ann.name.lower()
             if name == "playback":
@@ -1251,7 +1442,7 @@ class Planner:
                         ann.element("increment") is not None:
                     raise not_ported("@app:playback idle.time/increment")
                 app._playback = True
-            elif name != "name":
+            elif name not in ("name", "watermark"):
                 raise not_ported(f"@app:{ann.name}")
         # 1. defined streams -> junctions + input handlers
         for sid, sd in ast.stream_definitions.items():
@@ -1259,6 +1450,8 @@ class Planner:
                 if ann.name.lower() == "onerror" and \
                         (ann.element("action") or "LOG").upper() == "LOG":
                     continue  # the junction's default: log and go on
+                if ann.name.lower() == "watermark":
+                    continue  # plan_watermarks
                 raise not_ported(f"@{ann.name} on stream '{sid}'")
             schema = StreamSchema(sid, tuple(
                 Attribute(a.name, a.type) for a in sd.attributes))
@@ -1313,6 +1506,14 @@ class Planner:
             ar = AggregationRuntime(app, ad, schema)
             app.junctions[sid].subscribe(ar)
             app.aggregations[aid] = ar
+        # 1d. triggers: scheduled event publishers into stream <tid>
+        for tid, td in ast.trigger_definitions.items():
+            schema = StreamSchema(tid, (
+                Attribute("triggered_time", AttrType.LONG),))
+            tj = app.junction_for(tid, schema)
+            app.triggers[tid] = TriggerRuntime(app, td, tj)
+        # 1e. @app:watermark / @watermark reorder buffers
+        self.plan_watermarks()
         # 2. queries in order; inferred output streams defined as we go
         qcount = 0
         pcount = 0
@@ -1326,6 +1527,111 @@ class Planner:
 
     DEFAULT_TABLE_CAP = 8192
 
+    def plan_watermarks(self) -> None:
+        """``@app:watermark(...)`` / ``@watermark(...)`` on a definition ->
+        a ReorderBuffer a configured stream, on its ingest path. The app
+        level without ``stream=`` applies to every defined stream,
+        ``stream='S'`` to one; a definition's annotation overrides both.
+        Any watermark switches the app to event time (playback): the
+        clock advances on watermark progress."""
+        from ..resilience.ordering import (ReorderBuffer,
+                                           config_from_annotation)
+        app, ast = self.app, self.ast
+        wm_default = None
+        wm_streams: dict = {}
+        for ann in ast.annotations:
+            if ann.name.lower() != "watermark":
+                continue
+            try:
+                conf = config_from_annotation(ann)
+            except ValueError as e:
+                raise CompileError(f"@app:watermark: {e}")
+            tgt = ann.element("stream")
+            if tgt is None:
+                wm_default = conf
+            else:
+                tgt = str(tgt).strip().strip("'\"")
+                if tgt not in ast.stream_definitions:
+                    raise CompileError(
+                        f"@app:watermark targets undefined stream "
+                        f"'{tgt}'")
+                wm_streams[tgt] = conf
+        for sid, sd in ast.stream_definitions.items():
+            wa = A.find_annotation(sd.annotations, "watermark")
+            if wa is not None:
+                try:
+                    conf = config_from_annotation(wa)
+                except ValueError as e:
+                    raise CompileError(f"stream '{sid}': @watermark: {e}")
+            else:
+                conf = wm_streams.get(sid) or wm_default
+            if conf is None:
+                continue
+            if conf.policy == "STORE":
+                raise not_ported("@watermark policy='STORE' (the error "
+                                 "store)")
+            buf = ReorderBuffer(sid, app.schemas[sid], conf)
+            buf.handler = app.input_handlers[sid]
+            if conf.policy == "STREAM":
+                lt = conf.late_stream
+                lsd = ast.stream_definitions.get(lt)
+                if lsd is None:
+                    raise CompileError(
+                        f"stream '{sid}': @watermark late.stream '{lt}' "
+                        "is not a defined stream")
+                if [a.type for a in lsd.attributes] != \
+                        [a.type for a in sd.attributes]:
+                    raise CompileError(
+                        f"stream '{sid}': @watermark late.stream '{lt}' "
+                        "schema does not match the source stream "
+                        "(late events re-publish with the original "
+                        "attributes)")
+                lschema = StreamSchema(lt, tuple(
+                    Attribute(a.name, a.type) for a in lsd.attributes))
+                buf.late_junction = app.junction_for(lt, lschema)
+            app._reorder[sid] = buf
+        if app._reorder:
+            # watermarks define event time (playback semantics)
+            app._playback = True
+
+    def attach_rate_limiter(self, qr, q: A.Query, name: str) -> None:
+        """``output <all|first|last> every N events | T`` and ``output
+        snapshot every T`` -> a host-side limiter on the row path
+        (OutputParser's rate selection, query/output/ratelimit/)."""
+        rate = q.output_rate
+        if rate is None:
+            return
+        from .ratelimit import build_rate_limiter
+        key_fn = None
+        needs_key = (isinstance(rate, (A.EventOutputRate,
+                                       A.TimeOutputRate))
+                     and rate.type in ("first", "last")) or \
+            isinstance(rate, A.SnapshotOutputRate)
+        gb = q.selector.group_by or []
+        if needs_key and gb:
+            idxs = []
+            for g in gb:
+                col = None
+                for i, oa in enumerate(q.selector.attributes):
+                    e = oa.expression
+                    if isinstance(e, A.Variable) and \
+                            e.attribute == g.attribute:
+                        col = i
+                        break
+                if col is None:
+                    try:
+                        col = qr.out_schema.index_of(g.attribute)
+                    except KeyError:
+                        raise CompileError(
+                            f"query '{name}': group-by rate limiting "
+                            f"needs '{g.attribute}' in the projection")
+                idxs.append(col)
+
+            def key_fn(row, _idxs=tuple(idxs)):
+                return tuple(row[2][i] for i in _idxs)
+
+        qr.set_rate_limiter(build_rate_limiter(rate, key_fn))
+
     def plan_query(self, q: A.Query, default_name: str) -> None:
         app = self.app
         name = q.name or default_name
@@ -1333,12 +1639,8 @@ class Planner:
             if ann.name.lower() not in ("info", "cap"):
                 raise not_ported(f"@{ann.name} on query '{name}'")
         if isinstance(q.input, A.StateInputStream):
-            if q.output_rate is not None:
-                raise not_ported("output rate limiting")
             return self.plan_pattern_query(q, name)
         if isinstance(q.input, A.JoinInputStream):
-            if q.output_rate is not None:
-                raise not_ported("output rate limiting")
             return self.plan_join_query(q, name)
         if not isinstance(q.input, A.SingleInputStream):
             raise CompileError(
@@ -1359,8 +1661,6 @@ class Planner:
                                 A.UpdateOrInsertStream)):
             raise CompileError(f"query '{name}': unsupported output "
                                f"{type(out).__name__}")
-        if q.output_rate is not None:
-            raise not_ported("output rate limiting")
         out_type = out.output_event_type
         target = getattr(out, "target", None) or name
         current_on = out_type in ("current", "all")
@@ -1375,6 +1675,7 @@ class Planner:
         app.junctions[sin.stream_id].subscribe(qr)
         app.queries[name] = qr
         self.wire_stream_output(qr, out, out_type)
+        self.attach_rate_limiter(qr, q, name)
 
     def build_single_chain(self, q: A.Query, name: str,
                            schema: StreamSchema, sin: A.SingleInputStream,
@@ -1576,6 +1877,10 @@ class Planner:
                 current_on=out_type in ("current", "all"),
                 expired_on=out_type in ("expired", "all"),
                 allow_tables=False)
+            if any(getattr(op, "host_schedule", None) for op in operators):
+                raise CompileError(
+                    f"query '{name}': cron windows inside partitions are "
+                    "not supported")
             self._check_block_ops(name, operators)
             plan = BlockQueryPlan(name, input_id, schema, operators,
                                   target, inner_target, out_type)
@@ -1809,6 +2114,17 @@ class Planner:
                                    "attribute")
             return SortWindowOp(schema, int(const_of(params[0], "length")),
                                 keys, expired_enabled=expired_enabled)
+        if key == "cron":
+            _expect(params, 1, name)
+            if not isinstance(params[0], str):
+                raise CompileError(
+                    f"window '{name}' takes a cron expression string")
+            from ..utils.cron import CronError
+            try:
+                return CronWindowOp(schema, params[0], cap=time_cap,
+                                    expired_enabled=expired_enabled)
+            except CronError as e:
+                raise CompileError(f"window '{name}': {e}")
         if key == "session":
             if len(params) not in (1, 2):
                 raise CompileError(
@@ -2089,6 +2405,11 @@ class Planner:
         qr = JoinQueryRuntime(name, l_ops, r_ops, crosses, sel_ops,
                               {"L": l_schema, "R": r_schema}, jschema, app,
                               side_tables=side_tables)
+        # cron windows on join sides are host-scheduled like a single
+        # stream's; their fires reach both sides as TIMER batches
+        qr._host_sched.extend(
+            op.host_schedule for op in l_ops + r_ops
+            if getattr(op, "host_schedule", None))
         if not l_is_table:
             app.junctions[jin.left.stream_id].subscribe(
                 JoinStreamReceiver(qr, "L"))
@@ -2097,6 +2418,7 @@ class Planner:
                 JoinStreamReceiver(qr, "R"))
         app.queries[name] = qr
         self.wire_stream_output(qr, out, out_type)
+        self.attach_rate_limiter(qr, q, name)
 
     # -- pattern / sequence queries --------------------------------------
     def plan_pattern_query(self, q: A.Query, name: str) -> None:
@@ -2153,6 +2475,7 @@ class Planner:
             app.junctions[sid].subscribe(PatternStreamReceiver(qr, sid))
         app.queries[name] = qr
         self.wire_stream_output(qr, out, out_type)
+        self.attach_rate_limiter(qr, q, name)
 
     def wire_stream_output(self, qr, out, out_type: str) -> None:
         app = self.app

@@ -12,9 +12,14 @@ The junction is the host edge of the device dataflow: queries subscribe as
 receivers; events are handed over as row lists or device batches and each
 receiver decides how to batch them onto the device.
 
+A stream with a ``@watermark`` reorder buffer (resilience/ordering.py)
+hands its sends to the buffer, which releases them through
+``_dispatch_rows``, ``_dispatch_arrays`` or, from the device ring,
+``_dispatch_device_batch``.
+
 Not ported yet: ``@Async`` junctions, the double-buffered ingest
-pipeline, watermark reorder buffers, fan-out fusion and the SLO spans
-(the planner raises NotImplementedError for apps that ask for them).
+pipeline, fan-out fusion and the SLO spans (the planner raises
+NotImplementedError for apps that ask for them).
 """
 from __future__ import annotations
 
@@ -129,6 +134,16 @@ class InputHandler:
             events = [Event(timestamp=now(), data=tuple(d)) for d in data]
         else:
             events = [Event(timestamp=now(), data=tuple(data))]
+        buf = self.app._reorder.get(self.stream_id)
+        if buf is not None:
+            # bounded-lateness reorder buffer: buffered, sorted by the
+            # watermark and released through _dispatch_rows; late events
+            # go by the stream's policy
+            with maybe_span(self.app, "ingest", self.stream_id,
+                            events=len(events), buffered=1), \
+                    self.app.barrier:
+                buf.ingest_rows(events)
+            return
         with maybe_span(self.app, "ingest", self.stream_id,
                         events=len(events)), self.app.barrier:
             self._dispatch_rows(events)
@@ -156,6 +171,15 @@ class InputHandler:
             return
         self.app._columnar = True
         with self._ingest_lock:
+            buf = self.app._reorder.get(self.stream_id)
+            if buf is not None:
+                # columnar reorder buffer: the chunk lands in numpy
+                # segments (or the device ring); releases come back
+                # through _dispatch_arrays / _dispatch_device_batch
+                with maybe_span(self.app, "ingest", self.stream_id,
+                                rows=n, buffered=1), self.app.barrier:
+                    buf.ingest_columns(ts, cols)
+                return
             self._dispatch_arrays(ts, cols)
 
     def _dispatch_arrays(self, ts, cols) -> None:
@@ -206,6 +230,19 @@ class InputHandler:
                 self.junction.publish_batch(batch, last_ts)
             if self.app._playback:
                 self.app.scheduler.advance_to(last_ts)
+
+    def _dispatch_device_batch(self, batch, first_ts: int,
+                               last_ts: int) -> None:
+        """Publish a batch already on the device (the reorder ring's
+        release) under _dispatch_chunk's clock and timer contract: no
+        column copy and no K1 decode. The caller holds the app barrier
+        (reentrant)."""
+        with maybe_span(self.app, "ingest", self.stream_id,
+                        rows=int(batch.capacity)), self.app.barrier:
+            self.app.on_ingest_span(int(first_ts), int(last_ts))
+            self.junction.publish_batch(batch, int(last_ts))
+            if self.app._playback:
+                self.app.scheduler.advance_to(int(last_ts))
 
 
 class StreamCallback(Receiver):

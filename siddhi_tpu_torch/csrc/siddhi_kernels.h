@@ -404,7 +404,7 @@ cudaError_t siddhi_nfa_scan(const ScanArgs* a, cudaStream_t stream);
 enum WinKind { WIN_TIME = 0, WIN_LENGTH = 1, WIN_LENGTH_BATCH = 2,
                WIN_TIME_BATCH = 3, WIN_EMPTY = 4, WIN_EXT_TIME = 5,
                WIN_TIME_LENGTH = 6, WIN_DELAY = 7, WIN_BATCH = 8,
-               WIN_EXT_BATCH = 9, WIN_HOPPING = 10 };
+               WIN_EXT_BATCH = 9, WIN_HOPPING = 10, WIN_CRON = 11 };
 
 // A struct-of-arrays batch or window buffer; `seq` is unused for batches.
 typedef struct {
@@ -1053,6 +1053,42 @@ typedef struct {
 } AggrArgs;
 
 cudaError_t siddhi_aggregation_step(const AggrArgs* a, cudaStream_t stream);
+
+// ---- kernel K10: the reorder ring's step (reorder_ring.cu) -------------
+
+#define SIDDHI_RING_MAX_COLS 16
+
+typedef struct {
+  int32_t C;                  // the ring's capacity; a step sorts 2C rows
+  int32_t n_cols;
+  int32_t count;              // live ring rows [0, count)
+  int32_t n_in;               // live arrivals [0, n_in)
+  int64_t wm;                 // the watermark (-2^62 before one)
+  int32_t min_rel;            // release at least this many rows
+  int32_t final_;             // release every live row
+  int32_t levels;             // jnp.searchsorted's halvings over 2C
+  int32_t pad_;
+  const int64_t* sts;         // [C] the ring
+  const void* scols[SIDDHI_RING_MAX_COLS];
+  const int64_t* in_ts;       // [C] the arrivals
+  const void* in_cols[SIDDHI_RING_MAX_COLS];
+  int32_t col_size[SIDDHI_RING_MAX_COLS];   // bytes a value: 1, 4 or 8
+  int64_t* new_ts;            // [C] the new ring
+  void* new_cols[SIDDHI_RING_MAX_COLS];
+  int64_t* rel_ts;            // [2C] the released batch
+  void* rel_cols[SIDDHI_RING_MAX_COLS];
+  bool* rel_nulls[SIDDHI_RING_MAX_COLS];
+  int32_t* rel_kind;
+  bool* rel_valid;
+  int64_t* meta;              // [4] cut, wm_cut, first, last
+  KeySortScratch sort;        // the sort of the 2C rows
+  int32_t* rank;              // [2C] each row's place in the sort
+  uint8_t* keep;              // [2C] a live row the step keeps
+  int64_t* kpre;              // [2C] inclusive prefix sums of keep
+  int64_t* sums;              // [ceil(2C / 1024)] their tile totals
+} RingArgs;
+
+cudaError_t siddhi_reorder_ring(const RingArgs* a, cudaStream_t stream);
 
 #ifdef __cplusplus
 }

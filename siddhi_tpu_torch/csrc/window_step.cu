@@ -6,7 +6,8 @@
 // siddhi_tpu/ops/windows2.py: ExternalTimeWindowOp.step (:85),
 // TimeLengthWindowOp.step (:152), DelayWindowOp.step (:239),
 // BatchWindowOp.step (:302), ExternalTimeBatchWindowOp.step (:897),
-// EmptyWindowOp.step (:1460) and HoppingWindowOp.step (:1519); with
+// EmptyWindowOp.step (:1460) and HoppingWindowOp.step (:1519), and, as
+// kernel K5c, CronWindowOp.step (:1393); with
 // their helpers make_pool (:78), keep_newest (:113, the region path),
 // emission_sort (:151), running_time (:178), arrival_seqs (:185),
 // current_row_positions (:194) and _ext_running_time (windows2.py :54).
@@ -22,7 +23,8 @@
 //      externalTimeBatch reductions (clock max, TIMER rows);
 //   2. scalars (one thread): the kind's step decisions (lengthBatch:
 //      the completed batches; timeBatch, hopping: now >= the next emit;
-//      batch: any arrivals; externalTimeBatch: its start);
+//      batch: any arrivals; externalTimeBatch: its start; cron: a TIMER
+//      row with rows pending, the flush);
 //   3. ext_batch_prep (one block, externalTimeBatch): the carried
 //      window, the step's first flush, the early (timeout) flush, each
 //      batch's first row, the new counters;
@@ -37,7 +39,10 @@
 //   7. a stable radix sort of the keys (sort_scan.cuh): the emission
 //      order, ties in candidate order, which is seq order;
 //   8. out_gather: the output batch in that order;
-//   9. keep_gather: the newest `cap` kept rows into each new buffer;
+//   9. keep_gather: the newest `cap` kept rows into each new buffer
+//      (cron: the arrivals after the buffer, or alone on a flush, and
+//      cron_rotate: the new expired batch, the buffer on a flush, else
+//      the old one, row for row);
 //  10. finish: the counters.
 // The output has every candidate, the invalid ones last in candidate
 // order, as the reference's argsort leaves them; the new buffers hold
@@ -64,7 +69,7 @@ enum { S_NS0 = 0, S_NCUR, S_NOW, S_COND, S_TOT0, S_TOT1, S_FIRST_BATCH,
        S_LAST_COMPLETE, S_FIRST_FLUSH_ROW, S_ZERO, S_HOP_AT, S_NEXT_HOP,
        S_START, S_LAST_EXT, S_BMAX_EXT, S_IS_TIMER, S_TIMER_TS, S_EARLY,
        S_ANY_FLUSH, S_FLUSH_TS, S_MAX_W, S_FLUSHED0, S_EXP_ON, S_RECUR_ON,
-       S_LAST_GRP };
+       S_LAST_GRP, S_PENDING };
 
 __device__ __forceinline__ int64_t floordiv(int64_t x, int64_t d) {
   const int64_t q = x / d;
@@ -267,6 +272,21 @@ __global__ void __launch_bounds__(SS_BLOCK)
       a.scal[S_IS_TIMER] = any_t;
     }
   }
+  if (a.kind == WIN_CRON) {
+    // any(valid & TIMER) over the batch; any valid row in the buffer
+    int64_t any_t = 0, any_p = 0, plo, phi;
+    for (int64_t i = lo; i < hi; ++i)
+      if (a.batch.valid[i] && a.batch_kind[i] == TMR) any_t = 1;
+    ss::span(a.W, &plo, &phi);
+    for (int64_t p = plo; p < phi; ++p)
+      if (a.a.valid[p]) any_p = 1;
+    any_t = block_max(any_t, buf);
+    any_p = block_max(any_p, buf);
+    if (threadIdx.x == 0) {
+      a.scal[S_IS_TIMER] = any_t;
+      a.scal[S_PENDING] = any_p;
+    }
+  }
   if (threadIdx.x == 0) {
     a.scal[S_NS0] = ns0;
     a.scal[S_NCUR] = total;
@@ -306,6 +326,8 @@ __global__ void scalars(const __grid_constant__ WindowArgs a0) {
     s[S_HOP_AT] = ne;
     s[S_NEXT_HOP] = send ? ne + T : ne;
     *a.o_next_emit = s[S_NEXT_HOP];
+  } else if (a.kind == WIN_CRON) {
+    s[S_COND] = s[S_IS_TIMER] && s[S_PENDING];   // the flush
   } else if (a.kind == WIN_BATCH) {
     s[S_COND] = s[S_NCUR] > 0;
     const int64_t lg = a.length > 0 ? floordiv(s[S_NCUR] - 1, a.length) : 0;
@@ -515,6 +537,9 @@ __global__ void src_marks(const __grid_constant__ WindowArgs a0, int pass) {
       k1 = early ? pv : (cur_emits && w == a.scal[S_MAX_W]);
       break;
     }
+    case WIN_CRON:   // the arrivals after the buffer (alone on a flush)
+      k0 = pv && (p >= a.W || !a.scal[S_COND]);
+      break;
     case WIN_HOPPING:
       if (in_pool) {
         const int64_t ts = v.pool_ts(p);
@@ -794,6 +819,21 @@ __global__ void cand_marks(
       }
       break;
     }
+    case WIN_CRON: {         // on a flush: E EXPIRED at now, then A
+      const bool flush = a.scal[S_COND];
+      if (c < EB) {
+        src = c;
+        ts = now;
+        kind = EXP;
+        if (a.expired_enabled && a.e.valid[c] && flush) key = 0;
+      } else {
+        const int32_t p = c - EB;
+        src = EB + p;
+        ts = a.a.ts[p];
+        if (a.a.valid[p] && flush) key = 1;
+      }
+      break;
+    }
     case WIN_EXT_BATCH: {
       const Cand k = ext_batch_cand(a, c);
       src = k.src;
@@ -865,6 +905,8 @@ __global__ void keep_gather(const __grid_constant__ WindowArgs a0, int m,
     return;
   }
   const View v{a};
+  // cron (garbage -2): the pool began with an empty buffer on a flush
+  if (garbage == -2) garbage = a.scal[S_COND] ? -1 : a.EB;
   const int64_t r = a.scal[S_TOT0 + m] - cap + j;
   const int32_t s = r < 0 ? garbage : a.rank_pos[(int64_t)m * a.S + r];
   dst.ts[j] = s < 0 ? 0 : v.src_ts(s);
@@ -876,13 +918,29 @@ __global__ void keep_gather(const __grid_constant__ WindowArgs a0, int m,
   }
 }
 
+// cron: the new expired batch is the buffer on a flush, else the old
+// expired batch, row for row (EB == W)
+__global__ void cron_rotate(const __grid_constant__ WindowArgs a0) {
+  const WindowArgs& a = part_args(a0);
+  const int32_t j = blockIdx.x * T1 + threadIdx.x;
+  if (j >= a.EB) return;
+  const WinBuf& src = a.scal[S_COND] ? a.a : a.e;
+  a.ne.ts[j] = src.ts[j];
+  a.ne.seq[j] = src.seq[j];
+  a.ne.valid[j] = src.valid[j];
+  for (int k = 0; k < a.n_cols; ++k) {
+    copy_row(a.ne.cols[k], j, src.cols[k], j, a.col_size[k]);
+    a.ne.nulls[k][j] = src.nulls[k][j];
+  }
+}
+
 __global__ void finish(const __grid_constant__ WindowArgs a0) {
   const WindowArgs& a = part_args(a0);
   if (a.o_overflow == nullptr) return;
   int64_t tot = 0, cap = a.W;
   switch (a.kind) {
     case WIN_TIME: case WIN_EXT_TIME: case WIN_DELAY: case WIN_EXT_BATCH:
-    case WIN_HOPPING:
+    case WIN_HOPPING: case WIN_CRON:
       tot = a.scal[S_TOT0];
       break;
     case WIN_BATCH:
@@ -924,7 +982,8 @@ extern "C" cudaError_t siddhi_window_step(const WindowArgs* p,
   } else if (pooled) {
     src_marks<<<rows(n_src), T1, 0, stream>>>(a, 0);
     keep_scan<<<one, SS_BLOCK, 0, stream>>>(a, 0);
-    if (a.EB > 0 || a.kind == WIN_TIME_BATCH || a.kind == WIN_BATCH)
+    if ((a.EB > 0 && a.kind != WIN_CRON) || a.kind == WIN_TIME_BATCH ||
+        a.kind == WIN_BATCH)
       keep_scan<<<one, SS_BLOCK, 0, stream>>>(a, 1);
   }
   // keys: emit_row * 4 + phase <= 4 * B - 1, invalid ones above
@@ -959,6 +1018,10 @@ extern "C" cudaError_t siddhi_window_step(const WindowArgs* p,
                                                  0);
       keep_gather<<<rows(a.W), T1, 0, stream>>>(a, 1, 0, a.W, S_COND, -1,
                                                 0);
+      break;
+    case WIN_CRON:            // the new buffer; the rotated expired batch
+      keep_gather<<<rows(a.W), T1, 0, stream>>>(a, 0, 0, a.W, -1, -2, 0);
+      cron_rotate<<<rows(a.EB), T1, 0, stream>>>(a);
       break;
     case WIN_EXT_BATCH:       // the new exp from E and the emitted pool
       keep_gather<<<rows(a.W), T1, 0, stream>>>(a, 0, 0, a.W, -1, pool0, 0);

@@ -20,7 +20,7 @@ TimeBatchWindowProcessor -> TimeBatchWindowOp. The reference's second
 wave (siddhi_tpu/ops/windows2.py) is in ops/windows2.py: externalTime,
 timeLength, delay, batch, externalTimeBatch and hopping run on K5 too;
 the sort window, frequent and lossyFrequent, and session have kernels
-of their own; cron is not ported yet.
+of their own; cron is K5's kind 11 (kernel K5c).
 
 ``window_step`` is K5. For tensors on the CPU it runs the window's
 ``step_ref``, the plain PyTorch version, which follows the reference's
@@ -173,6 +173,7 @@ class WindowOp(Operator):
     fifo_expiry = True
     host_due_bound = None
     KIND = -1      # csrc/window_step.cu's kind code
+    LAUNCH = "window_step"   # its launches' counter (_kernels.LAUNCHES)
     # K5's state buffers (A, E): the buffer or current batch, and the
     # expired batch (None where the window keeps none)
     buf_keys = ("buf", None)
@@ -646,7 +647,7 @@ def window_step(op: WindowOp, state, batch: EventBatch, now):
     new_state, out, args = window_args(op, state, batch, _i64(now, dev))
     _kernels.load().window_step(args,
                                 torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.count_launch("window_step[K]" if slotted else "window_step")
+    _kernels.count_launch("window_step[K]" if slotted else op.LAUNCH)
     return new_state, out
 
 

@@ -15,6 +15,7 @@ Reference mapping (modules/siddhi-core/.../query/processor/stream/window/):
 - FrequentWindowProcessor.java:115-172          -> FrequentWindowOp
 - LossyFrequentWindowProcessor.java:149-210     -> LossyFrequentWindowOp
 - SessionWindowProcessor.java:227-310           -> SessionWindowOp
+- CronWindowProcessor.java:125-236              -> CronWindowOp
 
 Each ``step_ref`` is the plain PyTorch version and follows the
 reference's ``step`` line by line. The K5-frame kinds run kernel K5
@@ -24,8 +25,9 @@ reference's ``step`` line by line. The K5-frame kinds run kernel K5
 reference's ``lax.scan`` does; frequent and lossyFrequent run
 csrc/window_seq.cu's kernel E (``freq_window_step``), one warp walking
 the rows; session runs csrc/session_step.cu (``session_step``), the
-reference's vectorised pass stage by stage. The cron window is not
-ported yet.
+reference's vectorised pass stage by stage. The cron window runs K5's
+frame too, as its own kind (kernel K5c): its fires come from the host
+schedule (utils/cron.py), not a device due.
 
 The reference's documented deviation is kept: delay(0) releases at the
 next step, not interleaved after the next in-chunk event.
@@ -640,6 +642,75 @@ class HoppingWindowOp(WindowOp):
     def next_due(self, state):
         nh = state["next_hop"]
         return torch.where(nh == -1, torch.full_like(nh, int(POS_INF)), nh)
+
+    def findable_buffer(self, state, device=None):
+        return state["exp"]
+
+
+class CronWindowOp(WindowOp):
+    """#window.cron('expr'): buffer arrivals; each cron firing (a TIMER
+    batch from the host schedule) emits [previous batch EXPIRED (ts =
+    now), buffered batch CURRENT] and rotates the buffers; nothing is
+    emitted when the buffer is empty (CronWindowProcessor.java:125-135
+    buffers, :188-236 dispatches; the Quartz scheduler is utils/cron.py
+    and the app Scheduler). Kernel K5c: kind 11 of csrc/window_step.cu,
+    counted as ``cron_window``."""
+
+    kind_name = "cron"
+    KIND = 11
+    LAUNCH = "cron_window"
+    buf_keys = ("cur", "exp")
+
+    def __init__(self, schema, cron_expr: str, cap: int = 4096,
+                 expired_enabled: bool = True):
+        from ..utils.cron import CronSchedule
+        super().__init__(schema, expired_enabled)
+        self.schedule = CronSchedule(cron_expr)
+        self.cap = int(cap)
+
+    @property
+    def host_schedule(self):
+        """The host-side next-fire computer: the runtime arms the app's
+        timers from it (there is no device next_due)."""
+        return self.schedule.next_fire
+
+    def out_capacity(self, B: int) -> int:
+        """The expired batch and the buffered batch."""
+        return 2 * self.cap
+
+    def init_state(self, device="cpu"):
+        return {"cur": empty_buffer(self.schema, self.cap, device),
+                "exp": empty_buffer(self.schema, self.cap, device),
+                "next_seq": _i64(0, device), "overflow": _i64(0, device)}
+
+    def step_ref(self, state, batch: EventBatch, now):
+        W = EB = self.cap
+        dev = batch.ts.device
+        now = _i64(now, dev)
+        cur, seq, next_seq = arrival_seqs(batch, state["next_seq"])
+        fire = (batch.valid & (batch.kind == TIMER)).any()
+        has_pending = state["cur"]["valid"].any()
+        flush = fire & has_pending
+        exp, buf = state["exp"], state["cur"]
+        out = {"ts": torch.cat([now.expand(EB), buf["ts"]]),
+               "cols": tuple(torch.cat([ec, cc]) for ec, cc in
+                             zip(exp["cols"], buf["cols"])),
+               "nulls": tuple(torch.cat([en, cn]) for en, cn in
+                              zip(exp["nulls"], buf["nulls"])),
+               "kind": _kinds(dev, (EB, EXPIRED), (W, CURRENT))}
+        emit_row = torch.zeros((EB + W,), dtype=I64, device=dev)
+        phase = torch.cat([_full(EB, 0, I64, dev), _full(W, 1, I64, dev)])
+        exp_valid = (exp["valid"] & flush) if self.expired_enabled \
+            else torch.zeros((EB,), dtype=torch.bool, device=dev)
+        valid = torch.cat([exp_valid, buf["valid"] & flush])
+        result = emission_sort(out, emit_row, phase, valid, EB + W)
+        # rotate on a flush, then append this step's arrivals to cur
+        mid_cur = _select(flush, empty_buffer(self.schema, W, dev), buf)
+        new_exp = _select(flush, buf, exp)
+        pool = make_pool(mid_cur, batch, seq, cur)
+        new_cur, overflow = keep_newest(pool, pool["valid"], W)
+        return ({"cur": new_cur, "exp": new_exp, "next_seq": next_seq,
+                 "overflow": state["overflow"] + overflow}, result)
 
     def findable_buffer(self, state, device=None):
         return state["exp"]

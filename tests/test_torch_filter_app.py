@@ -277,14 +277,14 @@ def test_strings_carried_over_from_reference():
     "define stream S (a int); from S select coalesce(a, 1) as b insert into O;",
     "@app:statistics('true') define stream S (a int);"
     " from S select a insert into O;",
-    "define stream S (a int); from S select a output every 2 events"
-    " insert into O;",
+    "define stream S (a int); partition with (a of S) begin from S"
+    " select a output last every 2 events insert into O; end;",
     "define stream S (a int); define window W (a int) length(5);"
     " from S insert into W;",
-    "define stream S (a int); define trigger T at every 1 sec;"
-    " from T select triggered_time insert into O;",
-    "define stream S (a int); from S#window.cron('*/1 * * * * ?')"
-    " select a insert into O;",
+    "@app:watermark(lateness='1 sec', policy='STORE')"
+    " define stream S (a int); from S select a insert into O;",
+    "define stream S (a int); @Store(type='rdbms') @Cache(size='16')"
+    " define table T (a int); from S insert into T;",
 ])
 def test_unported_parts_raise(text):
     """What the port lacks says so; the sort window, distinctCount,
@@ -315,11 +315,15 @@ def test_validate_and_shutdown():
     mgr = T.SiddhiManager(device="cpu")
     mgr.validate_siddhi_app(FILTER_APP)
     assert not mgr.app_runtimes
+    mgr.validate_siddhi_app(
+        "define stream S (a int); from S#window.cron('*/5 * * * * ?') "
+        "select a insert into O;")
+    assert not mgr.app_runtimes
     with pytest.raises(NotImplementedError,
-                       match="not ported yet: window 'cron'"):
+                       match="not ported yet: @watermark policy='STORE'"):
         mgr.validate_siddhi_app(
-            "define stream S (a int); from S#window.cron('*/5 * * * * ?') "
-            "select a insert into O;")
+            "@app:watermark(lateness='1 sec', policy='STORE') "
+            "define stream S (a int); from S select a insert into O;")
     rt = mgr.create_siddhi_app_runtime(FILTER_APP)
     rt.start()
     mgr.shutdown()

@@ -19,8 +19,8 @@ and on-demand reads, equal bit for bit.
 - the reference's own cases: tests/test_store.py TestNamedWindows and
   ``test_select_from_named_window``, and the named-window app of
   tests/test_persistence.py (its feed and query, without persist);
-- what the port does not run yet raises: a cron named window, a named
-  window inside a partition; writes to a window are refused as in the
+- what the port does not run yet raises: a named window inside a
+  partition, an app with @watermark policy='STORE'; writes to a window are refused as in the
   reference."""
 import numpy as np
 import pytest
@@ -246,7 +246,8 @@ def test_carried_window_goes_on():
 
 
 @pytest.mark.parametrize("text, err", [
-    ("define stream S (a int); define window W (a int) "
+    ("@app:watermark(lateness='1 sec', policy='STORE') "
+     "define stream S (a int); define window W (a int) "
      "cron('*/5 * * * * ?'); from S insert into W;", "not ported yet"),
     ("define stream S (a int); define window W (a int) length(2); "
      "partition with (a of S) begin from S select a insert into W; end;",

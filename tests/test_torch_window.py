@@ -264,14 +264,14 @@ UNPORTED_WINDOWS = {
 # its sends equal the reference's
 PORTED_WINDOWS = {"externalTime", "timeLength", "delay", "batch", "sort",
                   "externalTimeBatch", "hopping", "hoping", "frequent",
-                  "lossyFrequent", "session"}
+                  "lossyFrequent", "session", "cron"}
 
 
-def _ts_price_feed(encode):
-    """60 events 50 ms apart (three seconds: the one-second windows
-    expire and flush), the timestamp also as the ts attribute."""
+def _ts_price_feed(encode, gap_ms: int = 50):
+    """60 events ``gap_ms`` apart (at 50 ms three seconds: the one-second
+    windows expire and flush), the timestamp also as the ts attribute."""
     rng = np.random.default_rng(17)
-    ts = 1_700_000_000_000 + 50 * np.arange(60, dtype=np.int64)
+    ts = 1_700_000_000_000 + gap_ms * np.arange(60, dtype=np.int64)
     return ts, [ts.copy(), rng.uniform(0, 200, 60).astype(np.float32)]
 
 
@@ -288,8 +288,12 @@ def test_unported_window_kinds_say_so(window):
     two sends equal the reference's, rows and states."""
     name = UNPORTED_WINDOWS[window]
     if name in PORTED_WINDOWS:
+        # the cron window fires every 5 s: a feed 200 ms apart spans two
+        # firings
+        gap = 200 if name == "cron" else 50
         rj, rt = run_both(_ts_price_app(f"#window.{window}", "ts, price"),
-                          [(0, 30), (30, 60)], _ts_price_feed)
+                          [(0, 30), (30, 60)],
+                          lambda enc: _ts_price_feed(enc, gap))
         assert rt.rows
         return
     text = f"""define stream S (ts long, price float);

@@ -43,7 +43,7 @@ USERS = 8
 @pytest.fixture(scope="module", autouse=True)
 def aligned_symbols():
     align_strings(time_symbols(80, prefix=PREFIX)
-                  + user_symbols(USERS, "SU") + ["u1", "u2", "u3"])
+                  + user_symbols(USERS, "SU") + ["SEU1", "SEU2", "SEU3"])
 
 
 @pytest.mark.parametrize("app", APPS)
@@ -67,17 +67,17 @@ QL = """@app:playback
     insert {what} into Out;"""
 REFERENCE_CASES = {
     "close by gap": ("user, v", "all events",
-                     [(1000, ("u1", 1)), (1500, ("u1", 2)),
-                      (4000, ("u2", 3))]),
+                     [(1000, ("SEU1", 1)), (1500, ("SEU1", 2)),
+                      (4000, ("SEU2", 3))]),
     "per-key isolation": ("user, v", "all events",
-                          [(1000, ("u1", 1)), (1100, ("u2", 2)),
-                           (1200, ("u1", 3)), (5000, ("u3", 4))]),
+                          [(1000, ("SEU1", 1)), (1100, ("SEU2", 2)),
+                           (1200, ("SEU1", 3)), (5000, ("SEU3", 4))]),
     "timer close": ("user, sum(v) as t", "expired events",
-                    [(1000, ("u1", 5)), (1200, ("u1", 7)),
-                     (9000, ("u2", 1))]),
+                    [(1000, ("SEU1", 5)), (1200, ("SEU1", 7)),
+                     (9000, ("SEU2", 1))]),
     "new session, same key": ("user, v", "all events",
-                              [(1000, ("u1", 1)), (3000, ("u1", 2)),
-                               (9000, ("u2", 3))]),
+                              [(1000, ("SEU1", 1)), (3000, ("SEU1", 2)),
+                               (9000, ("SEU2", 3))]),
 }
 
 
@@ -103,7 +103,7 @@ def test_reference_case_equals_the_reference(case):
 
 
 def test_two_sessions_of_a_key_in_one_send():
-    """u1 at 1,000 and 3,000 ms in one send (gap 1 s): the first
+    """SEU1 at 1,000 and 3,000 ms in one send (gap 1 s): the first
     session's close time is taken from the later one, so it does not
     close in the step, and it is not the slot's final session: the
     reference drops it (never emitted EXPIRED); so does the port."""
@@ -112,10 +112,10 @@ def test_two_sessions_of_a_key_in_one_send():
     for pkg, tab in ((J, JSTR), (T, TSTR)):
         h = runs[pkg].h
         h.send_arrays(np.array([1000, 3000], np.int64),
-                      [np.array([tab.encode("u1")] * 2, np.int32),
+                      [np.array([tab.encode("SEU1")] * 2, np.int32),
                        np.array([1, 2], np.int32)])
         h.send_arrays(np.array([3500], np.int64),
-                      [np.array([tab.encode("u2")], np.int32),
+                      [np.array([tab.encode("SEU2")], np.int32),
                        np.array([3], np.int32)])
     assert runs[T].rows == runs[J].rows
     assert [r[2][1] for r in runs[T].rows] == [1, 2, 3]
