@@ -233,7 +233,26 @@ Phases, each of which stops the run with a non-zero exit on failure:
    late count the feed's own, forced 0; K10 on every send; K10's time
    against its plain version, its bound and torch.sort(stable=True)
    with the gathers;
-43. print the kernel table as one JSON line, the card's name and power
+44. tenants_pool: the reference bench's `tenants` arm (checks.
+   TENANT_TEMPLATE: a filter on two tenant parameters, lengthBatch(256),
+   a projection) through TemplateRegistry(SiddhiManager()).pool(...) at
+   64, 256 and 1,024 tenants x 2,048 rows, batch_max 1,024, one warm
+   pass and 3 timed passes: events/s, the rounds, each round's p50/p99;
+   8 sampled tenants' rows equal separate runtimes with the same
+   bindings (fed the same round chunks), bit for bit; K1[K], K2 with its
+   parameter loads and K5[K] launch on the timed passes, and at 1,024
+   tenants the first two rounds' launches of each are held against
+   their plain versions (tolerance 0) and timed;
+45. to 47. pool_pattern, pool_join and pool_absent: 64 tenants x 1,024
+   rows a stream of checks.class_feeds(seed=17), batch_max 256 (bucketed
+   to 1,024, as in the reference): the class templates and a small
+   absent pattern (fired by advance_time rounds); 8 sampled tenants
+   against separate runtimes (the absent matches as multisets); K3[K],
+   K7[K] (its grid entry point too, on the same arguments) with the
+   join sides' K5[K], and K4[K]'s stream and timer steps launch, and
+   the first rounds' launches are held against their plain versions
+   over every slot and timed;
+48. print the kernel table as one JSON line, the card's name and power
    limit, and the result line.
 
 `python3 chip_smoke.py --k5-time` times K5 alone (window_agg's and
@@ -3309,10 +3328,10 @@ class FuncCheck:
         E = self.E
         k_eval = E.expr_eval
 
-        def expr_eval(prog, batch, emitted=None, now=None):
+        def expr_eval(prog, batch, emitted=None, now=None, tparams=None):
             e_ref = emitted.clone() if emitted is not None else None
-            kc, kn, kv = k_eval(prog, batch, emitted, now)
-            rc, rn, rv = E.expr_eval_ref(prog, batch, e_ref, now)
+            kc, kn, kv = k_eval(prog, batch, emitted, now, tparams)
+            rc, rn, rv = E.expr_eval_ref(prog, batch, e_ref, now, tparams)
             err, gap = compare_ulp(
                 f"K2 B={batch.capacity}",
                 [*kc, *kn, kv] + ([emitted] if emitted is not None else []),
@@ -4286,6 +4305,10 @@ def partition_avg_phase(dev, card: str, n_sends: int = 128) -> dict:
     win_bytes = _slot_bytes(wb) + _nbytes(_bl(wout)) + \
         2 * _nbytes(tree_leaves(wst))
     k5_bound, k5_by = bound_of(win_bytes, Kw * (wargs.N + wargs.P))
+    # the library's yardstick: a batched stable sort of the emission's
+    # keys (the output's ts) along the row axis
+    k5_lib = cuda_ms(lambda: torch.sort(wout.ts, dim=1, stable=True),
+                     reps=5)
     agg_bytes = _nbytes([akind, avalid]) + \
         _nbytes([t for c in (kc + [a for a in ac if a is not None])
                  for t in c]) + 2 * _nbytes(tree_leaves(ast)) + \
@@ -4305,7 +4328,8 @@ def partition_avg_phase(dev, card: str, n_sends: int = 128) -> dict:
           f"{k9['bound_ms']:.5f} ms ({k9['bound_by']}); {card}", flush=True)
     print(f"window_step[K] (K5, length(10), {Kw} slots x {Bw} rows): "
           f"{k5_ms:.3f} ms, plain version (once per slot) {k5_plain:.1f} ms, "
-          f"bound {k5_bound:.4f} ms ({k5_by}); aggregate_step[K] (K6, avg, "
+          f"bound {k5_bound:.4f} ms ({k5_by}), torch.sort(dim=1, stable) "
+          f"{k5_lib:.4f} ms; aggregate_step[K] (K6, avg, "
           f"{list(akind.shape)}): {k6_ms:.3f} ms, plain version "
           f"{k6_plain:.1f} ms, bound {k6_bound:.4f} ms ({k6_by}); "
           f"aggregate_emit[K] ({list(eb.ts.shape)}): {emit_ms:.3f} ms, "
@@ -4318,7 +4342,8 @@ def partition_avg_phase(dev, card: str, n_sends: int = 128) -> dict:
     return {"events_per_s_device_batches": eps, "rows": len(ots),
             "p50_ms_send": p50, "p99_ms_send": p99, "launches": launches,
             "k9": k9, "k5_ms": k5_ms, "k5_plain_ms": k5_plain,
-            "k5_bound_ms": k5_bound, "k5_bound_by": k5_by, "k6_ms": k6_ms,
+            "k5_bound_ms": k5_bound, "k5_bound_by": k5_by,
+            "k5_library_ms": k5_lib, "k6_ms": k6_ms,
             "k6_plain_ms": k6_plain, "k6_bound_ms": k6_bound,
             "k6_bound_by": k6_by, "emit_ms": emit_ms,
             "emit_plain_ms": emit_plain, "emit_bound_ms": emit_bound,
@@ -5304,6 +5329,635 @@ def watermark_sensors_phase(dev, card: str, n_sends: int = 16) -> dict:
             "k10_bound_by": by, "k10_library_ms": lib_ms}
 
 
+# ---------------------------------------------------------------------------
+# tenant serving pools (K1[K], K2's parameter load, K5[K], K3[K], K4[K],
+# K7[K])
+# ---------------------------------------------------------------------------
+
+# the reference bench's `tenants` configuration: the headline chain arm's
+# tenant counts, rows a tenant and batch_max; the class arms'
+POOL_TENANTS = (64, 256, 1024)
+POOL_ROWS, POOL_BATCH_MAX, POOL_PASSES = 2048, 1024, 3
+CLASS_TENANTS, CLASS_ROWS, CLASS_BATCH_MAX = 64, 1024, 256
+# the tenants whose pooled rows are held against separate runtimes
+POOL_SAMPLED = 8
+
+
+class PoolCapture:
+    """While installed, the arguments of the first ``limit`` launches of
+    each of a tenant pool's slotted kernels (K1[K], K2 with per-slot
+    parameters or counters, K5[K], K3[K], K4[K] stream and timer steps,
+    K7[K]) are kept: the tensors a launch updates in place cloned first.
+    The runtime goes on with the kernels' results; ``replay`` then holds
+    each kept launch against its plain version on the same arguments."""
+
+    def __init__(self, limit: int):
+        from siddhi_tpu_torch.core import ingest as I
+        from siddhi_tpu_torch.core import runtime as R
+        from siddhi_tpu_torch.ops import join as J
+        from siddhi_tpu_torch.ops import nfa as N
+        from siddhi_tpu_torch.ops import nfa_parallel as NP
+        from siddhi_tpu_torch.ops import selector as S
+        from siddhi_tpu_torch.ops import windows as W
+        self.mods = (I, R, S, W, NP, N, J)
+        self.limit = limit
+        self.rec = {k: [] for k in ("K1", "K2", "K5", "K3", "K4", "K4t",
+                                    "K7")}
+
+    def _keep(self, kind, args) -> None:
+        if len(self.rec[kind]) < self.limit:
+            self.rec[kind].append(args)
+
+    def __enter__(self):
+        I, R, S, W, NP, N, J = self.mods
+        self.saved = (I.unpack_packed, R.expr_eval, S.expr_eval,
+                      W.window_step, NP.parallel_step, N.scan_step,
+                      N.timer_step, J.join_probe, J.join_grid)
+        (k1, k2r, k2s, k5, k3, k4, k4t, k7p, k7g) = self.saved
+
+        def unpack(types, enc, cap, buf):
+            if buf.dim() == 2:
+                self._keep("K1", (types, enc, cap, buf))
+            return k1(types, enc, cap, buf)
+
+        def k2(fn):
+            def expr_eval(prog, batch, emitted=None, now=None,
+                          tparams=None):
+                if batch.ts.dim() == 2 and (
+                        tparams or (emitted is not None
+                                    and emitted.dim() == 1)):
+                    self._keep("K2", (prog, batch, None if emitted is None
+                                      else emitted.clone(), now, tparams))
+                return fn(prog, batch, emitted, now, tparams)
+            return expr_eval
+
+        def window_step(op, state, batch, now):
+            if batch.ts.dim() == 2:
+                self._keep("K5", (op, tree_clone(state), batch, now))
+            return k5(op, state, batch, now)
+
+        def parallel_step(eng, sid, table, batch):
+            if batch.ts.dim() == 2:
+                self._keep("K3", (eng, sid, tree_clone(table), batch))
+            return k3(eng, sid, table, batch)
+
+        def scan_step(eng, sid, table, batch, due=None):
+            if batch.ts.dim() == 2:
+                self._keep("K4", (eng, sid, tree_clone(table), batch))
+            return k4(eng, sid, table, batch, due)
+
+        def timer_step(eng, table, now, due=None):
+            if table["state"].dim() == 2:
+                self._keep("K4t", (eng, tree_clone(table), now))
+            return k4t(eng, table, now, due)
+
+        def k7(fn, name):
+            def cross(cross, trig, opp, gate_alive=False):
+                if trig.ts.dim() == 2:
+                    self._keep("K7", (name, cross, trig, tree_clone(opp),
+                                      gate_alive))
+                return fn(cross, trig, opp, gate_alive)
+            return cross
+
+        I.unpack_packed = unpack
+        R.expr_eval, S.expr_eval = k2(k2r), k2(k2s)
+        W.window_step = window_step
+        NP.parallel_step = parallel_step
+        N.scan_step, N.timer_step = scan_step, timer_step
+        J.join_probe, J.join_grid = k7(k7p, "join_probe"), k7(k7g,
+                                                              "join_grid")
+        return self
+
+    def __exit__(self, *exc):
+        I, R, S, W, NP, N, J = self.mods
+        (I.unpack_packed, R.expr_eval, S.expr_eval, W.window_step,
+         NP.parallel_step, N.scan_step, N.timer_step, J.join_probe,
+         J.join_grid) = self.saved
+        return False
+
+
+def _pool_launch_ms(kind: str, args) -> float:
+    """A pool kernel's device time on one kept launch's arguments: the
+    argument struct built once, then the raw launches alone between CUDA
+    events (a table the launch updates in place restored before each)."""
+    from siddhi_tpu_torch import _kernels
+    from siddhi_tpu_torch.core import ingest as I
+    from siddhi_tpu_torch.core.event import EventBatch
+    from siddhi_tpu_torch.core.types import torch_dtype
+    from siddhi_tpu_torch.ops import join as J
+    from siddhi_tpu_torch.ops import nfa as N
+    from siddhi_tpu_torch.ops import nfa_parallel as NP
+    from siddhi_tpu_torch.ops import windows as W
+    from siddhi_tpu_torch.ops.expr import batch_input, expr_params
+    from siddhi_tpu_torch.ops.slots import flat
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = torch.device("cuda")
+
+    def prep():
+        pass
+    if kind == "K1":
+        types, enc, cap, buf = args
+        shape = (buf.shape[0], cap)
+        e = lambda dt: torch.empty(shape, dtype=dt, device=dev)  # noqa
+        nl = e(torch.bool)
+        out = EventBatch(ts=e(torch.int64),
+                         cols=tuple(e(torch_dtype(t)) for t in types),
+                         nulls=(nl,) * len(types), kind=e(torch.int32),
+                         valid=e(torch.bool))
+        p = I.unpack_params(types, enc, cap, buf, out)
+        keep = (out, p)
+        launch = lambda: lib.unpack_packed(keep[1], stream)  # noqa: E731
+    elif kind == "K2":
+        prog, batch, em0, now, tp = args
+        rows = batch.ts.shape[1]
+        fb = flat(batch)
+        B = fb.ts.shape[0]
+        em = None if em0 is None else em0.clone()
+        ins = [batch_input(fb, k, now, tp) for k in prog.inputs]
+        cols = tuple(torch.empty((B,), dtype=torch_dtype(t), device=dev)
+                     for t in prog.out_types)
+        nulls = tuple(torch.empty((B,), dtype=torch.bool, device=dev)
+                      for _ in prog.out_types)
+        valid = torch.empty((B,), dtype=torch.bool, device=dev)
+        p = expr_params(prog, fb, cols, nulls, valid, em, ins, rows)
+        keep = (fb, ins, cols, nulls, valid, em, p)
+        launch = lambda: lib.expr_eval(keep[-1], stream)  # noqa: E731
+    elif kind == "K5":
+        op, state, batch, now = args
+        keep = W.window_args(op, state, batch, W._i64(now, dev))
+        launch = lambda: lib.window_step(keep[2], stream)  # noqa: E731
+    elif kind == "K7":
+        name, cross, trig, opp, gate = args
+        keep = J.join_args(cross, trig, opp, gate, name == "join_probe")
+        launch = lambda: getattr(lib, name)(keep[2], stream)  # noqa: E731
+    else:
+        table = args[2] if kind != "K4t" else args[1]
+        work = tree_clone(table)
+        src, dst = tree_leaves(table), tree_leaves(work)
+
+        def prep():
+            for d, s_ in zip(dst, src):
+                d.copy_(s_)
+        lead = tuple(table["state"].shape[:-1])
+        if kind == "K3":
+            eng, sid, _t, batch = args
+            PB = min(eng.PB, batch.ts.shape[-1])
+            out = N.kernel_out(eng, dev, lead)
+            p = NP.nfa_params(eng, sid, work, batch, out, PB, lead)
+
+            def launch():
+                for o in range(0, batch.ts.shape[-1], PB):
+                    NP.set_events(p, batch, o)
+                    lib.nfa_parallel_step(p, stream)
+        else:
+            eng = args[0]
+            sid, batch, now = (args[1], args[3], 0) if kind == "K4" \
+                else (None, None, int(args[2]))
+            out = N.kernel_out(eng, dev, lead)
+            p = N.scan_args(eng, sid, work, batch, now, out, None, dev)
+            launch = lambda: lib.nfa_scan(p, stream)  # noqa: E731
+        keep = (work, out, p)
+    ms = _launch_ms(prep, launch, reps=10)
+    del keep
+    return ms
+
+
+def _pool_check(kind: str, rec, what: str) -> dict:
+    """Every kept launch of ``kind`` (PoolCapture) against its plain
+    version on the same arguments, every slot, bit for bit; then the
+    kernel's time on the last one's arguments (the state it updates in
+    place restored before each launch), the plain version's (the last
+    check's), the bound (each input read once, each output written once,
+    at the HBM rate) and the one library call that computes the same
+    function, where there is one. -> {err, ms, plain_ms, bound_ms, bound_by, library_ms,
+    checked}."""
+    from siddhi_tpu_torch.core import ingest as I
+    from siddhi_tpu_torch.ops import join as J
+    from siddhi_tpu_torch.ops import nfa_parallel as NP
+    from siddhi_tpu_torch.ops import windows as W
+    from siddhi_tpu_torch.ops.expr import expr_eval, expr_eval_ref
+    from siddhi_tpu_torch.ops.slots import flat, per_slot
+    if not rec:
+        fail(f"{what}: no {kind} launch was captured on the pool's path")
+    err = 0.0
+
+    def run(args, plain: bool):
+        """One launch (or its plain version) -> the tensors it gives,
+        in order."""
+        if kind == "K1":
+            types, enc, cap, buf = args
+            if plain:
+                b, now = per_slot(lambda x: I.unpack_packed_ref(
+                    types, enc, cap, x), buf.shape[0], buf)
+                now = now[0]
+            else:
+                b, now = I.unpack_packed(types, enc, cap, buf)
+            return [b.ts, *b.cols, b.nulls[0], b.kind, b.valid,
+                    now.reshape(1)]
+        if kind == "K2":
+            prog, batch, em0, now, tp = args
+            em = None if em0 is None else em0.clone()
+            if plain:
+                K, rows = batch.ts.shape
+                cols, nulls, valid = expr_eval_ref(
+                    prog, flat(batch), em, now, tp, rows)
+                cols = tuple(c.reshape((K, -1) + tuple(c.shape[1:]))
+                             for c in cols)
+                nulls = tuple(n.reshape(K, -1) for n in nulls)
+                valid = valid.reshape(K, -1)
+            else:
+                cols, nulls, valid = expr_eval(prog, batch, em, now, tp)
+            return [*cols, *nulls, valid] + ([em] if em is not None else [])
+        if kind == "K5":
+            op, state, batch, now = args
+            if plain:
+                st, o = per_slot(lambda s, b: W.window_step_ref(op, s, b,
+                                                                now),
+                                 batch.ts.shape[0], state, batch)
+            else:
+                st, o = W.window_step(op, state, batch, now)
+            return tree_leaves(st) + _bl(o)
+        if kind == "K3":
+            eng, sid, table, batch = args
+            t = tree_clone(table)
+            if plain:
+                t, m = per_slot(lambda x, b: NP.parallel_step_ref(
+                    eng, sid, x, b), batch.ts.shape[0], t, batch)
+            else:
+                t, m = NP.parallel_step(eng, sid, t, batch)
+            return tree_leaves(t) + _bl(m)
+        if kind in ("K4", "K4t"):
+            from siddhi_tpu_torch.ops import nfa as N
+            if kind == "K4":
+                eng, sid, table, batch = args
+                t = tree_clone(table)
+                if plain:
+                    t, m = per_slot(lambda x, b: eng.stream_step_ref(
+                        sid, x, b), batch.ts.shape[0], t, batch)
+                else:
+                    t, m = N.scan_step(eng, sid, t, batch)
+            else:
+                eng, table, now = args
+                t = tree_clone(table)
+                if plain:
+                    t, m = per_slot(lambda x: eng.timer_step_ref(x, now),
+                                    table["state"].shape[0], t)
+                else:
+                    t, m = N.timer_step(eng, t, now)
+            return tree_leaves(t) + _bl(m)
+        name, cross, trig, opp, gate = args
+        if plain:
+            ref = J.cross_probe_ref if name == "join_probe" \
+                else J.cross_grid_ref
+            o, lost = per_slot(lambda t, b: ref(cross, t, b, gate),
+                               trig.ts.shape[0], trig, opp)
+        else:
+            o, lost = getattr(J, name)(cross, trig, opp, gate)
+        return _bl(o) + [lost]
+
+    plain_ms = 0.0
+    if kind == "K7":   # the grid entry point too, on the same arguments
+        for i, args in enumerate(rec):
+            g = ("join_grid",) + tuple(args[1:])
+            err = max(err, compare(f"{what} K7[K] join_grid on launch {i}",
+                                   run(g, False), run(g, True)))
+    for i, args in enumerate(rec):
+        got = run(args, False)
+        t0 = time.perf_counter()
+        want = run(args, True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(err, compare(f"{what} {kind} launch {i}", got, want))
+    args = rec[-1]
+    ms = _pool_launch_ms(kind, args)
+    outs = run(args, False)
+    lib_ms = None
+    if kind == "K1":
+        types, enc, cap, buf = args
+        n_bytes = buf.nbytes + _nbytes(outs)
+    elif kind == "K2":
+        prog, batch, _em, _now, _tp = args
+        ins = [batch.cols[k] if isinstance(k, int) else batch.ts
+               for k in prog.inputs
+               if isinstance(k, int) or k == ("ts",)]
+        ins += [batch.nulls[k] for k in prog.inputs if isinstance(k, int)]
+        n_bytes = _nbytes(ins + [batch.kind, batch.valid]) + \
+            _nbytes(outs)
+    elif kind == "K5":
+        op, state, batch, _now = args
+        n_bytes = 2 * _nbytes(tree_leaves(state)) + _nbytes(_bl(batch)) + \
+            _nbytes(outs[len(tree_leaves(state)):])
+        key = outs[len(tree_leaves(state))]   # the output's ts
+        lib_ms = cuda_ms(lambda: torch.sort(key, dim=1, stable=True),
+                         reps=10)
+    elif kind in ("K3", "K4", "K4t"):
+        # the events, each row's liveness, the live rows of the table
+        # (read and written), the matches written
+        table = args[2] if kind != "K4t" else args[1]
+        batch = args[3] if kind != "K4t" else None
+        lv = tree_leaves(table)
+        M = table["state"].shape[-1]
+        row_bytes_ = sum(x.numel() * x.element_size() // x.shape[0] // M
+                         for x in lv if x.dim() >= 2 and x.shape[1] == M)
+        live = int(table["valid"].sum())
+        n_out = outs[-1].numel()   # the match batch's valid mask
+        n_match = int(outs[-1].sum())
+        match_row = _nbytes(outs[len(lv):]) // max(n_out, 1)
+        n_bytes = (_nbytes(_bl(batch)) if batch is not None else 0) + \
+            _nbytes([table["valid"], table["state"]]) + \
+            2 * live * row_bytes_ + n_match * match_row
+    else:
+        name, cross, trig, opp, gate = args
+        n_bytes = _nbytes(_bl(trig)) + _nbytes(
+            [opp["ts"], opp["valid"], *opp["cols"], *opp["nulls"]]) + \
+            _nbytes(outs)
+        # the library's yardstick: a batched stable sort of the opposite
+        # windows' keys along the row axis, and a batched searchsorted of
+        # the trigger rows' keys into them
+        okey = opp["cols"][0].to(torch.int64)
+        tkey = trig.cols[0].to(torch.int64).contiguous()
+        lib_ms = cuda_ms(lambda: torch.searchsorted(
+            torch.sort(okey, dim=1, stable=True)[0], tkey), reps=10)
+    bound, by = bound_of(n_bytes, 0)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms, "checked": len(rec),
+            "bytes": n_bytes}
+
+
+def _pool_rows(pool, tids, got: dict) -> None:
+    """Per-tenant callbacks that keep each tenant's rows (ts, kind,
+    values) in ``got``."""
+    for tid in tids:
+        pool.add_callback(tid, lambda evs, tid=tid: got.setdefault(
+            tid, []).extend((e.timestamp, e.is_expired, tuple(e.data))
+                            for e in evs))
+
+
+def _separate_rows(template_text: str, bindings: dict, chunks: list,
+                   name: str) -> list:
+    """A separate runtime of the template with the tenant's bindings
+    (instantiate_static), fed the tenant's round chunks in order ->
+    its rows."""
+    from siddhi_tpu_torch import SiddhiManager, StreamCallback
+    from siddhi_tpu_torch.serving import Template
+    text = Template(template_text).instantiate_static(bindings,
+                                                      app_name=name)
+    rt = SiddhiManager().create_siddhi_app_runtime(text)
+    rows = []
+    rt.add_callback("Out", StreamCallback(lambda evs: rows.extend(
+        (e.timestamp, e.is_expired, tuple(e.data)) for e in evs)))
+    rt.start()
+    for sid, ts, cols in chunks:
+        rt.get_input_handler(sid).send_arrays(ts, cols)
+    torch.cuda.synchronize()
+    rt.shutdown()
+    return rows
+
+
+class _TakeLog:
+    """Keeps the sampled tenants' round chunks (what each round took) so
+    a separate runtime can be fed the same."""
+
+    def __init__(self, pool, tids):
+        self.pool, self.tids, self.log = pool, set(tids), {}
+        self.orig = pool._take
+
+        def take(tid, sid, limit):
+            got = self.orig(tid, sid, limit)
+            if got is not None and tid in self.tids:
+                self.log.setdefault(tid, []).append((sid, got[0], got[1]))
+            return got
+        pool._take = take
+
+    def stop(self):
+        self.pool._take = self.orig
+
+
+def _pool_pass(pool, tids, feeds: dict, shift: int, sync_rounds: list):
+    """Every tenant sends its feed (timestamps moved ``shift`` ms on),
+    then the pool drains in fair rounds, each timed to the device's
+    end."""
+    for tid in tids:
+        for sid, (ts, cols) in feeds.items():
+            pool.send(tid, ts + shift, cols, stream=sid)
+    while True:
+        t0 = time.perf_counter()
+        n = pool.pump()
+        torch.cuda.synchronize()
+        if n == 0:
+            return
+        sync_rounds.append((time.perf_counter() - t0) * 1e3)
+
+
+def tenants_pool_phase(dev, card: str) -> dict:
+    """tenants_pool: the reference bench's headline `tenants` arm, the
+    chain template (checks.TENANT_TEMPLATE: a filter on two tenant
+    parameters, lengthBatch(256), a projection) at 64, 256 and 1,024
+    tenants x 2,048 rows, batch_max 1,024, each tenant with
+    checks.tenant_bindings, through TemplateRegistry(SiddhiManager())
+    .pool(...). One warm pass, then 3 timed passes (events/s, rounds,
+    each round's p50/p99 to the device's end). In the warm pass at
+    every count, 8 sampled tenants' pooled rows equal separate runtimes
+    of the template with the same bindings, fed the same round chunks,
+    bit for bit; at 1,024 tenants the first two rounds' K1[K], K2 and
+    K5[K] launches are held against their plain versions (tolerance 0)
+    and timed. K1[K], K2 with its parameter loads (expr_eval[K]) and
+    K5[K] must launch on the timed passes."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.serving import TemplateRegistry
+    out = {"per_n": {}, "launches": {k: 0 for k in _kernels.LAUNCHES}}
+    ts, cols = C.tenant_data(POOL_ROWS)
+    span = int(ts[-1] - ts[0]) + 1
+    for n in POOL_TENANTS:
+        reg = TemplateRegistry(SiddhiManager())
+        pool = reg.pool(C.TENANT_TEMPLATE, slots=n, max_tenants=n,
+                        batch_max=POOL_BATCH_MAX)
+        tids = [f"t{i}" for i in range(n)]
+        for i, tid in enumerate(tids):
+            pool.add_tenant(tid, C.tenant_bindings(i))
+        sampled = tids[:: max(1, n // POOL_SAMPLED)][:POOL_SAMPLED]
+        got: dict = {}
+        _pool_rows(pool, sampled, got)
+        takes = _TakeLog(pool, sampled)
+        rounds: list = []
+        cap = PoolCapture(4) if n == POOL_TENANTS[-1] else None
+        if cap is not None:
+            with cap:
+                _pool_pass(pool, tids, {"In": (ts, cols)}, 0, rounds)
+        else:
+            _pool_pass(pool, tids, {"In": (ts, cols)}, 0, rounds)
+        takes.stop()
+        pool._callbacks.clear()
+        for i, tid in enumerate(sampled):
+            sep = _separate_rows(C.TENANT_TEMPLATE,
+                                 C.tenant_bindings(tids.index(tid)),
+                                 takes.log[tid], f"sep_chain_{n}_{i}")
+            if sep != got.get(tid, []) or not sep:
+                fail(f"tenants_pool {n}: tenant {tid}'s pooled rows "
+                     f"({len(got.get(tid, []))}) differ from a separate "
+                     f"runtime's ({len(sep)})")
+        # the timed passes: counts from 0, then read
+        _kernels.reset_launches()
+        rounds = []
+        t0 = time.perf_counter()
+        for p in range(1, POOL_PASSES + 1):
+            _pool_pass(pool, tids, {"In": (ts, cols)}, p * span, rounds)
+        wall = time.perf_counter() - t0
+        launches = dict(_kernels.LAUNCHES)
+        for k in ("unpack_packed[K]", "expr_eval[K]", "window_step[K]"):
+            if launches[k] == 0:
+                fail(f"tenants_pool {n}: {k} did not launch on the "
+                     f"pool's path ({launches})")
+            out["launches"][k] += launches[k]
+        events = n * POOL_ROWS * POOL_PASSES
+        st = pool.statistics()
+        eps = events / wall
+        p50, p99 = (float(np.percentile(rounds, q)) for q in (50, 99))
+        out["per_n"][n] = {"eps": eps, "rounds": len(rounds),
+                           "round_p50_ms": p50, "round_p99_ms": p99,
+                           "pad_frac": st["packed_ingest"]["pad_frac"]}
+        print(f"tenants_pool {n} tenants x {POOL_ROWS} rows, batch_max "
+              f"{POOL_BATCH_MAX}: {eps:.0f} events/s over {POOL_PASSES} "
+              f"passes ({len(rounds)} rounds, a round p50 {p50:.3f} ms, "
+              f"p99 {p99:.3f} ms to the device's end); {len(sampled)} "
+              f"sampled tenants equal separate runtimes bit for bit; "
+              f"state {pool.state_bytes_per_tenant} bytes a tenant; "
+              f"launches {launches}; {card}", flush=True)
+        if cap is not None:
+            for kind, key in (("K1", "k1"), ("K2", "k2"), ("K5", "k5")):
+                r = _pool_check(kind, cap.rec[kind],
+                                f"tenants_pool {n}")
+                out[key] = r
+                print(f"tenants_pool {n}: {kind} launches of the first "
+                      f"two rounds ({r['checked']}) bit-equal to the plain "
+                      f"version; {r['ms']:.4f} ms a launch, plain "
+                      f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} "
+                      f"ms ({r['bytes']} bytes), library "
+                      f"{r['library_ms']} ms", flush=True)
+            del cap
+        pool.shutdown()
+        reg.shutdown()
+        gc.collect()
+    return out
+
+
+def _class_phase(dev, card: str, what: str, template: str, streams,
+                 checks: tuple, advance: bool = False) -> dict:
+    """One operator class's pool: 64 tenants x 1,024 rows a stream,
+    batch_max 256, checks.class_feeds(seed=17) (the reference bench's
+    class arm); one warm pass (the first rounds' kernels captured, 8
+    sampled tenants held against separate runtimes), then 3 timed passes
+    whose launches are read; each pass moves the timestamps on, and with
+    ``advance`` every pass ends with an advance_time round 2 s past its
+    last event. -> events/s, rounds, launches and each captured kernel's
+    check and times."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.serving import TemplateRegistry
+    n = CLASS_TENANTS
+    reg = TemplateRegistry(SiddhiManager())
+    pool = reg.pool(template, slots=n, max_tenants=n,
+                    batch_max=CLASS_BATCH_MAX, name=what)
+    tids = [f"t{i}" for i in range(n)]
+    for tid in tids:
+        pool.add_tenant(tid)
+    feeds = C.class_feeds(streams, CLASS_ROWS, seed=17)
+    span = max(int(ts[-1]) for ts, _c in feeds.values()) - C.TS0 + 4
+    span += 2000 + 1000
+    sampled = tids[:: n // POOL_SAMPLED][:POOL_SAMPLED]
+    got: dict = {}
+    _pool_rows(pool, sampled, got)
+    takes = _TakeLog(pool, sampled)
+    cap = PoolCapture(2)
+    rounds: list = []
+
+    def one_pass(p):
+        _pool_pass(pool, tids, feeds, p * span, rounds)
+        if advance:
+            last = C.TS0 + p * span + span - 3000 + 2000
+            pool.advance_time(last)
+            for tid in sampled:
+                takes.log.setdefault(tid, []).append((None, last, None))
+            torch.cuda.synchronize()
+    with cap:
+        one_pass(0)
+    takes.stop()
+    pool._callbacks.clear()
+    for i, tid in enumerate(sampled):
+        chunks = []
+        for sid, ts, cols in takes.log.get(tid, []):
+            if sid is None:   # advance_time: an event that neither
+                # starts (v <= 800) nor ends (k < 0) a match
+                chunks.append(("S", np.array([ts], np.int64),
+                               [np.array([-1], np.int64),
+                                np.array([0.0])]))
+            else:
+                chunks.append((sid, ts, cols))
+        sep = _separate_rows("@app:playback\n" + template, {}, chunks,
+                             f"sep_{what}_{i}")
+        mine = got.get(tid, [])
+        same = sorted(sep) == sorted(mine) if advance else sep == mine
+        if not same:
+            fail(f"{what}: tenant {tid}'s pooled rows ({len(mine)}) differ "
+                 f"from a separate runtime's ({len(sep)})")
+    n_rows = sum(len(v) for v in got.values())
+    _kernels.reset_launches()
+    rounds = []
+    t0 = time.perf_counter()
+    for p in range(1, POOL_PASSES + 1):
+        one_pass(p)
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    events = n * CLASS_ROWS * len(streams) * POOL_PASSES
+    eps = events / wall
+    p50, p99 = (float(np.percentile(rounds, q)) for q in (50, 99))
+    print(f"{what} {n} tenants x {CLASS_ROWS} rows a stream {list(streams)}"
+          f", batch_max {CLASS_BATCH_MAX}: {eps:.0f} events/s over "
+          f"{POOL_PASSES} passes ({len(rounds)} rounds, a round p50 "
+          f"{p50:.3f} ms, p99 {p99:.3f} ms); {len(sampled)} sampled tenants "
+          f"({n_rows} rows in the warm pass) equal separate runtimes"
+          f"{' as multisets' if advance else ' bit for bit'}; state "
+          f"{pool.state_bytes_per_tenant} bytes a tenant; launches "
+          f"{launches}; {card}", flush=True)
+    res = {"eps": eps, "rounds": len(rounds), "round_p50_ms": p50,
+           "round_p99_ms": p99, "launches": launches}
+    for kind, must in checks:
+        if launches[must] == 0:
+            fail(f"{what}: {must} did not launch on the pool's path "
+                 f"({launches})")
+        r = _pool_check(kind, cap.rec[kind], what)
+        res[kind] = r
+        print(f"{what}: {kind} launches of the first rounds "
+              f"({r['checked']}) bit-equal to the plain version; "
+              f"{r['ms']:.4f} ms a launch, plain {r['plain_ms']:.2f} ms, "
+              f"bound {r['bound_ms']:.5f} ms ({r['bytes']} bytes), library "
+              f"{r['library_ms']} ms", flush=True)
+    del cap
+    pool.shutdown()
+    reg.shutdown()
+    gc.collect()
+    return res
+
+
+def pool_phases(dev, card: str) -> dict:
+    """The four pool phases: tenants_pool, pool_pattern, pool_join and
+    pool_absent."""
+    from siddhi_tpu_torch import checks as C
+    tp = tenants_pool_phase(dev, card)
+    pp = _class_phase(dev, card, "pool_pattern", C.POOL_PATTERN_TEMPLATE,
+                      ("S",), (("K3", "nfa_parallel[K]"),
+                               ("K2", "expr_eval[K]")))
+    pj = _class_phase(dev, card, "pool_join", C.POOL_JOIN_TEMPLATE,
+                      ("L", "R"), (("K7", "join_probe[K]"),
+                                   ("K5", "window_step[K]")))
+    pa = _class_phase(dev, card, "pool_absent", C.POOL_ABSENT_TEMPLATE,
+                      ("S",), (("K4", "nfa_scan[K]"),
+                               ("K4t", "nfa_scan[K]")), advance=True)
+    return {"tenants": tp, "pattern": pp, "join": pj, "absent": pa}
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -5847,7 +6501,8 @@ def main() -> None:
             "max_abs_err": part_err, "ms": r[f"{pre}_ms"],
             "plain_ms": r[f"{pre}_plain_ms"],
             "bound_ms": r[f"{pre}_bound_ms"],
-            "bound_by": r[f"{pre}_bound_by"], "library_ms": None})
+            "bound_by": r[f"{pre}_bound_by"],
+            "library_ms": r.get(f"{pre}_library_ms")})
 
     # -- 36. to 38. slice 10: incremental aggregation (kernel K11) and
     # named windows; aggregation_trades and window_named
@@ -5901,7 +6556,45 @@ def main() -> None:
         "bound_by": ws["k10_bound_by"],
         "library_ms": ws["k10_library_ms"]})
 
-    # -- 43. result -----------------------------------------------------------
+    # -- 44. to 47. tenant serving pools (K1[K], K2's parameter load,
+    # K5[K], K3[K], K4[K], K7[K]); tenants_pool, pool_pattern, pool_join,
+    # pool_absent
+    pl = pool_phases(dev, card)
+    tp, pp, pj, pa = pl["tenants"], pl["pattern"], pl["join"], pl["absent"]
+    pool_err = max(tp["k1"]["err"], tp["k2"]["err"], tp["k5"]["err"],
+                   pp["K3"]["err"], pp["K2"]["err"], pj["K7"]["err"],
+                   pj["K5"]["err"], pa["K4"]["err"], pa["K4t"]["err"])
+
+    def pool_launches(kname):
+        return tp["launches"].get(kname, 0) + sum(
+            r["launches"][kname] for r in (pp, pj, pa))
+    for row in table:
+        if row["name"] in ("window_step[K]", "nfa_scan[K]"):
+            row["launches"] += pool_launches(row["name"])
+            row["max_abs_err"] = max(row["max_abs_err"], pool_err)
+        elif row["name"] in ("unpack_packed", "expr_eval"):
+            row["launches"] += pool_launches(row["name"])
+    for kname, repl, r in (
+            ("unpack_packed[K]", "siddhi_tpu/serving/pool.py:1411",
+             tp["k1"]),
+            ("expr_eval[K]", "siddhi_tpu/serving/pool.py:1301", tp["k2"]),
+            ("nfa_parallel[K]", "siddhi_tpu/serving/pool.py:1313",
+             pp["K3"]),
+            ("join_probe[K]", "siddhi_tpu/serving/pool.py:1345",
+             pj["K7"])):
+        src = {"unpack_packed[K]": "unpack_packed.cu",
+               "expr_eval[K]": "expr_eval.cu",
+               "nfa_parallel[K]": "nfa_parallel.cu",
+               "join_probe[K]": "join_cross.cu"}[kname]
+        table.append({
+            "name": kname, "route": "cuda",
+            "source": f"siddhi_tpu_torch/csrc/{src}", "replaces": repl,
+            "launches": pool_launches(kname), "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+
+    # -- 48. result -----------------------------------------------------------
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,13 +12,18 @@ from .core.manager import SiddhiManager
 from .core.stream import Event, QueryCallback, StreamCallback
 from .core.types import AttrType
 from .lang.parser import parse, parse_expression, parse_query
+from .serving import AdmissionError, Template, TemplateRegistry, TenantPool
 
 __all__ = [
+    "AdmissionError",
     "AttrType",
     "Event",
     "QueryCallback",
     "SiddhiManager",
     "StreamCallback",
+    "Template",
+    "TemplateRegistry",
+    "TenantPool",
     "parse",
     "parse_expression",
     "parse_query",

@@ -43,7 +43,10 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # and grid; K8's write, condition pass, index probe and seq-ordered view;
 # K9p's route, compaction and due; and the launches of K4, K5 and K6 with
 # a partition block's slot axis ("[K]"); K11's bucket step; K5's cron
-# kind (K5c); the reorder ring's step (K10)
+# kind (K5c); the reorder ring's step (K10); the launches of K1, K3 and
+# K7 with a tenant pool's slot axis, and K2's that load per-slot
+# template parameters or count per slot ("[K]": K4, K5 and K6 count a
+# pool's as a partition block's)
 ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
                 "window_step", "sort_window", "aggregate_step",
                 "sliding_minmax", "distinct_count", "aggregate_emit",
@@ -53,7 +56,8 @@ ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
                 "partition_route", "partition_compact", "partition_due",
                 "nfa_scan[K]", "window_step[K]", "aggregate_step[K]",
                 "aggregate_emit[K]", "aggregation_step", "cron_window",
-                "reorder_ring")
+                "reorder_ring", "unpack_packed[K]", "expr_eval[K]",
+                "nfa_parallel[K]", "join_probe[K]", "join_grid[K]")
 LAUNCHES = {name: 0 for name in ENTRY_POINTS}
 
 
@@ -85,7 +89,9 @@ class UnpackParams(ctypes.Structure):
     _fields_ = [("buf", ctypes.c_void_p), ("nulls", ctypes.c_void_p),
                 ("kind", ctypes.c_void_p), ("valid", ctypes.c_void_p),
                 ("capacity", ctypes.c_int32), ("n_lanes", ctypes.c_int32),
-                ("lanes", LaneDesc * MAX_LANES)]
+                ("lanes", LaneDesc * MAX_LANES),
+                ("n_part", ctypes.c_int64), ("moves", ctypes.c_void_p),
+                ("n_moves", ctypes.c_int64)]
 
 
 NFA_MAX_SLOTS = 8
@@ -109,7 +115,10 @@ class ExprParams(ctypes.Structure):
                 ("n_code", ctypes.c_int32), ("rows", ctypes.c_int32),
                 ("timer_pass", ctypes.c_int32),
                 ("gate_bits", ctypes.c_int32),
-                ("now_input", ctypes.c_int32)]
+                ("now_input", ctypes.c_int32),
+                ("tparam_mask", ctypes.c_uint32),
+                ("slot_rows", ctypes.c_int32),
+                ("emit_rows", ctypes.c_int32), ("pad_", ctypes.c_int32)]
 
 
 _P = ctypes.c_void_p
@@ -159,7 +168,8 @@ class NfaParams(ctypes.Structure):
             "n_slots", "n_consuming", "has_start", "advance_pop2", "seqmode",
             "n_states", "M", "B", "OUT", "sub_off", "n_match_cols",
             "first_sub", "last_sub")] + [
-        ("min0_mask", ctypes.c_uint32)]
+        ("min0_mask", ctypes.c_uint32),
+        ("n_part", ctypes.c_int64), ("moves", _P), ("n_moves", ctypes.c_int64)]
 
 
 SCAN_MAX_ROWS = 256
@@ -467,7 +477,8 @@ class JoinArgs(ctypes.Structure):
         ("lost", _P), ("sort", KeySortScratch)] + [
         (f, _P) for f in ("trig_keys", "act", "lo", "cnt", "coffs", "coi", "s",
                           "S", "surv", "soffs", "tot", "offs", "lead", "ti",
-                          "oi", "is_pair", "psum")]
+                          "oi", "is_pair", "psum")] + [
+        ("n_part", _I64), ("moves", _P), ("n_moves", _I64)]
 
 
 class TableBuf(ctypes.Structure):

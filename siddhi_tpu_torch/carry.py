@@ -13,7 +13,8 @@ for a partition block's, ``aggregation_from_jax`` for an incremental
 aggregation's per-duration tables, ``cron_window_from_jax`` for a cron
 window's buffers, ``reorder_from_jax`` and ``ring_from_jax`` for a
 stream's reorder buffer and its device ring, ``ratelimit_from_jax`` for
-an output rate limiter's rows and counters.
+an output rate limiter's rows and counters, ``pool_from_jax`` for a
+tenant pool's stacked states and ``emitted`` counters.
 ``strings_from_jax`` seeds the port's string dictionary so that its
 codes match the reference process's: both packages give strings codes
 in order of first sight, so dictionary-coded columns and string
@@ -213,6 +214,19 @@ def ratelimit_from_jax(snapshot: dict) -> dict:
     its counters and times: host values in both packages) -> the port's,
     for the limiter's ``restore_state``: a copy."""
     return copy.deepcopy(snapshot)
+
+
+def pool_from_jax(states: dict, emitted: dict, device) -> tuple:
+    """A reference ``TenantPool``'s stacked per-query states
+    (``pool._states``: {query: pytree with the leading slot axis}, the
+    layout of serving/pool.py: a chain's tuple of operator states, a
+    pattern's {"nfa", "sel"}, a join's {"sides", "sel", "ovf"}) and its
+    ``emitted`` counters ({query: [slots]}), as numpy values -> the
+    port's (``TenantPool._states``, ``TenantPool._emitted``): the same
+    pytrees, every slot, free ones included. A template parameter of
+    type STRING holds each package's own dictionary code."""
+    return ({qn: _tree(st, device) for qn, st in states.items()},
+            {qn: _tree(e, device) for qn, e in emitted.items()})
 
 
 def strings_from_jax(codes_to_str: Sequence) -> None:

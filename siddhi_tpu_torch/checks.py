@@ -3413,3 +3413,82 @@ def watermark_late_mask(ts, cuts, lateness_ms: int = WATERMARK_LATENESS_MS):
         m = int(ts[a:b].max())
         mx = m if mx is None else max(mx, m)
     return late
+
+
+# ---------------------------------------------------------------------------
+# tenant serving pools: the reference bench's `tenants`
+# configuration (bench.py TENANT_TEMPLATE, _tenant_data, _tenant_bindings;
+# POOL_PATTERN_TEMPLATE, POOL_JOIN_TEMPLATE, _class_feeds), copied
+# ---------------------------------------------------------------------------
+
+TENANT_TEMPLATE = """
+define stream In (v double, k long);
+@info(name='q')
+from In[v > ${lo:double} and v < ${hi:double}]#window.lengthBatch(256)
+select v, k
+insert into Out;
+"""
+
+
+def tenant_data(rows: int, seed: int = 11):
+    """Every tenant's feed of the headline arm: TS0 + arange, v ~ U(0,
+    200) double, k ~ U[0, 2^20) long. -> (ts, [v, k])."""
+    rng = np.random.default_rng(seed)
+    ts = TS0 + np.arange(rows, dtype=np.int64)
+    v = rng.uniform(0, 200, rows)
+    k = rng.integers(0, 1 << 20, rows, dtype=np.int64)
+    return ts, [v, k]
+
+
+def tenant_bindings(i: int) -> dict:
+    """Tenant i's `${lo:double}` and `${hi:double}`."""
+    return {"lo": 20.0 + (i % 16), "hi": 180.0 - (i % 16)}
+
+
+POOL_PATTERN_TEMPLATE = """
+define stream S (k long, v double);
+@info(name='p')
+from every e1=S[v > 800.0] -> e2=S[k == e1.k and v < 100.0]
+within 10 sec
+select e1.k as k, e1.v as v1, e2.v as v2
+insert into Out;
+"""
+
+POOL_JOIN_TEMPLATE = """
+define stream L (k long, v double);
+define stream R (k long, w double);
+@info(name='j')
+from L#window.length(64) as a join R#window.length(64) as b
+  on a.k == b.k
+select a.k as k, a.v as v, b.w as w
+insert into Out;
+"""
+
+# a small absent pattern over the class templates' S (k long, v double):
+# the scan engine (has_absent), fired by advance_time rounds
+POOL_ABSENT_TEMPLATE = """
+define stream S (k long, v double);
+@info(name='a')
+from every e1=S[v > 800.0] -> not S[k == e1.k] for 1 sec
+select e1.k as k, e1.v as v
+insert into Out;
+"""
+
+CLASS_TEMPLATES = {
+    "pattern_template": (POOL_PATTERN_TEMPLATE, ("S",)),
+    "join_template": (POOL_JOIN_TEMPLATE, ("L", "R")),
+}
+
+
+def class_feeds(streams, rows: int, seed: int = 17) -> dict:
+    """Per-stream (ts, [k, v]) feeds for the class templates' (k long,
+    v double) schemas; later streams interleave at +j ms so join sides
+    merge deterministically."""
+    rng = np.random.default_rng(seed)
+    feeds = {}
+    for j, sid in enumerate(streams):
+        ts = TS0 + np.arange(rows, dtype=np.int64) * 4 + j
+        k = rng.integers(0, 32, rows, dtype=np.int64)
+        v = rng.uniform(0, 1000.0, rows)
+        feeds[sid] = (ts, [k, v])
+    return feeds

@@ -159,6 +159,34 @@ class PackedEncoder:
         assembled chunk will be packed with)."""
         return (self._ts_code,) + tuple(self._col_codes)
 
+    def widen_round(self, chunks: Sequence) -> tuple:
+        """Pool-round pre-pass: sticky-widen the shared codes over EVERY
+        slot's (ts, cols) chunk BEFORE any buffer is assembled, so all
+        rows of one packed (slots, total) round buffer share ONE
+        encoding tuple. Folds every chunk's ts span once the round's
+        final ts code is known — chunk A (affine) widened before chunk B
+        flips the code off 'aff' must still ship deltas wide enough for
+        A's span. Returns the settled encoding tuple."""
+        spans = []
+        for ts, cols in chunks:
+            ts = self._conform(np.asarray(ts, np.int64), np.int64)
+            _n, _c, span = self._choose_codes(ts, cols)
+            spans.append(span)
+        if self._ts_code != "aff":
+            for span in spans:
+                self._ts_code = self._widen(self._ts_code, span)
+        return self.encoding
+
+    def encode_into(self, ts: np.ndarray, cols: Sequence, capacity: int,
+                    now: int, out: np.ndarray) -> int:
+        """Assemble one chunk into a caller-owned pre-zeroed buffer (one
+        row of a pool round's (slots, total) buffer) under the CURRENT
+        sticky codes — the caller ran ``widen_round`` over the whole
+        round first, so this never widens. Returns n."""
+        assert capacity % 8 == 0, capacity
+        ts = self._conform(ts, np.int64)
+        return self._assemble(ts, cols, capacity, now, out)
+
     def encode(self, ts: np.ndarray, cols: Sequence, capacity: int,
                now: int):
         """-> (buf np.uint8[total], enc tuple, n)."""
@@ -390,7 +418,11 @@ def unpack_packed_ref(types: tuple, enc: tuple, capacity: int, buf):
 
 def unpack_params(types: tuple, enc: tuple, capacity: int, buf,
                   out: EventBatch):
-    """K1's kernel arguments: decode ``buf`` into ``out``'s tensors."""
+    """K1's kernel arguments: decode ``buf`` into ``out``'s tensors. A
+    tenant pool's (slots, total) round buffer decodes into [slots,
+    capacity] tensors: ``n_part`` slots, the strides in ``moves``
+    (ops/slots.py part_moves)."""
+    from ..ops.slots import part_moves
     p = _kernels.UnpackParams()
     p.buf, p.nulls = buf.data_ptr(), out.nulls[0].data_ptr()
     p.kind, p.valid = out.kind.data_ptr(), out.valid.data_ptr()
@@ -401,6 +433,8 @@ def unpack_params(types: tuple, enc: tuple, capacity: int, buf,
                                                    (out.ts,) + out.cols):
         lane.code, lane.out_type, lane.offset = code, out_type, offset
         lane.out = col.data_ptr()
+    p.n_part = buf.shape[0] if buf.dim() == 2 else 1
+    part_moves(p, (buf, out), buf.device)
     return p
 
 
@@ -408,36 +442,52 @@ def unpack_packed(types: tuple, enc: tuple, capacity: int, buf):
     """Kernel K1: decode one packed chunk into (EventBatch, now).
 
     A buffer on the CPU takes the plain version; a CUDA buffer launches
-    the kernel (one thread per row, every lane in one launch)."""
+    the kernel (one thread per row, every lane in one launch).
+
+    A tenant pool's round is a (slots, total) buffer, one chunk a slot,
+    all under one encoding (the reference's vmap of unpack_buffer,
+    serving/pool.py): it decodes into a [slots, capacity] batch, the
+    plain version once per slot, the kernel once with a row of blocks a
+    slot (``unpack_packed[K]``). Every slot's header carries the same
+    round clock; ``now`` is slot 0's."""
+    slotted = buf.dim() == 2
     if buf.device.type == "cpu":
+        if slotted:
+            from ..ops.slots import per_slot
+            batch, now = per_slot(
+                lambda b: unpack_packed_ref(types, enc, capacity, b),
+                buf.shape[0], buf)
+            return batch, now[0]
         return unpack_packed_ref(types, enc, capacity, buf)
     _H, _offs, total = layout(len(types), enc, capacity)
     if buf.device.type != "cuda":
         raise ValueError(f"unpack_packed: unsupported device {buf.device}")
-    if buf.dtype != torch.uint8 or buf.dim() != 1 or \
-            not buf.is_contiguous() or buf.numel() != total:
+    if buf.dtype != torch.uint8 or buf.dim() not in (1, 2) or \
+            not buf.is_contiguous() or buf.shape[-1] != total:
         raise ValueError(
             f"unpack_packed: expected a contiguous uint8[{total}] buffer, "
-            f"got {buf.dtype}{list(buf.shape)}")
+            f"or one a slot, got {buf.dtype}{list(buf.shape)}")
     if capacity % 8 or len(types) + 1 > _kernels.MAX_LANES:
         raise ValueError(
             f"unpack_packed: capacity {capacity} must be a multiple of 8 "
             f"and the stream at most {_kernels.MAX_LANES - 1} columns "
             "wide")
     dev = buf.device
-    ts = torch.empty((capacity,), dtype=torch.int64, device=dev)
-    cols = [torch.empty((capacity,), dtype=torch_dtype(t), device=dev)
+    shape = (buf.shape[0], capacity) if slotted else (capacity,)
+    ts = torch.empty(shape, dtype=torch.int64, device=dev)
+    cols = [torch.empty(shape, dtype=torch_dtype(t), device=dev)
             for t in types]
-    nulls = torch.empty((capacity,), dtype=torch.bool, device=dev)
-    kind = torch.empty((capacity,), dtype=torch.int32, device=dev)
-    valid = torch.empty((capacity,), dtype=torch.bool, device=dev)
+    nulls = torch.empty(shape, dtype=torch.bool, device=dev)
+    kind = torch.empty(shape, dtype=torch.int32, device=dev)
+    valid = torch.empty(shape, dtype=torch.bool, device=dev)
     batch = EventBatch(ts=ts, cols=tuple(cols), nulls=(nulls,) * len(types),
                        kind=kind, valid=valid)
     _kernels.load().unpack_packed(
         unpack_params(types, enc, capacity, buf, batch),
         torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.count_launch("unpack_packed")
-    return batch, buf[16:24].view(torch.int64)[0]
+    _kernels.count_launch("unpack_packed[K]" if slotted else "unpack_packed")
+    row = buf[0] if slotted else buf
+    return batch, row[16:24].view(torch.int64)[0]
 
 
 class PackedChunk:

@@ -73,7 +73,7 @@ from .. import _kernels
 from ..lang import ast as A
 from ..ops.aggregators import AggregateOp
 from ..ops.expr import CompileError, ProgramBuilder, SingleStreamScope, \
-    compile_expression, expr_eval
+    collect_template_params, compile_expression, expr_eval, tparam_env
 from ..ops.nfa import (MatchScope, NfaCompiler, NfaEngine, rewrite_last_refs,
                        rewrite_oob_refs, timer_step)
 from ..ops.nfa_parallel import ParallelNfaEngine, parallel_supported
@@ -192,11 +192,20 @@ def _chain_body(ops):
     into the K2 program of the aggregating selector after them, or, before
     a window, into a K2 filter program of their own; windows run K5 and
     aggregating selectors K6. The step adds the emitted rows to
-    ``emitted`` in place."""
-    stages, filters = [], []
+    ``emitted`` in place. The template parameters of a K2 program's
+    operators (``tparams`` in their states) travel with its launch."""
+    stages, filters, fidx = [], [], []
+    # stage number -> the indices of the ops whose tparams it loads
+    tp_ops: dict = {}
+
+    def note_tparams(idxs):
+        if any(getattr(ops[j], "tparams", ()) for j in idxs):
+            tp_ops[len(stages) - 1] = tuple(idxs)
+
     for i, op in enumerate(ops):
         if isinstance(op, FilterOp):
             filters.append(op)
+            fidx.append(i)
             continue
         if getattr(op, "needs_tables", False):
             # an IN-table filter or a table output: kernel K8 (and K2)
@@ -205,7 +214,8 @@ def _chain_body(ops):
                 for f in filters:
                     f.lower(b)
                 stages.append(("filter", i, b.build()))
-                filters = []
+                note_tparams(fidx)
+                filters, fidx = [], []
             stages.append(("tables", i, None))
             continue
         if isinstance(op, (WindowOp, StreamFunctionOp)):
@@ -214,8 +224,12 @@ def _chain_body(ops):
                 for f in filters:
                     f.lower(b)
                 stages.append(("filter", i, b.build()))
+                note_tparams(fidx)
             stages.append(("window", i, None))
         elif isinstance(op, AggregateOp):
+            if any(f.tparams for f in filters):
+                raise not_ported("a template parameter in a filter before "
+                                 "an aggregating selector")
             op.pre_filters = list(filters)
             stages.append(("aggregate", i, None))
         else:
@@ -225,7 +239,8 @@ def _chain_body(ops):
                 f.lower(b)
             op.lower(b)
             stages.append(("project", i, b.build()))
-        filters = []
+            note_tparams(fidx + [i])
+        filters, fidx = [], []
     # a named window's chain is its window alone (Planner.plan)
     assert not filters and (any(k in ("project", "aggregate")
                                 for k, _i, _p in stages)
@@ -236,13 +251,20 @@ def _chain_body(ops):
         """``tstates``: the states of the tables the chain touches, by
         table id, replaced in place by the chain's table stages."""
         states = list(states)
-        for kind, i, prog in stages:
+        for n, (kind, i, prog) in enumerate(stages):
+            env = None
+            if n in tp_ops:
+                env = {}
+                for j in tp_ops[n]:
+                    if getattr(ops[j], "tparams", ()):
+                        tparam_env(env, ops[j].tparams, states[j])
             if kind == "tables":
                 states[i], batch, new = ops[i].step_tables(
                     states[i], batch, now, tstates)
                 tstates.update(new)
             elif kind == "filter":
-                _c, _n, valid = expr_eval(prog, batch, now=now)
+                _c, _n, valid = expr_eval(prog, batch, now=now,
+                                          tparams=env)
                 batch = EventBatch(batch.ts, batch.cols, batch.nulls,
                                    batch.kind, valid)
             elif kind == "window":
@@ -251,7 +273,7 @@ def _chain_body(ops):
                 states[i], batch = ops[i].step(states[i], batch, now,
                                                emitted)
             else:
-                batch = project(ops[i], prog, batch, emitted, now)
+                batch = project(ops[i], prog, batch, emitted, now, env)
         return tuple(states), batch
 
     chain.program = [p for k, _i, p in stages if k != "tables"][-1]
@@ -1704,7 +1726,9 @@ class Planner:
                 cond = compile_expression(h.expression, scope)
                 if cond.type is not AttrType.BOOL:
                     raise CompileError(f"query '{name}': filter must be BOOL")
-                operators.append(FilterOp(cond, schema))
+                operators.append(FilterOp(
+                    cond, schema,
+                    tparams=collect_template_params(h.expression)))
             elif isinstance(h, A.WindowHandler):
                 if window_op is not None:
                     raise CompileError(

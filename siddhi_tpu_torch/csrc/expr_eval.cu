@@ -31,6 +31,12 @@
 // every row reads) and set columns, [rows, 1 + SET_LANES] int64 rows
 // that a projection copies (VT_SETREF), counts (VT_SETSIZE, sizeOfSet())
 // or writes from a createSet() element (VT_SET, its tag in OUT's arg).
+//
+// A tenant pool (serving/pool.py) runs the step of every slot as one
+// batch of slots x rows rows: a template parameter (`${name:type}`) is
+// an input of one value a slot, read at row / slot_rows (tparam_mask),
+// and the emitted rows count into one counter a slot (emit_rows). A
+// parameter is a load, never a constant: nothing folds it.
 #include "expr_interp.cuh"
 
 namespace {
@@ -56,8 +62,10 @@ __global__ void expr_eval_kernel(const ExprParams p) {
               n += set[l] != SIDDHI_SET_EMPTY;
             s->v = n;
           } else {
-            s->v = load_col(p.in_cols[arg], type,
-                            arg == p.now_input ? 0 : row);
+            const int at = arg == p.now_input ? 0
+                           : ((p.tparam_mask >> arg) & 1u) ? row / p.slot_rows
+                                                           : row;
+            s->v = load_col(p.in_cols[arg], type, at);
           }
         },
         [&](int arg, int type, const Slot& s) {
@@ -86,7 +94,20 @@ __global__ void expr_eval_kernel(const ExprParams p) {
     keep_row = p.valid[row] && keep && ((p.gate_bits >> kind) & 1);
     p.out_valid[row] = keep_row;
   }
-  if (p.emitted != nullptr) {
+  if (p.emitted != nullptr && p.emit_rows > 0) {
+    // one counter a slot: a block inside one slot counts as one, a block
+    // across slots row by row
+    const int first = blockIdx.x * blockDim.x;
+    const int last = min(first + (int)blockDim.x, p.rows) - 1;
+    if (first / p.emit_rows == last / p.emit_rows) {
+      const int kept = __syncthreads_count(keep_row);
+      if (threadIdx.x == 0 && kept) {
+        atomicAdd(p.emitted + first / p.emit_rows, (unsigned long long)kept);
+      }
+    } else if (keep_row) {
+      atomicAdd(p.emitted + row / p.emit_rows, 1ull);
+    }
+  } else if (p.emitted != nullptr) {
     const int kept = __syncthreads_count(keep_row);
     if (threadIdx.x == 0 && kept) {
       atomicAdd(p.emitted, (unsigned long long)kept);

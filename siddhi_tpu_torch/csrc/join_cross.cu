@@ -33,6 +33,13 @@
 // Both reproduce the plain versions bit for bit, the slots past the
 // last emitted row included (their gathered values are the reference's
 // clamped gathers).
+//
+// A tenant pool (serving/pool.py, the reference's vmap of the join step
+// at pool.py:1337-1363) crosses every slot's trigger rows with that
+// slot's opposite window in the same launches: the slot is blockIdx.y,
+// part_args (siddhi_kernels.h) moves every side, output and scratch
+// pointer to the slot's own, and the key view's sort and the prefix sums
+// run one segment a slot (key_sort.cuh), each stable.
 #include "siddhi_kernels.h"
 #include "key_sort.cuh"
 #include "pairs.cuh"
@@ -62,7 +69,8 @@ __device__ __forceinline__ bool alive(const JoinArgs& a, int64_t b,
 
 // ---------------------------------------------------------------- probe
 
-__global__ void probe_keys(const JoinArgs a) {
+__global__ void probe_keys(const __grid_constant__ JoinArgs a0) {
+  const JoinArgs& a = part_args(a0);
   const int64_t i = (int64_t)blockIdx.x * T1 + threadIdx.x;
   Slot k;
   if (i < a.B) {
@@ -81,7 +89,8 @@ __global__ void probe_keys(const JoinArgs a) {
   }
 }
 
-__global__ void probe_bands(const JoinArgs a) {
+__global__ void probe_bands(const __grid_constant__ JoinArgs a0) {
+  const JoinArgs& a = part_args(a0);
   const int64_t b = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (b >= a.B) return;
   const int64_t nl = *a.sort.n_live;
@@ -95,7 +104,8 @@ __global__ void probe_bands(const JoinArgs a) {
   a.cnt[b] = hi - lo;
 }
 
-__global__ void probe_cands(const JoinArgs a) {
+__global__ void probe_cands(const __grid_constant__ JoinArgs a0) {
+  const JoinArgs& a = part_args(a0);
   const int64_t cj = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (cj >= a.CAND) return;
   const int64_t B = a.B, W = a.W;
@@ -117,7 +127,8 @@ __global__ void probe_cands(const JoinArgs a) {
 }
 
 // survivors per trigger row: its candidates are a contiguous run
-__global__ void probe_surv(const JoinArgs a) {
+__global__ void probe_surv(const __grid_constant__ JoinArgs a0) {
+  const JoinArgs& a = part_args(a0);
   const int64_t b = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (b >= a.B) return;
   int64_t st = a.coffs[b] - a.cnt[b], e = a.coffs[b];
@@ -126,7 +137,8 @@ __global__ void probe_surv(const JoinArgs a) {
   a.surv[b] = (e > 0 ? a.S[e - 1] : 0) - (st > 0 ? a.S[st - 1] : 0);
 }
 
-__global__ void probe_lead(const JoinArgs a) {
+__global__ void probe_lead(const __grid_constant__ JoinArgs a0) {
+  const JoinArgs& a = part_args(a0);
   const int64_t b = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (b >= a.B) return;
   const int64_t surv = a.need_resid ? a.surv[b] : a.cnt[b];
@@ -136,7 +148,8 @@ __global__ void probe_lead(const JoinArgs a) {
   a.tot[b] = (int64_t)lead + surv;
 }
 
-__global__ void probe_place(const JoinArgs a) {
+__global__ void probe_place(const __grid_constant__ JoinArgs a0) {
+  const JoinArgs& a = part_args(a0);
   const int64_t j = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (j >= a.CAP) return;
   const int64_t B = a.B, W = a.W;
@@ -175,7 +188,8 @@ __device__ __forceinline__ bool grid_pair(const JoinArgs& a, int64_t b,
 }
 
 // one warp a trigger row: its pairs counted, its lead row decided
-__global__ void grid_count(const JoinArgs a) {
+__global__ void grid_count(const __grid_constant__ JoinArgs a0) {
+  const JoinArgs& a = part_args(a0);
   const int64_t b = ((int64_t)blockIdx.x * T1 + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (b >= a.B) return;
@@ -197,7 +211,8 @@ __global__ void grid_count(const JoinArgs a) {
 
 // the same warps place their row's slots: the lead row, then the pairs
 // in buffer order, up to CAP
-__global__ void grid_place(const JoinArgs a) {
+__global__ void grid_place(const __grid_constant__ JoinArgs a0) {
+  const JoinArgs& a = part_args(a0);
   const int64_t b = ((int64_t)blockIdx.x * T1 + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (b >= a.B) return;
@@ -227,7 +242,8 @@ __global__ void grid_place(const JoinArgs a) {
 
 // slots past the last emitted row: the reference's clamped gathers
 // (row B - 1, opposite row W - 1, a pair)
-__global__ void grid_tail(const JoinArgs a) {
+__global__ void grid_tail(const __grid_constant__ JoinArgs a0) {
+  const JoinArgs& a = part_args(a0);
   const int64_t j = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (j >= a.CAP || j < a.offs[a.B - 1]) return;
   a.ti[j] = a.B - 1;
@@ -237,7 +253,8 @@ __global__ void grid_tail(const JoinArgs a) {
 
 // ----------------------------------------------------------- the output
 
-__global__ void gather(const JoinArgs a) {
+__global__ void gather(const __grid_constant__ JoinArgs a0) {
+  const JoinArgs& a = part_args(a0);
   const int64_t j = (int64_t)blockIdx.x * T1 + threadIdx.x;
   const int64_t total = a.offs[a.B - 1];
   if (j == 0) {
@@ -274,35 +291,39 @@ __global__ void gather(const JoinArgs a) {
 extern "C" cudaError_t siddhi_join_probe(const JoinArgs* p,
                                          cudaStream_t stream) {
   const JoinArgs& a = *p;
-  cudaMemsetAsync(a.sort.n_live, 0, sizeof(int64_t), stream);
+  const int64_t P = a.n_part;
+  auto g = [&](int64_t n) { return dim3(grid(n), (unsigned)P); };
+  cudaMemsetAsync(a.sort.n_live, 0, P * sizeof(int64_t), stream);
   const int64_t n = a.B > a.W ? a.B : a.W;
-  probe_keys<<<grid(n), T1, 0, stream>>>(a);
+  probe_keys<<<g(n), T1, 0, stream>>>(a);
   const int bits = ks::wide(a.key_type) ? 64 : 32;
-  cudaError_t err = ks::sort_rows(a.sort, a.W, bits, a.sort.pad, stream);
+  cudaError_t err = ks::sort_rows(a.sort, a.W, bits, a.sort.pad, stream, P);
   if (err != cudaSuccess) return err;
-  probe_bands<<<grid(a.B), T1, 0, stream>>>(a);
+  probe_bands<<<g(a.B), T1, 0, stream>>>(a);
   if (a.need_resid) {
-    ks::prefix_sum(a.cnt, a.coffs, a.B, a.psum, stream);
-    probe_cands<<<grid(a.CAND), T1, 0, stream>>>(a);
-    ks::prefix_sum(a.s, a.S, a.CAND, a.psum, stream);
-    probe_surv<<<grid(a.B), T1, 0, stream>>>(a);
-    ks::prefix_sum(a.surv, a.soffs, a.B, a.psum, stream);
+    ks::prefix_sum(a.cnt, a.coffs, a.B, a.psum, stream, P);
+    probe_cands<<<g(a.CAND), T1, 0, stream>>>(a);
+    ks::prefix_sum(a.s, a.S, a.CAND, a.psum, stream, P);
+    probe_surv<<<g(a.B), T1, 0, stream>>>(a);
+    ks::prefix_sum(a.surv, a.soffs, a.B, a.psum, stream, P);
   }
-  probe_lead<<<grid(a.B), T1, 0, stream>>>(a);
-  ks::prefix_sum(a.tot, a.offs, a.B, a.psum, stream);
-  probe_place<<<grid(a.CAP), T1, 0, stream>>>(a);
-  gather<<<grid(a.CAP), T1, 0, stream>>>(a);
+  probe_lead<<<g(a.B), T1, 0, stream>>>(a);
+  ks::prefix_sum(a.tot, a.offs, a.B, a.psum, stream, P);
+  probe_place<<<g(a.CAP), T1, 0, stream>>>(a);
+  gather<<<g(a.CAP), T1, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 extern "C" cudaError_t siddhi_join_grid(const JoinArgs* p,
                                         cudaStream_t stream) {
   const JoinArgs& a = *p;
-  const int warps = grid((int64_t)a.B * 32);
+  const int64_t P = a.n_part;
+  auto g = [&](int64_t n) { return dim3(grid(n), (unsigned)P); };
+  const dim3 warps = g((int64_t)a.B * 32);
   grid_count<<<warps, T1, 0, stream>>>(a);
-  ks::prefix_sum(a.tot, a.offs, a.B, a.psum, stream);
+  ks::prefix_sum(a.tot, a.offs, a.B, a.psum, stream, P);
   grid_place<<<warps, T1, 0, stream>>>(a);
-  grid_tail<<<grid(a.CAP), T1, 0, stream>>>(a);
-  gather<<<grid(a.CAP), T1, 0, stream>>>(a);
+  grid_tail<<<g(a.CAP), T1, 0, stream>>>(a);
+  gather<<<g(a.CAP), T1, 0, stream>>>(a);
   return cudaGetLastError();
 }

@@ -16,6 +16,12 @@
 // passes over the key, then one pass over the dead flag, each stable, so
 // positions stay in order within equal keys and a live key equal to the
 // pad value sorts before the padding.
+//
+// The sort and the prefix sums take `parts` independent segments (a
+// tenant pool's slots, kernel K7[K]): segment k is blockIdx.y, its rows
+// k * n further on in every row array, its digit table k * 256 * blocks
+// and its tile totals k * tiles, as in sort_scan.cuh's stable_sort. One
+// segment is the plain sort.
 #pragma once
 
 #include <stdint.h>
@@ -102,6 +108,8 @@ __device__ __forceinline__ int64_t lower_bound(const int64_t* a, int64_t n,
 template <typename S>
 __global__ void prefix(const S* src, int64_t* dst, int64_t n) {
   __shared__ int64_t buf[SS_BLOCK];
+  src += (int64_t)blockIdx.y * n;
+  dst += (int64_t)blockIdx.y * n;
   int64_t lo, hi;
   ss::span(n, &lo, &hi);
   int64_t s = 0;
@@ -118,6 +126,8 @@ __global__ void prefix(const S* src, int64_t* dst, int64_t n) {
 template <typename S>
 __global__ void tile_sums(const S* src, int64_t n, int64_t* sums) {
   __shared__ int64_t buf[SS_BLOCK];
+  src += (int64_t)blockIdx.y * n;
+  sums += (int64_t)blockIdx.y * gridDim.x;
   const int64_t i = (int64_t)blockIdx.x * SS_BLOCK + threadIdx.x;
   int64_t total;
   ss::block_scan_sum(i < n ? (int64_t)src[i] : 0, buf, &total);
@@ -130,6 +140,9 @@ template <typename S>
 __global__ void tile_scan(const S* src, int64_t n, const int64_t* sums,
                           int64_t* dst) {
   __shared__ int64_t buf[SS_BLOCK];
+  src += (int64_t)blockIdx.y * n;
+  dst += (int64_t)blockIdx.y * n;
+  sums += (int64_t)blockIdx.y * gridDim.x;
   const int64_t i = (int64_t)blockIdx.x * SS_BLOCK + threadIdx.x;
   const int64_t incl = ss::block_scan_sum(i < n ? (int64_t)src[i] : 0, buf,
                                           nullptr);
@@ -141,15 +154,18 @@ __global__ void tile_scan(const S* src, int64_t n, const int64_t* sums,
 // tile) and the tiles' scans.
 template <typename S>
 inline void prefix_sum(const S* src, int64_t* dst, int64_t n, int64_t* sums,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, int64_t parts = 1) {
   const int64_t tiles = (n + SS_BLOCK - 1) / SS_BLOCK;
+  const unsigned y = (unsigned)parts;
   if (tiles <= 1) {
-    prefix<S><<<1, SS_BLOCK, 0, stream>>>(src, dst, n);
+    prefix<S><<<dim3(1, y), SS_BLOCK, 0, stream>>>(src, dst, n);
     return;
   }
-  tile_sums<S><<<(int)tiles, SS_BLOCK, 0, stream>>>(src, n, sums);
-  prefix<int64_t><<<1, SS_BLOCK, 0, stream>>>(sums, sums, tiles);
-  tile_scan<S><<<(int)tiles, SS_BLOCK, 0, stream>>>(src, n, sums, dst);
+  tile_sums<S><<<dim3((unsigned)tiles, y), SS_BLOCK, 0, stream>>>(src, n,
+                                                                   sums);
+  prefix<int64_t><<<dim3(1, y), SS_BLOCK, 0, stream>>>(sums, sums, tiles);
+  tile_scan<S><<<dim3((unsigned)tiles, y), SS_BLOCK, 0, stream>>>(
+      src, n, sums, dst);
 }
 
 // The blocks of a digit pass over n rows, or over *n_dev rows where the
@@ -167,6 +183,8 @@ __global__ void hist64(const uint64_t* keys, int32_t n, int shift,
   __shared__ int32_t h[SS_DIGITS];
   const int32_t nb = pass_blocks(&n, n_dev);
   if ((int32_t)blockIdx.x >= nb) return;
+  keys += (int64_t)blockIdx.y * n;
+  counts += (int64_t)blockIdx.y * SS_DIGITS * nb;
   const int t = threadIdx.x;
   if (t < SS_DIGITS) h[t] = 0;
   __syncthreads();
@@ -185,6 +203,12 @@ __global__ void scatter64(const uint64_t* keys, const int32_t* idx,
   __shared__ int32_t wcount[SS_WARPS][SS_DIGITS];
   const int32_t nb = pass_blocks(&n, n_dev);
   if ((int32_t)blockIdx.x >= nb) return;
+  const int64_t po = (int64_t)blockIdx.y * n;
+  keys += po;
+  if (idx) idx += po;
+  offsets += (int64_t)blockIdx.y * SS_DIGITS * nb;
+  keys_out += po;
+  idx_out += po;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   for (int k = t; k < SS_WARPS * SS_DIGITS; k += SS_BLOCK)
     (&wcount[0][0])[k] = 0;
@@ -217,6 +241,10 @@ __global__ void scatter64(const uint64_t* keys, const int32_t* idx,
 // the dead flags in the current order, as the last pass's keys
 __global__ void pad_keys(const uint8_t* pad, const int32_t* idx, int32_t n,
                          uint64_t* out) {
+  const int64_t po = (int64_t)blockIdx.y * n;
+  pad += po;
+  idx += po;
+  out += po;
   const int32_t j = blockIdx.x * T1 + threadIdx.x;
   if (j < n) out[j] = pad[idx[j]];
 }
@@ -224,16 +252,23 @@ __global__ void pad_keys(const uint8_t* pad, const int32_t* idx, int32_t n,
 // sk[j] = keys[order[j]]
 __global__ void gather_keys(const int64_t* keys, const int32_t* order,
                             int32_t n, int64_t* sk) {
+  const int64_t po = (int64_t)blockIdx.y * n;
+  keys += po;
+  order += po;
+  sk += po;
   const int32_t j = blockIdx.x * T1 + threadIdx.x;
   if (j < n) sk[j] = keys[order[j]];
 }
 
 // Stable sort of rows 0..n-1 by (pad[i], keys[i], i), keys unsigned with
 // `bits` (32 or 64) significant; pad may be NULL (no dead rows). The
-// permutation lands in s.order.
+// permutation lands in s.order. `parts` segments of n rows each sort
+// apart (above).
 inline cudaError_t sort_rows(const KeySortScratch& s, int32_t n, int bits,
-                             const uint8_t* pad, cudaStream_t stream) {
+                             const uint8_t* pad, cudaStream_t stream,
+                             int64_t parts = 1) {
   const int blocks = (n + SS_BLOCK - 1) / SS_BLOCK;
+  const unsigned y = (unsigned)parts;
   const int passes = bits / 8;
   const uint64_t* kin = (const uint64_t*)s.keys;
   const int32_t* iin = nullptr;
@@ -245,21 +280,24 @@ inline cudaError_t sort_rows(const KeySortScratch& s, int32_t n, int bits,
     int shift = 8 * p;
     if (pad_pass) {   // keys: the dead flags, in the current order
       uint64_t* pk = (kin == kb[0]) ? kb[1] : kb[0];
-      pad_keys<<<grid(n), T1, 0, stream>>>(pad, iin, n, pk);
+      pad_keys<<<dim3(grid(n), y), T1, 0, stream>>>(pad, iin, n, pk);
       kin = pk;
       shift = 0;
     }
     const bool last = pad_pass || (p == passes - 1 && pad == nullptr);
     uint64_t* kout = (kin == kb[0]) ? kb[1] : kb[0];
     int32_t* iout = last ? s.order : ((iin == ib[0]) ? ib[1] : ib[0]);
-    hist64<<<blocks, SS_BLOCK, 0, stream>>>(kin, n, shift, s.counts);
-    ss::scan_counts<<<1, SS_BLOCK, 0, stream>>>(s.counts, SS_DIGITS * blocks);
-    scatter64<<<blocks, SS_BLOCK, 0, stream>>>(kin, iin, n, shift, s.counts,
-                                               kout, iout);
+    hist64<<<dim3(blocks, y), SS_BLOCK, 0, stream>>>(kin, n, shift,
+                                                     s.counts);
+    ss::scan_counts<<<dim3(1, y), SS_BLOCK, 0, stream>>>(
+        s.counts, SS_DIGITS * blocks);
+    scatter64<<<dim3(blocks, y), SS_BLOCK, 0, stream>>>(
+        kin, iin, n, shift, s.counts, kout, iout);
     kin = kout;
     iin = iout;
   }
-  gather_keys<<<grid(n), T1, 0, stream>>>(s.keys, s.order, n, s.sk);
+  gather_keys<<<dim3(grid(n), y), T1, 0, stream>>>(s.keys, s.order, n,
+                                                   s.sk);
   return cudaGetLastError();
 }
 

@@ -35,6 +35,14 @@
 // Nothing is synchronised with the host: out_n, next_seq, counter and
 // overflow stay in device memory and each launch reads them there.
 //
+// A tenant pool (serving/pool.py, the reference's vmap of the stream
+// step at pool.py:1313-1324) steps every slot's pending table over that
+// slot's events in the same three launches: the slot is blockIdx.y, and
+// part_args (siddhi_kernels.h) moves the table, the events, the
+// population-2 scratch and the match batch to the slot's own; each slot
+// keeps its emission order (emit_at, seq) and fills its own free rows in
+// ascending order.
+//
 // Bound: on the main path the work is data-dependent and small (a live
 // row scans until its first match); the bytes are the sub-batch's
 // columns, the live rows and the match columns written. A full table of
@@ -113,7 +121,8 @@ __device__ __forceinline__ void load_event(const NfaParams& p, int a,
 // ---- (a) spawn ------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
-    nfa_spawn_kernel(const NfaParams p) {
+    nfa_spawn_kernel(const __grid_constant__ NfaParams p0) {
+  const NfaParams& p = part_args(p0);
   __shared__ int s_scan[33];
   __shared__ long long s_lo[32], s_hi[32];
   __shared__ int s_any[32];
@@ -435,7 +444,8 @@ __device__ __forceinline__ void counting_round(const NfaParams& p,
   }
 }
 
-__global__ void nfa_advance_kernel(const NfaParams p) {
+__global__ void nfa_advance_kernel(const __grid_constant__ NfaParams p0) {
+  const NfaParams& p = part_args(p0);
   if (p.first_sub) {  // a clear match batch for the step
     const long long cells = (long long)p.OUT * (p.n_match_cols + 1);
     for (long long i = blockIdx.x * blockDim.x + threadIdx.x; i < cells;
@@ -546,7 +556,8 @@ __device__ __forceinline__ bool key_greater(const int* hi, const long long* lo,
 }
 
 __global__ void __launch_bounds__(kThreads)
-    nfa_emit_fold_kernel(const NfaParams p, int sort_n) {
+    nfa_emit_fold_kernel(const __grid_constant__ NfaParams p0, int sort_n) {
+  const NfaParams& p = part_args(p0);
   extern __shared__ long long smem[];
   long long* s_lo = smem;                   // [sort_n]
   int* s_hi = (int*)(smem + sort_n);        // [sort_n]
@@ -712,12 +723,15 @@ extern "C" cudaError_t siddhi_nfa_parallel_step(const NfaParams* p,
       nfa_emit_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  nfa_spawn_kernel<<<1, kThreads, 0, stream>>>(*p);
+  const unsigned parts = (unsigned)p->n_part;
+  nfa_spawn_kernel<<<dim3(1, parts), kThreads, 0, stream>>>(*p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int warps_per_block = 8;
-  nfa_advance_kernel<<<(R + warps_per_block - 1) / warps_per_block,
+  nfa_advance_kernel<<<dim3((R + warps_per_block - 1) / warps_per_block,
+                            parts),
                        32 * warps_per_block, 0, stream>>>(*p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  nfa_emit_fold_kernel<<<1, kThreads, smem, stream>>>(*p, sort_n);
+  nfa_emit_fold_kernel<<<dim3(1, parts), kThreads, smem, stream>>>(*p,
+                                                                  sort_n);
   return cudaGetLastError();
 }

@@ -45,6 +45,9 @@ typedef struct {
   int32_t capacity;
   int32_t n_lanes;     // lane 0 = timestamps (out = int64 ts), lane 1+i = column i
   LaneDesc lanes[SIDDHI_MAX_LANES];
+  int64_t n_part;             // tenant pool slots (1 for one chunk)
+  const int64_t* moves;       // [n_moves][2] (part_args, below)
+  int64_t n_moves;
 } UnpackParams;
 
 cudaError_t siddhi_unpack_packed(const UnpackParams* p, cudaStream_t stream);
@@ -151,6 +154,14 @@ typedef struct {
   int32_t timer_pass;  // rows of kind TIMER pass the filters
   int32_t gate_bits;   // bit k set: rows of kind k pass the selector gate
   int32_t now_input;   // the input that is the step's clock (one int64), or -1
+  // a tenant pool's step runs its slots' [slots, slot_rows] rows as one
+  // batch: input k with bit k of tparam_mask set is a template parameter,
+  // one value a slot, read at row / slot_rows
+  uint32_t tparam_mask;
+  int32_t slot_rows;
+  // > 0: emitted is one counter a slot, row r counting to r / emit_rows
+  int32_t emit_rows;
+  int32_t pad_;
 } ExprParams;
 
 cudaError_t siddhi_expr_eval(const ExprParams* p, cudaStream_t stream);
@@ -249,6 +260,9 @@ typedef struct {
   int32_t M, B, OUT, sub_off, n_match_cols;
   int32_t first_sub, last_sub;  // this sub-batch opens / closes the step
   uint32_t min0_mask;  // bit s: state s is counting with min_count 0
+  int64_t n_part;             // tenant pool slots (1 for one table)
+  const int64_t* moves;       // [n_moves][2] (part_args)
+  int64_t n_moves;
 } NfaParams;
 
 cudaError_t siddhi_nfa_parallel_step(const NfaParams* p, cudaStream_t stream);
@@ -839,6 +853,9 @@ typedef struct {
   int32_t *ti, *oi;         // [CAP]
   uint8_t* is_pair;         // [CAP]
   int64_t* psum;            // [tiles of CAND]: prefix sums' tile totals
+  int64_t n_part;           // tenant pool slots (1 for one join step)
+  const int64_t* moves;     // [n_moves][2] (part_args)
+  int64_t n_moves;
 } JoinArgs;
 
 cudaError_t siddhi_join_probe(const JoinArgs* a, cudaStream_t stream);
@@ -1097,20 +1114,23 @@ cudaError_t siddhi_reorder_ring(const RingArgs* a, cudaStream_t stream);
 // ---- the slot axis of a partition block ----------------------------------
 //
 // Inside a partition block (parallel/partition.py) a K4, K5 or K6 launch
-// runs n_part slots, and its struct holds slot 0's pointers. The host
+// runs n_part slots, and its struct holds slot 0's pointers; so does a
+// K1, K3, K4, K5, K6 or K7 launch of a tenant pool (serving/pool.py),
+// whose batches are per slot too. The host
 // owns the layout (ops/slots.py part_moves): `moves` lists, for every
 // pointer whose tensor has the slot axis, the pointer's byte offset in
 // the struct and its tensor's slot stride in bytes (0 for a column all
 // slots share is left out). A kernel takes its struct as a
 // __grid_constant__ parameter and reads it through part_args: the block
 // copies it into shared memory and moves each listed pointer blockIdx.y
-// slots on. Outside a block n_part is 1, blockIdx.y is 0 and the copy is
-// all it costs.
+// slots on. With n_part 1 the kernel reads its parameter as it is (no
+// copy, no barrier).
 #if defined(__CUDACC__) && defined(__cplusplus)
 template <typename A>
 static __device__ __forceinline__ const A& part_args(const A& src) {
   static_assert(sizeof(A) % 8 == 0, "the arguments are copied by words");
   __shared__ A sh;
+  if (src.n_part <= 1) return src;
   const unsigned long long* s = (const unsigned long long*)&src;
   unsigned long long* d = (unsigned long long*)&sh;
   for (int i = threadIdx.x; i < (int)(sizeof(A) / 8); i += blockDim.x)

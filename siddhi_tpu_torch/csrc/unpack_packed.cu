@@ -28,6 +28,13 @@
 //  - a BOOL 'c' lane is base != 0; b1 bits are LSB-first;
 //  - f32/f64/raw64 lanes are copied as raw bits (NaN payloads and -0.0
 //    survive).
+//
+// A tenant pool's round (serving/pool.py, the reference's vmap of
+// unpack_buffer at pool.py:1407-1411) is one (slots, total) buffer, one
+// row a slot with its own header, all under one encoding: the launch
+// takes the slot on blockIdx.y, its buffer row and output rows moved
+// there by part_args (siddhi_kernels.h). An idle slot's row is zeros
+// but for the round clock, and decodes to n = 0 rows.
 #include <cfloat>
 
 #include "siddhi_kernels.h"
@@ -77,7 +84,8 @@ __device__ __forceinline__ int64_t int_lane(const LaneDesc& d,
   }
 }
 
-__global__ void unpack_packed_kernel(const UnpackParams p) {
+__global__ void unpack_packed_kernel(const __grid_constant__ UnpackParams p0) {
+  const UnpackParams& p = part_args(p0);
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= p.capacity) return;
   const int64_t* hdr = (const int64_t*)p.buf;
@@ -129,6 +137,7 @@ extern "C" cudaError_t siddhi_unpack_packed(const UnpackParams* p,
                                             cudaStream_t stream) {
   const int threads = 256;
   const int blocks = (p->capacity + threads - 1) / threads;
-  unpack_packed_kernel<<<blocks, threads, 0, stream>>>(*p);
+  unpack_packed_kernel<<<dim3(blocks, (unsigned)p->n_part), threads, 0,
+                         stream>>>(*p);
   return cudaGetLastError();
 }

@@ -36,8 +36,10 @@ Ported nodes: Constant (null literal included), Variable, MathOp,
 Compare, And, Or, Not, IsNull(expr) and the built-in function calls
 (_compile_function: new ops of the same interpreter; the math-library
 functions are held to 2 ulp of the reference's XLA code, everything
-else bit for bit). Registered and script functions, whose bodies are
-user Python over jnp arrays, and tenant template parameters raise
+else bit for bit) and the tenant template parameters (``${name:type}``:
+a load of the ``("tparam", name)`` input, one value a tenant slot, which
+the operator carries in its state; serving/pool.py). Registered and
+script functions, whose bodies are user Python over jnp arrays, raise
 NotImplementedError ("not ported yet").
 """
 from __future__ import annotations
@@ -149,7 +151,7 @@ def _const(t: AttrType, value) -> CompiledExpr:
 # step runs over; ('slot', j, a, c) and ('slot_last', j, a, k) read a
 # pattern row's capture (ops/nfa.py PatternScope), resolved per (row,
 # event) by kernel K3 (ops/nfa_parallel.py)
-LOAD_KEYS = ("attr", "slot", "slot_last", "L", "R", "T", "S")
+LOAD_KEYS = ("attr", "slot", "slot_last", "L", "R", "T", "S", "tparam")
 
 
 class Scope:
@@ -428,9 +430,21 @@ def compile_expression(expr: A.Expression, scope: Scope,
                                      key[1] if key[0] == "attr" else key),))
 
         if isinstance(e, A.TemplateParam):
-            raise NotImplementedError(
-                f"expression not ported yet: template parameter "
-                f"'${{{e.name}}}'")
+            # a tenant-template placeholder: a RUNTIME load of the
+            # tenant's parameter (FilterOp / ProjectOp carry the values
+            # in their state, one a pool slot), never a constant, so
+            # nothing folds or rewrites it
+            if e.type is None:
+                raise CompileError(
+                    f"template placeholder '${{{e.name}}}' has no "
+                    "declared type — structural placeholders must be "
+                    "bound before planning (serving/template.py)")
+            if e.type not in VT:
+                raise CompileError(
+                    f"template placeholder '${{{e.name}}}' of type "
+                    f"{e.type}")
+            return CompiledExpr(e.type, ((OP_LOAD, VT[e.type],
+                                          ("tparam", e.name)),))
 
         if isinstance(e, A.MathOp):
             return _compile_math(e, comp)
@@ -917,6 +931,57 @@ def fold_math(fn: str, x, t: AttrType):
 
 
 # ---------------------------------------------------------------------------
+# tenant template parameters (the reference's collect_template_params,
+# tparam_env and tparam_init_state)
+# ---------------------------------------------------------------------------
+
+
+def collect_template_params(*exprs) -> tuple:
+    """((name, AttrType), ...) for every `${name:type}` placeholder in the
+    given expression trees, first-use order, deduplicated. Untyped or
+    type-conflicting placeholders raise CompileError (the template-binding
+    plan rule reports the same conditions with query anchors earlier)."""
+    out: list = []
+    seen: dict = {}
+    for expr in exprs:
+        if expr is None:
+            continue
+        for e in A.walk_expressions(expr):
+            if not isinstance(e, A.TemplateParam):
+                continue
+            if e.type is None:
+                raise CompileError(
+                    f"template placeholder '${{{e.name}}}' has no "
+                    "declared type")
+            prev = seen.get(e.name)
+            if prev is None:
+                seen[e.name] = e.type
+                out.append((e.name, e.type))
+            elif prev is not e.type:
+                raise CompileError(
+                    f"template placeholder '${{{e.name}}}' declared with "
+                    f"conflicting types {prev.value} and {e.type.value}")
+    return tuple(out)
+
+
+def tparam_env(env: dict, tparams: tuple, state) -> None:
+    """The parameter values of an operator's state into ``env`` (name ->
+    a 0-d tensor, or one value a slot of a tenant pool): what
+    ``expr_eval(..., tparams=env)`` loads."""
+    vals = state["tparams"]
+    for name, _t in tparams:
+        env[name] = vals[name]
+
+
+def tparam_init_state(tparams: tuple) -> dict:
+    """Zero-valued parameter state for an operator that reads template
+    params ({'tparams': {name: 0-d tensor}}); the pool writes the
+    tenant's values into its slot at add_tenant time."""
+    return {"tparams": {n: torch.zeros((), dtype=torch_dtype(t))
+                        for n, t in tparams}}
+
+
+# ---------------------------------------------------------------------------
 # program assembly: the filters and projections of one step -> one program
 # ---------------------------------------------------------------------------
 
@@ -963,6 +1028,9 @@ class ExprProgram:
         params.gate_bits = self.gate_bits
         params.now_input = self.inputs.index(("now",)) \
             if ("now",) in self.inputs else -1
+        params.tparam_mask = sum(
+            1 << k for k, key in enumerate(self.inputs)
+            if isinstance(key, tuple) and key[0] == "tparam")
         # kernel arguments with the program filled in; a launch sets only
         # the pointers and the row count (the owning query step holds its
         # lock while it launches)
@@ -1164,12 +1232,22 @@ def run_program(prog: ExprProgram, load, shape: tuple, dev, span=None):
     return keep, outs
 
 
-def batch_input(batch, key, now=None):
+def batch_input(batch, key, now=None, tparams=None):
     """(values, nulls or None) of one K2 input: a batch column, the
-    row timestamps (("ts",)) or the step's clock (("now",), a 0-d int64
-    tensor on the batch's device). None: never null."""
+    row timestamps (("ts",)), the step's clock (("now",), a 0-d int64
+    tensor on the batch's device) or a template parameter (("tparam",
+    name): ``tparams[name]``, a 0-d tensor, or one value a slot of a
+    tenant pool). None: never null."""
     if key == ("ts",):
         return batch.ts, None
+    if isinstance(key, tuple) and key[0] == "tparam":
+        if tparams is None or key[1] not in tparams:
+            raise CompileError(
+                f"template param '${{{key[1]}}}' reached an operator that "
+                "does not carry tenant parameters (params are supported "
+                "in filter conditions and non-aggregating select/having "
+                "only)")
+        return tparams[key[1]], None
     if key == ("now",):
         if now is None:
             raise ValueError("a program that reads currentTimeMillis() "
@@ -1179,14 +1257,21 @@ def batch_input(batch, key, now=None):
     return batch.cols[key], batch.nulls[key]
 
 
-def expr_eval_ref(prog: ExprProgram, batch, emitted=None, now=None):
+def expr_eval_ref(prog: ExprProgram, batch, emitted=None, now=None,
+                  tparams=None, slot_rows=None):
     """Plain PyTorch version of kernel K2: (out cols, out nulls, valid),
     evaluated over whole columns (run_program). ``emitted`` (an int64
-    0-d tensor) is increased by the number of rows kept."""
+    0-d tensor) is increased by the number of rows kept. ``slot_rows``:
+    the batch is a tenant pool's slots, ``slot_rows`` rows each; the
+    template parameters ``tparams`` then hold one value a slot, and an
+    ``emitted`` of one counter a slot counts each slot's rows."""
     false = torch.zeros((), dtype=torch.bool, device=batch.ts.device)
 
     def load(key):
-        v, n = batch_input(batch, key, now)
+        v, n = batch_input(batch, key, now, tparams)
+        if slot_rows is not None and isinstance(key, tuple) and \
+                key[0] == "tparam":
+            v = v.repeat_interleave(slot_rows)
         return v, false if n is None else n
     keep, outs = run_program(prog, load, (batch.capacity,), batch.ts.device)
     kind = batch.kind
@@ -1194,7 +1279,9 @@ def expr_eval_ref(prog: ExprProgram, batch, emitted=None, now=None):
         keep = keep | (kind == TIMER_KIND)
     gate = ((prog.gate_bits >> kind.to(torch.int64)) & 1).to(torch.bool)
     valid = batch.valid & keep & gate
-    if emitted is not None:
+    if emitted is not None and emitted.dim() == 1:
+        emitted += valid.reshape(-1, slot_rows).sum(1, dtype=torch.int64)
+    elif emitted is not None:
         emitted += valid.sum(dtype=torch.int64)
     cols = tuple(outs[i][0] for i in range(len(prog.out_types)))
     nulls = tuple(outs[i][1] for i in range(len(prog.out_types)))
@@ -1202,10 +1289,11 @@ def expr_eval_ref(prog: ExprProgram, batch, emitted=None, now=None):
 
 
 def expr_params(prog: ExprProgram, batch, cols, nulls, valid, emitted,
-                ins=None):
+                ins=None, slot_rows=None):
     """K2's kernel arguments: ``prog.params`` (program already filled
     in) pointed at this batch and these output tensors. ``ins``: the
-    inputs' (values, nulls or None), by default the batch's columns."""
+    inputs' (values, nulls or None), by default the batch's columns.
+    ``slot_rows``: the rows of one slot of a tenant pool's batch."""
     p = prog.params
     if ins is None:
         ins = [batch_input(batch, k) for k in prog.inputs]
@@ -1219,10 +1307,14 @@ def expr_params(prog: ExprProgram, batch, cols, nulls, valid, emitted,
     p.out_valid = valid.data_ptr()
     p.emitted = emitted.data_ptr() if emitted is not None else None
     p.rows = batch.capacity
+    p.slot_rows = slot_rows or max(p.rows, 1)
+    p.emit_rows = slot_rows if emitted is not None and emitted.dim() == 1 \
+        else 0
     return p
 
 
-def expr_eval(prog: ExprProgram, batch, emitted=None, now=None):
+def expr_eval(prog: ExprProgram, batch, emitted=None, now=None,
+              tparams=None):
     """Kernel K2: run one step's program over a batch, in one launch.
 
     -> (out cols, out nulls, out valid). A batch on the CPU takes the
@@ -1230,25 +1322,46 @@ def expr_eval(prog: ExprProgram, batch, emitted=None, now=None):
     int64 0-d tensor on the batch's device, increased by the rows kept
     (one atomic add per thread block), or None. ``now``: the step's
     clock (an int or a 0-d int64 tensor), read by currentTimeMillis().
-    A partition block's slotted batch (``[K, rows]`` columns) runs as
-    one batch of K * rows rows: the program is row-wise."""
+    ``tparams``: the template parameters' values by name (the operators'
+    state; see ``tparam_env``).
+
+    A slotted batch (``[K, rows]`` columns: a partition block's, or a
+    tenant pool's) runs as one batch of K * rows rows: the program is
+    row-wise. A template parameter is then one value a slot (``[K]``),
+    and an ``emitted`` of shape ``[K]`` counts each slot's rows in its
+    own counter."""
     if batch.ts.dim() == 2:
         from .slots import flat
-        K = batch.ts.shape[0]
-        cols, nulls, valid = expr_eval(prog, flat(batch), emitted, now)
+        K, rows = batch.ts.shape
+        cols, nulls, valid = _expr_eval(prog, flat(batch), emitted, now,
+                                        tparams, rows)
 
         def back(x):
             return x.reshape((K, -1) + tuple(x.shape[1:]))
         return (tuple(back(c) for c in cols), tuple(back(n) for n in nulls),
                 back(valid))
+    return _expr_eval(prog, batch, emitted, now, tparams, None)
+
+
+def _expr_eval(prog: ExprProgram, batch, emitted, now, tparams, slot_rows):
     dev = batch.ts.device
     if dev.type == "cpu":
-        return expr_eval_ref(prog, batch, emitted, now)
+        return expr_eval_ref(prog, batch, emitted, now, tparams, slot_rows)
     if dev.type != "cuda":
         raise ValueError(f"expr_eval: unsupported device {dev}")
     B = batch.capacity
-    ins = [batch_input(batch, k, now) for k in prog.inputs]
-    for x in [batch.kind, batch.valid] + [c for c, _ in ins] \
+    ins = [batch_input(batch, k, now, tparams) for k in prog.inputs]
+    n_slots = 1 if slot_rows is None else B // max(slot_rows, 1)
+    for key, (c, _n) in zip(prog.inputs, ins):
+        if isinstance(key, tuple) and key[0] == "tparam" and (
+                c.device != dev or c.numel() != n_slots
+                or not c.is_contiguous()):
+            raise ValueError(
+                f"expr_eval: template parameter '{key[1]}' must be "
+                f"{n_slots} contiguous value(s) on {dev}, one a slot")
+    for x in [batch.kind, batch.valid] + [
+            c for key, (c, _) in zip(prog.inputs, ins)
+            if not (isinstance(key, tuple) and key[0] == "tparam")] \
             + [n for _, n in ins if n is not None]:
         rows = x.shape[:1] if x.dim() else (B,)
         if x.device != dev or rows != (B,) or not x.is_contiguous():
@@ -1262,9 +1375,10 @@ def expr_eval(prog: ExprProgram, batch, emitted=None, now=None):
             raise ValueError("expr_eval: null masks must be bool")
     if emitted is not None and (emitted.device != dev
                                 or emitted.dtype != torch.int64
-                                or emitted.numel() != 1):
+                                or emitted.numel() != (
+                                    n_slots if emitted.dim() else 1)):
         raise ValueError("expr_eval: emitted must be an int64 scalar "
-                         f"tensor on {dev}")
+                         f"tensor, or one a slot, on {dev}")
     cols = tuple(torch.empty((B, 1 + SET_LANES), dtype=torch.int64,
                              device=dev) if t is AttrType.OBJECT else
                  torch.empty((B,), dtype=torch_dtype(t), device=dev)
@@ -1272,7 +1386,11 @@ def expr_eval(prog: ExprProgram, batch, emitted=None, now=None):
     nulls = tuple(torch.empty((B,), dtype=torch.bool, device=dev)
                   for _ in prog.out_types)
     valid = torch.empty((B,), dtype=torch.bool, device=dev)
-    p = expr_params(prog, batch, cols, nulls, valid, emitted, ins)
+    p = expr_params(prog, batch, cols, nulls, valid, emitted, ins,
+                    slot_rows)
     _kernels.load().expr_eval(p, torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.count_launch("expr_eval")
+    # a tenant pool's launch (per-slot parameters or counters) counts
+    # apart
+    _kernels.count_launch("expr_eval[K]" if p.tparam_mask or p.emit_rows
+                          else "expr_eval")
     return cols, nulls, valid

@@ -45,6 +45,7 @@ from ..core.types import NUMERIC_TYPES, AttrType, promote
 from ..lang import ast as A
 from .expr import VT, CompileError, CompiledExpr, RowScope, Scope, _widen, \
     compile_expression
+from .slots import part_moves, per_slot
 from .table import (TS_COL, PairProgram, band_bounds, big_key, encode_keys,
                     fill_prog, fill_side, search_levels, side_cols,
                     sorted_key_view)
@@ -477,9 +478,14 @@ def join_args(cross: JoinCross, trig: EventBatch, opp_buf: dict,
               gate_alive: bool, probe: bool):
     """K7's arguments: the output batch and lost counter (fresh), the
     scratch, and ``_kernels.JoinArgs`` pointing at them. -> (out, lost,
-    args)."""
+    args). A tenant pool's step (``[K, B]`` trigger rows, ``[K, W]``
+    opposite windows) gets every tensor with the leading slot axis,
+    ``n_part`` K and the slot strides in ``moves`` (ops/slots.py
+    part_moves)."""
     dev = trig.ts.device
-    B, W, CAP = trig.capacity, opp_buf["seq"].shape[0], cross.cap
+    slotted = trig.ts.dim() == 2
+    lead = (trig.ts.shape[0],) if slotted else ()
+    B, W, CAP = trig.ts.shape[-1], opp_buf["seq"].shape[-1], cross.cap
     n_l, n_r = cross.n_cols()
     if n_l + n_r > _kernels.JOIN_MAX_OUT:
         raise NotImplementedError(
@@ -500,17 +506,21 @@ def join_args(cross: JoinCross, trig: EventBatch, opp_buf: dict,
         else:
             from_trigger, c = i >= n_l, (i - n_l if i >= n_l else i)
         src = trig.cols[c] if from_trigger else opp_buf["cols"][c]
-        out_cols.append(torch.empty((CAP,), dtype=src.dtype, device=dev))
-        out_nulls.append(torch.empty((CAP,), dtype=torch.bool, device=dev))
+        out_cols.append(torch.empty(lead + (CAP,), dtype=src.dtype,
+                                    device=dev))
+        out_nulls.append(torch.empty(lead + (CAP,), dtype=torch.bool,
+                                     device=dev))
         a.out_from_trig[i], a.out_col[i] = int(from_trigger), c
         a.out_cols[i] = out_cols[-1].data_ptr()
         a.out_nulls[i] = out_nulls[-1].data_ptr()
         a.out_size[i] = src.element_size()
-    out = EventBatch(ts=torch.empty((CAP,), dtype=I64, device=dev),
+    out = EventBatch(ts=torch.empty(lead + (CAP,), dtype=I64, device=dev),
                      cols=tuple(out_cols), nulls=tuple(out_nulls),
-                     kind=torch.empty((CAP,), dtype=torch.int32, device=dev),
-                     valid=torch.empty((CAP,), dtype=torch.bool, device=dev))
-    lost = torch.empty((), dtype=I64, device=dev)
+                     kind=torch.empty(lead + (CAP,), dtype=torch.int32,
+                                      device=dev),
+                     valid=torch.empty(lead + (CAP,), dtype=torch.bool,
+                                       device=dev))
+    lost = torch.empty(lead, dtype=I64, device=dev)
     a.n_out = n_l + n_r
     a.out_ts, a.out_kind, a.out_valid = (out.ts.data_ptr(),
                                          out.kind.data_ptr(),
@@ -525,7 +535,8 @@ def join_args(cross: JoinCross, trig: EventBatch, opp_buf: dict,
     a.probe, a.need_resid, a.CAND = int(probe), int(need), CAND
 
     def scratch(n, dtype):
-        return torch.empty((max(int(n), 1),), dtype=dtype, device=dev)
+        return torch.empty(lead + (max(int(n), 1),), dtype=dtype,
+                           device=dev)
     sc = {"trig_keys": scratch(B, I64), "act": scratch(B, torch.uint8),
           "lo": scratch(B, torch.int32),
           "cnt": scratch(B, I64), "coffs": scratch(B, I64),
@@ -557,6 +568,8 @@ def join_args(cross: JoinCross, trig: EventBatch, opp_buf: dict,
         sc["sort"] = ks
     else:
         fill_prog(a.cond, cross.cond, dev)
+    a.n_part = lead[0] if slotted else 1
+    part_moves(a, (trig, opp_buf, out, lost, sc), dev)
     a._keep = (trig, opp_buf, out, lost, sc)
     return out, lost, a
 
@@ -565,24 +578,46 @@ def _launch(name: str, cross, trig, opp_buf, gate_alive, probe: bool):
     dev = trig.ts.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
+    slotted = trig.ts.dim() == 2
+    if slotted:
+        K = trig.ts.shape[0]
+        for t in (trig.ts, trig.kind, trig.valid, *trig.cols, *trig.nulls,
+                  opp_buf["ts"], opp_buf["valid"], *opp_buf["cols"],
+                  *opp_buf["nulls"]):
+            if t.shape[0] != K or not t[0].is_contiguous():
+                raise ValueError(f"{name}: every side column must be a "
+                                 f"[{K}, rows] tensor, contiguous in a "
+                                 "slot")
     out, lost, args = join_args(cross, trig, opp_buf, gate_alive, probe)
     getattr(_kernels.load(), name)(
         args, torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.count_launch(name)
+    _kernels.count_launch(name + "[K]" if slotted else name)
     return out, lost
+
+
+def _per_slot(ref, cross, trig, opp_buf, gate_alive):
+    """A plain version once per slot of a tenant pool's step (the
+    reference's vmap)."""
+    if trig.ts.dim() == 2:
+        return per_slot(lambda t, o: ref(cross, t, o, gate_alive),
+                        trig.ts.shape[0], trig, opp_buf)
+    return ref(cross, trig, opp_buf, gate_alive)
 
 
 def join_probe(cross: JoinCross, trig: EventBatch, opp_buf: dict,
                gate_alive: bool = False):
-    """Kernel K7's banded probe. CPU tensors take ``cross_probe_ref``."""
+    """Kernel K7's banded probe. CPU tensors take ``cross_probe_ref``.
+    A tenant pool's ``[K, ...]`` sides cross slot by slot
+    (``join_probe[K]``)."""
     if trig.ts.device.type == "cpu":
-        return cross_probe_ref(cross, trig, opp_buf, gate_alive)
+        return _per_slot(cross_probe_ref, cross, trig, opp_buf, gate_alive)
     return _launch("join_probe", cross, trig, opp_buf, gate_alive, True)
 
 
 def join_grid(cross: JoinCross, trig: EventBatch, opp_buf: dict,
               gate_alive: bool = False):
-    """Kernel K7's grid. CPU tensors take ``cross_grid_ref``."""
+    """Kernel K7's grid. CPU tensors take ``cross_grid_ref``; a tenant
+    pool's sides as join_probe (``join_grid[K]``)."""
     if trig.ts.device.type == "cpu":
-        return cross_grid_ref(cross, trig, opp_buf, gate_alive)
+        return _per_slot(cross_grid_ref, cross, trig, opp_buf, gate_alive)
     return _launch("join_grid", cross, trig, opp_buf, gate_alive, False)

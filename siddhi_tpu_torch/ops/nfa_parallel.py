@@ -41,6 +41,7 @@ from ..lang import ast as A
 from .expr import VT
 from .nfa import (NfaEngine, NfaStateSpec, POS_INF, SlotSpec, check_table,
                   kernel_out, match_batch, new_out, not_ported)
+from .slots import part_moves, per_slot
 
 BIG = 2 ** 30
 _NO_EMIT_KEY = 2 ** 62
@@ -751,15 +752,16 @@ def parallel_step_ref(eng: ParallelNfaEngine, stream_id: str, table: dict,
 # ---------------------------------------------------------------------------
 
 
-def _scratch(eng, dev, PB: int):
+def _scratch(eng, dev, PB: int, lead: tuple = ()):
     """Population 2 and the per-row emission fields of one sub-batch,
-    allocated once per device and sub-batch size (the sub-steps of every
-    step reuse them, one after the other on the stream)."""
-    key = (str(dev), PB)
+    allocated once per device, sub-batch size and slot count (the
+    sub-steps of every step reuse them, one after the other on the
+    stream); ``lead`` (K,): one a slot of a tenant pool."""
+    key = (str(dev), PB, lead)
     s = eng._scratch.get(key)
     if s is None:
         def e(shape, dtype):
-            return torch.empty(shape, dtype=dtype, device=dev)
+            return torch.empty(lead + shape, dtype=dtype, device=dev)
         s = {"state": e((PB,), torch.int32), "valid": e((PB,), torch.bool),
              "last": e((PB,), torch.int32),
              "born_rel": e((PB,), torch.int32),
@@ -799,12 +801,16 @@ def _state_desc(eng, d, st) -> None:
         d.persona_min[q] = cs.min_count
 
 
-def nfa_params(eng, stream_id: str, table, batch, out, PB: int):
+def nfa_params(eng, stream_id: str, table, batch, out, PB: int,
+               lead: tuple = ()):
     """K3's kernel arguments for every sub-batch of one step; a launch
-    then sets only the event pointers and ``sub_off``."""
+    then sets only the event pointers and ``sub_off``. With ``lead``
+    (K,), a tenant pool's step: the table, the events, the scratch and
+    the match batch carry the slot axis, ``n_part`` is K and ``moves``
+    the slot strides (ops/slots.py part_moves)."""
     dev = batch.ts.device
     consuming, start = eng.stream_plan(stream_id)
-    s = _scratch(eng, dev, PB)
+    s = _scratch(eng, dev, PB, lead)
     code, consts, loads = eng.device_program(dev)
     p = _kernels.NfaParams()
     for k in ("state", "valid", "ts0", "has_ts0", "born", "min_at",
@@ -857,6 +863,12 @@ def nfa_params(eng, stream_id: str, table, batch, out, PB: int):
     p.n_match_cols = len(eng.match_schema.types)
     p.min0_mask = sum(1 << cs.idx for cs in eng.states
                       if cs.is_counting and cs.min_count == 0)
+    p.n_part = lead[0] if lead else 1
+    # the slot strides, found at the first sub-batch's pointers; later
+    # sub-batches move their pointers by the same strides
+    set_events(p, batch, 0)
+    part_moves(p, (table, batch, s, out), dev)
+    p._keep = s
     return p
 
 
@@ -872,7 +884,7 @@ def set_events(p, batch, o: int) -> None:
         p.ev_cols[a], p.ev_nulls[a] = at(c), at(n)
     p.sub_off = o
     p.first_sub = int(o == 0)
-    p.last_sub = int(o + p.B >= batch.capacity)
+    p.last_sub = int(o + p.B >= batch.ts.shape[-1])
 
 
 def parallel_step(eng: ParallelNfaEngine, stream_id: str, table: dict,
@@ -883,28 +895,46 @@ def parallel_step(eng: ParallelNfaEngine, stream_id: str, table: dict,
     (``table`` is left as it was). A CUDA batch launches the kernel once
     per sub-batch of PB events, with ``table`` updated in place and
     returned; the emissions lost to a full match batch are added to its
-    overflow counter inside the kernel."""
+    overflow counter inside the kernel.
+
+    A tenant pool's step carries the slot axis (``[K, M]`` tables,
+    ``[K, B]`` events, each slot's rows contiguous): the plain version
+    runs once per slot (the reference's vmap), the kernel once with the
+    slot as blockIdx.y (``nfa_parallel[K]``), and the match batch is
+    ``[K, OUT]``."""
     dev = batch.ts.device
+    slotted = batch.ts.dim() == 2
     if dev.type == "cpu":
+        if slotted:
+            return per_slot(
+                lambda t, b: parallel_step_ref(eng, stream_id, t, b),
+                batch.ts.shape[0], table, batch)
         return parallel_step_ref(eng, stream_id, table, batch)
     if dev.type != "cuda":
         raise ValueError(f"nfa_parallel: unsupported device {dev}")
     check_table(eng, table, dev, "nfa_parallel")
-    B = batch.capacity
+    shape = tuple(batch.ts.shape)
+    B = shape[-1]
+    lead = shape[:-1]
+    if tuple(table["state"].shape[:-1]) != lead:
+        raise ValueError("nfa_parallel: the table's slots and the "
+                         "batch's differ")
     for x in (batch.ts, batch.kind, batch.valid) + tuple(batch.cols) + \
             tuple(batch.nulls):
-        if x.device != dev or x.shape != (B,) or not x.is_contiguous():
+        if x.device != dev or tuple(x.shape) != shape or \
+                not x.is_contiguous():
             raise ValueError("nfa_parallel: every event column must be a "
-                             f"contiguous [{B}] tensor on {dev}")
+                             f"contiguous {list(shape)} tensor on {dev}")
     PB, n_sub = _sub_batches(eng, B)
-    out = kernel_out(eng, dev)
-    p = nfa_params(eng, stream_id, table, batch, out, PB)
+    out = kernel_out(eng, dev, lead)
+    p = nfa_params(eng, stream_id, table, batch, out, PB, lead)
     lib = _kernels.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     for k in range(n_sub):
         set_events(p, batch, k * PB)
         lib.nfa_parallel_step(p, stream)
-        _kernels.count_launch("nfa_parallel")
+        _kernels.count_launch("nfa_parallel[K]" if slotted
+                              else "nfa_parallel")
     return table, EventBatch(ts=out["ts"], cols=out["cols"],
                              nulls=out["nulls"], kind=out["kind"],
                              valid=out["valid"])

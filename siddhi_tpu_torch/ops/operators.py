@@ -12,7 +12,8 @@ from __future__ import annotations
 from typing import Any
 
 from ..core.event import EventBatch
-from .expr import CompiledExpr, ProgramBuilder, expr_eval
+from .expr import (CompiledExpr, ProgramBuilder, expr_eval, tparam_env,
+                   tparam_init_state)
 
 
 class Operator:
@@ -40,10 +41,17 @@ class FilterOp(Operator):
     TIMER events pass through untouched so downstream scheduling operators
     still observe time."""
 
-    def __init__(self, cond: CompiledExpr, schema):
+    def __init__(self, cond: CompiledExpr, schema, tparams: tuple = ()):
         self.cond = cond
         self.schema = schema
+        # `${name:type}` tenant-template params the condition reads: the
+        # values live in this operator's state, so a tenant pool stacks
+        # them on its slot axis (serving/pool.py)
+        self.tparams = tuple(tparams)
         self._prog = None
+
+    def init_state(self):
+        return tparam_init_state(self.tparams) if self.tparams else ()
 
     def lower(self, builder: ProgramBuilder) -> None:
         builder.keep(self.cond)
@@ -54,7 +62,11 @@ class FilterOp(Operator):
             b = ProgramBuilder()
             self.lower(b)
             self._prog = b.build()
-        _cols, _nulls, valid = expr_eval(self._prog, batch, now=now)
+        env: dict = {}
+        if self.tparams:
+            tparam_env(env, self.tparams, state)
+        _cols, _nulls, valid = expr_eval(self._prog, batch, now=now,
+                                         tparams=env)
         return state, EventBatch(batch.ts, batch.cols, batch.nulls,
                                  batch.kind, valid)
 

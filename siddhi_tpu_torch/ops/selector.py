@@ -30,8 +30,9 @@ from ..core.event import CURRENT, EXPIRED, Attribute, EventBatch, StreamSchema
 from ..core.types import AttrType, flush_subnormal
 from ..lang import ast as A
 from .expr import (ALL_KINDS, DTYPE_VT, CompiledExpr, CompileError,
-                   ProgramBuilder, RowScope, Scope, compile_expression,
-                   expr_eval)
+                   ProgramBuilder, RowScope, Scope, collect_template_params,
+                   compile_expression, expr_eval, tparam_env,
+                   tparam_init_state)
 from .operators import Operator
 
 
@@ -265,6 +266,11 @@ class ProjectOp(Operator):
         self.in_schema = in_schema
         self.current_on = current_on
         self.expired_on = expired_on
+        # `${name:type}` tenant-template params in select/having: the
+        # values ride this operator's state (see FilterOp)
+        self.tparams = collect_template_params(
+            *[oa.expression for oa in selector.attributes],
+            selector.having)
         if selector.select_all:
             self._passthrough = True
             self._schema = StreamSchema(out_stream_id, in_schema.attributes)
@@ -304,6 +310,9 @@ class ProjectOp(Operator):
         self._prog = None
         self._having_prog = None
 
+    def init_state(self):
+        return tparam_init_state(self.tparams) if self.tparams else ()
+
     @property
     def passthrough(self) -> bool:
         return self._passthrough
@@ -340,7 +349,10 @@ class ProjectOp(Operator):
             b = ProgramBuilder()
             self.lower(b)
             self._prog = b.build()
-        return state, project(self, self._prog, batch, None, now)
+        env: dict = {}
+        if self.tparams:
+            tparam_env(env, self.tparams, state)
+        return state, project(self, self._prog, batch, None, now, env)
 
     @property
     def out_schema(self):
@@ -348,14 +360,15 @@ class ProjectOp(Operator):
 
 
 def project(op: ProjectOp, prog, batch: EventBatch, emitted,
-            now=None) -> EventBatch:
+            now=None, tparams=None) -> EventBatch:
     """Run a step program that ends in ``op`` and build its output batch
     (the input columns as they are for ``select *``), then its having
     (K2) and its order-by, offset and limit (kernel G). ``emitted`` is
-    increased by the rows of the final batch."""
+    increased by the rows of the final batch. ``tparams``: the template
+    parameters the programs load (name -> values)."""
     shapes = op.shapes
     cols, nulls, valid = expr_eval(prog, batch, None if shapes else emitted,
-                                   now)
+                                   now, tparams)
     if op.passthrough:
         cols, nulls = batch.cols, batch.nulls
     out = EventBatch(ts=batch.ts, cols=cols, nulls=nulls, kind=batch.kind,
@@ -368,7 +381,7 @@ def project(op: ProjectOp, prog, batch: EventBatch, emitted,
         _, _, valid = expr_eval(
             op.having_program(),
             EventBatch(batch.ts, hcols, hnulls, batch.kind, valid),
-            None if op.shapes_chunk else emitted, now)
+            None if op.shapes_chunk else emitted, now, tparams)
         out = EventBatch(ts=batch.ts, cols=cols, nulls=nulls,
                          kind=batch.kind, valid=valid)
     if op.shapes_chunk:

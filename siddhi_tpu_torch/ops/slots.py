@@ -113,6 +113,11 @@ def _ptr_words(ctype, base: int = 0) -> list:
             out.append(off // 8)
         elif issubclass(ft, ctypes.Array) and ft._type_ is ctypes.c_void_p:
             out.extend(off // 8 + i for i in range(ft._length_))
+        elif issubclass(ft, ctypes.Array) and \
+                issubclass(ft._type_, ctypes.Structure):
+            size = ctypes.sizeof(ft._type_)
+            for i in range(ft._length_):
+                out.extend(_ptr_words(ft._type_, off + i * size))
         elif issubclass(ft, ctypes.Structure):
             out.extend(_ptr_words(ft, off))
     return out
