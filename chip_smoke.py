@@ -295,6 +295,15 @@ KEYED_SEND = 65536
 AGG_SEND = 65536
 
 
+_T0 = time.perf_counter()
+
+
+def _mark(section: str) -> None:
+    """The script's elapsed time at the start of a section of main()."""
+    print(f"[section {section} at {time.perf_counter() - _T0:.1f} s]",
+          flush=True)
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -3758,6 +3767,30 @@ def _h_times(rt, dev, card, last_ts: int) -> dict:
             "h_bound_ms": bound, "h_bound_by": by, "h_rows": B}
 
 
+def h_time(dev, card: str, rounds: int = 5) -> list:
+    """Kernel H's device time at distinct_symbols' 512-symbol shape
+    (_h_times, 20 launches each), ``rounds`` times, each on a new flush
+    of the feed. `python3 chip_smoke.py --h-time` prints it and nothing
+    else; it uses only what H has had since it was ported, so a copy of
+    this script run from another tree's root times that tree's H, and
+    two trees compare within one call."""
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    SEND = KEYED_SEND
+    N = 4 * SEND
+    ts_all, cols_all = C.distinct_feed(N + 2 * SEND, GLOBAL_STRINGS.encode,
+                                       512)
+    rt, _outs, _wall, _l = _path_run(C.DISTINCT_APP, "stockStream", ts_all,
+                                     cols_all, N, SEND)
+    last = int(ts_all[N - 1])
+    out = []
+    for _ in range(rounds):
+        out.append(_h_times(rt, dev, card, last)["h_ms"])
+        last += 2 * SEND   # past the quotes _h_times sent, 1 ms apart
+    rt.shutdown()
+    return out
+
+
 def log_phase(dev, card: str, n_sends: int = 3, rows: int = 16) -> dict:
     """log: #log('INFO', 'checkpoint') over 3 sends of 16 rows on the
     card; each send's printed lines (a set: the reference prints
@@ -3917,9 +3950,8 @@ class PartitionCheck:
             if kind.dim() != 2:
                 return k_agg(op, state, key_cols, arg_cols, kind, valid)
             k = k_agg(op, state, key_cols, arg_cols, kind, valid)
-            r = per_slot(lambda st, kc, ac, kd, v: G.aggregate_step_ref(
-                op, st, kc, ac, kd, v), kind.shape[0], state, key_cols,
-                arg_cols, kind, valid)
+            r = G.aggregate_step_ref(op, state, key_cols, arg_cols, kind,
+                                     valid)
             self._cmp(f"K6[K] step {list(kind.shape)}", tree_leaves(k),
                       tree_leaves(r))
             self.steps["aggregate_step[K]"] += 1
@@ -4083,18 +4115,23 @@ def _avg_feed(n: int, encode, n_syms: int = 512):
 class _Capture:
     """While installed, keeps the arguments of the first call of each
     wrapped function (one step of a path, for timing its kernels at the
-    path's own shape)."""
+    path's own shape) in ``args``, and of its first ``limit`` calls in
+    ``kept`` (steps that return new state leave their arguments as they
+    were)."""
 
-    def __init__(self, targets):
+    def __init__(self, targets, limit: int = 1):
         self.targets = targets      # [(module, attribute, predicate)]
-        self.args = {}
+        self.limit = limit
+        self.args, self.kept = {}, {}
 
     def __enter__(self):
         self.saved = [getattr(m, a) for m, a, _p in self.targets]
         for (m, a, pred), f in zip(self.targets, self.saved):
             def wrap(*args, _f=f, _a=a, _p=pred):
-                if _a not in self.args and _p(*args):
-                    self.args[_a] = args
+                kept = self.kept.setdefault(_a, [])
+                if len(kept) < self.limit and _p(*args):
+                    kept.append(args)
+                    self.args.setdefault(_a, args)
                 return _f(*args)
             setattr(m, a, wrap)
         return self
@@ -4271,10 +4308,8 @@ def partition_avg_phase(dev, card: str, n_sends: int = 128) -> dict:
     aop, ast, kc, ac, akind, avalid = cap.args["aggregate_step"]
     asl, aag, ans, aargs, _st = G.agg_args(aop, ast, kc, ac, akind, avalid)
     k6_ms = cuda_ms(lambda: lib.aggregate_step(aargs, stream, 3), reps=5)
-    k6_plain, ra = _timed(lambda: per_slot(
-        lambda s_, k_, a_, d_, v_: G.aggregate_step_ref(aop, s_, k_, a_, d_,
-                                                        v_),
-        akind.shape[0], ast, kc, ac, akind, avalid), 1)
+    k6_plain, ra = _timed(lambda: G.aggregate_step_ref(aop, ast, kc, ac,
+                                                       akind, avalid), 1)
     err = max(err, compare(f"K6[K] step at the path's shape "
                            f"{list(akind.shape)}",
                            tree_leaves((asl, aag, ans)), tree_leaves(ra)))
@@ -5698,21 +5733,28 @@ def _separate_rows(template_text: str, bindings: dict, chunks: list,
                    name: str) -> list:
     """A separate runtime of the template with the tenant's bindings
     (instantiate_static), fed the tenant's round chunks in order ->
-    its rows."""
+    its rows of Out."""
+    return _sep_runtime(template_text, bindings, chunks, name, "Out")[0]
+
+
+def _sep_runtime(template_text: str, bindings: dict, chunks: list,
+                 name: str, out_stream: str):
+    """_separate_rows' runtime -> (its rows of ``out_stream``, the
+    runtime, shut down)."""
     from siddhi_tpu_torch import SiddhiManager, StreamCallback
     from siddhi_tpu_torch.serving import Template
     text = Template(template_text).instantiate_static(bindings,
                                                       app_name=name)
     rt = SiddhiManager().create_siddhi_app_runtime(text)
     rows = []
-    rt.add_callback("Out", StreamCallback(lambda evs: rows.extend(
+    rt.add_callback(out_stream, StreamCallback(lambda evs: rows.extend(
         (e.timestamp, e.is_expired, tuple(e.data)) for e in evs)))
     rt.start()
     for sid, ts, cols in chunks:
         rt.get_input_handler(sid).send_arrays(ts, cols)
     torch.cuda.synchronize()
     rt.shutdown()
-    return rows
+    return rows, rt
 
 
 class _TakeLog:
@@ -5741,6 +5783,12 @@ def _pool_pass(pool, tids, feeds: dict, shift: int, sync_rounds: list):
     for tid in tids:
         for sid, (ts, cols) in feeds.items():
             pool.send(tid, ts + shift, cols, stream=sid)
+    _pool_drain(pool, sync_rounds)
+
+
+def _pool_drain(pool, sync_rounds: list) -> None:
+    """Fair rounds until nothing is pending, each timed to the device's
+    end."""
     while True:
         t0 = time.perf_counter()
         n = pool.pump()
@@ -5958,6 +6006,477 @@ def pool_phases(dev, card: str) -> dict:
     return {"tenants": tp, "pattern": pp, "join": pj, "absent": pa}
 
 
+# -- the aggregation kernels over a slot axis (K11[K], C[K], D[K], H[K]) -----
+
+POOL_AGG_TENANTS, POOL_AGG_ROWS, POOL_AGG_BATCH_MAX = 256, 4096, 1024
+POOL_AGG_SHIFT = 40_000   # ms a timed pass moves the feed on
+LANES_SEND, LANES_SENDS = 8192, 128
+POOL_LANES_TENANTS, POOL_LANES_ROWS = 64, 2048
+
+
+def _tensor_at(tensors, ptr: int):
+    """The tensor of ``tensors`` whose data starts at ``ptr``."""
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.data_ptr() == ptr:
+            return t
+    fail(f"no kept tensor at {ptr:#x}")
+
+
+def _k11k_check(rec, what: str, card: str) -> dict:
+    """Every kept K11[K] step (a tenant pool's aggregation class) against
+    its plain version on the same arguments, the whole slotted state
+    (every slot, every duration) bit for bit; then the kernel's time on
+    the last one's arguments, the plain version's, the bound (each input
+    column read once, the state read and written) and index_add_ of one
+    int lane over every slot's and duration's table at the slots the
+    kernel placed (no one call computes the step: its float lanes fold
+    in row order)."""
+    from siddhi_tpu_torch import _kernels
+    from siddhi_tpu_torch.core import aggregation as AG
+    if not rec:
+        fail(f"{what}: no K11[K] step was captured on the pool's path")
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = 0.0
+    for i, (ar, st, b, now) in enumerate(rec):
+        _new, e = _k11_step(ar, st, b, now, f"{what} K11[K] step {i}")
+        err = max(err, e)
+    ar, st, b, now = rec[-1]
+    gcols, args, ets = AG.step_inputs(ar, b, now)
+    _new, a = AG.aggr_args(ar, st, b, gcols, args, ets)
+    ms = cuda_ms(lambda: lib.aggregation_step(a, stream), reps=10)
+    plain_ms, _r = _timed(lambda: AG.aggregation_step_ref(
+        ar, st, b, gcols, args, ets), 1)
+    S, B = b.ts.shape
+    D, K = len(ar.durations), ar.K
+    slot = a._keep[-1]["slot"]        # [S, D, B], the kernel's placement
+    offs = torch.arange(S * D, device=slot.device,
+                        dtype=torch.int64).reshape(S, D, 1) * K
+    placed = (slot >= 0) & (slot < K)
+    idx = torch.where(placed, slot.to(torch.int64) + offs,
+                      torch.full_like(offs, S * D * K).expand(S, D, B)
+                      ).reshape(-1)
+    ones = torch.ones_like(idx)
+    table = torch.zeros(S * D * K + 1, dtype=torch.int64,
+                        device=slot.device)
+    lib_ms = cuda_ms(lambda: table.index_add_(0, idx, ones), reps=10)
+    reads = [ets if ets is not None else b.ts, b.kind, b.valid]
+    reads += [x for c in gcols for x in c]
+    for (_f, kind, _a, _dt), arg in zip(ar.lanes, args):
+        if arg is not None:
+            reads += [arg[1]] if kind == "ncount" else list(arg)
+    col_bytes = _nbytes({(t.data_ptr(), t.nbytes): t
+                         for t in reads}.values())
+    n_bytes = col_bytes + 2 * _nbytes(tree_leaves(st))
+    bound, by = bound_of(n_bytes, S * D * B * 64)
+    torch.cuda.synchronize()
+    print(f"{what}: aggregation_step[K] (K11[K], {S} slots x {D} durations "
+          f"x {K} table slots, {B} rows a slot): {len(rec)} captured steps "
+          f"bit-equal to the plain version over every slot; {ms:.4f} ms a "
+          f"step, plain version {plain_ms:.1f} ms, index_add_ of one int "
+          f"lane {lib_ms:.4f} ms, bound {bound:.5f} ms ({by}; {n_bytes} "
+          f"bytes); {card}", flush=True)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms, "checked": len(rec)}
+
+
+def _lanes_check(args, what: str, card: str) -> dict:
+    """One captured K6[K] step whose selector holds the stateful lanes:
+    the whole step (K6[K]'s two parts, kernels C, D and H between them)
+    against its plain version over every slot (aggregate_step_ref, as
+    the runtime runs it on the CPU), bit for bit; then each of C[K],
+    D[K] and H[K] launched alone on the step's arguments (after K6's
+    part 1), its outputs (the lanes or union it writes and its new
+    table) held against its plain version over every slot on the same
+    arguments (C's in one call over the slot axis,
+    SlidingMinMaxAgg.run_slots, as aggregate_step_ref runs it; D's and
+    H's once per slot), and timed; H[K] also against batched
+    torch.sort(dim=1) of every slot's pair values with one
+    torch.unique_consecutive over the sorted rows laid end to end. ->
+    {lane kind: {err, ms, plain_ms, bound_ms, bound_by, library_ms}}."""
+    from siddhi_tpu_torch import _kernels
+    from siddhi_tpu_torch.ops import aggregators as G
+    from siddhi_tpu_torch.ops.slots import stack, unstack
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    op, state, kc, ac, kind, valid = args
+    S, B = kind.shape
+    slots, aggs, new, a, stats = G.agg_args(op, state, kc, ac, kind, valid)
+    lib.aggregate_step(a, stream, 1)
+    for sp, st in stats:
+        getattr(lib, {G.SlidingMinMaxAgg: "sliding_minmax",
+                      G.DistinctCountAgg: "distinct_count",
+                      G.UnionSetAgg: "union_set"}[type(sp)])(a, st, stream)
+    lib.aggregate_step(a, stream, 2)
+    t0 = time.perf_counter()
+    ref = G.aggregate_step_ref(op, state, kc, ac, kind, valid)
+    torch.cuda.synchronize()
+    step_plain = (time.perf_counter() - t0) * 1e3
+    err = compare(f"{what}: K6[K] with its lanes at {[S, B]}",
+                  tree_leaves((slots, aggs, new)), tree_leaves(ref))
+    del ref
+    ctxs = [G.agg_context(op, unstack(state, k), unstack(kc, k), kind[k],
+                          valid[k])[0] for k in range(S)]
+    runs = [t for t in a._keep[1] if isinstance(t, torch.Tensor)]
+    # a column the block's slots share (stride 0) is read once
+    kv = sum(x[0].nbytes if x.stride(0) == 0 else x.nbytes
+             for x in (kind, valid))
+    out = {}
+    for s, (sp, st) in zip([i for i, x in enumerate(op.agg_specs)
+                            if getattr(x, "stateful", False)], stats):
+        name = {G.SlidingMinMaxAgg: "sliding_minmax",
+                G.DistinctCountAgg: "distinct_count",
+                G.UnionSetAgg: "union_set"}[type(sp)]
+        fn = getattr(lib, name)
+        ms = cuda_ms(lambda: fn(a, st, stream), reps=5, warmup=1)
+        arg, tab, ntab = ac[s], state["tables"][s], new["tables"][s]
+        l0 = a.spec_lane0[s]
+
+        def plain():
+            if isinstance(sp, G.SlidingMinMaxAgg):
+                (res, span), ntab_ = sp.run_slots(arg, ctxs, tab)
+                return [((res[k], span[k]), None) for k in range(S)] + \
+                    [(None, ntab_)]
+            return [sp.run_ref(unstack(arg, k), ctxs[k], unstack(tab, k))
+                    for k in range(S)]
+        plain_ms, outs = _timed(plain, 1)
+        if isinstance(sp, G.SlidingMinMaxAgg):
+            want_tab = outs.pop()[1]
+        else:
+            want_tab = stack([o[1] for o in outs])
+        if isinstance(sp, G.UnionSetAgg):
+            got = [aggs[s][0], aggs[s][1]]
+            want = [stack([o[0][0] for o in outs]),
+                    torch.zeros_like(aggs[s][1])]
+            lane_bytes = 2 * arg[0].nbytes + arg[1].nbytes + aggs[s][1].nbytes
+        else:
+            n_lanes = 2 if isinstance(sp, G.SlidingMinMaxAgg) else 1
+            got = [_tensor_at(runs, a.run[l0 + i]) for i in range(n_lanes)]
+            want = [stack([o[0][i] for o in outs]) for i in range(n_lanes)]
+            lane_bytes = arg[0][..., :B].nbytes + arg[1][..., :B].nbytes + \
+                _nbytes(got)
+        err_l = compare(f"{what}: {name}[K] alone at {[S, B]}",
+                        got + tree_leaves(ntab),
+                        want + tree_leaves(want_tab))
+        n_bytes = lane_bytes + kv + 2 * _nbytes(tree_leaves(tab))
+        bound, by = bound_of(n_bytes, 0)
+        lib_ms = None
+        if isinstance(sp, G.UnionSetAgg):
+            pairs = torch.cat([tab["vals"],
+                               arg[0][..., 1:].reshape(S, -1)], dim=1)
+
+            def library():
+                v, _ = torch.sort(pairs, dim=1)
+                return torch.unique_consecutive(v.reshape(-1),
+                                                return_counts=True)
+            lib_ms = cuda_ms(library, reps=5, warmup=1)
+        r = out.setdefault(name, {"err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                  "bound_ms": 0.0, "bound_by": by,
+                                  "library_ms": lib_ms, "bytes": 0, "n": 0})
+        # two of a kind (max and min) add up: one row per kernel
+        r["err"] = max(r["err"], err_l, err)
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["bound_ms"] += bound
+        r["bytes"] += n_bytes
+        r["n"] += 1
+        del outs, want_tab
+    torch.cuda.synchronize()
+    for name, r in out.items():
+        print(f"{what}: {name}[K] ({r['n']} aggregator(s), {S} slots x {B} "
+              f"rows) bit-equal to its plain version over every slot; "
+              f"{r['ms']:.4f} ms a step, plain version {r['plain_ms']:.1f} "
+              f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}; "
+              f"{r['bytes']} bytes)"
+              + (f", batched torch.sort + torch.unique_consecutive "
+                 f"{r['library_ms']:.4f} ms" if r["library_ms"] else "")
+              + f"; the whole K6[K] step bit-equal too, its plain version "
+              f"{step_plain:.1f} ms; {card}", flush=True)
+    gc.collect()
+    return out
+
+
+def partition_lanes_phase(dev, card: str, n_sends: int = LANES_SENDS) -> dict:
+    """partition_lanes: partition_avg's stream, block and feed (512
+    symbols, 128 sends of 8,192, every operator over 1,024 slots x 8,192
+    rows) with the stateful lanes in the selector
+    (checks.PARTITION_LANES_APP: max and min over the length(10) window's
+    expiring content, distinctCount, unionSet with sizeOfSet) end to end
+    through SiddhiManager, send_arrays and batch_callbacks. K9p, K5[K],
+    K6[K], C[K] (twice a step), D[K] and H[K] must launch on every step.
+    Eight sampled symbols' rows equal a separate runtime of the query
+    alone on the card (checks.PARTITION_LANES_KEY_APP), fed each send's
+    rows of that symbol as one send, bit for bit. Then a mid-run step's
+    captured K6[K] arguments: the whole step, and C[K], D[K] and H[K]
+    alone, against their plain versions over every slot
+    (_lanes_check)."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    from siddhi_tpu_torch.ops import aggregators as G
+    enc = GLOBAL_STRINGS.encode
+    SEND = LANES_SEND
+    N = n_sends * SEND
+    ts_all, cols_all = _avg_feed(N + 10 * SEND, enc)
+    mgr = SiddhiManager()
+    warm = mgr.create_siddhi_app_runtime(C.PARTITION_LANES_APP)
+    warm.start()
+    _send_all(warm.get_input_handler("StockStream"), ts_all[N:],
+              [c[N:] for c in cols_all], (0, SEND, 2 * SEND))
+    torch.cuda.synchronize()
+    warm.shutdown()
+    del warm
+    rt = mgr.create_siddhi_app_runtime(C.PARTITION_LANES_APP)
+    outs = []
+    rt.queries["q"].batch_callbacks.append(outs.append)
+    rt.start()
+    h = rt.get_input_handler("StockStream")
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    for s in range(0, N, SEND):
+        h.send_arrays(ts_all[s:s + SEND], [c[s:s + SEND] for c in cols_all])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    want = {"partition_route": n_sends, "partition_compact": n_sends,
+            "window_step[K]": n_sends, "aggregate_step[K]": n_sends,
+            "aggregate_emit[K]": n_sends, "sliding_minmax[K]": 2 * n_sends,
+            "distinct_count[K]": n_sends, "union_set[K]": n_sends}
+    for k, v in want.items():
+        if launches[k] != v:
+            fail(f"partition_lanes: {k} launched {launches[k]} times, "
+                 f"the path's {v} ({launches})")
+    ots, ocols, onulls = C.emitted_columns(outs)
+    rt.queries["q"].batch_callbacks.clear()
+    del outs
+    eps = N / wall
+    st = rt.queries["q"].stats()
+    # sampled symbols (of those the block placed) against the query
+    # alone, fed each send's rows of the symbol as one send
+    codes = np.unique(ocols[0])
+    sampled = codes[:: max(1, len(codes) // 8)][:8]
+    for code in sampled:
+        sep = mgr.create_siddhi_app_runtime(C.PARTITION_LANES_KEY_APP)
+        souts = []
+        sep.queries["q"].batch_callbacks.append(souts.append)
+        sep.start()
+        sh = sep.get_input_handler("StockStream")
+        for s in range(0, N, SEND):
+            m = cols_all[0][s:s + SEND] == code
+            if m.any():
+                sh.send_arrays(ts_all[s:s + SEND][m],
+                               [c[s:s + SEND][m] for c in cols_all])
+        torch.cuda.synchronize()
+        sep.shutdown()
+        wts, wcols, wnulls = C.emitted_columns(souts)
+        mine = ocols[0] == code
+        if not mine.any() or not np.array_equal(ots[mine], wts) or any(
+                not np.array_equal(bits_np(c[mine]), bits_np(w))
+                for c, w in zip(ocols + onulls, wcols + wnulls)):
+            fail(f"partition_lanes: symbol {GLOBAL_STRINGS.decode(int(code))}"
+                 f"'s {int(mine.sum())} rows differ from the query alone "
+                 f"({len(wts)})")
+    print(f"partition_lanes: {N} events in {n_sends} sends of {SEND}; "
+          f"{len(ots)} rows, {len(sampled)} sampled symbols' rows equal the "
+          f"query alone bit for bit; stats {st}; {eps:.0f} events/s, device "
+          f"batches only ({card})", flush=True)
+    print(f"launches on the partition_lanes path: {launches}", flush=True)
+    chunk = _chunker(ts_all, cols_all, N)
+    with _Capture([(G, "aggregate_step",
+                    lambda *a: a[4].dim() == 2)]) as cap:
+        p50, p99 = _latency(h, chunk, SEND, 4)
+    print(f"partition_lanes latency per send: {SEND} rows p50 {p50:.3f} ms, "
+          f"p99 {p99:.3f} ms ({card})", flush=True)
+    lanes = _lanes_check(cap.args["aggregate_step"], "partition_lanes", card)
+    _kernels.LAUNCHES.update(launches)
+    rt.shutdown()
+    del cap
+    gc.collect()
+    return {"events_per_s_device_batches": eps, "rows": len(ots),
+            "p50_ms_send": p50, "p99_ms_send": p99, "launches": launches,
+            "lanes": lanes, "card": card}
+
+
+def pool_aggregation_phase(dev, card: str) -> dict:
+    """pool_aggregation: SaaS per-tenant metering (checks.POOL_AGG_TEMPLATE:
+    the query guide's six-duration aggregation of AGG_TRADES_APP word for
+    word, beside an alert filter at each tenant's own floor,
+    checks.pool_agg_bindings) for 256 tenants x 4,096 trades a pass
+    (checks.agg_trades_feed, 64 symbols, event times 0-2 s out of order,
+    a seed a tenant), batch_max 1,024: a round is 256 slots x 1,024 rows,
+    the bucket tables 256 x 6 durations x 4,096 slots. One warm pass (its
+    first two rounds' K1[K], K2 and K11[K] launches kept), then 3 timed
+    passes, each moving the feed 40 s on. Eight sampled tenants' alert
+    rows, and their six durations' materialize_tenant tables, equal a
+    separate runtime each on the card, fed the tenant's round chunks, bit
+    for bit. K1[K], K2 with its parameter loads and K11[K] must launch on
+    the timed passes; the kept launches are held against their plain
+    versions over every slot and timed."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core import aggregation as AG
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    from siddhi_tpu_torch.serving import TemplateRegistry
+    n, R, bm = POOL_AGG_TENANTS, POOL_AGG_ROWS, POOL_AGG_BATCH_MAX
+    agg = "TradeAggregation"
+    reg = TemplateRegistry(SiddhiManager())
+    pool = reg.pool(C.POOL_AGG_TEMPLATE, slots=n, max_tenants=n,
+                    batch_max=bm, name="pool_aggregation")
+    tids = [f"t{i}" for i in range(n)]
+    feeds = {}
+    for i, tid in enumerate(tids):
+        pool.add_tenant(tid, C.pool_agg_bindings(i))
+        feeds[tid] = C.agg_trades_feed(R, GLOBAL_STRINGS.encode,
+                                       seed=1000 + i)
+    per_tenant = pool.state_bytes_per_tenant
+    print(f"pool_aggregation: state {per_tenant} bytes a tenant "
+          f"({pool.state_bytes_by_class}), {per_tenant * n} bytes for "
+          f"{n} tenants ({card})", flush=True)
+    sampled = tids[:: n // POOL_SAMPLED][:POOL_SAMPLED]
+    got: dict = {}
+    for tid in sampled:
+        pool.add_callback(tid, lambda evs, tid=tid: got.setdefault(
+            tid, []).extend((e.timestamp, e.is_expired, tuple(e.data))
+                            for e in evs))
+    takes = _TakeLog(pool, sampled)
+
+    def send_pass(p):
+        for tid in tids:
+            ts, (sym, price, vol, stamp) = feeds[tid]
+            sh = p * POOL_AGG_SHIFT
+            pool.send(tid, ts + sh, [sym, price, vol, stamp + sh])
+    rounds: list = []
+    cap = PoolCapture(2)
+    tap = _Capture([(AG, "aggregation_step",
+                     lambda ar, st, b, now: b.ts.dim() == 2)], limit=2)
+    send_pass(0)
+    with cap, tap:
+        _pool_drain(pool, rounds)
+    takes.stop()
+    pool._callbacks.clear()
+    for i, tid in enumerate(sampled):
+        rows, sep = _sep_runtime(C.POOL_AGG_TEMPLATE,
+                                 C.pool_agg_bindings(tids.index(tid)),
+                                 takes.log[tid], f"sep_agg_{i}", "Alerts")
+        if rows != got.get(tid, []) or not rows:
+            fail(f"pool_aggregation: tenant {tid}'s alert rows "
+                 f"({len(got.get(tid, []))}) differ from a separate "
+                 f"runtime's ({len(rows)})")
+        ar = sep.aggregations[agg]
+        for d in ar.durations:
+            _s, want = ar.materialize(d, None, None)
+            _s, mine = pool.materialize_tenant(tid, agg, d)
+            compare(f"pool_aggregation: tenant {tid}'s {d} table",
+                    [*mine["cols"], *mine["nulls"], mine["valid"]],
+                    [*want["cols"], *want["nulls"], want["valid"]])
+            if not bool(mine["valid"].any()):
+                fail(f"pool_aggregation: tenant {tid}'s {d} table is empty")
+    warm_rounds = len(rounds)
+    _kernels.reset_launches()
+    rounds = []
+    t0 = time.perf_counter()
+    for p in range(1, POOL_PASSES + 1):
+        send_pass(p)
+        _pool_drain(pool, rounds)
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    for k in ("unpack_packed[K]", "expr_eval[K]", "aggregation_step[K]"):
+        if launches[k] == 0:
+            fail(f"pool_aggregation: {k} did not launch on the pool's path "
+                 f"({launches})")
+    events = n * R * POOL_PASSES
+    eps = events / wall
+    p50, p99 = (float(np.percentile(rounds, q)) for q in (50, 99))
+    print(f"pool_aggregation {n} tenants x {R} trades, batch_max {bm}: "
+          f"{eps:.0f} events/s over {POOL_PASSES} passes ({len(rounds)} "
+          f"rounds, a round p50 {p50:.3f} ms, p99 {p99:.3f} ms to the "
+          f"device's end; warm pass {warm_rounds} rounds); {len(sampled)} "
+          f"sampled tenants' alerts and six duration tables equal separate "
+          f"runtimes bit for bit; launches {launches}; {card}", flush=True)
+    res = {"eps": eps, "rounds": len(rounds), "round_p50_ms": p50,
+           "round_p99_ms": p99, "launches": launches,
+           "state_bytes_per_tenant": per_tenant}
+    res["k11"] = _k11k_check(tap.kept.get("aggregation_step", []),
+                             "pool_aggregation", card)
+    for kind in ("K1", "K2"):
+        r = _pool_check(kind, cap.rec[kind], "pool_aggregation")
+        res[kind] = r
+        print(f"pool_aggregation: {kind} launches of the first rounds "
+              f"({r['checked']}) bit-equal to the plain version; "
+              f"{r['ms']:.4f} ms a launch, plain {r['plain_ms']:.2f} ms, "
+              f"bound {r['bound_ms']:.5f} ms ({r['bytes']} bytes)",
+              flush=True)
+    del cap, tap
+    pool.shutdown()
+    reg.shutdown()
+    gc.collect()
+    return res
+
+
+def pool_lanes_phase(dev, card: str) -> dict:
+    """pool_lanes: the lanes in a pool chain (checks.POOL_LANES_TEMPLATE:
+    TENANT_TEMPLATE's filter, a length(256) window, max/min, distinctCount
+    and unionSet with sizeOfSet) for 64 tenants x 2,048 rows
+    (checks.tenant_data, checks.tenant_bindings), batch_max 1,024: two
+    passes, the second's first K6[K] step kept; 8 sampled tenants' rows equal
+    separate runtimes, bit for bit; C[K], D[K] and H[K] must launch; the
+    kept step held against its plain version over every slot
+    (_lanes_check)."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.ops import aggregators as G
+    from siddhi_tpu_torch.serving import TemplateRegistry
+    n = POOL_LANES_TENANTS
+    reg = TemplateRegistry(SiddhiManager())
+    pool = reg.pool(C.POOL_LANES_TEMPLATE, slots=n, max_tenants=n,
+                    batch_max=POOL_BATCH_MAX, name="pool_lanes")
+    tids = [f"t{i}" for i in range(n)]
+    for i, tid in enumerate(tids):
+        pool.add_tenant(tid, C.tenant_bindings(i))
+    ts, cols = C.tenant_data(POOL_LANES_ROWS)
+    sampled = tids[:: n // POOL_SAMPLED][:POOL_SAMPLED]
+    got: dict = {}
+    _pool_rows(pool, sampled, got)
+    takes = _TakeLog(pool, sampled)
+    _kernels.reset_launches()
+    rounds: list = []
+    span = int(ts[-1] - ts[0]) + 1
+    t0 = time.perf_counter()
+    _pool_pass(pool, tids, {"In": (ts, cols)}, 0, rounds)
+    # the second pass's first step, its windows full, is kept
+    with _Capture([(G, "aggregate_step",
+                    lambda *a: a[4].dim() == 2)]) as cap:
+        _pool_pass(pool, tids, {"In": (ts, cols)}, span, rounds)
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    takes.stop()
+    for k in ("sliding_minmax[K]", "distinct_count[K]", "union_set[K]",
+              "aggregate_step[K]", "aggregate_emit[K]", "expr_eval[K]",
+              "window_step[K]", "unpack_packed[K]"):
+        if launches[k] == 0:
+            fail(f"pool_lanes: {k} did not launch on the pool's path "
+                 f"({launches})")
+    for i, tid in enumerate(sampled):
+        sep = _separate_rows(C.POOL_LANES_TEMPLATE,
+                             C.tenant_bindings(tids.index(tid)),
+                             takes.log[tid], f"sep_lanes_{i}")
+        if sep != got.get(tid, []) or not sep:
+            fail(f"pool_lanes: tenant {tid}'s pooled rows "
+                 f"({len(got.get(tid, []))}) differ from a separate "
+                 f"runtime's ({len(sep)})")
+    eps = 2 * n * POOL_LANES_ROWS / wall
+    print(f"pool_lanes {n} tenants x {POOL_LANES_ROWS} rows, batch_max "
+          f"{POOL_BATCH_MAX}: {eps:.0f} events/s in two passes ({len(rounds)} "
+          f"rounds); {len(sampled)} sampled tenants equal separate runtimes "
+          f"bit for bit; launches {launches}; {card}", flush=True)
+    lanes = _lanes_check(cap.args["aggregate_step"], "pool_lanes", card)
+    pool.shutdown()
+    reg.shutdown()
+    del cap
+    gc.collect()
+    return {"eps": eps, "launches": launches, "lanes": lanes}
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -5997,6 +6516,11 @@ def main() -> None:
         _kernels.load()
         print(json.dumps({"k5_ms": k5_time(dev), "card": card}), flush=True)
         return
+    if "--h-time" in sys.argv[1:]:   # H alone, for comparing trees
+        _kernels.load()
+        print(json.dumps({"h_ms": h_time(dev, card), "card": card}),
+              flush=True)
+        return
 
     # the group tables hash dictionary codes, and a table of 1,024 slots
     # places 512 keys within its 16 probes for most code ranges but not
@@ -6014,6 +6538,7 @@ def main() -> None:
             [f"TR{i:02d}" for i in range(64)]:
         GLOBAL_STRINGS.encode(sym)
 
+    _mark("2.")
     # -- 2. build, then K1 against its plain version -------------------------
     t0 = time.perf_counter()
     _kernels.load(verbose=True)
@@ -6044,6 +6569,7 @@ def main() -> None:
           f"cases {sorted(INGEST_SPANS)} at capacities 16/1024/65536",
           flush=True)
 
+    _mark("3.")
     # -- 3. K2 against its plain version ---------------------------------------
     schema = StreamSchema("S", tuple(Attribute(n, t) for n, t in EXPR_SCHEMA))
     scope = SingleStreamScope(schema)
@@ -6121,6 +6647,7 @@ def main() -> None:
           f"{len(fexprs)} function calls (math-library functions within "
           f"{k2_ulp} ulp; {n_progs} programs, {B} rows)", flush=True)
 
+    _mark("4.")
     # -- 4. the filter app through the public API, on the card -------------------
     N, SEND = 1 << 20, 65536
     ts, feed = filter_feed(N, GLOBAL_STRINGS.encode)
@@ -6279,14 +6806,17 @@ def main() -> None:
     del outs, out_batch, rt, rt2, warm
     gc.collect()
 
+    _mark("5.")
     # -- 5. and 6. kernel K3 and seq5 -------------------------------------------
     k3_err = k3_against_plain(dev)
     table.append(seq5_phase(dev, card, k3_err))
 
+    _mark("7.")
     # -- 7. and 8. kernel K4 and absent_timeout -----------------------------------
     k4_err = k4_against_plain(dev)
     table.append(timeout_phase(dev, card, k4_err))
 
+    _mark("9.")
     # -- 9. to 11. kernels K5 and K6, window_agg, window_time_grouped --------
     k56_err = k56_against_plain(dev)
     runs = {w: window_phase(dev, card, w)
@@ -6306,6 +6836,7 @@ def main() -> None:
             "bound_by": "bytes",
             "library_ms": r["k5_library_ms"] if key == "k5" else None})
 
+    _mark("12.")
     # -- 12. to 16. kernels K7 and K8, the join paths, stock_table ----------
     k78_err = k78_against_plain(dev)
     jr = join_phase(dev, card, "join")
@@ -6335,6 +6866,7 @@ def main() -> None:
         "plain_ms": stk["k8_plain_ms"], "bound_ms": stk["k8_bound_ms"],
         "bound_by": stk["k8_bound_by"], "library_ms": stk["k8_library_ms"]})
 
+    _mark("17.")
     # -- 17. to 20. kernels A-D: the second-wave windows and stateful
     # aggregators
     w2_err = wave2_against_plain(dev)
@@ -6370,6 +6902,7 @@ def main() -> None:
             "plain_ms": r["x_plain_ms"], "bound_ms": r["x_bound_ms"],
             "bound_by": r["x_bound_by"], "library_ms": None})
 
+    _mark("21.")
     # -- 21. and 22. bench.py's seq2 and kleene on K3 --------------------------
     s2 = seq2_phase(dev, card)
     kl = kleene_phase(dev, card)
@@ -6378,6 +6911,7 @@ def main() -> None:
             row["launches"] += s2["launches"]["nfa_parallel"] + \
                 kl["launches"]["nfa_parallel"]
 
+    _mark("23.")
     # -- 23. to 27. kernels E, F and G: window_frequent, window_session,
     # window_top10; bench.py's chain3 and fanout
     keyed_err = keyed_against_plain(dev)
@@ -6420,6 +6954,7 @@ def main() -> None:
                 tp["top10"]["launches"]["aggregate_step"] + \
                 tp["top10 by hi"]["launches"]["aggregate_step"]
 
+    _mark("28.")
     # -- 28. to 30. slice 8: function calls (K2's new ops), kernel H, set
     # rows through K5 and K6; the functions, polar, distinct_symbols and
     # log paths
@@ -6461,6 +6996,7 @@ def main() -> None:
         "bound_by": ds512["h_bound_by"],
         "library_ms": ds512["h_library_ms"]})
 
+    _mark("31.")
     # -- 31. to 34. slice 9: partition blocks (K9p; K4, K5 and K6 with the
     # slot axis); partition_avg, partition_fraud and the per-customer
     # absence
@@ -6504,6 +7040,7 @@ def main() -> None:
             "bound_by": r[f"{pre}_bound_by"],
             "library_ms": r.get(f"{pre}_library_ms")})
 
+    _mark("36.")
     # -- 36. to 38. slice 10: incremental aggregation (kernel K11) and
     # named windows; aggregation_trades and window_named
     k11_err = aggregation_against_plain(dev)
@@ -6527,6 +7064,7 @@ def main() -> None:
         "bound_by": ag["k11_bound_by"],
         "library_ms": ag["k11_library_ms"]})
 
+    _mark("40.")
     # -- 40. to 42. slice 11: event time and schedules (kernels K10 and
     # K5c); cron_trades and watermark_sensors
     et_err = event_time_against_plain(dev)
@@ -6556,6 +7094,7 @@ def main() -> None:
         "bound_by": ws["k10_bound_by"],
         "library_ms": ws["k10_library_ms"]})
 
+    _mark("44.")
     # -- 44. to 47. tenant serving pools (K1[K], K2's parameter load,
     # K5[K], K3[K], K4[K], K7[K]); tenants_pool, pool_pattern, pool_join,
     # pool_absent
@@ -6594,7 +7133,60 @@ def main() -> None:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
 
-    # -- 48. result -----------------------------------------------------------
+    _mark("48.")
+    # -- 48. to 50. the aggregation kernels over a slot axis (K11[K],
+    # C[K], D[K], H[K]); pool_aggregation, partition_lanes, pool_lanes
+    pg = pool_aggregation_phase(dev, card)
+    pln = partition_lanes_phase(dev, card)
+    plp = pool_lanes_phase(dev, card)
+    s13 = (pg["launches"], pln["launches"], plp["launches"])
+
+    def s13_launches(*names):
+        return sum(r.get(k, 0) for r in s13 for k in names)
+    lane_err = max(r["err"] for ph in (pln, plp)
+                   for r in ph["lanes"].values())
+    for row in table:
+        kname = row["name"]
+        if kname == "partition":
+            row["launches"] += s13_launches(
+                "partition_route", "partition_compact", "partition_due")
+        elif kname in ("expr_eval", "window_step[K]", "aggregate_step[K]",
+                       "aggregate_emit[K]", "unpack_packed[K]",
+                       "expr_eval[K]"):
+            row["launches"] += s13_launches(kname)
+        if kname == "aggregate_step[K]":
+            row["max_abs_err"] = max(row["max_abs_err"], lane_err)
+        elif kname in ("unpack_packed[K]", "expr_eval[K]"):
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     pg["K1" if kname[0] == "u"
+                                        else "K2"]["err"])
+    k11 = pg["k11"]
+    table.append({
+        "name": "aggregation_step[K]", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/aggregation_step.cu",
+        "replaces": "siddhi_tpu/serving/pool.py:1291",
+        "launches": s13_launches("aggregation_step[K]"),
+        "max_abs_err": k11["err"], "ms": k11["ms"],
+        "plain_ms": k11["plain_ms"], "bound_ms": k11["bound_ms"],
+        "bound_by": k11["bound_by"], "library_ms": k11["library_ms"]})
+    for kname, src, repl in (
+            ("sliding_minmax[K]", "aggregate_step.cu",
+             "siddhi_tpu/ops/aggregators.py:511"),
+            ("distinct_count[K]", "aggregate_step.cu",
+             "siddhi_tpu/ops/aggregators.py:306"),
+            ("union_set[K]", "union_set.cu",
+             "siddhi_tpu/ops/aggregators.py:413")):
+        r, rp = pln["lanes"][kname[:-3]], plp["lanes"][kname[:-3]]
+        table.append({
+            "name": kname, "route": "cuda",
+            "source": f"siddhi_tpu_torch/csrc/{src}", "replaces": repl,
+            "launches": s13_launches(kname),
+            "max_abs_err": max(r["err"], rp["err"]), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+
+    _mark("51.")
+    # -- 51. result -----------------------------------------------------------
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,7 +46,8 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # kind (K5c); the reorder ring's step (K10); the launches of K1, K3 and
 # K7 with a tenant pool's slot axis, and K2's that load per-slot
 # template parameters or count per slot ("[K]": K4, K5 and K6 count a
-# pool's as a partition block's)
+# pool's as a partition block's); kernels C, D and H with either slot
+# axis, and K11 with a tenant pool's
 ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
                 "window_step", "sort_window", "aggregate_step",
                 "sliding_minmax", "distinct_count", "aggregate_emit",
@@ -57,7 +58,9 @@ ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
                 "nfa_scan[K]", "window_step[K]", "aggregate_step[K]",
                 "aggregate_emit[K]", "aggregation_step", "cron_window",
                 "reorder_ring", "unpack_packed[K]", "expr_eval[K]",
-                "nfa_parallel[K]", "join_probe[K]", "join_grid[K]")
+                "nfa_parallel[K]", "join_probe[K]", "join_grid[K]",
+                "sliding_minmax[K]", "distinct_count[K]", "union_set[K]",
+                "aggregation_step[K]")
 LAUNCHES = {name: 0 for name in ENTRY_POINTS}
 
 
@@ -411,7 +414,7 @@ class StatArgs(ctypes.Structure):
             "tree", "keys", "used", "counts", "new_keys", "new_used",
             "new_counts", "overflow", "new_overflow", "r0", "r1", "r2", "r3",
             "i0", "i1", "flags", "claim", "pkeys", "perm2", "seg2", "ksum",
-            "count")]
+            "count")] + [("n_part", _I64), ("moves", _P), ("n_moves", _I64)]
 
 
 class EmitArgs(ctypes.Structure):
@@ -456,10 +459,11 @@ class UnionArgs(ctypes.Structure):
         (f, _P) for f in ("arg", "arg_null", "vals", "counts", "tag",
                           "overflow", "new_vals", "new_counts", "new_tag",
                           "new_overflow", "out", "out_null")] + [
-        (f, _P) for f in ("keys_all", "sgn_all", "keep")] + [
+        (f, _P) for f in ("keep", "rank", "sums", "kept", "n_kept")] + [
         ("sort", KeySortScratch)] + [
-        (f, _P) for f in ("sgn", "total", "csum", "live", "rank", "sums",
-                          "n_kept")]
+        (f, _P) for f in ("sgn", "total", "csum", "live", "lrank",
+                          "msums")] + [
+        ("n_part", _I64), ("moves", _P), ("n_moves", _I64)]
 
 
 class JoinArgs(ctypes.Structure):
@@ -565,7 +569,8 @@ class AggrArgs(ctypes.Structure):
         ("new_lanes", _P * AGGR_MAX_LANES)] + [
         (f, _P) for f in ("bs", "hk", "active", "slot", "prb", "flags",
                           "claim", "skey", "perm", "k1", "k2", "i1", "i2",
-                          "counts")]
+                          "counts")] + [
+        ("n_part", _I64), ("moves", _P), ("n_moves", _I64)]
 
 
 RING_MAX_COLS = 16
@@ -694,10 +699,14 @@ class _Kernels:
                 ctypes.POINTER(JoinArgs), ctypes.c_void_p]
             getattr(self.join_lib, fn).restype = ctypes.c_int
         self.union_lib = ctypes.CDLL(str(libs["union_set"]))
-        self.union_lib.siddhi_union_set.argtypes = [
+        self.union_lib.siddhi_union_count.argtypes = [
             ctypes.POINTER(AggArgs), ctypes.POINTER(UnionArgs),
             ctypes.c_void_p]
-        self.union_lib.siddhi_union_set.restype = ctypes.c_int
+        self.union_lib.siddhi_union_finish.argtypes = [
+            ctypes.POINTER(AggArgs), ctypes.POINTER(UnionArgs),
+            ctypes.c_int64, ctypes.c_void_p]
+        for fn in ("siddhi_union_count", "siddhi_union_finish"):
+            getattr(self.union_lib, fn).restype = ctypes.c_int
         self.part_lib = ctypes.CDLL(str(libs["partition"]))
         for fn, st in (("siddhi_partition_route", RouteArgs),
                        ("siddhi_partition_compact", CompactArgs),
@@ -777,8 +786,15 @@ class _Kernels:
             ctypes.byref(args), ctypes.byref(st), stream))
 
     def union_set(self, args: AggArgs, ua: "UnionArgs", stream: int) -> None:
-        self._check("union_set", self.union_lib.siddhi_union_set(
+        """Kernel H: every slot's kept pairs counted (the step's one host
+        sync), the compacted arrays sized by the largest count
+        (``ua.compacted``, ops/aggregators.py union_args), then the
+        union."""
+        self._check("union_set", self.union_lib.siddhi_union_count(
             ctypes.byref(args), ctypes.byref(ua), stream))
+        m = ua.compacted()
+        self._check("union_set", self.union_lib.siddhi_union_finish(
+            ctypes.byref(args), ctypes.byref(ua), m, stream))
 
     def aggregate_emit(self, args: EmitArgs, stream: int) -> None:
         self._check("aggregate_emit", self.agg_lib.siddhi_aggregate_emit(

@@ -216,17 +216,39 @@ def ratelimit_from_jax(snapshot: dict) -> dict:
     return copy.deepcopy(snapshot)
 
 
-def pool_from_jax(states: dict, emitted: dict, device) -> tuple:
+def pool_from_jax(states: dict, emitted: dict, device, kinds: dict) -> tuple:
     """A reference ``TenantPool``'s stacked per-query states
     (``pool._states``: {query: pytree with the leading slot axis}, the
     layout of serving/pool.py: a chain's tuple of operator states, a
-    pattern's {"nfa", "sel"}, a join's {"sides", "sel", "ovf"}) and its
-    ``emitted`` counters ({query: [slots]}), as numpy values -> the
-    port's (``TenantPool._states``, ``TenantPool._emitted``): the same
-    pytrees, every slot, free ones included. A template parameter of
-    type STRING holds each package's own dictionary code."""
-    return ({qn: _tree(st, device) for qn, st in states.items()},
+    pattern's {"nfa", "sel"}, a join's {"sides", "sel", "ovf"}, an
+    aggregation's {duration: state}) and its ``emitted`` counters
+    ({query: [slots]}), as numpy values, with the pool's node kinds
+    (``pool._kind``) -> the port's (``TenantPool._states``,
+    ``TenantPool._emitted``): the same pytrees, every slot, free ones
+    included, but an aggregation node's durations stacked after the slot
+    axis ([slots, D, K] a field, the overflow [slots, D]). A template
+    parameter of type STRING, or an aggregation's STRING group column,
+    holds each package's own dictionary code."""
+    return ({qn: _tree(_durations_stacked(st) if kinds[qn] == "agg"
+                       else st, device)
+             for qn, st in states.items()},
             {qn: _tree(e, device) for qn, e in emitted.items()})
+
+
+def _durations_stacked(st: dict) -> dict:
+    """A pool aggregation node's {duration: slotted state} as one state,
+    the durations on axis 1 in the canonical order."""
+    from .core.aggregation import DURATIONS
+    per = [st[d] for d in DURATIONS if d in st]
+
+    def stack(get):
+        return np.stack([np.asarray(get(x)) for x in per], axis=1)
+    out = {k: stack(lambda x, k=k: x[k])
+           for k in ("keys", "used", "bstart", "overflow")}
+    for k in ("groups", "gnulls", "lanes"):
+        out[k] = tuple(stack(lambda x, k=k, i=i: x[k][i])
+                       for i in range(len(per[0][k])))
+    return out
 
 
 def strings_from_jax(codes_to_str: Sequence) -> None:

@@ -2950,6 +2950,38 @@ def partition_avg_oracle(ts, sym, price, vol, send: int = 8192,
     return ts[keep], sym[keep], np.array(avgs), vol[keep], lost
 
 
+# partition_avg's stream and block (@slots('1024'), window.length(10))
+# with the stateful lanes in the selector: max/min over the window's
+# expiring content (kernel C), distinctCount (D), unionSet with
+# sizeOfSet (H), over the block's slot axis
+PARTITION_LANES_APP = """
+    @app:playback
+    define stream StockStream (symbol string, price float, volume long);
+    @slots('1024')
+    partition with (symbol of StockStream) begin
+      @info(name = 'q')
+      from StockStream#window.length(10)
+      select symbol, max(price) as hi, min(price) as lo,
+             distinctCount(volume) as dv,
+             sizeOfSet(unionSet(createSet(volume))) as nv
+      insert into OutStream;
+    end;
+"""
+
+# PARTITION_LANES_APP's query alone: one key's rows through it give that
+# key's rows of the block
+PARTITION_LANES_KEY_APP = """
+    @app:playback
+    define stream StockStream (symbol string, price float, volume long);
+    @info(name = 'q')
+    from StockStream#window.length(10)
+    select symbol, max(price) as hi, min(price) as lo,
+           distinctCount(volume) as dv,
+           sizeOfSet(unionSet(createSet(volume))) as nv
+    insert into OutStream;
+"""
+
+
 PARTITION_FRAUD_APP = """
     @app:playback
     define stream Txn (card string, amount double);
@@ -3443,6 +3475,40 @@ def tenant_data(rows: int, seed: int = 11):
 def tenant_bindings(i: int) -> dict:
     """Tenant i's `${lo:double}` and `${hi:double}`."""
     return {"lo": 20.0 + (i % 16), "hi": 180.0 - (i % 16)}
+
+
+# TENANT_TEMPLATE's filter, its lengthBatch(256) window made a sliding
+# length(256) (over a batch window min/max resets and needs no ring),
+# and the stateful lanes in the selector: max/min over the window's
+# expiring content (kernel C), distinctCount (D), unionSet with
+# sizeOfSet (H)
+POOL_LANES_TEMPLATE = """
+define stream In (v double, k long);
+@info(name='q')
+from In[v > ${lo:double} and v < ${hi:double}]#window.length(256)
+select max(v) as hi_v, min(v) as lo_v, distinctCount(k % 64) as dk,
+       sizeOfSet(unionSet(createSet(k % 48))) as nk
+insert into Out;
+"""
+
+# SaaS per-tenant metering: every tenant's own time-bucketed rollups
+# (AGG_TRADES_APP's aggregation word for word, the query guide's
+# example, six durations) and an alert filter at the tenant's own floor
+POOL_AGG_TEMPLATE = """
+define stream TradeStream (symbol string, price double, volume long, timestamp long);
+define aggregation TradeAggregation
+from TradeStream
+select symbol, avg(price) as avgPrice, sum(price) as total
+group by symbol
+aggregate by timestamp every sec ... year;
+@info(name='alerts')
+from TradeStream[price > ${floor:double}] select symbol, price insert into Alerts;
+"""
+
+
+def pool_agg_bindings(i: int) -> dict:
+    """Tenant i's alert floor: 100 + 10 (i mod 16)."""
+    return {"floor": 100.0 + 10.0 * (i % 16)}
 
 
 POOL_PATTERN_TEMPLATE = """

@@ -40,8 +40,9 @@ from ..lang import ast as A
 from ..ops.aggregators import _bare_column, _widen
 from ..ops.expr import (DTYPE_VT, CompileError, ProgramBuilder,
                         SingleStreamScope, compile_expression, expr_eval)
-from ..ops.keyed import (add, hash_columns, lookup_or_insert, maximum,
-                         minimum, segment_starts)
+from ..ops.keyed import (add, hash_columns, lookup_or_insert_tables,
+                         maximum, minimum, segment_starts)
+from ..ops.slots import leaves, part_moves, tree_map
 from ..ops.selector import output_attribute_name
 from .event import CURRENT, Attribute, EventBatch, StreamSchema
 from .stream import Receiver
@@ -405,7 +406,10 @@ def step_inputs(rt: AggregationRuntime, batch: EventBatch, now):
 def aggregation_step(rt: AggregationRuntime, state: dict, batch: EventBatch,
                      now) -> dict:
     """One step of every duration's table -> the new state. A CPU batch
-    takes the plain version; a CUDA batch launches kernel K11."""
+    takes the plain version; a CUDA batch launches kernel K11. A tenant
+    pool's batch (``[slots, rows]`` columns, the state ``[slots, D, K]``)
+    runs every slot in one launch sequence, counted as
+    ``aggregation_step[K]``."""
     gcols, args, ets = step_inputs(rt, batch, now)
     dev = batch.ts.device
     if dev.type == "cpu":
@@ -415,7 +419,8 @@ def aggregation_step(rt: AggregationRuntime, state: dict, batch: EventBatch,
     new, a = aggr_args(rt, state, batch, gcols, args, ets)
     _kernels.load().aggregation_step(
         a, torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.count_launch("aggregation_step")
+    _kernels.count_launch("aggregation_step[K]" if batch.ts.dim() == 2
+                          else "aggregation_step")
     return new
 
 
@@ -448,88 +453,114 @@ def _combine(kind: str, dt, acc, c):
 
 def aggregation_step_ref(rt: AggregationRuntime, state: dict,
                          batch: EventBatch, gcols, args, ets) -> dict:
-    """Plain PyTorch version of kernel K11, per duration: the bucket
-    starts, the hash of (bucket start, group values), the slot probe,
-    and a fold of each slot's rows in row order. The fold runs rank by
-    rank: the r-th row of every slot at once (each slot once a rank), so
-    it applies each slot's rows in row order, bit-equal to the
-    reference's serial scatter."""
-    K = rt.K
+    """Plain PyTorch version of kernel K11: every duration's (and, with a
+    tenant pool's slot axis, every slot's) table at once, T tables of K
+    slots. The bucket starts, the hash of (bucket start, group values),
+    the slot probe, and a fold of each slot's rows in row order. The fold
+    runs rank by rank: the r-th row of every (table, slot) at once (each
+    once a rank), so it applies each slot's rows in row order, bit-equal
+    to the reference's serial scatter."""
+    if batch.ts.dim() == 1:   # one table set: a slot axis of one
+        def one(x):
+            return x.unsqueeze(0)
+        new = aggregation_step_ref(
+            rt, tree_map(one, state), tree_map(one, batch),
+            tree_map(one, gcols), tree_map(one, args),
+            None if ets is None else one(ets))
+        return tree_map(lambda x: x[0], new)
+    K, D = rt.K, len(rt.durations)
+    S, B = batch.ts.shape
+    T = S * D
     dev = batch.ts.device
-    active = batch.valid & (batch.kind == CURRENT)
+
+    def rows_of(x):   # [S, B] -> [T, B], each slot's rows once a duration
+        return x.unsqueeze(1).expand(S, D, B).reshape(T, B)
+    active = rows_of(batch.valid & (batch.kind == CURRENT))
     ets = ets.to(I64) if ets is not None else batch.ts
-    contribs = [_contrib(kind, dt, arg)
-                for (_f, kind, _a, dt), arg in zip(rt.lanes, args)]
-    out = {k: [] for k in ("keys", "used", "bstart", "overflow", "groups",
-                           "gnulls", "lanes")}
-    for di, d in enumerate(rt.durations):
-        bs = bucket_start(ets, d)
-        hk = hash_columns([bs] + [v for v, _ in gcols],
-                          [torch.zeros_like(active)] + [n for _, n in gcols])
-        slots, keys, used, ovf = lookup_or_insert(
-            state["keys"][di], state["used"][di], hk, active)
-        ok = active & (slots >= 0)
-        key = torch.where(ok, slots.to(I64), torch.full_like(bs, K))
-        order = torch.argsort(key, stable=True)
-        sk = key[order]
-        n = int(ok.sum())
-        bstart = state["bstart"][di].clone()
-        groups = [g[di].clone() for g in state["groups"]]
-        gnulls = [g[di].clone() for g in state["gnulls"]]
-        lanes = [lv[di].clone() for lv in state["lanes"]]
-        if n:
-            sk, order = sk[:n], order[:n]
-            # the set lanes: the last row of each slot's run
-            last = torch.ones((n,), dtype=torch.bool, device=dev)
-            last[:-1] = sk[1:] != sk[:-1]
-            lrow, lslot = order[last], sk[last]
-            bstart[lslot] = bs[lrow]
-            for g, gn, (v, nl) in zip(groups, gnulls, gcols):
-                g[lslot] = v[lrow].to(g.dtype)
-                gn[lslot] = nl[lrow]
-            # each row's rank in its slot's run; the rows by (rank, slot),
-            # so that rank r's rows are one slice
-            rank = torch.arange(n, device=dev) - segment_starts(sk)
-            by_rank = torch.argsort(rank, stable=True)
-            off = 0
-            for cnt in torch.bincount(rank).tolist():
-                at = by_rank[off:off + cnt]
-                off += cnt
-                rows, tgt = order[at], sk[at]
-                for l, ((_f, kind, _a, dt), c) in enumerate(
-                        zip(rt.lanes, contribs)):
-                    cr = torch.ones_like(rows) if c is None else c[rows]
-                    lanes[l][tgt] = _combine(kind, dt, lanes[l][tgt], cr)
-        out["keys"].append(keys)
-        out["used"].append(used)
-        out["bstart"].append(bstart)
-        out["overflow"].append(state["overflow"][di] + ovf)
-        out["groups"].append(groups)
-        out["gnulls"].append(gnulls)
-        out["lanes"].append(lanes)
-    new = {k: torch.stack(out[k]) for k in ("keys", "used", "bstart",
-                                            "overflow")}
-    for k in ("groups", "gnulls", "lanes"):
-        new[k] = tuple(torch.stack([per[i] for per in out[k]])
-                       for i in range(len(out[k][0])))
-    return new
+    bs = torch.stack([bucket_start(ets, d) for d in rt.durations],
+                     1).reshape(T, B)
+    hk = hash_columns([bs.reshape(-1)] +
+                      [rows_of(v).reshape(-1) for v, _ in gcols],
+                      [torch.zeros((T * B,), dtype=torch.bool, device=dev)] +
+                      [rows_of(n).reshape(-1) for _, n in gcols]
+                      ).reshape(T, B)
+
+    def flat(x):   # a [S, D, ...] state tensor as [T, ...]
+        return x.reshape((T,) + tuple(x.shape[2:]))
+    slots, keys, used, ovf = lookup_or_insert_tables(
+        flat(state["keys"]), flat(state["used"]), hk, active)
+    ok = active & (slots >= 0)
+    tbl = torch.arange(T, dtype=I64, device=dev)[:, None]
+    # each row's global slot; the rows without one sort last
+    key = torch.where(ok, tbl * K + slots.to(I64),
+                      torch.full_like(bs, T * K)).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    n = int(ok.sum())
+    bstart = flat(state["bstart"]).reshape(-1).clone()
+    groups = [flat(g).reshape(-1).clone() for g in state["groups"]]
+    gnulls = [flat(g).reshape(-1).clone() for g in state["gnulls"]]
+    lanes = [flat(lv).reshape(-1).clone() for lv in state["lanes"]]
+    if n:
+        sk, order = key[order][:n], order[:n]
+        src = order % B + (order // (D * B)) * B   # the row in [S * B]
+        # the set lanes: the last row of each slot's run
+        last = torch.ones((n,), dtype=torch.bool, device=dev)
+        last[:-1] = sk[1:] != sk[:-1]
+        lrow, lslot = order[last], sk[last]
+        bstart[lslot] = bs.reshape(-1)[lrow]
+        lsrc = src[last]
+        for g, gn, (v, nl) in zip(groups, gnulls, gcols):
+            g[lslot] = v.reshape(-1)[lsrc].to(g.dtype)
+            gn[lslot] = nl.reshape(-1)[lsrc]
+        # each row's rank in its slot's run; the rows by (rank, slot),
+        # so that rank r's rows are one slice
+        contribs = [None if c is None else c.reshape(-1)
+                    for c in (_contrib(kind, dt, arg) for
+                              (_f, kind, _a, dt), arg in zip(rt.lanes,
+                                                             args))]
+        rank = torch.arange(n, device=dev) - segment_starts(sk)
+        by_rank = torch.argsort(rank, stable=True)
+        off = 0
+        for cnt in torch.bincount(rank).tolist():
+            at = by_rank[off:off + cnt]
+            off += cnt
+            rws, tgt = src[at], sk[at]
+            for l, ((_f, kind, _a, dt), c) in enumerate(
+                    zip(rt.lanes, contribs)):
+                cr = torch.ones_like(rws) if c is None else c[rws]
+                lanes[l][tgt] = _combine(kind, dt, lanes[l][tgt], cr)
+
+    def back(x):   # [T * K] or [T, K] -> [S, D, K]
+        return x.reshape(S, D, K)
+    new = {"keys": back(keys), "used": back(used), "bstart": back(bstart),
+           "overflow": state["overflow"] + ovf.reshape(S, D),
+           "groups": tuple(back(g) for g in groups),
+           "gnulls": tuple(back(g) for g in gnulls),
+           "lanes": tuple(back(lv) for lv in lanes)}
+    return {k: new[k] for k in state}   # the state's own field order
 
 
 def aggr_args(rt: AggregationRuntime, state: dict, batch: EventBatch, gcols,
               args, ets):
     """K11's arguments: fresh tensors for the new state, the scratch, and
-    ``_kernels.AggrArgs``. -> (new state, args)."""
+    ``_kernels.AggrArgs``. -> (new state, args). With a tenant pool's
+    slot axis (``[slots, rows]`` columns, a ``[slots, D, K]`` state)
+    every state and scratch tensor has it, ``n_part`` is the slot count
+    and ``moves`` the slot strides (ops/slots.py part_moves)."""
     dev = batch.ts.device
-    B, K, D = batch.capacity, rt.K, len(rt.durations)
+    lead = tuple(batch.ts.shape[:-1])
+    B, K, D = batch.ts.shape[-1], rt.K, len(rt.durations)
     tensors = [batch.ts, batch.kind, batch.valid] + [
         t for v, n in gcols for t in (v, n)] + [
         t for arg in args if arg is not None for t in arg]
     if ets is not None:
         tensors.append(ets)
     for t in tensors:
-        if t.device != dev or not t.is_contiguous() or t.shape[0] != B:
+        if t.device != dev or tuple(t.shape) != lead + (B,) or \
+                t.stride(-1) != 1:
             raise ValueError("aggregation_step: every input must be a "
-                             f"contiguous [{B}] tensor on {dev}")
+                             f"{list(lead + (B,))} tensor of rows in "
+                             f"order on {dev}")
     a = _kernels.AggrArgs()
     a.B, a.K, a.D = B, K, D
     a.n_groups, a.n_lanes = len(gcols), len(rt.lanes)
@@ -546,10 +577,11 @@ def aggr_args(rt: AggregationRuntime, state: dict, batch: EventBatch, gcols,
         if arg is not None:
             a.arg[l], a.arg_null[l] = arg[0].data_ptr(), arg[1].data_ptr()
             a.arg_type[l] = DTYPE_VT[arg[0].dtype]
-    new = {k: torch.empty_like(state[k])
-           for k in ("keys", "used", "bstart", "overflow")}
-    for k in ("groups", "gnulls", "lanes"):
-        new[k] = tuple(torch.empty_like(t) for t in state[k])
+    # fresh tensors in the state's own field order
+    new = tree_map(lambda t: torch.empty_like(
+        t, memory_format=torch.contiguous_format), state)
+    if not all(t.is_contiguous() for t in leaves(state)):
+        raise ValueError("aggregation_step: the state must be contiguous")
     for k in ("keys", "used", "bstart", "overflow"):
         setattr(a, k, state[k].data_ptr())
         setattr(a, "new_" + k, new[k].data_ptr())
@@ -560,7 +592,7 @@ def aggr_args(rt: AggregationRuntime, state: dict, batch: EventBatch, gcols,
     blocks = (B + 1023) // 1024
 
     def e(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=dev)
+        return torch.empty(lead + shape, dtype=dtype, device=dev)
     sc = {"bs": e((D, B), I64), "hk": e((D, B), I64),
           "active": e((D, B), torch.uint8), "slot": e((D, B), torch.int32),
           "prb": e((D, B), torch.int32), "flags": e((D, B), torch.uint8),
@@ -571,5 +603,7 @@ def aggr_args(rt: AggregationRuntime, state: dict, batch: EventBatch, gcols,
           "counts": e((D, 256 * blocks), torch.int32)}
     for k, t in sc.items():
         setattr(a, k, t.data_ptr())
+    a.n_part = lead[0] if lead else 1
+    part_moves(a, (batch, gcols, args, ets, state, new, sc), dev)
     a._keep = (batch, gcols, args, ets, state, sc)  # alive until the launch
     return new, a

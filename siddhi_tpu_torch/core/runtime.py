@@ -1943,8 +1943,8 @@ class Planner:
 
     def _check_block_ops(self, name: str, operators) -> None:
         """The operators a partition block runs with its slot axis: the
-        windows of K5's first wave, K6's aggregators without the C, D
-        and H lanes, K2's filters and projections. The rest raise."""
+        windows of K5's first wave, K6's aggregators with the C, D and H
+        lanes, K2's filters and projections. The rest raise."""
         for op in operators:
             if isinstance(op, WindowOp) and \
                     not isinstance(op, self.PARTITION_WINDOWS):
@@ -1957,11 +1957,6 @@ class Planner:
                         isinstance(op, ProjectOp) and op.shapes_chunk):
                 raise not_ported(f"query '{name}': order by, offset or "
                                  "limit on a projection inside a partition")
-            if isinstance(op, AggregateOp) and any(
-                    getattr(sp, "stateful", False) for sp in op.agg_specs):
-                raise not_ported(
-                    f"query '{name}': min/max over expiring content, "
-                    "distinctCount or unionSet inside a partition")
 
     def _plan_partition_pattern(self, q: A.Query, name: str,
                                 key_specs: dict):

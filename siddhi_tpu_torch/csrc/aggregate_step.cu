@@ -726,6 +726,13 @@ namespace {
 // leaf ranges of its live range. The tree is indexed in place: no row
 // gathers its key's whole tree. Bound: the rings and trees (K * 3W
 // values) and a query of 2 log2(W) + 2 reads a row.
+//
+// Kernels C and D take K6's slot axis (a partition block's or a tenant
+// pool's, the ones under the reference's jax.vmap(run_block) at
+// siddhi_tpu/parallel/partition.py:453 and its pool's vmapped steps):
+// one row of blocks a slot (blockIdx.y), each reading both structs
+// through part_args, so every slot has its own rings, heads, tails and
+// pair table, and its own overflow count.
 
 __device__ __forceinline__ int64_t fmod_pos(int64_t x, int64_t m) {
   int64_t r = x % m;
@@ -734,7 +741,11 @@ __device__ __forceinline__ int64_t fmod_pos(int64_t x, int64_t m) {
 
 // the inclusive prefix, in slot order, of the rows' adds (r0) and
 // removes (r1), one block
-__global__ void mm_prefix(const AggArgs a, const StatArgs st) {
+__global__ void __launch_bounds__(SS_BLOCK)
+    mm_prefix(const __grid_constant__ AggArgs a0,
+              const __grid_constant__ StatArgs s0) {
+  const AggArgs& a = part_args(a0);
+  const StatArgs& st = part_args(s0);
   __shared__ int64_t buf[SS_BLOCK];
   int64_t lo, hi, na = 0, nr = 0;
   ss::span(a.B, &lo, &hi);
@@ -774,7 +785,10 @@ __device__ __forceinline__ int64_t seg_rank(const AggArgs& a,
 
 // per key: its adds and removes in the batch; the ring copied
 template <typename T>
-__global__ void mm_keys(const AggArgs a, const StatArgs st) {
+__global__ void mm_keys(const __grid_constant__ AggArgs a0,
+                        const __grid_constant__ StatArgs s0) {
+  const AggArgs& a = part_args(a0);
+  const StatArgs& st = part_args(s0);
   const int64_t x = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (x < (int64_t)a.K * st.W)
     ((T*)st.new_ring)[x] = ((const T*)st.ring)[x];
@@ -817,7 +831,10 @@ __device__ __forceinline__ MmRow mm_row(const AggArgs& a, const StatArgs& st,
 // the batch's added values into the rings: of two adds of a key W apart
 // the later one stays, as the reference's in-order scatter leaves it
 template <typename T>
-__global__ void mm_scatter(const AggArgs a, const StatArgs st) {
+__global__ void mm_scatter(const __grid_constant__ AggArgs a0,
+                           const __grid_constant__ StatArgs s0) {
+  const AggArgs& a = part_args(a0);
+  const StatArgs& st = part_args(s0);
   const int32_t i = blockIdx.x * T1 + threadIdx.x;
   if (i >= a.B) return;
   const MmRow m = mm_row(a, st, i);
@@ -828,7 +845,8 @@ __global__ void mm_scatter(const AggArgs a, const StatArgs st) {
 
 // one block a key: the tree, level by level (cur[0::2] with cur[1::2])
 template <typename T>
-__global__ void mm_tree(const AggArgs a, const StatArgs st, int op) {
+__global__ void mm_tree(const __grid_constant__ StatArgs s0, int op) {
+  const StatArgs& st = part_args(s0);
   const int64_t W = st.W;
   T* tree = (T*)st.tree + (int64_t)blockIdx.x * 2 * W;
   const T* ring = (const T*)st.new_ring + (int64_t)blockIdx.x * W;
@@ -864,8 +882,11 @@ __device__ __forceinline__ T rmq(const T* tree, int op, int64_t W,
 }
 
 template <typename T>
-__global__ void mm_query(const AggArgs a, const StatArgs st, int l0, int op,
+__global__ void mm_query(const __grid_constant__ AggArgs a0,
+                         const __grid_constant__ StatArgs s0, int l0, int op,
                          int levels) {
+  const AggArgs& a = part_args(a0);
+  const StatArgs& st = part_args(s0);
   const int32_t i = blockIdx.x * T1 + threadIdx.x;
   if (i >= a.B) return;
   const MmRow m = mm_row(a, st, i);
@@ -883,7 +904,10 @@ __global__ void mm_query(const AggArgs a, const StatArgs st, int l0, int op,
     atomicAdd(st.count, 1ull);
 }
 
-__global__ void mm_finish(const AggArgs a, const StatArgs st) {
+__global__ void mm_finish(const __grid_constant__ AggArgs a0,
+                          const __grid_constant__ StatArgs s0) {
+  const AggArgs& a = part_args(a0);
+  const StatArgs& st = part_args(s0);
   const int32_t k = blockIdx.x * T1 + threadIdx.x;
   if (k == 0) *st.new_overflow = *st.overflow + (int64_t)*st.count;
   if (k >= a.K) return;
@@ -901,13 +925,14 @@ cudaError_t sliding(const AggArgs& a, const StatArgs& st,
   const int op = a.lane_op[l0];
   int levels = 0;
   while ((1 << (levels + 1)) <= st.W) ++levels;
-  mm_prefix<<<1, SS_BLOCK, 0, stream>>>(a, st);
+  const int64_t parts = a.n_part;   // partition or pool slots, 1 outside
+  mm_prefix<<<dim3(1, (unsigned)parts), SS_BLOCK, 0, stream>>>(a, st);
   const int64_t kw = (int64_t)a.K * st.W;
-  mm_keys<T><<<grid(kw > a.K ? kw : a.K), T1, 0, stream>>>(a, st);
-  mm_scatter<T><<<grid(a.B), T1, 0, stream>>>(a, st);
-  mm_tree<T><<<a.K, T1, 0, stream>>>(a, st, op);
-  mm_query<T><<<grid(a.B), T1, 0, stream>>>(a, st, l0, op, levels);
-  mm_finish<<<grid(a.K), T1, 0, stream>>>(a, st);
+  mm_keys<T><<<rows(kw > a.K ? kw : a.K, parts), T1, 0, stream>>>(a, st);
+  mm_scatter<T><<<rows(a.B, parts), T1, 0, stream>>>(a, st);
+  mm_tree<T><<<dim3(a.K, (unsigned)parts), T1, 0, stream>>>(st, op);
+  mm_query<T><<<rows(a.B, parts), T1, 0, stream>>>(a, st, l0, op, levels);
+  mm_finish<<<rows(a.K, parts), T1, 0, stream>>>(a, st);
   return cudaGetLastError();
 }
 
@@ -922,7 +947,10 @@ cudaError_t sliding(const AggArgs& a, const StatArgs& st,
 // slots are never freed. Bound: the B-row passes and the sort, a few
 // words a row.
 
-__global__ void dc_hash(const AggArgs a, const StatArgs st) {
+__global__ void dc_hash(const __grid_constant__ AggArgs a0,
+                        const __grid_constant__ StatArgs s0) {
+  const AggArgs& a = part_args(a0);
+  const StatArgs& st = part_args(s0);
   const int32_t i = blockIdx.x * T1 + threadIdx.x;
   if (i >= a.B) return;
   int64_t lane;
@@ -940,7 +968,11 @@ __global__ void dc_hash(const AggArgs a, const StatArgs st) {
   st.flags[i] = a.slots[i] < a.K;   // active: an aggregated row
 }
 
-__global__ void dc_probe(const AggArgs a, const StatArgs st) {
+__global__ void __launch_bounds__(SS_BLOCK)
+    dc_probe(const __grid_constant__ AggArgs a0,
+             const __grid_constant__ StatArgs s0) {
+  const AggArgs& a = part_args(a0);
+  const StatArgs& st = part_args(s0);
   __shared__ int64_t buf[SS_BLOCK];
   // the activity bytes move aside: the probe reuses the flags
   uint8_t* active = (uint8_t*)st.pkeys;
@@ -955,7 +987,10 @@ __global__ void dc_probe(const AggArgs a, const StatArgs st) {
 }
 
 // each row's pair segment as a sort key; the new counts' base
-__global__ void dc_keys(const AggArgs a, const StatArgs st) {
+__global__ void dc_keys(const __grid_constant__ AggArgs a0,
+                        const __grid_constant__ StatArgs s0) {
+  const AggArgs& a = part_args(a0);
+  const StatArgs& st = part_args(s0);
   const int32_t x = blockIdx.x * T1 + threadIdx.x;
   if (x < st.D)
     st.new_counts[x] = a.scal[0] == 0 ? st.counts[x] : 0;
@@ -975,7 +1010,11 @@ __device__ __forceinline__ int64_t dc_sgn(const AggArgs& a,
 
 // one block: the running pair counts (a segmented prefix over the pair
 // order), each row's transition, the new pair counts
-__global__ void dc_scan(const AggArgs a, const StatArgs st) {
+__global__ void __launch_bounds__(SS_BLOCK)
+    dc_scan(const __grid_constant__ AggArgs a0,
+            const __grid_constant__ StatArgs s0) {
+  const AggArgs& a = part_args(a0);
+  const StatArgs& st = part_args(s0);
   __shared__ int64_t buf[SS_BLOCK];
   int64_t lo, hi, n = 0, m = 0;
   ss::span(a.B, &lo, &hi);
@@ -1017,15 +1056,19 @@ __global__ void dc_scan(const AggArgs a, const StatArgs st) {
 
 cudaError_t distinct(const AggArgs& a, const StatArgs& st,
                      cudaStream_t stream) {
-  dc_hash<<<grid(a.B), T1, 0, stream>>>(a, st);
-  dc_probe<<<1, SS_BLOCK, 0, stream>>>(a, st);
-  dc_keys<<<grid(a.B > st.D ? a.B : st.D), T1, 0, stream>>>(a, st);
+  const int64_t parts = a.n_part;   // partition or pool slots, 1 outside
+  const dim3 one(1, (unsigned)parts);
+  dc_hash<<<rows(a.B, parts), T1, 0, stream>>>(a, st);
+  dc_probe<<<one, SS_BLOCK, 0, stream>>>(a, st);
+  dc_keys<<<rows(a.B > st.D ? a.B : st.D, parts), T1, 0, stream>>>(a, st);
   const uint64_t max_key = (uint64_t)st.D * (a.B + 1) + a.B;
+  // one segment a slot: pkeys and perm2 are [parts, B], K6's sort
+  // scratch too
   cudaError_t err = ss::stable_sort(st.pkeys, a.B, ss::key_bits(max_key),
                                     st.perm2, a.k1, a.k2, a.i1, a.i2,
-                                    a.counts, stream);
+                                    a.counts, stream, parts);
   if (err != cudaSuccess) return err;
-  dc_scan<<<1, SS_BLOCK, 0, stream>>>(a, st);
+  dc_scan<<<one, SS_BLOCK, 0, stream>>>(a, st);
   lane<int64_t>(a, a.spec_lane0[st.spec], stream);
   return cudaGetLastError();
 }

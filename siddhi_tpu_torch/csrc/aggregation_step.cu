@@ -7,8 +7,8 @@
 // (siddhi_tpu/ops/keyed.py hash_columns :33, lookup_or_insert :50). The
 // group-by and argument expressions before it are kernel K2's.
 //
-// One step, every duration at once (a block row a duration, blockIdx.y
-// or blockIdx.x), three stages and no host sync:
+// One step, every duration at once (a block a duration, blockIdx.x, or
+// a block row a duration, blockIdx.z), three stages and no host sync:
 //   1. bucket_probe (one block a duration): the untouched state copied
 //      into the new one; each row's bucket start (floor division
 //      throughout, as jnp's // floors), the key hash of (bucket start,
@@ -30,6 +30,13 @@
 // a row and duration. The probe is one block a duration and the fold one
 // thread a slot (a coarse duration folds its few slots' many rows
 // serially): the design is simple first, not fast.
+//
+// K11[K], a tenant pool's aggregation class (the reference's agg_body
+// under jax.vmap, siddhi_tpu/serving/pool.py:1288-1295): the same three
+// stages over every slot in one launch sequence, the slot as blockIdx.y
+// (part_args moves each slot's batch, state and scratch pointers); each
+// slot keeps its own 4,096-slot table and overflow per duration, and the
+// sort runs one segment a (slot, duration).
 #include "keyed.cuh"
 #include "lane_math.cuh"
 #include "siddhi_kernels.h"
@@ -121,7 +128,8 @@ __device__ __forceinline__ void copy_val(void* dst, int64_t to,
 }
 
 __global__ void __launch_bounds__(SS_BLOCK)
-    bucket_probe(const __grid_constant__ AggrArgs a) {
+    bucket_probe(const __grid_constant__ AggrArgs a0) {
+  const AggrArgs& a = part_args(a0);
   __shared__ int64_t buf[SS_BLOCK];
   const int d = blockIdx.x;
   const int32_t B = a.B, K = a.K;
@@ -158,8 +166,9 @@ __global__ void __launch_bounds__(SS_BLOCK)
 }
 
 __global__ void __launch_bounds__(T1)
-    fold(const __grid_constant__ AggrArgs a) {
-  const int d = blockIdx.y;
+    fold(const __grid_constant__ AggrArgs a0) {
+  const AggrArgs& a = part_args(a0);
+  const int d = blockIdx.z;
   const int32_t B = a.B, K = a.K;
   const int32_t j = blockIdx.x * T1 + threadIdx.x;
   if (j >= B) return;
@@ -228,11 +237,21 @@ __global__ void __launch_bounds__(T1)
 extern "C" cudaError_t siddhi_aggregation_step(const AggrArgs* p,
                                                cudaStream_t stream) {
   const AggrArgs& a = *p;
-  bucket_probe<<<a.D, SS_BLOCK, 0, stream>>>(a);
-  const cudaError_t err = ss::stable_sort(
-      a.skey, a.B, ss::key_bits((uint64_t)a.K), a.perm, a.k1, a.k2, a.i1,
-      a.i2, a.counts, stream, a.D);
-  if (err != cudaSuccess) return err;
-  fold<<<dim3(grid(a.B), a.D), T1, 0, stream>>>(a);
+  const int64_t S = a.n_part;   // tenant pool slots, 1 for one table set
+  bucket_probe<<<dim3(a.D, (unsigned)S), SS_BLOCK, 0, stream>>>(a);
+  // one sort a (slot, duration): S * D segments of B rows, at most
+  // 65,535 (gridDim.y's limit) a call
+  const int64_t P = S * a.D;
+  const int64_t digits = (int64_t)SS_DIGITS * ((a.B + SS_BLOCK - 1) /
+                                               SS_BLOCK);
+  for (int64_t p0 = 0; p0 < P; p0 += 65535) {
+    const int64_t np = P - p0 < 65535 ? P - p0 : 65535;
+    const int64_t r = p0 * a.B;
+    const cudaError_t err = ss::stable_sort(
+        a.skey + r, a.B, ss::key_bits((uint64_t)a.K), a.perm + r, a.k1 + r,
+        a.k2 + r, a.i1 + r, a.i2 + r, a.counts + p0 * digits, stream, np);
+    if (err != cudaSuccess) return err;
+  }
+  fold<<<dim3(grid(a.B), (unsigned)S, a.D), T1, 0, stream>>>(a);
   return cudaGetLastError();
 }

@@ -730,6 +730,9 @@ typedef struct {
   int64_t* seg2;                    // [B] D: segment start, sorted order
   int64_t* ksum;                    // [2 K] C: adds and removes per key
   unsigned long long* count;        // [1] overflowed rows
+  int64_t n_part;             // partition or pool slots (1 outside)
+  const int64_t* moves;       // [n_moves][2] (part_args)
+  int64_t n_moves;
 } StatArgs;
 
 // Kernels C (SlidingMinMaxAgg) and D (DistinctCountAgg).
@@ -906,7 +909,9 @@ cudaError_t siddhi_table_buffer(const TableArgs* a, cudaStream_t stream);
 
 // One unionSet() aggregator's step, between K6's parts 1 and 2: it reads
 // the rows' kinds, validity and reset segments (and the reset count,
-// scal[0]) from K6's AggArgs.
+// scal[0]) from K6's AggArgs. With a slot axis (n_part slots), every
+// pointer up to n_kept is slot 0's and moves through part_args; the
+// compacted pairs are m a slot, slot k's at k * m.
 typedef struct {
   int32_t B;
   int32_t pad_;
@@ -925,21 +930,31 @@ typedef struct {
   int64_t* out;               // [B, 1 + SET_LANES] the union every row sees
   bool* out_null;             // [B]
   // scratch
-  int64_t* keys_all;          // [n] each pair's sortable value
-  int64_t* sgn_all;           // [n] each pair's multiplicity
   uint8_t* keep;              // [n] 1: a pair with a non-zero sign
-  KeySortScratch sort;        // keys: the kept pairs' values, compacted
-  int64_t* sgn;               // [n] the kept pairs' signs, compacted
-  int64_t* total;             // [n] sorted order: sign, then the totals
-  int64_t* csum;              // [n] the signs' inclusive prefix
-  uint8_t* live;              // [n]
-  int64_t* rank;              // [n] positions, then the live prefix
+  int64_t* rank;              // [n] the keep flags' inclusive prefix
   int64_t* sums;              // [ceil(n / 1024)] prefix tile totals
-  int64_t* n_kept;            // [1] host-visible (pinned): kept pairs
+  int64_t* kept;              // [1] the slot's kept pairs
+  int64_t* n_kept;            // [n_part] host memory (pinned): kept pairs
+  // the kept pairs, m a slot
+  KeySortScratch sort;        // keys: the kept pairs' values, compacted
+  int64_t* sgn;               // the kept pairs' signs, compacted
+  int64_t* total;             // sorted order: sign, then the totals
+  int64_t* csum;              // the signs' inclusive prefix
+  uint8_t* live;
+  int64_t* lrank;             // the live flags' inclusive prefix
+  int64_t* msums;             // [ceil(m / 1024)] prefix tile totals
+  int64_t n_part;             // partition or pool slots (1 outside)
+  const int64_t* moves;       // [n_moves][2] (part_args)
+  int64_t n_moves;
 } UnionArgs;
 
-cudaError_t siddhi_union_set(const AggArgs* a, const UnionArgs* u,
-                             cudaStream_t stream);
+// Kernel H in two calls around the step's one host sync: the kept pairs
+// of every slot counted into n_kept, then the union over m pairs a slot
+// (m the largest count).
+cudaError_t siddhi_union_count(const AggArgs* a, const UnionArgs* u,
+                               cudaStream_t stream);
+cudaError_t siddhi_union_finish(const AggArgs* a, const UnionArgs* u,
+                                int64_t m, cudaStream_t stream);
 
 // ---- K9p: a partition block's route, compaction and due (partition.cu) --
 
@@ -1023,7 +1038,9 @@ enum AggrLane { AGGR_COUNT = 0, AGGR_NCOUNT = 1, AGGR_SUM = 2, AGGR_MIN = 3,
                 AGGR_MAX = 4 };
 
 // Every state tensor is [D, K] (overflow [D]), one row a duration; the
-// scratch is [D, B] (claim [D, K]).
+// scratch is [D, B] (claim [D, K]). In a tenant pool each of these, and
+// the batch's [B] columns, is a slot's, and the pointers are slot 0's
+// (part_args).
 typedef struct {
   int32_t B, K, D;            // the batch's rows, the table's slots, durations
   int32_t n_groups, n_lanes;
@@ -1067,6 +1084,9 @@ typedef struct {
   uint32_t *k1, *k2;          // the sort's ping-pong
   int32_t *i1, *i2;
   int32_t* counts;            // [D, 256 * ceil(B / 1024)] digit counts
+  int64_t n_part;             // tenant pool slots (1 for one table set)
+  const int64_t* moves;       // [n_moves][2] (part_args)
+  int64_t n_moves;
 } AggrArgs;
 
 cudaError_t siddhi_aggregation_step(const AggrArgs* a, cudaStream_t stream);

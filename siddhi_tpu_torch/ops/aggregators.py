@@ -63,7 +63,7 @@ from .keyed import (add, fma, hash_columns, lookup_or_insert, maximum,
                     minimum, segmented_cumsum, segmented_cummax,
                     segmented_cummin)
 from .operators import Operator
-from .slots import part_moves, per_slot
+from .slots import part_moves, per_slot, stack, unstack
 from .selector import (AGGREGATOR_NAMES, compile_order_by, const_int,
                        output_attribute_name, shape_chunk, shape_output)
 
@@ -439,11 +439,56 @@ class SlidingMinMaxAgg(AggSpec):
         res = lane.combine(rmq(h, torch.clamp(end, max=W)),
                            rmq(torch.zeros_like(h),
                                torch.clamp(end - W, min=0)))
-        overflow_rows = (agg_row & (end_tail - head_eff > W)).sum(dtype=I64)
+        over_rows = agg_row & (end_tail - head_eff > W)
+        if "row_part" in ctx:   # run_slots: a count a slot
+            overflow_rows = torch.zeros_like(tab["overflow"]).index_add(
+                0, ctx["row_part"], over_rows.to(I64))
+        else:
+            overflow_rows = over_rows.sum(dtype=I64)
         new_heads = torch.maximum(heads0 + n_rems, new_tails - W)
         return (res, span), {"ring": ring, "heads": new_heads,
                              "tails": new_tails,
                              "overflow": tab["overflow"] + overflow_rows}
+
+    def run_slots(self, arg, ctxs: list, tab):
+        """The plain version of kernel C over a slot axis (what
+        aggregate_step_ref runs for a partition block's or a tenant
+        pool's slots): ``run_ref`` in one call, bit-equal to it run once
+        per slot: slot s's K keys become keys s * K .. s * K + K - 1 of
+        one table of S * K keys, its B rows rows s * B .. of S * B, and
+        each row's overflow goes to its own slot's count; ``ctxs`` are
+        the slots' own contexts (agg_context), ``arg`` and ``tab``
+        slotted. -> ((extreme, count) [S, B], table' slotted)."""
+        S = len(ctxs)
+        B, K = ctxs[0]["B"], ctxs[0]["K"]
+        dev = arg[0].device
+        part = torch.arange(S, dtype=I64, device=dev)
+        slots = torch.stack([c["slots"].to(I64) for c in ctxs])   # [S, B]
+        # a row keeps its own slot's clamp, and its segment: the rows
+        # without a key (slot K) in a segment of their own a slot
+        key = part[:, None] * K + torch.clamp(slots, 0, K - 1)
+        seg = part[:, None] * (K + 1) + slots
+        perm = torch.argsort(seg.reshape(-1), stable=True)
+        n_resets = torch.stack([c["n_resets"] for c in ctxs])
+
+        def cat(k):
+            return torch.stack([c[k] for c in ctxs]).reshape(-1)
+        ctx = {"B": S * B, "K": S * K, "slots": key.reshape(-1),
+               "agg_row": cat("agg_row"), "is_add": cat("is_add"),
+               "is_remove": cat("is_remove"),
+               "n_resets": n_resets.repeat_interleave(K),
+               "perm": perm, "inv_perm": torch.argsort(perm, stable=True),
+               "slot_sorted": seg.reshape(-1)[perm],
+               "row_part": part.repeat_interleave(B)}
+        flat = {k: tab[k].reshape((S * K,) + tuple(tab[k].shape[2:]))
+                for k in ("ring", "heads", "tails")}
+        flat["overflow"] = tab["overflow"]
+        (res, span), new = self.run_ref(
+            (arg[0].reshape(-1), arg[1].reshape(-1)), ctx, flat)
+        new = {k: (v if k == "overflow" else
+                   v.reshape((S, K) + tuple(v.shape[1:])))
+               for k, v in new.items()}
+        return (res.reshape(S, B), span.reshape(S, B)), new
 
     def value(self, lane_vals):
         m, cnt = lane_vals
@@ -569,6 +614,9 @@ class UnionSetAgg(AggSpec):
         self.out_type = aggregator_result_type("unionset", arg_type)
         # the reference's one [K] lane: its carry rides along untouched
         self.lanes = (Lane("sum", I64),)
+        # kernel H's compacted pairs' arrays, by device: (slots, pairs a
+        # slot, arrays), grown only when a step keeps more (union_args)
+        self.compact: dict = {}
 
     def init_table(self, K: int, device="cpu"):
         return {"vals": torch.full((SET_LANES,), SET_EMPTY, dtype=I64,
@@ -975,11 +1023,36 @@ def agg_context(op: AggregateOp, state, key_cols, kind, valid):
 
 def aggregate_step_ref(op: AggregateOp, state, key_cols, arg_cols, kind,
                        valid):
-    """Plain PyTorch version of K6's step (with kernels C and D): the
+    """Plain PyTorch version of K6's step (with kernels C, D and H): the
     reference's ``AggregateOp.step`` up to the projection. -> (slots [B]
-    int32, [(values, nulls)] one per aggregator, state')."""
-    ctx, new_keys, new_used, overflow = agg_context(op, state, key_cols,
-                                                    kind, valid)
+    int32, [(values, nulls)] one per aggregator, state'). With a
+    partition block's or a tenant pool's slot axis (``kind`` [slots, B],
+    a state a slot) each slot runs on its own, as the reference's vmap
+    computes it, but kernel C's lanes, which run over every slot in one
+    call (``SlidingMinMaxAgg.run_slots``)."""
+    if kind.dim() == 1:
+        return _step_ref(op, state, arg_cols, kind,
+                         agg_context(op, state, key_cols, kind, valid), {})
+    S = kind.shape[0]
+    parts = [agg_context(op, *unstack((state, key_cols, kind, valid), k))
+             for k in range(S)]
+    done = {}   # aggregator -> its (runnings, table') a slot
+    for s, spec in enumerate(op.agg_specs):
+        if isinstance(spec, SlidingMinMaxAgg):
+            (res, span), ntab = spec.run_slots(
+                arg_cols[s], [p[0] for p in parts], state["tables"][s])
+            done[s] = [((res[k], span[k]), unstack(ntab, k))
+                       for k in range(S)]
+    return stack([_step_ref(op, unstack(state, k), unstack(arg_cols, k),
+                            kind[k], parts[k],
+                            {s: d[k] for s, d in done.items()})
+                  for k in range(S)])
+
+
+def _step_ref(op: AggregateOp, state, arg_cols, kind, part, done: dict):
+    """aggregate_step_ref of one slot from its ``agg_context`` (``part``);
+    ``done``: the stateful aggregators already run, by index."""
+    ctx, new_keys, new_used, overflow = part
     K, slots, agg_row = op.K, ctx["slots"], ctx["agg_row"]
     is_add, is_remove = ctx["is_add"], ctx["is_remove"]
     perm, inv_perm = ctx["perm"], ctx["inv_perm"]
@@ -989,10 +1062,11 @@ def aggregate_step_ref(op: AggregateOp, state, key_cols, arg_cols, kind,
     slot_safe = torch.clamp(ctx["slot_sorted"], 0, K - 1).to(I64)
     last_mask = (reset_seg == n_resets) & agg_row
     aggs, new_carries, new_tables = [], [], []
-    for spec, arg, carry, tab in zip(op.agg_specs, arg_cols, state["carry"],
-                                     state["tables"]):
+    for s, (spec, arg, carry, tab) in enumerate(zip(
+            op.agg_specs, arg_cols, state["carry"], state["tables"])):
         if getattr(spec, "stateful", False):
-            runnings, ntab = spec.run_ref(arg, ctx, tab)
+            runnings, ntab = done[s] if s in done else \
+                spec.run_ref(arg, ctx, tab)
             aggs.append(spec.value(tuple(runnings)))
             new_carries.append(carry)
             new_tables.append(ntab)
@@ -1088,17 +1162,12 @@ def aggregate_step(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
     """Kernel K6, the step: group slots, reset segments, running
     aggregates and the new state. A batch on the CPU takes the plain
     version; a CUDA batch launches csrc/aggregate_step.cu. Inside a
-    partition block (``kind`` of shape [K, B], a state a slot) the plain
-    version runs once per slot and the kernel once over every slot,
-    counted as ``aggregate_step[K]``."""
+    partition block or a tenant pool (``kind`` of shape [K, B], a state
+    a slot) the plain version runs over the slot axis and the kernel once
+    over every slot, counted as ``aggregate_step[K]``."""
     dev = kind.device
     slotted = kind.dim() == 2
     if dev.type == "cpu":
-        if slotted:
-            return per_slot(
-                lambda st, kc, ac, kd, v: aggregate_step_ref(op, st, kc, ac,
-                                                             kd, v),
-                kind.shape[0], state, key_cols, arg_cols, kind, valid)
         return aggregate_step_ref(op, state, key_cols, arg_cols, kind, valid)
     if dev.type != "cuda":
         raise ValueError(f"aggregate_step: unsupported device {dev}")
@@ -1108,44 +1177,50 @@ def aggregate_step(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
     stream = torch.cuda.current_stream(dev).cuda_stream
     if not stats:
         k.aggregate_step(args, stream, 3)
-    else:   # kernels C and D between the slot sort and the lanes
+    else:   # kernels C, D and H between the slot sort and the lanes
         k.aggregate_step(args, stream, 1)
         for spec, st in stats:
-            stateful_launch(k, spec, args, st, stream)
+            stateful_launch(k, spec, args, st, stream, slotted)
         k.aggregate_step(args, stream, 2)
     _kernels.count_launch("aggregate_step[K]" if slotted
                           else "aggregate_step")
     return slots, aggs, new_state
 
 
-def stateful_launch(k, spec, args, st, stream) -> None:
+def stateful_launch(k, spec, args, st, stream, slotted: bool = False) -> None:
     """Kernel C (min/max over expiring content), D (distinctCount) or H
     (unionSet) of one stateful aggregator, on K6's slot order (``args``
-    after its part 1)."""
+    after its part 1); with a partition block's or a tenant pool's slot
+    axis, one launch sequence over every slot, counted with "[K]"."""
+    tag = "[K]" if slotted else ""
     if isinstance(spec, UnionSetAgg):
         k.union_set(args, st, stream)
-        _kernels.count_launch("union_set")
+        _kernels.count_launch("union_set" + tag)
     elif isinstance(spec, SlidingMinMaxAgg):
         k.sliding_minmax(args, st, stream)
-        _kernels.count_launch("sliding_minmax")
+        _kernels.count_launch("sliding_minmax" + tag)
     else:
         k.distinct_count(args, st, stream)
-        _kernels.count_launch("distinct_count")
+        _kernels.count_launch("distinct_count" + tag)
 
 
 def aggregate_emit(op: AggregateOp, slots, qualifying, batch: EventBatch,
                    out_cols, out_nulls, emitted=None):
     """Kernel K6, the emission (after K2's projection and having); once
-    per slot inside a partition block (``aggregate_emit[K]``)."""
+    per slot inside a partition block or a tenant pool
+    (``aggregate_emit[K]``). ``emitted``: a 0-d counter, or a pool's
+    ``[slots]`` counters, each slot's rows added to its own."""
     dev = batch.ts.device
     slotted = batch.ts.dim() == 2
     if dev.type == "cpu":
         if slotted:
+            S = batch.ts.shape[0]
+            if emitted is not None and emitted.dim() == 0:
+                emitted = emitted.expand(S)   # every slot adds to the one
             return per_slot(
-                lambda sl, q, b, oc, on: aggregate_emit_ref(
-                    op, sl, q, b, oc, on, emitted),
-                batch.ts.shape[0], slots, qualifying, batch, out_cols,
-                out_nulls)
+                lambda sl, q, b, oc, on, e: aggregate_emit_ref(
+                    op, sl, q, b, oc, on, e),
+                S, slots, qualifying, batch, out_cols, out_nulls, emitted)
         return aggregate_emit_ref(op, slots, qualifying, batch, out_cols,
                                   out_nulls, emitted)
     if dev.type != "cuda":
@@ -1263,13 +1338,14 @@ def agg_args(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
             a.run[lane] = r.data_ptr()
             lane += 1
         if isinstance(sp, UnionSetAgg):
-            ua, keep = union_args(arg, state["tables"][s],
-                                  new_state["tables"][s], (ov, on), B, dev)
+            ua, keep = union_args(sp, arg, state["tables"][s],
+                                  new_state["tables"][s], (ov, on), B, dev,
+                                  lead)
             stats.append((sp, ua))
             runs.append(keep)
         elif stateful[s]:
             st, keep = stat_args(sp, s, arg, state["tables"][s],
-                                 new_state["tables"][s], B, K, dev)
+                                 new_state["tables"][s], B, K, dev, lead)
             stats.append((sp, st))
             runs.append(keep)
             if isinstance(sp, DistinctCountAgg):
@@ -1293,15 +1369,19 @@ def agg_args(op: AggregateOp, state, key_cols, arg_cols, kind, valid):
             new_state, a, stats)
 
 
-def stat_args(sp, s: int, arg, tab, ntab, B: int, K: int, dev):
+def stat_args(sp, s: int, arg, tab, ntab, B: int, K: int, dev,
+              lead: tuple = ()):
     """Kernel C's or D's arguments for aggregator ``s``: its table, the
     new table's tensors and the scratch. -> (``_kernels.StatArgs``, the
-    tensors to keep alive until the launch)."""
+    tensors to keep alive until the launch). With the slot axis
+    (``lead`` = (slots,)), every table and scratch tensor has it and
+    ``moves`` holds their slot strides, as K6's own arguments."""
     if isinstance(sp, DistinctCountAgg):
         assert sp.D * (B + 1) + B < 2 ** 31, (sp.D, B)   # pair_seg keys
 
     def t(n, dtype):
-        return torch.empty((max(int(n), 1),), dtype=dtype, device=dev)
+        return torch.empty(lead + (max(int(n), 1),), dtype=dtype,
+                           device=dev)
     st = _kernels.StatArgs()
     st.spec = s
     st.arg, st.arg_null = arg[0].data_ptr(), arg[1].data_ptr()
@@ -1313,7 +1393,8 @@ def stat_args(sp, s: int, arg, tab, ntab, B: int, K: int, dev):
           "ksum": t(2 * K, I64), "count": t(1, I64)}
     if isinstance(sp, SlidingMinMaxAgg):
         st.W = sp.W
-        sc["tree"] = torch.empty((K, 2 * sp.W), dtype=sp.dtype, device=dev)
+        sc["tree"] = torch.empty(lead + (K, 2 * sp.W), dtype=sp.dtype,
+                                 device=dev)
         for f in ("ring", "heads", "tails"):
             setattr(st, f, tab[f].data_ptr())
             setattr(st, "new_" + f, ntab[f].data_ptr())
@@ -1327,33 +1408,35 @@ def stat_args(sp, s: int, arg, tab, ntab, B: int, K: int, dev):
     st.new_overflow = ntab["overflow"].data_ptr()
     for k, v in sc.items():
         setattr(st, k, v.data_ptr())
+    st.n_part = lead[0] if lead else 1
+    part_moves(st, (tab, ntab, sc, arg), dev)
     return st, (sc, arg)
 
 
-def union_args(arg, tab, ntab, out, B: int, dev):
-    """Kernel H's arguments for one unionSet() aggregator: its table, the
-    new table's tensors, its [B, 1 + SET_LANES] output and the scratch.
+def union_args(sp, arg, tab, ntab, out, B: int, dev, lead: tuple = ()):
+    """Kernel H's arguments for unionSet() aggregator ``sp``: its table,
+    the new table's tensors, its [B, 1 + SET_LANES] output and the
+    scratch; with the slot axis (``lead`` = (slots,)) each of these a
+    slot, and ``moves`` their slot strides. ``compacted()``, called by
+    the launch after the step's sync, points at the kept pairs' arrays
+    (m a slot, ``compact_arrays``).
     -> (``_kernels.UnionArgs``, the tensors to keep alive until the
     launch)."""
     S = SET_LANES
     n = S * (1 + B)
+    P = lead[0] if lead else 1
     values, nulls = arg
-    if values.shape != (B, 1 + S) or not values.is_contiguous():
+    if values.shape[-2:] != (B, 1 + S) or values.stride(-1) != 1 or \
+            values.stride(-2) != 1 + S:
         raise ValueError("union_set: the argument must be contiguous "
                          f"[{B}, {1 + S}] set rows")
 
     def t(m, dtype):
-        return torch.empty((max(int(m), 1),), dtype=dtype, device=dev)
-    blocks = (n + 1023) // 1024
-    sc = {"keys_all": t(n, I64), "sgn_all": t(n, I64),
-          "keep": t(n, torch.uint8), "sgn": t(n, I64), "total": t(n, I64),
-          "csum": t(n, I64), "live": t(n, torch.uint8), "rank": t(n, I64),
-          "sums": t(blocks, I64),
-          "n_kept": torch.empty((1,), dtype=I64, pin_memory=True)}
-    srt = {"k1": t(n, I64), "k2": t(n, I64), "i1": t(n, torch.int32),
-           "i2": t(n, torch.int32), "keys": t(n, I64),
-           "order": t(n, torch.int32), "sk": t(n, I64),
-           "counts": t(256 * blocks, torch.int32)}
+        return torch.empty(lead + (max(int(m), 1),), dtype=dtype,
+                           device=dev)
+    sc = {"keep": t(n, torch.uint8), "rank": t(n, I64),
+          "sums": t((n + 1023) // 1024, I64), "kept": t(1, I64)}
+    n_kept = torch.empty((P,), dtype=I64, pin_memory=dev.type == "cuda")
     u = _kernels.UnionArgs()
     u.B, u.n = B, n
     u.arg, u.arg_null = values.data_ptr(), nulls.data_ptr()
@@ -1363,9 +1446,46 @@ def union_args(arg, tab, ntab, out, B: int, dev):
     u.out, u.out_null = out[0].data_ptr(), out[1].data_ptr()
     for k, v in sc.items():
         setattr(u, k, v.data_ptr())
-    for k, v in srt.items():
-        setattr(u.sort, k, v.data_ptr())
-    return u, (sc, srt, arg)
+    u.n_kept = n_kept.data_ptr()
+    u.n_part = P
+    part_moves(u, (arg, tab, ntab, out, sc), dev)
+
+    def compacted() -> int:
+        """m, the most pairs any slot kept (read after the sync)."""
+        m = int(n_kept.max())
+        arrs, srt = compact_arrays(sp, dev, P, m)
+        for k, v in arrs.items():
+            setattr(u, k, v.data_ptr())
+        for k, v in srt.items():
+            setattr(u.sort, k, v.data_ptr())
+        return m
+    u.compacted = compacted
+    return u, (sc, n_kept, arg)
+
+
+def compact_arrays(sp, dev, P: int, m: int) -> tuple:
+    """Kernel H's arrays for P slots of m kept pairs each: the
+    aggregator's own (``sp.compact``), kept from step to step and grown,
+    to a multiple of 1,024 pairs a slot, only when a step keeps more, so
+    that a step allocates nothing after its sync. -> (the compacted
+    pairs' arrays, the sort's)."""
+    have = sp.compact.get(dev)
+    if have is not None and have[0] == P and have[1] >= m:
+        return have[2]
+    cap = max(1024, -(-m // 1024) * 1024)
+    blocks = cap // 1024
+
+    def f(k, dtype):
+        return torch.empty((P * k,), dtype=dtype, device=dev)
+    arrs = {"sgn": f(cap, I64), "total": f(cap, I64), "csum": f(cap, I64),
+            "live": f(cap, torch.uint8), "lrank": f(cap, I64),
+            "msums": f(blocks, I64)}
+    srt = {"k1": f(cap, I64), "k2": f(cap, I64), "i1": f(cap, torch.int32),
+           "i2": f(cap, torch.int32), "keys": f(cap, I64),
+           "order": f(cap, torch.int32), "sk": f(cap, I64),
+           "counts": f(256 * blocks, torch.int32)}
+    sp.compact[dev] = (P, cap, (arrs, srt))
+    return sp.compact[dev][2]
 
 
 def emit_args(op: AggregateOp, slots, qualifying, batch: EventBatch,
@@ -1419,7 +1539,8 @@ def emit_args(op: AggregateOp, slots, qualifying, batch: EventBatch,
     for k, v in sc.items():
         setattr(a, k, v.data_ptr())
     a.n_part = lead[0] if slotted else 1
-    part_moves(a, (slots, qualifying, batch, out_cols, out_nulls, out, sc),
-               dev)
+    # a pool's [slots] counters move with the slot; a 0-d one is shared
+    part_moves(a, (slots, qualifying, batch, out_cols, out_nulls, out, sc,
+                   emitted), dev)
     a._keep = (sc,)
     return out, a

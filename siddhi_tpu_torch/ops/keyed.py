@@ -76,33 +76,46 @@ def lookup_or_insert(table_keys, used, keys, active, max_probes: int = 16):
     matches its key at its probed slot, races to claim the slot when it
     is free (the lowest row index wins), re-checks after the claims land
     (two rows inserting the same new key resolve here), else moves on."""
-    K = table_keys.shape[0]
-    B = keys.shape[0]
+    slots, tk, us, ovf = lookup_or_insert_tables(
+        table_keys[None], used[None], keys[None], active[None], max_probes)
+    return slots[0], tk[0], us[0], ovf[0]
+
+
+def lookup_or_insert_tables(table_keys, used, keys, active,
+                            max_probes: int = 16):
+    """``lookup_or_insert`` over T tables at once: table keys and used
+    [T, K], row keys and active [T, B]; table t's rows probe table t only,
+    as the one-table version probes it. -> (slots [T, B] int32, table
+    keys' and used' [T, K], overflow [T] int64)."""
+    T, K = table_keys.shape
+    B = keys.shape[1]
     dev = keys.device
-    rows = torch.arange(B, dtype=torch.int32, device=dev)
+    rows = torch.arange(B, dtype=torch.int32, device=dev).expand(T, B)
+    base = (torch.arange(T, dtype=torch.int64, device=dev) * K)[:, None]
     slot = torch.remainder(torch.abs(keys), K).to(torch.int64)
     placed = ~active
-    result = torch.full((B,), int(NO_SLOT), dtype=torch.int32, device=dev)
-    table_keys, used = table_keys.clone(), used.clone()
+    result = torch.full((T, B), int(NO_SLOT), dtype=torch.int32, device=dev)
+    tk, us = table_keys.reshape(-1).clone(), used.reshape(-1).clone()
     for _ in range(max_probes):
         pending = ~placed
         if not bool(pending.any()):
             break        # every later round changes nothing
-        occ = used[slot]
-        match = pending & occ & (table_keys[slot] == keys)
+        g = base + slot
+        occ = us[g]
+        match = pending & occ & (tk[g] == keys)
         want = pending & ~occ
-        claim = torch.full((K,), B, dtype=torch.int32, device=dev)
-        claim.scatter_reduce_(0, torch.where(want, slot, 0),
-                              torch.where(want, rows, B), "amin")
-        winner = want & (claim[slot] == rows)
-        table_keys[slot[winner]] = keys[winner]
-        used[slot[winner]] = True
-        match = match | (pending & used[slot] & (table_keys[slot] == keys))
+        claim = torch.full((T * K,), B, dtype=torch.int32, device=dev)
+        claim.scatter_reduce_(0, torch.where(want, g, 0).reshape(-1),
+                              torch.where(want, rows, B).reshape(-1), "amin")
+        winner = want & (claim[g] == rows)
+        tk[g[winner]] = keys[winner]
+        us[g[winner]] = True
+        match = match | (pending & us[g] & (tk[g] == keys))
         result = torch.where(match, slot.to(torch.int32), result)
         placed = placed | match
         slot = torch.where(placed, slot, torch.remainder(slot + 1, K))
-    overflow = (active & (result == int(NO_SLOT))).sum(dtype=torch.int64)
-    return result, table_keys, used, overflow
+    overflow = (active & (result == int(NO_SLOT))).sum(1, dtype=torch.int64)
+    return result, tk.reshape(T, K), us.reshape(T, K), overflow
 
 
 # ---------------------------------------------------------------------------

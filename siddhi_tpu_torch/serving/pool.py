@@ -18,9 +18,18 @@ launch sequence over ALL slots, through the kernels' slot axis
   pool's round clock replaces the host scheduler);
 - **join**: each side's chain (K2, K5[K]), then K7[K] crosses every
   slot's trigger rows with that slot's opposite window, the pairs lost
-  at the cap counted in the slot's ``ovf``.
+  at the cap counted in the slot's ``ovf``;
+- **aggregation** (``define aggregation``): K11[K] folds every slot's
+  rows into that slot's bucket tables of every duration (the
+  group-by and argument expressions K2 first); ``materialize_tenant``
+  reads one tenant's ``within ... per`` view. An aggregation node's
+  state is the port's runtime layout with the slot axis in front,
+  ``[slots, D, K]`` a field (the reference keeps ``{duration: state}``,
+  ``[slots, K]`` a field; ``carry.pool_from_jax`` stacks it).
 
-The aggregation class (K11 with a slot axis) is not ported yet.
+Selectors may hold min/max over expiring content, distinctCount and
+unionSet: kernels C, D and H run over the slot axis between K6[K]'s two
+parts.
 
 Ingest is the reference's FAIR ROUND-ROBIN: each tenant contributes at
 most ``batch_max`` rows a round (the QoS plan, serving/qos.py, spends a
@@ -60,6 +69,7 @@ import torch
 from .. import _kernels
 from ..analysis.plan_rules import check_template_bindings
 from ..core.event import EXPIRED, EventBatch, rows_from_batch
+from ..core import aggregation as _aggregation
 from ..core import ingest as _ingest
 from ..core.ingest import PackedEncoder, layout
 from ..core.runtime import (BATCH_BUCKETS, InsertIntoStreamHandler,
@@ -72,7 +82,6 @@ from ..lang import ast as A
 from ..obs.slo import (FlightRecorder, SLOEngine,
                        config_from_annotation as _slo_from_ann,
                        objective_from_dials)
-from ..ops.aggregators import AggregateOp
 from ..ops.expr import CompileError
 from ..ops.join import combined_schema
 from ..ops import nfa as _nfa
@@ -283,9 +292,10 @@ class TenantPool:
         """The query wiring from the prototype's junction graph: N named
         ingest streams in, queries in topological order, terminal streams
         (produced, never consumed) out. Every node gets a ``_kind``
-        (chain/pattern/join) and labeled inputs — chains one
-        ``("*", sid)``, patterns one ``("s:<sid>", sid)`` per distinct
-        engine stream, joins ``("L", sid)``/``("R", sid)``."""
+        (chain/pattern/join/agg) and labeled inputs — chains and
+        aggregations one ``("*", sid)``, patterns one
+        ``("s:<sid>", sid)`` per distinct engine stream, joins
+        ``("L", sid)``/``("R", sid)``."""
         p = self.proto
         self._q_in: dict[str, tuple] = {}
         self._q_out: dict[str, Optional[str]] = {}
@@ -316,9 +326,16 @@ class TenantPool:
                     out = h.junction.stream_id
                     produced.add(out)
             self._q_out[qn] = out
-        if p.aggregations:
-            raise _not_ported("an incremental aggregation in a tenant pool "
-                              "(materialize_tenant)")
+        self._aggs: dict = {}
+        for aid, ar in p.aggregations.items():
+            if aid in self._q_in:
+                raise CompileError(
+                    f"aggregation '{aid}' collides with a query name")
+            self._kind[aid] = "agg"
+            self._aggs[aid] = ar
+            self._q_in[aid] = (("*", ar.in_schema.stream_id),)
+            self._q_out[aid] = None
+            consumers.setdefault(ar.in_schema.stream_id, []).append(aid)
         ingest = sorted(sid for sid in consumers if sid not in produced)
         self._ingest_streams = ingest
         # topological order (BFS from the ingest streams; a node places
@@ -410,12 +427,6 @@ class TenantPool:
                             isinstance(op, ProjectOp) and op.shapes_chunk):
                     raise _not_ported(f"query '{qn}': order by, offset or "
                                       "limit in a tenant pool")
-                if isinstance(op, AggregateOp) and any(
-                        getattr(sp, "stateful", False)
-                        for sp in op.agg_specs):
-                    raise _not_ported(
-                        f"query '{qn}': min/max over expiring content, "
-                        "distinctCount or unionSet in a tenant pool")
             if getattr(q, "rate_limiter", None) is not None:
                 raise _not_ported("output rate limiting in a tenant pool")
 
@@ -447,10 +458,15 @@ class TenantPool:
     #   pattern -> {"nfa": pending-match table, "sel": tuple(op state)}
     #   join    -> {"sides": {"L": tuple, "R": tuple},
     #               "sel": tuple, "ovf": join-cap drop counter}
+    #   agg     -> the aggregation runtime's state: every duration's
+    #              bucket table stacked, [D, K] a field (the reference:
+    #              {duration: bucket-table state})
 
     def _unstacked_init(self, qname: str):
         """One tenant's fresh state for one query (on the CPU)."""
         kind = self._kind[qname]
+        if kind == "agg":
+            return self._aggs[qname]._init_state("cpu")
         q = self.proto.queries[qname]
         sel = tuple(op.init_state() for op in q.operators)
         if kind == "pattern":
@@ -484,6 +500,8 @@ class TenantPool:
         """One tenant's fresh state with its bound `${...}` values in
         place of the zeros."""
         kind = self._kind[qname]
+        if kind == "agg":
+            return self._unstacked_init(qname)
         q = self.proto.queries[qname]
         sel = self._ops_init_with_params(q.operators, vals)
         if kind == "pattern":
@@ -935,8 +953,18 @@ class TenantPool:
         fn = self._bodies.get(key)
         if fn is not None:
             return fn
-        q = self.proto.queries[qname]
         kind = self._kind[qname]
+        if kind == "agg":
+            ar = self._aggs[qname]
+
+            def abody(st, emitted, batch, now):
+                st = _aggregation.aggregation_step(ar, st, batch, now)
+                # the reference counts the input rows (batch.count())
+                emitted += batch.valid.sum(1, dtype=torch.int64)
+                return st, None
+            self._bodies[key] = abody
+            return abody
+        q = self.proto.queries[qname]
         rewrite = self._q_out.get(qname) is not None
         sel = _chain_body(q.operators)
         if label == "timer":
@@ -1290,8 +1318,25 @@ class TenantPool:
         raise _not_ported("replay_errors (the error store)")
 
     def materialize_tenant(self, tenant_id: str, agg_id: str,
-                           duration: str, start=None, end=None):
-        raise _not_ported("materialize_tenant (aggregation templates)")
+                           duration: str, start: Optional[int] = None,
+                           end: Optional[int] = None):
+        """One tenant's `within/per` view of a pooled incremental
+        aggregation: the tenant's slot of one duration's bucket table,
+        copied to the host, through the aggregation runtime's own
+        projection (core/aggregation.py materialize_from) — equal to a
+        separate runtime fed the same rows. -> (schema, buffer dict)."""
+        with self._lock:
+            ar = self._aggs.get(agg_id)
+            if ar is None:
+                raise KeyError(
+                    f"no aggregation '{agg_id}' in pool '{self.name}' "
+                    f"(aggregations: {sorted(self._aggs)})")
+            slot = self._slot(tenant_id)
+            d = ar.duration_key(duration)
+            di = ar.durations.index(d)
+            host = tree_map(lambda x: x[slot, di].cpu(),
+                            self._states[agg_id])
+        return ar.materialize_from(host, d, start, end)
 
     def request_migration(self, tenant_id: str, device: int, **kw):
         raise _not_ported("slot migration")

@@ -143,7 +143,8 @@ class Pair:
                 self.rows.get(("j", tid), []), tid
         states, emitted = carry.pool_from_jax(
             jax.tree_util.tree_map(np.asarray, j._states),
-            {qn: np.asarray(e) for qn, e in j._emitted.items()}, "cpu")
+            {qn: np.asarray(e) for qn, e in j._emitted.items()}, "cpu",
+            j._kind)
         for qn in j._order:
             a, b = host_leaves(states[qn]), host_leaves(t._states[qn])
             assert len(a) == len(b), qn
@@ -434,8 +435,10 @@ def test_unported_options_raise():
                  lambda: pool.audit_programs()):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             call()
+    # a window kind without the slot axis yet (kernel B)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TRegistry(T.SiddhiManager(device="cpu")).pool("""
             define stream S (k string, v double);
-            define aggregation A from S select k, sum(v) as t group by k
-            aggregate every sec ... min;""", warm=False)
+            @info(name='q')
+            from S#window.sort(3, v) select k, v insert into Out;""",
+            warm=False)
