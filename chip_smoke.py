@@ -252,7 +252,24 @@ Phases, each of which stops the run with a non-zero exit on failure:
    join sides' K5[K], and K4[K]'s stream and timer steps launch, and
    the first rounds' launches are held against their plain versions
    over every slot and timed;
-48. print the kernel table as one JSON line, the card's name and power
+48. to 50. pool_aggregation, partition_lanes and pool_lanes: a pool's
+   aggregation class (K11[K]) and the stateful lanes (C[K], D[K],
+   H[K]) in a partition block and a pool, sampled symbols and tenants
+   against separate runtimes, the captured steps against their plain
+   versions over every slot;
+51. to 54. every window kind over a slot axis (window_slot_phases):
+   partition_trades (trades_feed's 512 symbols at 1,024 slots, 128
+   sends of 8,192, one block with externalTime, externalTimeBatch,
+   timeLength, hopping, delay, batch and sort: A[K], B[K]),
+   partition_purchases (about 1,000 merchants' frequent and
+   lossyFrequent card screens: E[K]), partition_sessions (CLICK_APP
+   per user at 1,024 slots: F[K]) and pool_windows (64 tenants of
+   POOL_WINDOWS_TEMPLATE: all four); each kernel must launch, sampled
+   keys (against blocks of one range each) and tenants (against
+   separate runtimes) equal bit for bit, one captured step of every
+   window kind held against its plain version over every slot and
+   timed, with each path's seconds on a line of its own;
+55. print the kernel table as one JSON line, the card's name and power
    limit, and the result line.
 
 `python3 chip_smoke.py --k5-time` times K5 alone (window_agg's and
@@ -6477,6 +6494,511 @@ def pool_lanes_phase(dev, card: str) -> dict:
     return {"eps": eps, "launches": launches, "lanes": lanes}
 
 
+# -- every window kind over a slot axis (A[K], B[K], E[K], F[K]) -----------
+
+# the four paths' shapes: the block's slots, rows a send, sends; the
+# pool's tenants and rows a tenant a pass
+WIN_SLOTS, WIN_SEND, WIN_SENDS = 1024, 8192, 128
+POOL_WIN_TENANTS, POOL_WIN_ROWS, POOL_WIN_PASSES = 64, 1024, 3
+WIN_SAMPLED = 8
+# A[K]'s six K5 kinds (ops/windows2.py KIND), the sort window, kernel E,
+# kernel F: their wrappers, the launch counters and the reference line
+WIN_KERNELS = {
+    "A": ("window_step[K]", "window_step.cu",
+          "siddhi_tpu/ops/windows2.py:85"),
+    "B": ("sort_window[K]", "window_seq.cu",
+          "siddhi_tpu/ops/windows2.py:443"),
+    "E": ("freq_window[K]", "window_seq.cu",
+          "siddhi_tpu/ops/windows2.py:569"),
+    "F": ("session_window[K]", "session_step.cu",
+          "siddhi_tpu/ops/windows2.py:1168"),
+}
+
+
+class _StepCapture:
+    """While installed, keeps the first slotted stream step of every
+    window (A[K]: one a K5 kind, 5-10; B[K], E[K], F[K]: one an operator
+    kind) that the path runs after ``skip`` such steps of it: {(kernel,
+    kind name): (op, state, batch, now)}."""
+
+    def __init__(self, skip: int = 0):
+        self.skip, self.seen, self.kept = skip, {}, {}
+
+    def __enter__(self):
+        from siddhi_tpu_torch.ops import windows as W
+        from siddhi_tpu_torch.ops import windows2 as W2
+        self.targets = [(W, "window_step", "A"),
+                        (W2, "sort_window_step", "B"),
+                        (W2, "freq_window_step", "E"),
+                        (W2, "session_step", "F")]
+        self.saved = [getattr(m, a) for m, a, _k in self.targets]
+        for (m, a, kern), f in zip(self.targets, self.saved):
+            def wrap(op, state, batch, now, _f=f, _k=kern):
+                # a stream step (a timer step's batch is a row or two)
+                if batch.ts.dim() == 2 and batch.ts.shape[1] > 64 and (
+                        _k != "A" or 5 <= op.KIND <= 10):
+                    key = (_k, op.kind_name)
+                    n = self.seen.get(key, 0)
+                    self.seen[key] = n + 1
+                    if n == self.skip:
+                        self.kept[key] = (op, state, batch, now)
+                return _f(op, state, batch, now)
+            setattr(m, a, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, a, _k), f in zip(self.targets, self.saved):
+            setattr(m, a, f)
+        return False
+
+
+def _win_step_check(kern: str, args, what: str) -> dict:
+    """One captured slotted window step: the kernel launched alone on the
+    step's arguments (its wrapper's argument builder, fresh outputs, so
+    a launch can repeat), its new state and output batch held against the
+    plain version over every slot (A[K], F[K]: the one-slot plain version
+    once a slot; B[K], E[K]: their walks over the slot axis in one call,
+    which tests/test_torch_partition_windows3.py holds to the one-slot
+    version), bit for bit, and timed, with the plain version's time, the
+    bound (the batch's columns the slots share once, their valid masks,
+    the state read, the new state and the output written; B and E also
+    their walks' compares) and the nearest library call: A[K], F[K] a
+    batched stable torch.sort of the step's emission keys along the row
+    axis, B[K] the same of the sort key, E[K] none."""
+    from siddhi_tpu_torch import _kernels
+    from siddhi_tpu_torch.ops import windows as W
+    from siddhi_tpu_torch.ops import windows2 as W2
+    from siddhi_tpu_torch.ops.slots import per_slot
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    op, state, batch, now = args
+    K, B = batch.ts.shape
+    nowt = torch.as_tensor(now, dtype=torch.int64, device=batch.ts.device)
+    if kern == "A":
+        new, out, a = W.window_args(op, state, batch, nowt)
+        launch = lib.window_step
+
+        def plain():
+            return per_slot(lambda st, b: W.window_step_ref(op, st, b, now),
+                            K, state, batch)
+    elif kern == "B":
+        new, out, a = W2.sort_args(op, state, batch, nowt)
+        launch = lib.sort_window
+
+        def plain():
+            return W2.sort_window_slots_ref(op, state, batch, now)
+    elif kern == "E":
+        new, out, a = W2.freq_args(op, state, batch, nowt)
+        launch = lib.freq_window
+
+        def plain():
+            return W2.freq_window_slots_ref(op, state, batch, now)
+    else:
+        new, out, a = W2.session_args(op, state, batch)
+        launch = lib.session_window
+
+        def plain():
+            return W2.session_step_ref(op, state, batch, now)
+    launch(a, stream)
+    plain_ms, (pst, pout) = _timed(plain, 1)
+    name = f"{what}: {WIN_KERNELS[kern][0]} ({op.kind_name}) at {[K, B]}"
+    err = compare(name, tree_leaves(new) + _bl(out),
+                  tree_leaves(pst) + _bl(pout))
+    del pst, pout
+    ms = cuda_ms(lambda: launch(a, stream), reps=5, warmup=1)
+    n_bytes = _slot_bytes(batch) + _nbytes(tree_leaves(state)) + \
+        _nbytes(tree_leaves(new)) + _nbytes(_bl(out))
+    walked = int((batch.valid & (batch.kind == 0)).sum())
+    n_ops = 0
+    if kern == "B":   # a row's insert and the comparator over L + 1 rows
+        n_ops = walked * (op.L + 1) * (2 * len(op.keys) + 3)
+    elif kern == "E":   # a row's votes over the table
+        n_ops = walked * op.N * 4
+    bound, by = bound_of(n_bytes, n_ops)
+    lib_ms = None
+    if kern in ("A", "F"):
+        keys = a._keep[3]["keys" if kern == "A" else "ekey"]
+        lib_ms = cuda_ms(lambda: torch.sort(keys, dim=1, stable=True),
+                         reps=5, warmup=1)
+    elif kern == "B":
+        idx, _order = op.keys[0]
+        kcol = batch.cols[idx].contiguous()
+        lib_ms = cuda_ms(lambda: torch.sort(kcol, dim=1, stable=True),
+                         reps=5, warmup=1)
+    torch.cuda.synchronize()
+    print(f"{name}: bit-equal to its plain version over every slot; "
+          f"{ms:.4f} ms a step, plain version {plain_ms:.1f} ms, bound "
+          f"{bound:.5f} ms ({by}; {n_bytes} bytes, {n_ops} operations)"
+          + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""),
+          flush=True)
+    del new, out, a
+    gc.collect()
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms}
+
+
+def _win_checks(cap: _StepCapture, what: str, need) -> dict:
+    """_win_step_check of every captured step -> {kernel: the row of the
+    kernel's slowest kind (its time, bound and plain version's; the
+    largest error)}; fails unless each kernel of ``need`` was captured."""
+    rows: dict = {}
+    for (kern, kind), args in sorted(cap.kept.items()):
+        r = _win_step_check(kern, args, what)
+        cur = rows.get(kern)
+        if cur is None or r["ms"] > cur["ms"]:
+            r["err"] = max(r["err"], cur["err"] if cur else 0.0)
+            r["kind"] = kind
+            rows[kern] = r
+        else:
+            cur["err"] = max(cur["err"], r["err"])
+    for kern in need:
+        if kern not in rows:
+            fail(f"{what}: no slotted {WIN_KERNELS[kern][0]} step was "
+                 "captured on the path")
+    cap.kept.clear()
+    return rows
+
+
+def _block_against_separate(what: str, stream: str, stream_text: str,
+                            key: str, queries_text: str, queries, feed,
+                            n_sends: int, send: int, card: str,
+                            need, warm_sends: int = 2) -> dict:
+    """A partition path end to end: ``partition with (key of stream)``
+    at ``@slots`` WIN_SLOTS around ``queries_text`` through
+    SiddhiManager, send_arrays and batch_callbacks, ``n_sends`` sends of
+    ``send`` rows of ``feed`` (ts, columns); every kernel of ``need``
+    must launch on every send. Then ``WIN_SAMPLED`` keys that the block
+    placed (the first column of the first query's rows) against a
+    separate runtime of the same queries in a block of one range a key,
+    ``key == 'name' as 'k0' or ...`` (a range's slot sees only its key's
+    rows and steps on every send and at the block's timer dues, as the
+    key's slot does in the big block: a query outside a block arms its
+    timers otherwise), fed the same sends: each key's rows of each query
+    equal the big block's rows of the key, bit for bit. One slotted step
+    of each window, mid-run, against its plain version (_win_checks).
+    -> the rows, times, launches and timer steps."""
+    from siddhi_tpu_torch import SiddhiManager, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    ts_all, cols_all = feed
+    N = n_sends * send
+    block_text = stream_text + f"""
+    @slots('{WIN_SLOTS}')
+    partition with ({key} of {stream}) begin
+    {queries_text}
+    end;
+"""
+    mgr = SiddhiManager()
+    warm = mgr.create_siddhi_app_runtime(block_text)
+    warm.start()
+    _send_all(warm.get_input_handler(stream), ts_all[N:],
+              [c[N:] for c in cols_all],
+              tuple(range(0, warm_sends * send + 1, send)))
+    torch.cuda.synchronize()
+    warm.shutdown()
+    del warm
+    gc.collect()
+    rt = mgr.create_siddhi_app_runtime(block_text)
+    outs = {q: [] for q in queries}
+    for q in queries:
+        rt.queries[q].batch_callbacks.append(outs[q].append)
+    (blk,) = rt.partitions.values()
+    timers = {}
+    on_timer = blk._on_timer
+
+    def count_timer(qname, due):
+        timers[qname] = timers.get(qname, 0) + 1
+        on_timer(qname, due)
+    blk._on_timer = count_timer
+    rt.start()
+    h = rt.get_input_handler(stream)
+    _kernels.reset_launches()
+    with _StepCapture(skip=n_sends // 2) as cap:
+        t0 = time.perf_counter()
+        for s in range(0, N, send):
+            h.send_arrays(ts_all[s:s + send],
+                          [c[s:s + send] for c in cols_all])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    for kern in need:
+        k = WIN_KERNELS[kern][0]
+        if launches[k] < n_sends:
+            fail(f"{what}: {k} launched {launches[k]} times on "
+                 f"{n_sends} sends ({launches})")
+    stats = {q: rt.queries[q].stats() for q in queries}
+    rt.shutdown()
+    eps = N / wall
+    block_rows = {q: C.emitted_columns(outs[q]) for q in queries}
+    del outs
+    n_rows = sum(len(r[0]) for r in block_rows.values())
+    codes = np.unique(block_rows[queries[0]][1][0])
+    sampled = codes[:: max(1, len(codes) // WIN_SAMPLED)][:WIN_SAMPLED]
+    names = [GLOBAL_STRINGS.decode(int(c)) for c in sampled]
+    ranges = " or ".join(f"{key} == '{n}' as 'k{i}'"
+                         for i, n in enumerate(names))
+    sep = mgr.create_siddhi_app_runtime(stream_text + f"""
+    partition with ({ranges} of {stream}) begin
+    {queries_text}
+    end;
+""")
+    souts = {q: [] for q in queries}
+    for q in queries:
+        sep.queries[q].batch_callbacks.append(souts[q].append)
+    sep.start()
+    sh = sep.get_input_handler(stream)
+    for s in range(0, N, send):
+        sh.send_arrays(ts_all[s:s + send], [c[s:s + send] for c in cols_all])
+    torch.cuda.synchronize()
+    sep.shutdown()
+    seen = 0
+    for q in queries:
+        bt, bc, bn = block_rows[q]
+        st, sc, sn = C.emitted_columns(souts[q])
+        for code, name in zip(sampled, names):
+            mine, theirs = bc[0] == code, sc[0] == code
+            seen += int(theirs.sum())
+            if not np.array_equal(bt[mine], st[theirs]) or any(
+                    not np.array_equal(bits_np(x[mine]), bits_np(y[theirs]))
+                    for x, y in zip(bc + bn, sc + sn)):
+                fail(f"{what}: key {name}'s rows of query {q} "
+                     f"({int(mine.sum())}) differ from its range's "
+                     f"({int(theirs.sum())})")
+    del sep, souts
+    del block_rows
+    gc.collect()
+    if not seen:
+        fail(f"{what}: the sampled keys have no rows")
+    print(f"{what}: {N} events in {n_sends} sends of {send}; {n_rows} rows; "
+          f"{len(sampled)} sampled keys' rows of every query equal a block "
+          f"of their ranges bit for bit; timer steps {timers} "
+          f"({sum(timers.values()) / n_sends:.2f} a send); stats {stats}; "
+          f"{eps:.0f} events/s, device batches only ({card})", flush=True)
+    print(f"launches on the {what} path: {launches}", flush=True)
+    rows = _win_checks(cap, what, need)
+    _kernels.LAUNCHES.update(launches)
+    return {"eps": eps, "launches": launches, "timers": timers,
+            "rows": rows}
+
+
+def _trades_queries() -> str:
+    """partition_trades' queries: WINDOW_EXT_APP's rolling high, low and
+    average over externalTime, WINDOW_BARS_APP's one-second bars over
+    externalTimeBatch, timeLength, hopping, delay, batch, and each
+    symbol's ten cheapest quotes (sort)."""
+    return """
+      @info(name = 'ext') @cap(window.size='512')
+      from Trades#window.externalTime(ets, 1 min)
+      select symbol, max(price) as hi, min(price) as lo, avg(price) as ap,
+             count() as n
+      group by symbol
+      insert into ExtOut;
+      @info(name = 'bars') @cap(window.size='512')
+      from Trades#window.externalTimeBatch(ets, 1 sec)
+      select symbol, max(price) as hi, min(price) as lo, sum(volume) as vol,
+             count() as n
+      group by symbol
+      insert into Bars;
+      @info(name = 'recent')
+      from Trades#window.timeLength(10 sec, 16)
+      select symbol, price, volume
+      insert all events into Recent;
+      @info(name = 'hops') @cap(window.size='512')
+      from Trades#window.hopping(20 sec, 10 sec)
+      select symbol, price, volume
+      insert into Hops;
+      @info(name = 'late') @cap(window.size='512')
+      from Trades#window.delay(5 sec)
+      select symbol, price, volume
+      insert into Late;
+      @info(name = 'chunks') @cap(window.size='512')
+      from Trades#window.batch()
+      select symbol, count() as n, sum(volume) as vol
+      insert into Chunks;
+      @info(name = 'cheap')
+      from Trades#window.sort(10, price, 'asc', volume, 'desc')
+      select symbol, price, volume
+      insert all events into Cheapest;
+"""
+
+
+TRADES_QUERIES = ("ext", "bars", "recent", "hops", "late", "chunks", "cheap")
+
+
+def partition_trades_phase(dev, card: str) -> dict:
+    """partition_trades: checks.TRADES_STREAM with trades_feed (512
+    symbols, ets from TS0 in steps of 0-2 ms), ``partition with (symbol
+    of Trades)`` at ``@slots`` WIN_SLOTS, one block of seven queries
+    (_trades_queries: six K5 kinds, A[K], and the sort window, B[K]),
+    WIN_SENDS sends of WIN_SEND rows; the spans fire about one timer
+    step a send of each timed query (timeLength 10 s, hopping every 10
+    s, delay 5 s; a send spans 8.192 s). Sampled symbols against blocks
+    of their own, one captured step of every kind against its plain
+    version (_block_against_separate)."""
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    N = WIN_SENDS * WIN_SEND
+    feed = C.trades_feed(N + 4 * WIN_SEND, GLOBAL_STRINGS.encode)
+    return _block_against_separate(
+        "partition_trades", "Trades", C.TRADES_STREAM, "symbol",
+        _trades_queries(), TRADES_QUERIES, feed, WIN_SENDS, WIN_SEND, card,
+        ("A", "B"))
+
+
+def _block_queries(app: str) -> str:
+    """The queries between a partition's ``begin`` and ``end``."""
+    return app.split("begin", 1)[1].rsplit("end;", 1)[0]
+
+
+def partition_purchases_phase(dev, card: str) -> dict:
+    """partition_purchases: per-merchant repeat-card screening
+    (checks.PARTITION_PURCHASES_APP's queries: ``[price >= 30]
+    #window.frequent(2, cardNo)`` and ``#window.lossyFrequent(0.1, 0.01,
+    cardNo)``, as FREQUENT_APP and LOSSY_APP, inside ``partition with
+    (merchant of Purchase)`` at ``@slots`` WIN_SLOTS), about 1,000
+    merchants, cards Zipf(1.3) over 4,096 (merchant_purchase_feed),
+    WIN_SENDS sends of WIN_SEND; E[K] twice a send. Sampled merchants
+    against blocks of their own (_block_against_separate)."""
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    N = WIN_SENDS * WIN_SEND
+    feed = C.merchant_purchase_feed(N + 4 * WIN_SEND, GLOBAL_STRINGS.encode)
+    return _block_against_separate(
+        "partition_purchases", "Purchase", C.PURCHASE_MERCHANT_STREAM,
+        "merchant", _block_queries(C.PARTITION_PURCHASES_APP),
+        ("freq", "lossy"), feed, WIN_SENDS, WIN_SEND, card, ("E",))
+
+
+def partition_sessions_phase(dev, card: str) -> dict:
+    """partition_sessions: CLICK_APP's stream and selector inside
+    ``partition with (user of Click)`` at ``@slots`` WIN_SLOTS
+    (checks.PARTITION_SESSIONS_APP's query), click_feed at 1,000 users,
+    WIN_SENDS sends of WIN_SEND clicks: 1,024 x 64 x 128 member rows of
+    session state on the card; F[K] every send and on the gaps' timer
+    steps. Sampled users against blocks of their own
+    (_block_against_separate)."""
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    N = WIN_SENDS * WIN_SEND
+    feed = C.click_feed(N + 4 * WIN_SEND, GLOBAL_STRINGS.encode,
+                        n_users=C.PARTITION_SESSION_USERS)
+    stream = C.PARTITION_SESSIONS_APP.split("@slots", 1)[0]
+    return _block_against_separate(
+        "partition_sessions", "Click", stream, "user",
+        _block_queries(C.PARTITION_SESSIONS_APP), ("q",), feed, WIN_SENDS,
+        WIN_SEND, card, ("F",))
+
+
+# POOL_WINDOWS_TEMPLATE's output streams, told apart in a tenant's rows by
+# their first value's type and their width
+POOL_WIN_STREAMS = {"ExtOut": (float, 3), "TopOut": (float, 2),
+                    "HeavyOut": (int, 2), "SessOut": (str, 3)}
+
+
+def _by_stream(rows) -> dict:
+    out = {s: [] for s in POOL_WIN_STREAMS}
+    kinds = {v: s for s, v in POOL_WIN_STREAMS.items()}
+    for r in rows:
+        out[kinds[(type(r[2][0]), len(r[2]))]].append(r)
+    # a session's rows compare user by user: the pool closes the sessions
+    # a gap between rounds ends at the next round's first row, a separate
+    # runtime at their timers, each user's in the same order
+    out["SessOut"] = sorted(out["SessOut"], key=lambda r: r[2][0])
+    return out
+
+
+def pool_windows_phase(dev, card: str) -> dict:
+    """pool_windows: checks.POOL_WINDOWS_TEMPLATE (externalTime, sort,
+    frequent and session, each behind a ``${...}``
+    filter) for POOL_WIN_TENANTS tenants x POOL_WIN_ROWS rows a pass
+    (checks.pool_windows_feed, class_feeds' (k, v)), batch_max 1,024,
+    POOL_WIN_PASSES passes; A[K], B[K], E[K] and F[K] must launch. The
+    sampled tenants' rows of each stream equal separate runtimes fed the
+    tenant's round chunks (sessions user by user), bit for bit; one
+    captured step of each window against its plain version over every
+    slot (_win_checks)."""
+    from siddhi_tpu_torch import SiddhiManager, StreamCallback, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    from siddhi_tpu_torch.serving import Template, TemplateRegistry
+    n = POOL_WIN_TENANTS
+    reg = TemplateRegistry(SiddhiManager())
+    pool = reg.pool(C.POOL_WINDOWS_TEMPLATE, slots=n, max_tenants=n,
+                    batch_max=POOL_BATCH_MAX, name="pool_windows")
+    tids = [f"t{i}" for i in range(n)]
+    for i, tid in enumerate(tids):
+        pool.add_tenant(tid, C.pool_windows_bindings(i))
+    ts, cols = C.pool_windows_feed(POOL_WIN_ROWS, GLOBAL_STRINGS.encode)
+    sampled = tids[:: n // WIN_SAMPLED][:WIN_SAMPLED]
+    got: dict = {}
+    _pool_rows(pool, sampled, got)
+    takes = _TakeLog(pool, sampled)
+    _kernels.reset_launches()
+    rounds: list = []
+    span = int(ts[-1] - ts[0]) + 1000
+    t0 = time.perf_counter()
+    with _StepCapture(skip=1) as cap:
+        for p in range(POOL_WIN_PASSES):
+            _pool_pass(pool, tids, {"S": (ts, cols)}, p * span, rounds)
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    takes.stop()
+    for kern in WIN_KERNELS:
+        k = WIN_KERNELS[kern][0]
+        if launches[k] == 0:
+            fail(f"pool_windows: {k} did not launch on the pool's path "
+                 f"({launches})")
+    for i, tid in enumerate(sampled):
+        # on the clock of the rows it is sent, as the pool's rounds are
+        text = "@app:playback\n" + Template(
+            C.POOL_WINDOWS_TEMPLATE).instantiate_static(
+                C.pool_windows_bindings(tids.index(tid)),
+                app_name=f"sep_w{i}")
+        sep = SiddhiManager().create_siddhi_app_runtime(text)
+        rows = []
+        for s in POOL_WIN_STREAMS:
+            sep.add_callback(s, StreamCallback(lambda evs: rows.extend(
+                (e.timestamp, e.is_expired, tuple(e.data)) for e in evs)))
+        sep.start()
+        for sid, t, c in takes.log[tid]:
+            sep.get_input_handler(sid).send_arrays(t, c)
+        torch.cuda.synchronize()
+        sep.shutdown()
+        mine, theirs = _by_stream(got.get(tid, [])), _by_stream(rows)
+        for s in POOL_WIN_STREAMS:
+            if mine[s] != theirs[s] or not theirs[s]:
+                fail(f"pool_windows: tenant {tid}'s pooled rows of {s} "
+                     f"({len(mine[s])}) differ from a separate runtime's "
+                     f"({len(theirs[s])})")
+    eps = POOL_WIN_PASSES * n * POOL_WIN_ROWS / wall
+    print(f"pool_windows {n} tenants x {POOL_WIN_ROWS} rows, batch_max "
+          f"{POOL_BATCH_MAX}: {eps:.0f} events/s in {POOL_WIN_PASSES} "
+          f"passes ({len(rounds)} rounds, p50 "
+          f"{float(np.percentile(rounds, 50)):.3f} ms); {len(sampled)} "
+          f"sampled tenants equal separate runtimes bit for bit (every "
+          f"stream; sessions user by user); launches {launches}; {card}",
+          flush=True)
+    rows = _win_checks(cap, "pool_windows", tuple(WIN_KERNELS))
+    pool.shutdown()
+    reg.shutdown()
+    gc.collect()
+    return {"eps": eps, "launches": launches, "rows": rows}
+
+
+def window_slot_phases(dev, card: str) -> dict:
+    """The four window paths over a slot axis, each timed on a line of
+    its own. -> {path: result}."""
+    out = {}
+    for name, fn in (("partition_trades", partition_trades_phase),
+                     ("partition_purchases", partition_purchases_phase),
+                     ("partition_sessions", partition_sessions_phase),
+                     ("pool_windows", pool_windows_phase)):
+        t0 = time.perf_counter()
+        out[name] = fn(dev, card)
+        print(f"[{name}: {time.perf_counter() - t0:.1f} s]", flush=True)
+    return out
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -7186,7 +7708,36 @@ def main() -> None:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
 
     _mark("51.")
-    # -- 51. result -----------------------------------------------------------
+    # -- 51. to 54. every window kind over a slot axis (A[K], B[K], E[K],
+    # F[K]); partition_trades, partition_purchases, partition_sessions,
+    # pool_windows
+    s14 = window_slot_phases(dev, card)
+
+    def s14_launches(*names):
+        return sum(r["launches"].get(k, 0) for r in s14.values()
+                   for k in names)
+    for row in table:
+        kname = row["name"]
+        if kname == "partition":
+            row["launches"] += s14_launches(
+                "partition_route", "partition_compact", "partition_due")
+        elif kname in ("expr_eval", "expr_eval[K]", "aggregate_step[K]",
+                       "aggregate_emit[K]", "unpack_packed[K]",
+                       "sliding_minmax[K]", "distinct_count[K]"):
+            row["launches"] += s14_launches(kname)
+    for kern, (kname, src, repl) in WIN_KERNELS.items():
+        rs = [ph["rows"][kern] for ph in s14.values() if kern in ph["rows"]]
+        r = max(rs, key=lambda x: x["ms"])   # the path of its largest step
+        table.append({
+            "name": kname if kern != "A" else "window_step[K] (A[K])",
+            "route": "cuda", "source": f"siddhi_tpu_torch/csrc/{src}",
+            "replaces": repl, "launches": s14_launches(kname),
+            "max_abs_err": max(x["err"] for x in rs), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+
+    _mark("55.")
+    # -- 55. result -----------------------------------------------------------
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

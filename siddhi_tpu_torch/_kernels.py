@@ -47,7 +47,8 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # K7 with a tenant pool's slot axis, and K2's that load per-slot
 # template parameters or count per slot ("[K]": K4, K5 and K6 count a
 # pool's as a partition block's); kernels C, D and H with either slot
-# axis, and K11 with a tenant pool's
+# axis, and K11 with a tenant pool's; kernels B, E and F with either
+# slot axis
 ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
                 "window_step", "sort_window", "aggregate_step",
                 "sliding_minmax", "distinct_count", "aggregate_emit",
@@ -60,7 +61,8 @@ ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
                 "reorder_ring", "unpack_packed[K]", "expr_eval[K]",
                 "nfa_parallel[K]", "join_probe[K]", "join_grid[K]",
                 "sliding_minmax[K]", "distinct_count[K]", "union_set[K]",
-                "aggregation_step[K]")
+                "aggregation_step[K]", "sort_window[K]", "freq_window[K]",
+                "session_window[K]")
 LAUNCHES = {name: 0 for name in ENTRY_POINTS}
 
 
@@ -307,11 +309,12 @@ class SortArgs(ctypes.Structure):
                 ("na", WinBuf), ("ev", WinBuf)] + [
         (f, _P) for f in ("next_seq", "now", "o_next_seq")] + [
         ("out", WinBuf), ("out_kind", _P), ("mask", _P), ("pos", _P),
-        ("col_size", _I32 * WIN_MAX_COLS)] + [
+        ("rows", _P), ("col_size", _I32 * WIN_MAX_COLS)] + [
         (f, _I32) for f in ("n_cols", "B", "W", "L", "expired_enabled",
                             "n_keys")] + [
         ("key_col", _I32 * SORT_MAX_KEYS), ("key_desc", _I32 * SORT_MAX_KEYS),
-        ("key_type", _I32 * SORT_MAX_KEYS)]
+        ("key_type", _I32 * SORT_MAX_KEYS), ("n_part", _I64),
+        ("moves", _P), ("n_moves", _I64)]
 
 
 class FreqArgs(ctypes.Structure):
@@ -327,7 +330,8 @@ class FreqArgs(ctypes.Structure):
         ("key_type", _I32 * WIN_MAX_COLS)] + [
         (f, _I32) for f in ("n_cols", "n_keys", "B", "N", "lossy",
                             "expired_enabled")] + [
-        ("width", _I64), ("thresh", ctypes.c_double)]
+        ("width", _I64), ("thresh", ctypes.c_double), ("n_part", _I64),
+        ("moves", _P), ("n_moves", _I64)]
 
 
 class SessArgs(ctypes.Structure):
@@ -342,12 +346,13 @@ class SessArgs(ctypes.Structure):
             "hk", "cur", "slots", "prb", "flags", "claim", "rt", "order",
             "s_a", "s_b", "s_c", "s_f", "r_close_ts", "r_close_row", "r_pos",
             "r_flags", "sl_close_row", "sl_flags", "ekey", "eorder", "k1",
-            "k2", "i1", "i2", "counts", "scal")] + [
+            "k2", "i1", "i2", "counts", "scal", "rkey", "rk1", "rk2", "ri1",
+            "ri2", "rcounts")] + [
         ("col_size", _I32 * WIN_MAX_COLS)] + [
         (f, _I32) for f in ("n_cols", "B", "K", "S", "M", "has_key",
                             "key_col", "key_type", "expired_enabled",
                             "pad_")] + [
-        ("gap", _I64)]
+        ("gap", _I64), ("n_part", _I64), ("moves", _P), ("n_moves", _I64)]
 
 
 ORDER_MAX_COLS = 32

@@ -42,14 +42,18 @@ def _tree(tree, device):
 
 
 _BUFFER_KEYS = {"ts", "seq", "cols", "nulls", "valid"}
+# a session window's [K, S] member buffers keep no seq
+_MEMBER_KEYS = {"ts", "cols", "nulls", "valid"}
 
 
 def _remap_buffers(tree, string_cols, remap):
-    """Window buffers in ``tree`` with their STRING columns (flags in
-    ``string_cols``, the stream's attribute order) passed through
+    """Window buffers in ``tree`` (the sort window's, the frequent and
+    lossyFrequent tables' and the session window's member buffers among
+    them, with or without a slot axis) with their STRING columns (flags
+    in ``string_cols``, the stream's attribute order) passed through
     ``remap``."""
     if isinstance(tree, dict):
-        if set(tree) == _BUFFER_KEYS:
+        if set(tree) in (_BUFFER_KEYS, _MEMBER_KEYS):
             cols = tuple(np.asarray(remap(np.asarray(c)), np.int32)
                          if is_str else c
                          for c, is_str in zip(tree["cols"], string_cols))
@@ -108,12 +112,17 @@ def block_from_jax(snapshot: dict, device, string_cols=None,
     table, every query's [K]-stacked state, ``emitted`` and ``lost``)
     -> the port's, for ``PartitionBlockRuntime.restore_state``. A
     pattern query's state, (pending table, selector states), comes
-    across as it is. ``remap`` is applied to the STRING columns of every
-    window buffer, flagged per query by ``string_cols`` ({query name:
-    flags in its input's attribute order}), as in state_from_jax. The
-    slot table holds hashes of dictionary codes and carries over only
-    where both packages gave the feed's strings the same codes; the
-    rate limiters' state is not ported."""
+    across as it is, and so does every window kind's slotted state: the
+    K5 kinds' buffers and scalars, the sort window's buffer, the
+    frequent and lossyFrequent tables (keys, counts, buckets, total) and
+    the session window's key table, [K, 64, 128] member buffers and
+    session ends. ``remap`` is applied to the STRING columns of every
+    window buffer (the session's members included), flagged per query
+    by ``string_cols`` ({query name: flags in its input's attribute
+    order}), as in state_from_jax. The block's slot table, the frequent
+    tables' keys and the session's key table hold hashes of dictionary
+    codes and carry over only where both packages gave the feed's
+    strings the same codes; the rate limiters' state is not ported."""
     qstates = snapshot["qstates"]
     if remap is not None:
         qstates = {qn: _remap_buffers(st, tuple((string_cols or {}).get(

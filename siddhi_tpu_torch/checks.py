@@ -3558,3 +3558,108 @@ def class_feeds(streams, rows: int, seed: int = 17) -> dict:
         v = rng.uniform(0, 1000.0, rows)
         feeds[sid] = (ts, [k, v])
     return feeds
+
+
+# -- every window kind over a slot axis (A[K], B[K], E[K], F[K]) -------------
+
+# one query a kernel, each behind a `${...}` filter: the rolling event-
+# time window (A[K]), the top quotes (B[K]), the heavy keys (E[K]) and
+# per-user sessions (F[K]); the stream is the class templates' (k, v)
+# with an event clock and a user (a session key is a string); each
+# output stream's first value's type and width tell its rows apart; the
+# sessions' sums are of integers, which no order of adding changes
+POOL_WINDOWS_TEMPLATE = """
+define stream S (ets long, k long, v double, user string);
+@info(name='ext')
+from S[v > ${lo:double}]#window.externalTime(ets, 200 milliseconds)
+select max(v) as hi, count() as n, k
+insert into ExtOut;
+@info(name='top')
+from S[v < ${hi:double}]#window.sort(8, v, 'desc', ets)
+select v, k
+insert all events into TopOut;
+@info(name='heavy')
+from S[v > ${lo:double}]#window.frequent(4, k)
+select k, v
+insert all events into HeavyOut;
+@info(name='sess')
+from S[v > ${lo:double}]#window.session(30 milliseconds, user)
+select user, count() as n, sum(k) as sk
+group by user
+insert all events into SessOut;
+"""
+POOL_WINDOW_USERS = 16
+
+
+def pool_windows_bindings(i: int) -> dict:
+    """Tenant i's `${lo:double}` and `${hi:double}`."""
+    return {"lo": 100.0 + 10.0 * (i % 8), "hi": 900.0 - 10.0 * (i % 8)}
+
+
+def pool_windows_feed(rows: int, encode, seed: int = 17,
+                      prefix: str = "PW"):
+    """POOL_WINDOWS_TEMPLATE's feed: class_feeds' (k, v) for stream S,
+    ets the arrival time stepped back 0-3 ms at random, the user k mod
+    16. -> (ts, [ets, k, v, user codes])."""
+    ts, (k, v) = class_feeds(("S",), rows, seed)["S"]
+    rng = np.random.default_rng(seed + 1)
+    users = np.array([encode(s) for s in user_symbols(POOL_WINDOW_USERS,
+                                                      prefix)], np.int32)
+    return ts, [ts - rng.integers(0, 4, rows), k, v,
+                users[k % POOL_WINDOW_USERS]]
+
+
+# per-merchant repeat-card screening: the frequent and lossyFrequent
+# fraud queries (fraud_app, LOSSY_APP) inside a partition by merchant
+PURCHASE_MERCHANT_STREAM = """
+    @app:playback
+    define stream Purchase (merchant string, cardNo string, price double);
+"""
+PARTITION_PURCHASES_APP = PURCHASE_MERCHANT_STREAM + """
+    @slots('1024')
+    partition with (merchant of Purchase) begin
+      @info(name = 'freq')
+      from Purchase[price >= 30]#window.frequent(2, cardNo)
+      select merchant, cardNo, price
+      insert all events into PotentialFraud;
+      @info(name = 'lossy')
+      from Purchase[price >= 30]#window.lossyFrequent(0.1, 0.01, cardNo)
+      select merchant, cardNo, price
+      insert all events into LossyFraud;
+    end;
+"""
+PURCHASE_MERCHANTS = 1000
+
+
+def merchant_symbols(n: int, prefix: str = "MER") -> list:
+    return [f"{prefix}{i:04d}" for i in range(n)]
+
+
+def merchant_purchase_feed(n: int, encode, n_merchants: int =
+                           PURCHASE_MERCHANTS, n_cards: int = FRAUD_CARDS,
+                           seed: int = 24, prefix: str = "MER",
+                           card_prefix: str = "CARD"):
+    """purchase_feed's purchases (cards Zipf(1.3) over ``n_cards``, price
+    U(0, 100) to the cent, 1 ms apart) at merchants uniform over
+    ``n_merchants``. -> (ts, [merchant codes, card codes, price])."""
+    ts, (card, price) = purchase_feed(n, encode, n_cards, seed, card_prefix)
+    rng = np.random.default_rng(seed + 1)
+    mers = np.array([encode(s) for s in merchant_symbols(n_merchants,
+                                                         prefix)], np.int32)
+    return ts, [mers[rng.integers(0, n_merchants, n)], card, price]
+
+
+# CLICK_APP's stream and selector inside a partition by user
+PARTITION_SESSIONS_APP = """
+    @app:playback
+    define stream Click (user string, dwell long);
+    @slots('1024')
+    partition with (user of Click) begin
+      @info(name = 'q')
+      from Click#window.session(5 sec, user)
+      select user, count() as clicks, sum(dwell) as dwell
+      group by user
+      insert all events into Sessions;
+    end;
+"""
+PARTITION_SESSION_USERS = 1000

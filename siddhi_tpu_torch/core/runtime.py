@@ -1771,10 +1771,6 @@ class Planner:
 
     # -- partitions ------------------------------------------------------
     DEFAULT_PARTITION_SLOTS = 32
-    # the windows with a slot axis in kernel K5 (csrc/window_step.cu)
-    PARTITION_WINDOWS = (TimeWindowOp, LengthWindowOp, LengthBatchWindowOp,
-                         TimeBatchWindowOp)
-
     def plan_partition(self, part: A.Partition, qcount: int,
                        pcount: int) -> int:
         """``partition with (...) begin ... end`` -> PartitionBlockRuntime
@@ -1942,14 +1938,11 @@ class Planner:
         return qcount
 
     def _check_block_ops(self, name: str, operators) -> None:
-        """The operators a partition block runs with its slot axis: the
-        windows of K5's first wave, K6's aggregators with the C, D and H
-        lanes, K2's filters and projections. The rest raise."""
+        """The operators a partition block runs with its slot axis: every
+        window kind but cron (refused before, as in the reference), K6's
+        aggregators with the C, D and H lanes, K2's filters and
+        projections. The rest raise."""
         for op in operators:
-            if isinstance(op, WindowOp) and \
-                    not isinstance(op, self.PARTITION_WINDOWS):
-                raise not_ported(f"window '{op.kind_name}' inside a "
-                                 "partition")
             if isinstance(op, StreamFunctionOp):
                 raise not_ported("stream functions inside a partition")
             if getattr(op, "order_by", None) or \

@@ -28,6 +28,15 @@
 // next_due (the minimum end of the open slots) stays a torch reduction
 // over 64 values, read back by the runtime as the reference reads it.
 //
+// With a slot axis (F[K]: a partition block's or a tenant pool's n_part
+// slots, each with its own 64-key table and [64, 128] members) every
+// launch reads its struct through part_args, the slot as blockIdx.y: the
+// probe and the scan are one block a slot, the other passes a row of
+// blocks a slot, and both radix sorts run one segment a slot (the rows'
+// sort on its own [n_part, B] keys and scratch). The reference's
+// batch-wide quirk (a session's close time is the suffix max over every
+// later row) stays within the slot's own rows, as its vmap has it.
+//
 // Bound: latency at 65,536 rows: stage 3 is one block walking the rows
 // in spans with a dozen block scans; the rest are passes over B or
 // K * S + 2B rows.
@@ -68,7 +77,8 @@ __device__ __forceinline__ void zero_val(void* dst, int64_t j, int sz) {
   else ((uint8_t*)dst)[j] = 0;
 }
 
-__global__ void sess_rows(const SessArgs a) {
+__global__ void sess_rows(const __grid_constant__ SessArgs a0) {
+  const SessArgs& a = part_args(a0);
   const int64_t i = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (i >= a.B) return;
   a.cur[i] = a.batch.valid[i] && a.batch_kind[i] == CUR;
@@ -122,7 +132,9 @@ __device__ __forceinline__ int64_t block_max(int64_t v, int64_t* buf,
 }
 
 // one block: the probe, the running clock, the slot sort's keys
-__global__ void sess_probe(const SessArgs a) {
+__global__ void __launch_bounds__(SS_BLOCK)
+    sess_probe(const __grid_constant__ SessArgs a0) {
+  const SessArgs& a = part_args(a0);
   __shared__ int64_t buf[SS_BLOCK];
   const int32_t B = a.B, K = a.K;
   const int64_t lost = kd::probe_table(B, K, a.keys, a.used, a.o_keys,
@@ -138,7 +150,7 @@ __global__ void sess_probe(const SessArgs a) {
     a.rt[i] = run;
     const bool routed = a.cur[i] && a.slots[i] >= 0;
     a.r_flags[i] = routed ? F_ROUTED : 0;
-    a.ekey[i] = routed ? (uint32_t)a.slots[i] : (uint32_t)K;
+    a.rkey[i] = routed ? (uint32_t)a.slots[i] : (uint32_t)K;
   }
   if (threadIdx.x == 0) a.scal[0] = lost;
 }
@@ -148,7 +160,9 @@ __device__ __forceinline__ int32_t slot_of(const SessArgs& a, int64_t i) {
 }
 
 // one block: the sessions, in slot order (j) over the rows (i = order[j])
-__global__ void sess_scan(const SessArgs a) {
+__global__ void __launch_bounds__(SS_BLOCK)
+    sess_scan(const __grid_constant__ SessArgs a0) {
+  const SessArgs& a = part_args(a0);
   __shared__ int64_t buf[SS_BLOCK];
   __shared__ int64_t tmp[SS_BLOCK];
   __shared__ long long ext[MAX_K], fin[MAX_K], st_end[MAX_K];
@@ -338,7 +352,8 @@ __global__ void sess_scan(const SessArgs a) {
 }
 
 // the new members: the carried ones kept or cleared
-__global__ void sess_members(const SessArgs a) {
+__global__ void sess_members(const __grid_constant__ SessArgs a0) {
+  const SessArgs& a = part_args(a0);
   const int64_t c = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (c >= (int64_t)a.K * a.S) return;
   const bool keep = a.sl_flags[c / a.S] & 2;
@@ -354,7 +369,8 @@ __global__ void sess_members(const SessArgs a) {
 }
 
 // the staying rows written in (cell (0, 0): unless it reverts)
-__global__ void sess_scatter(const SessArgs a) {
+__global__ void sess_scatter(const __grid_constant__ SessArgs a0) {
+  const SessArgs& a = part_args(a0);
   const int64_t i = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (i >= a.B || !(a.r_flags[i] & F_INCAP)) return;
   const int64_t c = (int64_t)a.slots[i] * a.S + a.r_pos[i];
@@ -393,7 +409,8 @@ __device__ __forceinline__ bool cand(const SessArgs& a, int64_t c,
   return v;
 }
 
-__global__ void sess_keys(const SessArgs a) {
+__global__ void sess_keys(const __grid_constant__ SessArgs a0) {
+  const SessArgs& a = part_args(a0);
   const int64_t c = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (c >= a.M) return;
   uint32_t key;
@@ -401,7 +418,8 @@ __global__ void sess_keys(const SessArgs a) {
   a.ekey[c] = key;
 }
 
-__global__ void sess_gather(const SessArgs a) {
+__global__ void sess_gather(const __grid_constant__ SessArgs a0) {
+  const SessArgs& a = part_args(a0);
   const int64_t j = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (j >= a.M) return;
   const int64_t c = a.eorder[j];
@@ -432,19 +450,23 @@ extern "C" cudaError_t siddhi_session_window(const SessArgs* p,
                                              cudaStream_t stream) {
   const SessArgs& a = *p;
   if (a.K > MAX_K) return cudaErrorInvalidValue;
-  sess_rows<<<grid(a.B), T1, 0, stream>>>(a);
-  sess_probe<<<1, SS_BLOCK, 0, stream>>>(a);
-  cudaError_t err = ss::stable_sort(a.ekey, a.B, ss::key_bits(a.K),
-                                    a.order, a.k1, a.k2, a.i1, a.i2,
-                                    a.counts, stream);
+  // one block, or one row of blocks, a slot
+  const unsigned parts = (unsigned)a.n_part;
+  const dim3 one(1, parts);
+  auto rows = [&](int64_t n) { return dim3(grid(n), parts); };
+  sess_rows<<<rows(a.B), T1, 0, stream>>>(a);
+  sess_probe<<<one, SS_BLOCK, 0, stream>>>(a);
+  cudaError_t err = ss::stable_sort(a.rkey, a.B, ss::key_bits(a.K),
+                                    a.order, a.rk1, a.rk2, a.ri1, a.ri2,
+                                    a.rcounts, stream, parts);
   if (err != cudaSuccess) return err;
-  sess_scan<<<1, SS_BLOCK, 0, stream>>>(a);
-  sess_members<<<grid((int64_t)a.K * a.S), T1, 0, stream>>>(a);
-  sess_scatter<<<grid(a.B), T1, 0, stream>>>(a);
-  sess_keys<<<grid(a.M), T1, 0, stream>>>(a);
+  sess_scan<<<one, SS_BLOCK, 0, stream>>>(a);
+  sess_members<<<rows((int64_t)a.K * a.S), T1, 0, stream>>>(a);
+  sess_scatter<<<rows(a.B), T1, 0, stream>>>(a);
+  sess_keys<<<rows(a.M), T1, 0, stream>>>(a);
   err = ss::stable_sort(a.ekey, a.M, ss::key_bits(4ull * a.B), a.eorder,
-                        a.k1, a.k2, a.i1, a.i2, a.counts, stream);
+                        a.k1, a.k2, a.i1, a.i2, a.counts, stream, parts);
   if (err != cudaSuccess) return err;
-  sess_gather<<<grid(a.M), T1, 0, stream>>>(a);
+  sess_gather<<<rows(a.M), T1, 0, stream>>>(a);
   return cudaGetLastError();
 }

@@ -504,11 +504,15 @@ typedef struct {
   int32_t* out_kind;
   uint8_t* mask;              // scratch [W]
   int32_t* pos;               // scratch [2 * B] each candidate's place
+  int32_t* rows;              // scratch [B] the CURRENT rows, compacted
   int32_t col_size[SIDDHI_WIN_MAX_COLS];
   int32_t n_cols, B, W, L, expired_enabled, n_keys;
   int32_t key_col[SIDDHI_SORT_MAX_KEYS];
   int32_t key_desc[SIDDHI_SORT_MAX_KEYS];
   int32_t key_type[SIDDHI_SORT_MAX_KEYS];   // ValType
+  int64_t n_part;             // partition or pool slots (1 outside)
+  const int64_t* moves;       // [n_moves][2] (part_args)
+  int64_t n_moves;
 } SortArgs;
 
 cudaError_t siddhi_sort_window(const SortArgs* a, cudaStream_t stream);
@@ -539,6 +543,9 @@ typedef struct {
   int32_t n_cols, n_keys, B, N, lossy, expired_enabled;
   int64_t width;
   double thresh;
+  int64_t n_part;             // partition or pool slots (1 outside)
+  const int64_t* moves;       // [n_moves][2] (part_args)
+  int64_t n_moves;
 } FreqArgs;
 
 cudaError_t siddhi_freq_window(const FreqArgs* a, cudaStream_t stream);
@@ -567,10 +574,16 @@ typedef struct {
   int32_t* sl_close_row; uint8_t* sl_flags;
   uint32_t* ekey; int32_t* eorder; uint32_t *k1, *k2; int32_t *i1, *i2;
   int32_t* counts; int64_t* scal;
+  // the rows' sort by slot: keys and scratch [B], digits [256 blocks]
+  uint32_t* rkey; uint32_t *rk1, *rk2; int32_t *ri1, *ri2;
+  int32_t* rcounts;
   int32_t col_size[SIDDHI_WIN_MAX_COLS];
   int32_t n_cols, B, K, S, M, has_key, key_col, key_type, expired_enabled;
   int32_t pad_;
   int64_t gap;
+  int64_t n_part;             // partition or pool slots (1 outside)
+  const int64_t* moves;       // [n_moves][2] (part_args)
+  int64_t n_moves;
 } SessArgs;
 
 cudaError_t siddhi_session_window(const SessArgs* a, cudaStream_t stream);

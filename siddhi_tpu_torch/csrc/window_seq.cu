@@ -29,6 +29,13 @@
 // places the valid candidates, and the invalid ones after them in
 // candidate order, as the reference's stable argsort leaves them.
 //
+// With a slot axis (a partition block's or a tenant pool's, n_part
+// slots: B[K]) every launch reads its struct through part_args, one block
+// (or one row of blocks) a slot as blockIdx.y. A slot sees the batch
+// masked to its own rows, a few of the B: its block first compacts its
+// CURRENT rows (a block scan of their flags into `rows`), then walks only
+// those, so a slot's walk costs its own rows, not the batch's.
+//
 // Bound: latency. Each arrival past the L-th costs a handful of
 // dependent block reductions over L + 1 rows: the walk is a chain of
 // B steps of a few microseconds, not a memory-bound pass.
@@ -130,9 +137,12 @@ __device__ __forceinline__ T block_reduce(T v, T* sh, Op op) {
   return r;
 }
 
-__global__ void sort_walk(const SortArgs a) {
+__global__ void __launch_bounds__(SS_BLOCK)
+    sort_walk(const __grid_constant__ SortArgs a0) {
+  const SortArgs& a = part_args(a0);
   __shared__ int64_t shi[33];
   __shared__ double shf[33];
+  __shared__ int64_t sbuf[SS_BLOCK];
   const int t = threadIdx.x;
   const int32_t W = a.W;
   // the new buffer starts as the old one
@@ -146,13 +156,21 @@ __global__ void sort_walk(const SortArgs a) {
     }
   }
   for (int32_t i = t; i < a.B; i += SS_BLOCK) a.ev.valid[i] = false;
+  // the CURRENT rows, compacted in order
+  int64_t lo, hi, nc = 0, n_rows;
+  ss::span(a.B, &lo, &hi);
+  for (int64_t i = lo; i < hi; ++i)
+    nc += a.batch.valid[i] && a.batch_kind[i] == CUR;
+  int64_t at = ss::block_scan_sum(nc, sbuf, &n_rows) - nc;
+  for (int64_t i = lo; i < hi; ++i)
+    if (a.batch.valid[i] && a.batch_kind[i] == CUR) a.rows[at++] = (int32_t)i;
   __syncthreads();
   int64_t cnt = 0;
   for (int32_t s = t; s < W; s += SS_BLOCK) cnt += a.na.valid[s];
   cnt = block_reduce<int64_t>(cnt, shi, SumOp());
   int64_t nseq = *a.next_seq;
-  for (int32_t i = 0; i < a.B; ++i) {
-    if (!(a.batch.valid[i] && a.batch_kind[i] == CUR)) continue;
+  for (int64_t r = 0; r < n_rows; ++r) {
+    const int32_t i = a.rows[r];
     // 1. the lowest free slot
     int64_t f = W;
     for (int32_t s = t; s < W; s += SS_BLOCK)
@@ -227,7 +245,9 @@ __global__ void sort_walk(const SortArgs a) {
 
 // one block: each candidate's place (candidates: the batch's rows as
 // CURRENT, then their evicted copies as EXPIRED)
-__global__ void sort_place(const SortArgs a) {
+__global__ void __launch_bounds__(SS_BLOCK)
+    sort_place(const __grid_constant__ SortArgs a0) {
+  const SortArgs& a = part_args(a0);
   __shared__ int64_t buf[SS_BLOCK];
   int64_t lo, hi;
   ss::span(a.B, &lo, &hi);
@@ -259,7 +279,8 @@ __global__ void sort_place(const SortArgs a) {
   }
 }
 
-__global__ void sort_gather(const SortArgs a) {
+__global__ void sort_gather(const __grid_constant__ SortArgs a0) {
+  const SortArgs& a = part_args(a0);
   const int64_t c = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (c >= 2 * (int64_t)a.B) return;
   const int32_t q = a.pos[c];
@@ -314,6 +335,18 @@ __global__ void sort_gather(const SortArgs a) {
 // stable sort leaves them (expired ones: ts = now and zeros; current
 // ones: the batch's row).
 //
+// With a slot axis (E[K]: a partition block's or a tenant pool's n_part
+// slots) each launch reads its struct through part_args, the slot as
+// blockIdx.y: one warp (a block of 32 threads) walks each slot's table.
+// A slot sees a few of the batch's B rows: the warp ballots each tile's
+// CURRENT flags first and skips a tile with none (its rows only take the
+// running counts the fill reads), so it walks about B / 32 votes and its
+// own rows. One warp a block keeps every slot's walk on an SM of its own
+// where it can: 1,024 slots are 1,024 blocks, all resident at once
+// (about 15 KB of shared memory each), and a walk is latency-bound, so
+// packing several slots' warps into a block would only share an SM's
+// issue slots between them.
+//
 // Bound: latency. The walk is a chain of B steps of a few warp votes
 // and shared-memory accesses each; the fill is a pass over B * N + B
 // output rows, bound by their bytes.
@@ -341,7 +374,8 @@ __device__ __forceinline__ uint64_t ballot64(bool lo, bool hi) {
 }
 
 // each row's key: hash_columns over the key attributes
-__global__ void freq_hash(const FreqArgs a) {
+__global__ void freq_hash(const __grid_constant__ FreqArgs a0) {
+  const FreqArgs& a = part_args(a0);
   const int64_t i = (int64_t)blockIdx.x * T1 + threadIdx.x;
   if (i >= a.B) return;
   int64_t h = kd::HASH_SEED;
@@ -353,7 +387,8 @@ __global__ void freq_hash(const FreqArgs a) {
   a.hk[i] = h;
 }
 
-__global__ void freq_walk(const FreqArgs a) {
+__global__ void freq_walk(const __grid_constant__ FreqArgs a0) {
+  const FreqArgs& a = part_args(a0);
   __shared__ int64_t s_val[SIDDHI_WIN_MAX_COLS][FREQ_SLOTS];
   __shared__ bool s_null[SIDDHI_WIN_MAX_COLS][FREQ_SLOTS];
   __shared__ int64_t s_ts[FREQ_SLOTS];
@@ -450,19 +485,27 @@ __global__ void freq_walk(const FreqArgs a) {
 
   for (int64_t base = 0; base < B; base += FREQ_TILE) {
     const int64_t il = base + l;
+    const int nr = B - base < FREQ_TILE ? (int)(B - base) : FREQ_TILE;
+    const bool cur = il < B && a.batch.valid[il] && a.batch_kind[il] == CUR;
+    if (__ballot_sync(0xffffffffu, cur) == 0) {
+      // no row of the tile is this walk's: the counts as they stand
+      if (l < nr) {
+        a.vbefore[il] = (int32_t)vexp;
+        a.cbefore[il] = (int32_t)vcur;
+        a.dmask[il] = 0;
+      }
+      continue;
+    }
     if (il < B) {
       t_hk[l] = a.hk[il];
       t_ts[l] = a.batch.ts[il];
-      t_cur[l] = a.batch.valid[il] && a.batch_kind[il] == CUR;
       for (int c = 0; c < C; ++c) {
         t_val[c][l] = raw_at(a.batch.cols[c], il, a.col_size[c]);
         t_null[c][l] = a.batch.nulls[c][il];
       }
-    } else {
-      t_cur[l] = false;
     }
+    t_cur[l] = cur;
     __syncwarp();
-    const int nr = B - base < FREQ_TILE ? (int)(B - base) : FREQ_TILE;
     for (int r = 0; r < nr; ++r) {
       const int64_t i = base + r;
       if (l == 0) {
@@ -582,7 +625,8 @@ __global__ void freq_walk(const FreqArgs a) {
 }
 
 // the invalid candidates after the valid ones, in candidate order
-__global__ void freq_fill(const FreqArgs a) {
+__global__ void freq_fill(const __grid_constant__ FreqArgs a0) {
+  const FreqArgs& a = part_args(a0);
   const int64_t c = (int64_t)blockIdx.x * T1 + threadIdx.x;
   const int64_t B = a.B, N = a.N, BN = B * N;
   if (c >= BN + B) return;
@@ -624,9 +668,11 @@ __global__ void freq_fill(const FreqArgs a) {
 extern "C" cudaError_t siddhi_sort_window(const SortArgs* p,
                                           cudaStream_t stream) {
   const SortArgs& a = *p;
-  sort_walk<<<1, SS_BLOCK, 0, stream>>>(a);
-  sort_place<<<1, SS_BLOCK, 0, stream>>>(a);
-  sort_gather<<<(int)((2 * (int64_t)a.B + T1 - 1) / T1), T1, 0, stream>>>(a);
+  const unsigned parts = (unsigned)a.n_part;   // one block a slot
+  sort_walk<<<dim3(1, parts), SS_BLOCK, 0, stream>>>(a);
+  sort_place<<<dim3(1, parts), SS_BLOCK, 0, stream>>>(a);
+  sort_gather<<<dim3((unsigned)((2 * (int64_t)a.B + T1 - 1) / T1), parts),
+                T1, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -634,8 +680,11 @@ extern "C" cudaError_t siddhi_freq_window(const FreqArgs* p,
                                           cudaStream_t stream) {
   const FreqArgs& a = *p;
   const int64_t M = (int64_t)a.B * a.N + a.B;
-  freq_hash<<<(int)((a.B + T1 - 1) / T1), T1, 0, stream>>>(a);
-  freq_walk<<<1, 32, 0, stream>>>(a);
-  freq_fill<<<(int)((M + T1 - 1) / T1), T1, 0, stream>>>(a);
+  const unsigned parts = (unsigned)a.n_part;   // one warp a slot
+  freq_hash<<<dim3((unsigned)((a.B + T1 - 1) / T1), parts), T1, 0,
+              stream>>>(a);
+  freq_walk<<<dim3(1, parts), 32, 0, stream>>>(a);
+  freq_fill<<<dim3((unsigned)((M + T1 - 1) / T1), parts), T1, 0,
+              stream>>>(a);
   return cudaGetLastError();
 }

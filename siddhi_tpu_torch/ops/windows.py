@@ -132,6 +132,27 @@ def emission_sort(out: dict, emit_row, phase, valid,
                       kind=out["kind"][idx], valid=valid[idx])
 
 
+def emission_sort_slots(out: dict, emit_row, phase, valid,
+                        out_cap: int) -> EventBatch:
+    """``emission_sort`` of every slot at once: each argument carries the
+    leading slot axis, and each slot's rows are ordered alone (one
+    stable argsort along the row axis)."""
+    primary = torch.where(valid, (emit_row * 4 + phase).to(torch.int32),
+                          torch.full_like(valid, int(I32_MAX),
+                                          dtype=torch.int32))
+    idx = torch.argsort(primary, dim=1, stable=True)[:, :out_cap]
+
+    def take(x):
+        x = x.expand(valid.shape + tuple(x.shape[2:]))
+        i = idx.reshape(idx.shape + (1,) * (x.dim() - 2))
+        return torch.take_along_dim(x, i.expand(idx.shape + x.shape[2:]),
+                                    dim=1)
+    return EventBatch(ts=take(out["ts"]),
+                      cols=tuple(take(c) for c in out["cols"]),
+                      nulls=tuple(take(nu) for nu in out["nulls"]),
+                      kind=take(out["kind"]), valid=take(valid))
+
+
 def running_time(batch: EventBatch):
     """Per-row event time: the cumulative max of valid rows' timestamps."""
     ts = torch.where(batch.valid, batch.ts, torch.full_like(batch.ts,

@@ -29,6 +29,19 @@ reference's vectorised pass stage by stage. The cron window runs K5's
 frame too, as its own kind (kernel K5c): its fires come from the host
 schedule (utils/cron.py), not a device due.
 
+Inside a partition block or a tenant pool (a ``[K, B]`` batch, every
+state with a leading slot axis: the reference's ``jax.vmap``) every kind
+but cron runs once over all K slots: K5's kinds through K5's slot layout
+(A[K]), the sort window, kernel E and kernel F with the slot as
+``blockIdx.y`` (B[K], E[K], F[K], counted as ``sort_window[K]``,
+``freq_window[K]``, ``session_window[K]``). Their plain versions over
+the slot axis: ``per_slot`` of ``step_ref`` for K5's kinds; for the
+sort and frequent windows a walk of every slot at once
+(``sort_window_slots_ref``, ``freq_window_slots_ref``) and for session
+its stages along the row axis (``session_slots_ref``), each slot's
+result equal to ``step_ref``'s on that slot alone. A ``next_due`` gives
+one due a slot, which the block's K9p due reduces.
+
 The reference's documented deviation is kept: delay(0) releases at the
 next step, not interleaved after the next in-chunk event.
 """
@@ -42,10 +55,13 @@ from .. import _kernels
 from ..core.event import CURRENT, EXPIRED, RESET, TIMER, EventBatch
 from ..core.types import AttrType, col_zeros
 from .expr import DTYPE_VT, CompileError
-from .keyed import hash_columns, lookup_or_insert, segmented_cumsum
+from .keyed import (hash_columns, lookup_or_insert, lookup_or_insert_tables,
+                    segmented_cumsum)
 from .sentinels import I32_MAX
+from .slots import flat, part_moves
 from .windows import (I64, NEG_INF, POS_INF, WindowOp, _full, _i64, _kinds,
                       _select, arrival_seqs, current_row_positions,
+                      emission_sort_slots,
                       _win_buf, emission_sort, empty_buffer, keep_newest,
                       make_pool, running_time)
 
@@ -201,7 +217,7 @@ class TimeLengthWindowOp(WindowOp):
         buf = state["buf"]
         due = torch.where(buf["valid"], buf["ts"] + self.T,
                           torch.full_like(buf["ts"], int(POS_INF)))
-        return due.min()
+        return due.amin(-1)   # [K] dues inside a partition block
 
     def host_due_bound(self, ts_min: int) -> int:
         return ts_min + self.T
@@ -255,7 +271,7 @@ class DelayWindowOp(WindowOp):
         buf = state["buf"]
         due = torch.where(buf["valid"], buf["ts"] + self.T,
                           torch.full_like(buf["ts"], int(POS_INF)))
-        return due.min()
+        return due.amin(-1)   # [K] dues inside a partition block
 
     def host_due_bound(self, ts_min: int) -> int:
         return ts_min + self.T
@@ -858,14 +874,110 @@ class SortWindowOp(WindowOp):
 
 
 def sort_window_step_ref(op: SortWindowOp, state, batch: EventBatch, now):
-    """Plain PyTorch version of the sort window's kernel."""
+    """Plain PyTorch version of the sort window's kernel (a partition
+    block's or a pool's slot axis: ``sort_window_slots_ref``)."""
+    if batch.ts.dim() == 2:
+        return sort_window_slots_ref(op, state, batch, now)
     return op.step_ref(state, batch, now)
+
+
+def _rows_in_order(cur):
+    """Each slot's CURRENT rows in order: -> (their row indices first,
+    [K, B]; their count a slot, [K])."""
+    K, B = cur.shape
+    rows = torch.arange(B, device=cur.device).expand(K, B)
+    return (torch.argsort(torch.where(cur, rows, B), dim=1, stable=True),
+            cur.sum(1))
+
+
+def _put_rows(buf: dict, kk, s, batch: EventBatch, i) -> None:
+    """Slot kk's row i of the batch into its buffer's place s (vectors of
+    one entry a slot)."""
+    buf["ts"][kk, s] = batch.ts[kk, i]
+    for c, bc in zip(buf["cols"], batch.cols):
+        c[kk, s] = bc[kk, i]
+    for n, bn in zip(buf["nulls"], batch.nulls):
+        n[kk, s] = bn[kk, i]
+    buf["valid"][kk, s] = True
+
+
+def sort_window_slots_ref(op: SortWindowOp, state, batch: EventBatch, now):
+    """The sort window's plain version over the slot axis in one call
+    ([K, B] batch, [K, L + 1] buffers): the row walk of ``step_ref`` run
+    for every slot at once, each slot's r-th CURRENT row at walk step
+    r; each slot's state and output equal ``step_ref``'s on that slot
+    alone."""
+    dev = batch.ts.device
+    K, B = batch.ts.shape
+    now = _i64(now, dev)
+    cur = batch.valid & (batch.kind == CURRENT)
+    buf = _clone_buf(state["buf"])
+    nseq = state["next_seq"].clone()
+    count = buf["valid"].sum(1)
+    ev_cols = tuple(torch.zeros((K, B), dtype=c.dtype, device=dev)
+                    for c in batch.cols)
+    ev_nulls = tuple(torch.zeros((K, B), dtype=torch.bool, device=dev)
+                     for _ in batch.nulls)
+    ev_valid = torch.zeros((K, B), dtype=torch.bool, device=dev)
+    order, ncur = _rows_in_order(cur)
+    ks = torch.arange(K, device=dev)
+    for r in range(int(ncur.max()) if K else 0):
+        act = ncur > r
+        kk, i = ks[act], order[act, r]
+        free = torch.argmin(buf["valid"][kk].to(torch.int8), dim=1)
+        _put_rows(buf, kk, free, batch, i)
+        buf["seq"][kk, free] = nseq[kk]
+        nseq[kk] += 1
+        count[kk] += 1
+        over = count[kk] > op.L
+        ke, ie = kk[over], i[over]
+        if not ke.numel():
+            continue
+        ei = _evict_slots(op, buf, ke)
+        for ec, c in zip(ev_cols, buf["cols"]):
+            ec[ke, ie] = c[ke, ei]
+        for en, n in zip(ev_nulls, buf["nulls"]):
+            en[ke, ie] = n[ke, ei]
+        ev_valid[ke, ie] = True
+        buf["valid"][ke, ei] = False
+        count[ke] -= 1
+    rows = torch.arange(B, dtype=I64, device=dev).expand(K, B)
+    out = {"ts": torch.cat([batch.ts, now.expand(K, B)], 1),
+           "cols": tuple(torch.cat([bc, ec], 1) for bc, ec in
+                         zip(batch.cols, ev_cols)),
+           "nulls": tuple(torch.cat([bn, en], 1) for bn, en in
+                          zip(batch.nulls, ev_nulls)),
+           "kind": _kinds(dev, (B, CURRENT), (B, EXPIRED)).expand(K, 2 * B)}
+    phase = torch.cat([_full(B, 2, I64, dev), _full(B, 3, I64, dev)])
+    if not op.expired_enabled:
+        ev_valid = torch.zeros_like(ev_valid)
+    result = emission_sort_slots(out, torch.cat([rows, rows], 1), phase,
+                                 torch.cat([cur, ev_valid], 1), 2 * B)
+    return {"buf": buf, "next_seq": nseq}, result
+
+
+def _evict_slots(op: SortWindowOp, buf: dict, ke):
+    """``SortWindowOp._evict_slot`` for the slots ``ke`` of a slotted
+    buffer, one place a slot."""
+    mask = buf["valid"][ke]
+    for idx, order in op.keys:
+        v = buf["cols"][idx][ke]
+        v_eff = v if order > 0 else -v
+        low = float("-inf") if v.is_floating_point() \
+            else torch.iinfo(v.dtype).min
+        m = torch.where(mask, v_eff, torch.full_like(v_eff, low)).amax(1)
+        mask = mask & (v_eff == m[:, None])
+    seq = buf["seq"][ke]
+    return torch.argmax(torch.where(mask, seq, torch.full_like(seq, -1)),
+                        dim=1)
 
 
 def sort_window_step(op: SortWindowOp, state, batch: EventBatch, now):
     """The sort window's step: a batch on the CPU takes the plain
-    version; a CUDA batch launches csrc/window_seq.cu (one block, the
-    rows in order, no host sync)."""
+    version; a CUDA batch launches csrc/window_seq.cu (one block walking
+    the rows in order, no host sync). Inside a partition block or a
+    pool ([K, B] batch, a state a slot) the kernel runs one block a
+    slot, counted as ``sort_window[K]``."""
     dev = batch.ts.device
     if dev.type == "cpu":
         return sort_window_step_ref(op, state, batch, now)
@@ -874,44 +986,47 @@ def sort_window_step(op: SortWindowOp, state, batch: EventBatch, now):
     new_state, out, args = sort_args(op, state, batch, _i64(now, dev))
     _kernels.load().sort_window(args,
                                 torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.count_launch("sort_window")
+    _kernels.count_launch("sort_window[K]" if batch.ts.dim() == 2
+                          else "sort_window")
     return new_state, out
-
 
 
 def sort_args(op: SortWindowOp, state, batch: EventBatch, now):
     """The sort window kernel's arguments: the new state's and the output
     batch's tensors (fresh), the scratch, and ``_kernels.SortArgs``
-    pointing at them. -> (state', output batch, args)."""
+    pointing at them. -> (state', output batch, args). With the slot
+    axis ([K, B] batch) every tensor leads with it, ``n_part`` is K and
+    ``moves`` holds the slot strides (ops/slots.py part_moves)."""
     dev = batch.ts.device
-    B, C = batch.capacity, len(batch.cols)
+    slotted = batch.ts.dim() == 2
+    lead = tuple(batch.ts.shape[:1]) if slotted else ()
+    B, C = batch.ts.shape[-1], len(batch.cols)
     if C > _kernels.WIN_MAX_COLS or len(op.keys) > _kernels.SORT_MAX_KEYS:
         raise NotImplementedError(
             f"not ported yet: a sort window over more than "
             f"{_kernels.WIN_MAX_COLS} attributes or "
             f"{_kernels.SORT_MAX_KEYS} keys")
     buf = state["buf"]
-    W = buf["seq"].shape[0]
+    W = buf["seq"].shape[-1]
 
     def like(t, n):
-        return torch.empty((n,), dtype=t.dtype, device=dev)
+        return torch.empty(lead + (n,), dtype=t.dtype, device=dev)
     na = {"ts": like(buf["ts"], W), "seq": like(buf["seq"], W),
           "cols": tuple(like(c, W) for c in buf["cols"]),
           "nulls": tuple(like(n, W) for n in buf["nulls"]),
           "valid": like(buf["valid"], W)}
     ev = {"cols": tuple(like(c, B) for c in batch.cols),
           "nulls": tuple(like(n, B) for n in batch.nulls),
-          "valid": torch.empty((B,), dtype=torch.bool, device=dev)}
-    out = EventBatch(ts=torch.empty((2 * B,), dtype=I64, device=dev),
+          "valid": like(batch.valid, B)}
+    out = EventBatch(ts=like(batch.ts, 2 * B),
                      cols=tuple(like(c, 2 * B) for c in batch.cols),
                      nulls=tuple(like(n, 2 * B) for n in batch.nulls),
-                     kind=torch.empty((2 * B,), dtype=torch.int32,
-                                      device=dev),
-                     valid=torch.empty((2 * B,), dtype=torch.bool,
-                                       device=dev))
-    new = {"buf": na, "next_seq": torch.empty((), dtype=I64, device=dev)}
-    sc = {"mask": torch.empty((W,), dtype=torch.uint8, device=dev),
-          "pos": torch.empty((2 * B,), dtype=torch.int32, device=dev)}
+                     kind=like(batch.kind, 2 * B),
+                     valid=like(batch.valid, 2 * B))
+    new = {"buf": na, "next_seq": torch.empty(lead, dtype=I64, device=dev)}
+    sc = {"mask": torch.empty(lead + (W,), dtype=torch.uint8, device=dev),
+          "pos": torch.empty(lead + (2 * B,), dtype=torch.int32, device=dev),
+          "rows": torch.empty(lead + (B,), dtype=torch.int32, device=dev)}
     a = _kernels.SortArgs()
     _win_buf(a.batch, batch.ts, None, batch.cols, batch.nulls, batch.valid)
     a.batch_kind = batch.kind.data_ptr()
@@ -925,6 +1040,7 @@ def sort_args(op: SortWindowOp, state, batch: EventBatch, now):
     _win_buf(a.out, out.ts, None, out.cols, out.nulls, out.valid)
     a.out_kind = out.kind.data_ptr()
     a.mask, a.pos = sc["mask"].data_ptr(), sc["pos"].data_ptr()
+    a.rows = sc["rows"].data_ptr()
     for k, c in enumerate(batch.cols):
         a.col_size[k] = c.element_size()
     a.n_cols, a.B, a.W, a.L = C, B, W, op.L
@@ -934,9 +1050,10 @@ def sort_args(op: SortWindowOp, state, batch: EventBatch, now):
         a.key_col[k] = idx
         a.key_desc[k] = int(order < 0)
         a.key_type[k] = DTYPE_VT[batch.cols[idx].dtype]
+    a.n_part = lead[0] if slotted else 1
+    part_moves(a, (state, batch, new, out, ev, sc), dev)
     a._keep = (state, new, out, ev, sc, now)   # alive until the launch
     return new, out, a
-
 
 
 # ---------------------------------------------------------------------------
@@ -1197,18 +1314,154 @@ def freq_window_step(op: FrequentWindowOp, state, batch: EventBatch, now):
     """Kernel E: the frequent or lossyFrequent window's step. A batch on
     the CPU takes the plain version; a CUDA batch launches
     csrc/window_seq.cu (one warp walks the rows in order, the table in
-    its lanes; no host sync)."""
+    its lanes; no host sync). Inside a partition block or a pool ([K, B]
+    batch, a state a slot) the kernel runs one warp a slot, counted as
+    ``freq_window[K]``."""
     dev = batch.ts.device
     if dev.type == "cpu":
-        return op.step_ref(state, batch, now)
+        return freq_window_step_ref(op, state, batch, now)
     if dev.type != "cuda":
         raise ValueError(f"freq_window_step: unsupported device {dev}")
     new_state, out, args = freq_args(op, state, batch, _i64(now, dev))
     _kernels.load().freq_window(args,
                                 torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.count_launch("freq_window")
+    _kernels.count_launch("freq_window[K]" if batch.ts.dim() == 2
+                          else "freq_window")
     return new_state, out
 
+
+def freq_window_step_ref(op: FrequentWindowOp, state, batch: EventBatch,
+                         now):
+    """Plain PyTorch version of kernel E (the slot axis:
+    ``freq_window_slots_ref``)."""
+    if batch.ts.dim() == 2:
+        return freq_window_slots_ref(op, state, batch, now)
+    return op.step_ref(state, batch, now)
+
+
+def freq_window_slots_ref(op: FrequentWindowOp, state, batch: EventBatch,
+                          now):
+    """Kernel E's plain version over the slot axis in one call ([K, B]
+    batch, [K, N] tables): the row walk of ``step_ref`` run for every
+    slot at once, each slot's r-th CURRENT row at walk step r; each
+    slot's state and output equal ``step_ref``'s on that slot alone."""
+    dev = batch.ts.device
+    K, B = batch.ts.shape
+    N = op.N
+    cur = batch.valid & (batch.kind == CURRENT)
+    khash = _key_hash(flat(batch), op.key_idxs).reshape(K, B)
+    buf = _clone_buf(state["buf"])
+    keys, counts = state["keys"].clone(), state["counts"].clone()
+    if op.LOSSY:
+        buckets = state["buckets"].clone()
+        total, ovf = state["total"].clone(), state["overflow"].clone()
+    passed = torch.zeros((K, B), dtype=torch.bool, device=dev)
+    dies = torch.zeros((K, B, N), dtype=torch.bool, device=dev)
+    ev = {"cols": tuple(torch.zeros((K, B, N), dtype=c.dtype, device=dev)
+                        for c in batch.cols),
+          "nulls": tuple(torch.zeros((K, B, N), dtype=torch.bool,
+                                     device=dev) for _ in batch.nulls)}
+    order, ncur = _rows_in_order(cur)
+    ks = torch.arange(K, device=dev)
+
+    def capture(kk, i, d):
+        dies[kk, i] = d
+        if op.expired_enabled:
+            for e, c in zip(ev["cols"], buf["cols"]):
+                e[kk, i] = torch.where(d, c[kk], torch.zeros_like(c[kk]))
+            for e, n in zip(ev["nulls"], buf["nulls"]):
+                e[kk, i] = n[kk] & d
+
+    def first(m):
+        return torch.argmax(m.to(torch.int8), dim=1)
+
+    for r in range(int(ncur.max()) if K else 0):
+        act = ncur > r
+        kk, i = ks[act], order[act, r]
+        kh = khash[kk, i]
+        valid = buf["valid"][kk]
+        found = valid & (keys[kk] == kh[:, None])
+        hit = found.any(1)
+        if not op.LOSSY:
+            full = ~hit & (valid.sum(1) >= N)
+            dec = counts[kk] - valid.to(I64)
+            d = valid & (dec <= 0) & full[:, None]
+            capture(kk[full], i[full], d[full])
+            counts[kk] = torch.where(full[:, None],
+                                     torch.where(d, torch.zeros_like(dec),
+                                                 dec), counts[kk])
+            valid = valid & ~d
+            buf["valid"][kk] = valid
+            ok = hit | ~full | d.any(1)
+            s = torch.where(hit, first(found), first(~valid))
+            cnt = torch.where(hit, counts[kk, s] + 1, torch.ones_like(s))
+        else:
+            total[kk] += 1
+            t = total[kk]
+            bucket = _floordiv(t + op.width - 1, op.width)
+            ok = hit | (~valid).any(1)
+            s = torch.where(hit, first(found), first(~valid))
+            cnt = torch.where(hit, counts[kk, s] + 1, torch.ones_like(s))
+            ovf[kk] += (~ok).to(I64)
+            bkt = torch.where(hit, buckets[kk, s], bucket - 1)
+            buckets[kk[ok], s[ok]] = bkt[ok]
+        ka, ia, sa = kk[ok], i[ok], s[ok]
+        _put_rows(buf, ka, sa, batch, ia)
+        keys[ka, sa] = kh[ok]
+        counts[ka, sa] = cnt[ok]
+        if not op.LOSSY:
+            passed[ka, ia] = True
+            continue
+        passed[kk, i] = ok & (counts[kk, s].to(torch.float64) >=
+                              op.thresh * t.to(torch.float64))
+        prune = torch.remainder(t, op.width) == 0
+        kp, ip = kk[prune], i[prune]
+        d = buf["valid"][kp] & (counts[kp] + buckets[kp] <=
+                                bucket[prune][:, None])
+        capture(kp, ip, d)
+        buf["valid"][kp] &= ~d
+    new = {"buf": buf, "keys": keys, "counts": counts}
+    if op.LOSSY:
+        new.update(buckets=buckets, total=total, overflow=ovf)
+    new["next_seq"] = state["next_seq"] + cur.sum(1)
+    return new, _keyed_output_slots(op, batch, now, passed & cur, dies, ev)
+
+
+def _keyed_output_slots(op, batch: EventBatch, now, passed, dies, ev):
+    """``_keyed_output`` of every slot at once ([K, B] rows, [K, B, N]
+    dying slots)."""
+    K, B, N = dies.shape
+    dev = batch.ts.device
+    rows = torch.arange(B, dtype=I64, device=dev)
+    ev_valid = dies.reshape(K, B * N) if op.expired_enabled \
+        else torch.zeros((K, B * N), dtype=torch.bool, device=dev)
+    ecols = [c.reshape(K, B * N) for c in ev["cols"]]
+    enulls = [n.reshape(K, B * N) for n in ev["nulls"]]
+    ets = _i64(now, dev).expand(K, B * N)
+    erow = rows.repeat_interleave(N)
+
+    def cat(*xs):
+        return torch.cat([x.expand(K, -1) for x in xs], 1)
+    if op.LOSSY:
+        out = {"ts": cat(batch.ts, ets),
+               "cols": tuple(cat(b, e) for b, e in zip(batch.cols, ecols)),
+               "nulls": tuple(cat(b, e) for b, e in
+                              zip(batch.nulls, enulls)),
+               "kind": _kinds(dev, (B, CURRENT), (B * N, EXPIRED))}
+        emit_row = torch.cat([rows, erow])
+        phase = torch.cat([_full(B, 2, I64, dev), _full(B * N, 3, I64, dev)])
+        valid = torch.cat([passed, ev_valid], 1)
+    else:
+        out = {"ts": cat(ets, batch.ts),
+               "cols": tuple(cat(e, b) for b, e in zip(batch.cols, ecols)),
+               "nulls": tuple(cat(e, b) for b, e in
+                              zip(batch.nulls, enulls)),
+               "kind": _kinds(dev, (B * N, EXPIRED), (B, CURRENT))}
+        emit_row = torch.cat([erow, rows])
+        phase = torch.cat([_full(B * N, 0, I64, dev), _full(B, 2, I64, dev)])
+        valid = torch.cat([ev_valid, passed], 1)
+    out["kind"] = out["kind"].expand(K, -1)
+    return emission_sort_slots(out, emit_row, phase, valid, B * N + B)
 
 
 def _key_spec(a, batch: EventBatch, key_idxs) -> None:
@@ -1225,9 +1478,13 @@ def _key_spec(a, batch: EventBatch, key_idxs) -> None:
 def freq_args(op: FrequentWindowOp, state, batch: EventBatch, now):
     """Kernel E's arguments: the new state's and the output batch's
     tensors (fresh), the scratch, and ``_kernels.FreqArgs``.
-    -> (state', output batch, args)."""
+    -> (state', output batch, args). With the slot axis ([K, B] batch)
+    every tensor leads with it, ``n_part`` is K and ``moves`` holds the
+    slot strides (ops/slots.py part_moves)."""
     dev = batch.ts.device
-    B, C, N = batch.capacity, len(batch.cols), op.N
+    slotted = batch.ts.dim() == 2
+    lead = tuple(batch.ts.shape[:1]) if slotted else ()
+    B, C, N = batch.ts.shape[-1], len(batch.cols), op.N
     if C > _kernels.WIN_MAX_COLS:
         raise NotImplementedError(
             f"not ported yet: a {op.kind_name} window over more than "
@@ -1236,28 +1493,30 @@ def freq_args(op: FrequentWindowOp, state, batch: EventBatch, now):
     M = B * N + B
 
     def like(t, n):
-        return torch.empty((n,), dtype=t.dtype, device=dev)
+        return torch.empty(lead + (n,), dtype=t.dtype, device=dev)
+
+    def scalar():
+        return torch.empty(lead, dtype=I64, device=dev)
     na = {"ts": like(buf["ts"], N), "seq": buf["seq"].clone(),
           "cols": tuple(like(c, N) for c in buf["cols"]),
           "nulls": tuple(like(n, N) for n in buf["nulls"]),
           "valid": like(buf["valid"], N)}
     new = {"buf": na, "keys": like(state["keys"], N),
-           "counts": like(state["counts"], N),
-           "next_seq": torch.empty((), dtype=I64, device=dev)}
+           "counts": like(state["counts"], N)}
     if op.LOSSY:
         new["buckets"] = like(state["buckets"], N)
         for k in ("total", "overflow"):
-            new[k] = torch.empty((), dtype=I64, device=dev)
-    out = EventBatch(ts=torch.empty((M,), dtype=I64, device=dev),
+            new[k] = scalar()
+    new["next_seq"] = scalar()
+    out = EventBatch(ts=like(batch.ts, M),
                      cols=tuple(like(c, M) for c in batch.cols),
                      nulls=tuple(like(n, M) for n in batch.nulls),
-                     kind=torch.empty((M,), dtype=torch.int32, device=dev),
-                     valid=torch.empty((M,), dtype=torch.bool, device=dev))
-    sc = {"hk": torch.empty((B,), dtype=I64, device=dev),
-          "dmask": torch.empty((B,), dtype=I64, device=dev),
-          "vbefore": torch.empty((B,), dtype=torch.int32, device=dev),
-          "cbefore": torch.empty((B,), dtype=torch.int32, device=dev),
-          "scal": torch.empty((4,), dtype=I64, device=dev)}
+                     kind=like(batch.kind, M), valid=like(batch.valid, M))
+    sc = {"hk": torch.empty(lead + (B,), dtype=I64, device=dev),
+          "dmask": torch.empty(lead + (B,), dtype=I64, device=dev),
+          "vbefore": torch.empty(lead + (B,), dtype=torch.int32, device=dev),
+          "cbefore": torch.empty(lead + (B,), dtype=torch.int32, device=dev),
+          "scal": torch.empty(lead + (4,), dtype=I64, device=dev)}
     a = _kernels.FreqArgs()
     _win_buf(a.batch, batch.ts, None, batch.cols, batch.nulls, batch.valid)
     a.batch_kind = batch.kind.data_ptr()
@@ -1282,6 +1541,8 @@ def freq_args(op: FrequentWindowOp, state, batch: EventBatch, now):
     a.lossy, a.expired_enabled = int(op.LOSSY), int(op.expired_enabled)
     if op.LOSSY:
         a.width, a.thresh = op.width, op.thresh
+    a.n_part = lead[0] if slotted else 1
+    part_moves(a, (state, batch, new, out, sc), dev)
     a._keep = (state, new, out, sc, now)   # alive until the launch
     return new, out, a
 
@@ -1336,7 +1597,8 @@ class SessionWindowOp(WindowOp):
 
     def next_due(self, state):
         return torch.where(state["open"], state["end"],
-                           torch.full_like(state["end"], int(POS_INF))).min()
+                           torch.full_like(state["end"],
+                                           int(POS_INF))).amin(-1)
 
     def host_due_bound(self, ts_min: int) -> int:
         return ts_min + self.gap
@@ -1505,25 +1767,196 @@ def session_step(op: SessionWindowOp, state, batch: EventBatch, now):
     """Kernel F: the session window's step. A batch on the CPU takes the
     plain version; a CUDA batch launches csrc/session_step.cu (the slot
     probe, a stable radix sort by slot, the sessions' scans, the [K, S]
-    buffers and the emission sort; no host sync)."""
+    buffers and the emission sort; no host sync). Inside a partition
+    block or a pool ([P, B] batch, a state a slot) every stage runs with
+    the slot axis (one block a slot, one sort segment a slot), counted
+    as ``session_window[K]``."""
     dev = batch.ts.device
     if dev.type == "cpu":
-        return op.step_ref(state, batch, now)
+        return session_step_ref(op, state, batch, now)
     if dev.type != "cuda":
         raise ValueError(f"session_step: unsupported device {dev}")
     new_state, out, args = session_args(op, state, batch)
     _kernels.load().session_window(args,
                                    torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.count_launch("session_window")
+    _kernels.count_launch("session_window[K]" if batch.ts.dim() == 2
+                          else "session_window")
     return new_state, out
+
+
+def session_step_ref(op: SessionWindowOp, state, batch: EventBatch, now):
+    """Plain PyTorch version of kernel F (the slot axis:
+    ``session_slots_ref``)."""
+    if batch.ts.dim() == 2:
+        return session_slots_ref(op, state, batch, now)
+    return op.step_ref(state, batch, now)
+
+
+def session_slots_ref(op: SessionWindowOp, state, batch: EventBatch, now):
+    """Kernel F's plain version over the slot axis in one call ([P, B]
+    batch, [P, 64] key tables, [P, 64, 128] members): ``step_ref``'s
+    stages with each row of every tensor one slot (the key probe through
+    ``lookup_or_insert_tables``, sorts and scans along the row axis, the
+    per-key reductions on slot-offset indices); each slot's state and
+    output equal ``step_ref``'s on that slot alone."""
+    P, B = batch.ts.shape
+    K, S, gap = op.K, op.S, op.gap
+    dev = batch.ts.device
+    cur = batch.valid & (batch.kind == CURRENT)
+    rt = torch.cummax(torch.where(batch.valid, batch.ts,
+                                  torch.full_like(batch.ts, int(NEG_INF))),
+                      1).values
+    rt_max = rt[:, B - 1:]
+    if op.key_idx is not None:
+        khash = hash_columns([flat(batch).cols[op.key_idx]],
+                             [flat(batch).nulls[op.key_idx]]).reshape(P, B)
+    else:
+        khash = torch.zeros((P, B), dtype=I64, device=dev)
+    slots, keys, used, kovf = lookup_or_insert_tables(
+        state["keys"], state["used"], khash, cur)
+    routed = cur & (slots >= 0)
+    rows = torch.arange(B, dtype=I64, device=dev).expand(P, B)
+    off = torch.arange(P, dtype=I64, device=dev)[:, None]
+
+    def take(x, idx):
+        return torch.take_along_dim(x, idx, dim=1)
+
+    def seg_max(vals, seg):   # per slot's K keys; empty: the minimum
+        init = torch.full((P * K,), torch.iinfo(vals.dtype).min,
+                          dtype=vals.dtype, device=dev)
+        return init.scatter_reduce(0, (seg + off * K).reshape(-1),
+                                   vals.reshape(-1), "amax",
+                                   include_self=True).reshape(P, K)
+
+    def seg_cumsum(vals, seg):   # runs of equal seg along each row
+        return segmented_cumsum(vals.reshape(-1),
+                                (seg.to(I64) + 1 + off * (K + 2)).reshape(
+                                    -1)).reshape(P, B)
+    order = torch.argsort(torch.where(routed, slots, int(I32_MAX)), dim=1,
+                          stable=True)
+    inv = torch.empty_like(order).scatter_(1, order, rows)
+    s_slot = take(torch.where(routed, slots, -1), order)
+    s_ts = take(batch.ts, order)
+    s_valid = take(routed, order)
+    same_prev = torch.zeros((P, B), dtype=torch.bool, device=dev)
+    same_prev[:, 1:] = (s_slot[:, 1:] == s_slot[:, :-1]) & s_valid[:, 1:] & \
+        s_valid[:, :-1]
+    prev_ts = torch.cat([torch.zeros((P, 1), dtype=I64, device=dev),
+                         s_ts[:, :-1]], 1)
+    cs = torch.clamp(s_slot, 0, K - 1).to(I64)
+    carried_end, carried_open = take(state["end"], cs), take(state["open"],
+                                                             cs)
+    boundary = s_valid & torch.where(
+        same_prev, s_ts >= prev_ts + gap,
+        ~carried_open | (s_ts >= carried_end))
+    slot_first = s_valid & ~same_prev
+    grp_break = slot_first | boundary
+    sid = seg_cumsum(grp_break.to(I64), s_slot) - 1
+    fidx = torch.cummax(torch.where(slot_first, rows, -1), 1).values
+    first_cont = slot_first & ~boundary
+    cont = take(first_cont, torch.clamp(fidx, min=0)) & (fidx >= 0)
+    joins_carried = s_valid & (sid == 0) & cont
+    seg_key = s_slot.to(I64) * (B + 1) + sid
+    is_last = torch.ones((P, B), dtype=torch.bool, device=dev)
+    is_last[:, :-1] = seg_key[:, :-1] != seg_key[:, 1:]
+    is_last = is_last & s_valid
+    last_ts_rev = torch.flip(torch.cummax(torch.flip(torch.where(
+        is_last, s_ts, int(NEG_INF)), (1,)), 1).values, (1,))
+    close_ts_sorted = torch.where(s_valid, last_ts_rev + gap, int(POS_INF))
+    closes_sorted = close_ts_sorted <= rt_max
+    close_row_sorted = torch.searchsorted(rt, close_ts_sorted, side="left")
+    close_ts = take(close_ts_sorted, inv)
+    closes = take(closes_sorted, inv) & routed
+    close_row = torch.clamp(take(close_row_sorted, inv), 0, B - 1)
+    row_sid = torch.where(routed, take(sid, inv), -1)
+    row_joins_carried = take(joins_carried, inv) & routed
+    slot_c = torch.clamp(slots, 0, K - 1).to(I64)
+    ext_close_ts = seg_max(torch.where(row_joins_carried, close_ts,
+                                       int(NEG_INF)), slot_c)
+    has_ext = seg_max(row_joins_carried.to(I64), slot_c) > 0
+    slot_close_ts = torch.where(has_ext, ext_close_ts, state["end"])
+    slot_closes = state["open"] & (slot_close_ts <= rt_max)
+    slot_close_row = torch.clamp(torch.searchsorted(
+        rt, slot_close_ts, side="left"), 0, B - 1)
+    buf = state["buf"]
+    c_valid = buf["valid"] & slot_closes[:, :, None]
+    b_exp_valid = closes & torch.where(row_joins_carried,
+                                       take(slot_closes, slot_c),
+                                       torch.ones_like(closes))
+    KS = K * S
+    out = {"ts": torch.cat([buf["ts"].reshape(P, KS), batch.ts, batch.ts],
+                           1),
+           "cols": tuple(torch.cat([c.reshape(P, KS), bc, bc], 1)
+                         for c, bc in zip(buf["cols"], batch.cols)),
+           "nulls": tuple(torch.cat([n.reshape(P, KS), bn, bn], 1)
+                          for n, bn in zip(buf["nulls"], batch.nulls)),
+           "kind": _kinds(dev, (KS + B, EXPIRED), (B, CURRENT)).expand(
+               P, KS + 2 * B)}
+    emit_row = torch.cat([slot_close_row.repeat_interleave(S, dim=1),
+                          torch.where(b_exp_valid, close_row, 0), rows], 1)
+    phase = torch.cat([_full(KS + B, 0, I64, dev), _full(B, 2, I64, dev)])
+    if op.expired_enabled:
+        exp_c, exp_b = c_valid.reshape(P, KS), b_exp_valid
+    else:
+        exp_c = torch.zeros((P, KS), dtype=torch.bool, device=dev)
+        exp_b = torch.zeros((P, B), dtype=torch.bool, device=dev)
+    result = emission_sort_slots(out, emit_row, phase,
+                                 torch.cat([exp_c, exp_b, routed], 1),
+                                 KS + 2 * B)
+    final_sid = seg_max(torch.where(routed, row_sid, -1), slot_c)
+    keep_carried = state["open"] & ~slot_closes
+    stays = routed & ~closes & (row_sid == take(final_sid, slot_c))
+    base = torch.where(keep_carried, state["count"], 0)
+    s_rank = seg_cumsum(take(stays, order).to(I64), s_slot)
+    pos = take(base, slot_c) + take(s_rank, inv) - 1
+    in_cap = stays & (pos < S)
+    member_ovf = (stays & ~in_cap).sum(1, dtype=I64)
+    # the reference's scatter, row after row: cell (0, 0) keeps a member
+    # only if no row that does not stay comes after it
+    last_other = torch.where(~in_cap, rows, -1).amax(1)
+    mine = torch.where(in_cap & (slot_c == 0) & (pos == 0), rows, -1).amax(1)
+    revert = last_other > mine
+    flat_at = ((off * K + slot_c) * S + torch.clamp(pos, 0, S - 1))[in_cap]
+
+    def put(old, vals):
+        t = torch.where(keep_carried[:, :, None], old, torch.zeros_like(old))
+        c00 = t[:, 0, 0].clone()
+        t = t.reshape((P * KS,) + tuple(t.shape[3:])).clone()
+        t[flat_at] = vals[in_cap]
+        t = t.reshape((P, K, S) + tuple(t.shape[1:]))
+        t[:, 0, 0] = torch.where(revert, c00, t[:, 0, 0])
+        return t
+    new_buf = {"ts": put(buf["ts"], batch.ts),
+               "cols": tuple(put(c, bc) for c, bc in
+                             zip(buf["cols"], batch.cols)),
+               "nulls": tuple(put(n, bn) for n, bn in
+                              zip(buf["nulls"], batch.nulls)),
+               "valid": put(buf["valid"], torch.ones_like(batch.valid))}
+    adds = torch.zeros((P * K,), dtype=I64, device=dev).index_add(
+        0, (slot_c + off * K).reshape(-1), stays.to(I64).reshape(-1))
+    new_count = torch.clamp(base + adds.reshape(P, K), max=S)
+    stay_end = seg_max(torch.where(stays, close_ts, int(NEG_INF)), slot_c)
+    new_open = keep_carried | (seg_max(stays.to(I64), slot_c) > 0)
+    new_end = torch.where(stay_end > int(NEG_INF), stay_end,
+                          torch.where(keep_carried, state["end"],
+                                      int(POS_INF)))
+    new_open = new_open & (new_end < int(POS_INF))
+    return ({"keys": keys, "used": used, "buf": new_buf,
+             "count": new_count, "end": new_end, "open": new_open,
+             "next_seq": state["next_seq"] + cur.sum(1, dtype=I64),
+             "overflow": state["overflow"] + kovf + member_ovf}, result)
 
 
 def session_args(op: SessionWindowOp, state, batch: EventBatch):
     """Kernel F's arguments: the new state's and the output batch's
     tensors (fresh), the scratch, and ``_kernels.SessArgs``.
-    -> (state', output batch, args)."""
+    -> (state', output batch, args). With the slot axis ([P, B] batch)
+    every tensor leads with it, ``n_part`` is P and ``moves`` holds the
+    slot strides (ops/slots.py part_moves)."""
     dev = batch.ts.device
-    B, C, K, S = batch.capacity, len(batch.cols), op.K, op.S
+    slotted = batch.ts.dim() == 2
+    lead = tuple(batch.ts.shape[:1]) if slotted else ()
+    B, C, K, S = batch.ts.shape[-1], len(batch.cols), op.K, op.S
     if C > _kernels.WIN_MAX_COLS:
         raise NotImplementedError(
             f"not ported yet: a session window over more than "
@@ -1533,15 +1966,15 @@ def session_args(op: SessionWindowOp, state, batch: EventBatch):
     buf = state["buf"]
 
     def e(n, dtype):
-        return torch.empty((max(int(n), 1),), dtype=dtype, device=dev)
+        return torch.empty(lead + (max(int(n), 1),), dtype=dtype, device=dev)
     nb = {"ts": torch.empty_like(buf["ts"]),
           "cols": tuple(torch.empty_like(c) for c in buf["cols"]),
           "nulls": tuple(torch.empty_like(n) for n in buf["nulls"]),
           "valid": torch.empty_like(buf["valid"])}
     new = {"keys": e(K, I64), "used": e(K, torch.bool), "buf": nb,
            "count": e(K, I64), "end": e(K, I64), "open": e(K, torch.bool),
-           "next_seq": torch.empty((), dtype=I64, device=dev),
-           "overflow": torch.empty((), dtype=I64, device=dev)}
+           "next_seq": torch.empty(lead, dtype=I64, device=dev),
+           "overflow": torch.empty(lead, dtype=I64, device=dev)}
     out = EventBatch(ts=e(M, I64), cols=tuple(e(M, c.dtype)
                                                for c in batch.cols),
                      nulls=tuple(e(M, torch.bool) for _ in batch.cols),
@@ -1559,7 +1992,10 @@ def session_args(op: SessionWindowOp, state, batch: EventBatch):
           "eorder": e(M, torch.int32), "k1": e(M, torch.int32),
           "k2": e(M, torch.int32), "i1": e(M, torch.int32),
           "i2": e(M, torch.int32), "counts": e(256 * blocks, torch.int32),
-          "scal": e(16, I64)}
+          "scal": e(16, I64), "rkey": e(B, torch.int32),
+          "rk1": e(B, torch.int32), "rk2": e(B, torch.int32),
+          "ri1": e(B, torch.int32), "ri2": e(B, torch.int32),
+          "rcounts": e(256 * ((B + 1023) // 1024), torch.int32)}
     a = _kernels.SessArgs()
     _win_buf(a.batch, batch.ts, None, batch.cols, batch.nulls, batch.valid)
     a.batch_kind = batch.kind.data_ptr()
@@ -1581,5 +2017,7 @@ def session_args(op: SessionWindowOp, state, batch: EventBatch):
     a.key_type = DTYPE_VT[batch.cols[a.key_col].dtype] if C else 0
     a.expired_enabled = int(op.expired_enabled)
     a.gap = op.gap
+    a.n_part = lead[0] if slotted else 1
+    part_moves(a, (state, batch, new, out, sc), dev)
     a._keep = (state, new, out, sc)   # alive until the launch
     return new, out, a

@@ -73,7 +73,7 @@ from ..core import aggregation as _aggregation
 from ..core import ingest as _ingest
 from ..core.ingest import PackedEncoder, layout
 from ..core.runtime import (BATCH_BUCKETS, InsertIntoStreamHandler,
-                            JoinQueryRuntime, PatternQueryRuntime, Planner,
+                            JoinQueryRuntime, PatternQueryRuntime,
                             SiddhiAppRuntime, _as_current, _chain_body,
                             _side_chain, bucket_capacity)
 from ..core.stream import Event
@@ -90,7 +90,7 @@ from ..ops.nfa_parallel import ParallelNfaEngine
 from ..ops.selector import ProjectOp
 from ..ops.slots import leaves, stacked, tree_map
 from ..ops.streamfn import StreamFunctionOp
-from ..ops.windows import WindowOp
+from ..ops.windows2 import CronWindowOp
 from .qos import PoolQoS
 
 # _kind slug -> the operator-class name used in quota accounting and
@@ -416,10 +416,10 @@ class TenantPool:
             if self._kind[qn] == "join":
                 ops += [op for s in q.side_ops.values() for op in s]
             for op in ops:
-                if isinstance(op, WindowOp) and \
-                        not isinstance(op, Planner.PARTITION_WINDOWS):
-                    raise _not_ported(f"window '{op.kind_name}' in a "
-                                      "tenant pool")
+                # every window kind has the slot axis but cron, whose
+                # firings come from the host schedule
+                if isinstance(op, CronWindowOp):
+                    raise _not_ported("window 'cron' in a tenant pool")
                 if isinstance(op, StreamFunctionOp):
                     raise _not_ported("stream functions in a tenant pool")
                 if getattr(op, "order_by", None) or \

@@ -435,10 +435,11 @@ def test_unported_options_raise():
                  lambda: pool.audit_programs()):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             call()
-    # a window kind without the slot axis yet (kernel B)
+    # order-by in a pool, without the slot axis yet (kernel G[K])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TRegistry(T.SiddhiManager(device="cpu")).pool("""
             define stream S (k string, v double);
             @info(name='q')
-            from S#window.sort(3, v) select k, v insert into Out;""",
+            from S#window.length(3) select k, v order by v
+            insert into Out;""",
             warm=False)
