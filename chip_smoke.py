@@ -237,12 +237,12 @@ Phases, each of which stops the run with a non-zero exit on failure:
    TENANT_TEMPLATE: a filter on two tenant parameters, lengthBatch(256),
    a projection) through TemplateRegistry(SiddhiManager()).pool(...) at
    64, 256 and 1,024 tenants x 2,048 rows, batch_max 1,024, one warm
-   pass and 3 timed passes: events/s, the rounds, each round's p50/p99;
-   8 sampled tenants' rows equal separate runtimes with the same
-   bindings (fed the same round chunks), bit for bit; K1[K], K2 with its
-   parameter loads and K5[K] launch on the timed passes, and at 1,024
-   tenants the first two rounds' launches of each are held against
-   their plain versions (tolerance 0) and timed;
+   pass and 3 timed passes (1 at 1,024 tenants): events/s, the rounds,
+   each round's p50/p99; 8 sampled tenants' rows equal separate
+   runtimes with the same bindings (fed the same round chunks), bit for
+   bit; K1[K], K2 with its parameter loads and K5[K] launch on the timed
+   passes, and at 1,024 tenants the first round's launches of each are
+   held against their plain versions (tolerance 0) and timed;
 45. to 47. pool_pattern, pool_join and pool_absent: 64 tenants x 1,024
    rows a stream of checks.class_feeds(seed=17), batch_max 256 (bucketed
    to 1,024, as in the reference): the class templates and a small
@@ -251,7 +251,9 @@ Phases, each of which stops the run with a non-zero exit on failure:
    K7[K] (its grid entry point too, on the same arguments) with the
    join sides' K5[K], and K4[K]'s stream and timer steps launch, and
    the first rounds' launches are held against their plain versions
-   over every slot and timed;
+   over every slot and timed (K4[K]'s stream step from the warm pass's
+   second launch on: the first one's plain version took 129 s on an
+   H100);
 48. to 50. pool_aggregation, partition_lanes and pool_lanes: a pool's
    aggregation class (K11[K]) and the stateful lanes (C[K], D[K],
    H[K]) in a partition block and a pool, sampled symbols and tenants
@@ -269,7 +271,19 @@ Phases, each of which stops the run with a non-zero exit on failure:
    separate runtimes) equal bit for bit, one captured step of every
    window kind held against its plain version over every slot and
    timed, with each path's seconds on a line of its own;
-55. print the kernel table as one JSON line, the card's name and power
+55. and 56. order by, offset and limit over a slot axis (G[K],
+   order_slot_phases): partition_top (checks.PARTITION_TOP_APP,
+   trades_feed's 512 symbols at 1,024 slots, 128 sends of 8,192: each
+   ticker's top three trades of every lengthBatch(16), its running
+   averages ordered after K6[K] with offset and limit and a rate limiter
+   on the port) and pool_radar (checks.POOL_RADAR_TEMPLATE, 64 tenants
+   x 1,024 rows a round, 8 rounds: pol2Cart, a template parameter before
+   an aggregating selector, G[K] over the pool's slot axis); G[K] must
+   launch, sampled keys (against a block of their ranges) and tenants
+   (against separate runtimes) equal bit for bit, the first G[K]
+   launches of each query held against the plain version over every
+   slot and timed, each path's seconds on a line of its own;
+57. print the kernel table as one JSON line, the card's name and power
    limit, and the result line.
 
 `python3 chip_smoke.py --k5-time` times K5 alone (window_agg's and
@@ -283,6 +297,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -5399,11 +5414,12 @@ class PoolCapture:
     """While installed, the arguments of the first ``limit`` launches of
     each of a tenant pool's slotted kernels (K1[K], K2 with per-slot
     parameters or counters, K5[K], K3[K], K4[K] stream and timer steps,
-    K7[K]) are kept: the tensors a launch updates in place cloned first.
-    The runtime goes on with the kernels' results; ``replay`` then holds
-    each kept launch against its plain version on the same arguments."""
+    K7[K]) are kept, after the first ``skip[kind]`` launches of a kind:
+    the tensors a launch updates in place cloned first. The runtime goes
+    on with the kernels' results; ``_pool_check`` then holds each kept
+    launch against its plain version on the same arguments."""
 
-    def __init__(self, limit: int):
+    def __init__(self, limit: int, skip: Optional[dict] = None):
         from siddhi_tpu_torch.core import ingest as I
         from siddhi_tpu_torch.core import runtime as R
         from siddhi_tpu_torch.ops import join as J
@@ -5413,11 +5429,14 @@ class PoolCapture:
         from siddhi_tpu_torch.ops import windows as W
         self.mods = (I, R, S, W, NP, N, J)
         self.limit = limit
+        self.skip = dict(skip or {})
         self.rec = {k: [] for k in ("K1", "K2", "K5", "K3", "K4", "K4t",
                                     "K7")}
 
     def _keep(self, kind, args) -> None:
-        if len(self.rec[kind]) < self.limit:
+        if self.skip.get(kind, 0) > 0:
+            self.skip[kind] -= 1
+        elif len(self.rec[kind]) < self.limit:
             self.rec[kind].append(args)
 
     def __enter__(self):
@@ -5681,6 +5700,8 @@ def _pool_check(kind: str, rec, what: str) -> dict:
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = max(err, compare(f"{what} {kind} launch {i}", got, want))
+        print(f"{what}: {kind} launch {i}'s plain version took "
+              f"{plain_ms:.1f} ms", flush=True)
     args = rec[-1]
     ms = _pool_launch_ms(kind, args)
     outs = run(args, False)
@@ -5825,10 +5846,11 @@ def tenants_pool_phase(dev, card: str) -> dict:
     each round's p50/p99 to the device's end). In the warm pass at
     every count, 8 sampled tenants' pooled rows equal separate runtimes
     of the template with the same bindings, fed the same round chunks,
-    bit for bit; at 1,024 tenants the first two rounds' K1[K], K2 and
-    K5[K] launches are held against their plain versions (tolerance 0)
-    and timed. K1[K], K2 with its parameter loads (expr_eval[K]) and
-    K5[K] must launch on the timed passes."""
+    bit for bit; at 1,024 tenants the first round's K1[K], K2 and K5[K]
+    launches are held against their plain versions (tolerance 0) and
+    timed, and one timed pass runs (the depth cut for time). K1[K], K2
+    with its parameter loads (expr_eval[K]) and K5[K] must launch on the
+    timed passes."""
     from siddhi_tpu_torch import SiddhiManager, _kernels
     from siddhi_tpu_torch import checks as C
     from siddhi_tpu_torch.serving import TemplateRegistry
@@ -5836,6 +5858,7 @@ def tenants_pool_phase(dev, card: str) -> dict:
     ts, cols = C.tenant_data(POOL_ROWS)
     span = int(ts[-1] - ts[0]) + 1
     for n in POOL_TENANTS:
+        t_n = time.perf_counter()
         reg = TemplateRegistry(SiddhiManager())
         pool = reg.pool(C.TENANT_TEMPLATE, slots=n, max_tenants=n,
                         batch_max=POOL_BATCH_MAX)
@@ -5847,7 +5870,9 @@ def tenants_pool_phase(dev, card: str) -> dict:
         _pool_rows(pool, sampled, got)
         takes = _TakeLog(pool, sampled)
         rounds: list = []
-        cap = PoolCapture(4) if n == POOL_TENANTS[-1] else None
+        last = n == POOL_TENANTS[-1]
+        passes = 1 if last else POOL_PASSES
+        cap = PoolCapture(1) if last else None
         if cap is not None:
             with cap:
                 _pool_pass(pool, tids, {"In": (ts, cols)}, 0, rounds)
@@ -5867,7 +5892,7 @@ def tenants_pool_phase(dev, card: str) -> dict:
         _kernels.reset_launches()
         rounds = []
         t0 = time.perf_counter()
-        for p in range(1, POOL_PASSES + 1):
+        for p in range(1, passes + 1):
             _pool_pass(pool, tids, {"In": (ts, cols)}, p * span, rounds)
         wall = time.perf_counter() - t0
         launches = dict(_kernels.LAUNCHES)
@@ -5876,7 +5901,7 @@ def tenants_pool_phase(dev, card: str) -> dict:
                 fail(f"tenants_pool {n}: {k} did not launch on the "
                      f"pool's path ({launches})")
             out["launches"][k] += launches[k]
-        events = n * POOL_ROWS * POOL_PASSES
+        events = n * POOL_ROWS * passes
         st = pool.statistics()
         eps = events / wall
         p50, p99 = (float(np.percentile(rounds, q)) for q in (50, 99))
@@ -5884,7 +5909,7 @@ def tenants_pool_phase(dev, card: str) -> dict:
                            "round_p50_ms": p50, "round_p99_ms": p99,
                            "pad_frac": st["packed_ingest"]["pad_frac"]}
         print(f"tenants_pool {n} tenants x {POOL_ROWS} rows, batch_max "
-              f"{POOL_BATCH_MAX}: {eps:.0f} events/s over {POOL_PASSES} "
+              f"{POOL_BATCH_MAX}: {eps:.0f} events/s over {passes} "
               f"passes ({len(rounds)} rounds, a round p50 {p50:.3f} ms, "
               f"p99 {p99:.3f} ms to the device's end); {len(sampled)} "
               f"sampled tenants equal separate runtimes bit for bit; "
@@ -5896,7 +5921,7 @@ def tenants_pool_phase(dev, card: str) -> dict:
                                 f"tenants_pool {n}")
                 out[key] = r
                 print(f"tenants_pool {n}: {kind} launches of the first "
-                      f"two rounds ({r['checked']}) bit-equal to the plain "
+                      f"round ({r['checked']}) bit-equal to the plain "
                       f"version; {r['ms']:.4f} ms a launch, plain "
                       f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} "
                       f"ms ({r['bytes']} bytes), library "
@@ -5905,19 +5930,23 @@ def tenants_pool_phase(dev, card: str) -> dict:
         pool.shutdown()
         reg.shutdown()
         gc.collect()
+        print(f"[tenants_pool {n}: {time.perf_counter() - t_n:.1f} s]",
+              flush=True)
     return out
 
 
 def _class_phase(dev, card: str, what: str, template: str, streams,
-                 checks: tuple, advance: bool = False) -> dict:
+                 checks: tuple, advance: bool = False,
+                 skip: Optional[dict] = None) -> dict:
     """One operator class's pool: 64 tenants x 1,024 rows a stream,
     batch_max 256, checks.class_feeds(seed=17) (the reference bench's
     class arm); one warm pass (the first rounds' kernels captured, 8
     sampled tenants held against separate runtimes), then 3 timed passes
     whose launches are read; each pass moves the timestamps on, and with
     ``advance`` every pass ends with an advance_time round 2 s past its
-    last event. -> events/s, rounds, launches and each captured kernel's
-    check and times."""
+    last event; ``skip`` passes over the first launches of a kernel in
+    the capture (PoolCapture). -> events/s, rounds, launches and each
+    captured kernel's check and times."""
     from siddhi_tpu_torch import SiddhiManager, _kernels
     from siddhi_tpu_torch import checks as C
     from siddhi_tpu_torch.serving import TemplateRegistry
@@ -5935,7 +5964,7 @@ def _class_phase(dev, card: str, what: str, template: str, streams,
     got: dict = {}
     _pool_rows(pool, sampled, got)
     takes = _TakeLog(pool, sampled)
-    cap = PoolCapture(2)
+    cap = PoolCapture(2, skip)
     rounds: list = []
 
     def one_pass(p):
@@ -6008,19 +6037,31 @@ def _class_phase(dev, card: str, what: str, template: str, streams,
 
 def pool_phases(dev, card: str) -> dict:
     """The four pool phases: tenants_pool, pool_pattern, pool_join and
-    pool_absent."""
+    pool_absent, each timed on a line of its own."""
     from siddhi_tpu_torch import checks as C
-    tp = tenants_pool_phase(dev, card)
-    pp = _class_phase(dev, card, "pool_pattern", C.POOL_PATTERN_TEMPLATE,
-                      ("S",), (("K3", "nfa_parallel[K]"),
-                               ("K2", "expr_eval[K]")))
-    pj = _class_phase(dev, card, "pool_join", C.POOL_JOIN_TEMPLATE,
-                      ("L", "R"), (("K7", "join_probe[K]"),
-                                   ("K5", "window_step[K]")))
-    pa = _class_phase(dev, card, "pool_absent", C.POOL_ABSENT_TEMPLATE,
-                      ("S",), (("K4", "nfa_scan[K]"),
-                               ("K4t", "nfa_scan[K]")), advance=True)
-    return {"tenants": tp, "pattern": pp, "join": pj, "absent": pa}
+    out = {}
+    for key, name, fn in (
+            ("tenants", "tenants_pool", lambda: tenants_pool_phase(dev,
+                                                                   card)),
+            ("pattern", "pool_pattern", lambda: _class_phase(
+                dev, card, "pool_pattern", C.POOL_PATTERN_TEMPLATE, ("S",),
+                (("K3", "nfa_parallel[K]"), ("K2", "expr_eval[K]")))),
+            ("join", "pool_join", lambda: _class_phase(
+                dev, card, "pool_join", C.POOL_JOIN_TEMPLATE, ("L", "R"),
+                (("K7", "join_probe[K]"), ("K5", "window_step[K]")))),
+            # K4[K]'s stream step is held from the warm pass's second
+            # launch on: the plain version of the first, a full round
+            # from an empty table, took 129 s of the run on an H100 (the
+            # depth cut for time; partition_fraud holds K4[K] at full
+            # rounds)
+            ("absent", "pool_absent", lambda: _class_phase(
+                dev, card, "pool_absent", C.POOL_ABSENT_TEMPLATE, ("S",),
+                (("K4", "nfa_scan[K]"), ("K4t", "nfa_scan[K]")),
+                advance=True, skip={"K4": 1}))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        print(f"[{name}: {time.perf_counter() - t0:.1f} s]", flush=True)
+    return out
 
 
 # -- the aggregation kernels over a slot axis (K11[K], C[K], D[K], H[K]) -----
@@ -6659,23 +6700,35 @@ def _win_checks(cap: _StepCapture, what: str, need) -> dict:
     return rows
 
 
+def _win_block(what: str, kerns, n_sends: int) -> dict:
+    """_block_against_separate's need, capture and check for a path of
+    window kernels (WIN_KERNELS keys): each launches on every send; one
+    slotted step of each window, mid-run, against its plain version
+    (_win_checks)."""
+    return {"need": tuple((WIN_KERNELS[k][0], n_sends) for k in kerns),
+            "capture": _StepCapture(skip=n_sends // 2),
+            "check": lambda cap: _win_checks(cap, what, kerns)}
+
+
 def _block_against_separate(what: str, stream: str, stream_text: str,
                             key: str, queries_text: str, queries, feed,
                             n_sends: int, send: int, card: str,
-                            need, warm_sends: int = 2) -> dict:
+                            need, capture, check,
+                            warm_sends: int = 2) -> dict:
     """A partition path end to end: ``partition with (key of stream)``
     at ``@slots`` WIN_SLOTS around ``queries_text`` through
     SiddhiManager, send_arrays and batch_callbacks, ``n_sends`` sends of
-    ``send`` rows of ``feed`` (ts, columns); every kernel of ``need``
-    must launch on every send. Then ``WIN_SAMPLED`` keys that the block
+    ``send`` rows of ``feed`` (ts, columns); each (launch counter,
+    least launches) pair of ``need`` must be met. Then ``WIN_SAMPLED`` keys that the block
     placed (the first column of the first query's rows) against a
     separate runtime of the same queries in a block of one range a key,
     ``key == 'name' as 'k0' or ...`` (a range's slot sees only its key's
     rows and steps on every send and at the block's timer dues, as the
     key's slot does in the big block: a query outside a block arms its
     timers otherwise), fed the same sends: each key's rows of each query
-    equal the big block's rows of the key, bit for bit. One slotted step
-    of each window, mid-run, against its plain version (_win_checks).
+    equal the big block's rows of the key, bit for bit. ``capture`` (a
+    context manager installed around the sends) keeps kernel launches,
+    and ``check`` holds them against their plain versions -> rows.
     -> the rows, times, launches and timer steps."""
     from siddhi_tpu_torch import SiddhiManager, _kernels
     from siddhi_tpu_torch import checks as C
@@ -6713,7 +6766,7 @@ def _block_against_separate(what: str, stream: str, stream_text: str,
     rt.start()
     h = rt.get_input_handler(stream)
     _kernels.reset_launches()
-    with _StepCapture(skip=n_sends // 2) as cap:
+    with capture as cap:
         t0 = time.perf_counter()
         for s in range(0, N, send):
             h.send_arrays(ts_all[s:s + send],
@@ -6721,9 +6774,8 @@ def _block_against_separate(what: str, stream: str, stream_text: str,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = dict(_kernels.LAUNCHES)
-    for kern in need:
-        k = WIN_KERNELS[kern][0]
-        if launches[k] < n_sends:
+    for k, least in need:
+        if launches[k] < least:
             fail(f"{what}: {k} launched {launches[k]} times on "
                  f"{n_sends} sends ({launches})")
     stats = {q: rt.queries[q].stats() for q in queries}
@@ -6775,7 +6827,7 @@ def _block_against_separate(what: str, stream: str, stream_text: str,
           f"({sum(timers.values()) / n_sends:.2f} a send); stats {stats}; "
           f"{eps:.0f} events/s, device batches only ({card})", flush=True)
     print(f"launches on the {what} path: {launches}", flush=True)
-    rows = _win_checks(cap, what, need)
+    rows = check(cap)
     _kernels.LAUNCHES.update(launches)
     return {"eps": eps, "launches": launches, "timers": timers,
             "rows": rows}
@@ -6842,7 +6894,7 @@ def partition_trades_phase(dev, card: str) -> dict:
     return _block_against_separate(
         "partition_trades", "Trades", C.TRADES_STREAM, "symbol",
         _trades_queries(), TRADES_QUERIES, feed, WIN_SENDS, WIN_SEND, card,
-        ("A", "B"))
+        **_win_block("partition_trades", ("A", "B"), WIN_SENDS))
 
 
 def _block_queries(app: str) -> str:
@@ -6866,7 +6918,8 @@ def partition_purchases_phase(dev, card: str) -> dict:
     return _block_against_separate(
         "partition_purchases", "Purchase", C.PURCHASE_MERCHANT_STREAM,
         "merchant", _block_queries(C.PARTITION_PURCHASES_APP),
-        ("freq", "lossy"), feed, WIN_SENDS, WIN_SEND, card, ("E",))
+        ("freq", "lossy"), feed, WIN_SENDS, WIN_SEND, card,
+        **_win_block("partition_purchases", ("E",), WIN_SENDS))
 
 
 def partition_sessions_phase(dev, card: str) -> dict:
@@ -6886,7 +6939,8 @@ def partition_sessions_phase(dev, card: str) -> dict:
     return _block_against_separate(
         "partition_sessions", "Click", stream, "user",
         _block_queries(C.PARTITION_SESSIONS_APP), ("q",), feed, WIN_SENDS,
-        WIN_SEND, card, ("F",))
+        WIN_SEND, card,
+        **_win_block("partition_sessions", ("F",), WIN_SENDS))
 
 
 # POOL_WINDOWS_TEMPLATE's output streams, told apart in a tenant's rows by
@@ -6993,6 +7047,231 @@ def window_slot_phases(dev, card: str) -> dict:
                      ("partition_purchases", partition_purchases_phase),
                      ("partition_sessions", partition_sessions_phase),
                      ("pool_windows", pool_windows_phase)):
+        t0 = time.perf_counter()
+        out[name] = fn(dev, card)
+        print(f"[{name}: {time.perf_counter() - t0:.1f} s]", flush=True)
+    return out
+
+
+# -- order by, offset and limit over a slot axis (G[K]) -----------------------
+
+TOP_SYMS, TOP_SEND, TOP_SENDS = 512, 8192, 128
+RADAR_TENANTS, RADAR_ROWS, RADAR_ROUNDS = 64, 1024, 8
+ORDER_KEPT = 2   # G[K] launches kept a query, the first ones
+
+
+class _OrderCapture:
+    """While installed, the arguments of the first ORDER_KEPT G[K]
+    launches of each query shape (ops/selector.py shape_chunk_slots:
+    (batch, order, offset, limit, the emitted counter before the launch))
+    are kept, by (order, offset, limit)."""
+
+    def __enter__(self):
+        from siddhi_tpu_torch.ops import selector as S
+        self.S, self.kept = S, {}
+        self.orig = S.shape_chunk_slots
+
+        def tap(out, order_by, offset, limit, emitted=None):
+            key = (tuple(order_by), offset, limit)
+            got = self.kept.setdefault(key, [])
+            if len(got) < ORDER_KEPT:
+                got.append((out, list(order_by), offset, limit,
+                            None if emitted is None else emitted.clone()))
+            return self.orig(out, order_by, offset, limit, emitted)
+        S.shape_chunk_slots = tap
+        return self
+
+    def __exit__(self, *exc):
+        self.S.shape_chunk_slots = self.orig
+        return False
+
+
+def _order_checks(cap: _OrderCapture, what: str) -> dict:
+    """Every kept G[K] launch against shape_chunk_slots_ref on the same
+    arguments, every slot, dead rows and the emitted counters included,
+    bit for bit; then, on the last launch of each shape, the kernel's
+    time (its argument struct built once), the plain version's, the
+    bound (the batch's inputs read once, a column the slots share once,
+    and the [K, B] output written once, at the HBM rate), the design's
+    own sort traffic beside it (a key word and a row index a row for
+    each key, read and written: not part of the bound) and the
+    library's: chained
+    stable torch.sort(dim=1) of the key words (made outside the timing)
+    and the dead flags, and the gathers of every column. -> the row of
+    the shape whose launch is the slowest (its error the largest of
+    all)."""
+    from siddhi_tpu_torch import _kernels
+    from siddhi_tpu_torch.ops import selector as S
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    if not cap.kept:
+        fail(f"{what}: no G[K] launch was captured on the path")
+    row, err, n = None, 0.0, 0
+    for key, kept in cap.kept.items():
+        for i, (out, ob, off, lim, em) in enumerate(kept):
+            ek = None if em is None else em.clone()
+            ep = None if em is None else em.clone()
+            got = S.shape_chunk_slots(out, ob, off, lim, ek)
+            want = S.shape_chunk_slots_ref(out, ob, off, lim, ep)
+            err = max(err, compare(
+                f"{what}: order_by[K] {ob} offset {off} limit {lim} "
+                f"launch {i}", _bl(got) + ([ek] if ek is not None else []),
+                _bl(want) + ([ep] if ep is not None else [])))
+            n += 1
+        out, ob, off, lim, em = kept[-1]
+        K, B = out.ts.shape
+        res, a = S.order_slot_args(out, ob, off, lim, None)
+        ms = cuda_ms(lambda: lib.order_by(a, stream), reps=5, warmup=1)
+        plain_ms = cuda_ms(lambda: S.shape_chunk_slots_ref(out, ob, off,
+                                                           lim),
+                           reps=3, warmup=1)
+        words = [S.sort_key(out.cols[c], d == "desc") for c, d in ob]
+        dead = (~out.valid).to(torch.uint8)
+
+        def library():
+            perm = None
+            for w in reversed(words + [dead]):
+                w = w if perm is None else w.gather(1, perm)
+                p = torch.sort(w, dim=1, stable=True).indices
+                perm = p if perm is None else perm.gather(1, p)
+            return [x.gather(1, perm) for x in _bl(out)]
+        lib_ms = cuda_ms(library, reps=3, warmup=1)
+        n_bytes = _slot_bytes(out) + _nbytes(_bl(res))
+        bound, by = bound_of(n_bytes, 0)
+        sort_bytes = len(ob) * K * B * 2 * (8 + 4)
+        sort_ms, _by = bound_of(sort_bytes, 0)
+        branch = "global memory" if a.k1 else "shared memory"
+        print(f"{what}: order_by[K] {ob} offset {off} limit {lim} at "
+              f"{[K, B]} ({branch}): {len(kept)} launches bit-equal to the "
+              f"plain version over every slot; {ms:.4f} ms a launch, plain "
+              f"version {plain_ms:.3f} ms, chained torch.sort(dim=1, "
+              f"stable=True) and the gathers {lib_ms:.4f} ms, bound "
+              f"{bound:.5f} ms ({by}; {n_bytes} bytes); the sort's own "
+              f"traffic (a key word and a row index a row a key, read and "
+              f"written once) {sort_ms:.5f} ms more ({sort_bytes} bytes)",
+              flush=True)
+        r = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": by, "library_ms": lib_ms, "shape": [K, B],
+             "branch": branch, "sort_ms": sort_ms}
+        if row is None or ms > row["ms"]:
+            row = r
+        del res, a
+    cap.kept.clear()
+    gc.collect()
+    row.update(err=err, checked=n)
+    return row
+
+
+def partition_top_phase(dev, card: str) -> dict:
+    """partition_top: checks.PARTITION_TOP_APP (each ticker's three best
+    trades of every lengthBatch(16), its running averages over
+    length(32) ordered after K6[K], ``limit 2 offset 1``, ``output last
+    every 5 sec`` on its port) at ``@slots`` WIN_SLOTS (1,024),
+    trades_feed's 512 symbols, TOP_SENDS sends of TOP_SEND; order_by[K]
+    twice a send.
+    Sampled symbols against a block of their ranges
+    (_block_against_separate), the first G[K] launches of both queries
+    against the plain version over every slot (_order_checks)."""
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    N = TOP_SENDS * TOP_SEND
+    feed = C.trades_feed(N + 4 * TOP_SEND, GLOBAL_STRINGS.encode, TOP_SYMS)
+    text = C.PARTITION_TOP_APP
+    stream = text.split("@slots", 1)[0]
+    r = _block_against_separate(
+        "partition_top", "Trades", stream, "symbol", _block_queries(text),
+        ("top3", "avg"), feed, TOP_SENDS, TOP_SEND, card,
+        (("order_by[K]", 2 * TOP_SENDS), ("aggregate_step[K]", TOP_SENDS)),
+        capture=_OrderCapture(),
+        check=lambda cap: {"G": _order_checks(cap, "partition_top")})
+    return r
+
+
+def pool_radar_phase(dev, card: str) -> dict:
+    """pool_radar: checks.POOL_RADAR_TEMPLATE (pol2Cart, then the eight
+    highest returns by cartZ desc, id; the four farthest of length(64)
+    with max(rho), a ``${min_rho}`` gate before each) for RADAR_TENANTS
+    tenants, each its own gate (pool_radar_bindings), RADAR_ROWS rows of
+    radar_feed a tenant a round, RADAR_ROUNDS rounds, batch_max 1,024;
+    order_by[K], K2's parameter loads, K6[K] and C[K] must launch. The
+    sampled tenants' rows of both streams equal separate runtimes fed
+    the tenant's round chunks, bit for bit; the first G[K] launches of
+    both queries against the plain version over every slot."""
+    from siddhi_tpu_torch import SiddhiManager, StreamCallback, _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.serving import Template, TemplateRegistry
+    n = RADAR_TENANTS
+    reg = TemplateRegistry(SiddhiManager())
+    pool = reg.pool(C.POOL_RADAR_TEMPLATE, slots=n, max_tenants=n,
+                    batch_max=POOL_BATCH_MAX, name="pool_radar")
+    tids = [f"t{i}" for i in range(n)]
+    for i, tid in enumerate(tids):
+        pool.add_tenant(tid, C.pool_radar_bindings(i))
+    sampled = tids[:: n // WIN_SAMPLED][:WIN_SAMPLED]
+    got: dict = {}
+    _pool_rows(pool, sampled, got)
+    takes = _TakeLog(pool, sampled)
+    _kernels.reset_launches()
+    rounds: list = []
+    t0 = time.perf_counter()
+    with _OrderCapture() as cap:
+        for r in range(RADAR_ROUNDS):
+            for i, tid in enumerate(tids):
+                ts, cols = C.radar_feed(RADAR_ROWS, seed=1000 * r + i)
+                pool.send(tid, ts + r * RADAR_ROWS, cols)
+            _pool_drain(pool, rounds)
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    takes.stop()
+    for k in ("order_by[K]", "expr_eval[K]", "aggregate_step[K]",
+              "sliding_minmax[K]"):
+        if launches[k] == 0:
+            fail(f"pool_radar: {k} did not launch on the pool's path "
+                 f"({launches})")
+    for i, tid in enumerate(sampled):
+        text = "@app:playback\n" + Template(
+            C.POOL_RADAR_TEMPLATE).instantiate_static(
+                C.pool_radar_bindings(tids.index(tid)),
+                app_name=f"sep_r{i}")
+        sep = SiddhiManager().create_siddhi_app_runtime(text)
+        rows = {"Near": [], "Far": []}
+        for sid in rows:
+            sep.add_callback(sid, StreamCallback(
+                lambda evs, sid=sid: rows[sid].extend(
+                    (e.timestamp, e.is_expired, tuple(e.data))
+                    for e in evs)))
+        sep.start()
+        for sid, t, c in takes.log[tid]:
+            sep.get_input_handler(sid).send_arrays(t, c)
+        torch.cuda.synchronize()
+        sep.shutdown()
+        mine = got.get(tid, [])
+        for sid, width in (("Near", 4), ("Far", 3)):
+            m = [x for x in mine if len(x[2]) == width]
+            if m != rows[sid] or not m:
+                fail(f"pool_radar: tenant {tid}'s pooled rows of {sid} "
+                     f"({len(m)}) differ from a separate runtime's "
+                     f"({len(rows[sid])})")
+    eps = RADAR_ROUNDS * n * RADAR_ROWS / wall
+    print(f"pool_radar {n} tenants x {RADAR_ROWS} rows a round, batch_max "
+          f"{POOL_BATCH_MAX}: {eps:.0f} events/s in {RADAR_ROUNDS} rounds "
+          f"({len(rounds)} pumps, p50 "
+          f"{float(np.percentile(rounds, 50)):.3f} ms); {len(sampled)} "
+          f"sampled tenants equal separate runtimes bit for bit (Near and "
+          f"Far); launches {launches}; {card}", flush=True)
+    rows = {"G": _order_checks(cap, "pool_radar")}
+    pool.shutdown()
+    reg.shutdown()
+    gc.collect()
+    return {"eps": eps, "launches": launches, "rows": rows}
+
+
+def order_slot_phases(dev, card: str) -> dict:
+    """The two G[K] paths, each timed on a line of its own. -> {path:
+    result}."""
+    out = {}
+    for name, fn in (("partition_top", partition_top_phase),
+                     ("pool_radar", pool_radar_phase)):
         t0 = time.perf_counter()
         out[name] = fn(dev, card)
         print(f"[{name}: {time.perf_counter() - t0:.1f} s]", flush=True)
@@ -7737,7 +8016,35 @@ def main() -> None:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
 
     _mark("55.")
-    # -- 55. result -----------------------------------------------------------
+    # -- 55. and 56. order by, offset and limit over a slot axis (G[K]);
+    # partition_top, pool_radar
+    s15 = order_slot_phases(dev, card)
+
+    def s15_launches(*names):
+        return sum(r["launches"].get(k, 0) for r in s15.values()
+                   for k in names)
+    for row in table:
+        kname = row["name"]
+        if kname == "partition":
+            row["launches"] += s15_launches(
+                "partition_route", "partition_compact", "partition_due")
+        elif kname in ("expr_eval", "expr_eval[K]", "window_step[K]",
+                       "aggregate_step[K]", "aggregate_emit[K]",
+                       "unpack_packed[K]", "sliding_minmax[K]"):
+            row["launches"] += s15_launches(kname)
+    gk = [ph["rows"]["G"] for ph in s15.values()]
+    g = max(gk, key=lambda x: x["ms"])   # the path of its slowest launch
+    table.append({
+        "name": "order_by[K]", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/order_by.cu",
+        "replaces": "siddhi_tpu/ops/selector.py:88",
+        "launches": s15_launches("order_by[K]"),
+        "max_abs_err": max(x["err"] for x in gk), "ms": g["ms"],
+        "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": g["bound_by"], "library_ms": g["library_ms"]})
+
+    _mark("57.")
+    # -- 57. result -----------------------------------------------------------
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

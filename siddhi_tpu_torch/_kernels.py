@@ -47,7 +47,7 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # K7 with a tenant pool's slot axis, and K2's that load per-slot
 # template parameters or count per slot ("[K]": K4, K5 and K6 count a
 # pool's as a partition block's); kernels C, D and H with either slot
-# axis, and K11 with a tenant pool's; kernels B, E and F with either
+# axis, and K11 with a tenant pool's; kernels B, E, F and G with either
 # slot axis
 ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
                 "window_step", "sort_window", "aggregate_step",
@@ -62,7 +62,7 @@ ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
                 "nfa_parallel[K]", "join_probe[K]", "join_grid[K]",
                 "sliding_minmax[K]", "distinct_count[K]", "union_set[K]",
                 "aggregation_step[K]", "sort_window[K]", "freq_window[K]",
-                "session_window[K]")
+                "session_window[K]", "order_by[K]")
 LAUNCHES = {name: 0 for name in ENTRY_POINTS}
 
 
@@ -357,6 +357,11 @@ class SessArgs(ctypes.Structure):
 
 ORDER_MAX_COLS = 32
 ORDER_MAX_KEYS = 8
+# G[K] sorts a slot's rows in its block's shared memory up to this many
+# (csrc/order_by.cu; 12 bytes a row of a power-of-two size); past it,
+# in global memory. The one place this is decided: the kernel takes the
+# global branch exactly when OrderArgs.k1 is given.
+ORDER_SHARED_ROWS = 16384
 
 
 class OrderArgs(ctypes.Structure):
@@ -371,7 +376,12 @@ class OrderArgs(ctypes.Structure):
         ("out_ts", _P), ("out_kind", _P), ("out_valid", _P),
         ("out_cols", _P * ORDER_MAX_COLS), ("out_nulls", _P * ORDER_MAX_COLS),
         ("emitted", _P)] + [
-        (f, _P) for f in ("k1", "k2", "i1", "i2", "counts", "rank", "sums")]
+        (f, _P) for f in ("k1", "k2", "i1", "i2", "counts", "rank",
+                          "sums")] + [
+        ("K", _I32), ("pad2_", _I32),
+        ("ts_stride", _I64), ("kind_stride", _I64), ("valid_stride", _I64),
+        ("col_stride", _I64 * ORDER_MAX_COLS),
+        ("null_stride", _I64 * ORDER_MAX_COLS), ("emitted_stride", _I64)]
 
 
 AGG_MAX_KEYS = 8

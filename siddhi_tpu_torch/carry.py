@@ -122,7 +122,9 @@ def block_from_jax(snapshot: dict, device, string_cols=None,
     order}), as in state_from_jax. The block's slot table, the frequent
     tables' keys and the session's key table hold hashes of dictionary
     codes and carry over only where both packages gave the feed's
-    strings the same codes; the rate limiters' state is not ported."""
+    strings the same codes. Each rate-limited query's limiter state
+    (``"rate"``: host rows and times) comes across as ratelimit_from_jax
+    carries it."""
     qstates = snapshot["qstates"]
     if remap is not None:
         qstates = {qn: _remap_buffers(st, tuple((string_cols or {}).get(
@@ -130,7 +132,9 @@ def block_from_jax(snapshot: dict, device, string_cols=None,
     return {"slot_tbl": _tree(snapshot["slot_tbl"], device),
             "qstates": _tree(qstates, device),
             "emitted": _tree(snapshot["emitted"], device),
-            "lost": _tree(snapshot["lost"], device)}
+            "lost": _tree(snapshot["lost"], device),
+            "rate": {qn: ratelimit_from_jax(r)
+                     for qn, r in snapshot.get("rate", {}).items()}}
 
 
 def table_from_jax(tstate: dict, device, string_cols: Sequence = (),

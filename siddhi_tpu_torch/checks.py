@@ -3663,3 +3663,55 @@ PARTITION_SESSIONS_APP = """
     end;
 """
 PARTITION_SESSION_USERS = 1000
+
+
+# -- order by, offset and limit over a slot axis (G[K]) -----------------------
+
+# the Siddhi query guide's order-by/limit and output rate limiting
+# examples, run per ticker in partition_avg's block shape: each ticker's
+# three best trades of every batch of 16 (price down, volume up), and
+# its second and third highest running averages over its last 32 trades
+# (`offset 1`, after K6[K]), the last such row every 5 seconds
+PARTITION_TOP_APP = TRADES_STREAM + """
+    @slots('1024')
+    partition with (symbol of Trades) begin
+      @info(name = 'top3')
+      from Trades#window.lengthBatch(16)
+      select symbol, price, volume
+      order by price desc, volume
+      limit 3
+      insert into TopTrades;
+      @info(name = 'avg')
+      from Trades#window.length(32)
+      select symbol, price, avg(price) as avgPrice
+      order by avgPrice desc
+      limit 2 offset 1
+      output last every 5 sec
+      insert into AvgTop;
+    end;
+"""
+
+# a per-tenant radar track (POLAR_APP's stream and pol2Cart): each
+# tenant's eight highest returns of a round past its own range gate
+# (`${min_rho}`), and its four farthest over the last 64 with the
+# window's maximum, the gate before an aggregating selector
+POOL_RADAR_TEMPLATE = """
+define stream Radar (id int, theta double, rho double, z double);
+@info(name='near')
+from Radar[rho > ${min_rho:double}]#pol2Cart(theta, rho, z)
+select id, cartX, cartY, cartZ
+order by cartZ desc, id
+limit 8
+insert into Near;
+@info(name='far')
+from Radar[rho > ${min_rho:double}]#window.length(64)
+select id, rho, max(rho) as farthest
+order by rho desc
+limit 4
+insert into Far;
+"""
+
+
+def pool_radar_bindings(i: int) -> dict:
+    """Tenant i's range gate ``${min_rho:double}``: 5.0 + i mod 16."""
+    return {"min_rho": 5.0 + i % 16}

@@ -36,8 +36,10 @@ tables run in core/ondemand.py.
 
 A partition block (``partition with ... begin ... end``) runs as
 parallel/partition.py's PartitionBlockRuntime: K9p routes each row to
-its key slot, the inner queries run K2 and K4, K5 and K6 with the slot
-axis, and K9p compacts each outer query's output (plan_partition).
+its key slot, the inner queries run K2, K4, K5, K6 and G with the slot
+axis (G[K]), and K9p compacts each outer query's output
+(plan_partition); a block's query may carry an output rate limiter on
+its port, as in the reference.
 
 The port plans single-stream queries with filters, one window of any
 kind, and a plain or aggregating selector with having,
@@ -45,8 +47,10 @@ order-by, offset and limit (kernel G; a STRING order-by shapes the
 decoded rows at the host edge, ``_host_shape_rows``); insert-into
 chains between them; pattern and sequence queries; joins of two
 streams or of a stream and a table; in-memory tables; and partition
-blocks of single-stream and pattern queries (``_check_block_ops`` names
-what a block does not run yet); named windows (one shared window
+blocks of single-stream and pattern queries (every window kind but
+cron, stream functions, order-by, offset and limit; a STRING order-by
+leaves a block's rows unordered, as the reference's block does); named
+windows (one shared window
 instance a definition, fed by ``insert into`` and read by queries, joins
 and on-demand queries); and incremental aggregations
 (core/aggregation.py, kernel K11); triggers, the cron window (kernel
@@ -227,11 +231,9 @@ def _chain_body(ops):
                 note_tparams(fidx)
             stages.append(("window", i, None))
         elif isinstance(op, AggregateOp):
-            if any(f.tparams for f in filters):
-                raise not_ported("a template parameter in a filter before "
-                                 "an aggregating selector")
             op.pre_filters = list(filters)
             stages.append(("aggregate", i, None))
+            note_tparams(fidx)
         else:
             assert isinstance(op, ProjectOp), type(op).__name__
             b = ProgramBuilder()
@@ -271,7 +273,7 @@ def _chain_body(ops):
                 states[i], batch = ops[i].step(states[i], batch, now)
             elif kind == "aggregate":
                 states[i], batch = ops[i].step(states[i], batch, now,
-                                               emitted)
+                                               emitted, env)
             else:
                 batch = project(ops[i], prog, batch, emitted, now, env)
         return tuple(states), batch
@@ -1839,8 +1841,6 @@ class Planner:
             for ann in q.annotations:
                 if ann.name.lower() not in ("info", "cap"):
                     raise not_ported(f"@{ann.name} on query '{name}'")
-            if q.output_rate is not None:
-                raise not_ported("output rate limiting inside a partition")
             if isinstance(q.input, A.StateInputStream):
                 plan = self._plan_partition_pattern(q, name, key_specs)
                 if plan.inner_target:
@@ -1901,7 +1901,6 @@ class Planner:
                 raise CompileError(
                     f"query '{name}': cron windows inside partitions are "
                     "not supported")
-            self._check_block_ops(name, operators)
             plan = BlockQueryPlan(name, input_id, schema, operators,
                                   target, inner_target, out_type)
             if inner_target:
@@ -1935,21 +1934,8 @@ class Planner:
                         plan.target, tj, app)
                 port.output_handlers.append(
                     InsertIntoStreamHandler(tj, plan.out_type))
+            self.attach_rate_limiter(port, q, plan.name)
         return qcount
-
-    def _check_block_ops(self, name: str, operators) -> None:
-        """The operators a partition block runs with its slot axis: every
-        window kind but cron (refused before, as in the reference), K6's
-        aggregators with the C, D and H lanes, K2's filters and
-        projections. The rest raise."""
-        for op in operators:
-            if isinstance(op, StreamFunctionOp):
-                raise not_ported("stream functions inside a partition")
-            if getattr(op, "order_by", None) or \
-                    getattr(op, "host_shape", None) or (
-                        isinstance(op, ProjectOp) and op.shapes_chunk):
-                raise not_ported(f"query '{name}': order by, offset or "
-                                 "limit on a projection inside a partition")
 
     def _plan_partition_pattern(self, q: A.Query, name: str,
                                 key_specs: dict):
@@ -2003,7 +1989,6 @@ class Planner:
                 q.selector, engine.match_schema, target, scope,
                 current_on=current_on, expired_on=expired_on,
                 having_in_scope=scope)]
-        self._check_block_ops(name, sel_ops)
         in_schema = app.schemas[sorted(input_ids)[0]]
         return BlockPatternPlan(name, engine, sel_ops, input_ids,
                                 in_schema, target, inner_target, out_type)

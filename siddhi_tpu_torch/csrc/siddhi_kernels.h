@@ -588,7 +588,7 @@ typedef struct {
 
 cudaError_t siddhi_session_window(const SessArgs* a, cudaStream_t stream);
 
-// ---- G: order-by, offset and limit (order_by.cu) ---------------------------
+// ---- G, G[K]: order-by, offset and limit (order_by.cu) --------------------
 
 #define SIDDHI_ORDER_MAX_COLS 32
 #define SIDDHI_ORDER_MAX_KEYS 8
@@ -617,6 +617,18 @@ typedef struct {
   int32_t* counts;            // [256 * ceil(B / 1024)]
   int64_t* rank;              // [B]
   int64_t* sums;              // [ceil(B / 1024)]
+  // G[K]: K > 0 chunks of B rows, one a partition or pool slot. Inputs
+  // are [K, B] with slot s's rows `stride` elements on (0: one array
+  // every slot reads); outputs [K, B] contiguous; `emitted` is one
+  // counter (stride 0) or one a slot (stride 1). The sort's scratch
+  // (k1, k2, i1, i2: [K * B]; counts: [K * 256 * ceil(B / 1024)]) only
+  // where a slot's rows are sorted in global memory: k1 non-NULL
+  // selects that branch, NULL the block's shared memory.
+  int32_t K, pad2_;
+  int64_t ts_stride, kind_stride, valid_stride;
+  int64_t col_stride[SIDDHI_ORDER_MAX_COLS];
+  int64_t null_stride[SIDDHI_ORDER_MAX_COLS];
+  int64_t emitted_stride;
 } OrderArgs;
 
 cudaError_t siddhi_order_by(const OrderArgs* a, cudaStream_t stream);

@@ -941,11 +941,14 @@ class AggregateOp(Operator):
         self._progs = (pre, computed, proj, hav)
         return self._progs
 
-    def step(self, state, batch: EventBatch, now, emitted=None):
+    def step(self, state, batch: EventBatch, now, emitted=None,
+             tparams=None):
+        """``tparams``: the template parameters that ``pre_filters``
+        load (name -> values; a tenant pool's, one a slot)."""
         pre, computed, proj, hav = self._programs()
         cols, nulls = batch.cols, batch.nulls
         if pre is not None:
-            pc, pn, valid = expr_eval(pre, batch, now=now)
+            pc, pn, valid = expr_eval(pre, batch, now=now, tparams=tparams)
             batch = EventBatch(batch.ts, batch.cols, batch.nulls, batch.kind,
                                valid)
             pre_out = {id(e): (c, n) for e, c, n in zip(computed, pc, pn)}
@@ -970,9 +973,9 @@ class AggregateOp(Operator):
         if not self.order_by:
             return new_state, aggregate_emit(self, slots, qual, batch,
                                              out_cols, out_nulls, emitted)
-        # the qualifying rows in row order, then kernel G orders, offsets
-        # and limits them (the reference's lexsort ignores the emission
-        # order)
+        # the qualifying rows in row order, then kernel G (G[K] with a
+        # slot axis) orders, offsets and limits them (the reference's
+        # lexsort ignores the emission order)
         out = aggregate_emit(self, slots, qual, batch, out_cols, out_nulls)
         return new_state, shape_chunk(out, self.order_by, self.offset,
                                       self.limit, emitted)

@@ -13,7 +13,10 @@ kernel G (csrc/order_by.cu): the reference's ``shape_output`` with its
 (valid first, the order keys, the row index), then offset and limit by
 the running count of valid rows. For tensors on the CPU it runs
 ``shape_chunk_ref``, the plain version (chained stable sorts, last key
-first); for CUDA tensors it launches the kernel. An order-by with a
+first); for CUDA tensors it launches the kernel. A partition block's or
+a tenant pool's ``[K, B]`` batch runs ``shape_chunk_slots`` instead
+(kernel G[K]: each slot shaped on its own, as the reference's
+``jax.vmap`` does). An order-by with a
 STRING key (dictionary codes are not lexicographic) moves the whole
 ordering, with its offset and limit, to the host edge
 (core/runtime.py ``_host_shape_rows``), as in the reference.
@@ -185,7 +188,11 @@ def shape_chunk(out: EventBatch, order_by, offset: Optional[int],
     """Kernel G: order-by, offset and limit over one chunk's rows. A
     batch on the CPU takes the plain version; a CUDA batch launches
     csrc/order_by.cu (the key passes of a stable radix sort, the
-    valid pass, the gather, the ranks; no host sync)."""
+    valid pass, the gather, the ranks; no host sync). A batch with a
+    partition block's or a tenant pool's slot axis ([K, B]) runs kernel
+    G[K], ``shape_chunk_slots``."""
+    if out.ts.dim() == 2:
+        return shape_chunk_slots(out, order_by, offset, limit, emitted)
     dev = out.ts.device
     if dev.type == "cpu":
         return shape_chunk_ref(out, order_by, offset, limit, emitted)
@@ -198,16 +205,32 @@ def shape_chunk(out: EventBatch, order_by, offset: Optional[int],
 
 
 
+def _order_struct(out: EventBatch, order_by, offset, limit):
+    """``_kernels.OrderArgs`` with the shaping's column count, keys,
+    offset and limit (kernels G and G[K] alike)."""
+    if len(out.cols) > _kernels.ORDER_MAX_COLS or \
+            len(order_by) > _kernels.ORDER_MAX_KEYS:
+        raise NotImplementedError(
+            f"not ported yet: order by over more than "
+            f"{_kernels.ORDER_MAX_COLS} attributes or "
+            f"{_kernels.ORDER_MAX_KEYS} keys")
+    a = _kernels.OrderArgs()
+    a.n_cols, a.n_keys = len(out.cols), len(order_by)
+    a.offset = -1 if offset is None else offset
+    a.limit = -1 if limit is None else limit
+    for k, (idx, direction) in enumerate(order_by):
+        a.key_col[k] = idx
+        a.key_type[k] = DTYPE_VT[out.cols[idx].dtype]
+        a.key_desc[k] = int(direction == "desc")
+    return a
+
+
 def order_args(out: EventBatch, order_by, offset, limit, emitted):
     """Kernel G's arguments: the shaped batch's tensors (fresh), the
     scratch, and ``_kernels.OrderArgs``. -> (shaped batch, args)."""
     dev = out.ts.device
     B, C = out.capacity, len(out.cols)
-    if C > _kernels.ORDER_MAX_COLS or len(order_by) > _kernels.ORDER_MAX_KEYS:
-        raise NotImplementedError(
-            f"not ported yet: order by over more than "
-            f"{_kernels.ORDER_MAX_COLS} attributes or "
-            f"{_kernels.ORDER_MAX_KEYS} keys")
+    a = _order_struct(out, order_by, offset, limit)
     if emitted is not None and (emitted.device != dev
                                 or emitted.dtype != torch.int64):
         raise ValueError("shape_chunk: emitted must be an int64 scalar "
@@ -224,10 +247,7 @@ def order_args(out: EventBatch, order_by, offset, limit, emitted):
           "i1": t(B, torch.int32), "i2": t(B, torch.int32),
           "counts": t(256 * blocks, torch.int32),
           "rank": t(B, torch.int64), "sums": t(blocks, torch.int64)}
-    a = _kernels.OrderArgs()
-    a.B, a.n_cols, a.n_keys = B, C, len(order_by)
-    a.offset = -1 if offset is None else offset
-    a.limit = -1 if limit is None else limit
+    a.B = B
     a.ts, a.kind, a.valid = (out.ts.data_ptr(), out.kind.data_ptr(),
                              out.valid.data_ptr())
     for k, (c, n, rc, rn) in enumerate(zip(out.cols, out.nulls, res.cols,
@@ -238,10 +258,6 @@ def order_args(out: EventBatch, order_by, offset, limit, emitted):
         a.cols[k], a.nulls[k] = c.data_ptr(), n.data_ptr()
         a.col_size[k] = c.element_size()
         a.out_cols[k], a.out_nulls[k] = rc.data_ptr(), rn.data_ptr()
-    for k, (idx, direction) in enumerate(order_by):
-        a.key_col[k] = idx
-        a.key_type[k] = DTYPE_VT[out.cols[idx].dtype]
-        a.key_desc[k] = int(direction == "desc")
     a.out_ts, a.out_kind, a.out_valid = (res.ts.data_ptr(),
                                          res.kind.data_ptr(),
                                          res.valid.data_ptr())
@@ -249,6 +265,134 @@ def order_args(out: EventBatch, order_by, offset, limit, emitted):
     for k, v in sc.items():
         setattr(a, k, v.data_ptr())
     a._keep = (out, sc)
+    return res, a
+
+
+def shape_chunk_slots_ref(out: EventBatch, order_by, offset: Optional[int],
+                          limit: Optional[int], emitted=None) -> EventBatch:
+    """Plain version of kernel G[K]: the reference's ``shape_output``
+    under ``jax.vmap``, every slot of a ``[K, B]`` batch shaped on its
+    own, all in one call: chained stable sorts along the row axis (the
+    last key first, then the dead flag), one gather of every column, and
+    each slot's own ranks of its valid rows through offset and limit.
+    Without ``order_by`` the rows keep their places. ``emitted`` (0-d,
+    or ``[K]``) is increased by the rows kept."""
+    K, B = out.ts.shape
+    if order_by:
+        perm = torch.arange(B, dtype=torch.int64,
+                            device=out.ts.device).expand(K, B)
+        for idx, direction in reversed(order_by):
+            k = sort_key(out.cols[idx].gather(1, perm), direction == "desc")
+            perm = perm.gather(1, torch.sort(k, dim=1, stable=True).indices)
+        dead = (~out.valid.gather(1, perm)).to(torch.uint8)
+        perm = perm.gather(1, torch.sort(dead, dim=1, stable=True).indices)
+
+        def take(x):
+            return x.gather(1, perm.reshape(perm.shape + (1,) * (
+                x.dim() - 2)).expand(perm.shape + x.shape[2:]))
+        out = EventBatch(ts=take(out.ts), cols=tuple(map(take, out.cols)),
+                         nulls=tuple(map(take, out.nulls)),
+                         kind=take(out.kind), valid=take(out.valid))
+    if offset is not None or limit is not None:
+        rank = torch.cumsum(out.valid.to(torch.int64), 1) - 1
+        keep = out.valid
+        if offset is not None:
+            keep = keep & (rank >= offset)
+        if limit is not None:
+            keep = keep & (rank < (offset or 0) + limit)
+        out = out.mask(keep)
+    if emitted is not None:   # one counter, or a pool's one a slot
+        emitted += out.valid.sum(tuple(range(emitted.dim(), 2)),
+                                 dtype=torch.int64)
+    return out
+
+
+def shape_chunk_slots(out: EventBatch, order_by, offset: Optional[int],
+                      limit: Optional[int], emitted=None) -> EventBatch:
+    """Kernel G[K]: order-by, offset and limit over every slot of a
+    ``[K, B]`` batch (a partition block's inner chain, a tenant pool's
+    chain step). A batch on the CPU takes ``shape_chunk_slots_ref``; a
+    CUDA batch launches csrc/order_by.cu's slotted path, one block a
+    slot, and counts it as ``order_by[K]``."""
+    dev = out.ts.device
+    if dev.type == "cpu":
+        return shape_chunk_slots_ref(out, order_by, offset, limit, emitted)
+    if dev.type != "cuda":
+        raise ValueError(f"shape_chunk_slots: unsupported device {dev}")
+    res, args = order_slot_args(out, order_by, offset, limit, emitted)
+    _kernels.load().order_by(args, torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.count_launch("order_by[K]")
+    return res
+
+
+def order_slot_args(out: EventBatch, order_by, offset, limit, emitted):
+    """Kernel G[K]'s arguments: the shaped ``[K, B]`` batch (fresh,
+    contiguous), the scratch of the sort in global memory (only where a
+    slot's rows do not fit the block's shared memory,
+    ``_kernels.ORDER_SHARED_ROWS``) and ``_kernels.OrderArgs`` with the
+    slot count and every input's slot stride (0 for a column the slots
+    share, the block's ``expand``-ed input). -> (shaped batch, args)."""
+    dev = out.ts.device
+    K, B = out.ts.shape
+    a = _order_struct(out, order_by, offset, limit)
+    if emitted is not None and (
+            emitted.device != dev or emitted.dtype != torch.int64
+            or emitted.shape not in ((), (K,)) or not emitted.is_contiguous()):
+        raise ValueError("shape_chunk_slots: emitted must be an int64 "
+                         f"scalar or [{K}] tensor on {dev}")
+
+    def rows(x):
+        """x as a [K, B] view whose rows are contiguous; its slot stride."""
+        if x.dim() != 2:
+            raise NotImplementedError(
+                "not ported yet: order by, offset or limit over a set "
+                "column in a partition block or a tenant pool")
+        if x.shape != (K, B) or x.device != dev:
+            raise ValueError("shape_chunk_slots: every column must be a "
+                             f"[{K}, {B}] tensor on {dev}")
+        if B > 1 and x.stride(1) != 1:
+            x = x.contiguous()
+        return x, x.stride(0)
+
+    def t(dtype):
+        return torch.empty((K, B), dtype=dtype, device=dev)
+    res = EventBatch(ts=t(torch.int64), cols=tuple(t(c.dtype)
+                                                   for c in out.cols),
+                     nulls=tuple(t(torch.bool) for _ in out.cols),
+                     kind=t(torch.int32), valid=t(torch.bool))
+    a.B, a.K = B, K
+    keep = []
+    for name in ("ts", "kind", "valid"):
+        x, stride = rows(getattr(out, name))
+        keep.append(x)
+        setattr(a, name, x.data_ptr())
+        setattr(a, name + "_stride", stride)
+    for k, (c, n, rc, rn) in enumerate(zip(out.cols, out.nulls, res.cols,
+                                           res.nulls)):
+        (c, cs), (n, ns) = rows(c), rows(n)
+        keep += [c, n]
+        a.cols[k], a.nulls[k] = c.data_ptr(), n.data_ptr()
+        a.col_stride[k], a.null_stride[k] = cs, ns
+        a.col_size[k] = c.element_size()
+        a.out_cols[k], a.out_nulls[k] = rc.data_ptr(), rn.data_ptr()
+    a.out_ts, a.out_kind, a.out_valid = (res.ts.data_ptr(),
+                                         res.kind.data_ptr(),
+                                         res.valid.data_ptr())
+    if emitted is not None:
+        a.emitted = emitted.data_ptr()
+        a.emitted_stride = 0 if emitted.dim() == 0 else 1
+    sc = {}
+    if order_by and B > _kernels.ORDER_SHARED_ROWS:
+        n, blocks = K * B, (B + 1023) // 1024
+        sc = {"k1": torch.empty((n,), dtype=torch.int64, device=dev),
+              "k2": torch.empty((n,), dtype=torch.int64, device=dev),
+              "i1": torch.empty((n,), dtype=torch.int32, device=dev),
+              "i2": torch.empty((n,), dtype=torch.int32, device=dev),
+              "counts": torch.empty((K * 256 * blocks,), dtype=torch.int32,
+                                    device=dev)}
+        for k, v in sc.items():
+            setattr(a, k, v.data_ptr())
+    a._keep = (out, keep, sc, emitted)   # alive until the launch
     return res, a
 
 

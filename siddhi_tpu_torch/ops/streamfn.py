@@ -13,7 +13,8 @@ Reference mapping:
 ``AppendColumnsOp`` runs one kernel K2 program whose outputs are the new
 columns; the batch's own columns pass through as they are (a step never
 writes into a batch's tensors). ``LogOp`` decodes the valid rows on the
-host after the step and prints them. Extension stream functions (the
+host after the step and prints them, slot by slot inside a partition
+block or a tenant pool. Extension stream functions (the
 reference's ``make_operator``, which builds JAX operators) raise
 NotImplementedError ("not ported yet").
 """
@@ -91,14 +92,23 @@ class LogOp(StreamFunctionOp):
         return self.schema
 
     def step(self, state, batch: EventBatch, now):
+        """With a partition block's or a tenant pool's slot axis ([K, B])
+        each slot's rows print after the slot before, as the reference's
+        ``jax.debug.callback`` under ``jax.vmap`` calls its callback once
+        a slot, in slot order."""
         for t in self.schema.types:
             np_dtype(t)   # an OBJECT column cannot be printed
-        lines = log_lines(
-            f"[{self.priority}] {self.message}", self.schema.types,
-            batch.ts.cpu().numpy(), batch.valid.cpu().numpy(),
-            [c.cpu().numpy() for c in batch.cols])
-        for line in lines:
-            print(line)
+        ts, valid = batch.ts.cpu().numpy(), batch.valid.cpu().numpy()
+        cols = [c.cpu().numpy() for c in batch.cols]
+        prefix = f"[{self.priority}] {self.message}"
+        if valid.ndim == 1:
+            slots = [(ts, valid, cols)]
+        else:
+            slots = [(ts[k], valid[k], [c[k] for c in cols])
+                     for k in range(valid.shape[0])]
+        for t_k, v_k, c_k in slots:
+            for line in log_lines(prefix, self.schema.types, t_k, v_k, c_k):
+                print(line)
         return state, batch
 
 

@@ -24,8 +24,9 @@ A step of the block, for one triggering batch:
      batch masked to its own rows plus the TIMER rows (the reference's
      ``jax.vmap`` over the slots sees exactly that);
   2. each inner query runs its operator chain once over every slot: K2
-     over the K * B rows, K5, K6 and K4 with the slot axis as one more
-     launch dimension (ops/slots.py); an inner stream's (``#S``) rows
+     over the K * B rows, K5, K6, K4 and G with the slot axis as one more
+     launch dimension (ops/slots.py; G[K] one block a slot), stream
+     functions as outside a block; an inner stream's (``#S``) rows
      become CURRENT and reach their consumers in the same step,
      concatenated per slot in the order of the producers' plans;
   3. K9p's compaction turns each outer query's ``[K, N]`` output into
@@ -34,7 +35,9 @@ A step of the block, for one triggering batch:
      adds the rows it keeps and drops to the query's ``emitted`` and
      ``lost`` counters on the device;
   4. K9p's due takes the minimum of the slots' timer dues per query; one
-     device-to-host read brings every query's due to the scheduler.
+     device-to-host read brings every query's due to the scheduler;
+  5. a query with an output rate limiter hands its decoded rows to the
+     limiter on its port, as the reference's ``_dispatch`` does.
 
 Work shape: as in the reference, every slot runs over the whole masked
 batch, so an operator does K * B rows of work a step.
@@ -171,6 +174,20 @@ class PartitionQueryPort:
         self.output_handlers: list = []
         self.callback_handler = QueryCallbackHandler()
         self.batch_callbacks: list[Callable] = []
+        self.rate_limiter = None
+
+    def set_rate_limiter(self, rl) -> None:
+        """An output rate limiter on the query's rows (the reference's
+        PartitionQueryPort.set_rate_limiter): handlers and callbacks see
+        what it emits; ``batch_callbacks`` stay a tap before it."""
+        rl.emit = self._emit_limited
+        rl.start(self.block.app)
+        self.rate_limiter = rl
+
+    def _emit_limited(self, timestamp: int, rows) -> None:
+        for h in self.output_handlers:
+            h.handle(timestamp, rows)
+        self.callback_handler.handle(timestamp, rows)
 
     def stats(self) -> dict:
         with self.block._lock:
@@ -614,6 +631,14 @@ class PartitionBlockRuntime:
         port = self.ports[qname]
         for cb in port.batch_callbacks:
             cb(out)
+        if port.rate_limiter is not None:
+            # every row through the limiter on the host; a STRING
+            # order-by's host edge is not applied in a block, as in the
+            # reference
+            rows = rows_from_batch(port.out_schema.types, out)
+            if rows:
+                port.rate_limiter.process(timestamp, rows)
+            return
         row_handlers = [h for h in port.output_handlers
                         if not h.handle_device_batch(out, timestamp)]
         if not (row_handlers or port.callback_handler.callbacks):
@@ -648,11 +673,17 @@ class PartitionBlockRuntime:
 
     # -- snapshot ---------------------------------------------------------
     def snapshot_state(self) -> dict:
+        """The block's device state on the host, and each rate-limited
+        query's limiter state under ``"rate"`` (host rows and times)."""
         with self._lock:
-            return _tree_to({"slot_tbl": self.slot_tbl,
+            snap = _tree_to({"slot_tbl": self.slot_tbl,
                              "qstates": self.qstates,
                              "emitted": self._emitted,
                              "lost": self._lost}, "cpu")
+            snap["rate"] = {qn: p.rate_limiter.snapshot_state()
+                            for qn, p in self.ports.items()
+                            if p.rate_limiter is not None}
+            return snap
 
     def restore_state(self, snap: dict) -> None:
         """Restore from ``snapshot_state()`` output (or from a reference
@@ -665,6 +696,10 @@ class PartitionBlockRuntime:
             self._lost = _tree_to(snap["lost"], dev)
             for qn in self._sched_due:
                 self._sched_due[qn] = None
+            for qn, rsnap in snap.get("rate", {}).items():
+                port = self.ports.get(qn)
+                if port is not None and port.rate_limiter is not None:
+                    port.rate_limiter.restore_state(rsnap)
 
     def reschedule(self) -> None:
         """Re-arm per-query timers from restored [K]-stacked states."""

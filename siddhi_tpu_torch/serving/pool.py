@@ -29,7 +29,12 @@ launch sequence over ALL slots, through the kernels' slot axis
 
 Selectors may hold min/max over expiring content, distinctCount and
 unionSet: kernels C, D and H run over the slot axis between K6[K]'s two
-parts.
+parts. Order-by, offset and limit run kernel G[K] over every slot's
+rows (ops/selector.py shape_chunk_slots); ``#pol2Cart`` is a K2 program
+of the new columns and ``#log`` prints slot by slot; a template
+parameter may stand in a filter before an aggregating selector (K2's
+loads in K6's first program). As in the reference's pool, a query's
+output rate limiter and a STRING order-by's host edge are not applied.
 
 Ingest is the reference's FAIR ROUND-ROBIN: each tenant contributes at
 most ``batch_max`` rows a round (the QoS plan, serving/qos.py, spends a
@@ -87,9 +92,7 @@ from ..ops.join import combined_schema
 from ..ops import nfa as _nfa
 from ..ops import nfa_parallel as _nfa_par
 from ..ops.nfa_parallel import ParallelNfaEngine
-from ..ops.selector import ProjectOp
 from ..ops.slots import leaves, stacked, tree_map
-from ..ops.streamfn import StreamFunctionOp
 from ..ops.windows2 import CronWindowOp
 from .qos import PoolQoS
 
@@ -410,25 +413,17 @@ class TenantPool:
                 "projection chains, patterns, joins, and incremental "
                 "aggregations over named ingest streams; "
                 "found: " + "; ".join(problems))
-        # what the port's kernels do not run with the slot axis yet
+        # every window kind has the slot axis but cron, whose firings come
+        # from the host schedule. As in the reference's pool, a query's
+        # output rate limiter and a STRING order-by's host edge are not
+        # applied: a tenant's rows arrive unlimited and, for a STRING
+        # key, unordered.
         for qn, q in p.queries.items():
             ops = list(q.operators)
             if self._kind[qn] == "join":
                 ops += [op for s in q.side_ops.values() for op in s]
-            for op in ops:
-                # every window kind has the slot axis but cron, whose
-                # firings come from the host schedule
-                if isinstance(op, CronWindowOp):
-                    raise _not_ported("window 'cron' in a tenant pool")
-                if isinstance(op, StreamFunctionOp):
-                    raise _not_ported("stream functions in a tenant pool")
-                if getattr(op, "order_by", None) or \
-                        getattr(op, "host_shape", None) or (
-                            isinstance(op, ProjectOp) and op.shapes_chunk):
-                    raise _not_ported(f"query '{qn}': order by, offset or "
-                                      "limit in a tenant pool")
-            if getattr(q, "rate_limiter", None) is not None:
-                raise _not_ported("output rate limiting in a tenant pool")
+            if any(isinstance(op, CronWindowOp) for op in ops):
+                raise _not_ported("window 'cron' in a tenant pool")
 
     @property
     def ingest_streams(self) -> tuple:

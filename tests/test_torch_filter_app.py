@@ -288,10 +288,12 @@ def test_strings_carried_over_from_reference():
 ])
 def test_unported_parts_raise(text):
     """What the port lacks says so; the sort window, distinctCount,
-    order-by, function calls and named windows, ported since, deploy and
-    give the reference's rows (a named window's on its own junction)."""
+    order-by, function calls, named windows and a rate limiter inside a
+    partition, ported since, deploy and give the reference's rows (a
+    named window's on its own junction)."""
     if "sort(2, a)" in text or "distinctCount" in text or "order by" in text \
-            or "coalesce" in text or "define window" in text:
+            or "coalesce" in text or "define window" in text \
+            or "output last" in text:
         rows = {}
         for pkg in (J, T):
             kw = {"device": "cpu"} if pkg is T else {}

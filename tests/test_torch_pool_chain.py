@@ -435,11 +435,11 @@ def test_unported_options_raise():
                  lambda: pool.audit_programs()):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             call()
-    # order-by in a pool, without the slot axis yet (kernel G[K])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TRegistry(T.SiddhiManager(device="cpu")).pool("""
-            define stream S (k string, v double);
-            @info(name='q')
-            from S#window.length(3) select k, v order by v
-            insert into Out;""",
-            warm=False)
+    # order-by in a pool plans now: kernel G[K] over the slot axis
+    # (test_torch_pool_order.py holds it against the reference)
+    TRegistry(T.SiddhiManager(device="cpu")).pool("""
+        define stream S (k string, v double);
+        @info(name='q')
+        from S#window.length(3) select k, v order by v
+        insert into Out;""",
+        warm=False)

@@ -8,8 +8,8 @@ the CPU:
   kind on a join query and a pattern query;
 - a limiter's state carried from the reference (carry.ratelimit_from_jax)
   into a query that then goes on;
-- a limiter inside a partition block still raises (the reference runs
-  it)."""
+- a limiter inside a partition block, as the reference runs it (its
+  port's limiter; test_torch_partition_order.py has more)."""
 import pytest
 import torch
 
@@ -173,7 +173,7 @@ def test_a_carried_limiter_state_goes_on():
 
 def test_a_limiter_inside_a_partition_still_raises():
     """tests/test_ratelimit.py TestPartitionRateLimit: the reference runs
-    it ([3, 11]); the port does not yet."""
+    it ([3, 11]), and the port now does too, row for row."""
     ql = """@app:playback
         define stream S (sym string, v int);
         partition with (sym of S)
@@ -185,7 +185,4 @@ def test_a_limiter_inside_a_partition_still_raises():
         end;"""
     sends = [("S", 1000, ("a", 1)), ("S", 1001, ("a", 2)),
              ("S", 1002, ("b", 5)), ("S", 1003, ("b", 6))]
-    assert [r[1][1] for r in _run(J, ql, sends)] == [3, 11]
-    with pytest.raises(NotImplementedError,
-                       match="output rate limiting inside a partition"):
-        T.SiddhiManager(device="cpu").create_siddhi_app_runtime(ql)
+    assert [r[1][1] for r in both(ql, sends)] == [3, 11]
