@@ -283,7 +283,25 @@ Phases, each of which stops the run with a non-zero exit on failure:
    (against separate runtimes) equal bit for bit, the first G[K]
    launches of each query held against the plain version over every
    slot and timed, each path's seconds on a line of its own;
-57. print the kernel table as one JSON line, the card's name and power
+57. to 59. checkpoint and recovery (checkpoint_phases): checkpoint_seq5
+   (seq5, 1,048,576 events in 16 sends of 65,536, persisted after send
+   8 to a FileSystemPersistenceStore and restored into a fresh runtime
+   of the same manager for sends 9-16), checkpoint_partition
+   (partition_avg, 1,024 slots, 128 sends of 8,192, persisted after send
+   64) and pool_cron (checks.POOL_CRON_TEMPLATE, 256 tenants x 1,024
+   rows a round, 8 rounds: a PoolCheckpointSupervisor persists after
+   round 4, one tenant's callback fails in round 3, a fresh pool
+   recovers and replays, then rounds 5-8; K5c[K], K5's cron kind over
+   the pool's slot axis, must launch). Each continuation's rows and
+   whole state equal an uninterrupted run's bit for bit, the kernels of
+   each path launch after the restore, the pool's cron buffers equal a
+   numpy oracle and no cron row is delivered; the captured K5c[K]
+   launches, and four firing steps made from the first (TIMER rows in
+   half the slots, expired rows on and off), are held against the
+   plain version over every slot, and the first is timed; each phase prints its seconds, the snapshot bytes, persist
+   and restore ms and the state's device-to-host rate beside a pinned
+   copy of as many bytes;
+60. print the kernel table as one JSON line, the card's name and power
    limit, and the result line.
 
 `python3 chip_smoke.py --k5-time` times K5 alone (window_agg's and
@@ -7278,6 +7296,509 @@ def order_slot_phases(dev, card: str) -> dict:
     return out
 
 
+# -- checkpoint and recovery (slice 16): K5c[K] ------------------------------
+
+CKPT_SEND, CKPT_SENDS = 65536, 16              # checkpoint_seq5
+CKPT_PART_SEND, CKPT_PART_SENDS = 8192, 128    # checkpoint_partition
+CRON_TENANTS, CRON_ROWS, CRON_ROUNDS = 256, 1024, 8
+CRON_FAIL_TENANT, CRON_FAIL_ROUND = "t3", 2    # round 3 (0-based 2)
+CRON_SAMPLED, CRON_KEPT = 8, 2
+
+
+def _named(app: str, name: str) -> str:
+    """An app text under ``@app:name`` (a restore finds its revisions by
+    the app's name)."""
+    return f"@app:name('{name}')\n" + app
+
+
+def _pinned_gbs(n_bytes: int) -> float:
+    """A pinned device-to-host ``Tensor.copy_`` of ``n_bytes``: GB/s."""
+    src = torch.empty(max(n_bytes, 1), dtype=torch.uint8, device="cuda")
+    dst = torch.empty(max(n_bytes, 1), dtype=torch.uint8, pin_memory=True)
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return n_bytes / best / 1e9
+
+
+def _ckpt_report(what: str, card: str, data: bytes, state_bytes: int,
+                 d2h_s: float, persist_ms: float, restore_ms: float) -> dict:
+    """Print a checkpoint's sizes and times beside a pinned copy of the
+    same bytes. -> its numbers."""
+    gbs = state_bytes / d2h_s / 1e9
+    pinned = _pinned_gbs(state_bytes)
+    print(f"{what}: snapshot {len(data)} bytes ({state_bytes} bytes of "
+          f"state arrays); persist {persist_ms:.3f} ms, restore "
+          f"{restore_ms:.3f} ms; the state's device-to-host copy "
+          f"{gbs:.3f} GB/s, a pinned Tensor.copy_ of as many bytes "
+          f"{pinned:.3f} GB/s ({card})", flush=True)
+    return {"bytes": len(data), "state_bytes": state_bytes,
+            "persist_ms": persist_ms, "restore_ms": restore_ms,
+            "d2h_gbs": gbs, "pinned_gbs": pinned}
+
+
+def _app_checkpoint(what: str, app: str, stream: str, qname: str,
+                    sends: list, cut: int, card: str, tmp: str,
+                    need: tuple) -> dict:
+    """One app's checkpoint path on the card: an uninterrupted runtime
+    takes every send; another takes ``sends[:cut]``, persists to a
+    FileSystemPersistenceStore under ``tmp`` and shuts down; a fresh
+    runtime of the same manager restores the last revision and takes
+    the rest. Its output rows (``qname``'s batches) and its whole state
+    must equal the uninterrupted runtime's after the cut, bit for bit,
+    and each kernel of ``need`` must launch after the restore."""
+    from siddhi_tpu_torch import FileSystemPersistenceStore, SiddhiManager
+    from siddhi_tpu_torch import _kernels
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core import persistence as P
+
+    def started(rt):
+        outs = []
+        rt.queries[qname].batch_callbacks.append(outs.append)
+        rt.start()
+        return outs
+
+    def send(rt, part):
+        h = rt.get_input_handler(stream)
+        for ts, cols in part:
+            h.send_arrays(ts, cols)
+        torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    ref = SiddhiManager().create_siddhi_app_runtime(app)
+    ref_outs = started(ref)
+    send(ref, sends[:cut])
+    n_cut = len(ref_outs)
+    send(ref, sends[cut:])
+    want = C.emitted_columns(ref_outs[n_cut:])
+    mgr = SiddhiManager()
+    mgr.set_persistence_store(FileSystemPersistenceStore(tmp))
+    rt = mgr.create_siddhi_app_runtime(app)
+    started(rt)
+    send(rt, sends[:cut])
+    with rt.barrier:
+        t0 = time.perf_counter()
+        payload = rt._snapshot_locked()
+        torch.cuda.synchronize()
+        d2h_s = time.perf_counter() - t0
+    state_bytes = _host_bytes(P.to_host(payload))
+    t0 = time.perf_counter()
+    rev = rt.persist()
+    persist_ms = (time.perf_counter() - t0) * 1e3
+    data = mgr.persistence_store.load(rt.name, rev)
+    rt.shutdown()
+    rt2 = mgr.create_siddhi_app_runtime(app)
+    outs = started(rt2)
+    t0 = time.perf_counter()
+    if rt2.restore_last_revision() != rev:
+        fail(f"{what}: restore_last_revision did not find {rev}")
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    _kernels.reset_launches()
+    send(rt2, sends[cut:])
+    launches = dict(_kernels.LAUNCHES)
+    for k in need:
+        if launches[k] == 0:
+            fail(f"{what}: {k} did not launch after the restore "
+                 f"({launches})")
+    got = C.emitted_columns(outs)
+    if len(got[0]) != len(want[0]) or not len(got[0]):
+        fail(f"{what}: {len(got[0])} rows after the restore, the "
+             f"uninterrupted run {len(want[0])}")
+    compare(f"{what} rows", [torch.from_numpy(x) for x in
+                             [got[0]] + got[1] + got[2]],
+            [torch.from_numpy(x) for x in [want[0]] + want[1] + want[2]])
+    a = P.to_host(rt2._snapshot_locked())
+    b = P.to_host(ref._snapshot_locked())
+    for k in ("queries", "partitions"):
+        compare(f"{what} {k} state",
+                [torch.as_tensor(x) for x in _np_leaves(a[k])],
+                [torch.as_tensor(x) for x in _np_leaves(b[k])])
+    for r in (rt2, ref):
+        r.shutdown()
+    res = _ckpt_report(what, card, data, state_bytes, d2h_s, persist_ms,
+                       restore_ms)
+    res.update(launches=launches, rows=len(got[0]),
+               seconds=time.perf_counter() - t_phase)
+    print(f"{what}: {len(sends)} sends, persisted after send {cut}; "
+          f"the restored runtime's {len(got[0])} rows of sends "
+          f"{cut + 1}-{len(sends)} and its whole state equal the "
+          f"uninterrupted run's bit for bit; launches after the restore "
+          f"{ {k: launches[k] for k in need} } ({card})", flush=True)
+    print(f"[{what}: {res['seconds']:.1f} s]", flush=True)
+    return res
+
+
+def _host_bytes(tree) -> int:
+    """The bytes of every numpy array of a host payload."""
+    return sum(int(x.nbytes) for x in _np_leaves(tree))
+
+
+def _np_leaves(tree) -> list:
+    """The numpy arrays of a host payload, in a fixed order (floats
+    compared by their bits by ``compare``)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _np_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _np_leaves(v)]
+    return [tree] if isinstance(tree, np.ndarray) else []
+
+
+def checkpoint_seq5_phase(dev, card: str, tmp: str) -> dict:
+    """checkpoint_seq5: seq5 (checks.SEQ5_APP, the north star),
+    1,048,576 events of the bench feed in 16 sends of 65,536, persisted
+    after send 8 and restored into a fresh runtime for sends 9-16; K1,
+    K2 and K3 must launch after the restore."""
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    feed = C.Seq5Feed(GLOBAL_STRINGS.encode, seed=21)
+    sends = [feed.next(CKPT_SEND) for _ in range(CKPT_SENDS)]
+    return _app_checkpoint(
+        "checkpoint_seq5", _named(C.SEQ5_APP, "checkpoint_seq5"), "T", "q",
+        sends, CKPT_SENDS // 2, card, tmp,
+        ("unpack_packed", "expr_eval", "nfa_parallel"))
+
+
+def checkpoint_partition_phase(dev, card: str, tmp: str) -> dict:
+    """checkpoint_partition: partition_avg (checks.PARTITION_AVG_APP,
+    1,024 slots, trades_feed's 512 symbols), 128 sends of 8,192,
+    persisted after send 64 and restored for sends 65-128; K9p's route
+    and compaction, K5[K] and K6[K] must launch after the restore."""
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core.types import GLOBAL_STRINGS
+    n = CKPT_PART_SEND * CKPT_PART_SENDS
+    ts, cols = _avg_feed(n, GLOBAL_STRINGS.encode)
+    sends = [(ts[s:s + CKPT_PART_SEND], [c[s:s + CKPT_PART_SEND]
+                                         for c in cols])
+             for s in range(0, n, CKPT_PART_SEND)]
+    return _app_checkpoint(
+        "checkpoint_partition",
+        _named(C.PARTITION_AVG_APP, "checkpoint_partition"), "StockStream",
+        "q", sends, CKPT_PART_SENDS // 2, card, tmp,
+        ("partition_route", "partition_compact", "window_step[K]",
+         "aggregate_step[K]", "aggregate_emit[K]"))
+
+
+class _CronCapture:
+    """While installed, keeps the arguments of the first ``CRON_KEPT``
+    K5c[K] steps of the pool: K5's cron kind over the slot axis
+    (ops/windows.py window_step on a CronWindowOp and a [K, B] batch)."""
+
+    def __init__(self):
+        from siddhi_tpu_torch.ops import windows as W
+        self.mod, self.kept = W, []
+
+    def __enter__(self):
+        from siddhi_tpu_torch.ops.windows2 import CronWindowOp
+        self.orig = self.mod.window_step
+
+        def wrap(op, state, batch, now):
+            if isinstance(op, CronWindowOp) and batch.ts.dim() == 2 and \
+                    len(self.kept) < CRON_KEPT:
+                self.kept.append((op, state, batch, now))
+            return self.orig(op, state, batch, now)
+        self.mod.window_step = wrap
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.window_step = self.orig
+        return False
+
+
+def _k5ck_check(kept, card: str) -> dict:
+    """Each kept K5c[K] step launched again on its own arguments (a step
+    leaves its arguments as they were) and held against the plain
+    version over every slot, tolerance 0; then the firing branch, which
+    a pool never runs: from the first kept step, a TIMER row in every
+    other slot, expired rows on and off, two firings in a row (the
+    second emits the first one's rotated buffer as EXPIRED), each held
+    the same way. The first kept step is timed against the plain
+    version and the bytes the step must move."""
+    import copy
+    from siddhi_tpu_torch.core.event import EXPIRED, TIMER, EventBatch
+    from siddhi_tpu_torch.ops import windows as W
+    from siddhi_tpu_torch.ops import windows2 as W2
+
+    def flat(x):
+        return tree_leaves(x[0]) + [x[1].ts, x[1].kind, x[1].valid] + \
+            list(x[1].cols) + list(x[1].nulls)
+    err = 0.0
+    for i, (op, st, b, now) in enumerate(kept):
+        err = max(err, compare(f"K5c[K] step {i}",
+                               flat(W.window_step(op, st, b, now)),
+                               flat(W2.cron_slots_ref(op, st, b, now))))
+    op, st, b, now = kept[0]
+    kind, valid = b.kind.clone(), b.valid.clone()
+    kind[::2, 0], valid[::2, 0] = TIMER, True
+    fb = EventBatch(b.ts, b.cols, b.nulls, kind, valid)
+    n_fired = n_exp = 0
+    for expired in (True, False):
+        fop = copy.copy(op)
+        fop.expired_enabled = expired
+        s_ = st
+        for j in range(2):
+            got = W.window_step(fop, s_, fb, now)
+            want = W2.cron_slots_ref(fop, s_, fb, now)
+            err = max(err, compare(
+                f"K5c[K] firing {j} (expired {'on' if expired else 'off'})",
+                flat(got), flat(want)))
+            n_fired += int(want[1].valid.any(1).sum())
+            n_exp += int((want[1].valid & (want[1].kind == EXPIRED)).sum())
+            s_ = got[0]
+    if n_fired == 0 or n_exp == 0:
+        fail(f"K5c[K]: the firing steps emitted {n_fired} slots' rows and "
+             f"{n_exp} EXPIRED rows")
+    from siddhi_tpu_torch import _kernels
+    K, B = b.ts.shape
+    W_ = op.cap
+    # the launch alone, its arguments built once (a step writes fresh
+    # tensors and leaves its inputs as they were)
+    _new, _out, args = W.window_args(
+        op, st, b, torch.as_tensor(now, dtype=torch.int64, device=b.ts.device))
+    lib = _kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(3):
+        lib.window_step(args, stream)
+    ms = _launch_ms(lambda: None, lambda: lib.window_step(args, stream), 20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        W2.cron_slots_ref(op, st, b, now)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) / 3 * 1e3
+    col = sum(c[0, 0].element_size() for c in b.cols)
+    nc = len(b.cols)
+    buf_row = 8 + 8 + col + nc + 1          # ts, seq, cols, nulls, valid
+    out_row = 8 + col + nc + 4 + 1          # ts, cols, nulls, kind, valid
+    n_bytes = K * (2 * W_ * buf_row + B * out_row + 16      # read
+                   + 2 * W_ * buf_row + 2 * W_ * out_row + 16)   # written
+    bound_ms, bound_by = bound_of(n_bytes, 0)
+    print(f"K5c[K] at pool_cron's shape ({K} slots, [{K}, {B}] batch, "
+          f"[{K}, {W_}] buffers): {ms:.4f} ms, plain version "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{n_bytes} bytes); {len(kept)} captured steps and 4 firing "
+          f"steps ({n_fired} slots' outputs, {n_exp} EXPIRED rows) equal "
+          f"the plain version over every slot, tolerance 0 ({card})",
+          flush=True)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def pool_cron_phase(dev, card: str, tmp: str) -> dict:
+    """pool_cron: checks.POOL_CRON_TEMPLATE (a cron window behind each
+    tenant's filter, never fired in a pool, and a grouped
+    lengthBatch(256) sum), 256 tenants x 1,024 rows a round, batch_max
+    1,024, 8 rounds. A PoolCheckpointSupervisor(interval_rounds=4)
+    persists after round 4; tenant t3's callback raises in round 3. The
+    pool is dropped; a fresh pool of the same template and manager
+    deploys the tenants and callbacks and ``recover``s (restore, then
+    the replay of t3's partition), then takes rounds 5-8. Held: every
+    tenant's rows of rounds 5-8, the stacked states and emitted
+    counters equal an uninterrupted pool's bit for bit; the replayed
+    rows equal the uninterrupted pool's rows of the failed round, in
+    timestamp order; each cron buffer equals the numpy oracle; no cron
+    row is delivered; 8 sampled tenants' Out rows equal separate
+    runtimes'; the first K5c[K] launches, and firing steps made from
+    them, against the plain version over every slot, then timed."""
+    from siddhi_tpu_torch import (FileSystemPersistenceStore,
+                                  InMemoryErrorStore,
+                                  PoolCheckpointSupervisor, SiddhiManager,
+                                  _kernels)
+    from siddhi_tpu_torch import checks as C
+    from siddhi_tpu_torch.core import persistence as P
+    from siddhi_tpu_torch.serving import TemplateRegistry, TenantPool
+    t_phase = time.perf_counter()
+    n = CRON_TENANTS
+    tids = [f"t{i}" for i in range(n)]
+    feeds = {tid: [C.pool_cron_feed(CRON_ROWS, seed=7 * i + r,
+                                    t0=C.TS0 + r * CRON_ROWS)
+                   for r in range(CRON_ROUNDS)]
+             for i, tid in enumerate(tids)}
+    buffered = {}
+
+    def make(mgr, name, rows, fail_once=False):
+        tpl = TemplateRegistry(mgr).resolve(C.POOL_CRON_TEMPLATE)
+        pool = TenantPool(tpl, manager=mgr, name=name, slots=n,
+                          max_tenants=n, batch_max=CRON_ROWS)
+        pool.batch_callbacks.append(lambda term, name=name: buffered.update(
+            {name: buffered.get(name, 0) + sum(
+                int(o.valid.sum()) for o in term.get("Buffered", ()))}))
+        failing = [fail_once]
+        for i, tid in enumerate(tids):
+            pool.add_tenant(tid, C.pool_cron_bindings(i))
+
+            def cb(evs, tid=tid):
+                if tid == CRON_FAIL_TENANT and failing[0] and \
+                        pool._rounds == CRON_FAIL_ROUND + 1:
+                    failing[0] = False
+                    raise RuntimeError("sink down")
+                rows.setdefault(tid, []).append(
+                    (pool._rounds, [(e.timestamp, e.is_expired,
+                                     tuple(e.data)) for e in evs]))
+            pool.add_callback(tid, cb)
+        return pool
+
+    def round_(pool, r):
+        for tid in tids:
+            pool.send(tid, *feeds[tid][r])
+        if pool.pump() != n * CRON_ROWS:
+            fail("pool_cron: a round did not take every tenant's rows")
+        torch.cuda.synchronize()
+
+    # the uninterrupted pool, its sampled tenants' round chunks kept
+    u_rows: dict = {}
+    upool = make(SiddhiManager(), "pool_cron_u", u_rows)
+    sampled = tids[:: n // CRON_SAMPLED][:CRON_SAMPLED]
+    takes = _TakeLog(upool, sampled)
+    for r in range(CRON_ROUNDS):
+        round_(upool, r)
+    takes.stop()
+    # the pool that crashes after round 4
+    mgr = SiddhiManager()
+    mgr.set_persistence_store(FileSystemPersistenceStore(tmp))
+    mgr.set_error_store(InMemoryErrorStore())
+    a_rows: dict = {}
+    apool = make(mgr, "pool_cron", a_rows, fail_once=True)
+    sup = PoolCheckpointSupervisor(apool, interval_rounds=4)
+    for r in range(4):
+        round_(apool, r)
+    if sup.checkpoints != 1 or sup.failures:
+        fail(f"pool_cron: {sup.checkpoints} checkpoints, {sup.failures} "
+             "failures after 4 rounds")
+    failed = mgr.error_store.peek(apool.tenant_partition(CRON_FAIL_TENANT))
+    if len(failed) != 1:
+        fail(f"pool_cron: {len(failed)} error records for "
+             f"{CRON_FAIL_TENANT}")
+    t0 = time.perf_counter()
+    payload = apool._snapshot_payload()
+    host = P.to_host(payload)
+    d2h_s = time.perf_counter() - t0
+    state_bytes = _host_bytes(host)
+    t0 = time.perf_counter()
+    rev = apool.persist()
+    persist_ms = (time.perf_counter() - t0) * 1e3
+    data = mgr.persistence_store.load(apool.name, rev)
+    apool.shutdown()
+    del apool, payload, host
+    gc.collect()
+    # the fresh pool: tenants and callbacks first, then recover
+    b_rows: dict = {}
+    bpool = make(mgr, "pool_cron", b_rows)
+    t0 = time.perf_counter()
+    restored, replayed = PoolCheckpointSupervisor(bpool).recover()
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if restored != rev or bpool._rounds != 4:
+        fail(f"pool_cron: recover restored {restored} at round "
+             f"{bpool._rounds}")
+    rep = [row for _r, rs in b_rows.get(CRON_FAIL_TENANT, []) for row in rs]
+    want_rep = sorted((row for r, rs in u_rows[CRON_FAIL_TENANT]
+                       if r == CRON_FAIL_ROUND + 1 for row in rs),
+                      key=lambda x: x[0])
+    if replayed != len(want_rep) or rep != want_rep or not rep:
+        fail(f"pool_cron: {replayed} replayed rows of {CRON_FAIL_TENANT}, "
+             f"the failed round had {len(want_rep)}")
+    b_rows.clear()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    with _CronCapture() as cap:
+        for r in range(4, CRON_ROUNDS):
+            round_(bpool, r)
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    for k in ("cron_window[K]", "unpack_packed[K]", "expr_eval[K]",
+              "window_step[K]", "aggregate_step[K]", "aggregate_emit[K]"):
+        if launches[k] == 0:
+            fail(f"pool_cron: {k} did not launch after the recovery "
+                 f"({launches})")
+    for tid in tids:
+        mine = [x for _r, rs in b_rows.get(tid, []) for x in rs]
+        theirs = [x for r, rs in u_rows.get(tid, []) if r > 4 for x in rs]
+        if mine != theirs or not mine:
+            fail(f"pool_cron: tenant {tid}'s rows of rounds 5-8 "
+                 f"({len(mine)}) differ from the uninterrupted pool's "
+                 f"({len(theirs)})")
+    for qn in upool._order:
+        compare(f"pool_cron {qn} state", tree_leaves(bpool._states[qn]),
+                tree_leaves(upool._states[qn]))
+        compare(f"pool_cron {qn} emitted", [bpool._emitted[qn]],
+                [upool._emitted[qn]])
+    if buffered.get("pool_cron_u", 0) or buffered.get("pool_cron", 0):
+        fail(f"pool_cron: cron rows delivered {buffered}")
+    st = bpool._states["buffered"][1]
+    cur = {k: (v.cpu().numpy() if not isinstance(v, tuple)
+               else [c.cpu().numpy() for c in v])
+           for k, v in st["cur"].items()}
+    ovf = st["overflow"].cpu().numpy()
+    for i, tid in enumerate(tids):
+        slot = bpool._tenants[tid]
+        ts = np.concatenate([f[0] for f in feeds[tid]])
+        v = np.concatenate([f[1][0] for f in feeds[tid]])
+        k = np.concatenate([f[1][1] for f in feeds[tid]])
+        wts, wseq, wv, wk, wovf = C.cron_buffer_oracle(
+            ts, v, k, C.pool_cron_bindings(i)["lo"], 4096)
+        if not (cur["valid"][slot].all()
+                and np.array_equal(cur["ts"][slot], wts)
+                and np.array_equal(cur["seq"][slot], wseq)
+                and np.array_equal(cur["cols"][0][slot].view(np.int64),
+                                   wv.view(np.int64))
+                and np.array_equal(cur["cols"][1][slot], wk)
+                and int(ovf[slot]) == wovf):
+            fail(f"pool_cron: tenant {tid}'s cron buffer differs from the "
+                 f"oracle (overflow {int(ovf[slot])}, the oracle {wovf})")
+    for tid in sampled:
+        i = tids.index(tid)
+        chunks = takes.log[tid]
+        mine = [x for _r, rs in u_rows[tid] for x in rs]
+        theirs = _separate_rows(C.POOL_CRON_TEMPLATE,
+                                C.pool_cron_bindings(i), chunks,
+                                f"sep_cron{i}")
+        if mine != theirs or not mine:
+            fail(f"pool_cron: tenant {tid}'s Out rows ({len(mine)}) differ "
+                 f"from a separate runtime's ({len(theirs)})")
+    eps = (CRON_ROUNDS - 4) * n * CRON_ROWS / wall
+    ovf_min = int(ovf.min())
+    print(f"pool_cron {n} tenants x {CRON_ROWS} rows a round, batch_max "
+          f"{CRON_ROWS}: recovered at round 4 onto a fresh pool "
+          f"({replayed} rows of {CRON_FAIL_TENANT}'s failed round replayed "
+          f"in timestamp order), rounds 5-8 at {eps:.0f} events/s; every "
+          f"tenant's rows, states and emitted counters equal the "
+          f"uninterrupted pool's bit for bit; every cron buffer equals the "
+          f"oracle (overflow at least {ovf_min} a tenant), no cron row "
+          f"delivered; {len(sampled)} sampled tenants equal separate "
+          f"runtimes; launches after the recovery "
+          f"{ {k: v for k, v in launches.items() if v} } ({card})",
+          flush=True)
+    res = _ckpt_report("pool_cron", card, data, state_bytes, d2h_s,
+                       persist_ms, restore_ms)
+    res.update(launches=launches, eps=eps,
+               k5ck=_k5ck_check(cap.kept, card))
+    for pool in (upool, bpool):
+        pool.shutdown()
+    gc.collect()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[pool_cron: {res['seconds']:.1f} s]", flush=True)
+    return res
+
+
+def checkpoint_phases(dev, card: str) -> dict:
+    """The three checkpoint paths, each persisting to a
+    FileSystemPersistenceStore in a temporary directory of its own."""
+    import tempfile
+    out = {}
+    for name, fn in (("checkpoint_seq5", checkpoint_seq5_phase),
+                     ("checkpoint_partition", checkpoint_partition_phase),
+                     ("pool_cron", pool_cron_phase)):
+        with tempfile.TemporaryDirectory(prefix=f"{name}_") as tmp:
+            out[name] = fn(dev, card, tmp)
+    return out
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -8044,7 +8565,35 @@ def main() -> None:
         "bound_by": g["bound_by"], "library_ms": g["library_ms"]})
 
     _mark("57.")
-    # -- 57. result -----------------------------------------------------------
+    # -- 57. to 59. checkpoint and recovery (K5c[K]): checkpoint_seq5,
+    # checkpoint_partition, pool_cron
+    s16 = checkpoint_phases(dev, card)
+
+    def s16_launches(*names):
+        return sum(r["launches"].get(k, 0) for r in s16.values()
+                   for k in names)
+    for row in table:
+        kname = row["name"]
+        if kname == "partition":
+            row["launches"] += s16_launches(
+                "partition_route", "partition_compact", "partition_due")
+        elif kname in ("unpack_packed", "expr_eval", "nfa_parallel",
+                       "unpack_packed[K]", "expr_eval[K]",
+                       "window_step[K]", "aggregate_step[K]",
+                       "aggregate_emit[K]"):
+            row["launches"] += s16_launches(kname)
+    kc = s16["pool_cron"]["k5ck"]
+    table.append({
+        "name": "cron_window[K]", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/window_step.cu",
+        "replaces": "siddhi_tpu/ops/windows2.py:1393",
+        "launches": s16_launches("cron_window[K]"),
+        "max_abs_err": kc["err"], "ms": kc["ms"],
+        "plain_ms": kc["plain_ms"], "bound_ms": kc["bound_ms"],
+        "bound_by": kc["bound_by"], "library_ms": None})
+
+    _mark("60.")
+    # -- 60. result -----------------------------------------------------------
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

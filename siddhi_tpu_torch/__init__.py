@@ -9,15 +9,30 @@ reference this package is held against; this package imports neither
 it nor JAX.
 """
 from .core.manager import SiddhiManager
+from .core.persistence import (FileSystemPersistenceStore,
+                               InMemoryPersistenceStore, PersistenceStore)
 from .core.stream import Event, QueryCallback, StreamCallback
 from .core.types import AttrType
 from .lang.parser import parse, parse_expression, parse_query
+from .resilience.errorstore import (ErroredEvent, ErrorStore,
+                                    FileSystemErrorStore, InMemoryErrorStore)
+from .resilience.supervisor import (CheckpointSupervisor,
+                                    PoolCheckpointSupervisor)
 from .serving import AdmissionError, Template, TemplateRegistry, TenantPool
 
 __all__ = [
     "AdmissionError",
     "AttrType",
+    "CheckpointSupervisor",
+    "ErrorStore",
+    "ErroredEvent",
     "Event",
+    "FileSystemErrorStore",
+    "FileSystemPersistenceStore",
+    "InMemoryErrorStore",
+    "InMemoryPersistenceStore",
+    "PersistenceStore",
+    "PoolCheckpointSupervisor",
     "QueryCallback",
     "SiddhiManager",
     "StreamCallback",

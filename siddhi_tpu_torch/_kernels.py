@@ -48,7 +48,7 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # template parameters or count per slot ("[K]": K4, K5 and K6 count a
 # pool's as a partition block's); kernels C, D and H with either slot
 # axis, and K11 with a tenant pool's; kernels B, E, F and G with either
-# slot axis
+# slot axis; K5's cron kind over a tenant pool's slot axis (K5c[K])
 ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
                 "window_step", "sort_window", "aggregate_step",
                 "sliding_minmax", "distinct_count", "aggregate_emit",
@@ -62,7 +62,7 @@ ENTRY_POINTS = ("unpack_packed", "expr_eval", "nfa_parallel", "nfa_scan",
                 "nfa_parallel[K]", "join_probe[K]", "join_grid[K]",
                 "sliding_minmax[K]", "distinct_count[K]", "union_set[K]",
                 "aggregation_step[K]", "sort_window[K]", "freq_window[K]",
-                "session_window[K]", "order_by[K]")
+                "session_window[K]", "order_by[K]", "cron_window[K]")
 LAUNCHES = {name: 0 for name in ENTRY_POINTS}
 
 

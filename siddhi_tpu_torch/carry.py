@@ -15,12 +15,15 @@ window's buffers, ``reorder_from_jax`` and ``ring_from_jax`` for a
 stream's reorder buffer and its device ring, ``ratelimit_from_jax`` for
 an output rate limiter's rows and counters, ``pool_from_jax`` for a
 tenant pool's stacked states and ``emitted`` counters.
+``snapshot_from_jax`` and ``pool_snapshot_from_jax`` turn a whole
+reference snapshot (an app's or a pool's ``snapshot()``) into the port's,
+through those converters, for ``restore``.
 ``strings_from_jax`` seeds the port's string dictionary so that its
 codes match the reference process's: both packages give strings codes
 in order of first sight, so dictionary-coded columns and string
 constants only compare equal once the two tables agree.
 
-Neither function imports the reference: they take its plain values.
+None of them imports the reference: they take its plain values.
 """
 from __future__ import annotations
 
@@ -56,7 +59,8 @@ def _remap_buffers(tree, string_cols, remap):
         if set(tree) in (_BUFFER_KEYS, _MEMBER_KEYS):
             cols = tuple(np.asarray(remap(np.asarray(c)), np.int32)
                          if is_str else c
-                         for c, is_str in zip(tree["cols"], string_cols))
+                         for c, is_str in zip(tree["cols"], tuple(
+                             string_cols) + (False,) * len(tree["cols"])))
             return {**tree, "cols": cols}
         return {k: _remap_buffers(v, string_cols, remap)
                 for k, v in tree.items()}
@@ -285,3 +289,124 @@ def strings_from_jax(codes_to_str: Sequence) -> None:
                     f"{code} in the reference table")
             table._to_str.append(s)
             table._to_code[s] = code
+
+
+def _string_flags(schema) -> tuple:
+    """A schema's (or a list of attributes') STRING flags."""
+    from .core.types import AttrType
+    types = schema.types if hasattr(schema, "types") else \
+        [a.type for a in schema]
+    return tuple(t is AttrType.STRING for t in types)
+
+
+def _code_remap(codes_to_str: Sequence):
+    """The reference's string table (code -> string) interned in the
+    port's: -> a function of a reference code array giving the port's
+    codes (code 0, null, stays 0)."""
+    table = np.array([0] + [GLOBAL_STRINGS.encode(s)
+                            for s in list(codes_to_str)[1:]], np.int64)
+
+    def remap(a):
+        return table[np.asarray(a, np.int64)]
+    return remap
+
+
+def _payload(payload):
+    from .core.persistence import PORT_MARK, deserialize
+    if isinstance(payload, (bytes, bytearray)):
+        payload = deserialize(bytes(payload))
+    if payload.get("port") == PORT_MARK:
+        raise ValueError("this snapshot was taken by the port already: "
+                         "restore it as it is")
+    return payload
+
+
+def snapshot_from_jax(payload, runtime) -> bytes:
+    """A reference ``SiddhiAppRuntime.snapshot()`` (its bytes, or the
+    payload the port's ``core.persistence.deserialize`` reads from them)
+    -> the port's snapshot bytes of the same state for ``runtime``
+    (a port runtime of the same app), ready for ``runtime.restore``.
+
+    Every piece goes through its converter above: the queries'
+    (state_from_jax; a join's sides, a pattern's table, a rate limiter's
+    rows), the named windows', the tables', the partition blocks', the
+    aggregations' and the reorder buffers'. The reference's strings are
+    interned in the port's table and the STRING columns of every window
+    buffer, table, group column and reorder segment are mapped to the
+    port's codes; hashed codes (group tables, a block's slot table, a
+    pattern table's STRING slots) carry over only where both tables gave
+    the strings the same codes, as for the converters alone."""
+    from .core.persistence import dump_strings, serialize
+    payload = _payload(payload)
+    dev = runtime.device
+    remap = _code_remap(payload["strings"])
+    queries = {}
+    for n, snap in payload["queries"].items():
+        q = runtime.queries.get(n)
+        if q is None:
+            continue
+        side = {s: _string_flags(sc)
+                for s, sc in getattr(q, "in_schemas", {}).items()}
+        st = state_from_jax(snap, dev, _string_flags(q.in_schema), remap,
+                            side_strings=side)
+        if "rate" in snap:
+            st["rate"] = ratelimit_from_jax(snap["rate"])
+        queries[n] = st
+    windows = {n: state_from_jax(s, dev, _string_flags(
+                   runtime.named_windows[n].in_schema), remap)
+               for n, s in payload.get("windows", {}).items()
+               if n in runtime.named_windows}
+    tables = {tid: table_from_jax(t, dev, _string_flags(
+                  runtime.tables[tid].schema), remap)
+              for tid, t in payload.get("tables", {}).items()
+              if tid in runtime.tables}
+    partitions = {}
+    for n, s in payload.get("partitions", {}).items():
+        b = runtime.partitions.get(n)
+        if b is not None:
+            partitions[n] = block_from_jax(s, dev, {
+                p.name: _string_flags(p.in_schema) for p in b.plans}, remap)
+    aggregations = {}
+    for n, s in payload.get("aggregations", {}).items():
+        a = runtime.aggregations.get(n)
+        if a is not None:
+            flags = _string_flags(a.group_attrs)
+            aggregations[n] = aggregation_from_jax(s, dev, flags, remap)
+    reorder = {sid: reorder_from_jax(s, _string_flags(
+                   runtime.schemas[sid]), remap)
+               for sid, s in payload.get("reorder", {}).items()
+               if sid in runtime.schemas}
+    return serialize({
+        "app": payload.get("app", runtime.name),
+        "playback_time": payload["playback_time"],
+        "queries": queries, "windows": windows, "tables": tables,
+        "partitions": partitions, "aggregations": aggregations,
+        "reorder": reorder, "strings": dump_strings()})
+
+
+def pool_snapshot_from_jax(payload, pool) -> bytes:
+    """A reference ``TenantPool.snapshot()`` (bytes, or the payload the
+    port's ``deserialize`` reads) -> the port's whole-pool snapshot bytes
+    for ``pool`` (a port pool of the same template), ready for
+    ``pool.restore``: the stacked states and ``emitted`` counters through
+    pool_from_jax (an aggregation node's durations stacked), the slot
+    map, bindings, QoS dials, rounds and clock as they are. The
+    reference's strings are interned in the port's table; a STRING
+    template parameter or group column in the states holds the
+    reference's code, as pool_from_jax carries it."""
+    from .core.persistence import dump_strings, serialize
+    payload = _payload(payload)
+    if payload.get("kind") != "tenant-pool":
+        raise ValueError("snapshot is not a tenant-pool snapshot")
+    _code_remap(payload["strings"])
+    qs = payload["queries"]
+    states, emitted = pool_from_jax(
+        {qn: q["states"] for qn, q in qs.items()},
+        {qn: q["emitted"] for qn, q in qs.items()}, "cpu", pool._kind)
+    return serialize({
+        **{k: payload[k] for k in ("kind", "template", "shared", "slots",
+                                   "now", "rounds", "tenants")},
+        "pool": pool.name,
+        "queries": {qn: {"states": states[qn], "emitted": emitted[qn]}
+                    for qn in qs},
+        "strings": dump_strings()})

@@ -3715,3 +3715,63 @@ insert into Far;
 def pool_radar_bindings(i: int) -> dict:
     """Tenant i's range gate ``${min_rho:double}``: 5.0 + i mod 16."""
     return {"min_rho": 5.0 + i % 16}
+
+
+# -- checkpoint and recovery -------------------------------------------------
+
+# a tenant pool with a cron window (kernel K5c[K]) beside a grouped
+# lengthBatch sum (K5[K], K6[K]) over one ingest stream. As in the
+# reference's pool, the cron window is never fired (the pool feeds no
+# TIMER row): it buffers the newest 4,096 rows that pass the tenant's
+# filter and counts the rest as overflow, and Buffered gets no row
+POOL_CRON_TEMPLATE = """
+define stream In (v double, k long);
+@info(name='buffered')
+from In[v > ${lo:double}]#window.cron('*/1 * * * * ?')
+select v, k
+insert into Buffered;
+@info(name='sums')
+from In#window.lengthBatch(256)
+select k, sum(v) as total
+group by k
+insert into Out;
+"""
+POOL_CRON_GROUPS = 8
+
+
+def pool_cron_template(cap: int = 4096) -> str:
+    """POOL_CRON_TEMPLATE with the cron window's buffer at ``cap`` rows
+    (``@cap(window.size=...)``; the parity tests take a small one)."""
+    if cap == 4096:
+        return POOL_CRON_TEMPLATE
+    return POOL_CRON_TEMPLATE.replace(
+        "@info(name='buffered')",
+        f"@info(name='buffered')\n@cap(window.size='{cap}')")
+
+
+def pool_cron_bindings(i: int) -> dict:
+    """Tenant i's `${lo:double}`: a floor in [0, 4) of a U(0, 200) price,
+    so some 98-100% of its rows are buffered."""
+    return {"lo": float(i % 4)}
+
+
+def pool_cron_feed(rows: int, seed: int, t0: int = TS0):
+    """One tenant's rows: t0 + arange, v ~ U(0, 200) double, k uniform
+    over POOL_CRON_GROUPS groups. -> (ts, [v, k])."""
+    rng = np.random.default_rng(seed)
+    ts = t0 + np.arange(rows, dtype=np.int64)
+    return ts, [rng.uniform(0, 200, rows),
+                rng.integers(0, POOL_CRON_GROUPS, rows, dtype=np.int64)]
+
+
+def cron_buffer_oracle(ts, v, k, lo: float, cap: int):
+    """A never-fired cron window's buffer after every row of (ts, v, k)
+    went through ``v > lo``: the newest ``cap`` passing rows in arrival
+    order, their seqs (arrival numbers among the passing rows), and the
+    overflow (the passing rows before them). -> (ts, seq, v, k,
+    overflow)."""
+    keep = np.flatnonzero(np.asarray(v) > lo)
+    newest = keep[-cap:]
+    seq = np.arange(len(keep), dtype=np.int64)[-cap:]
+    return (np.asarray(ts)[newest], seq, np.asarray(v)[newest],
+            np.asarray(k)[newest], max(len(keep) - cap, 0))

@@ -2,7 +2,8 @@
 siddhi_tpu/core/manager.py; reference: core/SiddhiManager.java:49).
 
 createSiddhiAppRuntime parses + plans + returns a runtime on the
-manager's device. The device defaults to CUDA; without a CUDA device the
+manager's device; the manager also holds the persistence and error
+stores its runtimes share. The device defaults to CUDA; without a CUDA device the
 manager raises unless the caller asked for the CPU, so a run never falls
 back to the CPU silently.
 """
@@ -31,6 +32,10 @@ class SiddhiManager:
     def __init__(self, device=None):
         self.device = resolve_device(device)
         self.app_runtimes: dict[str, SiddhiAppRuntime] = {}
+        # shared stores (core/persistence.py, resilience/errorstore.py):
+        # revisions and failed events outlive the runtimes that wrote them
+        self.persistence_store = None
+        self.error_store = None
 
     def create_siddhi_app_runtime(self, source,
                                   partition_mesh=None) -> SiddhiAppRuntime:
@@ -50,6 +55,16 @@ class SiddhiManager:
         """Parse + plan, then discard (reference SiddhiManager.validateSiddhiApp)."""
         app_ast = parse(source) if isinstance(source, str) else source
         SiddhiAppRuntime(app_ast, manager=None, device=self.device)
+
+    def set_persistence_store(self, store) -> None:
+        self.persistence_store = store
+
+    def set_error_store(self, store) -> None:
+        """Shared error store (resilience/errorstore.py): events captured
+        by ``@OnError(action='STORE')``, ``@watermark policy='STORE'`` and
+        a pool tenant's failed deliveries land here and survive app
+        restarts for replay."""
+        self.error_store = store
 
     def shutdown(self) -> None:
         for rt in list(self.app_runtimes.values()):

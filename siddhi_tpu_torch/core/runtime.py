@@ -60,6 +60,16 @@ sources and sinks raise NotImplementedError ("not ported yet") on every
 device.
 Window timers fire from the scheduler as in the reference
 (QueryRuntime._schedule / _on_timer).
+
+Checkpoint and restore (core/persistence.py): ``snapshot`` copies every
+query's, named window's, table's, partition block's, aggregation's and
+reorder buffer's state to numpy under the app barrier; ``restore`` builds
+fresh device tensors from it and re-arms the timers (window dues, absent
+deadlines, partition dues; under playback the cron windows at the
+restored clock and each trigger at its snapshotted fire).
+``@OnError(action='STORE')`` and ``@watermark policy='STORE'`` send
+events to the error store (resilience/errorstore.py), which
+``replay_error_store`` re-injects in original-timestamp order.
 """
 from __future__ import annotations
 
@@ -518,24 +528,43 @@ class QueryRuntime(Receiver):
 
     # -- snapshot ---------------------------------------------------------
     def snapshot_state(self) -> dict:
+        """The query's state as CPU copies (never a view of live state:
+        the kernels update state in place), its emitted counter, the
+        clock of its latest event step (``last_now``, which decides
+        whether a due is already covered) and its rate limiter's
+        state."""
         with self._lock:
             snap = {"states": _tree_to(self.states, "cpu"),
-                    "emitted": self._emitted_dev.cpu()}
+                    "emitted": _tree_to(self._emitted_dev, "cpu"),
+                    "last_now": self._last_now}
             if self.rate_limiter is not None:
                 snap["rate"] = self.rate_limiter.snapshot_state()
             return snap
 
     def restore_state(self, snap: dict) -> None:
         """Restore from ``snapshot_state()`` output (or from a reference
-        snapshot carried over by carry.state_from_jax)."""
+        snapshot carried over by carry.state_from_jax): fresh tensors on
+        the app's device, never views of ``snap``."""
         with self._lock:
             self.states = _tree_to(snap["states"], self.app.device)
             self._sched_due = None
             self._emitted_dev = torch.as_tensor(
                 snap["emitted"], dtype=torch.int64).to(
-                    self.app.device).clone()
+                    self.app.device, copy=True)
+            if "last_now" in snap:
+                self._last_now = int(snap["last_now"])
             if self.rate_limiter is not None and "rate" in snap:
                 self.rate_limiter.restore_state(snap["rate"])
+
+    def reschedule(self) -> None:
+        """After a restore: re-arm the window timers from the restored
+        states (the reference re-registers its Schedulers on restore),
+        with one device read for every window's due."""
+        if not self._has_timers:
+            return
+        due = self._due()
+        if due is not None:
+            self._schedule(int(due.item()))
 
     def overflow_total(self) -> int:
         """Sum of overflow counters across operator states (windows and
@@ -726,13 +755,14 @@ def split_batch(batch: EventBatch, cap: int):
 
 
 def _tree_to(tree, device):
-    """Tensors of a nested tuple/list/dict state moved to ``device``
-    (copied, so a snapshot never aliases live state)."""
+    """Tensors of a nested tuple/list/dict state copied to ``device``
+    (always a copy, on every device: a snapshot never aliases live
+    state, a restored state never aliases its payload)."""
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(_tree_to(v, device) for v in tree)
-    return torch.as_tensor(tree).to(device).clone()
+    return torch.as_tensor(tree).to(device, copy=True)
 
 
 class StreamCallbackReceiver(Receiver):
@@ -813,14 +843,23 @@ class PatternQueryRuntime(QueryRuntime):
     def snapshot_state(self) -> dict:
         with self._lock:
             return {"states": _tree_to(self.states, "cpu"),
-                    "emitted": self._emitted_dev.cpu(),
-                    "nfa": _tree_to(self.nfa_state, "cpu")}
+                    "emitted": _tree_to(self._emitted_dev, "cpu"),
+                    "nfa": _tree_to(self.nfa_state, "cpu"),
+                    "last_now": self._last_now}
 
     def restore_state(self, snap: dict) -> None:
         super().restore_state(snap)
         with self._lock:
             self.nfa_state = _tree_to(snap["nfa"], self.app.device)
             self._sched_due = None
+            if self._due is not None:
+                # the step writes the next deadline here: derive it from
+                # the restored table (K4's timer read-back)
+                self._due.copy_(self.engine.next_due(self.nfa_state))
+
+    def reschedule(self) -> None:
+        """After a restore: re-arm the absent deadlines' timer."""
+        self._schedule_absent()
 
     def _step(self, stream_id: str, batch: EventBatch, now) -> EventBatch:
         """One step (the caller holds the lock): K3 or K4, then K2."""
@@ -1029,9 +1068,10 @@ class JoinQueryRuntime(QueryRuntime):
     def snapshot_state(self) -> dict:
         with self._lock:
             return {"states": _tree_to(self.states, "cpu"),
-                    "emitted": self._emitted_dev.cpu(),
+                    "emitted": _tree_to(self._emitted_dev, "cpu"),
                     "sides": _tree_to(self.side_states, "cpu"),
-                    "join_overflow": self._overflow_dev.cpu()}
+                    "join_overflow": _tree_to(self._overflow_dev, "cpu"),
+                    "last_now": self._last_now}
 
     def restore_state(self, snap: dict) -> None:
         super().restore_state(snap)
@@ -1039,7 +1079,20 @@ class JoinQueryRuntime(QueryRuntime):
             self.side_states = _tree_to(snap["sides"], self.app.device)
             self._overflow_dev = torch.as_tensor(
                 snap["join_overflow"], dtype=torch.int64).to(
-                    self.app.device).clone()
+                    self.app.device, copy=True)
+
+    def reschedule(self) -> None:
+        """After a restore: re-arm the timer at both sides' earliest
+        window due (one device read)."""
+        if not self._has_timers:
+            return
+        with self._lock:
+            dues = [op.next_due(st) for side, ops in self.side_ops.items()
+                    for op, st in zip(ops, self.side_states[side])
+                    if isinstance(op, WindowOp)]
+        dues = [d for d in dues if d is not None]
+        if dues:
+            self._schedule(int(torch.stack(dues).min().item()))
 
     def _gate(self, key) -> bool:
         g = self._gates.get(key)
@@ -1156,6 +1209,9 @@ class TriggerRuntime:
         if td.at_cron not in (None, "start"):
             from ..utils.cron import CronSchedule
             self.cron = CronSchedule(td.at_cron)
+        # the armed fire (None: none armed): a snapshot keeps it, so a
+        # restored periodic trigger keeps its phase
+        self.next_due: Optional[int] = None
 
     def arm(self, base_ms: int) -> None:
         if self.td.at_cron == "start":
@@ -1165,6 +1221,10 @@ class TriggerRuntime:
             due = self.cron.next_fire(base_ms)
         else:
             due = base_ms + self.td.at_every_ms
+        self.arm_at(due)
+
+    def arm_at(self, due: int) -> None:
+        self.next_due = int(due)
         self.app.scheduler.notify_at(due, self._on_timer)
 
     def _on_timer(self, due: int) -> None:
@@ -1218,6 +1278,10 @@ class SiddhiAppRuntime:
         # the whole app would take it exclusively
         self.barrier = threading.RLock()
         self.scheduler = Scheduler(playback=False, barrier=self.barrier)
+        # the stores of a runtime without a manager (core/persistence.py,
+        # resilience/errorstore.py), made on first use
+        self._local_store = None
+        self._local_error_store = None
         Planner(self).plan()
         self.scheduler.playback = self._playback
         # start-state absent deadlines are based at app start, not the
@@ -1437,6 +1501,170 @@ class SiddhiAppRuntime:
         self.scheduler.shutdown()
         self._resolve_dues()
 
+    # -- checkpoint / restore (SiddhiAppRuntimeImpl.java:677-755) ---------
+    def _persistence_store(self):
+        """The manager's persistence store (an in-memory one is made on
+        first use), or a runtime-local one without a manager."""
+        from .persistence import InMemoryPersistenceStore
+        if self.manager is not None:
+            if self.manager.persistence_store is None:
+                self.manager.persistence_store = InMemoryPersistenceStore()
+            return self.manager.persistence_store
+        if self._local_store is None:
+            self._local_store = InMemoryPersistenceStore()
+        return self._local_store
+
+    def _error_store(self):
+        """The app's error store (resilience/errorstore.py): the
+        manager's shared store (it survives app restarts, like the
+        persistence store), else a runtime-local in-memory one."""
+        from ..resilience.errorstore import InMemoryErrorStore
+        if self.manager is not None:
+            if self.manager.error_store is None:
+                self.manager.error_store = InMemoryErrorStore()
+            return self.manager.error_store
+        if self._local_error_store is None:
+            self._local_error_store = InMemoryErrorStore()
+        return self._local_error_store
+
+    def replay_error_store(self) -> int:
+        """Re-inject the error-store backlog through the junctions, in
+        original-timestamp order (at-least-once); -> events replayed."""
+        from ..resilience.errorstore import replay
+        return replay(self, self._error_store())
+
+    def snapshot(self) -> bytes:
+        """The whole app's state as bytes (SnapshotService.fullSnapshot),
+        taken under the app barrier so that chained queries are captured
+        consistently: every query, named window, table, partition block,
+        aggregation and reorder buffer, the string dictionary and the
+        playback clock, each tensor copied to a numpy array."""
+        from .persistence import serialize
+        with self.barrier:
+            return serialize(self._snapshot_locked())
+
+    def _snapshot_locked(self) -> dict:
+        from .persistence import dump_strings
+        return {
+            "app": self.name,
+            "playback_time": self._playback_time,
+            "queries": {n: q.snapshot_state()
+                        for n, q in self.queries.items()
+                        if hasattr(q, "snapshot_state")},
+            "windows": {n: w.snapshot_state()
+                        for n, w in self.named_windows.items()},
+            "tables": {tid: _tree_to(t.state, "cpu")
+                       for tid, t in self.tables.items()},
+            "partitions": {n: b.snapshot_state()
+                           for n, b in self.partitions.items()},
+            "aggregations": {n: a.snapshot_state()
+                             for n, a in self.aggregations.items()},
+            # reorder-buffered events are accepted but not yet released
+            "reorder": {sid: b.snapshot_state()
+                        for sid, b in self._reorder.items()},
+            # the armed fire of each periodic or cron trigger
+            "triggers": {tid: t.next_due for tid, t in self.triggers.items()
+                         if t.next_due is not None},
+            "strings": dump_strings(),
+        }
+
+    def restore(self, data: bytes) -> None:
+        """Restore a ``snapshot()`` bit-exact and re-arm the timers. A
+        reference (siddhi_tpu) snapshot is refused: convert it with
+        ``carry.snapshot_from_jax``."""
+        from .persistence import check_port_payload, deserialize
+        payload = deserialize(data)
+        check_port_payload(payload, "app")
+        with self.barrier:
+            self._restore_locked(payload)
+
+    def _restore_locked(self, payload: dict) -> None:
+        from .persistence import load_strings
+        load_strings(payload["strings"])
+        self._playback_time = payload["playback_time"]
+        for n, snap in payload["queries"].items():
+            q = self.queries.get(n)
+            if q is not None and hasattr(q, "restore_state"):
+                q.restore_state(snap)
+        for n, snap in payload.get("windows", {}).items():
+            w = self.named_windows.get(n)
+            if w is not None:
+                w.restore_state(snap)
+        for tid, tstate in payload["tables"].items():
+            t = self.tables.get(tid)
+            if t is not None:
+                with t.lock:
+                    t.state = _tree_to(tstate, self.device)
+        for n, snap in payload["partitions"].items():
+            if n in self.partitions:
+                self.partitions[n].restore_state(snap)
+        for n, snap in payload.get("aggregations", {}).items():
+            if n in self.aggregations:
+                self.aggregations[n].restore_state(snap)
+        for sid, snap in payload.get("reorder", {}).items():
+            buf = self._reorder.get(sid)
+            if buf is not None:
+                buf.restore_state(snap)
+        self._rearm(payload.get("triggers", {}))
+
+    def _rearm(self, trigger_dues: dict) -> None:
+        """The timers of a restored app: window dues, absent deadlines
+        and partition dues from the restored states; under playback, a
+        state taken after the first event had its start deadlines, cron
+        windows and triggers armed already: they are not armed again, the
+        cron windows re-arm at the restored clock and each trigger at its
+        snapshotted fire."""
+        if self._playback and self._playback_time is not None:
+            self._unarmed_patterns = []
+            if not self._cron_armed:
+                self._cron_armed = True
+                for q in list(self.queries.values()) + \
+                        list(self.named_windows.values()):
+                    if getattr(q, "_host_sched", None):
+                        q.arm_host_timers(self._playback_time)
+                for tid, t in self.triggers.items():
+                    if tid in trigger_dues:
+                        t.arm_at(trigger_dues[tid])
+                    else:
+                        t.arm(self._playback_time)
+        for q in self.queries.values():
+            if hasattr(q, "reschedule"):
+                q.reschedule()
+        for w in self.named_windows.values():
+            w.reschedule()
+        for b in self.partitions.values():
+            b.reschedule()
+
+    def persist(self) -> str:
+        """Snapshot to the persistence store; -> the revision id."""
+        from .persistence import new_revision
+        store = self._persistence_store()
+        rev = new_revision(self.name)
+        store.save(self.name, rev, self.snapshot())
+        return rev
+
+    def restore_revision(self, revision: str) -> None:
+        data = self._persistence_store().load(self.name, revision)
+        if data is None:
+            raise KeyError(f"no revision '{revision}' for app "
+                           f"'{self.name}'")
+        self.restore(data)
+
+    def restore_last_revision(self) -> Optional[str]:
+        rev = self._persistence_store().get_last_revision(self.name)
+        if rev is None:
+            return None
+        self.restore_revision(rev)
+        return rev
+
+    def clear_all_revisions(self) -> None:
+        self._persistence_store().clear_all_revisions(self.name)
+
+    # camelCase aliases, as in the reference's API
+    restoreRevision = restore_revision
+    restoreLastRevision = restore_last_revision
+    clearAllRevisions = clear_all_revisions
+
     # -- on-demand queries (OnDemandQueryParser.java:87) ----------------
     def query(self, q):
         """Run an on-demand query (text or AST) against the app's tables:
@@ -1470,16 +1698,26 @@ class Planner:
                 raise not_ported(f"@app:{ann.name}")
         # 1. defined streams -> junctions + input handlers
         for sid, sd in ast.stream_definitions.items():
+            action = "LOG"
             for ann in sd.annotations:
-                if ann.name.lower() == "onerror" and \
-                        (ann.element("action") or "LOG").upper() == "LOG":
-                    continue  # the junction's default: log and go on
+                if ann.name.lower() == "onerror":
+                    action = (ann.element("action") or "LOG").upper()
+                    if action not in ("LOG", "STREAM", "STORE"):
+                        raise CompileError(
+                            f"stream '{sid}': unknown @OnError action "
+                            f"'{action}' (expected LOG, STREAM or STORE)")
+                    if action == "STREAM":
+                        raise not_ported(
+                            f"@OnError(action='STREAM') on stream '{sid}' "
+                            "(fault streams)")
+                    continue  # LOG: log and go on; STORE: the error store
                 if ann.name.lower() == "watermark":
                     continue  # plan_watermarks
                 raise not_ported(f"@{ann.name} on stream '{sid}'")
             schema = StreamSchema(sid, tuple(
                 Attribute(a.name, a.type) for a in sd.attributes))
             j = app.junction_for(sid, schema)
+            j.on_error_action = action
             app.input_handlers[sid] = InputHandler(sid, j, app)
         # 1b. defined tables (@PrimaryKey: upsert in place; @Index:
         # sorted probes for deletes and IN-table filters)
@@ -1591,9 +1829,6 @@ class Planner:
                 conf = wm_streams.get(sid) or wm_default
             if conf is None:
                 continue
-            if conf.policy == "STORE":
-                raise not_ported("@watermark policy='STORE' (the error "
-                                 "store)")
             buf = ReorderBuffer(sid, app.schemas[sid], conf)
             buf.handler = app.input_handlers[sid]
             if conf.policy == "STREAM":

@@ -17,9 +17,11 @@ hands its sends to the buffer, which releases them through
 ``_dispatch_rows``, ``_dispatch_arrays`` or, from the device ring,
 ``_dispatch_device_batch``.
 
-Not ported yet: ``@Async`` junctions, the double-buffered ingest
-pipeline, fan-out fusion and the SLO spans (the planner raises
-NotImplementedError for apps that ask for them).
+``@OnError(action='STORE')`` sends the events a receiver failed on to
+the app's error store (resilience/errorstore.py). Not ported yet:
+``@OnError(action='STREAM')`` (fault streams), ``@Async`` junctions,
+the double-buffered ingest pipeline, fan-out fusion and the SLO spans
+(the planner raises NotImplementedError for apps that ask for them).
 """
 from __future__ import annotations
 
@@ -61,14 +63,39 @@ class StreamJunction:
         self.schema = schema
         self.receivers: list[Receiver] = []
         self.app = None  # wired by the app runtime (junction_for)
+        # @OnError action: LOG (the default) or STORE
+        self.on_error_action: str = "LOG"
 
     def subscribe(self, receiver: Receiver) -> None:
         self.receivers.append(receiver)
 
-    def _handle_error(self, exc: Exception) -> None:
-        """The reference's default @OnError action (LOG): log and go on."""
-        log.error("error processing events on stream '%s'",
-                  self.stream_id, exc_info=exc)
+    def store_error(self, events: list[Event], exc: Exception,
+                    attempts: int = 1) -> bool:
+        """Capture failing events in the app's error store for a later
+        replay; False when no app is wired (a standalone junction)."""
+        if self.app is None or not events:
+            return False
+        from ..resilience.errorstore import ErroredEvent
+        self.app._error_store().store(
+            self.app.name,
+            ErroredEvent.from_events(
+                self.stream_id, events, f"{type(exc).__name__}: {exc}",
+                attempts=attempts, now=self.app.current_time()))
+        return True
+
+    def _handle_error(self, events: Optional[list[Event]],
+                      exc: Exception) -> None:
+        """@OnError routing (StreamJunction.handleError:368-430): STORE
+        captures the failing events in the error store for a replay;
+        LOG (the default) logs and goes on."""
+        if self.on_error_action == "STORE" and events and \
+                self.store_error(events, exc):
+            log.warning(
+                "stream '%s': %d event(s) routed to the error store "
+                "after %s", self.stream_id, len(events), exc)
+            return
+        log.error("error processing events on stream '%s' (action=%s)",
+                  self.stream_id, self.on_error_action, exc_info=exc)
 
     def publish(self, events: list[Event]) -> None:
         if not events:
@@ -78,14 +105,20 @@ class StreamJunction:
             for r in list(self.receivers):
                 try:
                     r.receive(events)
-                except Exception as exc:  # noqa: BLE001 — @OnError LOG
-                    self._handle_error(exc)
+                except Exception as exc:  # noqa: BLE001 — @OnError
+                    self._handle_error(events, exc)
 
     def publish_batch(self, batch, last_ts: int) -> None:
         """Columnar path: receivers that implement process_batch get the
         device batch directly; row-oriented receivers get decoded events
         (decoded at most once)."""
         decoded = None
+
+        def decode():
+            from .event import EXPIRED, rows_from_batch
+            return [Event(ts, vals, is_expired=(kind == EXPIRED))
+                    for ts, kind, vals in rows_from_batch(
+                        self.schema.types, batch)]
         with maybe_span(self.app, "junction", self.stream_id,
                         capacity=int(batch.capacity)):
             for r in list(self.receivers):
@@ -94,14 +127,15 @@ class StreamJunction:
                         r.process_batch(batch, last_ts)
                     else:
                         if decoded is None:
-                            from .event import EXPIRED, rows_from_batch
-                            decoded = [
-                                Event(ts, vals, is_expired=(kind == EXPIRED))
-                                for ts, kind, vals in rows_from_batch(
-                                    self.schema.types, batch)]
+                            decoded = decode()
                         r.receive(decoded)
-                except Exception as exc:  # noqa: BLE001 — @OnError LOG
-                    self._handle_error(exc)
+                except Exception as exc:  # noqa: BLE001 — @OnError
+                    if decoded is None:
+                        try:
+                            decoded = decode()
+                        except Exception:  # noqa: BLE001
+                            decoded = []
+                    self._handle_error(decoded, exc)
 
 
 class InputHandler:

@@ -195,6 +195,7 @@ class WindowOp(Operator):
     host_due_bound = None
     KIND = -1      # csrc/window_step.cu's kind code
     LAUNCH = "window_step"   # its launches' counter (_kernels.LAUNCHES)
+    LAUNCH_K = "window_step[K]"   # the same over a slot axis
     # K5's state buffers (A, E): the buffer or current batch, and the
     # expired batch (None where the window keeps none)
     buf_keys = ("buf", None)
@@ -219,6 +220,11 @@ class WindowOp(Operator):
 
     def step(self, state, batch: EventBatch, now):
         return window_step(self, state, batch, now)
+
+    def step_slots_ref(self, state, batch: EventBatch, now):
+        """Plain version over a slot axis: ``step_ref`` once per slot."""
+        return per_slot(lambda st, b: self.step_ref(st, b, now),
+                        batch.ts.shape[0], state, batch)
 
     def findable_buffer(self, state, device=None) -> dict:
         """The window content a join or table find() searches (the
@@ -653,22 +659,21 @@ def window_step(op: WindowOp, state, batch: EventBatch, now):
     sync). ``now``: an int or an int64 0-d tensor.
 
     Inside a partition block the state and the batch carry the slot axis
-    (ops/slots.py): the plain version runs once per slot, the kernel
-    once with a row of thread blocks (or one block) per slot, counted as
-    ``window_step[K]``."""
+    (ops/slots.py): the plain version is ``op.step_slots_ref``, the
+    kernel runs once with a row of thread blocks (or one block) per
+    slot, counted as ``op.LAUNCH_K``."""
     dev = batch.ts.device
     slotted = batch.ts.dim() == 2
     if dev.type == "cpu":
         if slotted:
-            return per_slot(lambda st, b: window_step_ref(op, st, b, now),
-                            batch.ts.shape[0], state, batch)
+            return op.step_slots_ref(state, batch, now)
         return window_step_ref(op, state, batch, now)
     if dev.type != "cuda":
         raise ValueError(f"window_step: unsupported device {dev}")
     new_state, out, args = window_args(op, state, batch, _i64(now, dev))
     _kernels.load().window_step(args,
                                 torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.count_launch("window_step[K]" if slotted else op.LAUNCH)
+    _kernels.count_launch(op.LAUNCH_K if slotted else op.LAUNCH)
     return new_state, out
 
 

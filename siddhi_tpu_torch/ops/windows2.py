@@ -31,16 +31,20 @@ schedule (utils/cron.py), not a device due.
 
 Inside a partition block or a tenant pool (a ``[K, B]`` batch, every
 state with a leading slot axis: the reference's ``jax.vmap``) every kind
-but cron runs once over all K slots: K5's kinds through K5's slot layout
+runs once over all K slots: K5's kinds through K5's slot layout
 (A[K]), the sort window, kernel E and kernel F with the slot as
 ``blockIdx.y`` (B[K], E[K], F[K], counted as ``sort_window[K]``,
-``freq_window[K]``, ``session_window[K]``). Their plain versions over
+``freq_window[K]``, ``session_window[K]``), and the cron window of a
+tenant pool through K5's slot layout as K5c[K] (counted as
+``cron_window[K]``; a partition block refuses cron, as the reference's
+does). Their plain versions over
 the slot axis: ``per_slot`` of ``step_ref`` for K5's kinds; for the
 sort and frequent windows a walk of every slot at once
-(``sort_window_slots_ref``, ``freq_window_slots_ref``) and for session
-its stages along the row axis (``session_slots_ref``), each slot's
-result equal to ``step_ref``'s on that slot alone. A ``next_due`` gives
-one due a slot, which the block's K9p due reduces.
+(``sort_window_slots_ref``, ``freq_window_slots_ref``), for session
+its stages along the row axis (``session_slots_ref``) and for cron
+every slot's step at once (``cron_slots_ref``), each slot's result
+equal to ``step_ref``'s on that slot alone. A ``next_due`` gives one
+due a slot, which the block's K9p due reduces.
 
 The reference's documented deviation is kept: delay(0) releases at the
 next step, not interleaved after the next in-chunk event.
@@ -670,11 +674,13 @@ class CronWindowOp(WindowOp):
     emitted when the buffer is empty (CronWindowProcessor.java:125-135
     buffers, :188-236 dispatches; the Quartz scheduler is utils/cron.py
     and the app Scheduler). Kernel K5c: kind 11 of csrc/window_step.cu,
-    counted as ``cron_window``."""
+    counted as ``cron_window`` (``cron_window[K]`` over a tenant pool's
+    slot axis)."""
 
     kind_name = "cron"
     KIND = 11
     LAUNCH = "cron_window"
+    LAUNCH_K = "cron_window[K]"
     buf_keys = ("cur", "exp")
 
     def __init__(self, schema, cron_expr: str, cap: int = 4096,
@@ -730,6 +736,84 @@ class CronWindowOp(WindowOp):
 
     def findable_buffer(self, state, device=None):
         return state["exp"]
+
+    def step_slots_ref(self, state, batch: EventBatch, now):
+        return cron_slots_ref(self, state, batch, now)
+
+
+def _slot_take(x, idx):
+    """Rows ``idx`` ([K, n]) of each slot of ``x`` ([K, m, ...])."""
+    i = idx.reshape(idx.shape + (1,) * (x.dim() - 2))
+    return torch.take_along_dim(x, i.expand(idx.shape + x.shape[2:]), dim=1)
+
+
+def _slot_where(cond, a: dict, b: dict) -> dict:
+    """Per slot, buffer ``a`` where ``cond`` ([K]) else buffer ``b``."""
+    def w(x, y):
+        if isinstance(x, tuple):
+            return tuple(w(u, v) for u, v in zip(x, y))
+        c = cond.reshape(cond.shape + (1,) * (x.dim() - 1))
+        return torch.where(c, x, y)
+    return {k: w(a[k], b[k]) for k in a}
+
+
+def cron_slots_ref(op: "CronWindowOp", state, batch: EventBatch, now):
+    """Plain PyTorch version of kernel K5c[K]: ``CronWindowOp.step_ref``
+    of every slot at once (``state`` and ``batch`` with the leading slot
+    axis; ``now`` one clock for all). -> (state', [K, EB + W] output)."""
+    K = batch.ts.shape[0]
+    W = EB = op.cap
+    dev = batch.ts.device
+    now = _i64(now, dev)
+    cur = batch.valid & (batch.kind == CURRENT)
+    offs = torch.cumsum(cur.to(I64), 1) - 1
+    seq = torch.where(cur, state["next_seq"][:, None] + offs,
+                      torch.full_like(offs, int(NEG_INF)))
+    next_seq = state["next_seq"] + cur.sum(1, dtype=I64)
+    fire = (batch.valid & (batch.kind == TIMER)).any(1)
+    flush = fire & state["cur"]["valid"].any(1)
+    exp, buf = state["exp"], state["cur"]
+    out = {"ts": torch.cat([now.expand(K, EB), buf["ts"]], 1),
+           "cols": tuple(torch.cat([ec, cc], 1) for ec, cc in
+                         zip(exp["cols"], buf["cols"])),
+           "nulls": tuple(torch.cat([en, cn], 1) for en, cn in
+                          zip(exp["nulls"], buf["nulls"])),
+           "kind": _kinds(dev, (EB, EXPIRED), (W, CURRENT)).expand(
+               K, EB + W)}
+    emit_row = torch.zeros((K, EB + W), dtype=I64, device=dev)
+    phase = torch.cat([_full(EB, 0, I64, dev), _full(W, 1, I64, dev)]
+                      ).expand(K, EB + W)
+    f = flush[:, None]
+    exp_valid = (exp["valid"] & f) if op.expired_enabled \
+        else torch.zeros((K, EB), dtype=torch.bool, device=dev)
+    valid = torch.cat([exp_valid, buf["valid"] & f], 1)
+    result = emission_sort_slots(out, emit_row, phase, valid, EB + W)
+    # rotate on a flush, then keep the newest W of (cur ++ arrivals)
+    empty = {k: torch.zeros_like(v) if not isinstance(v, tuple)
+             else tuple(torch.zeros_like(x) for x in v)
+             for k, v in buf.items()}
+    mid = _slot_where(flush, empty, buf)
+    new_exp = _slot_where(flush, buf, exp)
+    pool = {"ts": torch.cat([mid["ts"], batch.ts], 1),
+            "seq": torch.cat([mid["seq"], seq], 1),
+            "cols": tuple(torch.cat([b, c], 1)
+                          for b, c in zip(mid["cols"], batch.cols)),
+            "nulls": tuple(torch.cat([b, c], 1)
+                           for b, c in zip(mid["nulls"], batch.nulls)),
+            "valid": torch.cat([mid["valid"], cur], 1)}
+    n = pool["seq"].shape[1]
+    c = torch.cumsum(pool["valid"].to(torch.int32), 1, dtype=torch.int32)
+    total = c[:, n - 1:]
+    r = total - W + torch.arange(W, dtype=torch.int32, device=dev)
+    take = torch.clamp(torch.searchsorted(c, r + 1, side="left"), 0, n - 1)
+    new_cur = {"ts": _slot_take(pool["ts"], take),
+               "seq": _slot_take(pool["seq"], take),
+               "cols": tuple(_slot_take(x, take) for x in pool["cols"]),
+               "nulls": tuple(_slot_take(x, take) for x in pool["nulls"]),
+               "valid": r >= 0}
+    overflow = torch.clamp(total[:, 0] - W, min=0).to(I64)
+    return ({"cur": new_cur, "exp": new_exp, "next_seq": next_seq,
+             "overflow": state["overflow"] + overflow}, result)
 
 
 # ---------------------------------------------------------------------------

@@ -702,13 +702,20 @@ class PartitionBlockRuntime:
                     port.rate_limiter.restore_state(rsnap)
 
     def reschedule(self) -> None:
-        """Re-arm per-query timers from restored [K]-stacked states."""
+        """Re-arm per-query timers from restored [K]-stacked states: the
+        windows' dues and an absent pattern's deadlines (the reference
+        re-arms only the windows')."""
         per_plan: dict[str, list] = {}
         for p in self.plans:
             if not self._has_timers[p.name]:
                 continue
             with self._lock:  # restore rebinds the stacked states
                 qstates = self.qstates[p.name]
+            if p.is_pattern:
+                if p.engine.has_absent:
+                    per_plan.setdefault(p.name, []).append(
+                        p.engine.next_due(qstates[0]))
+                continue
             for op, st in zip(p.operators, qstates):
                 if isinstance(op, WindowOp):
                     d = op.next_due(st)

@@ -12,8 +12,8 @@ path.
 - The watermark of a stream is its greatest event time less the
   lateness bound; releases follow it, and so does the app's clock
   (``SiddhiAppRuntime.on_event_time``). Late events (below the watermark
-  at arrival) go by ``policy``: DROP, PROCESS or STREAM (``STORE`` needs
-  the error store, which is not ported yet: the planner refuses it).
+  at arrival) go by ``policy``: DROP, PROCESS, STREAM or STORE (the
+  app's error store, resilience/errorstore.py, for a later replay).
 - Capacity: over ``cap`` pending rows the oldest are released ahead of
   the watermark and counted (``forced``); ``dedup='true'`` drops exact
   duplicate rows in a release (``duplicates``).
@@ -685,10 +685,16 @@ class ReorderBuffer:
             self.counters["late_streamed"] += len(events)
             self.late_junction.publish(events)
             return
-        # STORE: the error store is not ported yet (the planner refuses
-        # policy='STORE')
-        raise NotImplementedError(
-            f"not ported yet: @watermark policy='STORE' (app '{app.name}')")
+        # STORE: capture in the error store for a replay (the replay
+        # re-sorts by original timestamp, so recovery cannot re-introduce
+        # disorder: resilience/errorstore.py)
+        from .errorstore import ErroredEvent
+        self.counters["late_stored"] += len(events)
+        app._error_store().store(app.name, ErroredEvent.from_events(
+            self.stream_id, events,
+            f"late event: timestamp below watermark {wm} "
+            f"(lateness {self.conf.lateness_ms} ms)",
+            now=app.current_time()))
 
     def _decode_rows(self, ts: np.ndarray, cols) -> list:
         """Columnar slice -> host Events (STRING dictionary codes decode
@@ -715,10 +721,12 @@ class ReorderBuffer:
         """Pure-data snapshot (numpy + tuples only — the restricted
         snapshot unpickler admits nothing else). Device ring state
         lands as one extra host columnar segment in arrival order, so
-        ring and host snapshots restore interchangeably. (Persistence of
-        a whole app is not ported yet.)"""
-        cols_segs = [(t, list(cs)) for t, cs in
-                     zip(self._pend_ts, self._pend_cols)]
+        ring and host snapshots restore interchangeably. The pending
+        segments are copied: a snapshot never changes after it is
+        taken."""
+        cols_segs = [(np.array(t, copy=True),
+                      [np.array(c, copy=True) for c in cs])
+                     for t, cs in zip(self._pend_ts, self._pend_cols)]
         lane = self._lane
         if self._ring is not None and self._ring.count:
             t_host, c_host = self._ring_host_cols()

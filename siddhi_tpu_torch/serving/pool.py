@@ -11,7 +11,10 @@ launch sequence over ALL slots, through the kernels' slot axis
   packed (slots, total) buffer decodes through K1[K]; filters and the
   projection run K2 over the slots' rows as one batch, each template
   parameter ``${name:type}`` a load of one value a slot and the emitted
-  rows counted into one counter a slot; windows run K5[K];
+  rows counted into one counter a slot; windows run K5[K] (a cron window
+  K5's cron kind over the slots, K5c[K]: as in the reference's pool it
+  is never fired, since a round feeds no TIMER row, and it buffers and
+  counts its overflow);
 - **pattern**: the NFA step runs K3[K] (the round-parallel engine, one
   pending table a slot) or K4[K] (the scan engine); a pattern with
   absent deadlines also runs K4[K]'s timer step every dispatch (the
@@ -52,11 +55,16 @@ slot; ``remove_tenant`` leaves the state where it is. Free slots are
 handed out LIFO. Admission rejects past ``max_tenants``, past the state
 quota and past the ingest backlog with the reference's reasons.
 
-A failing tenant callback is isolated: its events are counted and
-logged, and the other tenants' delivery goes on (the reference also
-writes them to the tenant's error-store partition; the error store is
-not ported yet). Persistence, migration, a device mesh, explain and the
-metrics registry raise NotImplementedError ("not ported yet").
+A failing tenant callback is isolated: its events are counted, logged
+and written to the tenant's error-store partition
+(``tenant_partition``), and the other tenants' delivery goes on;
+``replay_errors`` delivers a partition again in original-timestamp
+order. Checkpoint and recovery: ``snapshot_tenant``/``restore_tenant``
+(one slot), ``snapshot``/``persist``/``restore``/``restore_revision``
+(the whole pool, onto a fresh pool of the same template), and the
+round hook of resilience/supervisor.py's ``PoolCheckpointSupervisor``.
+Migration, a device mesh, explain and the metrics registry raise
+NotImplementedError ("not ported yet").
 """
 from __future__ import annotations
 
@@ -93,7 +101,6 @@ from ..ops import nfa as _nfa
 from ..ops import nfa_parallel as _nfa_par
 from ..ops.nfa_parallel import ParallelNfaEngine
 from ..ops.slots import leaves, stacked, tree_map
-from ..ops.windows2 import CronWindowOp
 from .qos import PoolQoS
 
 # _kind slug -> the operator-class name used in quota accounting and
@@ -169,6 +176,10 @@ class TenantPool:
             if a.name.lower() not in ("cap", "slo")])
         self.proto = SiddhiAppRuntime(proto_ast, manager=None,
                                       device=self.device)
+        # the prototype's store lookups go through the pool's manager:
+        # tenant error partitions and pool checkpoints live in the shared
+        # stores, where a fresh pool built after a crash finds them
+        self.proto.manager = self.manager
         self._plan_topology()
         self._check_poolable()
 
@@ -240,6 +251,10 @@ class TenantPool:
         self.state_bytes_per_tenant = total_bytes
 
         self._tenants: dict[str, int] = {}
+        # each tenant's bindings and QoS dials as given: a whole-pool
+        # snapshot carries them to rebuild the admission bookkeeping
+        self._bindings: dict[str, dict] = {}
+        self._tenant_qos_raw: dict[str, dict] = {}
         self._free = list(range(self.slots - 1, -1, -1))
         # tid -> {ingest stream -> deque of (ts, cols, t_arrival)}
         self._pending: dict[str, dict] = {}
@@ -286,6 +301,10 @@ class TenantPool:
             recorder=self.flight, context_fn=self._flight_context)
         self._rejections: dict[str, int] = {}
         self._rejection_times: deque = deque(maxlen=512)
+        # a PoolCheckpointSupervisor registers itself here; restore()
+        # fills _recovery
+        self._checkpoint_supervisor = None
+        self._recovery: Optional[dict] = None
         self._last_pump_wall: Optional[float] = None
         self._round_ms_ema: Optional[float] = None
 
@@ -413,17 +432,12 @@ class TenantPool:
                 "projection chains, patterns, joins, and incremental "
                 "aggregations over named ingest streams; "
                 "found: " + "; ".join(problems))
-        # every window kind has the slot axis but cron, whose firings come
-        # from the host schedule. As in the reference's pool, a query's
-        # output rate limiter and a STRING order-by's host edge are not
-        # applied: a tenant's rows arrive unlimited and, for a STRING
-        # key, unordered.
-        for qn, q in p.queries.items():
-            ops = list(q.operators)
-            if self._kind[qn] == "join":
-                ops += [op for s in q.side_ops.values() for op in s]
-            if any(isinstance(op, CronWindowOp) for op in ops):
-                raise _not_ported("window 'cron' in a tenant pool")
+        # every window kind has the slot axis. As in the reference's
+        # pool, a query's output rate limiter and a STRING order-by's host
+        # edge are not applied (a tenant's rows arrive unlimited and, for
+        # a STRING key, unordered), and a cron window is never fired: the
+        # pool feeds no TIMER row, so it buffers each round's rows (K5c[K])
+        # and counts its overflow
 
     @property
     def ingest_streams(self) -> tuple:
@@ -639,6 +653,8 @@ class TenantPool:
                     full[slot] = iv.to(full.device)
                 self._emitted[qn][slot] = 0
             self._tenants[tenant_id] = slot
+            self._bindings[tenant_id] = dict(bindings or {})
+            self._tenant_qos_raw[tenant_id] = dict(qos or {})
             self._pending[tenant_id] = self._fresh_queues()
             self._pending_rows[tenant_id] = 0
             self._error_counts[tenant_id] = 0
@@ -652,6 +668,8 @@ class TenantPool:
             if slot is None:
                 return False
             self._free.append(slot)
+            self._bindings.pop(tenant_id, None)
+            self._tenant_qos_raw.pop(tenant_id, None)
             self._pending.pop(tenant_id, None)
             self._pending_rows.pop(tenant_id, None)
             self._callbacks.pop(tenant_id, None)
@@ -824,6 +842,11 @@ class TenantPool:
             terminal, qtimes = self._dispatch(stream_inputs, self._now,
                                               sample=sampled)
             self._rounds += 1
+            if self._checkpoint_supervisor is not None:
+                # the periodic whole-pool checkpoint at the round
+                # boundary: states updated, delivery not yet run (the
+                # error-store replay covers the delivery, at-least-once)
+                self._checkpoint_supervisor.on_round(self._rounds)
             if sampled and qtimes:
                 self._slo_attribute(stamps, qtimes, taken)
             dur_ms = (time.perf_counter() - t_round0) * 1000.0
@@ -1138,15 +1161,31 @@ class TenantPool:
             self._qos.on_delivery(tid, ok=not failed)
 
     def _short_circuit(self, tid: str, sid: str, events: list) -> None:
-        """OPEN-breaker path: the failing callback never runs; the
-        events are counted and logged."""
+        """OPEN-breaker path: the events go to the tenant's error-store
+        partition (replayable), and its failing callback never runs."""
         with self._lock:
             self._qos.count_short_circuit(tid, len(events))
             self._error_counts[tid] = \
                 self._error_counts.get(tid, 0) + len(events)
+        self._store_errors(tid, sid, events,
+                           "circuit-open: delivery short-circuited")
         log.warning("pool '%s': tenant '%s' circuit open: %d event(s) on "
                     "stream '%s' short-circuited", self.name, tid,
                     len(events), sid)
+
+    def _store_errors(self, tid: str, sid: str, events: list,
+                      cause: str) -> None:
+        """One failed delivery into the tenant's error-store partition;
+        a failing store is logged and does not stop the delivery of
+        other tenants."""
+        from ..resilience.errorstore import ErroredEvent
+        try:
+            self.proto._error_store().store(
+                self.tenant_partition(tid),
+                ErroredEvent.from_events(sid, events, cause, now=self._now))
+        except Exception:  # noqa: BLE001 — isolation must not cascade
+            log.exception("pool '%s': error-store write failed for "
+                          "tenant '%s'", self.name, tid)
 
     def _on_breaker_transition(self, tid: str, prev: str,
                                state: str) -> None:
@@ -1167,13 +1206,14 @@ class TenantPool:
 
     def _tenant_error(self, tid: str, sid: str, events: list,
                       exc: Exception) -> None:
-        """Sink-failure isolation: the failing tenant's events are
-        counted and logged; delivery to other tenants continues."""
+        """Sink-failure isolation: the failing tenant's events land in
+        its error-store partition; delivery to other tenants continues."""
         with self._lock:
             self._error_counts[tid] = \
                 self._error_counts.get(tid, 0) + len(events)
+        self._store_errors(tid, sid, events, f"{type(exc).__name__}: {exc}")
         log.warning("pool '%s': tenant '%s' callback failed on stream "
-                    "'%s' (%d event(s), partition '%s'): %s",
+                    "'%s' (%d event(s) -> partition '%s'): %s",
                     self.name, tid, sid, len(events),
                     self.tenant_partition(tid), exc)
 
@@ -1229,8 +1269,9 @@ class TenantPool:
 
     def statistics(self) -> dict:
         """The reference's keys for what is ported: ``pool``,
-        ``tenants``, ``packed_ingest``, ``qos`` and ``slo`` (one device
-        read for every query's emitted counters)."""
+        ``tenants``, ``packed_ingest``, ``qos``, ``slo`` and, with a
+        checkpoint supervisor or after a restore, ``recovery`` (one
+        device read for every query's emitted counters)."""
         with self._lock:
             emitted = {qn: e.cpu().numpy()
                        for qn, e in self._emitted.items()}
@@ -1281,7 +1322,35 @@ class TenantPool:
         report["packed_ingest"] = packed_ingest
         report["slo"] = self.slo_engine.evaluate(saturation=saturation)
         report["qos"] = qos_rep
+        recovery = self._recovery_report()
+        if recovery is not None:
+            report["recovery"] = recovery
         return report
+
+    def _recovery_report(self) -> Optional[dict]:
+        """Checkpoint counts and ages (a stale checkpoint widens what a
+        crash can lose), and the last restore's revision and replay."""
+        sup, rec = self._checkpoint_supervisor, self._recovery
+        if sup is None and rec is None:
+            return None
+        wall = time.time()
+        out: dict = {}
+        if sup is not None:
+            out.update({
+                "checkpoints": sup.checkpoints,
+                "checkpoint_failures": sup.failures,
+                "last_revision": sup.last_revision,
+                "checkpoint_age_ms":
+                    round((wall - sup.last_checkpoint_wall) * 1000.0, 1)
+                    if sup.last_checkpoint_wall else None})
+        if rec is not None:
+            out.update({
+                "restored_revision": rec.get("revision"),
+                "restored_tenants": rec.get("tenants"),
+                "replayed": rec.get("replayed"),
+                "recovery_age_ms":
+                    round((wall - rec["restored_wall"]) * 1000.0, 1)})
+        return out
 
     def slo_report(self) -> dict:
         """The SLO/burn-rate view on its own: per-scope latency
@@ -1289,28 +1358,229 @@ class TenantPool:
         saturation signals."""
         return self.slo_engine.evaluate(saturation=self.saturation())
 
-    # -- not ported yet ---------------------------------------------------
+    # -- checkpoint and recovery ------------------------------------------
 
     def snapshot_tenant(self, tenant_id: str) -> bytes:
-        raise _not_ported("snapshot_tenant")
+        """One tenant's state: its slot of every query's stacked state
+        and emitted counter, serialized with the restricted snapshot
+        pickler (core/persistence.py)."""
+        from ..core.persistence import dump_strings, serialize
+        with self._lock:
+            slot = self._slot(tenant_id)
+            return serialize({
+                "pool": self.name,
+                "template": self.template.key,
+                "tenant": tenant_id,
+                "queries": {qn: {"states": tree_map(lambda x: x[slot],
+                                                    self._states[qn]),
+                                 "emitted": self._emitted[qn][slot]}
+                            for qn in self._order},
+                "strings": dump_strings(),
+            })
 
     def restore_tenant(self, tenant_id: str, data: bytes) -> None:
-        raise _not_ported("restore_tenant")
+        """Write a ``snapshot_tenant`` back into the tenant's slot; every
+        other slot of every state stays as it is, bit for bit."""
+        from ..core.persistence import (check_port_payload, deserialize,
+                                        load_strings)
+        payload = deserialize(data)
+        check_port_payload(payload, "pool")
+        self._check_template(payload)
+        with self._lock:
+            slot = self._slot(tenant_id)
+            load_strings(payload["strings"])
+            for qn in self._order:
+                snap = payload["queries"][qn]
+                for full, x in zip(leaves(self._states[qn]),
+                                   leaves(tree_map(torch.as_tensor,
+                                                   snap["states"]))):
+                    full[slot] = x.to(full.device)
+                self._emitted[qn][slot] = int(snap["emitted"])
+
+    def _check_template(self, payload: dict) -> None:
+        if payload.get("template") != self.template.key:
+            raise ValueError(
+                f"snapshot is for template {payload.get('template')!r}, "
+                f"pool '{self.name}' runs {self.template.key!r}")
 
     def snapshot(self) -> bytes:
-        raise _not_ported("pool snapshot")
+        """The whole pool's state: every query's stacked state and
+        emitted counters (every slot, free ones too), the slot map, each
+        tenant's bindings and QoS dials, the round count and the clock,
+        and the string dictionary."""
+        from ..core.persistence import serialize
+        with self._lock:
+            return serialize(self._snapshot_payload())
+
+    def _snapshot_payload(self) -> dict:
+        from ..core.persistence import dump_strings
+        return {
+            "kind": "tenant-pool",
+            "pool": self.name,
+            "template": self.template.key,
+            "shared": dict(self.shared),
+            "slots": self.slots,
+            "now": self._now,
+            "rounds": self._rounds,
+            "tenants": {
+                tid: {"slot": slot,
+                      "bindings": dict(self._bindings.get(tid, {})),
+                      "qos": dict(self._tenant_qos_raw.get(tid, {}))}
+                for tid, slot in self._tenants.items()},
+            "queries": {qn: {"states": self._states[qn],
+                             "emitted": self._emitted[qn]}
+                        for qn in self._order},
+            "strings": dump_strings(),
+        }
 
     def persist(self) -> str:
-        raise _not_ported("pool persist")
+        """Checkpoint to the manager's persistence store (the filesystem
+        store writes a temporary file and renames it); -> the revision
+        id."""
+        from ..core.persistence import new_revision
+        store = self.proto._persistence_store()
+        rev = new_revision(self.name)
+        store.save(self.name, rev, self.snapshot())
+        return rev
 
     def restore(self, data: bytes) -> None:
-        raise _not_ported("pool restore")
+        """Write a whole-pool snapshot onto this pool (a fresh one of the
+        same template, after a crash): the stacked states as fresh
+        tensors on the pool's device at the snapshot's slot count, the
+        slot map, bindings and QoS dials; pending rows are dropped and
+        circuit breakers restart CLOSED (a still-dead sink trips again
+        within ``breaker.failures`` rounds). A reference (siddhi_tpu)
+        pool snapshot is refused: convert it with
+        ``carry.pool_snapshot_from_jax``."""
+        from ..core.persistence import (check_port_payload, deserialize,
+                                        load_strings)
+        payload = deserialize(data)
+        check_port_payload(payload, "pool")
+        if payload.get("kind") != "tenant-pool":
+            raise ValueError("snapshot is not a tenant-pool snapshot")
+        self._check_template(payload)
+        if dict(payload.get("shared") or {}) != self.shared:
+            raise ValueError(
+                "snapshot was taken with different shared structural "
+                "bindings — that is a different planned step set")
+        with self._lock:
+            load_strings(payload["strings"])
+            slots = int(payload["slots"])
+            if slots > self._slot_cap:
+                raise ValueError(
+                    f"snapshot has {slots} slots, pool '{self.name}' "
+                    f"holds at most {self._slot_cap}")
+            if slots != self.slots:
+                # the steps build their argument structs and scratch per
+                # call; the cached step bodies are rebuilt all the same
+                self._bodies.clear()
+            self.slots = slots
+            dev = self.device
+            self._states = {
+                qn: tree_map(lambda x: torch.as_tensor(x).to(dev, copy=True),
+                             payload["queries"][qn]["states"])
+                for qn in self._order}
+            self._emitted = {
+                qn: torch.as_tensor(payload["queries"][qn]["emitted"],
+                                    dtype=torch.int64).to(dev, copy=True)
+                for qn in self._order}
+            self._now = max(self._now, int(payload.get("now", self._now)))
+            self._rounds = int(payload.get("rounds", 0))
+            self._tenants = {}
+            self._bindings = {}
+            self._tenant_qos_raw = {}
+            self._pending = {}
+            self._pending_rows = {}
+            self._error_counts = {}
+            q = self._qos
+            self._qos = PoolQoS(
+                {k: v for k, v in (
+                    ("rate_eps", q.default_rate),
+                    ("rate_burst", q.default_burst),
+                    ("weight", q.default_weight),
+                    ("priority", q.default_priority),
+                    ("breaker_failures", q.breaker_failures),
+                    ("breaker_reset_ms", q.breaker_reset_ms),
+                    ("max_defer", q.max_defer)) if v is not None},
+                on_transition=self._on_breaker_transition)
+            used = set()
+            for tid, entry in payload["tenants"].items():
+                slot = int(entry["slot"])
+                used.add(slot)
+                self._tenants[tid] = slot
+                self._bindings[tid] = dict(entry.get("bindings") or {})
+                self._tenant_qos_raw[tid] = dict(entry.get("qos") or {})
+                self._pending[tid] = self._fresh_queues()
+                self._pending_rows[tid] = 0
+                self._error_counts[tid] = 0
+                self._qos.add_tenant(tid, self._tenant_qos_raw[tid])
+            self._free = [s for s in range(self.slots - 1, -1, -1)
+                          if s not in used]
+            self._recovery = {
+                "restored_wall": time.time(),
+                "revision": None,       # restore_revision fills it
+                "tenants": len(self._tenants),
+                "replayed": 0,
+            }
 
     def restore_revision(self, revision: str) -> None:
-        raise _not_ported("restore_revision")
+        data = self.proto._persistence_store().load(self.name, revision)
+        if data is None:
+            raise KeyError(f"no revision '{revision}' for pool "
+                           f"'{self.name}'")
+        self.restore(data)
+        with self._lock:
+            self._recovery["revision"] = revision
 
     def replay_errors(self, tenant_id: Optional[str] = None) -> dict:
-        raise _not_ported("replay_errors (the error store)")
+        """Drain each tenant's ``<pool>/tenant/<id>`` error partition and
+        deliver it again through the tenant's callbacks, in original-
+        timestamp order (stable: store order breaks ties; the store
+        interleaves rounds out of event-time order). Consecutive rows of
+        one stream go as one delivery, through the tenant's circuit
+        breaker, so a replay against a still-OPEN breaker lands the
+        events back in the partition (at-least-once). A tenant with no
+        callback keeps its backlog. -> {tenant: events replayed}."""
+        store = self.proto._error_store()
+        with self._lock:
+            if tenant_id is not None:
+                self._slot(tenant_id)
+            tids = list(self._tenants) if tenant_id is None \
+                else [tenant_id]
+            cbs_of = {tid: list(self._callbacks.get(tid, ()))
+                      for tid in tids}
+        replayed: dict[str, int] = {}
+        for tid in tids:
+            part = self.tenant_partition(tid)
+            records = store.drain(part)
+            if not records:
+                continue
+            if not cbs_of[tid]:
+                for rec in records:     # nowhere to deliver: keep
+                    store.store(part, rec)
+                continue
+            entries = []
+            for rec in records:
+                for e in rec.to_events():
+                    entries.append((e.timestamp, len(entries), rec.origin,
+                                    e))
+            entries.sort(key=lambda t: (t[0], t[1]))
+            batch_origin, batch = None, []
+            for _ts, _s, origin, e in entries:
+                if origin != batch_origin and batch:
+                    self._deliver_tenant(tid, cbs_of[tid],
+                                         [(batch_origin, batch)])
+                    batch = []
+                batch_origin = origin
+                batch.append(e)
+            if batch:
+                self._deliver_tenant(tid, cbs_of[tid],
+                                     [(batch_origin, batch)])
+            replayed[tid] = len(entries)
+            log.info("pool '%s': replayed %d event(s) for tenant '%s' "
+                     "in original-timestamp order", self.name,
+                     len(entries), tid)
+        return replayed
 
     def materialize_tenant(self, tenant_id: str, agg_id: str,
                            duration: str, start: Optional[int] = None,

@@ -288,12 +288,13 @@ def test_strings_carried_over_from_reference():
 ])
 def test_unported_parts_raise(text):
     """What the port lacks says so; the sort window, distinctCount,
-    order-by, function calls, named windows and a rate limiter inside a
-    partition, ported since, deploy and give the reference's rows (a
-    named window's on its own junction)."""
+    order-by, function calls, named windows, a rate limiter inside a
+    partition and the watermark's STORE policy (the error store), ported
+    since, deploy and give the reference's rows (a named window's on its
+    own junction)."""
     if "sort(2, a)" in text or "distinctCount" in text or "order by" in text \
             or "coalesce" in text or "define window" in text \
-            or "output last" in text:
+            or "output last" in text or "policy='STORE'" in text:
         rows = {}
         for pkg in (J, T):
             kw = {"device": "cpu"} if pkg is T else {}
@@ -307,6 +308,8 @@ def test_unported_parts_raise(text):
             rt.get_input_handler("S").send_arrays(
                 1_700_000_000_000 + np.arange(5, dtype=np.int64),
                 [np.array([3, 1, 3, 2, 0], np.int32)])
+            if "@app:watermark" in text:
+                rt.shutdown()   # the final flush of the reorder buffer
         assert rows[T] == rows[J] and rows[T]
         return
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -321,10 +324,14 @@ def test_validate_and_shutdown():
         "define stream S (a int); from S#window.cron('*/5 * * * * ?') "
         "select a insert into O;")
     assert not mgr.app_runtimes
+    mgr.validate_siddhi_app(
+        "@app:watermark(lateness='1 sec', policy='STORE') "
+        "define stream S (a int); from S select a insert into O;")
+    assert not mgr.app_runtimes
     with pytest.raises(NotImplementedError,
-                       match="not ported yet: @watermark policy='STORE'"):
+                       match="not ported yet: @OnError.action='STREAM'"):
         mgr.validate_siddhi_app(
-            "@app:watermark(lateness='1 sec', policy='STORE') "
+            "@OnError(action='STREAM') "
             "define stream S (a int); from S select a insert into O;")
     rt = mgr.create_siddhi_app_runtime(FILTER_APP)
     rt.start()

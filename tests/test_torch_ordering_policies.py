@@ -2,7 +2,8 @@
 the reference, on the CPU (tests/test_ordering.py's cases, through both
 packages): the rows, the reorder counters of the reference's host lane
 (test_torch_ordering.counters) and the per-stream gauges equal;
-``policy='STORE'`` raises in the port (the error store is not ported);
+``policy='STORE'`` stores the late events in the error store as the
+reference does;
 a reference buffer's pending events carried across
 (carry.reorder_from_jax) and released by the port's final flush."""
 import numpy as np
@@ -62,9 +63,29 @@ def test_stream_side_output():
 
 
 def test_store_policy_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="policy='STORE'"):
-        T.SiddhiManager(device="cpu").create_siddhi_app_runtime(
-            _policy_app("STORE"))
+    """Ported since (the error store): the straggler lands in the app's
+    error store as in the reference (its record's origin, events and
+    cause; the rows and counters equal). A replay sends it through the
+    stream's reorder buffer again, where it is still late: it goes back
+    to the store (at-least-once), in both packages."""
+    res = {}
+    for pkg in (J, T):
+        r = Run(pkg, _policy_app("STORE"))
+        ts = TS0 + np.arange(64, dtype=np.int64) * 4
+        r.cols("S", ts, [np.arange(64, dtype=np.int32)])
+        r.cols("S", np.array([TS0 + 2], np.int64), [np.array([-1], np.int32)])
+        c = counters(r.rt)
+        recs = [(x.origin, x.events, x.cause)
+                for x in r.rt._error_store().peek(r.rt.name)]
+        assert r.rt.replay_error_store() == 1
+        again = [(x.origin, x.events)
+                 for x in r.rt._error_store().peek(r.rt.name)]
+        r.close()
+        res[pkg] = (r.got, c, recs, again)
+    assert res[T] == res[J]
+    got, c, recs, again = res[T]
+    assert c["late_stored"] == 1 and len(got["Out"]) == 64
+    assert recs[0][:2] == again[0] == ("S", [(TS0 + 2, (-1,), False)])
 
 
 def _row_drop(pkg):
